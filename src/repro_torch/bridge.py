@@ -8,6 +8,12 @@ per layer in ``params["layers"]``. Layer ``g * len(period) + j`` is group
 ``g`` of slot ``j``. Leaves keep their fused ``[d_model, heads*head_dim]``
 layout. Both sides are handled as numpy arrays, so this module needs no
 JAX: the caller passes ``jax.tree.map(np.asarray, params)``.
+
+Paged KV pools follow the same stacking in the reference
+(``pools[0]["slot{j}"]["k"]`` of shape ``[n_groups, P, ps, K, D]``,
+``repro/models/transformer.py:551-566``); the port keeps one pool per
+layer with one more page, the drop page (``paged/paged_cache.py``), which
+the converters add and strip.
 """
 from __future__ import annotations
 
@@ -92,3 +98,32 @@ def _map_stack(trees):
     if isinstance(first, dict):
         return {k: _map_stack([t[k] for t in trees]) for k in first}
     return np.stack(trees)
+
+
+def pools_from_jax(pools_np, cfg: ModelConfig, device=None) -> list:
+    """The reference's paged pools (numpy leaves) -> the port's per-layer
+    pools on ``device``, each with a zero drop page appended."""
+    device = default_device(device)
+    if len(pools_np) != 1:
+        raise NotImplementedError("the port carries one-segment decoders")
+    seg = pools_np[0]
+    per = len(cfg.period)
+    layers = []
+    for g in range(cfg.num_layers // per):
+        for j in range(per):
+            layer = {}
+            for name in ("k", "v"):
+                a = np.asarray(seg[f"slot{j}"][name][g])
+                layer[name] = _to_torch(
+                    np.concatenate([a, np.zeros_like(a[:1])]), device)
+            layers.append(layer)
+    return layers
+
+
+def pools_to_jax(pools: list, cfg: ModelConfig) -> list:
+    """The port's per-layer pools -> the reference's one-segment stacked
+    layout, as numpy arrays, drop pages stripped."""
+    per = len(cfg.period)
+    layers = [{name: _to_numpy(pool[name][:-1]) for name in ("k", "v")}
+              for pool in pools]
+    return [{f"slot{j}": _map_stack(layers[j::per]) for j in range(per)}]

@@ -4,7 +4,7 @@ A tensor on the CPU goes to the kernel's plain PyTorch version
 (``kernels/ref.py``); a CUDA tensor goes to the hand-written kernel, which
 launches or raises — nothing falls back to the plain version. Unlike the
 JAX package, where ``use_kernel`` flags default to off, the model always
-routes these three functions through here.
+routes these functions through here.
 
 ``launches`` counts, per kernel, the launches made through this module
 (and only those), so a run can show that its path went through the
@@ -16,10 +16,12 @@ import torch
 
 from repro_torch.kernels import decode_attention as _dec
 from repro_torch.kernels import flash_attention as _fa
+from repro_torch.kernels import paged_attention as _pa
 from repro_torch.kernels import ref as _ref
 from repro_torch.kernels import rmsnorm as _rn
 
-KERNELS = ("rmsnorm", "flash_attention", "decode_attention")
+KERNELS = ("rmsnorm", "flash_attention", "decode_attention",
+           "paged_decode_attention")
 launches = {name: 0 for name in KERNELS}
 
 
@@ -47,6 +49,16 @@ def decode_attention(q, k_cache, v_cache, pos, position, *, window: int = 0):
     out = _dec.decode_attention(q, k_cache, v_cache, pos, position,
                                 window=window)
     launches["decode_attention"] += 1
+    return out
+
+
+def paged_decode_attention(q, k_pool, v_pool, block_tables, position):
+    if _on_cpu(q):
+        return _ref.paged_attention_ref(q, k_pool, v_pool, block_tables,
+                                        position)
+    out = _pa.paged_decode_attention(q, k_pool, v_pool, block_tables,
+                                     position)
+    launches["paged_decode_attention"] += 1
     return out
 
 

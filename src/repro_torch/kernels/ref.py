@@ -1,4 +1,4 @@
-"""Plain PyTorch versions of the three kernels on the serving path.
+"""Plain PyTorch versions of the port's kernels.
 
 Written the way ``repro/kernels/ref.py`` writes the JAX oracles: dense,
 fp32, deliberately naive. On a CPU tensor the kernel wrappers in
@@ -54,6 +54,31 @@ def decode_attention_ref(q, k_cache, v_cache, pos, position, *,
     p = torch.softmax(s, dim=-1)
     o = torch.einsum("bkgc,bckd->bkgd", p, v_cache.float())
     return o.reshape(B, H, v_cache.shape[-1]).to(q.dtype)
+
+
+def paged_attention_ref(q, k_pool, v_pool, block_tables, position):
+    """One-token decode over a paged pool, after the reference's
+    ``paged_attention_reference`` (``repro/paged/attention.py:38-57``).
+    q [B,H,D]; pools [P,ps,K,D]; block_tables [B,nb] (-1 = unallocated,
+    gathers page 0 and is masked); position [B] (last valid logical
+    index; -1 masks every slot, so the row is the uniform mean of the
+    gathered V rows) -> [B,H,D]. Gather, then a masked fp32 softmax."""
+    B, H, D = q.shape
+    ps, K = k_pool.shape[1], k_pool.shape[2]
+    G = H // K
+    pages = torch.clamp(block_tables, min=0).long()
+    nb = pages.shape[1]
+    k = k_pool[pages].reshape(B, nb * ps, K, D)
+    v = v_pool[pages].reshape(B, nb * ps, K, v_pool.shape[-1])
+    idx = torch.arange(nb * ps, device=q.device)
+    allocated = torch.repeat_interleave(block_tables >= 0, ps, dim=1)
+    valid = allocated & (idx[None, :] <= position[:, None])
+    qg = q.reshape(B, K, G, D).float()
+    s = torch.einsum("bkgd,bskd->bkgs", qg, k.float()) / math.sqrt(D)
+    s = torch.where(valid[:, None, None], s, torch.full_like(s, NEG_INF))
+    p = torch.softmax(s, dim=-1)
+    o = torch.einsum("bkgs,bskd->bkgd", p, v.float())
+    return o.reshape(B, H, v.shape[-1]).to(q.dtype)
 
 
 def rmsnorm_ref(x, scale, eps: float = 1e-5):

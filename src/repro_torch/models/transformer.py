@@ -1,12 +1,13 @@
 """Decoder LM for token-input, attention-only configs — the port of
 ``repro/models/transformer.py`` (``Model``: init, embed/unembed, the layer
-stack, forward, caches, prefill and one-token decode).
+stack, forward, caches, prefill and one-token decode, and the paged
+prefill and decode over per-layer page pools).
 
 Where the reference scans stacked ``segment{i}/slot{j}`` parameters with
 ``jax.lax.scan``, the port keeps one parameter dict per layer in
 ``params["layers"]`` and runs a Python loop over them
-(``repro_torch.bridge`` converts between the two layouts). Caches are one
-dict per layer, updated in place.
+(``repro_torch.bridge`` converts between the two layouts). Caches and
+paged pools are one dict per layer, updated in place.
 """
 from __future__ import annotations
 
@@ -17,6 +18,8 @@ import torch
 from repro_torch import default_device
 from repro_torch.configs.base import ATTN, ModelConfig
 from repro_torch.models import layers as L
+from repro_torch.paged import attention as PA
+from repro_torch.paged import paged_cache as PC
 
 DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 
@@ -127,30 +130,108 @@ class Model:
                 for _ in range(self.cfg.num_layers)]
 
     @torch.no_grad()
-    def prefill(self, params, batch, capacity: int, *, window: int = 0):
+    def prefill(self, params, batch, capacity: int, *, window: int = 0,
+                lengths: Optional[torch.Tensor] = None,
+                return_h: bool = False):
         """Process a prompt, returning (last-position logits [B,V], caches).
         caches = {"layers": [...]}: each holds the last ``min(S, capacity)``
-        positions of a rolling buffer. Single pass."""
+        positions of a rolling buffer. Single pass.
+
+        ``lengths`` [B] (optional) marks per-row valid-token counts under
+        right-padding: logits come from position ``lengths-1`` and padded
+        cache entries are invalidated (their "pos" set to -1), exact
+        because causal attention makes right-padding invisible to earlier
+        positions. ``return_h=True`` also returns the pre-final-norm hidden
+        state at the logits position [B, D]."""
+        h_last, filled = self._prefill_h(params, batch, capacity, window,
+                                         lengths)
+        logits = self.unembed(params, h_last[:, None])[:, 0]
+        if return_h:
+            return logits, {"layers": filled}, h_last
+        return logits, {"layers": filled}
+
+    def _prefill_h(self, params, batch, capacity, window, lengths):
+        """The prefill's trunk: (hidden state at each row's last valid
+        position [B, D], filled caches)."""
         tokens = batch["tokens"]
         h = self.embed(params, tokens)
-        init_caches = self.init_cache(h.shape[0], capacity, h.dtype)
+        B = h.shape[0]
+        init_caches = self.init_cache(B, capacity, h.dtype)
         h, filled = self._stack_fwd(params, h, self._positions(tokens),
                                     window=window, init_caches=init_caches)
-        logits = self.unembed(params, h[:, -1:])[:, 0]
-        return logits, {"layers": filled}
+        if lengths is None:
+            return h[:, -1], filled
+        idx = torch.clamp(lengths - 1, min=0).long()
+        for c in filled:
+            c["pos"].masked_fill_(c["pos"] >= lengths[:, None], -1)
+        return h[torch.arange(B, device=h.device), idx], filled
+
+    def _decode(self, params, token, attend) -> torch.Tensor:
+        """One-token pass over every layer; ``attend(i, mixer, x)`` is
+        layer i's attention (dense or paged cache). -> logits [B,V]."""
+        cfg = self.cfg
+        h = self.embed(params, token[:, None])
+        for i, layer in enumerate(params["layers"]):
+            x = L.rms_norm(h, layer["norm1"], cfg.norm_eps)
+            h = h + attend(i, layer["mixer"], x)
+            x2 = L.rms_norm(h, layer["norm2"], cfg.norm_eps)
+            h = h + L.mlp_fwd(layer["ffn"], x2, cfg.mlp_gated)
+        return self.unembed(params, h)[:, 0]
 
     @torch.no_grad()
     def decode_step(self, params, caches, token, position, *,
                     window: int = 0):
         """token [B] int, position [B] int32 -> (logits [B,V], caches);
         the caches are updated in place."""
-        cfg = self.cfg
-        h = self.embed(params, token[:, None])
-        for layer, cache in zip(params["layers"], caches["layers"]):
-            x = L.rms_norm(h, layer["norm1"], cfg.norm_eps)
-            y, _ = L.attention_decode(layer["mixer"], x, position, cache, cfg,
-                                      window=window)
-            h = h + y
-            x2 = L.rms_norm(h, layer["norm2"], cfg.norm_eps)
-            h = h + L.mlp_fwd(layer["ffn"], x2, cfg.mlp_gated)
-        return self.unembed(params, h)[:, 0], caches
+        layers = caches["layers"]
+        logits = self._decode(params, token, lambda i, mixer, x:
+                              L.attention_decode(mixer, x, position,
+                                                 layers[i], self.cfg,
+                                                 window=window)[0])
+        return logits, caches
+
+    # ------------------------------------------------------- paged kv caches
+    def supports_paged(self) -> bool:
+        """The paged backend covers token-input, attention-only nets — all
+        the port's ``Model`` serves."""
+        return self.cfg.input_mode == "tokens" and \
+            all(k == ATTN for k in self.cfg.period)
+
+    def init_paged_pools(self, num_pages: int, page_size: int,
+                         dtype) -> List[dict]:
+        """One paged KV pool per layer (``paged_cache.init_pool``). The
+        block table is shared across layers; each layer owns its pool."""
+        return [PC.init_pool(self.cfg, num_pages, page_size, dtype,
+                             self.device)
+                for _ in range(self.cfg.num_layers)]
+
+    @torch.no_grad()
+    def paged_prefill(self, params, batch, pools, block_tables, lengths, *,
+                      return_h: bool = False):
+        """Prefill into paged pools: the dense single-pass prompt compute
+        (capacity S, through the flash kernel), then each layer's K/V
+        scattered to the sequences' pages, in place. batch["tokens"]
+        [B, S]; block_tables [B, nb] int32; lengths [B] valid-token counts
+        — logits come from position ``lengths-1``. Returns
+        (last-valid-position logits [B, V], pools[, h_last])."""
+        S = batch["tokens"].shape[1]
+        h_last, filled = self._prefill_h(params, batch, S, 0, lengths)
+        for pool, c in zip(pools, filled):
+            PC.scatter_prefill(pool, c["k"], c["v"], block_tables, lengths)
+        filled.clear()                # the dense prefill cache was transient
+        logits = self.unembed(params, h_last[:, None])[:, 0]
+        if return_h:
+            return logits, pools, h_last
+        return logits, pools
+
+    @torch.no_grad()
+    def paged_decode_step(self, params, pools, token, position,
+                          block_tables):
+        """One-token decode over paged pools. token/position [B] (position
+        is the logical index being written); block_tables [B, nb]. The
+        pools are updated in place. Returns (logits [B, V], pools)."""
+        logits = self._decode(params, token, lambda i, mixer, x:
+                              PA.paged_attention_decode(
+                                  mixer, x, position, pools[i],
+                                  block_tables, self.cfg)[0])
+        return logits, pools

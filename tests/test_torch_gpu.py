@@ -16,6 +16,7 @@ from repro_torch.configs import get_config  # noqa: E402
 from repro_torch.kernels import decode_attention as tdec  # noqa: E402
 from repro_torch.kernels import flash_attention as tfa  # noqa: E402
 from repro_torch.kernels import ops, ref  # noqa: E402
+from repro_torch.kernels import paged_attention as tpa  # noqa: E402
 from repro_torch.kernels import rmsnorm as trn  # noqa: E402
 from repro_torch.models import Model  # noqa: E402
 from repro_torch.rlhf import Rollout  # noqa: E402
@@ -78,6 +79,42 @@ def test_decode_kernel_matches_plain(cuda, B, H, K, D, C, cur, window, dt):
                                rtol=0)
 
 
+def _paged_case(g, B, H, K, D, ps, nb, dt, device):
+    """Pools, forked block tables (rows 2i and 2i+1 share their first
+    pages) with -1 holes in the middle and at the end, and positions that
+    end on a partial page; the last row is idle (position -1)."""
+    P = B * nb + 1
+    q = _randn(g, B, H, D, dt=dt, device=device)
+    kp = _randn(g, P, ps, K, D, dt=dt, device=device)
+    vp = _randn(g, P, ps, K, D, dt=dt, device=device)
+    bt = torch.randperm(P - 1, generator=torch.Generator().manual_seed(B))
+    bt = bt[:B * nb].reshape(B, nb).to(torch.int32)
+    for i in range(0, B - 1, 2):
+        bt[i + 1, :nb // 2] = bt[i, :nb // 2]         # shared prefix pages
+    bt[0, 1] = -1                                     # a hole
+    bt[1, -1] = -1                                    # a tail
+    position = torch.randint(0, (nb - 1) * ps, (B,),
+                             generator=torch.Generator().manual_seed(D))
+    position[2] = nb * ps - 3                         # a partial last page
+    position[-1] = -1                                 # an idle row
+    return (q, kp, vp, bt.to(device), position.to(torch.int32).to(device))
+
+
+@pytest.mark.parametrize("B,H,K,D,ps,nb,dt", [
+    (8, 24, 8, 128, 16, 6, "bf16"),
+    (6, 8, 2, 64, 16, 5, "bf16"),
+    (5, 8, 8, 128, 8, 7, "f32"),
+    (4, 6, 1, 64, 4, 9, "f32"),
+])
+def test_paged_decode_kernel_matches_plain(cuda, B, H, K, D, ps, nb, dt):
+    g = torch.Generator(device=cuda).manual_seed(5)
+    args = _paged_case(g, B, H, K, D, ps, nb, dt, cuda)
+    out = tpa.paged_decode_attention(*args)
+    want = ref.paged_attention_ref(*args)
+    torch.testing.assert_close(out.float(), want.float(), atol=TOL[dt],
+                               rtol=0)
+
+
 @pytest.mark.parametrize("shape,dt", [((64, 3072), "bf16"), ((3, 100), "f32")])
 def test_rmsnorm_kernel_matches_plain(cuda, shape, dt):
     g = torch.Generator(device=cuda).manual_seed(2)
@@ -118,4 +155,34 @@ def test_greedy_decode_on_card_matches_cpu(cuda):
     L = cfg.num_layers
     assert ops.launches == {"flash_attention": L,
                             "decode_attention": L * 11,
+                            "paged_decode_attention": 0,
                             "rmsnorm": (2 * L + 1) * 12}
+
+
+def test_paged_group_rollout_on_card_matches_cpu(cuda):
+    """The paged GRPO fork (G = 3, a partial prompt page, so every child
+    but one CoW-copies it) through B2, B4 and B1 on the card gives the
+    CPU plain path's greedy tokens."""
+    cfg = dataclasses.replace(get_config("llama3_2_3b").smoke(),
+                              num_kv_heads=2)
+    cpu_model = Model(cfg, device="cpu")
+    params = cpu_model.init(torch.Generator().manual_seed(6))
+    tokens = torch.randint(0, cfg.vocab_size, (2, 21),
+                           generator=torch.Generator().manual_seed(7))
+    got = []
+    ops.reset_launches()
+    for model, p in ((cpu_model, params),
+                     (Model(cfg, device=cuda), _to(params, cuda))):
+        ro = Rollout(model, cfg, capacity=40, temperature=0.0,
+                     backend="paged", page_size=8)
+        res = ro.generate(p, {"tokens": tokens.to(model.device)}, 12,
+                          torch.Generator(device=model.device), group_size=3)
+        got.append(res.tokens.cpu())
+        assert ro.page_manager.stats.n_forks == 4
+    assert torch.equal(got[0], got[1])
+    L = cfg.num_layers
+    assert ops.launches == {"flash_attention": L,
+                            "decode_attention": 0,
+                            "paged_decode_attention": L * 11,
+                            # + the group's replicated unembedding
+                            "rmsnorm": (2 * L + 1) * 12 + 1}

@@ -19,6 +19,7 @@ from repro.kernels.rmsnorm import rmsnorm as jax_rmsnorm  # noqa: E402
 from repro_torch.kernels import build, ops, ref  # noqa: E402
 from repro_torch.kernels import decode_attention as tdec  # noqa: E402
 from repro_torch.kernels import flash_attention as tfa  # noqa: E402
+from repro_torch.kernels import paged_attention as tpa  # noqa: E402
 from repro_torch.kernels import rmsnorm as trn  # noqa: E402
 
 DT = {"f32": (jnp.float32, torch.float32), "bf16": (jnp.bfloat16, torch.bfloat16)}
@@ -116,10 +117,15 @@ def test_ops_take_the_plain_version_on_cpu_and_count_no_launch():
     torch.testing.assert_close(
         ops.decode_attention(q[:, 0], kv, kv, pos, cur),
         ref.decode_attention_ref(q[:, 0], kv, kv, pos, cur))
+    bt = torch.tensor([[1, -1, 0]], dtype=torch.int32)
+    pool = torch.from_numpy(rng.randn(2, 4, 2, 64).astype(np.float32))
+    torch.testing.assert_close(
+        ops.paged_decode_attention(q[:, 0], pool, pool, bt, cur),
+        ref.paged_attention_ref(q[:, 0], pool, pool, bt, cur))
     assert ops.launches == {k: 0 for k in ops.KERNELS}
 
 
-@pytest.mark.parametrize("call", ["rmsnorm", "flash", "decode"])
+@pytest.mark.parametrize("call", ["rmsnorm", "flash", "decode", "paged"])
 def test_kernel_wrappers_refuse_non_cuda_tensors(call):
     """A wrapper launches on CUDA tensors or raises; it never computes
     the plain version itself."""
@@ -131,6 +137,10 @@ def test_kernel_wrappers_refuse_non_cuda_tensors(call):
             trn.rmsnorm(x, torch.ones(64, device="meta"))
         elif call == "flash":
             tfa.flash_attention_fwd(x, kv, kv)
+        elif call == "paged":
+            tpa.paged_decode_attention(x[:, 0], kv, kv, pos,
+                                       torch.zeros(2, dtype=torch.int32,
+                                                   device="meta"))
         else:
             tdec.decode_attention(x[:, 0], kv, kv, pos,
                                   torch.zeros(2, dtype=torch.int32,
@@ -142,7 +152,7 @@ def test_build_compiles_each_source_for_sm90a(monkeypatch, tmp_path):
     compiles, link = build.compile_commands(tmp_path)
     names = sorted(p.name for p in build.sources())
     assert names == ["decode_attention.cu", "flash_attention.cu",
-                     "rmsnorm.cu"]
+                     "paged_attention.cu", "rmsnorm.cu"]
     assert len(compiles) == len(names)
     for cmd in compiles + [link]:
         assert "arch=compute_90a,code=sm_90a" in cmd
