@@ -2,16 +2,19 @@
 """On-card smoke test of the PyTorch/CUDA port (``src/repro_torch``).
 
     python3 chip_smoke.py            # needs one NVIDIA card and nvcc
-    python3 chip_smoke.py --profile  # also profiles one request
+    python3 chip_smoke.py --profile  # also profiles one request per path
 
 Phases, each failing with a non-zero exit:
 
 1. the card (``nvidia-smi`` name and power limit), versions, and the
    kernels' build from ``src/repro_torch/kernels/csrc``;
 2. each kernel against its plain PyTorch version at the shapes of the
-   serving and paged GRPO paths and at edge cases (ragged Sq/Sk, window,
-   a wrapped rolling cache, head_dim 64, fp32), with its time, the plain version's, one
-   PyTorch library call's and the least time the card could take;
+   serving, paged GRPO and Mamba2 paths and at edge cases (ragged Sq/Sk,
+   window, a wrapped rolling cache, head_dim 64, fp32; for B5 one chunk,
+   small head and state widths, a strongly decaying a and the
+   step-by-step oracle), with its time, the plain version's, one PyTorch
+   library call's (where one exists) and the least time the card could
+   take;
 3. the serving path: full-width, full-depth llama3_2_3b (28 layers, bf16,
    random weights from a seed) serves 3 requests of batch 8 x 512 prompt
    tokens + 64 generated, through ``repro_torch.launch.serve.run``; the
@@ -26,6 +29,13 @@ Phases, each failing with a non-zero exit:
    8 times is run beside it: request time, peak memory above the weights
    (the paged fork's must be the lower), and the two results' first
    sampled tokens (identical) and log-probs (within bf16 rounding).
+6. Mamba2 serving: full-width, full-depth mamba2_370m (48 layers,
+   d_model 1024, bf16, random weights from a seed) serves 3 requests of
+   batch 8 x 2048 prompt tokens + 64 generated through
+   ``serve.run``, through B5 (the SSD chunk scan, once per layer in each
+   prefill) and B1; launch counts asserted, outputs checked, the prefill
+   and decode step timed apart, and a small Mamba model on the card
+   against the CPU (16 greedy tokens identical).
 
 It prints the per-kernel JSON line, the card line, and last the result
 line ``{"ok": true, "device": {...}}``. Imports nothing of JAX.
@@ -52,6 +62,7 @@ from repro_torch.kernels import decode_attention as dec  # noqa: E402
 from repro_torch.kernels import flash_attention as fa  # noqa: E402
 from repro_torch.kernels import paged_attention as pa  # noqa: E402
 from repro_torch.kernels import rmsnorm as rn  # noqa: E402
+from repro_torch.kernels import ssd_scan as ssd  # noqa: E402
 from repro_torch.launch import serve  # noqa: E402
 from repro_torch.data import PromptDataset, \
     synthetic_instruction_prompts  # noqa: E402
@@ -68,6 +79,10 @@ TOL = {torch.bfloat16: 2e-2, torch.float32: 1e-4}   # other summation order
 # size, so each forked row CoW-copies its partial prompt page), G = 8
 # samples each, 64 generated tokens, 2 requests
 GROUPS, GPROMPT, GSIZE, PAGE, GREQUESTS = 8, 504, 8, 16, 2
+# Mamba2 serving: mamba2_370m, batch 8, prompt 2048 (Mamba2's training
+# context, a multiple of the 256-step SSD chunk), 64 generated tokens
+MBATCH, MPROMPT, MREQUESTS = 8, 2048, 3
+TOL_SSD = {torch.bfloat16: 5e-2, torch.float32: 1e-3}   # test_kernels.py:98
 
 # (memory B/s, bf16 tensor FLOP/s, fp32 FLOP/s), NVIDIA data sheets, dense
 PEAKS = {"SXM": (3.35e12, 989e12, 67e12), "PCIe": (2.0e12, 756e12, 51e12),
@@ -228,6 +243,12 @@ def check_rmsnorm(dev, peaks, g):
          torch.bfloat16),
         ("grpo_decode", (GROUPS * GSIZE, 3072), torch.bfloat16,
          torch.bfloat16),
+        # the Mamba2 path: norm1 at d_model, the gated norm at d_inner
+        ("mamba_prefill", (MBATCH * MPROMPT, 1024), torch.bfloat16,
+         torch.bfloat16),
+        ("mamba_gated", (MBATCH * MPROMPT, 2048), torch.bfloat16,
+         torch.bfloat16),
+        ("mamba_decode", (MBATCH, 2048), torch.bfloat16, torch.bfloat16),
         ("fp32", (3, 100), torch.float32, torch.float32),
         ("fp32_scale", (7, 384), torch.bfloat16, torch.float32),
     ]
@@ -248,6 +269,71 @@ def check_rmsnorm(dev, peaks, g):
                 x, (shape[-1],), s, 1e-5), iters=50)
             rec["bound_ms"], rec["bound_by"] = bound(
                 peaks, nbytes(x, s, got), 4 * x.numel(), dt)
+        out.append(rec)
+    return out
+
+
+def ssd_ops(B, S, H, P, N, chunk) -> int:
+    """Operations the chunked scan needs: per (batch, chunk) of l steps the
+    causal half of C B^T (2 N per pair j <= i; it does not depend on the
+    head), and per (batch, head, chunk) the causal product with x (2 P per
+    pair), y_off and the state update (2 x 2 l N P)."""
+    l, nc = chunk, S // chunk
+    pairs = l * (l + 1) // 2
+    return B * nc * (2 * N * pairs + H * (2 * P * pairs + 4 * l * N * P))
+
+
+def check_ssd(dev, peaks, g):
+    """B5 against its plain version on fp32 copies of the inputs (the plain
+    version of the model path rounds L and the states to x's dtype; the
+    kernel keeps them in fp32). b and c are scaled by N^-1/4 so a score
+    C B^T has unit variance and |y| stays well below 16, where a bf16
+    output's own rounding (half an ulp, 0.0625) would exceed 5e-2."""
+    cases = [  # (name, B, S, H, P, N, chunk, dtype, a dtype, decay)
+        ("main", MBATCH, MPROMPT, 32, 64, 128, 256, torch.bfloat16,
+         torch.float32, 0.3),
+        ("fp32", 2, 512, 8, 64, 128, 256, torch.float32, torch.float32, 0.3),
+        ("one_chunk", 4, 256, 32, 64, 128, 256, torch.bfloat16,
+         torch.float32, 0.3),
+        ("p32_n16", 2, 256, 16, 32, 16, 32, torch.bfloat16, torch.bfloat16,
+         0.3),
+        ("p16_n8", 2, 128, 4, 16, 8, 16, torch.float32, torch.float32, 0.3),
+        ("decay", 2, 1024, 8, 64, 128, 256, torch.bfloat16, torch.float32,
+         4.0),
+        ("sequential", 1, 128, 4, 64, 128, 64, torch.float32, torch.float32,
+         0.3),
+    ]
+    out = []
+    for name, B, S, H, P, N, chunk, dt, adt, decay in cases:
+        x = (0.5 * torch.randn(B, S, H, P, generator=g, device=dev)).to(dt)
+        a = (-decay * torch.randn(B, S, H, generator=g, device=dev).abs()
+             ).to(adt)
+        b = (torch.randn(B, S, N, generator=g, device=dev) * N ** -0.25
+             ).to(dt)
+        c = (torch.randn(B, S, N, generator=g, device=dev) * N ** -0.25
+             ).to(dt)
+        y, fin = ssd.ssd_scan(x, a, b, c, chunk)
+        f32 = [t.float() for t in (x, a, b, c)]
+        if name == "sequential":
+            want = ref.ssd_sequential_ref(*f32)
+        else:
+            want = ref.ssd_scan_ref(*f32, chunk)
+        torch.cuda.synchronize()
+        err = max((got.float() - w).abs().max().item()
+                  for got, w in zip((y, fin), want))
+        rec = {"case": name, "shape": [B, S, H, P, N], "chunk": chunk,
+               "dtype": str(dt), "a_dtype": str(adt), "decay": decay,
+               "max_err": err, "tol": TOL_SSD[dt],
+               "max_abs_y": y.float().abs().max().item()}
+        if name == "main":
+            rec["ms"] = time_ms(lambda: ssd.ssd_scan(x, a, b, c, chunk),
+                                iters=10)
+            rec["plain_ms"] = time_ms(lambda: ref.ssd_scan_ref(
+                x, a, b, c, chunk), iters=5)
+            rec["library_ms"] = None      # no one PyTorch call computes it
+            rec["bound_ms"], rec["bound_by"] = bound(
+                peaks, nbytes(x, a, b, c, y, fin),
+                ssd_ops(B, S, H, P, N, chunk), dt)
         out.append(rec)
     return out
 
@@ -422,7 +508,7 @@ def paged_grpo(cfg, dev, log, profile=False):
     # rmsnorm: + 1 for the group's replicated unembedding after the prefill
     per_request = {"rmsnorm": (2 * L + 1) * GEN + 1, "flash_attention": L,
                    "decode_attention": 0,
-                   "paged_decode_attention": L * (GEN - 1)}
+                   "paged_decode_attention": L * (GEN - 1), "ssd_scan": 0}
     rows = GROUPS * GSIZE
     reqs = []
     torch.cuda.synchronize()
@@ -509,23 +595,26 @@ def _to(tree, device):
     return [_to(v, device) for v in tree]
 
 
-def check_small_model_against_cpu(dev):
-    """A GQA smoke model (G = 2, head_dim 64, f32) on the card through the
-    kernels vs the same weights on the CPU through the plain versions:
-    prefill logits within 1e-4 and 16 greedy tokens identical."""
-    cfg = dataclasses.replace(get_config("llama3_2_3b").smoke(),
-                              num_kv_heads=2)
+def check_small_model_against_cpu(dev, cfg=None, prompt=40, seed=3):
+    """A small model (default: a GQA smoke model, G = 2, head_dim 64, f32)
+    on the card through the kernels vs the same weights on the CPU through
+    the plain versions: prefill logits within 1e-4 and 16 greedy tokens
+    identical."""
+    if cfg is None:
+        cfg = dataclasses.replace(get_config("llama3_2_3b").smoke(),
+                                  num_kv_heads=2)
     cpu_model = Model(cfg, device="cpu")
-    params = cpu_model.init(torch.Generator().manual_seed(3))
+    params = cpu_model.init(torch.Generator().manual_seed(seed))
     gpu_model = Model(cfg, device=dev)
     gparams = _to(params, dev)
-    tokens = torch.randint(0, cfg.vocab_size, (2, 40),
-                           generator=torch.Generator().manual_seed(4))
+    tokens = torch.randint(0, cfg.vocab_size, (2, prompt),
+                           generator=torch.Generator().manual_seed(seed + 1))
     results = []
     for model, p, device in ((cpu_model, params, "cpu"),
                              (gpu_model, gparams, dev)):
-        ro = Rollout(model, cfg, capacity=64, temperature=0.0)
-        logits, _ = model.prefill(p, {"tokens": tokens.to(device)}, 64)
+        ro = Rollout(model, cfg, capacity=prompt + 24, temperature=0.0)
+        logits, _ = model.prefill(p, {"tokens": tokens.to(device)},
+                                  prompt + 24)
         res = ro.generate(p, {"tokens": tokens.to(device)}, 16,
                           torch.Generator(device=device))
         results.append((logits.cpu(), res.tokens.cpu()))
@@ -535,38 +624,99 @@ def check_small_model_against_cpu(dev):
     return err
 
 
-def profile_request(cfg, dev):
-    """Where one request's time goes: prefill and per-decode-step wall
-    time (host clock, synchronised), then kernel time by name over one
-    whole request (torch.profiler; kernel events only, so the device's
-    busy time is the sum of its kernels)."""
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-    model = Model(cfg, device=dev)
-    params = model.init(torch.Generator(device=dev).manual_seed(0))
-    ro = Rollout(model, cfg, capacity=PROMPT + GEN, temperature=0.8,
+def time_split(model, params, batch, prompt):
+    """Unprofiled prefill time and mean decode-step time (host clock,
+    synchronised; greedy) of one request, after a warm-up request."""
+    dev = model.device
+    ro = Rollout(model, model.cfg, capacity=prompt + GEN, temperature=0.8,
                  top_k=serve.TOP_K)
-    toks = torch.randint(0, 256, (BATCH, PROMPT), device=dev)
+    toks = torch.randint(0, 256, (batch, prompt), device=dev)
     g = torch.Generator(device=dev).manual_seed(1)
     ro.generate(params, {"tokens": toks}, GEN, g)      # warm
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    logits, caches = model.prefill(params, {"tokens": toks}, PROMPT + GEN)
+    logits, caches = model.prefill(params, {"tokens": toks}, prompt + GEN)
     torch.cuda.synchronize()
     t1 = time.perf_counter()
     tok = torch.argmax(logits, -1)
     for t in range(GEN - 1):
-        pos = torch.full((BATCH,), PROMPT + t, dtype=torch.int32, device=dev)
+        pos = torch.full((batch,), prompt + t, dtype=torch.int32, device=dev)
         logits, caches = model.decode_step(params, caches, tok, pos)
         tok = torch.argmax(logits, -1)
     torch.cuda.synchronize()
     t2 = time.perf_counter()
     del caches
+    return ro, toks, g, {"prefill_ms": (t1 - t0) * 1e3,
+                         "decode_step_ms": (t2 - t1) * 1e3 / (GEN - 1)}
+
+
+def profile_request(cfg, dev):
+    """Where one request's time goes: prefill and per-decode-step wall
+    time (host clock, synchronised), then kernel time by name over one
+    whole request (torch.profiler; kernel events only, so the device's
+    busy time is the sum of its kernels)."""
+    model = Model(cfg, device=dev)
+    params = model.init(torch.Generator(device=dev).manual_seed(0))
+    ro, toks, g, split = time_split(model, params, BATCH, PROMPT)
     prof, table = profile_call(lambda: ro.generate(params, {"tokens": toks},
                                                    GEN, g))
-    prof.update(prefill_ms=(t1 - t0) * 1e3,
-                decode_step_ms=(t2 - t1) * 1e3 / (GEN - 1))
+    prof.update(split)
     return prof, table
+
+
+def mamba_serving(dev, log, profile=False):
+    """Phase 6: mamba2_370m at full width and depth through serve.run, 3
+    requests of 8 x (2048 + 64); launch counts asserted (B5 once per
+    layer in each prefill, B1 at norm1 and the gated norm of each layer
+    and the final norm, every step), outputs checked; then the prefill
+    and decode step timed apart on a model of its own (with ``profile``,
+    also one profiled request) and a small Mamba model on the card
+    against the CPU."""
+    cfg = get_config("mamba2_370m")
+    torch.cuda.synchronize()
+    ops.reset_launches()
+    results = serve.run(cfg, batch=MBATCH, prompt_len=MPROMPT, gen=GEN,
+                        requests=MREQUESTS, temperature=0.8, seed=0,
+                        device=dev, log=log)
+    torch.cuda.synchronize()
+    launches = dict(ops.launches)
+    L = cfg.num_layers
+    want = {"flash_attention": 0, "decode_attention": 0,
+            "paged_decode_attention": 0, "ssd_scan": L * MREQUESTS,
+            "rmsnorm": (2 * L + 1) * GEN * MREQUESTS}
+    log(f"[smoke] mamba launches {launches} (want {want})")
+    if launches != want:
+        raise SystemExit(f"mamba launch counts {launches} != {want}")
+    reqs = []
+    for r in results:
+        check_result(r["result"], MBATCH, MPROMPT, cfg.vocab_size)
+        # live after the request is the weights (the states were dropped)
+        above = r["peak_bytes"] - r["live_bytes"]
+        reqs.append({"seconds": r["seconds"],
+                     "tokens_per_s": r["tokens_per_s"],
+                     "live_bytes": r["live_bytes"],
+                     "peak_bytes": r["peak_bytes"],
+                     "peak_above_weights": above})
+        log(f"[smoke] mamba request: {r['seconds'] * 1e3:.1f} ms "
+            f"({r['tokens_per_s']:.1f} tok/s), peak {above / 2**20:.1f} MiB "
+            f"above the weights ({r['live_bytes'] / 2**20:.1f} MiB live)")
+    del results
+    model = Model(cfg, device=dev)
+    params = model.init(torch.Generator(device=dev).manual_seed(0))
+    ro, toks, g, split = time_split(model, params, MBATCH, MPROMPT)
+    log(f"[smoke] mamba unprofiled: prefill {split['prefill_ms']:.1f} ms, "
+        f"decode {split['decode_step_ms']:.2f} ms/step (greedy)")
+    out = {"requests": reqs, "launches": launches, **split}
+    if profile:
+        out["profile"], out["profile_table"] = profile_call(
+            lambda: ro.generate(params, {"tokens": toks}, GEN, g))
+    del model, params, ro
+    small = get_config("mamba2_370m").smoke()
+    out["small_model_max_err"] = check_small_model_against_cpu(
+        dev, small, prompt=64, seed=5)
+    log(f"[smoke] small Mamba model card vs CPU: logits max_err "
+        f"{out['small_model_max_err']:.3e}, 16 greedy tokens identical")
+    return out
 
 
 def profile_call(fn):
@@ -612,8 +762,8 @@ def print_profile(label, prof):
 def main() -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--profile", action="store_true",
-                    help="also profile one dense and one paged GRPO request "
-                         "with torch.profiler")
+                    help="also profile one dense, one paged GRPO and one "
+                         "Mamba2 request with torch.profiler")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; the port's kernels run only on "
@@ -652,7 +802,8 @@ def main() -> int:
     checks = {"flash_attention": check_flash(dev, peaks, g),
               "decode_attention": check_decode(dev, peaks, g),
               "paged_decode_attention": check_paged(dev, peaks, g),
-              "rmsnorm": check_rmsnorm(dev, peaks, g)}
+              "rmsnorm": check_rmsnorm(dev, peaks, g),
+              "ssd_scan": check_ssd(dev, peaks, g)}
     failures = []
     for kname, recs in checks.items():
         for r in recs:
@@ -689,7 +840,7 @@ def main() -> int:
     L = cfg.num_layers
     want = {"flash_attention": L * REQUESTS,
             "decode_attention": L * (GEN - 1) * REQUESTS,
-            "paged_decode_attention": 0,
+            "paged_decode_attention": 0, "ssd_scan": 0,
             "rmsnorm": (2 * L + 1) * GEN * REQUESTS}
     print(f"[smoke] launches {launches} (want {want})")
     if launches != want:
@@ -710,7 +861,13 @@ def main() -> int:
     print(f"[smoke] paged GRPO launches {grpo['launches']} over "
           f"{GREQUESTS} requests; forks {grpo['requests'][0]['forks']}")
     report["paged_grpo"] = grpo
-    paths = {"serve": launches, "paged_grpo": grpo["launches"]}
+
+    # phase 6: Mamba2 serving at full width and depth
+    mamba = mamba_serving(dev, lambda s: print(s, flush=True),
+                          profile=args.profile)
+    report["mamba"] = mamba
+    paths = {"serve": launches, "paged_grpo": grpo["launches"],
+             "mamba_serve": mamba["launches"]}
 
     if args.profile:
         prof, table = profile_request(cfg, dev)
@@ -721,12 +878,17 @@ def main() -> int:
         report["profile"] = prof
         print_profile("paged GRPO request", grpo["profile"])
         (OUT_DIR / "profile_paged.txt").write_text(grpo.pop("profile_table"))
+        print_profile("mamba2 request", mamba["profile"])
+        (OUT_DIR / "profile_mamba.txt").write_text(mamba.pop("profile_table"))
 
     kernels = []
+    main_path = {"paged_decode_attention": "paged_grpo",
+                 "ssd_scan": "mamba_serve"}
     for kname, mod in (("flash_attention", fa), ("decode_attention", dec),
-                       ("paged_decode_attention", pa), ("rmsnorm", rn)):
+                       ("paged_decode_attention", pa), ("rmsnorm", rn),
+                       ("ssd_scan", ssd)):
         main_rec = checks[kname][0]
-        path = "paged_grpo" if kname == "paged_decode_attention" else "serve"
+        path = main_path.get(kname, "serve")
         kernels.append({
             "name": kname, "route": "cuda", "source": mod.SOURCE,
             "replaces": mod.REPLACES, "launches": paths[path][kname],

@@ -6,9 +6,15 @@ The reference stacks each segment's layers on a leading group axis
 ``repro/models/transformer.py:49-50, 110-114``); the port keeps one dict
 per layer in ``params["layers"]``. Layer ``g * len(period) + j`` is group
 ``g`` of slot ``j``. Leaves keep their fused ``[d_model, heads*head_dim]``
-layout. Both sides are handled as numpy arrays, so this module needs no
-JAX: the caller passes ``jax.tree.map(np.asarray, params)``.
+layout and their own dtype (a Mamba mixer's ``dt_bias``, ``A_log`` and
+``D`` stay fp32 in a bf16 model). Both sides are handled as numpy arrays,
+so this module needs no JAX: the caller passes
+``jax.tree.map(np.asarray, params)``.
 
+Decode caches follow the same stacking
+(``caches["segments"][0]["slot{j}"]``, each leaf ``[n_groups, B, ...]``:
+an attention slot's ``k``/``v``/``pos``, a Mamba slot's ``conv_state`` and
+``ssm_state``); :func:`caches_from_jax` gives the port's per-layer list.
 Paged KV pools follow the same stacking in the reference
 (``pools[0]["slot{j}"]["k"]`` of shape ``[n_groups, P, ps, K, D]``,
 ``repro/models/transformer.py:551-566``); the port keeps one pool per
@@ -55,7 +61,7 @@ def _check_supported(params_np: Dict[str, Any], cfg: ModelConfig) -> None:
     extra = set(params_np) - set(_TOP_LEVEL) - {"segment0"}
     if extra:
         raise NotImplementedError(
-            f"the port carries token-input attention-only decoders; "
+            f"the port carries one-segment token-input decoders; "
             f"unsupported parameter groups {sorted(extra)}")
 
 
@@ -98,6 +104,19 @@ def _map_stack(trees):
     if isinstance(first, dict):
         return {k: _map_stack([t[k] for t in trees]) for k in first}
     return np.stack(trees)
+
+
+def caches_from_jax(caches_np, cfg: ModelConfig, device=None) -> list:
+    """The reference's decode caches (``{"segments": [...], ...}`` with
+    numpy leaves) -> the port's per-layer caches on ``device``."""
+    device = default_device(device)
+    segments = caches_np["segments"]
+    if len(segments) != 1:
+        raise NotImplementedError("the port carries one-segment decoders")
+    per = len(cfg.period)
+    return [_map(segments[0][f"slot{j}"],
+                 lambda a, g=g: _to_torch(np.asarray(a)[g], device))
+            for g in range(cfg.num_layers // per) for j in range(per)]
 
 
 def pools_from_jax(pools_np, cfg: ModelConfig, device=None) -> list:

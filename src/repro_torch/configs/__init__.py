@@ -1,3 +1,5 @@
-from repro_torch.configs.base import ATTN, ModelConfig, get_config, register
+from repro_torch.configs.base import ATTN, MAMBA, ModelConfig, SSMConfig, \
+    get_config, register
 
-__all__ = ["ATTN", "ModelConfig", "get_config", "register"]
+__all__ = ["ATTN", "MAMBA", "ModelConfig", "SSMConfig", "get_config",
+           "register"]

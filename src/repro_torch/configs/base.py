@@ -1,8 +1,8 @@
 """Model configs and the architecture registry.
 
 A copy of the parts of ``repro/configs/base.py`` that the port's
-attention-only decoder reads; the port keeps its own copy so that it
-imports nothing of ``repro``. Each architecture lives in its own
+decoder reads (attention and Mamba2 layers); the port keeps its own copy
+so that it imports nothing of ``repro``. Each architecture lives in its own
 ``configs/<id>.py`` file and registers a full-size :class:`ModelConfig`;
 ``smoke()`` derives the reduced variant the CPU tests use.
 """
@@ -10,9 +10,26 @@ from __future__ import annotations
 
 import importlib
 from dataclasses import dataclass, replace
-from typing import Tuple
+from typing import Optional, Tuple
 
 ATTN = "attn"     # (sliding-window capable) GQA/MHA self-attention block
+MAMBA = "mamba"   # Mamba2 SSD block
+
+
+@dataclass(frozen=True)
+class SSMConfig:
+    """Mamba2 SSD dims."""
+    d_state: int = 128
+    d_conv: int = 4
+    expand: int = 2
+    head_dim: int = 64
+    chunk_size: int = 256
+
+    def d_inner(self, d_model: int) -> int:
+        return self.expand * d_model
+
+    def n_heads(self, d_model: int) -> int:
+        return self.d_inner(d_model) // self.head_dim
 
 
 @dataclass(frozen=True)
@@ -21,11 +38,12 @@ class ModelConfig:
     family: str                   # dense | moe | ssm | hybrid | vlm | audio
     num_layers: int
     d_model: int
-    num_heads: int                # query heads
+    num_heads: int                # query heads (0 for attention-free)
     num_kv_heads: int
-    d_ff: int                     # dense FFN hidden
+    d_ff: int                     # dense FFN hidden (0 if every layer is SSM)
     vocab_size: int
     period: Tuple[str, ...] = (ATTN,)
+    ssm: Optional[SSMConfig] = None
     head_dim: int = 0                         # 0 => d_model // num_heads
     qkv_bias: bool = False
     mlp_gated: bool = True                    # swiglu (3 mats) vs gelu (2 mats)
@@ -44,6 +62,11 @@ class ModelConfig:
             return self.d_model // self.num_heads
         return 0
 
+    def layer_kinds(self) -> Tuple[str, ...]:
+        """Per-layer kind for all num_layers."""
+        reps = -(-self.num_layers // len(self.period))
+        return tuple((self.period * reps)[: self.num_layers])
+
     def smoke(self) -> "ModelConfig":
         """Reduced same-family variant for CPU tests: the same widths as
         the JAX package's ``ModelConfig.smoke()`` for the fields kept here."""
@@ -57,6 +80,8 @@ class ModelConfig:
         return replace(
             self,
             name=self.name + "-smoke",
+            ssm=SSMConfig(d_state=16, d_conv=4, expand=2, head_dim=32,
+                          chunk_size=32) if self.ssm is not None else None,
             num_layers=n_layers,
             d_model=256,
             num_heads=nh,

@@ -19,9 +19,10 @@ from repro_torch.kernels import flash_attention as _fa
 from repro_torch.kernels import paged_attention as _pa
 from repro_torch.kernels import ref as _ref
 from repro_torch.kernels import rmsnorm as _rn
+from repro_torch.kernels import ssd_scan as _ssd
 
 KERNELS = ("rmsnorm", "flash_attention", "decode_attention",
-           "paged_decode_attention")
+           "paged_decode_attention", "ssd_scan")
 launches = {name: 0 for name in KERNELS}
 
 
@@ -67,4 +68,20 @@ def rmsnorm(x, scale, eps: float = 1e-5):
         return _ref.rmsnorm_ref(x, scale, eps)
     out = _rn.rmsnorm(x, scale, eps)
     launches["rmsnorm"] += 1
+    return out
+
+
+def ssd_scan(x, a, b, c, chunk: int, initial_state=None):
+    """Mamba2 SSD chunk scan -> (y, final_state). The kernel starts from a
+    zero state (the prefill's case), as the reference's kernel path does
+    (``repro/kernels/ops.py:37-42``). ``initial_state`` mirrors the
+    reference's signature; nothing on the port's path passes it until the
+    paged suffix prefill is ported."""
+    if _on_cpu(x):
+        return _ref.ssd_scan_ref(x, a, b, c, chunk, initial_state)
+    if initial_state is not None:
+        raise NotImplementedError(
+            "the ssd scan kernel starts from a zero state (prefill)")
+    out = _ssd.ssd_scan(x, a, b, c, chunk)
+    launches["ssd_scan"] += 1
     return out

@@ -85,3 +85,78 @@ def rmsnorm_ref(x, scale, eps: float = 1e-5):
     x32 = x.float()
     var = torch.mean(torch.square(x32), dim=-1, keepdim=True)
     return (x32 * torch.rsqrt(var + eps) * scale.float()).to(x.dtype)
+
+
+def segsum(x: torch.Tensor) -> torch.Tensor:
+    """x [..., L] -> [..., L, L] where out[i,j] = sum_{j<k<=i} x[k], -inf
+    above the diagonal (diagonal itself 0); ``repro/models/mamba.py:21``."""
+    L = x.shape[-1]
+    cs = torch.cumsum(x, dim=-1)
+    out = cs[..., :, None] - cs[..., None, :]
+    mask = torch.tril(torch.ones((L, L), dtype=torch.bool, device=x.device))
+    return torch.where(mask, out, torch.full_like(out, -math.inf))
+
+
+def ssd_scan_ref(x, a, b, c, chunk: int, initial_state=None):
+    """Chunked SSD in its matmul form, with the arithmetic and the dtype
+    casts of the reference model's ``ssd_chunked``
+    (``repro/models/mamba.py:31-80``): the decays are fp32, and L, the
+    per-chunk states and the chunk decays are cast to x's dtype before
+    their products, as the reference's model path does (B5 keeps them in
+    fp32). x [B,S,H,P] (pre-multiplied by dt), a [B,S,H] (log-decay
+    increments, <= 0), b/c [B,S,N] (one group shared by all heads) ->
+    (y [B,S,H,P], final_state [B,H,P,N]) in x's dtype."""
+    B, S, H, P = x.shape
+    N = b.shape[-1]
+    if S % chunk:
+        raise ValueError(f"sequence {S} is not a multiple of chunk {chunk}")
+    nc = S // chunk
+    xc = x.reshape(B, nc, chunk, H, P)
+    bc = b.reshape(B, nc, chunk, N)
+    cc = c.reshape(B, nc, chunk, N)
+    ac = a.reshape(B, nc, chunk, H).permute(0, 3, 1, 2).float()  # [B,H,nc,l]
+    a_cum = torch.cumsum(ac, dim=-1)
+
+    # 1. intra-chunk (diagonal blocks)
+    L = torch.exp(segsum(ac)).to(x.dtype)                      # [B,H,nc,l,l]
+    cb = torch.einsum("bcln,bcsn->bcls", cc, bc)
+    y_diag = torch.einsum("bhcls,bcshp->bclhp", cb[:, None] * L, xc)
+
+    # 2. per-chunk final states
+    decay_states = torch.exp(a_cum[..., -1:] - a_cum).to(x.dtype)
+    states = torch.einsum("bcln,bhcl,bclhp->bchpn", bc, decay_states, xc)
+
+    # 3. inter-chunk recurrence (matmul form over the chunk axis)
+    if initial_state is None:
+        initial_state = torch.zeros((B, H, P, N), dtype=x.dtype,
+                                    device=x.device)
+    chunk_decay = a_cum[..., -1]                               # [B,H,nc]
+    padded = torch.nn.functional.pad(chunk_decay, (1, 0))
+    decay_chunk = torch.exp(segsum(padded)).to(x.dtype)        # [B,H,nc+1,nc+1]
+    states_cat = torch.cat([initial_state[:, None], states], dim=1)
+    new_states = torch.einsum("bhzc,bchpn->bzhpn", decay_chunk, states_cat)
+    prev_states, final_state = new_states[:, :-1], new_states[:, -1]
+
+    # 4. state -> output within each chunk
+    state_decay_out = torch.exp(a_cum).to(x.dtype)             # [B,H,nc,l]
+    y_off = torch.einsum("bcln,bchpn,bhcl->bclhp", cc, prev_states,
+                         state_decay_out)
+    y = (y_diag + y_off).reshape(B, S, H, P)
+    return y, final_state
+
+
+def ssd_sequential_ref(x, a, b, c):
+    """The step-by-step SSD recurrence, the strongest oracle
+    (``repro/kernels/ref.py:53``): fp32 state, y and the final state cast
+    to x's dtype. Shapes as :func:`ssd_scan_ref`."""
+    B, S, H, P = x.shape
+    N = b.shape[-1]
+    state = torch.zeros((B, H, P, N), dtype=torch.float32, device=x.device)
+    ys = []
+    for t in range(S):
+        dA = torch.exp(a[:, t].float())                        # [B,H]
+        upd = x[:, t].float()[..., None] * b[:, t].float()[:, None, None, :]
+        state = state * dA[..., None, None] + upd
+        ys.append(torch.einsum("bhpn,bn->bhp", state, c[:, t].float()))
+    y = torch.stack(ys, dim=1)
+    return y.to(x.dtype), state.to(x.dtype)

@@ -1,10 +1,17 @@
-"""Serving launcher: batched generation over the fixed-capacity rolling KV
-cache (prefill + decode loop), reporting per-request time, throughput and
-live/peak device memory — the port of ``repro/launch/serve.py``.
+"""Serving launcher: batched generation (prefill + decode loop) over the
+dense decode caches — a fixed-capacity rolling KV cache per attention
+layer, the conv and SSM states per Mamba layer — reporting per-request
+time, throughput and live/peak device memory; the port of
+``repro/launch/serve.py``.
 
 Usage (on the card; ``--device cpu`` runs the plain PyTorch path):
   PYTHONPATH=src python -m repro_torch.launch.serve --arch llama3_2_3b \
       --batch 8 --prompt-len 512 --gen 64 --requests 3
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch mamba2_370m \
+      --batch 8 --prompt-len 2048 --gen 64 --requests 3
+
+A Mamba prompt length must be a multiple of the SSD chunk (256 for
+mamba2_370m) or shorter than it.
 """
 from __future__ import annotations
 

@@ -1,13 +1,14 @@
-"""Decoder LM for token-input, attention-only configs — the port of
-``repro/models/transformer.py`` (``Model``: init, embed/unembed, the layer
-stack, forward, caches, prefill and one-token decode, and the paged
-prefill and decode over per-layer page pools).
+"""Decoder LM for token-input configs of attention and Mamba2 layers — the
+port of ``repro/models/transformer.py`` (``Model``: init, embed/unembed,
+the layer stack, forward, caches, prefill and one-token decode, and the
+paged prefill and decode over per-layer page pools).
 
 Where the reference scans stacked ``segment{i}/slot{j}`` parameters with
 ``jax.lax.scan``, the port keeps one parameter dict per layer in
 ``params["layers"]`` and runs a Python loop over them
 (``repro_torch.bridge`` converts between the two layouts). Caches and
-paged pools are one dict per layer, updated in place.
+paged pools are one dict per layer, updated in place: a rolling KV cache
+for an attention layer, the conv and SSM states for a Mamba layer.
 """
 from __future__ import annotations
 
@@ -16,8 +17,9 @@ from typing import List, Optional, Tuple
 import torch
 
 from repro_torch import default_device
-from repro_torch.configs.base import ATTN, ModelConfig
+from repro_torch.configs.base import ATTN, MAMBA, ModelConfig
 from repro_torch.models import layers as L
+from repro_torch.models import mamba as M
 from repro_torch.paged import attention as PA
 from repro_torch.paged import paged_cache as PC
 
@@ -28,26 +30,33 @@ class Model:
     """cfg-driven LM on ``device`` (``cuda`` unless one is given)."""
 
     def __init__(self, cfg: ModelConfig, device=None):
-        if cfg.input_mode != "tokens" or any(k != ATTN for k in cfg.period):
+        if cfg.input_mode != "tokens" or \
+                any(k not in (ATTN, MAMBA) for k in cfg.period):
             raise NotImplementedError(
-                f"{cfg.name}: the port serves token-input, attention-only "
-                "configs")
-        if not cfg.d_ff:
-            raise NotImplementedError(f"{cfg.name}: the port needs an FFN")
+                f"{cfg.name}: the port serves token-input configs of "
+                "attention and Mamba2 layers")
+        if MAMBA in cfg.period and cfg.ssm is None:
+            raise ValueError(f"{cfg.name}: a Mamba layer needs cfg.ssm")
         self.cfg = cfg
+        self.kinds = cfg.layer_kinds()
         self.device = default_device(device)
         self.dtype = DTYPES[cfg.param_dtype]
 
     # ------------------------------------------------------------------ init
-    def _init_layer(self, generator: torch.Generator) -> dict:
+    def _init_layer(self, generator: torch.Generator, kind: str) -> dict:
+        """One layer's parameters; ``norm2`` and ``ffn`` only when the
+        config has an FFN (``d_ff > 0``), as in the reference."""
         cfg, dt, dev = self.cfg, self.dtype, self.device
-        return {
-            "norm1": L.init_norm(cfg.d_model, dt, dev),
-            "mixer": L.init_attention(generator, cfg, dt),
-            "norm2": L.init_norm(cfg.d_model, dt, dev),
-            "ffn": L.init_mlp(generator, cfg.d_model, cfg.d_ff,
-                              cfg.mlp_gated, cfg.num_layers, dt),
-        }
+        layer = {"norm1": L.init_norm(cfg.d_model, dt, dev)}
+        if kind == ATTN:
+            layer["mixer"] = L.init_attention(generator, cfg, dt)
+        else:
+            layer["mixer"] = M.init_mamba(generator, cfg, dt)
+        if cfg.d_ff:
+            layer["norm2"] = L.init_norm(cfg.d_model, dt, dev)
+            layer["ffn"] = L.init_mlp(generator, cfg.d_model, cfg.d_ff,
+                                      cfg.mlp_gated, cfg.num_layers, dt)
+        return layer
 
     def init(self, generator: torch.Generator) -> dict:
         """Random weights from ``generator`` (which lives on the model's
@@ -64,8 +73,8 @@ class Model:
                                  dtype=self.dtype),
                 "final_norm": L.init_norm(cfg.d_model, self.dtype,
                                           self.device),
-                "layers": [self._init_layer(generator)
-                           for _ in range(cfg.num_layers)],
+                "layers": [self._init_layer(generator, kind)
+                           for kind in self.kinds],
             }
             if not cfg.tie_embeddings:
                 params["lm_head"] = L._init(
@@ -82,29 +91,40 @@ class Model:
         return h @ w
 
     # -------------------------------------------------------------- full seq
-    def _slot_fwd(self, layer, h, positions, *, window,
+    def _slot_fwd(self, layer, kind, h, positions, *, window,
                   init_cache: Optional[dict] = None):
         """One layer. With ``init_cache`` (prefill) it also fills the
-        layer's decode cache in the same pass."""
+        layer's decode cache in the same pass: an attention layer's
+        rolling KV cache, or a Mamba layer's conv and SSM states (copied
+        into the cache's buffers)."""
         cfg = self.cfg
         x = L.rms_norm(h, layer["norm1"], cfg.norm_eps)
-        y = L.attention_fwd(layer["mixer"], x, positions, cfg, window=window,
-                            init_cache=init_cache)
         cache = None
-        if init_cache is not None:
-            y, cache = y
+        if kind == ATTN:
+            y = L.attention_fwd(layer["mixer"], x, positions, cfg,
+                                window=window, init_cache=init_cache)
+            if init_cache is not None:
+                y, cache = y
+        elif init_cache is not None:
+            y, state = M.mamba_fwd(layer["mixer"], x, cfg, return_state=True)
+            for name, val in state.items():
+                init_cache[name].copy_(val)
+            cache = init_cache
+        else:
+            y = M.mamba_fwd(layer["mixer"], x, cfg)
         h = h + y
-        x2 = L.rms_norm(h, layer["norm2"], cfg.norm_eps)
-        h = h + L.mlp_fwd(layer["ffn"], x2, cfg.mlp_gated)
+        if "ffn" in layer:
+            x2 = L.rms_norm(h, layer["norm2"], cfg.norm_eps)
+            h = h + L.mlp_fwd(layer["ffn"], x2, cfg.mlp_gated)
         return h, cache
 
     def _stack_fwd(self, params, h, positions, *, window=0,
                    init_caches: Optional[List[dict]] = None):
         """Run every layer. Returns (h, filled caches or None)."""
         caches = []
-        for i, layer in enumerate(params["layers"]):
+        for i, (kind, layer) in enumerate(zip(self.kinds, params["layers"])):
             h, c = self._slot_fwd(
-                layer, h, positions, window=window,
+                layer, kind, h, positions, window=window,
                 init_cache=None if init_caches is None else init_caches[i])
             caches.append(c)
         return h, (caches if init_caches is not None else None)
@@ -125,9 +145,13 @@ class Model:
 
     # ------------------------------------------------------------- kv caches
     def init_cache(self, batch: int, capacity: int, dtype) -> List[dict]:
-        """One rolling decode cache per layer."""
+        """One decode cache per layer: a rolling KV cache of ``capacity``
+        slots for an attention layer; the conv and SSM states for a Mamba
+        layer, whose size ``capacity`` does not touch."""
         return [L.init_kv_cache(self.cfg, batch, capacity, dtype, self.device)
-                for _ in range(self.cfg.num_layers)]
+                if kind == ATTN else
+                M.init_mamba_cache(self.cfg, batch, dtype, self.device)
+                for kind in self.kinds]
 
     @torch.no_grad()
     def prefill(self, params, batch, capacity: int, *, window: int = 0,
@@ -141,8 +165,10 @@ class Model:
         right-padding: logits come from position ``lengths-1`` and padded
         cache entries are invalidated (their "pos" set to -1), exact
         because causal attention makes right-padding invisible to earlier
-        positions. ``return_h=True`` also returns the pre-final-norm hidden
-        state at the logits position [B, D]."""
+        positions. Attention layers only: a Mamba state cannot be masked
+        after the fact, so a Mamba model raises on ``lengths``.
+        ``return_h=True`` also returns the pre-final-norm hidden state at
+        the logits position [B, D]."""
         h_last, filled = self._prefill_h(params, batch, capacity, window,
                                          lengths)
         logits = self.unembed(params, h_last[:, None])[:, 0]
@@ -153,6 +179,9 @@ class Model:
     def _prefill_h(self, params, batch, capacity, window, lengths):
         """The prefill's trunk: (hidden state at each row's last valid
         position [B, D], filled caches)."""
+        if lengths is not None and MAMBA in self.kinds:
+            raise ValueError(f"{self.cfg.name}: a lengths-masked prefill "
+                             "cannot mask Mamba states after the fact")
         tokens = batch["tokens"]
         h = self.embed(params, tokens)
         B = h.shape[0]
@@ -166,41 +195,50 @@ class Model:
             c["pos"].masked_fill_(c["pos"] >= lengths[:, None], -1)
         return h[torch.arange(B, device=h.device), idx], filled
 
-    def _decode(self, params, token, attend) -> torch.Tensor:
-        """One-token pass over every layer; ``attend(i, mixer, x)`` is
-        layer i's attention (dense or paged cache). -> logits [B,V]."""
+    def _decode(self, params, token, mix) -> torch.Tensor:
+        """One-token pass over every layer; ``mix(i, mixer, x)`` steps layer
+        i's mixer on its cache (dense or paged KV, or Mamba states).
+        -> logits [B,V]."""
         cfg = self.cfg
         h = self.embed(params, token[:, None])
         for i, layer in enumerate(params["layers"]):
             x = L.rms_norm(h, layer["norm1"], cfg.norm_eps)
-            h = h + attend(i, layer["mixer"], x)
-            x2 = L.rms_norm(h, layer["norm2"], cfg.norm_eps)
-            h = h + L.mlp_fwd(layer["ffn"], x2, cfg.mlp_gated)
+            h = h + mix(i, layer["mixer"], x)
+            if "ffn" in layer:
+                x2 = L.rms_norm(h, layer["norm2"], cfg.norm_eps)
+                h = h + L.mlp_fwd(layer["ffn"], x2, cfg.mlp_gated)
         return self.unembed(params, h)[:, 0]
 
     @torch.no_grad()
     def decode_step(self, params, caches, token, position, *,
                     window: int = 0):
         """token [B] int, position [B] int32 -> (logits [B,V], caches);
-        the caches are updated in place."""
+        the caches are updated in place. A Mamba layer ignores
+        ``position``."""
         layers = caches["layers"]
-        logits = self._decode(params, token, lambda i, mixer, x:
-                              L.attention_decode(mixer, x, position,
-                                                 layers[i], self.cfg,
-                                                 window=window)[0])
-        return logits, caches
+
+        def mix(i, mixer, x):
+            if self.kinds[i] == ATTN:
+                return L.attention_decode(mixer, x, position, layers[i],
+                                          self.cfg, window=window)[0]
+            return M.mamba_decode(mixer, x, layers[i], self.cfg)[0]
+
+        return self._decode(params, token, mix), caches
 
     # ------------------------------------------------------- paged kv caches
     def supports_paged(self) -> bool:
-        """The paged backend covers token-input, attention-only nets — all
-        the port's ``Model`` serves."""
+        """The paged backend covers token-input, attention-only nets; Mamba
+        states are not paged."""
         return self.cfg.input_mode == "tokens" and \
-            all(k == ATTN for k in self.cfg.period)
+            all(k == ATTN for k in self.kinds)
 
     def init_paged_pools(self, num_pages: int, page_size: int,
                          dtype) -> List[dict]:
         """One paged KV pool per layer (``paged_cache.init_pool``). The
         block table is shared across layers; each layer owns its pool."""
+        if not self.supports_paged():
+            raise ValueError(f"{self.cfg.name}: paged pools need an "
+                             "attention-only token model")
         return [PC.init_pool(self.cfg, num_pages, page_size, dtype,
                              self.device)
                 for _ in range(self.cfg.num_layers)]

@@ -7,6 +7,10 @@ paper's App. B finding about growing ``generate()`` buffers). The paged
 backend allocates one pool per layer up front and a PageManager hands out
 its pages. Buckets, speculative decoding, adapters and meshes are not
 ported yet.
+
+On a Mamba model the dense backend runs unchanged: a Mamba layer's cache
+is its conv and SSM states, which ``capacity`` does not size and the
+decode position does not touch.
 """
 from __future__ import annotations
 

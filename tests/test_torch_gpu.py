@@ -4,7 +4,9 @@ These tests need an NVIDIA card and nvcc; elsewhere they skip (the kernels
 have no CPU mode). The file imports no JAX, so it runs on a machine that
 has only PyTorch: ``pytest -m gpu tests/test_torch_gpu.py``. Tolerances:
 2e-2 in bf16 and 5e-5 in f32, as ``tests/test_kernels.py:15`` (another
-order of summation, and bf16 output rounding).
+order of summation, and bf16 output rounding); B5 is held against its
+plain version on fp32 copies of its inputs at 5e-2 in bf16 and 1e-3 in
+f32, as ``tests/test_kernels.py:98`` holds the Pallas SSD kernel.
 """
 import dataclasses
 
@@ -18,6 +20,7 @@ from repro_torch.kernels import flash_attention as tfa  # noqa: E402
 from repro_torch.kernels import ops, ref  # noqa: E402
 from repro_torch.kernels import paged_attention as tpa  # noqa: E402
 from repro_torch.kernels import rmsnorm as trn  # noqa: E402
+from repro_torch.kernels import ssd_scan as tssd  # noqa: E402
 from repro_torch.models import Model  # noqa: E402
 from repro_torch.rlhf import Rollout  # noqa: E402
 
@@ -125,6 +128,30 @@ def test_rmsnorm_kernel_matches_plain(cuda, shape, dt):
                                rtol=0)
 
 
+@pytest.mark.parametrize("B,S,H,P,N,chunk,dt", [
+    (8, 2048, 32, 64, 128, 256, "bf16"),      # the mamba2_370m path's
+    (2, 512, 4, 64, 128, 256, "f32"),
+    (2, 128, 4, 32, 16, 32, "f32"),           # the smoke config's
+])
+def test_ssd_kernel_matches_plain(cuda, B, S, H, P, N, chunk, dt):
+    """b and c are scaled by N^-1/4, so a score C B^T has unit variance and
+    |y| stays well below 16, where the bf16 output's own rounding (half
+    an ulp, 0.0625) would exceed the tolerance."""
+    g = torch.Generator(device=cuda).manual_seed(8)
+    x = (0.5 * torch.randn(B, S, H, P, generator=g, device=cuda)).to(DT[dt])
+    a = -0.3 * torch.randn(B, S, H, generator=g, device=cuda).abs()
+    b = (torch.randn(B, S, N, generator=g, device=cuda) * N ** -0.25
+         ).to(DT[dt])
+    c = (torch.randn(B, S, N, generator=g, device=cuda) * N ** -0.25
+         ).to(DT[dt])
+    y, fin = tssd.ssd_scan(x, a, b, c, chunk)
+    want = ref.ssd_scan_ref(x.float(), a, b.float(), c.float(), chunk)
+    tol = 5e-2 if dt == "bf16" else 1e-3
+    for got, w in zip((y, fin), want):
+        assert got.dtype == x.dtype
+        torch.testing.assert_close(got.float(), w, atol=tol, rtol=0)
+
+
 def _to(tree, device):
     if isinstance(tree, torch.Tensor):
         return tree.to(device)
@@ -155,7 +182,7 @@ def test_greedy_decode_on_card_matches_cpu(cuda):
     L = cfg.num_layers
     assert ops.launches == {"flash_attention": L,
                             "decode_attention": L * 11,
-                            "paged_decode_attention": 0,
+                            "paged_decode_attention": 0, "ssd_scan": 0,
                             "rmsnorm": (2 * L + 1) * 12}
 
 
@@ -184,5 +211,30 @@ def test_paged_group_rollout_on_card_matches_cpu(cuda):
     assert ops.launches == {"flash_attention": L,
                             "decode_attention": 0,
                             "paged_decode_attention": L * 11,
+                            "ssd_scan": 0,
                             # + the group's replicated unembedding
                             "rmsnorm": (2 * L + 1) * 12 + 1}
+
+
+def test_mamba_greedy_decode_on_card_matches_cpu(cuda):
+    """The mamba2_370m smoke model (f32) through B5 and B1 on the card
+    gives the CPU plain path's greedy tokens; B5 ran once per layer in
+    the prefill."""
+    cfg = get_config("mamba2_370m").smoke()
+    cpu_model = Model(cfg, device="cpu")
+    params = cpu_model.init(torch.Generator().manual_seed(9))
+    tokens = torch.randint(0, cfg.vocab_size, (2, 64),
+                           generator=torch.Generator().manual_seed(10))
+    got = []
+    ops.reset_launches()
+    for model, p in ((cpu_model, params),
+                     (Model(cfg, device=cuda), _to(params, cuda))):
+        ro = Rollout(model, cfg, capacity=80, temperature=0.0)
+        res = ro.generate(p, {"tokens": tokens.to(model.device)}, 16,
+                          torch.Generator(device=model.device))
+        got.append(res.tokens.cpu())
+    assert torch.equal(got[0], got[1])
+    L = cfg.num_layers
+    assert ops.launches == {"flash_attention": 0, "decode_attention": 0,
+                            "paged_decode_attention": 0, "ssd_scan": L,
+                            "rmsnorm": (2 * L + 1) * 16}

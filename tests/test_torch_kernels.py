@@ -21,6 +21,7 @@ from repro_torch.kernels import decode_attention as tdec  # noqa: E402
 from repro_torch.kernels import flash_attention as tfa  # noqa: E402
 from repro_torch.kernels import paged_attention as tpa  # noqa: E402
 from repro_torch.kernels import rmsnorm as trn  # noqa: E402
+from repro_torch.kernels import ssd_scan as tssd  # noqa: E402
 
 DT = {"f32": (jnp.float32, torch.float32), "bf16": (jnp.bfloat16, torch.bfloat16)}
 
@@ -122,10 +123,17 @@ def test_ops_take_the_plain_version_on_cpu_and_count_no_launch():
     torch.testing.assert_close(
         ops.paged_decode_attention(q[:, 0], pool, pool, bt, cur),
         ref.paged_attention_ref(q[:, 0], pool, pool, bt, cur))
+    xs = torch.from_numpy(rng.randn(1, 32, 2, 16).astype(np.float32))
+    a = -torch.from_numpy(np.abs(rng.randn(1, 32, 2)).astype(np.float32))
+    bc = torch.from_numpy(rng.randn(1, 32, 8).astype(np.float32))
+    for got, want in zip(ops.ssd_scan(xs, a, bc, bc, 16),
+                         ref.ssd_scan_ref(xs, a, bc, bc, 16)):
+        torch.testing.assert_close(got, want)
     assert ops.launches == {k: 0 for k in ops.KERNELS}
 
 
-@pytest.mark.parametrize("call", ["rmsnorm", "flash", "decode", "paged"])
+@pytest.mark.parametrize("call", ["rmsnorm", "flash", "decode", "paged",
+                                  "ssd"])
 def test_kernel_wrappers_refuse_non_cuda_tensors(call):
     """A wrapper launches on CUDA tensors or raises; it never computes
     the plain version itself."""
@@ -137,6 +145,9 @@ def test_kernel_wrappers_refuse_non_cuda_tensors(call):
             trn.rmsnorm(x, torch.ones(64, device="meta"))
         elif call == "flash":
             tfa.flash_attention_fwd(x, kv, kv)
+        elif call == "ssd":         # CPU tensors: ops.py's to route
+            tssd.ssd_scan(torch.zeros(1, 8, 2, 16), torch.zeros(1, 8, 2),
+                          torch.zeros(1, 8, 4), torch.zeros(1, 8, 4), 8)
         elif call == "paged":
             tpa.paged_decode_attention(x[:, 0], kv, kv, pos,
                                        torch.zeros(2, dtype=torch.int32,
@@ -152,7 +163,7 @@ def test_build_compiles_each_source_for_sm90a(monkeypatch, tmp_path):
     compiles, link = build.compile_commands(tmp_path)
     names = sorted(p.name for p in build.sources())
     assert names == ["decode_attention.cu", "flash_attention.cu",
-                     "paged_attention.cu", "rmsnorm.cu"]
+                     "paged_attention.cu", "rmsnorm.cu", "ssd_scan.cu"]
     assert len(compiles) == len(names)
     for cmd in compiles + [link]:
         assert "arch=compute_90a,code=sm_90a" in cmd

@@ -41,14 +41,36 @@ def _attn_params(jcfg):
     return jp, {k: _t(v) for k, v in jp.items()}
 
 
+def _field(cfg, name):
+    """A config field; the SSM sub-config (another class in each package)
+    as its dict of fields."""
+    v = getattr(cfg, name)
+    return dataclasses.asdict(v) if dataclasses.is_dataclass(v) else v
+
+
 def test_smoke_config_matches_reference_widths():
-    jcfg, tcfg = _cfgs()
-    for f in dataclasses.fields(tcfg):
-        assert getattr(tcfg, f.name) == getattr(jcfg, f.name), f.name
+    """llama3_2_3b and mamba2_370m, full size and smoke, field for field
+    against the reference's configs (the SSM dims included)."""
+    for arch in ("llama3_2_3b", "mamba2_370m"):
+        for full in (False, True):
+            jcfg, tcfg = jax_get_config(arch), get_config(arch)
+            if not full:
+                jcfg, tcfg = jcfg.smoke(), tcfg.smoke()
+            for f in dataclasses.fields(tcfg):
+                assert _field(tcfg, f.name) == _field(jcfg, f.name), \
+                    (arch, f.name)
+            assert tcfg.layer_kinds() == jcfg.layer_kinds()
     full = get_config("llama3_2_3b")
     assert (full.num_layers, full.d_model, full.num_heads,
             full.num_kv_heads, full.d_ff, full.vocab_size) == \
         (28, 3072, 24, 8, 8192, 128256)
+    m = get_config("mamba2_370m")
+    assert (m.num_layers, m.d_model, m.d_ff, m.vocab_size,
+            m.ssm.d_inner(m.d_model), m.ssm.n_heads(m.d_model),
+            m.ssm.head_dim, m.ssm.d_state, m.ssm.d_conv,
+            m.ssm.chunk_size) == (48, 1024, 0, 50280, 2048, 32, 64, 128, 4,
+                                  256)
+    assert m.smoke().ssm.chunk_size == 32 and m.smoke().ssm.d_state == 16
 
 
 @pytest.mark.parametrize("window", [0, 16])

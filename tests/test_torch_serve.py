@@ -108,7 +108,8 @@ for name in names:
     importlib.import_module(name)
 want = {{"repro_torch.core.allocator", "repro_torch.paged.page_manager",
         "repro_torch.paged.paged_cache", "repro_torch.paged.attention",
-        "repro_torch.kernels.paged_attention"}}
+        "repro_torch.kernels.paged_attention", "repro_torch.models.mamba",
+        "repro_torch.kernels.ssd_scan", "repro_torch.configs.mamba2_370m"}}
 assert want <= set(names), want - set(names)
 import chip_smoke
 bad = [m for m, mod in sys.modules.items() if mod is not None
