@@ -7,14 +7,22 @@
 Phases, each failing with a non-zero exit:
 
 1. the card (``nvidia-smi`` name and power limit), versions, and the
-   kernels' build from ``src/repro_torch/kernels/csrc``;
+   kernels' build from ``src/repro_torch/kernels/csrc``; the bf16 flash
+   kernel's SASS must hold HGMMA (tensor-core) instructions and the
+   kernels redesigned for Hopper (B2's wgmma kernel, B3's split and
+   combine kernels) must not spill registers (their ptxas lines are
+   printed);
 2. each kernel against its plain PyTorch version at the shapes of the
-   serving, paged GRPO and Mamba2 paths and at edge cases (ragged Sq/Sk,
-   window, a wrapped rolling cache, head_dim 64, fp32; for B5 one chunk,
-   small head and state widths, a strongly decaying a and the
-   step-by-step oracle), with its time, the plain version's, one PyTorch
-   library call's (where one exists) and the least time the card could
-   take;
+   serving, paged GRPO and Mamba2 paths and at edge cases (ragged Sq/Sk
+   across the 128-row q and 64-key k tiles, Sk below one tile, a window
+   that cuts tiles, a wrapped rolling cache, B3 with most splits empty,
+   C below one split, G = 1 and 8 and a row with no valid slot, head_dim
+   64, fp32; for B5 one chunk, small head and state widths, a strongly
+   decaying a and the step-by-step oracle), with its time, the plain
+   version's, one PyTorch library call's (where one exists) and the least
+   time the card could take; B2 and B3 also with their device time from
+   CUDA-graph replay, warm and cold (inputs rotated through more than the
+   50 MB L2, as the path finds them);
 3. the serving path: full-width, full-depth llama3_2_3b (28 layers, bf16,
    random weights from a seed) serves 3 requests of batch 8 x 512 prompt
    tokens + 64 generated, through ``repro_torch.launch.serve.run``; the
@@ -46,6 +54,8 @@ import argparse
 import dataclasses
 import json
 import pathlib
+import re
+import shutil
 import subprocess
 import sys
 import time
@@ -115,6 +125,37 @@ def time_ms(fn, iters: int = 20, warmup: int = 3) -> float:
     return start.elapsed_time(end) / iters
 
 
+def time_graph_ms(fn, n_sets: int = 1, rounds: int = 10) -> float:
+    """Device time of one ``fn(i)``: ``rounds`` passes over the input sets
+    ``i < n_sets`` captured in one CUDA graph and replayed, timed with CUDA
+    events, so no host work sits between the launches (an eager loop of a
+    small kernel measures its wrapper's Python instead). With several
+    independent sets whose sum exceeds the 50 MB L2, each call finds its
+    inputs evicted by the other sets' traffic: cold, as the path finds
+    them."""
+    stream = torch.cuda.Stream()
+    stream.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(stream):
+        for i in range(n_sets):
+            fn(i)
+    torch.cuda.current_stream().wait_stream(stream)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(rounds):
+            for i in range(n_sets):
+                fn(i)
+    graph.replay()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    graph.replay()
+    end.record()
+    end.synchronize()
+    del graph
+    return start.elapsed_time(end) / (rounds * n_sets)
+
+
 def nbytes(*ts) -> int:
     return sum(t.numel() * t.element_size() for t in ts)
 
@@ -150,6 +191,78 @@ def rolling_pos(B, C, cur, device):
     return pos.to(torch.int32)[None].expand(B, C).contiguous()
 
 
+# ---------------------------------------------------------------- phase 1
+# the kernels this slice redesigned; their ptxas lines are printed and
+# must show no spills
+NEW_KERNELS = ("flash_wgmma_kernel", "decode_split_kernel", "combine_kernel")
+
+
+def ptxas_table(log: str) -> dict:
+    """{mangled kernel name: {"registers", "spill_stores", "spill_loads"}}
+    from ``nvcc -Xptxas -v`` output."""
+    table, name = {}, None
+    for line in log.splitlines():
+        m = re.search(r"(?:Compiling entry function|Function properties for)"
+                      r" '?([\w$]+)'?", line)
+        if m:
+            name = m.group(1)
+            table.setdefault(name, {})
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
+                      line)
+        if m and name:
+            table[name].update(spill_stores=int(m.group(1)),
+                               spill_loads=int(m.group(2)))
+        m = re.search(r"Used (\d+) registers", line)
+        if m and name:
+            table[name]["registers"] = int(m.group(1))
+    return table
+
+
+def sass_hgmma(lib_path) -> dict:
+    """{mangled kernel name: count of HGMMA instructions} in the built
+    library's SASS (``cuobjdump -sass``)."""
+    tool = shutil.which("cuobjdump") or str(
+        pathlib.Path(build.nvcc()).with_name("cuobjdump"))
+    counts, name = {}, None
+    for line in sh([tool, "-sass", str(lib_path)]).splitlines():
+        m = re.search(r"Function : (\S+)", line)
+        if m:
+            name = m.group(1)
+            counts[name] = 0
+        elif name and "HGMMA" in line:
+            counts[name] += 1
+    return counts
+
+
+def check_build(path, log):
+    """Phase 1's checks of the built library: the bf16 flash kernel runs
+    on the tensor cores (HGMMA in its SASS), and no kernel this slice
+    redesigned spills registers."""
+    hgmma = sass_hgmma(path)
+    flash = {k: v for k, v in hgmma.items() if "flash_wgmma_kernel" in k}
+    for k, v in flash.items():
+        print(f"  SASS {k}: {v} HGMMA")
+    if not flash or not all(flash.values()):
+        raise SystemExit(f"bf16 flash kernel without HGMMA: {flash}")
+    # ptxas's performance remarks (C7515, C7520: wgmma serialized) would
+    # mean the flash kernel's pipelining is lost; shown, not fatal
+    for line in log.splitlines():
+        if "Potential Performance Loss" in line:
+            print(f"  {line.strip()[:200]}")
+    table = {k: v for k, v in ptxas_table(log).items()
+             if any(n in k for n in NEW_KERNELS)}
+    for k, v in sorted(table.items()):
+        print(f"  ptxas {k}: {v.get('registers')} registers, "
+              f"{v.get('spill_stores')} B spill stores, "
+              f"{v.get('spill_loads')} B spill loads")
+    spills = [k for k, v in table.items()
+              if v.get("spill_stores") or v.get("spill_loads")]
+    if not table or spills:
+        raise SystemExit(f"redesigned kernels spill (or ptxas printed "
+                         f"nothing): {spills or table}")
+    return {"hgmma": flash, "ptxas": table}
+
+
 # ---------------------------------------------------------------- phase 2
 def _gqa_sdpa(q, k, v, **kw):
     """SDPA in [B, heads, S, D] layout with grouped KV heads (yardstick)."""
@@ -165,9 +278,16 @@ def check_flash(dev, peaks, g):
          torch.bfloat16),
         ("ragged", 2, 100, 37, 24, 8, 128, False, 0, torch.bfloat16),
         ("ragged_causal", 2, 100, 37, 24, 8, 128, True, 0, torch.bfloat16),
+        ("sq65_sk129", 2, 65, 129, 24, 8, 128, False, 0, torch.bfloat16),
+        ("sq65_sk129_c", 2, 65, 129, 24, 8, 128, True, 0, torch.bfloat16),
+        ("sk50_causal", 3, 50, 50, 24, 8, 128, True, 0, torch.bfloat16),
         ("window", 2, 256, 256, 24, 8, 128, True, 64, torch.bfloat16),
+        ("window_cut", 2, 300, 300, 24, 8, 128, True, 100, torch.bfloat16),
         ("d64", 2, 192, 192, 8, 2, 64, True, 0, torch.bfloat16),
+        ("d64_ragged", 2, 77, 77, 8, 2, 64, True, 40, torch.bfloat16),
+        ("d64_full", 1, 129, 65, 4, 4, 64, False, 0, torch.bfloat16),
         ("fp32", 2, 130, 130, 6, 2, 128, True, 16, torch.float32),
+        ("fp32_d64", 2, 100, 37, 4, 2, 64, False, 0, torch.float32),
     ]
     out = []
     for name, B, Sq, Sk, H, K, D, causal, window, dt in cases:
@@ -188,6 +308,17 @@ def check_flash(dev, peaks, g):
                 q, k, v, causal=causal, window=window), iters=5)
             rec["library_ms"] = time_ms(lambda: _gqa_sdpa(
                 q, k, v, is_causal=causal))
+            # device time (graph replay): warm on one set; cold over 3 sets
+            # of 67 MB, each call's inputs evicted by the other sets' 134 MB
+            # (one set alone exceeds the L2)
+            sets = [[torch.randn_like(t) for t in (q, k, v)] for _ in range(3)]
+            rec["device_ms"] = time_graph_ms(lambda i: fa.flash_attention_fwd(
+                q, k, v, causal=causal, window=window))
+            rec["cold_ms"] = time_graph_ms(lambda i: fa.flash_attention_fwd(
+                *sets[i], causal=causal, window=window), len(sets))
+            rec["library_cold_ms"] = time_graph_ms(lambda i: _gqa_sdpa(
+                *sets[i], is_causal=causal), len(sets))
+            del sets
             n_ops = 4 * B * H * D * causal_pairs(Sq, Sk, causal, window)
             rec["bound_ms"], rec["bound_by"] = bound(
                 peaks, nbytes(q, k, v, got), n_ops, dt)
@@ -201,8 +332,17 @@ def check_decode(dev, peaks, g):
          torch.bfloat16),
         ("wrapped", 2, 24, 8, 128, 16, 19, 0, torch.bfloat16),
         ("window", 2, 24, 8, 128, 16, 19, 8, torch.bfloat16),
+        # cur early: most slots masked, most of the 5 splits hold no valid
+        # slot
+        ("early", BATCH, 24, 8, 128, PROMPT + GEN, 40, 0, torch.bfloat16),
+        ("c_lt_split", 2, 24, 8, 128, 20, 30, 0, torch.bfloat16),
+        ("g1", 2, 8, 8, 128, 300, 250, 0, torch.bfloat16),
+        ("g8", 2, 16, 2, 128, 300, 250, 64, torch.bfloat16),
+        # row 1 has no valid slot: the uniform mean over its C slots
+        ("masked_row", 4, 24, 8, 128, PROMPT + GEN, 500, 0, torch.bfloat16),
         ("d64", 2, 8, 2, 64, 100, 70, 0, torch.bfloat16),
         ("fp32", 2, 6, 1, 128, 200, 150, 32, torch.float32),
+        ("fp32_g8_d64", 3, 16, 2, 64, 333, 400, 0, torch.float32),
     ]
     out = []
     for name, B, H, K, D, C, cur, window, dt in cases:
@@ -211,6 +351,8 @@ def check_decode(dev, peaks, g):
         vc = torch.randn(B, C, K, D, generator=g, device=dev).to(dt)
         pos = rolling_pos(B, C, cur, dev)
         position = torch.full((B,), cur, dtype=torch.int32, device=dev)
+        if name == "masked_row":
+            position[1] = -1
         got = dec.decode_attention(q, kc, vc, pos, position, window=window)
         want = ref.decode_attention_ref(q, kc, vc, pos, position,
                                         window=window)
@@ -218,7 +360,7 @@ def check_decode(dev, peaks, g):
         err = (got.float() - want.float()).abs().max().item()
         rec = {"case": name, "shape": [B, H, K, D, C], "cur": cur,
                "window": window, "dtype": str(dt), "max_err": err,
-               "tol": TOL[dt]}
+               "tol": TOL[dt], "splits": dec.split_plan(B, K, C)[0]}
         if name == "main":
             valid = (pos >= 0) & (pos <= position[:, None])
             mask = valid[:, None, None, :]
@@ -228,6 +370,18 @@ def check_decode(dev, peaks, g):
                 q, kc, vc, pos, position, window=window))
             rec["library_ms"] = time_ms(lambda: _gqa_sdpa(
                 q[:, None], kc, vc, attn_mask=mask))
+            # cold, as the path finds it (28 layers' caches a step): 6
+            # independent 18.9 MB caches, 113 MB, rotated
+            sets = [(torch.randn_like(q), torch.randn_like(kc),
+                     torch.randn_like(vc)) for _ in range(6)]
+            rec["device_ms"] = time_graph_ms(lambda i: dec.decode_attention(
+                q, kc, vc, pos, position, window=window))
+            rec["cold_ms"] = time_graph_ms(lambda i: dec.decode_attention(
+                *sets[i], pos, position, window=window), len(sets))
+            rec["library_cold_ms"] = time_graph_ms(lambda i: _gqa_sdpa(
+                sets[i][0][:, None], sets[i][1], sets[i][2], attn_mask=mask),
+                len(sets))
+            del sets
             n_ops = 4 * H * D * int(valid.sum().item())
             rec["bound_ms"], rec["bound_by"] = bound(
                 peaks, nbytes(q, kc, vc, pos, position, got), n_ops, dt)
@@ -719,6 +873,33 @@ def mamba_serving(dev, log, profile=False):
     return out
 
 
+# each wrapper's CUDA kernels, by function name: one launch of the first
+# kind per call; B3 adds its combine kernel when it splits the cache
+KERNEL_FUNCS = {"flash_attention": ("flash_wgmma_kernel", "flash_fwd_kernel"),
+                "decode_attention": ("decode_split_kernel",),
+                "paged_decode_attention": ("paged_decode_kernel",),
+                "rmsnorm": ("rmsnorm_kernel",),
+                "ssd_scan": ("ssd_scan_kernel",)}
+SECOND_KERNELS = {"decode_attention": ("combine_kernel",)}
+
+
+def port_kernels(rows):
+    """{wrapper: {"ms", "calls", "us_per_call"}} from profiler rows (us,
+    count, name): each wrapper's kernels' device time in the profiled
+    run."""
+    out = {}
+    for wrapper, funcs in KERNEL_FUNCS.items():
+        mine = [r for r in rows if any(f in r[2] for f in funcs)]
+        calls = sum(r[1] for r in mine)
+        us = sum(r[0] for r in mine) + sum(
+            r[0] for r in rows
+            if any(f in r[2] for f in SECOND_KERNELS.get(wrapper, ())))
+        if calls:
+            out[wrapper] = {"ms": us / 1e3, "calls": calls,
+                            "us_per_call": us / calls}
+    return out
+
+
 def profile_call(fn):
     """Kernel time by name over one call of ``fn`` (torch.profiler; kernel
     events only, so the device's busy time is the sum of its kernels),
@@ -743,7 +924,7 @@ def profile_call(fn):
     busy_s = sum(r[0] for r in rows) / 1e6
     table = events.table(sort_by=key, row_limit=40)
     return {"profiled_wall_s": wall, "kernel_busy_s": busy_s,
-            "idle_share": 1 - busy_s / wall,
+            "idle_share": 1 - busy_s / wall, "port": port_kernels(rows),
             "top": [{"us": r[0], "count": r[1], "name": r[2]}
                     for r in rows[:15]]}, table
 
@@ -753,6 +934,9 @@ def print_profile(label, prof):
           f"{prof['profiled_wall_s'] * 1e3:.1f} ms, kernels busy "
           f"{prof['kernel_busy_s'] * 1e3:.1f} ms, idle share "
           f"{prof['idle_share']:.3f}")
+    for wrapper, k in prof["port"].items():
+        print(f"  port {wrapper:22s} {k['ms']:9.3f} ms {k['calls']:6d} calls "
+              f"{k['us_per_call']:9.2f} us a call")
     for row in prof["top"][:10]:
         print(f"  {row['us'] / 1e3:9.3f} ms {row['count']:6d}x "
               f"{row['name'][:90]}")
@@ -789,13 +973,12 @@ def main() -> int:
     print(f"[smoke] torch {torch.__version__} cuda {torch.version.cuda} "
           f"triton {triton_v} (unused); peaks {peaks}")
     path, log, secs = build.build()
-    (OUT_DIR / "ptxas.txt").write_text(log)
     print(f"[smoke] built {path.relative_to(ROOT)} in {secs:.1f} s")
-    for line in log.splitlines():
-        if "registers" in line or "spill" in line:
-            print(f"  {line.strip()}")
+    if not log:           # built before: the ptxas lines are in the log
+        log = (path.parent / "ptxas.txt").read_text()
+    (OUT_DIR / "ptxas.txt").write_text(log)
     report.update(card=smi, torch=torch.__version__, cuda=torch.version.cuda,
-                  build_s=secs)
+                  build_s=secs, sass=check_build(path, log))
 
     # phase 2: kernels against their plain versions
     g = torch.Generator(device=dev).manual_seed(0)
@@ -815,6 +998,10 @@ def main() -> int:
                 line += (f"  kernel {r['ms']:.4f} ms  plain {r['plain_ms']:.4f}"
                          f" ms  library {lib}  bound "
                          f"{r['bound_ms'] * 1e3:.1f} us ({r['bound_by']})")
+                if "cold_ms" in r:
+                    line += (f"  graph: warm {r['device_ms']:.4f} ms, cold "
+                             f"{r['cold_ms']:.4f} ms, library cold "
+                             f"{r['library_cold_ms']:.4f} ms")
                 if "yardstick_ms" in r:
                     line += (f"  gather+SDPA {r['yardstick_ms']:.4f} ms; "
                              f"{r['unique_pages']} distinct pages "
@@ -899,6 +1086,9 @@ def main() -> int:
             "bound_ms": main_rec["bound_ms"],
             "bound_by": main_rec["bound_by"],
             "library_ms": main_rec["library_ms"],
+            "device_ms": main_rec.get("device_ms"),
+            "cold_ms": main_rec.get("cold_ms"),
+            "library_cold_ms": main_rec.get("library_cold_ms"),
             "yardstick_ms": main_rec.get("yardstick_ms"),
             "max_err": max(r["max_err"] for r in checks[kname]),
             "kernel_ms": main_rec["ms"],

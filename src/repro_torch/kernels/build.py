@@ -8,7 +8,8 @@ shared library with a plain C interface::
 
 The library lands in ``build/repro_torch/<hash>/`` at the root of the
 checkout, keyed by a hash of the sources and flags, so an unchanged tree
-builds once. No source includes PyTorch's headers: a build takes seconds,
+builds once; the compilers' ``-Xptxas -v`` output lies beside it in
+``ptxas.txt``. No source includes PyTorch's headers: a build takes seconds,
 where ``torch.utils.cpp_extension.load`` takes minutes.
 
 Callers launch on ``torch.cuda.current_stream().cuda_stream``; every C
@@ -103,6 +104,7 @@ def build() -> Tuple[pathlib.Path, str, float]:
                          stderr=subprocess.STDOUT, text=True)
     if res.returncode != 0:
         raise RuntimeError(f"nvcc link failed:\n{res.stdout}")
+    (final.parent / "ptxas.txt").write_text("".join(logs))
     os.replace(work / LIB_NAME, final)     # atomic against a parallel build
     shutil.rmtree(work, ignore_errors=True)
     return final, "".join(logs), time.perf_counter() - t0

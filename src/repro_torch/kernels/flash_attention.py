@@ -3,9 +3,11 @@
 
 Replaces ``repro/kernels/flash_attention.py::flash_attention_fwd``
 (Pallas, ``_fwd_kernel``). See the source's note for its bound on the
-H100 and its design. Ragged Sq and Sk are masked inside the kernel, so
-this wrapper pads nothing. CUDA tensors only; ``kernels/ops.py`` routes
-a CPU tensor to ``ref.attention_ref``.
+H100 and its design: bf16 runs on the tensor cores (``wgmma``, K/V tiles
+fed by TMA), fp32 on the CUDA cores, a dispatch by dtype inside the one C
+entry. Ragged Sq and Sk are masked inside the kernel, so this wrapper
+pads nothing. CUDA tensors only; ``kernels/ops.py`` routes a CPU tensor
+to ``ref.attention_ref``.
 """
 from __future__ import annotations
 
@@ -46,6 +48,9 @@ def flash_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if not (q.dtype == k.dtype == v.dtype):
         raise TypeError(f"q/k/v dtypes differ: {q.dtype} {k.dtype} {v.dtype}")
     q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
+    if any(t.data_ptr() % 16 for t in (q, k, v)):
+        raise ValueError("flash kernel's tile loads need q, k and v to start "
+                         "on a 16-byte boundary")
     out = torch.empty_like(q)
     err = _fn()(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
                 B, Sq, Sk, H, K, D, int(causal), int(window),

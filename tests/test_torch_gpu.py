@@ -48,6 +48,19 @@ def _randn(g, *shape, dt, device):
     (1, 100, 37, 6, 2, 128, False, 0, "bf16"),
     (1, 100, 37, 6, 2, 128, True, 0, "bf16"),
     (1, 96, 96, 2, 2, 128, True, 32, "bf16"),
+    # ragged edges of the 128-row q tiles and 64-key k tiles, at D 64 and
+    # 128 in bf16 (tensor cores) and fp32 (CUDA cores)
+    (2, 65, 129, 6, 2, 128, False, 0, "bf16"),
+    (2, 65, 129, 6, 2, 128, True, 0, "bf16"),
+    (2, 65, 129, 4, 4, 64, False, 0, "bf16"),
+    (2, 65, 129, 6, 2, 128, True, 0, "f32"),
+    (2, 65, 129, 4, 2, 64, False, 0, "f32"),
+    (3, 50, 50, 6, 2, 128, True, 0, "bf16"),      # Sk below one k tile
+    (2, 40, 40, 4, 1, 64, True, 0, "bf16"),
+    (1, 300, 300, 6, 2, 128, True, 100, "bf16"),  # the window cuts tiles
+    (1, 300, 300, 4, 2, 64, True, 100, "f32"),
+    (2, 512, 512, 6, 2, 128, True, 0, "bf16"),    # several q tiles a block
+    (2, 192, 192, 8, 2, 64, True, 0, "bf16"),
 ])
 def test_flash_kernel_matches_plain(cuda, B, Sq, Sk, H, K, D, causal,
                                     window, dt):
@@ -76,6 +89,37 @@ def test_decode_kernel_matches_plain(cuda, B, H, K, D, C, cur, window, dt):
     pos = torch.where(slots <= cur % C, base + slots, base - C + slots)
     pos = torch.where(pos < 0, -1, pos).to(torch.int32).expand(B, C)
     position = torch.full((B,), cur, dtype=torch.int32, device=cuda)
+    out = tdec.decode_attention(q, kc, vc, pos, position, window=window)
+    want = ref.decode_attention_ref(q, kc, vc, pos, position, window=window)
+    torch.testing.assert_close(out.float(), want.float(), atol=TOL[dt],
+                               rtol=0)
+
+
+@pytest.mark.parametrize("B,H,K,D,C,cur,window,dt", [
+    (8, 24, 8, 128, 576, 574, 0, "bf16"),     # the serving path: 5 splits
+    (8, 24, 8, 128, 576, 40, 0, "bf16"),      # most splits hold no valid slot
+    (2, 24, 8, 128, 20, 30, 0, "bf16"),       # C below one span: 1 split
+    (2, 8, 8, 128, 300, 250, 0, "bf16"),      # G = 1, 10 splits
+    (2, 16, 2, 128, 300, 250, 64, "bf16"),    # G = 8, a window
+    (64, 24, 8, 128, 100, 99, 0, "bf16"),     # enough rows: 1 split
+    (3, 16, 2, 64, 333, 400, 0, "f32"),       # wrapped, G = 8, D 64
+    (2, 6, 1, 128, 200, 150, 32, "f32"),      # wrapped, a window, G = 6
+])
+def test_decode_kernel_splits_match_plain(cuda, B, H, K, D, C, cur, window,
+                                          dt):
+    """B3 at several split counts (``split_plan``), wrapped rolling caches,
+    windows, G = 1 and G = 8, and row 1 with no valid slot, which the
+    oracle answers with the uniform mean over its C slots."""
+    g = torch.Generator(device=cuda).manual_seed(3)
+    q = _randn(g, B, H, D, dt=dt, device=cuda)
+    kc = _randn(g, B, C, K, D, dt=dt, device=cuda)
+    vc = _randn(g, B, C, K, D, dt=dt, device=cuda)
+    slots = torch.arange(C, device=cuda)
+    base = cur - cur % C
+    pos = torch.where(slots <= cur % C, base + slots, base - C + slots)
+    pos = torch.where(pos < 0, -1, pos).to(torch.int32).expand(B, C)
+    position = torch.full((B,), cur, dtype=torch.int32, device=cuda)
+    position[1] = -1
     out = tdec.decode_attention(q, kc, vc, pos, position, window=window)
     want = ref.decode_attention_ref(q, kc, vc, pos, position, window=window)
     torch.testing.assert_close(out.float(), want.float(), atol=TOL[dt],

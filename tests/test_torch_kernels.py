@@ -170,3 +170,90 @@ def test_build_compiles_each_source_for_sm90a(monkeypatch, tmp_path):
         assert "-fPIC" in cmd and "-O3" in cmd and "-std=c++17" in cmd
     assert "-shared" in link and link[-1].endswith(build.LIB_NAME)
     assert len(build.source_hash()) == 16
+
+
+@pytest.mark.parametrize("B,K,C", [
+    (8, 8, 576),        # the serving path: 5 splits of 128 slots
+    (64, 8, 576),       # the card is full without splitting
+    (2, 8, 16),         # C below one step
+    (2, 2, 100),
+    (1, 8, 4096),
+    (3, 1, 333),
+])
+def test_decode_split_plan(B, K, C):
+    """The split rule reads only the shapes: spans are whole 32-slot
+    steps, cover C, none is empty, and the grid aims at two blocks per SM
+    without cutting the cache finer than one step a split."""
+    splits, span = tdec.split_plan(B, K, C)
+    assert span % tdec.STEP == 0
+    assert splits * span >= C > (splits - 1) * span
+    assert 1 <= splits <= -(-C // tdec.STEP)
+    # never more than twice as coarse as aimed (rounding spans up to whole
+    # steps), and never finer than one step a split
+    aim = min(-(-tdec.TARGET_BLOCKS // (B * K)), -(-C // tdec.STEP))
+    assert 2 * splits >= aim and splits <= aim
+    assert tdec.split_plan(B, K, C) == (splits, span)
+    if (B, K, C) == (8, 8, 576):
+        assert (splits, span) == (5, 128)
+    if (B, K, C) == (64, 8, 576):
+        assert splits == 1
+
+
+def _split_combine(q, kc, vc, pos, position, window, splits, span):
+    """The split kernel's algebra in plain PyTorch (fp32): each span of
+    slots gives an unnormalised partial (m, l, acc) over its real slots,
+    masked ones scoring -1e30; the combine rescales the partials to their
+    common max and sums them."""
+    B, H, D = q.shape
+    C, K = kc.shape[1], kc.shape[2]
+    G = H // K
+    qg = q.reshape(B, K, G, D).float() / D ** 0.5
+    cur = position[:, None]
+    valid = (pos >= 0) & (pos <= cur)
+    if window:
+        valid &= pos > cur - window
+    parts = []
+    for sp in range(splits):
+        lo, hi = sp * span, min(C, (sp + 1) * span)
+        s = torch.einsum("bkgd,bckd->bkgc", qg, kc[:, lo:hi].float())
+        s = torch.where(valid[:, None, None, lo:hi], s,
+                        torch.full_like(s, ref.NEG_INF))
+        m = s.max(-1).values
+        p = torch.exp(s - m[..., None])
+        parts.append((m, p.sum(-1),
+                      torch.einsum("bkgc,bckd->bkgd", p, vc[:, lo:hi].float())))
+    mx = torch.stack([m for m, _, _ in parts]).max(0).values
+    lsum = sum(l_ * torch.exp(m - mx) for m, l_, _ in parts)
+    acc = sum(a * torch.exp(m - mx)[..., None] for m, _, a in parts)
+    return (acc / lsum.clamp_min(1e-30)[..., None]).reshape(B, H, D)
+
+
+@pytest.mark.parametrize("B,H,K,D,C,cur,window,splits", [
+    (2, 8, 2, 64, 576, 574, 0, None),     # the rule's own split
+    (2, 8, 2, 64, 576, 40, 0, 5),         # most splits hold no valid slot
+    (2, 6, 1, 32, 100, 130, 16, 4),       # wrapped, a window, one split
+    (3, 4, 4, 32, 20, 30, 0, 1),          # C below one span
+    (2, 8, 1, 64, 300, 250, 0, 10),       # G = 8
+])
+def test_decode_split_combine_matches_oracle(B, H, K, D, C, cur, window,
+                                             splits):
+    """Split-and-combine equals the oracle, empty splits, the -1e30 fill
+    and a row with no valid slot (row 1: the uniform mean over its C real
+    slots) included."""
+    rng = np.random.RandomState(C + H)
+    q = torch.from_numpy(rng.randn(B, H, D).astype(np.float32))
+    kc = torch.from_numpy(rng.randn(B, C, K, D).astype(np.float32))
+    vc = torch.from_numpy(rng.randn(B, C, K, D).astype(np.float32))
+    position = np.full((B,), cur, np.int32)
+    pos = torch.from_numpy(_rolling_pos(B, C, position))
+    position = torch.from_numpy(position)
+    position[1] = -1
+    if splits is None:
+        splits, span = tdec.split_plan(B, K, C)
+    else:
+        span = -(-C // splits)
+    got = _split_combine(q, kc, vc, pos, position, window, splits, span)
+    want = ref.decode_attention_ref(q, kc, vc, pos, position, window=window)
+    torch.testing.assert_close(got, want, atol=5e-5, rtol=0)
+    torch.testing.assert_close(got[1], vc[1].mean(0).repeat_interleave(
+        H // K, 0), atol=5e-5, rtol=0)
