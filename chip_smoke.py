@@ -7,22 +7,26 @@
 Phases, each failing with a non-zero exit:
 
 1. the card (``nvidia-smi`` name and power limit), versions, and the
-   kernels' build from ``src/repro_torch/kernels/csrc``; the bf16 flash
-   kernel's SASS must hold HGMMA (tensor-core) instructions and the
-   kernels redesigned for Hopper (B2's wgmma kernel, B3's split and
-   combine kernels) must not spill registers (their ptxas lines are
+   kernels' build from ``src/repro_torch/kernels/csrc``; the SASS of the
+   bf16 flash and SSD-scan kernels must hold HGMMA (tensor-core)
+   instructions and the kernels redesigned for Hopper (B2's wgmma kernel,
+   B3's split and combine kernels, B5's wgmma kernel, B1's vector and
+   scalar kernels) must not spill registers (their ptxas lines are
    printed);
 2. each kernel against its plain PyTorch version at the shapes of the
    serving, paged GRPO and Mamba2 paths and at edge cases (ragged Sq/Sk
    across the 128-row q and 64-key k tiles, Sk below one tile, a window
    that cuts tiles, a wrapped rolling cache, B3 with most splits empty,
    C below one split, G = 1 and 8 and a row with no valid slot, head_dim
-   64, fp32; for B5 one chunk, small head and state widths, a strongly
-   decaying a and the step-by-step oracle), with its time, the plain
-   version's, one PyTorch library call's (where one exists) and the least
-   time the card could take; B2 and B3 also with their device time from
+   64, fp32; for B5 b and c as column slices of one xbc-like tensor, one
+   chunk, N 64 with chunks of 64 and 128, a chunk of 512, small head and
+   state widths, a strongly decaying a and the step-by-step oracle; for
+   B1 each route of its plan), with its time, the plain version's, one
+   PyTorch library call's (where one exists) and the least time the card
+   could take; B1, B2, B3 and B5 also with their device time from
    CUDA-graph replay, warm and cold (inputs rotated through more than the
-   50 MB L2, as the path finds them);
+   50 MB L2, as the path finds them), B1 at every path shape beside
+   ``F.rms_norm``'s;
 3. the serving path: full-width, full-depth llama3_2_3b (28 layers, bf16,
    random weights from a seed) serves 3 requests of batch 8 x 512 prompt
    tokens + 64 generated, through ``repro_torch.launch.serve.run``; the
@@ -194,7 +198,11 @@ def rolling_pos(B, C, cur, device):
 # ---------------------------------------------------------------- phase 1
 # the kernels this slice redesigned; their ptxas lines are printed and
 # must show no spills
-NEW_KERNELS = ("flash_wgmma_kernel", "decode_split_kernel", "combine_kernel")
+NEW_KERNELS = ("flash_wgmma_kernel", "decode_split_kernel", "combine_kernel",
+               "ssd_wgmma_kernel", "rmsnorm_vec_kernel",
+               "rmsnorm_scalar_kernel")
+# the kernels that must run on the tensor cores (HGMMA in their SASS)
+HGMMA_KERNELS = ("flash_wgmma_kernel", "ssd_wgmma_kernel")
 
 
 def ptxas_table(log: str) -> dict:
@@ -235,15 +243,18 @@ def sass_hgmma(lib_path) -> dict:
 
 
 def check_build(path, log):
-    """Phase 1's checks of the built library: the bf16 flash kernel runs
-    on the tensor cores (HGMMA in its SASS), and no kernel this slice
-    redesigned spills registers."""
+    """Phase 1's checks of the built library: the bf16 flash and SSD-scan
+    kernels run on the tensor cores (HGMMA in their SASS), and no kernel
+    redesigned for Hopper spills registers."""
     hgmma = sass_hgmma(path)
-    flash = {k: v for k, v in hgmma.items() if "flash_wgmma_kernel" in k}
-    for k, v in flash.items():
-        print(f"  SASS {k}: {v} HGMMA")
-    if not flash or not all(flash.values()):
-        raise SystemExit(f"bf16 flash kernel without HGMMA: {flash}")
+    for kname in HGMMA_KERNELS:
+        found = {k: v for k, v in hgmma.items() if kname in k}
+        for k, v in found.items():
+            print(f"  SASS {k}: {v} HGMMA")
+        if not found or not all(found.values()):
+            raise SystemExit(f"{kname} without HGMMA: {found}")
+    tensor = {k: v for k, v in hgmma.items()
+              if any(n in k for n in HGMMA_KERNELS)}
     # ptxas's performance remarks (C7515, C7520: wgmma serialized) would
     # mean the flash kernel's pipelining is lost; shown, not fatal
     for line in log.splitlines():
@@ -260,7 +271,7 @@ def check_build(path, log):
     if not table or spills:
         raise SystemExit(f"redesigned kernels spill (or ptxas printed "
                          f"nothing): {spills or table}")
-    return {"hgmma": flash, "ptxas": table}
+    return {"hgmma": tensor, "ptxas": table}
 
 
 # ---------------------------------------------------------------- phase 2
@@ -389,22 +400,48 @@ def check_decode(dev, peaks, g):
     return out
 
 
+def cold_sets(set_bytes: int) -> int:
+    """Input sets for a cold timing: together at least twice the 50 MB L2,
+    so each call finds its inputs evicted (at least 3, at most 2048)."""
+    return max(3, min(2048, -(-100 * 2**20 // set_bytes)))
+
+
+def time_graph_warm_cold(fn, make_set):
+    """(warm, cold) device ms of ``fn(*inputs)`` by CUDA-graph replay: warm
+    on one set of inputs, cold rotating over ``cold_sets`` fresh sets from
+    ``make_set()``."""
+    first = make_set()
+    warm = time_graph_ms(lambda i: fn(*first))
+    n = cold_sets(nbytes(*first))
+    sets = [first] + [make_set() for _ in range(n - 1)]
+    rounds = max(1, 2000 // n)
+    cold = time_graph_ms(lambda i: fn(*sets[i]), n, rounds=rounds)
+    return warm, cold
+
+
+# every shape the three paths give B1: (rows, width)
+RMSNORM_PATH_SHAPES = {
+    "main": (BATCH * PROMPT, 3072), "decode": (BATCH, 3072),
+    "grpo_prefill": (GROUPS * GPROMPT, 3072),
+    "grpo_decode": (GROUPS * GSIZE, 3072),
+    # the Mamba2 path: norm1 at d_model, the gated norm at d_inner
+    "mamba_prefill": (MBATCH * MPROMPT, 1024),
+    "mamba_gated": (MBATCH * MPROMPT, 2048),
+    "mamba_decode": (MBATCH, 2048)}
+
+
 def check_rmsnorm(dev, peaks, g):
-    cases = [  # (name, shape, x dtype, scale dtype)
-        ("main", (BATCH * PROMPT, 3072), torch.bfloat16, torch.bfloat16),
-        ("decode", (BATCH, 3072), torch.bfloat16, torch.bfloat16),
-        ("grpo_prefill", (GROUPS * GPROMPT, 3072), torch.bfloat16,
-         torch.bfloat16),
-        ("grpo_decode", (GROUPS * GSIZE, 3072), torch.bfloat16,
-         torch.bfloat16),
-        # the Mamba2 path: norm1 at d_model, the gated norm at d_inner
-        ("mamba_prefill", (MBATCH * MPROMPT, 1024), torch.bfloat16,
-         torch.bfloat16),
-        ("mamba_gated", (MBATCH * MPROMPT, 2048), torch.bfloat16,
-         torch.bfloat16),
-        ("mamba_decode", (MBATCH, 2048), torch.bfloat16, torch.bfloat16),
+    """B1 at every path shape, timed by CUDA-graph replay warm and cold
+    against ``F.rms_norm`` (the eager ``ms`` of the main and decode shapes
+    is kept for continuity), and at each route of its plan."""
+    bf = torch.bfloat16
+    cases = [(name, shape, bf, bf) for name, shape in
+             RMSNORM_PATH_SHAPES.items()] + [
         ("fp32", (3, 100), torch.float32, torch.float32),
-        ("fp32_scale", (7, 384), torch.bfloat16, torch.float32),
+        ("fp32_scale", (7, 384), bf, torch.float32),      # scalar route
+        ("rows13", (13, 3072), bf, bf),     # a block of 5 of its 8 warps
+        ("d100_bf16", (5, 100), bf, bf),    # 200-byte rows: scalar route
+        ("wide", (2, 8192), bf, bf),        # too wide for registers: scalar
     ]
     out = []
     for name, shape, dt, sdt in cases:
@@ -414,15 +451,27 @@ def check_rmsnorm(dev, peaks, g):
         want = ref.rmsnorm_ref(x, s, 1e-5)
         torch.cuda.synchronize()
         err = (got.float() - want.float()).abs().max().item()
+        plan = rn.plan(shape[0], shape[1], dt, sdt)
         rec = {"case": name, "shape": list(shape), "dtype": str(dt),
-               "max_err": err, "tol": TOL[dt]}
+               "max_err": err, "tol": TOL[dt], "route": plan.route,
+               "per_lane": plan.per_lane, "warps": plan.warps}
+        if name in RMSNORM_PATH_SHAPES:
+            D = shape[-1]
+
+            def make_set():
+                return (torch.randn(*shape, device=dev).to(dt), s)
+            rec["device_ms"], rec["cold_ms"] = time_graph_warm_cold(
+                lambda xx, ss: rn.rmsnorm(xx, ss, 1e-5), make_set)
+            rec["library_device_ms"], rec["library_cold_ms"] = \
+                time_graph_warm_cold(
+                    lambda xx, ss: F.rms_norm(xx, (D,), ss, 1e-5), make_set)
+            rec["bound_ms"], rec["bound_by"] = bound(
+                peaks, nbytes(x, s, got), 4 * x.numel(), dt)
         if name in ("main", "decode"):
             rec["ms"] = time_ms(lambda: rn.rmsnorm(x, s, 1e-5), iters=50)
             rec["plain_ms"] = time_ms(lambda: ref.rmsnorm_ref(x, s, 1e-5))
             rec["library_ms"] = time_ms(lambda: F.rms_norm(
                 x, (shape[-1],), s, 1e-5), iters=50)
-            rec["bound_ms"], rec["bound_by"] = bound(
-                peaks, nbytes(x, s, got), 4 * x.numel(), dt)
         out.append(rec)
     return out
 
@@ -437,46 +486,61 @@ def ssd_ops(B, S, H, P, N, chunk) -> int:
     return B * nc * (2 * N * pairs + H * (2 * P * pairs + 4 * l * N * P))
 
 
+def _ssd_inputs(B, S, H, P, N, dt, adt, decay, g, dev, sliced=False):
+    """x, a, b, c for B5; with ``sliced``, b and c are column slices of one
+    [B, S, H*P + 2N] tensor, as the Mamba2 block passes them (xbc)."""
+    x = (0.5 * torch.randn(B, S, H, P, generator=g, device=dev)).to(dt)
+    a = (-decay * torch.randn(B, S, H, generator=g, device=dev).abs()
+         ).to(adt)
+    if sliced:
+        bc = (torch.randn(B, S, H * P + 2 * N, generator=g, device=dev)
+              * N ** -0.25).to(dt)
+        return x, a, bc[..., H * P:H * P + N], bc[..., H * P + N:]
+    b = (torch.randn(B, S, N, generator=g, device=dev) * N ** -0.25).to(dt)
+    c = (torch.randn(B, S, N, generator=g, device=dev) * N ** -0.25).to(dt)
+    return x, a, b, c
+
+
 def check_ssd(dev, peaks, g):
     """B5 against its plain version on fp32 copies of the inputs (the plain
     version of the model path rounds L and the states to x's dtype; the
-    kernel keeps them in fp32). b and c are scaled by N^-1/4 so a score
-    C B^T has unit variance and |y| stays well below 16, where a bf16
-    output's own rounding (half an ulp, 0.0625) would exceed 5e-2."""
-    cases = [  # (name, B, S, H, P, N, chunk, dtype, a dtype, decay)
-        ("main", MBATCH, MPROMPT, 32, 64, 128, 256, torch.bfloat16,
-         torch.float32, 0.3),
-        ("fp32", 2, 512, 8, 64, 128, 256, torch.float32, torch.float32, 0.3),
-        ("one_chunk", 4, 256, 32, 64, 128, 256, torch.bfloat16,
-         torch.float32, 0.3),
-        ("p32_n16", 2, 256, 16, 32, 16, 32, torch.bfloat16, torch.bfloat16,
-         0.3),
-        ("p16_n8", 2, 128, 4, 16, 8, 16, torch.float32, torch.float32, 0.3),
-        ("decay", 2, 1024, 8, 64, 128, 256, torch.bfloat16, torch.float32,
-         4.0),
-        ("sequential", 1, 128, 4, 64, 128, 64, torch.float32, torch.float32,
-         0.3),
+    kernel keeps the state in fp32). b and c are scaled by N^-1/4 so a
+    score C B^T has unit variance and |y| stays well below 16, where a
+    bf16 output's own rounding (half an ulp, 0.0625) would exceed 5e-2.
+    The main case is also timed by CUDA-graph replay, warm and cold."""
+    bf, f32 = torch.bfloat16, torch.float32
+    cases = [  # (name, B, S, H, P, N, chunk, dtype, a dtype, decay, sliced)
+        ("main", MBATCH, MPROMPT, 32, 64, 128, 256, bf, f32, 0.3, True),
+        ("contiguous", MBATCH, MPROMPT, 32, 64, 128, 256, bf, f32, 0.3,
+         False),
+        ("fp32", 2, 512, 8, 64, 128, 256, f32, f32, 0.3, False),
+        ("one_chunk", 4, 256, 32, 64, 128, 256, bf, f32, 0.3, False),
+        ("p32_n16", 2, 256, 16, 32, 16, 32, bf, bf, 0.3, False),
+        ("p16_n8", 2, 128, 4, 16, 8, 16, f32, f32, 0.3, False),
+        ("decay", 2, 1024, 8, 64, 128, 256, bf, f32, 4.0, False),
+        ("sequential", 1, 128, 4, 64, 128, 64, f32, f32, 0.3, False),
+        ("n64_c64", 2, 512, 4, 64, 64, 64, bf, f32, 0.3, False),
+        ("n64_c128", 2, 512, 4, 64, 64, 128, bf, f32, 4.0, True),
+        ("a_bf16", 2, 512, 8, 64, 128, 128, bf, bf, 0.3, False),
+        ("chunk512", 1, 1024, 2, 64, 128, 512, bf, f32, 0.3, True),
+        ("fp32_sliced", 2, 256, 4, 64, 128, 64, f32, f32, 0.3, True),
     ]
     out = []
-    for name, B, S, H, P, N, chunk, dt, adt, decay in cases:
-        x = (0.5 * torch.randn(B, S, H, P, generator=g, device=dev)).to(dt)
-        a = (-decay * torch.randn(B, S, H, generator=g, device=dev).abs()
-             ).to(adt)
-        b = (torch.randn(B, S, N, generator=g, device=dev) * N ** -0.25
-             ).to(dt)
-        c = (torch.randn(B, S, N, generator=g, device=dev) * N ** -0.25
-             ).to(dt)
+    for name, B, S, H, P, N, chunk, dt, adt, decay, sliced in cases:
+        x, a, b, c = _ssd_inputs(B, S, H, P, N, dt, adt, decay, g, dev,
+                                 sliced)
         y, fin = ssd.ssd_scan(x, a, b, c, chunk)
-        f32 = [t.float() for t in (x, a, b, c)]
+        f32s = [t.float() for t in (x, a, b, c)]
         if name == "sequential":
-            want = ref.ssd_sequential_ref(*f32)
+            want = ref.ssd_sequential_ref(*f32s)
         else:
-            want = ref.ssd_scan_ref(*f32, chunk)
+            want = ref.ssd_scan_ref(*f32s, chunk)
         torch.cuda.synchronize()
         err = max((got.float() - w).abs().max().item()
                   for got, w in zip((y, fin), want))
         rec = {"case": name, "shape": [B, S, H, P, N], "chunk": chunk,
                "dtype": str(dt), "a_dtype": str(adt), "decay": decay,
+               "sliced": sliced, "route": ssd.route(P, N, chunk, dt),
                "max_err": err, "tol": TOL_SSD[dt],
                "max_abs_y": y.float().abs().max().item()}
         if name == "main":
@@ -485,6 +549,11 @@ def check_ssd(dev, peaks, g):
             rec["plain_ms"] = time_ms(lambda: ref.ssd_scan_ref(
                 x, a, b, c, chunk), iters=5)
             rec["library_ms"] = None      # no one PyTorch call computes it
+            rec["device_ms"], rec["cold_ms"] = time_graph_warm_cold(
+                lambda *t: ssd.ssd_scan(*t, chunk),
+                lambda: _ssd_inputs(B, S, H, P, N, dt, adt, decay, g, dev,
+                                    sliced))
+            rec["library_cold_ms"] = None
             rec["bound_ms"], rec["bound_by"] = bound(
                 peaks, nbytes(x, a, b, c, y, fin),
                 ssd_ops(B, S, H, P, N, chunk), dt)
@@ -878,8 +947,8 @@ def mamba_serving(dev, log, profile=False):
 KERNEL_FUNCS = {"flash_attention": ("flash_wgmma_kernel", "flash_fwd_kernel"),
                 "decode_attention": ("decode_split_kernel",),
                 "paged_decode_attention": ("paged_decode_kernel",),
-                "rmsnorm": ("rmsnorm_kernel",),
-                "ssd_scan": ("ssd_scan_kernel",)}
+                "rmsnorm": ("rmsnorm_vec_kernel", "rmsnorm_scalar_kernel"),
+                "ssd_scan": ("ssd_wgmma_kernel", "ssd_scan_kernel")}
 SECOND_KERNELS = {"decode_attention": ("combine_kernel",)}
 
 
@@ -998,15 +1067,23 @@ def main() -> int:
                 line += (f"  kernel {r['ms']:.4f} ms  plain {r['plain_ms']:.4f}"
                          f" ms  library {lib}  bound "
                          f"{r['bound_ms'] * 1e3:.1f} us ({r['bound_by']})")
-                if "cold_ms" in r:
-                    line += (f"  graph: warm {r['device_ms']:.4f} ms, cold "
-                             f"{r['cold_ms']:.4f} ms, library cold "
-                             f"{r['library_cold_ms']:.4f} ms")
                 if "yardstick_ms" in r:
                     line += (f"  gather+SDPA {r['yardstick_ms']:.4f} ms; "
                              f"{r['unique_pages']} distinct pages "
                              f"{r['unique_mib']:.1f} MiB, per row "
                              f"{r['per_row_mib']:.1f} MiB")
+            if "cold_ms" in r:
+                line += (f"  graph: warm {r['device_ms'] * 1e3:.2f} us, "
+                         f"cold {r['cold_ms'] * 1e3:.2f} us")
+                if r.get("library_cold_ms") is not None:
+                    if "library_device_ms" in r:
+                        line += (f"; library warm "
+                                 f"{r['library_device_ms'] * 1e3:.2f} us")
+                    line += (f", library cold "
+                             f"{r['library_cold_ms'] * 1e3:.2f} us")
+                if "bound_ms" in r and "ms" not in r:
+                    line += (f"  bound {r['bound_ms'] * 1e3:.2f} us "
+                             f"({r['bound_by']})")
             print(line)
             if not r["max_err"] <= r["tol"]:
                 failures.append(f"{kname}/{r['case']}: {r['max_err']}")
@@ -1089,6 +1166,7 @@ def main() -> int:
             "device_ms": main_rec.get("device_ms"),
             "cold_ms": main_rec.get("cold_ms"),
             "library_cold_ms": main_rec.get("library_cold_ms"),
+            "library_device_ms": main_rec.get("library_device_ms"),
             "yardstick_ms": main_rec.get("yardstick_ms"),
             "max_err": max(r["max_err"] for r in checks[kname]),
             "kernel_ms": main_rec["ms"],

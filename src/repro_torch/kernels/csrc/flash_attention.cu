@@ -66,8 +66,6 @@
 //
 // In both, a query row whose every key is masked gives an unspecified
 // output, as in the TPU kernel.
-#include <cuda.h>   // CUtensorMap and its enums only; no driver library linked
-
 #include "common.cuh"
 #include "sm90.cuh"
 
@@ -261,11 +259,6 @@ struct Layout {
   static constexpr int KV = BK * D * 2;     // one K or V stage: [D/64][64][64]
   static constexpr size_t bytes = NQB * Q + 2 * NST * KV + 1024;  // + align
 };
-
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<uint32_t*>(&v);
-}
 
 // The n-th work tile: (q tile, query head, batch row), causal q tiles with
 // the most keys first.
@@ -507,7 +500,7 @@ flash_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
       for (int kk = 0; kk < 4; ++kk)
 #pragma unroll
         for (int r = 0; r < 4; ++r)
-          pa[kk][r] = pack_bf16(sc[8 * kk + 2 * r], sc[8 * kk + 2 * r + 1]);
+          pa[kk][r] = sm90::pack_bf16(sc[8 * kk + 2 * r], sc[8 * kk + 2 * r + 1]);
     };
     // Ping-pong: the two warpgroups take turns to issue their wgmma
     // (hardware barriers 3 and 4), so one's softmax overlaps the other's
@@ -585,7 +578,7 @@ flash_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
       for (int j = 0; j < D / 8; ++j) {
         uint8_t* dst = qwg + (j / 8) * BQ * 128 + r * 128 +
                        (((j % 8) ^ (r % 8)) * 16) + cq * 2;
-        *reinterpret_cast<uint32_t*>(dst) = pack_bf16(
+        *reinterpret_cast<uint32_t*>(dst) = sm90::pack_bf16(
             acc[4 * j + 2 * hf] * inv, acc[4 * j + 2 * hf + 1] * inv);
       }
     }
@@ -608,47 +601,16 @@ flash_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
   if (threadIdx.x % 128 == 0) sm90::bulk_wait();
 }
 
-// cuTensorMapEncodeTiled from the driver, found at run time.
-typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t,
-                                void*, const cuuint64_t*, const cuuint64_t*,
-                                const cuuint32_t*, const cuuint32_t*,
-                                CUtensorMapInterleave, CUtensorMapSwizzle,
-                                CUtensorMapL2promotion,
-                                CUtensorMapFloatOOBfill);
-
-EncodeTiled encode_fn() {
-  static EncodeTiled fn = nullptr;
-  if (!fn) {
-    void* p = nullptr;
-    cudaDriverEntryPointQueryResult res;
-#if CUDART_VERSION >= 12050
-    cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &p, 12000,
-                                     cudaEnableDefault, &res);
-#else
-    cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault,
-                            &res);
-#endif
-    if (res == cudaDriverEntryPointSuccess) fn = reinterpret_cast<EncodeTiled>(p);
-  }
-  return fn;
-}
-
 // [B, S, heads, D] bf16 as a 4-d map (D innermost), boxes of 64 columns x
 // `rows` sequence rows of one head, 128-byte swizzle, zeros out of range.
 bool make_map(CUtensorMap* map, const void* ptr, int B, int S, int heads,
               int D, int rows) {
-  EncodeTiled enc = encode_fn();
-  if (!enc) return false;
   const cuuint64_t dims[4] = {(cuuint64_t)D, (cuuint64_t)heads, (cuuint64_t)S,
                               (cuuint64_t)B};
   const cuuint64_t strides[3] = {(cuuint64_t)D * 2, (cuuint64_t)heads * D * 2,
                                  (cuuint64_t)S * heads * D * 2};
   const cuuint32_t box[4] = {CHUNK, 1, (cuuint32_t)rows, 1};
-  const cuuint32_t estr[4] = {1, 1, 1, 1};
-  return enc(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(ptr),
-             dims, strides, box, estr, CU_TENSOR_MAP_INTERLEAVE_NONE,
-             CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
-             CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+  return sm90::encode_bf16_map(map, ptr, 4, dims, strides, box);
 }
 
 template <int D>

@@ -1,10 +1,14 @@
 // Hopper (sm_90a) building blocks for the port's tensor-core kernels:
-// mbarriers, TMA tile loads, the wgmma shared-memory descriptor and the
-// wgmma instructions the flash prefill uses. PTX as the PTX ISA (8.x)
-// writes it; the operand lists of the wgmma wrappers are spelled out
-// because inline PTX takes no register arrays.
+// mbarriers, TMA tile loads and the host encoding of their tensor maps,
+// the wgmma shared-memory descriptor and the wgmma instructions the flash
+// prefill (B2) and the SSD scan (B5) use. PTX as the PTX ISA (8.x) writes
+// it; the operand lists of the wgmma wrappers are spelled out because
+// inline PTX takes no register arrays.
 #pragma once
 
+#include <cuda.h>   // CUtensorMap and its enums only; no driver library linked
+#include <cuda_bf16.h>
+#include <cuda_runtime.h>
 #include <stdint.h>
 
 namespace sm90 {
@@ -67,6 +71,19 @@ __device__ __forceinline__ void tma_load_4d(void* dst, const void* map,
       : "memory");
 }
 
+// Copy the 3-d box at coordinates (c0 innermost .. c2) of `map` into shared
+// memory at `dst`; as tma_load_4d.
+__device__ __forceinline__ void tma_load_3d(void* dst, const void* map,
+                                            uint64_t* bar, int c0, int c1,
+                                            int c2) {
+  asm volatile(
+      "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx::bytes"
+      " [%0], [%1, {%3, %4, %5}], [%2];\n" ::"r"(smem_u32(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "r"(c0),
+      "r"(c1), "r"(c2)
+      : "memory");
+}
+
 // Copy the 4-d box at (c0 .. c3) of `map` from shared memory at `src`;
 // rows outside the tensor are not written. Completion: bulk groups.
 __device__ __forceinline__ void tma_store_4d(const void* map, const void* src,
@@ -115,6 +132,26 @@ __device__ __forceinline__ float exp2_approx(float x) {
   return y;
 }
 
+// Shared-memory stores and loads by 32-bit shared address.
+__device__ __forceinline__ void st_shared_b32(uint32_t addr, uint32_t v) {
+  asm volatile("st.shared.b32 [%0], %1;\n" ::"r"(addr), "r"(v) : "memory");
+}
+__device__ __forceinline__ uint4 ld_shared_v4(uint32_t addr) {
+  uint4 v;
+  asm volatile("ld.shared.v4.b32 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(v.x), "=r"(v.y), "=r"(v.z), "=r"(v.w)
+               : "r"(addr)
+               : "memory");
+  return v;
+}
+
+// Two fp32 values rounded to bf16 and packed low, high: one bf16x2 operand
+// register, or two adjacent bf16 in memory.
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<uint32_t*>(&v);
+}
+
 // ------------------------------------------------------------------ wgmma
 // Shared-memory matrix descriptor: start address, leading and stride byte
 // offsets (16-byte units), layout 1 = 128-byte swizzle. The tile it points
@@ -150,8 +187,9 @@ __device__ __forceinline__ void fence_regs(float (&r)[N]) {
 }
 
 // D[64 x 64] (+)= A[64 x 16] * B[16 x 64]; A and B from shared memory;
-// accumulate = 0 overwrites D
-template <int TRANS_B>
+// accumulate = 0 overwrites D. TRANS_A / TRANS_B = 1: the operand is
+// MN-major (M or N contiguous) rather than K-major.
+template <int TRANS_B, int TRANS_A = 0>
 __device__ __forceinline__ void wgmma_ss_m64n64(float* d, uint64_t a, uint64_t b,
                                                 int accumulate) {
   asm volatile(
@@ -161,7 +199,7 @@ __device__ __forceinline__ void wgmma_ss_m64n64(float* d, uint64_t a, uint64_t b
       "%8, %9, %10, %11, %12, %13, %14, %15, "
       "%16, %17, %18, %19, %20, %21, %22, %23, "
       "%24, %25, %26, %27, %28, %29, %30, %31"
-      "}, %32, %33, p, 1, 1, 0, %35;\n}\n"
+      "}, %32, %33, p, 1, 1, %36, %35;\n}\n"
       : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
         "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
         "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
@@ -170,7 +208,43 @@ __device__ __forceinline__ void wgmma_ss_m64n64(float* d, uint64_t a, uint64_t b
         "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
         "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
         "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
-      : "l"(a), "l"(b), "r"(accumulate), "n"(TRANS_B));
+      : "l"(a), "l"(b), "r"(accumulate), "n"(TRANS_B), "n"(TRANS_A));
+}
+
+// D[64 x 128] (+)= A[64 x 16] * B[16 x 128]; A and B from shared memory,
+// as wgmma_ss_m64n64
+template <int TRANS_B, int TRANS_A = 0>
+__device__ __forceinline__ void wgmma_ss_m64n128(float* d, uint64_t a,
+                                                 uint64_t b, int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, "
+      "%40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, "
+      "%56, %57, %58, %59, %60, %61, %62, %63"
+      "}, %64, %65, p, 1, 1, %68, %67;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]),
+        "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]),
+        "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "l"(a), "l"(b), "r"(accumulate), "n"(TRANS_B), "n"(TRANS_A));
 }
 
 // D[64 x 64] += A[64 x 16] * B[16 x 64]; A from registers (four bf16x2 a
@@ -233,6 +307,50 @@ __device__ __forceinline__ void wgmma_rs_m64n128(float* d, const uint32_t* a,
         "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1),
         "n"(TRANS_B));
+}
+
+// ------------------------------------------------------- host: tensor maps
+// cuTensorMapEncodeTiled from the driver, found at run time, so the build
+// needs no -lcuda.
+typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t,
+                                void*, const cuuint64_t*, const cuuint64_t*,
+                                const cuuint32_t*, const cuuint32_t*,
+                                CUtensorMapInterleave, CUtensorMapSwizzle,
+                                CUtensorMapL2promotion,
+                                CUtensorMapFloatOOBfill);
+
+inline EncodeTiled encode_fn() {
+  static EncodeTiled fn = nullptr;
+  if (!fn) {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult res;
+#if CUDART_VERSION >= 12050
+    cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &p, 12000,
+                                     cudaEnableDefault, &res);
+#else
+    cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault,
+                            &res);
+#endif
+    if (res == cudaDriverEntryPointSuccess) fn = reinterpret_cast<EncodeTiled>(p);
+  }
+  return fn;
+}
+
+// A bf16 tensor of `rank` dims (dims[0] innermost and contiguous; byte
+// strides of dims 1.. in `strides`) as a tensor map of boxes `box`, 128-byte
+// swizzle (box[0] must be 64), zeros out of range. The address and the
+// strides must be multiples of 16 bytes.
+inline bool encode_bf16_map(CUtensorMap* map, const void* ptr, int rank,
+                            const cuuint64_t* dims, const cuuint64_t* strides,
+                            const cuuint32_t* box) {
+  EncodeTiled enc = encode_fn();
+  if (!enc) return false;
+  const cuuint32_t estr[5] = {1, 1, 1, 1, 1};
+  return enc(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, rank,
+             const_cast<void*>(ptr), dims, strides, box, estr,
+             CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+             CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+             CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
 
 }  // namespace sm90

@@ -1,14 +1,20 @@
-"""Fused RMSNorm — the CUDA kernel in ``csrc/rmsnorm.cu`` (B1).
+"""Fused RMSNorm — the CUDA kernels in ``csrc/rmsnorm.cu`` (B1).
 
 Replaces ``repro/kernels/rmsnorm.py::rmsnorm`` (Pallas, ``_rmsnorm_kernel``).
-See the source's note for its bound on the H100 and its design. This
-module launches the kernel on CUDA tensors only; ``kernels/ops.py``
-routes a CPU tensor to ``ref.rmsnorm_ref``.
+See the source's note for its bound on the H100 and its design: one warp
+per row, several rows a block, 16-byte loads where :func:`plan` allows
+them, and a streaming variant for many rows. The plan reads the row
+count, the width, the dtypes and whether the pointers are 16-byte
+aligned, never the data, and is cached: the decode step calls this
+wrapper ~60-100 times, and its host time counts there. This module
+launches the kernel on CUDA tensors only; ``kernels/ops.py`` routes a CPU
+tensor to ``ref.rmsnorm_ref``.
 """
 from __future__ import annotations
 
 import ctypes
 import functools
+from typing import NamedTuple
 
 import torch
 
@@ -16,13 +22,46 @@ from repro_torch.kernels import build
 
 SOURCE = "src/repro_torch/kernels/csrc/rmsnorm.cu"
 REPLACES = "src/repro/kernels/rmsnorm.py:21"
+VEC_BYTES = 16
+MAX_WARPS = 8                       # rows a block (csrc MAX_WARPS)
+PER_LANE = (1, 2, 4, 8, 12, 16)     # 16-byte vectors a lane may hold
+STREAM_ROWS = 1024                  # from here on, the streaming variant
+
+
+class Plan(NamedTuple):
+    route: str        # "vector" (16-byte loads, x read once) or "scalar"
+    vec: int          # elements a load: 8 bf16 / 4 fp32, or 1
+    per_lane: int     # 16-byte vectors of x a lane holds; 0 on "scalar"
+    warps: int        # rows (warps) a block
+    blocks: int
+    streaming: bool   # many rows: scale read late, x and y evict-first
+
+
+@functools.lru_cache(maxsize=256)
+def plan(rows: int, D: int, x_dtype: torch.dtype, scale_dtype: torch.dtype,
+         aligned: bool = True) -> Plan:
+    """The launch for ``rows`` rows of width D: one warp a row, up to
+    ``MAX_WARPS`` rows a block; the vector route where x and the scale
+    share a dtype, a row is whole 16-byte vectors and fits in 16 of them a
+    lane, and the pointers are ``aligned`` (its streaming variant from
+    ``STREAM_ROWS`` rows on); the scalar route otherwise."""
+    warps = max(1, min(MAX_WARPS, rows))
+    blocks = -(-rows // warps)
+    vec = VEC_BYTES // x_dtype.itemsize
+    if scale_dtype == x_dtype and aligned and D % vec == 0:
+        need = -(-(D // vec) // 32)
+        for per_lane in PER_LANE:
+            if per_lane >= need:
+                return Plan("vector", vec, per_lane, warps, blocks,
+                            rows >= STREAM_ROWS)
+    return Plan("scalar", 1, 0, warps, blocks, False)
 
 
 @functools.lru_cache(maxsize=None)
 def _fn():
     p, i = ctypes.c_void_p, ctypes.c_int
     return build.entry("rt_rmsnorm",
-                       [p, p, p, i, i, ctypes.c_float, i, i, p])
+                       [p, p, p, i, i, ctypes.c_float, i, i, i, i, i, p])
 
 
 def rmsnorm(x: torch.Tensor, scale: torch.Tensor,
@@ -38,8 +77,11 @@ def rmsnorm(x: torch.Tensor, scale: torch.Tensor,
     scale = scale.contiguous()
     out = torch.empty_like(x)
     rows = x.numel() // D
+    ptrs = x.data_ptr() | scale.data_ptr() | out.data_ptr()
+    aligned = ptrs % VEC_BYTES == 0
+    pl = plan(rows, D, x.dtype, scale.dtype, aligned)
     err = _fn()(x.data_ptr(), scale.data_ptr(), out.data_ptr(), rows, D,
                 float(eps), build.dtype_code(x), build.dtype_code(scale),
-                build.stream_ptr())
+                pl.per_lane, pl.warps, int(pl.streaming), build.stream_ptr())
     build.check(err, "rt_rmsnorm")
     return out

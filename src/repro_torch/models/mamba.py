@@ -88,9 +88,10 @@ def mamba_fwd(params, x: torch.Tensor, cfg: ModelConfig, *,
     xbc, conv_tail = _causal_conv(xbc, params["conv_w"], params["conv_b"])
     xbc = F.silu(xbc)
     xs = xbc[..., :di].reshape(B, S, nh, p)
-    # b and c are column slices of xbc; the kernel reads them contiguous
-    b_mat = xbc[..., di:di + n].contiguous()
-    c_mat = xbc[..., di + n:].contiguous()
+    # b and c are column slices of xbc (rows d_inner + 2 d_state apart); the
+    # kernel reads them in place
+    b_mat = xbc[..., di:di + n]
+    c_mat = xbc[..., di + n:]
     dt = F.softplus(dt.float() + params["dt_bias"])            # [B,S,nh]
     A = -torch.exp(params["A_log"])                            # [nh]
     y, final_state = ops.ssd_scan(

@@ -172,6 +172,31 @@ def test_rmsnorm_kernel_matches_plain(cuda, shape, dt):
                                rtol=0)
 
 
+@pytest.mark.parametrize("shape,dt,sdt", [
+    # every shape the serving, paged GRPO and Mamba2 paths give B1
+    ((4096, 3072), "bf16", "bf16"), ((8, 3072), "bf16", "bf16"),
+    ((4032, 3072), "bf16", "bf16"), ((64, 3072), "bf16", "bf16"),
+    ((16384, 1024), "bf16", "bf16"), ((16384, 2048), "bf16", "bf16"),
+    ((8, 2048), "bf16", "bf16"),
+    ((3, 100), "f32", "f32"),             # 25 vectors: lanes left idle
+    ((7, 384), "bf16", "f32"),            # mixed dtypes: the scalar route
+    ((13, 3072), "bf16", "bf16"),         # 13 rows: a block of 5 of 8 warps
+    ((5, 100), "bf16", "bf16"),           # 200-byte rows: the scalar route
+    ((2, 8192), "bf16", "bf16"),          # too wide for registers: scalar
+    ((2048, 512), "f32", "f32"),          # the streaming variant in fp32
+    ((1025, 3072), "bf16", "bf16"),       # streaming, a block of 1 warp
+])
+def test_rmsnorm_plan_routes_match_plain(cuda, shape, dt, sdt):
+    """B1 at each shape of the paths and at each route of its plan."""
+    g = torch.Generator(device=cuda).manual_seed(12)
+    x = _randn(g, *shape, dt=dt, device=cuda)
+    s = (1 + 0.1 * torch.randn(shape[-1], generator=g, device=cuda)
+         ).to(DT[sdt])
+    torch.testing.assert_close(trn.rmsnorm(x, s).float(),
+                               ref.rmsnorm_ref(x, s).float(), atol=TOL[dt],
+                               rtol=0)
+
+
 @pytest.mark.parametrize("B,S,H,P,N,chunk,dt", [
     (8, 2048, 32, 64, 128, 256, "bf16"),      # the mamba2_370m path's
     (2, 512, 4, 64, 128, 256, "f32"),
@@ -194,6 +219,46 @@ def test_ssd_kernel_matches_plain(cuda, B, S, H, P, N, chunk, dt):
     for got, w in zip((y, fin), want):
         assert got.dtype == x.dtype
         torch.testing.assert_close(got.float(), w, atol=tol, rtol=0)
+
+
+@pytest.mark.parametrize("B,S,H,N,chunk,decay,sliced", [
+    (8, 2048, 32, 128, 256, 0.3, False),      # the path's, tensor cores
+    (8, 2048, 32, 128, 256, 0.3, True),       # b, c as slices of xbc
+    (2, 512, 4, 64, 64, 0.3, False),          # N 64, chunk 64: 8 chunks
+    (2, 512, 4, 64, 128, 4.0, True),          # N 64, chunk 128, decaying
+    (2, 1024, 8, 128, 256, 4.0, False),       # strongly decaying a
+    (1, 1024, 2, 128, 512, 0.3, True),        # the largest chunk taken
+])
+def test_ssd_wgmma_route_matches_plain(cuda, B, S, H, N, chunk, decay,
+                                       sliced):
+    """B5's tensor-core route (bf16, P 64) against its plain version on
+    fp32 copies of its inputs; with ``sliced``, b and c are column slices
+    of one [B, S, H*P + 2N] tensor, as the Mamba2 block passes them."""
+    P = 64
+    assert tssd.route(P, N, chunk, torch.bfloat16) == "wgmma"
+    g = torch.Generator(device=cuda).manual_seed(13)
+    x = (0.5 * torch.randn(B, S, H, P, generator=g, device=cuda)).bfloat16()
+    a = -decay * torch.randn(B, S, H, generator=g, device=cuda).abs()
+    bc = (torch.randn(B, S, H * P + 2 * N, generator=g, device=cuda)
+          * N ** -0.25).bfloat16()
+    b, c = bc[..., H * P:H * P + N], bc[..., H * P + N:]
+    if not sliced:
+        b, c = b.contiguous(), c.contiguous()
+    y, fin = tssd.ssd_scan(x, a, b, c, chunk)
+    want = ref.ssd_scan_ref(x.float(), a, b.float(), c.float(), chunk)
+    for got, w in zip((y, fin), want):
+        assert got.dtype == torch.bfloat16
+        torch.testing.assert_close(got.float(), w, atol=5e-2, rtol=0)
+
+
+def test_ssd_kernel_refuses_misaligned_rows(cuda):
+    """The tensor-core route reads b and c by TMA: rows that are not a
+    multiple of 16 bytes apart raise rather than take another route."""
+    x = torch.zeros(1, 64, 2, 64, dtype=torch.bfloat16, device=cuda)
+    a = torch.zeros(1, 64, 2, device=cuda)
+    bc = torch.zeros(1, 64, 2 * 64 + 2, dtype=torch.bfloat16, device=cuda)
+    with pytest.raises(ValueError, match="16-byte"):
+        tssd.ssd_scan(x, a, bc[..., :64], bc[..., 64:128], 64)
 
 
 def _to(tree, device):

@@ -257,3 +257,68 @@ def test_decode_split_combine_matches_oracle(B, H, K, D, C, cur, window,
     torch.testing.assert_close(got, want, atol=5e-5, rtol=0)
     torch.testing.assert_close(got[1], vc[1].mean(0).repeat_interleave(
         H // K, 0), atol=5e-5, rtol=0)
+
+
+@pytest.mark.parametrize("rows,D,dt,sdt,want", [
+    # (route, vec, per_lane, warps, blocks, streaming)
+    (4096, 3072, "bf16", "bf16", ("vector", 8, 12, 8, 512, True)),
+    (8, 3072, "bf16", "bf16", ("vector", 8, 12, 8, 1, False)),
+    (4032, 3072, "bf16", "bf16", ("vector", 8, 12, 8, 504, True)),
+    (64, 3072, "bf16", "bf16", ("vector", 8, 12, 8, 8, False)),
+    (16384, 1024, "bf16", "bf16", ("vector", 8, 4, 8, 2048, True)),
+    (16384, 2048, "bf16", "bf16", ("vector", 8, 8, 8, 2048, True)),
+    (8, 2048, "bf16", "bf16", ("vector", 8, 8, 8, 1, False)),
+    (3, 100, "f32", "f32", ("vector", 4, 1, 3, 1, False)),
+    (7, 384, "bf16", "f32", ("scalar", 1, 0, 7, 1, False)),
+    (13, 3072, "bf16", "bf16", ("vector", 8, 12, 8, 2, False)),
+    (5, 100, "bf16", "bf16", ("scalar", 1, 0, 5, 1, False)),
+    (2, 8192, "bf16", "bf16", ("scalar", 1, 0, 2, 1, False)),
+    (2048, 512, "f32", "f32", ("vector", 4, 4, 8, 256, True)),
+])
+def test_rmsnorm_plan(rows, D, dt, sdt, want):
+    """B1's plan reads only the shapes and dtypes: one warp a row, up to 8
+    rows a block (8 decode rows make one block), 16-byte vectors where x
+    and the scale share a dtype and a row is whole vectors that fit in 16
+    a lane, the streaming variant from 1024 rows on."""
+    pl = trn.plan(rows, D, DT[dt][1], DT[sdt][1])
+    assert tuple(pl) == want
+    assert pl.blocks * pl.warps >= rows > (pl.blocks - 1) * pl.warps
+    if pl.route == "vector":
+        assert D % pl.vec == 0 and pl.vec * DT[dt][1].itemsize == 16
+        assert 32 * pl.per_lane * pl.vec >= D
+    # a pointer that is not 16-byte aligned takes the scalar route
+    assert trn.plan(rows, D, DT[dt][1], DT[sdt][1],
+                    aligned=False).route == "scalar"
+
+
+@pytest.mark.parametrize("P,N,chunk,dt,want", [
+    (64, 128, 256, "bf16", "wgmma"),     # mamba2_370m's prefill
+    (64, 64, 64, "bf16", "wgmma"),
+    (64, 64, 128, "bf16", "wgmma"),
+    (64, 128, 512, "bf16", "wgmma"),
+    (64, 128, 1024, "bf16", "simt"),     # a_cum would not fit the kernel
+    (64, 128, 96, "bf16", "simt"),       # not whole 64-row tiles
+    (64, 128, 256, "f32", "simt"),       # fp32 stays on the CUDA cores
+    (32, 16, 32, "bf16", "simt"),        # the smoke config's widths
+    (64, 32, 64, "bf16", "simt"),
+    (16, 8, 16, "f32", "simt"),
+])
+def test_ssd_route(P, N, chunk, dt, want):
+    """B5's route reads only the widths, the chunk and the dtype."""
+    assert tssd.route(P, N, chunk, DT[dt][1]) == want
+
+
+def test_ssd_bc_row_stride():
+    """b and c are read as rows of one [B,S,ld] layout: contiguous, or
+    column slices of one wider tensor (the Mamba2 block's xbc); any other
+    layout raises."""
+    xbc = torch.zeros(2, 8, 64 + 2 * 16)
+    b, c = xbc[..., 64:80], xbc[..., 80:]
+    assert tssd.bc_row_stride(b, c) == 96
+    assert tssd.bc_row_stride(b.contiguous(), c.contiguous()) == 16
+    with pytest.raises(ValueError, match="one"):
+        tssd.bc_row_stride(b, c.contiguous())
+    with pytest.raises(ValueError, match="one"):
+        tssd.bc_row_stride(b.transpose(0, 1), c.transpose(0, 1))
+    with pytest.raises(ValueError, match="one"):
+        tssd.bc_row_stride(xbc[..., 64:96:2], xbc[..., 65:96:2])

@@ -120,6 +120,85 @@ def test_ops_ssd_scan_takes_plain_version_on_cpu():
         ops.ssd_scan(x, a, b, c, 48)
 
 
+def _bf16(t):
+    return t.to(torch.bfloat16).float()
+
+
+def _b5_tensor_core_emulation(x, a, b, c, chunk):
+    """B5's tensor-core route (``csrc/ssd_scan.cu``, wg) in plain PyTorch,
+    with its rounding points: S = C B^T in fp32 (products of bf16 values),
+    (S o L) rounded to bf16 before its product with x, y_off from a bf16
+    operand copy of the fp32 state, x o exp(a_last - a_cum) rounded to bf16
+    before the state update, the carried state in fp32; y and the final
+    state rounded to bf16. x, b, c hold bf16 values (as fp32); a is fp32."""
+    B, S, H, P = x.shape
+    state = torch.zeros(B, H, P, b.shape[-1])
+    ys = []
+    for c0 in range(0, S, chunk):
+        xc = x[:, c0:c0 + chunk].permute(0, 2, 1, 3)              # [B,H,l,P]
+        ac = torch.cumsum(a[:, c0:c0 + chunk], 1).permute(0, 2, 1)  # [B,H,l]
+        bc, cc = b[:, c0:c0 + chunk], c[:, c0:c0 + chunk]
+        s = torch.einsum("bin,bjn->bij", cc, bc)[:, None]         # fp32 S
+        keep = torch.tril(torch.ones(chunk, chunk, dtype=torch.bool))
+        L = torch.where(keep, torch.exp(ac[..., :, None] - ac[..., None, :]),
+                        torch.zeros(()))
+        y_off = torch.exp(ac)[..., None] * torch.einsum(
+            "bin,bhpn->bhip", cc, _bf16(state))
+        ys.append((_bf16(s * L) @ xc + y_off).permute(0, 2, 1, 3))
+        xd = _bf16(xc * torch.exp(ac[..., -1:] - ac)[..., None])
+        state = torch.exp(ac[..., -1])[..., None, None] * state + \
+            torch.einsum("bhjp,bjn->bhpn", xd, bc)
+    return _bf16(torch.cat(ys, 1)), _bf16(state)
+
+
+@pytest.mark.parametrize("S,N,chunk,decay", [
+    (256, 128, 64, 0.3),        # 4 chunks of one 64-row tile
+    (256, 128, 64, 4.0),        # exp(a_cum) underflows within a chunk
+    (512, 64, 128, 0.3),        # N 64, 4 chunks of two tiles
+    (512, 64, 128, 4.0),
+    (1024, 128, 256, 0.3),      # the Mamba2 path's chunk, 4 chunks
+    (1024, 128, 256, 4.0),
+])
+def test_b5_tensor_core_rounding_matches_pallas(S, N, chunk, decay):
+    """The numerical design of B5's bf16 route holds before any card run:
+    its emulation against the Pallas kernel (interpret mode, fp32 inside)
+    at 5e-2, the tolerance of ``tests/test_kernels.py:98``. b and c are
+    scaled by N^-1/4, so a score C B^T has unit variance and |y| stays
+    below 8, where a bf16 output's own rounding (half an ulp) stays below
+    1/64; at |y| of 8-16 two bf16 results one fp32 ulp apart already
+    differ by 0.0625, whatever the kernel."""
+    B, H, P = 1, 2, 64
+    rng = np.random.RandomState(S + N + int(decay))
+    arrs = [rng.randn(B, S, H, P) * 0.5, -np.abs(rng.randn(B, S, H)) * decay,
+            rng.randn(B, S, N) * N ** -0.25, rng.randn(B, S, N) * N ** -0.25]
+    js = [jnp.asarray(v.astype(np.float32)) for v in arrs]
+    js = [js[0].astype(jnp.bfloat16), js[1], js[2].astype(jnp.bfloat16),
+          js[3].astype(jnp.bfloat16)]
+    ts = [torch.from_numpy(np.array(j.astype(jnp.float32))) for j in js]
+    want = jax_ssd_scan(*js, chunk=chunk)
+    got = _b5_tensor_core_emulation(*ts, chunk)
+    for g, w in zip(got, want):
+        assert tuple(g.shape) == w.shape
+        np.testing.assert_allclose(_np(g), _np(w), atol=5e-2)
+
+
+def test_ssd_plain_version_reads_strided_b_c():
+    """b and c as column slices of one xbc-like tensor (the Mamba2 block's
+    layout, which B5 reads in place): the CPU path gives the answers it
+    gives on contiguous copies."""
+    rng = np.random.RandomState(7)
+    B, S, H, P, N = 2, 64, 3, 16, 8
+    x = torch.from_numpy(rng.randn(B, S, H, P).astype(np.float32))
+    a = -torch.from_numpy(np.abs(rng.randn(B, S, H)).astype(np.float32))
+    xbc = torch.from_numpy(rng.randn(B, S, H * P + 2 * N).astype(np.float32))
+    b, c = xbc[..., H * P:H * P + N], xbc[..., H * P + N:]
+    assert not b.is_contiguous() and not c.is_contiguous()
+    want = ref.ssd_scan_ref(x, a, b.contiguous(), c.contiguous(), 32)
+    for got in (ref.ssd_scan_ref(x, a, b, c, 32), ops.ssd_scan(x, a, b, c, 32)):
+        for g, w in zip(got, want):
+            torch.testing.assert_close(g, w, atol=0, rtol=0)
+
+
 # ---------------------------------------------------------------------------
 # The Mamba block
 # ---------------------------------------------------------------------------
