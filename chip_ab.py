@@ -1,20 +1,23 @@
 #!/usr/bin/env python3
-"""Device times of the port's B1 (RMSNorm) and B5 (SSD chunk scan) kernels
-by CUDA-graph replay, to compare versions of them on one card in one call.
+"""Device times of the port's B1 (RMSNorm), B4 (paged decode) and B5 (SSD
+chunk scan) kernels by CUDA-graph replay, to compare versions of them on
+one card in one call.
 
     python3 chip_ab.py TREE [TREE ...]   # each checkout in turn
-    python3 chip_ab.py --ablate          # B5 with one part of its work cut
+    python3 chip_ab.py --ablate          # B5, B4: one part of the work cut
 
 With checkouts (directories holding ``src/repro_torch``, e.g. a parent
 commit unpacked by ``git archive`` and ``.``), each is timed in a process
 of its own, in the order given (parent, change, change, parent, to see the
 drift): B1 and ``F.rms_norm`` at every shape the serving, paged GRPO and
-Mamba2 paths give B1, and B5 at the Mamba2 prefill's shape, warm and cold
-as ``chip_smoke.py`` times them. With ``--ablate``, B5's source in this
-checkout is compiled again with one of its steps removed at a time (the
-results are wrong; only the time counts) and each variant is timed: the
-time a step's removal saves is an upper bound on what making it faster
-can give. Needs one NVIDIA card and nvcc; prints one JSON line a run.
+Mamba2 paths give B1, B4 at the paged GRPO rollout's last decode step over
+its own forked block table and over one that puts every row on pages of
+its own, and B5 at the Mamba2 prefill's shape, warm and cold as
+``chip_smoke.py`` times them. With ``--ablate``, B5's and B4's sources
+in this checkout are compiled again with one of their steps removed at a
+time (the results are wrong; only the time counts) and each variant is
+timed: the time a step's removal saves is an upper bound on what making
+it faster can give. Needs one NVIDIA card and nvcc; prints one JSON line a run.
 """
 from __future__ import annotations
 
@@ -31,28 +34,51 @@ ROOT = pathlib.Path(__file__).resolve().parent
 RMSNORM_SHAPES = [(4096, 3072), (8, 3072), (4032, 3072), (64, 3072),
                   (16384, 1024), (16384, 2048), (8, 2048)]
 SSD_SHAPE = (8, 2048, 32, 64, 128, 256)     # B, S, H, P, N, chunk
+# B4: 8 prompts of 504 tokens forked 8 ways, 63 tokens appended (position
+# 566), pages of 16: q [64,24,128], pools [P,16,8,128] bf16, tables [64,36]
+PAGED = dict(groups=8, prompt=504, fork=8, appended=63, page=16, heads=24,
+             kv_heads=8, head_dim=128)
 
-# B5 ablations: (name, source text, replacement) in csrc/ssd_scan.cu
-ABLATIONS = [
-    ("no_CBt", """#pragma unroll
+# Ablations: (name, [(source text, replacement), ...]), each variant
+# compiled with its texts replaced. B5's in csrc/ssd_scan.cu:
+SSD_ABLATIONS = [
+    ("no_CBt", [("""#pragma unroll
         for (int kk = 0; kk < N / 16; ++kk)
           sm90::wgmma_ss_m64n64<0>(sc, desc_k(ct, kk), desc_k(bt, kk), kk > 0);""",
-     """#pragma unroll
-        for (int i = 0; i < 32; ++i) sc[i] = 0.01f;"""),
-    ("no_L_exp", "const float l = sm90::exp2_approx(ai[hf] - aj);",
-     "const float l = aj;"),
-    ("no_y_off", "      if (ci > 0) {\n        sm90::fence_regs(acc);",
-     "      if (ci < 0) {\n        sm90::fence_regs(acc);"),
-    ("no_state_update", """            if constexpr (N == 128)
+                 """#pragma unroll
+        for (int i = 0; i < 32; ++i) sc[i] = 0.01f;""")]),
+    ("no_L_exp", [("const float l = sm90::exp2_approx(ai[hf] - aj);",
+                   "const float l = aj;")]),
+    ("no_y_off", [("      if (ci > 0) {\n        sm90::fence_regs(acc);",
+                   "      if (ci < 0) {\n        sm90::fence_regs(acc);")]),
+    ("no_state_update", [("""            if constexpr (N == 128)
               sm90::wgmma_ss_m64n128<1, 1>(st, desc_mn(xd, kk),
                                            desc_mn(bt, kk), 1);
             else
               sm90::wgmma_ss_m64n64<1, 1>(st, desc_mn(xd, kk),
-                                          desc_mn(bt, kk), 1);""", ""),
-    ("no_x_product", """#pragma unroll
+                                          desc_mn(bt, kk), 1);""", "")]),
+    ("no_x_product", [("""#pragma unroll
           for (int kk = 0; kk < 4; ++kk)
             sm90::wgmma_rs_m64n64<1>(acc, pa[kk], desc_mn(xt, kk));
-          sm90::wgmma_commit();""", "          sm90::wgmma_commit();"),
+          sm90::wgmma_commit();""", "          sm90::wgmma_commit();")]),
+]
+# B4's (bf16) in csrc/paged_attention.cu: its scores and softmax, its PV,
+# both (the copy pipeline and the loop alone), and the merge kernel
+# triggered at the end of each block rather than at its start
+_B4_SCORES = """        softmax_mma<D, G>(tile, qf, prow, lane, cnt, nvalid,
+                          qscale * kLog2e, m, l, alpha);"""
+_B4_NO_SCORES = """#pragma unroll
+        for (int g = 0; g < G; ++g) alpha[g] = 1.f;"""
+_B4_PV = "        pv_mma<D, G>(oacc, alpha, prow, tile + KV, lane);"
+_B4_TRIGGER = """  asm volatile("griddepcontrol.launch_dependents;\\n" ::: "memory");
+"""
+_B4_END = "  if (r >= nrows) return;\n  const int b = b0 + r;"
+PAGED_ABLATIONS = [
+    ("no_scores", [(_B4_SCORES, _B4_NO_SCORES)]),
+    ("no_pv", [(_B4_PV, "")]),
+    ("no_arith", [(_B4_SCORES, _B4_NO_SCORES), (_B4_PV, "")]),
+    ("late_merge_trigger", [(_B4_TRIGGER, ""),
+                            (_B4_END, _B4_TRIGGER + _B4_END)]),
 ]
 
 
@@ -107,13 +133,61 @@ def ssd_inputs(torch, sliced=True):
     return x, a, b, c
 
 
+def paged_tables(torch, PageManager):
+    """{name: (block tables [64,36] int32, pool pages)}: the paged GRPO
+    rollout's own forked table (the checkout's page manager, as
+    ``chip_smoke.forked_tables`` builds it) and an all-distinct one."""
+    c = PAGED
+    B = c["groups"] * c["fork"]
+    nb = -(-(c["prompt"] + c["appended"] + 1) // c["page"])
+    pm = PageManager(c["groups"] * -(-c["prompt"] // c["page"]) +
+                     B * (nb - c["prompt"] // c["page"]), c["page"])
+    for g in range(c["groups"]):
+        pm.allocate(g * c["fork"], c["prompt"])
+        for i in range(1, c["fork"]):
+            pm.fork(g * c["fork"], g * c["fork"] + i)
+    for _ in range(c["appended"]):
+        for s in range(B):
+            pm.append_token(s)
+    forked = torch.from_numpy(pm.block_table_array(range(B), nb))
+    distinct = torch.arange(B * nb, dtype=torch.int32).reshape(B, nb)
+    return {"forked": (forked, pm.num_pages + 1),
+            "distinct": (distinct, B * nb + 1)}
+
+
+def paged_us(torch, pa, PageManager) -> dict:
+    """B4 (the wrapper module ``pa``) warm and cold, us, over both of
+    :func:`paged_tables`."""
+    c = PAGED
+    B = c["groups"] * c["fork"]
+    position = torch.full((B,), c["prompt"] + c["appended"] - 1,
+                          dtype=torch.int32, device="cuda")
+    out = {}
+    for name, (bt, P) in paged_tables(torch, PageManager).items():
+        bt = bt.cuda()
+
+        def make(P=P):
+            return (torch.randn(B, c["heads"], c["head_dim"],
+                                device="cuda").bfloat16(),
+                    *(torch.randn(P, c["page"], c["kv_heads"], c["head_dim"],
+                                  device="cuda").bfloat16()
+                      for _ in range(2)))
+        out[f"paged_decode {name}_us"] = warm_cold_us(
+            torch, lambda q, k, v, bt=bt: pa.paged_decode_attention(
+                q, k, v, bt, position), make)
+    return out
+
+
 def time_tree(tree: pathlib.Path) -> dict:
-    """B1 against F.rms_norm and B5, warm and cold, in checkout ``tree``."""
+    """B1 against F.rms_norm, B4 and B5, warm and cold, in checkout
+    ``tree``."""
     sys.path.insert(0, str(tree / "src"))
     import torch
     import torch.nn.functional as F
+    from repro_torch.kernels import paged_attention as pa
     from repro_torch.kernels import rmsnorm as rn
     from repro_torch.kernels import ssd_scan as ssd
+    from repro_torch.paged import PageManager
     if not pathlib.Path(rn.__file__).is_relative_to(tree):
         raise SystemExit(f"imported {rn.__file__}, not from {tree}")
     out = {"tree": str(tree)}
@@ -127,6 +201,7 @@ def time_tree(tree: pathlib.Path) -> dict:
                                       make),
             "library_us": warm_cold_us(
                 torch, lambda x, s, D=D: F.rms_norm(x, (D,), s, 1e-5), make)}
+    out.update(paged_us(torch, pa, PageManager))
     chunk = SSD_SHAPE[-1]
     sliced = hasattr(ssd, "bc_row_stride")    # reads b and c in place
     out["ssd_scan_us"] = warm_cold_us(
@@ -136,39 +211,55 @@ def time_tree(tree: pathlib.Path) -> dict:
 
 
 def ablate() -> list:
-    """B5 of this checkout whole and with each of ``ABLATIONS`` removed."""
+    """B5 and B4 of this checkout, each whole and with each of its
+    ablations applied (``SSD_ABLATIONS``, ``PAGED_ABLATIONS``)."""
     sys.path.insert(0, str(ROOT / "src"))
     import torch
     from repro_torch.kernels import build, ssd_scan as ssd
+    from repro_torch.kernels import paged_attention as pa
+    from repro_torch.paged import PageManager
     work = ROOT / "build" / "ablate"
     work.mkdir(parents=True, exist_ok=True)
-    source = (build.CSRC / "ssd_scan.cu").read_text()
-    variants = [("whole", source)]
-    for name, old, new in ABLATIONS:
-        if source.count(old) != 1:
-            raise SystemExit(f"ablation {name}: its text is not in the source "
-                             "exactly once")
-        variants.append((name, source.replace(old, new)))
+    chunk = SSD_SHAPE[-1]
+    kernels = {   # source: (ablations, wrapper module, timing)
+        "ssd_scan.cu": (SSD_ABLATIONS, ssd, lambda: {
+            "ssd_scan_us": warm_cold_us(
+                torch, lambda *t: ssd.ssd_scan(*t, chunk),
+                lambda: ssd_inputs(torch))}),
+        "paged_attention.cu": (PAGED_ABLATIONS, pa,
+                               lambda: paged_us(torch, pa, PageManager)),
+    }
+    variants = []                    # (source, name, text)
+    for src, (ablations, _, _) in kernels.items():
+        source = (build.CSRC / src).read_text()
+        variants.append((src, "whole", source))
+        for name, edits in ablations:
+            text = source
+            for old, new in edits:
+                if text.count(old) != 1:
+                    raise SystemExit(f"ablation {name}: its text is not in "
+                                     f"{src} exactly once")
+                text = text.replace(old, new)
+            variants.append((src, name, text))
     procs = []
-    for name, text in variants:
-        (work / f"{name}.cu").write_text(text)
+    for src, name, text in variants:
+        stem = f"{pathlib.Path(src).stem}_{name}"
+        (work / f"{stem}.cu").write_text(text)
         cmd = [build.nvcc(), *build.NVCC_FLAGS, f"-I{build.CSRC}", "-shared",
-               str(work / f"{name}.cu"), "-o", str(work / f"{name}.so")]
+               str(work / f"{stem}.cu"), "-o", str(work / f"{stem}.so")]
         procs.append(subprocess.Popen(cmd, stdout=subprocess.PIPE,
                                       stderr=subprocess.STDOUT, text=True))
-    for (name, _), proc in zip(variants, procs):
+    for (src, name, _), proc in zip(variants, procs):
         log = proc.communicate()[0]
         if proc.returncode:
-            raise SystemExit(f"nvcc failed for {name}:\n{log}")
-    chunk = SSD_SHAPE[-1]
+            raise SystemExit(f"nvcc failed for {src} {name}:\n{log}")
     out = []
-    for name, _ in variants:
-        lib = ctypes.CDLL(str(work / f"{name}.so"))
+    for src, name, _ in variants:
+        _, module, time_fn = kernels[src]
+        lib = ctypes.CDLL(str(work / f"{pathlib.Path(src).stem}_{name}.so"))
         build.lib = lambda lib=lib: lib        # the wrapper loads this one
-        ssd._fn.cache_clear()
-        out.append({"variant": name, "ssd_scan_us": warm_cold_us(
-            torch, lambda *t: ssd.ssd_scan(*t, chunk),
-            lambda: ssd_inputs(torch))})
+        module._fn.cache_clear()
+        out.append({"source": src, "variant": name, **time_fn()})
         print(json.dumps(out[-1]), flush=True)
     return out
 

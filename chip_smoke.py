@@ -10,8 +10,8 @@ Phases, each failing with a non-zero exit:
    kernels' build from ``src/repro_torch/kernels/csrc``; the SASS of the
    bf16 flash and SSD-scan kernels must hold HGMMA (tensor-core)
    instructions and the kernels redesigned for Hopper (B2's wgmma kernel,
-   B3's split and combine kernels, B5's wgmma kernel, B1's vector and
-   scalar kernels) must not spill registers (their ptxas lines are
+   B3's and B4's split and combine kernels, B5's wgmma kernel, B1's vector
+   and scalar kernels) must not spill registers (their ptxas lines are
    printed);
 2. each kernel against its plain PyTorch version at the shapes of the
    serving, paged GRPO and Mamba2 paths and at edge cases (ragged Sq/Sk
@@ -21,12 +21,15 @@ Phases, each failing with a non-zero exit:
    64, fp32; for B5 b and c as column slices of one xbc-like tensor, one
    chunk, N 64 with chunks of 64 and 128, a chunk of 512, small head and
    state widths, a strongly decaying a and the step-by-step oracle; for
-   B1 each route of its plan), with its time, the plain version's, one
-   PyTorch library call's (where one exists) and the least time the card
-   could take; B1, B2, B3 and B5 also with their device time from
-   CUDA-graph replay, warm and cold (inputs rotated through more than the
-   50 MB L2, as the path finds them), B1 at every path shape beside
-   ``F.rms_norm``'s;
+   B1 each route of its plan; for B4 the paged GRPO step's forked table,
+   all-distinct and all-same tables of its shape, ragged positions, an
+   idle row in a tile, a ragged last tile, pages of two units and a forced
+   single split), with its time, the plain version's, one PyTorch library
+   call's (where one exists) and the least time the card could take; every
+   kernel also with its device time from CUDA-graph replay, warm and cold
+   (inputs rotated through more than the 50 MB L2, as the path finds
+   them), B1 at every path shape beside ``F.rms_norm``'s, B4 on each of
+   its three tables with its plan and the pages each block copies;
 3. the serving path: full-width, full-depth llama3_2_3b (28 layers, bf16,
    random weights from a seed) serves 3 requests of batch 8 x 512 prompt
    tokens + 64 generated, through ``repro_torch.launch.serve.run``; the
@@ -199,6 +202,7 @@ def rolling_pos(B, C, cur, device):
 # the kernels this slice redesigned; their ptxas lines are printed and
 # must show no spills
 NEW_KERNELS = ("flash_wgmma_kernel", "decode_split_kernel", "combine_kernel",
+               "paged_split_kernel", "paged_merge_kernel",
                "ssd_wgmma_kernel", "rmsnorm_vec_kernel",
                "rmsnorm_scalar_kernel")
 # the kernels that must run on the tensor cores (HGMMA in their SASS)
@@ -616,15 +620,46 @@ def paged_work(bt, position, ps, K, D, H, itemsize):
     return n_bytes, 4 * H * D * int(valid.sum()), row_bytes, unique
 
 
+# B4's three tables at the main shape, the yardstick of its redesign
+PAGED_TABLES = ("forked", "distinct", "same")
+
+
+def main_tables(kind):
+    """Block tables of the paged GRPO rollout's last decode step (64 rows of
+    36 pages at position 566) and the pool's page count: ``forked`` is the
+    rollout's own (8 groups of 8 rows sharing a prompt's first 31 pages),
+    ``distinct`` puts every row on 36 pages of its own, ``same`` all rows
+    on one row's 36 pages. Each pool has one more page, the rollout's drop
+    page."""
+    if kind == "forked":
+        bt, P = forked_tables(GROUPS, GPROMPT, GSIZE, GEN, PAGE)
+        return bt, P + 1
+    B, nb = GROUPS * GSIZE, -(-(GPROMPT + GEN) // PAGE)
+    if kind == "distinct":
+        return torch.arange(B * nb, dtype=torch.int32).reshape(B, nb), \
+            B * nb + 1
+    return torch.arange(nb, dtype=torch.int32).repeat(B, 1), nb + 1
+
+
 def check_paged(dev, peaks, g):
+    """B4 against its plain version: at the main shape over the forked,
+    distinct and same tables (each timed by CUDA-graph replay, warm and
+    cold, beside its bound, with its plan and the pages each block copies;
+    the forked one also eagerly, with the plain version and the gather +
+    SDPA yardstick), with ragged positions and an idle row inside a tile,
+    and at edge cases (one forced split, holes, a tail of -1, an idle row,
+    head_dim 64, G = 1 and 8, a tile of 5 rows, pages of 32 slots, fp32)."""
     cpu_g = torch.Generator().manual_seed(11)
-    bt_main, P_main = forked_tables(GROUPS, GPROMPT, GSIZE, GEN, PAGE)
-    cases = [  # (name, B, H, K, D, ps, nb, P, dtype); nb/P None: forked
-        ("main", GROUPS * GSIZE, 24, 8, 128, PAGE, None, None,
-         torch.bfloat16),
-        ("ragged", GROUPS * GSIZE, 24, 8, 128, PAGE, None, None,
-         torch.bfloat16),
+    cases = [  # (name, B, H, K, D, ps, nb, P, dtype); nb None: main tables
+        *[(kind, GROUPS * GSIZE, 24, 8, 128, PAGE, None, None,
+           torch.bfloat16) for kind in PAGED_TABLES],
+        *[(name, GROUPS * GSIZE, 24, 8, 128, PAGE, None, None,
+           torch.bfloat16) for name in ("ragged", "idle_row")],
+        # the block normalises its rows itself, with no merge
+        ("one_split", 16, 24, 8, 128, 16, 30, 481, torch.bfloat16),
         ("holes", 8, 24, 8, 128, 16, 6, 49, torch.bfloat16),
+        ("b13", 13, 24, 8, 128, 16, 9, 118, torch.bfloat16),
+        ("ps32", 8, 24, 8, 128, 32, 5, 41, torch.bfloat16),
         ("d64", 6, 8, 2, 64, 16, 5, 31, torch.bfloat16),
         ("k_eq_h", 4, 8, 8, 128, 8, 7, 29, torch.bfloat16),
         ("k1_fp32", 5, 8, 1, 128, 4, 9, 46, torch.float32),
@@ -633,27 +668,47 @@ def check_paged(dev, peaks, g):
     out = []
     for name, B, H, K, D, ps, nb, P, dt in cases:
         if nb is None:
-            bt, P = bt_main, P_main + 1           # + the pool's drop page
-            last = GPROMPT + GEN - 2
-            position = torch.full((B,), last, dtype=torch.int32)
+            bt, P = main_tables(name if name in PAGED_TABLES else "forked")
+            position = torch.full((B,), GPROMPT + GEN - 2, dtype=torch.int32)
             if name == "ragged":                  # one row per decode step
                 position = GPROMPT + torch.arange(B, dtype=torch.int32) % (
                     GEN - 1)
+            if name == "idle_row":                # walks all 36 pages alone
+                position[13] = -1
         else:
             bt, position = holey_tables(B, nb, ps, P, cpu_g)
         q = torch.randn(B, H, D, generator=g, device=dev).to(dt)
         kp = torch.randn(P, ps, K, D, generator=g, device=dev).to(dt)
         vp = torch.randn(P, ps, K, D, generator=g, device=dev).to(dt)
         bt, position = bt.to(dev), position.to(dev)
-        got = pa.paged_decode_attention(q, kp, vp, bt, position)
+        got = pa.paged_decode_attention(
+            q, kp, vp, bt, position,
+            splits=1 if name == "one_split" else None)
         want = ref.paged_attention_ref(q, kp, vp, bt, position)
         torch.cuda.synchronize()
         err = (got.float() - want.float()).abs().max().item()
         rec = {"case": name, "shape": [B, H, K, D, P, ps, bt.shape[1]],
                "dtype": str(dt), "max_err": err, "tol": TOL[dt]}
-        if name == "main":
+        if name in PAGED_TABLES:
             n_bytes, n_ops, row_bytes, n_pages = paged_work(
                 bt.cpu(), position.cpu(), ps, K, D, H, q.element_size())
+            rec["bound_ms"], rec["bound_by"] = bound(peaks, n_bytes, n_ops,
+                                                     dt)
+            rec.update(unique_pages=n_pages, unique_mib=n_bytes / 2**20,
+                       per_row_mib=row_bytes / 2**20)
+            pl = pa.plan(B, K, bt.shape[1])
+            loads = pa.block_loads(bt, position, ps, pl)
+            rec.update(plan=pl._asdict(), page_loads=int(loads.sum()),
+                       block_loads_max=int(loads.max()),
+                       block_loads_mean=loads.float().mean().item())
+
+            def make_set():
+                return tuple(torch.randn(*t.shape, device=dev).to(dt)
+                             for t in (q, kp, vp))
+            rec["device_ms"], rec["cold_ms"] = time_graph_warm_cold(
+                lambda q_, k_, v_: pa.paged_decode_attention(
+                    q_, k_, v_, bt, position), make_set)
+        if name == "forked":
             rec["ms"] = time_ms(lambda: pa.paged_decode_attention(
                 q, kp, vp, bt, position), iters=50)
             rec["plain_ms"] = time_ms(lambda: ref.paged_attention_ref(
@@ -671,10 +726,6 @@ def check_paged(dev, peaks, g):
 
             rec["yardstick_ms"] = time_ms(yardstick)
             rec["library_ms"] = None
-            rec["bound_ms"], rec["bound_by"] = bound(peaks, n_bytes, n_ops,
-                                                     dt)
-            rec.update(unique_pages=n_pages, unique_mib=n_bytes / 2**20,
-                       per_row_mib=row_bytes / 2**20)
         out.append(rec)
     return out
 
@@ -942,14 +993,16 @@ def mamba_serving(dev, log, profile=False):
     return out
 
 
-# each wrapper's CUDA kernels, by function name: one launch of the first
-# kind per call; B3 adds its combine kernel when it splits the cache
+# each wrapper's CUDA kernels, by function name (no name contains
+# another's): one launch of the first kind per call; B3 and B4 add their
+# combine kernel when they split
 KERNEL_FUNCS = {"flash_attention": ("flash_wgmma_kernel", "flash_fwd_kernel"),
                 "decode_attention": ("decode_split_kernel",),
-                "paged_decode_attention": ("paged_decode_kernel",),
+                "paged_decode_attention": ("paged_split_kernel",),
                 "rmsnorm": ("rmsnorm_vec_kernel", "rmsnorm_scalar_kernel"),
                 "ssd_scan": ("ssd_wgmma_kernel", "ssd_scan_kernel")}
-SECOND_KERNELS = {"decode_attention": ("combine_kernel",)}
+SECOND_KERNELS = {"decode_attention": ("combine_kernel",),
+                  "paged_decode_attention": ("paged_merge_kernel",)}
 
 
 def port_kernels(rows):
@@ -1068,10 +1121,7 @@ def main() -> int:
                          f" ms  library {lib}  bound "
                          f"{r['bound_ms'] * 1e3:.1f} us ({r['bound_by']})")
                 if "yardstick_ms" in r:
-                    line += (f"  gather+SDPA {r['yardstick_ms']:.4f} ms; "
-                             f"{r['unique_pages']} distinct pages "
-                             f"{r['unique_mib']:.1f} MiB, per row "
-                             f"{r['per_row_mib']:.1f} MiB")
+                    line += f"  gather+SDPA {r['yardstick_ms']:.4f} ms"
             if "cold_ms" in r:
                 line += (f"  graph: warm {r['device_ms'] * 1e3:.2f} us, "
                          f"cold {r['cold_ms'] * 1e3:.2f} us")
@@ -1084,6 +1134,17 @@ def main() -> int:
                 if "bound_ms" in r and "ms" not in r:
                     line += (f"  bound {r['bound_ms'] * 1e3:.2f} us "
                              f"({r['bound_by']})")
+            if "unique_pages" in r:
+                line += (f"; {r['unique_pages']} distinct pages "
+                         f"{r['unique_mib']:.1f} MiB, per row "
+                         f"{r['per_row_mib']:.1f} MiB")
+            if "plan" in r:
+                pl = r["plan"]
+                line += (f"; plan {pl['tiles']} tiles x {pl['splits']} "
+                         f"splits of {pl['span']} pages, copies "
+                         f"{r['page_loads']} pages a head (a block: max "
+                         f"{r['block_loads_max']}, mean "
+                         f"{r['block_loads_mean']:.1f})")
             print(line)
             if not r["max_err"] <= r["tol"]:
                 failures.append(f"{kname}/{r['case']}: {r['max_err']}")

@@ -126,39 +126,75 @@ def test_decode_kernel_splits_match_plain(cuda, B, H, K, D, C, cur, window,
                                rtol=0)
 
 
-def _paged_case(g, B, H, K, D, ps, nb, dt, device):
-    """Pools, forked block tables (rows 2i and 2i+1 share their first
-    pages) with -1 holes in the middle and at the end, and positions that
-    end on a partial page; the last row is idle (position -1)."""
+def _paged_case(g, B, H, K, D, ps, nb, dt, device, table="holey"):
+    """Pools, block tables and positions. ``holey``: random pages, rows 2i
+    and 2i+1 sharing their first pages, -1 holes in the middle and at the
+    end, positions that end on a partial last page and an idle last row
+    (position -1). ``forked``: GRPO groups of 8 consecutive rows sharing
+    all but their last two pages, each row at the last slot but two.
+    ``distinct``: every row on pages of its own; ``same``: all rows on one
+    row's pages; both at the last slot but one."""
     P = B * nb + 1
     q = _randn(g, B, H, D, dt=dt, device=device)
     kp = _randn(g, P, ps, K, D, dt=dt, device=device)
     vp = _randn(g, P, ps, K, D, dt=dt, device=device)
     bt = torch.randperm(P - 1, generator=torch.Generator().manual_seed(B))
     bt = bt[:B * nb].reshape(B, nb).to(torch.int32)
-    for i in range(0, B - 1, 2):
-        bt[i + 1, :nb // 2] = bt[i, :nb // 2]         # shared prefix pages
-    bt[0, 1] = -1                                     # a hole
-    bt[1, -1] = -1                                    # a tail
-    position = torch.randint(0, (nb - 1) * ps, (B,),
-                             generator=torch.Generator().manual_seed(D))
-    position[2] = nb * ps - 3                         # a partial last page
-    position[-1] = -1                                 # an idle row
+    position = torch.full((B,), nb * ps - 2)
+    if table == "holey":
+        for i in range(0, B - 1, 2):
+            bt[i + 1, :nb // 2] = bt[i, :nb // 2]     # shared prefix pages
+        bt[0, 1] = -1                                 # a hole
+        bt[1, -1] = -1                                # a tail
+        position = torch.randint(0, (nb - 1) * ps, (B,),
+                                 generator=torch.Generator().manual_seed(D))
+        position[2] = nb * ps - 3                     # a partial last page
+        position[-1] = -1                             # an idle row
+    elif table == "forked":
+        for i in range(B):
+            bt[i, :nb - 2] = bt[i - i % 8, :nb - 2]
+        position[:] = nb * ps - 3
+    elif table == "same":
+        bt[:] = bt[0]
     return (q, kp, vp, bt.to(device), position.to(torch.int32).to(device))
 
 
-@pytest.mark.parametrize("B,H,K,D,ps,nb,dt", [
-    (8, 24, 8, 128, 16, 6, "bf16"),
-    (6, 8, 2, 64, 16, 5, "bf16"),
-    (5, 8, 8, 128, 8, 7, "f32"),
-    (4, 6, 1, 64, 4, 9, "f32"),
+@pytest.mark.parametrize("B,H,K,D,ps,nb,dt,table", [
+    (8, 24, 8, 128, 16, 6, "bf16", "holey"),
+    (6, 8, 2, 64, 16, 5, "bf16", "holey"),
+    (5, 8, 8, 128, 8, 7, "f32", "holey"),
+    (4, 6, 1, 64, 4, 9, "f32", "holey"),
+    (16, 24, 8, 128, 16, 9, "bf16", "forked"),
+    (16, 24, 8, 128, 16, 9, "bf16", "distinct"),
+    (16, 24, 8, 128, 16, 9, "bf16", "same"),
+    (13, 24, 8, 128, 16, 9, "bf16", "forked"),     # a tile of 5 rows
+    (10, 16, 2, 128, 16, 7, "bf16", "holey"),      # G = 8
+    (9, 16, 2, 64, 8, 12, "f32", "forked"),        # G = 8, fp32
+    (8, 24, 8, 128, 32, 5, "bf16", "holey"),       # two units a page
 ])
-def test_paged_decode_kernel_matches_plain(cuda, B, H, K, D, ps, nb, dt):
+def test_paged_decode_kernel_matches_plain(cuda, B, H, K, D, ps, nb, dt,
+                                           table):
     g = torch.Generator(device=cuda).manual_seed(5)
-    args = _paged_case(g, B, H, K, D, ps, nb, dt, cuda)
+    args = _paged_case(g, B, H, K, D, ps, nb, dt, cuda, table)
     out = tpa.paged_decode_attention(*args)
     want = ref.paged_attention_ref(*args)
     torch.testing.assert_close(out.float(), want.float(), atol=TOL[dt],
+                               rtol=0)
+
+
+@pytest.mark.parametrize("dt", ["bf16", "f32"])
+def test_paged_decode_one_split_matches_plan(cuda, dt):
+    """A forced single split (the block normalises its rows itself) and
+    the plan's split with the merge kernel give the same result."""
+    g = torch.Generator(device=cuda).manual_seed(6)
+    args = _paged_case(g, 24, 24, 8, 128, 16, 20, dt, cuda, "forked")
+    assert tpa.launch_plan(args[0], args[1], args[3])[0] > 1
+    split = tpa.paged_decode_attention(*args)
+    whole = tpa.paged_decode_attention(*args, splits=1)
+    want = ref.paged_attention_ref(*args)
+    torch.testing.assert_close(split.float(), whole.float(), atol=TOL[dt],
+                               rtol=0)
+    torch.testing.assert_close(whole.float(), want.float(), atol=TOL[dt],
                                rtol=0)
 
 

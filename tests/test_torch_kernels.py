@@ -16,6 +16,8 @@ import numpy as np  # noqa: E402
 from repro.kernels.decode_attention import decode_attention as jax_decode  # noqa: E402
 from repro.kernels.flash_attention import flash_attention_fwd as jax_flash  # noqa: E402
 from repro.kernels.rmsnorm import rmsnorm as jax_rmsnorm  # noqa: E402
+from repro.paged.attention import \
+    paged_decode_attention as jax_paged  # noqa: E402
 from repro_torch.kernels import build, ops, ref  # noqa: E402
 from repro_torch.kernels import decode_attention as tdec  # noqa: E402
 from repro_torch.kernels import flash_attention as tfa  # noqa: E402
@@ -257,6 +259,196 @@ def test_decode_split_combine_matches_oracle(B, H, K, D, C, cur, window,
     torch.testing.assert_close(got, want, atol=5e-5, rtol=0)
     torch.testing.assert_close(got[1], vc[1].mean(0).repeat_interleave(
         H // K, 0), atol=5e-5, rtol=0)
+
+
+@pytest.mark.parametrize("B,K,nb", [
+    (64, 8, 36),        # the paged GRPO rollout's last decode step
+    (64, 8, 300),       # a long context: spans of at most 64 pages
+    (8, 8, 36),         # one tile
+    (12, 2, 10),        # B not a multiple of the tile
+    (8, 1, 3),          # nb below the split count aimed at
+    (1, 1, 1),
+    (3, 4, 200),
+])
+def test_paged_plan(B, K, nb):
+    """B4's split rule reads only the shapes: tiles of 8 rows cover B,
+    the splits deal the pages round-robin, none is empty or takes more
+    than MAX_SPAN pages, and the grid aims at two blocks per SM without
+    exceeding it."""
+    pl = tpa.plan(B, K, nb)
+    assert pl.rows == tpa.ROWS == 8
+    assert pl.tiles * pl.rows >= B > (pl.tiles - 1) * pl.rows
+    assert 1 <= pl.splits <= nb and pl.span == -(-nb // pl.splits)
+    per_split = np.bincount(np.arange(nb) % pl.splits, minlength=pl.splits)
+    assert per_split.min() >= 1 and per_split.max() == pl.span
+    assert pl.span <= tpa.MAX_SPAN
+    aim = max(1, tpa.TARGET_BLOCKS // (pl.tiles * K))
+    if -(-nb // tpa.MAX_SPAN) <= aim:
+        # at most the target (or one split), and as fine as it allows, to
+        # rounding of whole pages
+        assert pl.splits <= aim and 2 * pl.splits >= min(aim, nb)
+    if (B, K, nb) == (64, 8, 36):
+        assert tuple(pl) == (8, 8, 4, 9)         # 256 blocks of 9 pages
+    if (B, K, nb) == (64, 8, 300):
+        assert tuple(pl) == (8, 8, 10, 30)       # MAX_SPAN sets the count
+
+
+def test_paged_launch_plan_reads_shapes_only():
+    """The wrapper's plan comes from the tensors' shapes alone: tensors on
+    the meta device (which hold no data) give it, and the forked, distinct
+    and same tables of the paged GRPO step (``chip_smoke.main_tables``),
+    with any positions, give the same one; the pages the kernel copies
+    differ, and for the rollout's own table they are its distinct
+    pages."""
+    import chip_smoke
+    B, K, nb, ps = 64, 8, 36, 16
+    meta = [torch.empty(s, device="meta") for s in
+            ((B, 24, 128), (577, ps, K, 128), (B, nb))]
+    want = tpa.launch_plan(*meta)
+    assert want == tuple(tpa.plan(B, K, nb)[2:]) == (4, 9)
+    rng = np.random.RandomState(0)
+    loads = {}
+    for name in chip_smoke.PAGED_TABLES:
+        bt, P = chip_smoke.main_tables(name)
+        for position in (torch.full((B,), 566), torch.from_numpy(
+                rng.randint(-1, 576, B))):
+            assert tpa.launch_plan(torch.zeros(B, 24, 128),
+                                   torch.zeros(P, ps, K, 128), bt) == want
+        per_block = tpa.block_loads(bt, torch.full((B,), 566), ps,
+                                    tpa.plan(B, K, nb))
+        assert per_block.shape == (8, 4)
+        loads[name] = int(per_block.sum())
+        if name == "forked":
+            # every distinct page copied once; a group's private pages
+            # (31-35, its last five) dealt over the four splits
+            assert bt.unique().numel() == 568
+            assert per_block[0].tolist() == [8 + 8, 8 + 8, 8 + 8, 7 + 2 * 8]
+    assert loads == {"forked": 568, "distinct": B * nb, "same": 8 * nb}
+    assert tpa.launch_plan(*meta, splits=2) == (2, 18)
+    with pytest.raises(ValueError, match="pages a split"):
+        tpa.launch_plan(meta[0], meta[1], torch.empty(B, 40, device="meta"),
+                        splits=1)
+
+
+def _paged_split_combine(q, kp, vp, bt, position, pl):
+    """B4's algebra in plain PyTorch (fp32): per tile of ``pl.rows`` rows
+    and split of the pages (split s takes pages s, s + splits, ...), each
+    row's unnormalised partial (m, l, acc) over the pages of the split it
+    still walks (``walk_ends``), its masked slots scoring -1e30 and a
+    split with none of them leaving m = -inf, l = 0; then the merge
+    rescales the partials to their common max and sums them."""
+    B, H, D = q.shape
+    ps, K = kp.shape[1], kp.shape[2]
+    G, nb = H // K, bt.shape[1]
+    ends = tpa.walk_ends(bt, position, ps)
+    qg = q.float().reshape(B, K, G, D) / D ** 0.5
+    out = torch.zeros(B, K, G, D)
+    for t in range(pl.tiles):
+        for b in range(t * pl.rows, min(B, (t + 1) * pl.rows)):
+            parts = []
+            for sp in range(pl.splits):
+                js = [j for j in range(sp, nb, pl.splits) if j < ends[b]]
+                if not js:
+                    parts.append((torch.full((K, G), -float("inf")),
+                                  torch.zeros(K, G), torch.zeros(K, G, D)))
+                    continue
+                pages = bt[b, js].clamp(min=0).long()
+                k = kp[pages].float().reshape(-1, K, D)
+                v = vp[pages].float().reshape(-1, K, D)
+                slots = torch.cat([torch.arange(j * ps, (j + 1) * ps)
+                                   for j in js])
+                valid = (bt[b, js] >= 0).repeat_interleave(ps) & \
+                    (slots <= position[b])
+                s = torch.einsum("kgd,skd->kgs", qg[b], k)
+                s = torch.where(valid, s, torch.full_like(s, ref.NEG_INF))
+                m = s.max(-1).values
+                p = torch.exp(s - m[..., None])
+                parts.append((m, p.sum(-1),
+                              torch.einsum("kgs,skd->kgd", p, v)))
+            mx = torch.stack([m for m, _, _ in parts]).max(0).values
+            lsum = sum(l_ * torch.exp(m - mx) for m, l_, _ in parts)
+            acc = sum(a * torch.exp(m - mx)[..., None] for m, _, a in parts)
+            out[b] = acc / lsum.clamp_min(1e-30)[..., None]
+    return out.reshape(B, H, D)
+
+
+@pytest.mark.parametrize("case,splits", [
+    ("forked", None),       # 2 groups of 8 rows, CoW-copied partial page
+    ("forked", 3),
+    ("ragged", None),       # one position per row, a walk end per row
+    ("holes", 2),           # -1 holes in the middle and a tail of -1
+    ("idle", None),         # a row at position -1 inside a tile
+    ("early", 4),           # later splits hold no valid slot for most rows
+    ("b_odd", None),        # B = 13: a tile of 5 rows
+    ("g8", 3),              # G = 8
+    ("nb_small", None),     # nb 3 below the 33 splits aimed at
+])
+def test_paged_split_combine_matches_oracle_and_pallas(case, splits):
+    """B4's split-and-merge over tiles of rows equals the oracle and the
+    Pallas kernel (interpret mode) at 5e-5 in fp32, with the plan's splits
+    or forced ones: partial prompt pages, ragged positions, holes, -1
+    tails, an idle row (the uniform mean of every page it names), spans
+    past a row's walk, a ragged last tile, G = 8 and nb below the split
+    count the plan aims at."""
+    rng = np.random.RandomState(len(case) + (splits or 0))
+    B, H, K, D, ps = 16, 4, 2, 32, 4
+    if case in ("forked", "ragged", "idle"):
+        import chip_smoke                    # nb 7, prompt pages 5.25
+        bt, P = chip_smoke.forked_tables(2, 21, 8, 6, ps)
+        bt = bt.numpy()
+        position = np.full(B, 25, np.int32)
+        if case == "ragged":
+            position = rng.randint(18, 26, B).astype(np.int32)
+        if case == "idle":
+            position[3] = -1
+    else:
+        B = {"b_odd": 13, "g8": 9, "nb_small": 8}.get(case, 10)
+        nb = {"nb_small": 3}.get(case, 9)
+        if case == "g8":
+            H, K = 16, 2
+        if case == "nb_small":
+            K = 1
+        P = B * nb + 1
+        bt = rng.permutation(P)[:B * nb].reshape(B, nb).astype(np.int32)
+        bt[1::2, :nb // 2] = bt[0::2, :nb // 2][:len(bt[1::2])]
+        position = rng.randint(0, nb * ps, B).astype(np.int32)
+        if case == "holes":
+            bt[0, 1] = -1
+            bt[2, -3:] = -1
+            position[2] = nb * ps - 1
+            bt[4, :3] = -1                       # only holes up to it
+            position[4] = 2 * ps + 1
+        if case == "early":
+            position[:] = rng.randint(0, 2 * ps, B)
+    q = rng.randn(B, H, D).astype(np.float32)
+    kp = rng.randn(P, ps, K, D).astype(np.float32)
+    vp = rng.randn(P, ps, K, D).astype(np.float32)
+    tq, tk, tv, tbt, tpos = (torch.from_numpy(a) for a in
+                             (q, kp, vp, bt, position))
+    pl = tpa.plan(B, K, bt.shape[1])
+    if splits is not None:
+        pl = pl._replace(splits=splits, span=-(-bt.shape[1] // splits))
+    if case == "nb_small":
+        assert tpa.TARGET_BLOCKS // (pl.tiles * K) > bt.shape[1] == pl.splits
+    if case == "early":           # most rows walk 2 pages of 9
+        ends = tpa.walk_ends(tbt, tpos, ps)
+        assert (ends <= 2).sum() > B // 2 and pl.splits > 2
+    got = _paged_split_combine(tq, tk, tv, tbt, tpos, pl)
+    want = ref.paged_attention_ref(tq, tk, tv, tbt, tpos)
+    torch.testing.assert_close(got, want, atol=5e-5, rtol=0)
+    pallas = jax_paged(jnp.asarray(q), jnp.asarray(kp), jnp.asarray(vp),
+                       jnp.asarray(bt), jnp.asarray(position),
+                       interpret=True)
+    np.testing.assert_allclose(got.numpy(), np.asarray(pallas), atol=5e-5)
+    idle = np.flatnonzero(tpa.walk_ends(tbt, tpos, ps).numpy() ==
+                          bt.shape[1])
+    for b in idle:                      # no valid slot: the uniform mean
+        if position[b] < 0 or (bt[b, :position[b] // ps + 1] < 0).all():
+            mean = vp[np.maximum(bt[b], 0)].reshape(-1, K, D).mean(0)
+            np.testing.assert_allclose(
+                got[b].numpy(), np.repeat(mean, H // K, 0), atol=5e-5)
+    if case == "idle":
+        assert 3 in idle
 
 
 @pytest.mark.parametrize("rows,D,dt,sdt,want", [
