@@ -3,6 +3,7 @@
 
     python3 chip_smoke.py            # needs one NVIDIA card and nvcc
     python3 chip_smoke.py --profile  # also profiles one request per path
+                                     # and one PPO iteration
 
 Phases, each failing with a non-zero exit:
 
@@ -11,8 +12,8 @@ Phases, each failing with a non-zero exit:
    bf16 flash and SSD-scan kernels must hold HGMMA (tensor-core)
    instructions and the kernels redesigned for Hopper (B2's wgmma kernel,
    B3's and B4's split and combine kernels, B5's wgmma kernel, B1's vector
-   and scalar kernels) must not spill registers (their ptxas lines are
-   printed);
+   and scalar kernels) and the backward kernels (B2-bwd's three, B1-bwd's
+   four) must not spill registers (their ptxas lines are printed);
 2. each kernel against its plain PyTorch version at the shapes of the
    serving, paged GRPO and Mamba2 paths and at edge cases (ragged Sq/Sk
    across the 128-row q and 64-key k tiles, Sk below one tile, a window
@@ -24,7 +25,11 @@ Phases, each failing with a non-zero exit:
    B1 each route of its plan; for B4 the paged GRPO step's forked table,
    all-distinct and all-same tables of its shape, ragged positions, an
    idle row in a tile, a ragged last tile, pages of two units and a forced
-   single split), with its time, the plain version's, one PyTorch library
+   single split; B2's lse output on every case; B2-bwd at the PPO
+   training shape in bf16 and fp32, D 64, G 1 and 8, a window, ragged
+   S = 100 and a full ragged Sq != Sk; B1-bwd, dx and dscale, at the
+   training rows and each route), with its time, the plain version's, one
+   PyTorch library
    call's (where one exists) and the least time the card could take; every
    kernel also with its device time from CUDA-graph replay, warm and cold
    (inputs rotated through more than the 50 MB L2, as the path finds
@@ -51,6 +56,15 @@ Phases, each failing with a non-zero exit:
    prefill) and B1; launch counts asserted, outputs checked, the prefill
    and decode step timed apart, and a small Mamba model on the card
    against the CPU (16 greedy tokens identical).
+7. the paper's workload: 2 hydra PPO iterations (the seven phases of
+   ``RUNTIME_RLHF_PHASE_SEQUENCE``) of full llama3_2_3b with rank-128
+   adapters, 8 prompts x (512 + 64), remat="full", the reward adapter
+   scoring, through ``RLHFTrainer.train_step``; the launches of all seven
+   counters per iteration asserted (``ppo_launches``), losses finite,
+   trunk unchanged bit for bit, adapters moved; each phase's ms and
+   live/reserved/peak MiB above the weights printed, then again for one
+   iteration under memory_policy="none"; a small model's 2 greedy fp32
+   PPO steps on the card against the CPU.
 
 It prints the per-kernel JSON line, the card line, and last the result
 line ``{"ok": true, "device": {...}}``. Imports nothing of JAX.
@@ -59,7 +73,9 @@ from __future__ import annotations
 
 import argparse
 import dataclasses
+import gc
 import json
+import math
 import pathlib
 import re
 import shutil
@@ -77,6 +93,7 @@ from repro_torch.configs import get_config  # noqa: E402
 from repro_torch.kernels import build, ops, ref  # noqa: E402
 from repro_torch.kernels import decode_attention as dec  # noqa: E402
 from repro_torch.kernels import flash_attention as fa  # noqa: E402
+from repro_torch.kernels import flash_attention_bwd as fab  # noqa: E402
 from repro_torch.kernels import paged_attention as pa  # noqa: E402
 from repro_torch.kernels import rmsnorm as rn  # noqa: E402
 from repro_torch.kernels import ssd_scan as ssd  # noqa: E402
@@ -85,7 +102,9 @@ from repro_torch.data import PromptDataset, \
     synthetic_instruction_prompts  # noqa: E402
 from repro_torch.models import Model  # noqa: E402
 from repro_torch.paged import PageManager, gather_kv  # noqa: E402
-from repro_torch.rlhf import Rollout  # noqa: E402
+from repro_torch.rlhf import (ModelEngine, RLHFConfig, RLHFTrainer,  # noqa: E402
+                              Rollout)
+from repro_torch.tree import leaves  # noqa: E402
 
 OUT_DIR = ROOT / "chiprun_out"
 
@@ -100,6 +119,9 @@ GROUPS, GPROMPT, GSIZE, PAGE, GREQUESTS = 8, 504, 8, 16, 2
 # context, a multiple of the 256-step SSD chunk), 64 generated tokens
 MBATCH, MPROMPT, MREQUESTS = 8, 2048, 3
 TOL_SSD = {torch.bfloat16: 5e-2, torch.float32: 1e-3}   # test_kernels.py:98
+# PPO iteration: llama3_2_3b, hydra engine, rank 128, 8 prompts of 512 + 64
+# generated tokens, 2 iterations (and one more under memory_policy="none")
+PBATCH, PPROMPT, PITERS = 8, 512, 2
 
 # (memory B/s, bf16 tensor FLOP/s, fp32 FLOP/s), NVIDIA data sheets, dense
 PEAKS = {"SXM": (3.35e12, 989e12, 67e12), "PCIe": (2.0e12, 756e12, 51e12),
@@ -204,7 +226,11 @@ def rolling_pos(B, C, cur, device):
 NEW_KERNELS = ("flash_wgmma_kernel", "decode_split_kernel", "combine_kernel",
                "paged_split_kernel", "paged_merge_kernel",
                "ssd_wgmma_kernel", "rmsnorm_vec_kernel",
-               "rmsnorm_scalar_kernel")
+               "rmsnorm_scalar_kernel", "flash_bwd_delta_kernel",
+               "flash_bwd_dkdv_kernel", "flash_bwd_dq_kernel",
+               "rmsnorm_bwd_vec_kernel", "rmsnorm_bwd_scalar_kernel",
+               "rmsnorm_dscale_partial_kernel",
+               "rmsnorm_dscale_reduce_kernel")
 # the kernels that must run on the tensor cores (HGMMA in their SASS)
 HGMMA_KERNELS = ("flash_wgmma_kernel", "ssd_wgmma_kernel")
 
@@ -291,6 +317,8 @@ def check_flash(dev, peaks, g):
         ("main", BATCH, PROMPT, PROMPT, 24, 8, 128, True, 0, torch.bfloat16),
         ("grpo_prefill", GROUPS, GPROMPT, GPROMPT, 24, 8, 128, True, 0,
          torch.bfloat16),
+        ("ppo", PBATCH, PPROMPT + GEN, PPROMPT + GEN, 24, 8, 128, True, 0,
+         torch.bfloat16),
         ("ragged", 2, 100, 37, 24, 8, 128, False, 0, torch.bfloat16),
         ("ragged_causal", 2, 100, 37, 24, 8, 128, True, 0, torch.bfloat16),
         ("sq65_sk129", 2, 65, 129, 24, 8, 128, False, 0, torch.bfloat16),
@@ -310,12 +338,20 @@ def check_flash(dev, peaks, g):
         k = torch.randn(B, Sk, K, D, generator=g, device=dev).to(dt)
         v = torch.randn(B, Sk, K, D, generator=g, device=dev).to(dt)
         got = fa.flash_attention_fwd(q, k, v, causal=causal, window=window)
-        want = ref.attention_ref(q, k, v, causal=causal, window=window)
+        want, want_lse = ref.attention_ref(q, k, v, causal=causal,
+                                           window=window, return_lse=True)
+        # the lse output (the training path's) beside the same out
+        got2, lse = fa.flash_attention_fwd(q, k, v, causal=causal,
+                                           window=window, return_lse=True)
         torch.cuda.synchronize()
         err = (got.float() - want.float()).abs().max().item()
+        lse_err = (lse - want_lse).abs().max().item()
+        if not torch.equal(got, got2):
+            raise SystemExit(f"flash {name}: out differs with return_lse")
         rec = {"case": name, "shape": [B, Sq, Sk, H, K, D], "causal": causal,
-               "window": window, "dtype": str(dt), "max_err": err,
-               "tol": TOL[dt]}
+               "window": window, "dtype": str(dt),
+               "max_err": max(err, lse_err), "out_err": err,
+               "lse_err": lse_err, "tol": TOL[dt]}
         if name == "main":
             rec["ms"] = time_ms(lambda: fa.flash_attention_fwd(
                 q, k, v, causal=causal, window=window))
@@ -337,6 +373,20 @@ def check_flash(dev, peaks, g):
             n_ops = 4 * B * H * D * causal_pairs(Sq, Sk, causal, window)
             rec["bound_ms"], rec["bound_by"] = bound(
                 peaks, nbytes(q, k, v, got), n_ops, dt)
+        if name == "ppo":
+            # the training path's call, with the lse output: device time
+            # by graph replay, warm and cold, beside SDPA's at this shape
+            def make_set():
+                return [torch.randn_like(t) for t in (q, k, v)]
+            rec["device_ms"], rec["cold_ms"] = time_graph_warm_cold(
+                lambda *a: fa.flash_attention_fwd(
+                    *a, causal=causal, window=window, return_lse=True),
+                make_set)
+            rec["library_cold_ms"] = time_graph_warm_cold(
+                lambda *a: _gqa_sdpa(*a, is_causal=causal), make_set)[1]
+            n_ops = 4 * B * H * D * causal_pairs(Sq, Sk, causal, window)
+            rec["bound_ms"], rec["bound_by"] = bound(
+                peaks, nbytes(q, k, v, got, lse), n_ops, dt)
         out.append(rec)
     return out
 
@@ -428,6 +478,9 @@ RMSNORM_PATH_SHAPES = {
     "main": (BATCH * PROMPT, 3072), "decode": (BATCH, 3072),
     "grpo_prefill": (GROUPS * GPROMPT, 3072),
     "grpo_decode": (GROUPS * GSIZE, 3072),
+    # the PPO path's scoring and training forwards and their recompute
+    # (its rollout gives the main and decode shapes)
+    "ppo_prefill": (PBATCH * (PPROMPT + GEN), 3072),
     # the Mamba2 path: norm1 at d_model, the gated norm at d_inner
     "mamba_prefill": (MBATCH * MPROMPT, 1024),
     "mamba_gated": (MBATCH * MPROMPT, 2048),
@@ -476,6 +529,137 @@ def check_rmsnorm(dev, peaks, g):
             rec["plain_ms"] = time_ms(lambda: ref.rmsnorm_ref(x, s, 1e-5))
             rec["library_ms"] = time_ms(lambda: F.rms_norm(
                 x, (shape[-1],), s, 1e-5), iters=50)
+        out.append(rec)
+    return out
+
+
+def scaled_err(got, want) -> float:
+    """max |got - want| / max(1, max |want|): gradients grow past 1, and a
+    bf16 output rounds to a step relative to its size."""
+    got, want = got.float(), want.float()
+    return (got - want).abs().max().item() / max(1.0,
+                                                 want.abs().max().item())
+
+
+def check_flash_bwd(dev, peaks, g):
+    """B2-bwd against flash_attention_bwd_ref on the saved out and lse of
+    B2's forward: at the PPO training shape (bf16 and fp32) and at D 64,
+    G 1 and 8, a window that cuts tiles, ragged S = 100 and a full
+    (non-causal) ragged Sq != Sk. The main shape is timed: eager and by
+    graph replay (warm, cold), beside the plain version and the backward
+    of SDPA (GQA expanded) through autograd."""
+    S = PPROMPT + GEN
+    cases = [  # (name, B, Sq, Sk, H, K, D, causal, window, dtype)
+        ("main", PBATCH, S, S, 24, 8, 128, True, 0, torch.bfloat16),
+        ("fp32", PBATCH, S, S, 24, 8, 128, True, 0, torch.float32),
+        ("d64", 2, 192, 192, 8, 2, 64, True, 0, torch.bfloat16),
+        ("g1", 2, 192, 192, 8, 8, 64, True, 0, torch.bfloat16),
+        ("g8", 1, 160, 160, 16, 2, 128, True, 0, torch.bfloat16),
+        ("window", 1, 300, 300, 6, 2, 128, True, 100, torch.bfloat16),
+        ("ragged", 2, 100, 100, 6, 2, 128, True, 0, torch.bfloat16),
+        ("ragged_fp32", 2, 100, 100, 6, 2, 64, True, 0, torch.float32),
+        ("full_ragged", 2, 65, 129, 4, 2, 64, False, 0, torch.float32),
+    ]
+    out_recs = []
+    for name, B, Sq, Sk, H, K, D, causal, window, dt in cases:
+        q = torch.randn(B, Sq, H, D, generator=g, device=dev).to(dt)
+        k = torch.randn(B, Sk, K, D, generator=g, device=dev).to(dt)
+        v = torch.randn(B, Sk, K, D, generator=g, device=dev).to(dt)
+        dout = torch.randn(B, Sq, H, D, generator=g, device=dev).to(dt)
+        kw = dict(causal=causal, window=window)
+        out, lse = fa.flash_attention_fwd(q, k, v, return_lse=True, **kw)
+        got = fab.flash_attention_bwd(q, k, v, out, lse, dout, **kw)
+        want = ref.flash_attention_bwd_ref(q, k, v, out, lse, dout, **kw)
+        torch.cuda.synchronize()
+        rec = {"case": name, "shape": [B, Sq, Sk, H, K, D], "causal": causal,
+               "window": window, "dtype": str(dt),
+               "max_err": max(scaled_err(a, b) for a, b in zip(got, want)),
+               "max_abs_err": max((a.float() - b.float()).abs().max().item()
+                                  for a, b in zip(got, want)),
+               "tol": TOL[dt]}
+        del want
+        if name == "main":
+            rec["ms"] = time_ms(lambda: fab.flash_attention_bwd(
+                q, k, v, out, lse, dout, **kw), iters=10)
+            rec["plain_ms"] = time_ms(lambda: ref.flash_attention_bwd_ref(
+                q, k, v, out, lse, dout, **kw), iters=2, warmup=1)
+            qq, kk, vv = (t.detach().requires_grad_() for t in (q, k, v))
+            oo = _gqa_sdpa(qq, kk, vv, is_causal=causal)
+            do_t = dout.transpose(1, 2)
+            rec["library_ms"] = time_ms(lambda: torch.autograd.grad(
+                oo, (qq, kk, vv), do_t, retain_graph=True), iters=10)
+            del qq, kk, vv, oo
+
+            def make_set():
+                qs, ks, vs, ds = (torch.randn_like(t) for t in (q, k, v, dout))
+                os_, ls = fa.flash_attention_fwd(qs, ks, vs, return_lse=True,
+                                                 **kw)
+                return qs, ks, vs, os_, ls, ds
+            rec["device_ms"], rec["cold_ms"] = time_graph_warm_cold(
+                lambda *a: fab.flash_attention_bwd(*a, **kw), make_set)
+            rec["library_cold_ms"] = None
+            n_ops = 5 * 2 * D * B * H * causal_pairs(Sq, Sk, causal, window)
+            rec["bound_ms"], rec["bound_by"] = bound(
+                peaks, nbytes(q, k, v, out, lse, dout, *got), n_ops, dt)
+        out_recs.append(rec)
+    return out_recs
+
+
+def check_rmsnorm_bwd(dev, peaks, g):
+    """B1-bwd (dx and dscale) against rmsnorm_bwd_ref at the training
+    path's rows ([8 x 576, 3072]), a decode step's rows and at each route
+    of the plan; the main shape timed without dscale (the path's: the
+    trunk is frozen) and with it, beside the backward of F.rms_norm."""
+    bf = torch.bfloat16
+    cases = [("main", (PBATCH * (PPROMPT + GEN), 3072), bf, bf),
+             ("rows8", (8, 3072), bf, bf),
+             ("fp32", (3, 100), torch.float32, torch.float32),
+             ("fp32_scale", (7, 384), bf, torch.float32),   # scalar route
+             ("d100_bf16", (5, 100), bf, bf),               # scalar route
+             ("wide", (2, 8192), bf, bf),                   # scalar route
+             ("fp32_rows", (2048, 512), torch.float32, torch.float32)]
+    out = []
+    for name, shape, dt, sdt in cases:
+        x = torch.randn(*shape, generator=g, device=dev).to(dt)
+        dy = torch.randn(*shape, generator=g, device=dev).to(dt)
+        s = (1 + 0.1 * torch.randn(shape[-1], generator=g, device=dev)).to(sdt)
+        dx, ds = rn.rmsnorm_bwd(x, s, dy, 1e-5)
+        want_dx, want_ds = ref.rmsnorm_bwd_ref(x, s, dy, 1e-5)
+        dx2, _ = rn.rmsnorm_bwd(x, s, dy, 1e-5, dscale=False)
+        torch.cuda.synchronize()
+        if not torch.equal(dx, dx2):
+            raise SystemExit(f"rmsnorm_bwd {name}: dx differs without dscale")
+        rec = {"case": name, "shape": list(shape), "dtype": str(dt),
+               "max_err": max(scaled_err(dx, want_dx),
+                              scaled_err(ds, want_ds)),
+               "max_abs_err": max((dx.float() - want_dx.float()).abs().max()
+                                  .item(), (ds.float() - want_ds.float())
+                                  .abs().max().item()),
+               "tol": TOL[dt]}
+        if name == "main":
+            D = shape[-1]
+            rec["ms"] = time_ms(lambda: rn.rmsnorm_bwd(x, s, dy, 1e-5,
+                                                       dscale=False), iters=50)
+            rec["plain_ms"] = time_ms(lambda: ref.rmsnorm_bwd_ref(x, s, dy))
+            xr = x.detach().requires_grad_()
+            yy = F.rms_norm(xr, (D,), s, 1e-5)
+            rec["library_ms"] = time_ms(lambda: torch.autograd.grad(
+                yy, xr, dy, retain_graph=True), iters=50)
+            del xr, yy
+
+            def make_set():
+                return (torch.randn(*shape, device=dev).to(dt), s,
+                        torch.randn(*shape, device=dev).to(dt))
+            rec["device_ms"], rec["cold_ms"] = time_graph_warm_cold(
+                lambda xx, ss, gg: rn.rmsnorm_bwd(xx, ss, gg, 1e-5,
+                                                  dscale=False), make_set)
+            rec["dscale_device_ms"], rec["dscale_cold_ms"] = \
+                time_graph_warm_cold(
+                    lambda xx, ss, gg: rn.rmsnorm_bwd(xx, ss, gg, 1e-5),
+                    make_set)
+            rec["library_cold_ms"] = None
+            rec["bound_ms"], rec["bound_by"] = bound(
+                peaks, nbytes(x, s, dy, dx), 8 * x.numel(), dt)
         out.append(rec)
     return out
 
@@ -782,7 +966,8 @@ def paged_grpo(cfg, dev, log, profile=False):
     # rmsnorm: + 1 for the group's replicated unembedding after the prefill
     per_request = {"rmsnorm": (2 * L + 1) * GEN + 1, "flash_attention": L,
                    "decode_attention": 0,
-                   "paged_decode_attention": L * (GEN - 1), "ssd_scan": 0}
+                   "paged_decode_attention": L * (GEN - 1), "ssd_scan": 0,
+                   "flash_attention_bwd": 0, "rmsnorm_bwd": 0}
     rows = GROUPS * GSIZE
     reqs = []
     torch.cuda.synchronize()
@@ -957,7 +1142,8 @@ def mamba_serving(dev, log, profile=False):
     L = cfg.num_layers
     want = {"flash_attention": 0, "decode_attention": 0,
             "paged_decode_attention": 0, "ssd_scan": L * MREQUESTS,
-            "rmsnorm": (2 * L + 1) * GEN * MREQUESTS}
+            "rmsnorm": (2 * L + 1) * GEN * MREQUESTS,
+            "flash_attention_bwd": 0, "rmsnorm_bwd": 0}
     log(f"[smoke] mamba launches {launches} (want {want})")
     if launches != want:
         raise SystemExit(f"mamba launch counts {launches} != {want}")
@@ -993,16 +1179,216 @@ def mamba_serving(dev, log, profile=False):
     return out
 
 
+# ---------------------------------------------------------------- phase 7
+def ppo_launches(cfg, rl, reward_adapter: bool) -> dict:
+    """Kernel launches of one hydra PPO iteration, reckoned from the
+    shapes (ppo_epochs updates of each role):
+    - rollout: B2 once a layer (prefill), B3 once a layer at each of the
+      gen - 1 decode steps, B1 at norm1, norm2 and the final norm of the
+      prefill and each step: (2L + 1) gen;
+    - each scoring forward (reward if the reward adapter scores, ref,
+      values, old logp): B2 L, B1 2L + 1;
+    - each training step (actor, critic): the forward (B2 L, B1 2L + 1);
+      with remat="full" each layer's forward again inside the backward
+      (B2 L, B1 2L; the final norm is outside the checkpoints); the
+      backward: B2-bwd L and B1-bwd 2L (the final norm, every norm2 and
+      the norm1 of layers 1 .. L-1: layer 0's norm1 reads the frozen
+      embedding, so no gradient reaches it)."""
+    L, gen = cfg.num_layers, rl.gen_len
+    fwd = {"flash_attention": L, "rmsnorm": 2 * L + 1}
+    n_score = 4 if reward_adapter else 3
+    n_train = 2 * rl.ppo_epochs
+    remat = cfg.remat == "full"
+    want = {k: 0 for k in ops.KERNELS}
+    want["flash_attention"] = L + n_score * L + n_train * L * (1 + remat)
+    want["decode_attention"] = L * (gen - 1)
+    want["rmsnorm"] = (2 * L + 1) * gen + n_score * fwd["rmsnorm"] + \
+        n_train * (fwd["rmsnorm"] + remat * 2 * L)
+    want["flash_attention_bwd"] = n_train * L
+    want["rmsnorm_bwd"] = n_train * 2 * L
+    return want
+
+
+PPO_KW = dict(engine="hydra", lora_rank=128, prompt_len=PPROMPT,
+              gen_len=GEN, kl_coef=0.1, temperature=1.0, top_k=50,
+              ppo_epochs=1)
+
+
+def _phase_rows(records, weights):
+    """Per-phase ms and live/reserved/peak MiB above the weights."""
+    return [{"phase": r["phase"], "kind": r["kind"],
+             "ms": r["seconds"] * 1e3,
+             "hygiene_ms": r.get("hygiene_seconds", 0.0) * 1e3,
+             "live_mib": (r["live_bytes"] - weights) / 2**20,
+             "reserved_mib": (r["reserved_bytes"] - weights) / 2**20,
+             "peak_mib": (r["peak_bytes"] - weights) / 2**20}
+            for r in records]
+
+
+def _print_phases(label, rows, log):
+    log(f"[smoke] {label}: phase ms (of which boundary gc + empty_cache) "
+        f"/ MiB above the weights (live, reserved, peak)")
+    for r in rows:
+        log(f"  {r['phase']:16s} {r['ms']:9.1f} ms ({r['hygiene_ms']:7.1f}) "
+            f"{r['live_mib']:9.1f} {r['reserved_mib']:9.1f} "
+            f"{r['peak_mib']:9.1f}")
+
+
+def _trainer(cfg, dev, policy, seed=0):
+    """A fresh trainer and the bytes its persistent state holds (trunk,
+    adapters, AdamW moments): what the records are read above."""
+    gc.collect()
+    torch.cuda.synchronize()
+    before = torch.cuda.memory_allocated()
+    tr = RLHFTrainer(cfg, cfg, RLHFConfig(memory_policy=policy, **PPO_KW),
+                     torch.Generator(device=dev).manual_seed(seed))
+    torch.cuda.synchronize()
+    return tr, torch.cuda.memory_allocated() - before
+
+
+def ppo_iterations(dev, log, profile=False):
+    """Phase 7: PITERS hydra PPO iterations of full llama3_2_3b (28
+    layers, rank-128 adapters on all seven projections, 8 x (512 + 64)),
+    the reward adapter scoring, remat="full": every phase runs the model.
+    Asserts the launches of all seven counters per iteration, finite
+    losses, a trunk unchanged bit for bit and moved adapters; prints each
+    phase's ms and memory; then one iteration of a fresh trainer under
+    memory_policy="none"; then a small model's 2 greedy fp32 PPO steps
+    on the card against the CPU."""
+    cfg = get_config("llama3_2_3b")
+    tr, weights = _trainer(cfg, dev, "after_inference")
+    want = ppo_launches(cfg, tr.rl, reward_adapter=True)
+    log(f"[smoke] ppo: trunk {tr.engine.base_param_count() / 1e6:.1f}M "
+        f"params, adapter {tr.engine.adapter_param_count('actor') / 1e6:.1f}M"
+        f" (actor), persistent {weights / 2**30:.2f} GiB")
+    trunk = [t.cpu() for t in leaves(tr.base_params)]
+    adapters = {role: [t.detach().cpu() for t in
+                       leaves(tr.engine.adapters[role])]
+                for role in ("actor", "critic")}
+    data = PromptDataset(synthetic_instruction_prompts(
+        PBATCH * PITERS, seed=1), PPROMPT).batches(PBATCH, seed=1)
+    g = torch.Generator(device=dev).manual_seed(7)
+    iters = []
+    launches = None
+    for it in range(PITERS):
+        prompts = torch.from_numpy(next(data) % cfg.vocab_size).long().to(dev)
+        torch.cuda.synchronize()
+        ops.reset_launches()
+        t0 = time.perf_counter()
+        m = tr.train_step(prompts, g)
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        made = dict(ops.launches)
+        if made != want:
+            raise SystemExit(f"ppo iteration {it}: launches {made} != {want}")
+        launches = made
+        if not all(math.isfinite(v) for v in m.values()):
+            raise SystemExit(f"ppo iteration {it}: metrics {m}")
+        rows = _phase_rows(tr.memory.records[-8:], weights)
+        _print_phases(f"ppo iteration {it} ({secs * 1e3:.1f} ms)", rows, log)
+        log(f"[smoke] ppo iteration {it}: " + ", ".join(
+            f"{k} {v:.4g}" for k, v in sorted(m.items())))
+        iters.append({"seconds": secs, "metrics": m, "phases": rows})
+    for a, b in zip(trunk, leaves(tr.base_params)):
+        if not torch.equal(a, b.cpu()):
+            raise SystemExit("ppo: the frozen trunk moved")
+    for role, before in adapters.items():
+        if all(torch.equal(a, b.detach().cpu()) for a, b in
+               zip(before, leaves(tr.engine.adapters[role]))):
+            raise SystemExit(f"ppo: the {role} adapter did not move")
+    log(f"[smoke] ppo launches per iteration {launches} (want {want}); "
+        f"trunk unchanged, actor and critic adapters moved")
+    out = {"iterations": iters, "launches": launches,
+           "weights_bytes": weights}
+    if profile:
+        prompts = torch.from_numpy(next(PromptDataset(
+            synthetic_instruction_prompts(PBATCH, seed=2), PPROMPT).batches(
+                PBATCH, seed=2)) % cfg.vocab_size).long().to(dev)
+        out["profile"], out["profile_table"] = profile_call(
+            lambda: tr.train_step(prompts, g))
+    del tr, trunk, adapters
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # the paper's boundary empty_cache, on the real allocator: the same
+    # iteration with no hygiene at the boundaries
+    tr, weights = _trainer(cfg, dev, "none")
+    prompts = torch.from_numpy(next(PromptDataset(
+        synthetic_instruction_prompts(PBATCH, seed=1), PPROMPT).batches(
+            PBATCH, seed=1)) % cfg.vocab_size).long().to(dev)
+    tr.train_step(prompts, g)
+    rows = _phase_rows(tr.memory.records[-8:], weights)
+    _print_phases("ppo iteration, memory_policy=none", rows, log)
+    out["policy_none"] = rows
+    del tr
+    gc.collect()
+    torch.cuda.empty_cache()
+    out["small_model"] = check_small_ppo_against_cpu(dev)
+    log(f"[smoke] small model PPO card vs CPU: greedy tokens identical, "
+        f"metrics max_err {out['small_model']['max_err']:.3e}")
+    return out
+
+
+def check_small_ppo_against_cpu(dev, steps=2, tol=1e-4):
+    """2 greedy fp32 hydra PPO steps of a small model (the reference
+    tests' small config, remat="full" and the reward adapter, so every
+    kernel and its backward runs) on the card and on the CPU from the
+    same weights: the same greedy tokens, and the metrics within ``tol``
+    (fp32 sums in another order)."""
+    cfg = dataclasses.replace(get_config("llama3_2_3b").smoke(), num_layers=2,
+                              d_model=64, d_ff=128, vocab_size=64,
+                              num_heads=4, num_kv_heads=2, head_dim=64,
+                              remat="full")
+    rl = RLHFConfig(engine="hydra", lora_rank=4, prompt_len=8, gen_len=8,
+                    lr=3e-3, critic_lr=3e-3, temperature=0.0, top_k=0)
+    cpu = RLHFTrainer(cfg, cfg, rl, torch.Generator().manual_seed(0))
+    eng = cpu.engine
+    card = RLHFTrainer(cfg, cfg, rl, engine=ModelEngine(
+        cfg, None, rank=rl.lora_rank, base_params=_to(eng.base_params, dev),
+        adapters={r: _to(a, dev) for r, a in eng.adapters.items()}))
+    prompts = torch.randint(0, cfg.vocab_size, (4, rl.prompt_len),
+                            generator=torch.Generator().manual_seed(1))
+    got = {}
+    for name, tr in (("cpu", cpu), ("card", card)):
+        toks, gen = [], tr._gen
+
+        def spy(p, gg, gen=gen, toks=toks):
+            ro = gen(p, gg)
+            toks.append(ro.tokens.cpu())
+            return ro
+        tr._gen = spy
+        ms = [tr.train_step(prompts.to(tr.device),
+                            torch.Generator(device=tr.device))
+              for _ in range(steps)]
+        got[name] = (toks, ms)
+    if not all(torch.equal(a, b) for a, b in zip(got["cpu"][0],
+                                                  got["card"][0])):
+        raise SystemExit("small PPO: greedy tokens differ card vs CPU")
+    err = max(abs(a[k] - b[k]) for a, b in zip(got["cpu"][1], got["card"][1])
+              for k in a)
+    if not err <= tol:
+        raise SystemExit(f"small PPO: metrics differ by {err}: {got}")
+    return {"max_err": err, "tol": tol, "metrics": got["card"][1]}
+
+
 # each wrapper's CUDA kernels, by function name (no name contains
 # another's): one launch of the first kind per call; B3 and B4 add their
-# combine kernel when they split
+# combine kernel when they split, B2-bwd its dK/dV and delta kernels,
+# B1-bwd its dscale kernels when asked for dscale
 KERNEL_FUNCS = {"flash_attention": ("flash_wgmma_kernel", "flash_fwd_kernel"),
                 "decode_attention": ("decode_split_kernel",),
                 "paged_decode_attention": ("paged_split_kernel",),
                 "rmsnorm": ("rmsnorm_vec_kernel", "rmsnorm_scalar_kernel"),
-                "ssd_scan": ("ssd_wgmma_kernel", "ssd_scan_kernel")}
+                "ssd_scan": ("ssd_wgmma_kernel", "ssd_scan_kernel"),
+                "flash_attention_bwd": ("flash_bwd_dq_kernel",),
+                "rmsnorm_bwd": ("rmsnorm_bwd_vec_kernel",
+                                "rmsnorm_bwd_scalar_kernel")}
 SECOND_KERNELS = {"decode_attention": ("combine_kernel",),
-                  "paged_decode_attention": ("paged_merge_kernel",)}
+                  "paged_decode_attention": ("paged_merge_kernel",),
+                  "flash_attention_bwd": ("flash_bwd_dkdv_kernel",
+                                          "flash_bwd_delta_kernel"),
+                  "rmsnorm_bwd": ("rmsnorm_dscale_partial_kernel",
+                                  "rmsnorm_dscale_reduce_kernel")}
 
 
 def port_kernels(rows):
@@ -1108,12 +1494,20 @@ def main() -> int:
               "decode_attention": check_decode(dev, peaks, g),
               "paged_decode_attention": check_paged(dev, peaks, g),
               "rmsnorm": check_rmsnorm(dev, peaks, g),
-              "ssd_scan": check_ssd(dev, peaks, g)}
+              "ssd_scan": check_ssd(dev, peaks, g),
+              "flash_attention_bwd": check_flash_bwd(dev, peaks, g),
+              "rmsnorm_bwd": check_rmsnorm_bwd(dev, peaks, g)}
     failures = []
     for kname, recs in checks.items():
         for r in recs:
             line = (f"[smoke] {kname:16s} {r['case']:13s} max_err "
                     f"{r['max_err']:.3e} (tol {r['tol']:g})")
+            if "lse_err" in r:
+                line += f" [out {r['out_err']:.3e}, lse {r['lse_err']:.3e}]"
+            if "dscale_cold_ms" in r:
+                line += (f"  with dscale: warm "
+                         f"{r['dscale_device_ms'] * 1e3:.2f} us, cold "
+                         f"{r['dscale_cold_ms'] * 1e3:.2f} us")
             if "ms" in r:
                 lib = "none" if r["library_ms"] is None else \
                     f"{r['library_ms']:.4f} ms"
@@ -1166,7 +1560,8 @@ def main() -> int:
     want = {"flash_attention": L * REQUESTS,
             "decode_attention": L * (GEN - 1) * REQUESTS,
             "paged_decode_attention": 0, "ssd_scan": 0,
-            "rmsnorm": (2 * L + 1) * GEN * REQUESTS}
+            "rmsnorm": (2 * L + 1) * GEN * REQUESTS,
+            "flash_attention_bwd": 0, "rmsnorm_bwd": 0}
     print(f"[smoke] launches {launches} (want {want})")
     if launches != want:
         raise SystemExit(f"launch counts {launches} != {want}")
@@ -1191,8 +1586,13 @@ def main() -> int:
     mamba = mamba_serving(dev, lambda s: print(s, flush=True),
                           profile=args.profile)
     report["mamba"] = mamba
+
+    # phase 7: hydra PPO iterations at full width and depth
+    ppo = ppo_iterations(dev, lambda s: print(s, flush=True),
+                         profile=args.profile)
+    report["ppo"] = ppo
     paths = {"serve": launches, "paged_grpo": grpo["launches"],
-             "mamba_serve": mamba["launches"]}
+             "mamba_serve": mamba["launches"], "ppo": ppo["launches"]}
 
     if args.profile:
         prof, table = profile_request(cfg, dev)
@@ -1205,21 +1605,30 @@ def main() -> int:
         (OUT_DIR / "profile_paged.txt").write_text(grpo.pop("profile_table"))
         print_profile("mamba2 request", mamba["profile"])
         (OUT_DIR / "profile_mamba.txt").write_text(mamba.pop("profile_table"))
+        print_profile("ppo iteration", ppo["profile"])
+        (OUT_DIR / "profile_ppo.txt").write_text(ppo.pop("profile_table"))
 
     kernels = []
     main_path = {"paged_decode_attention": "paged_grpo",
-                 "ssd_scan": "mamba_serve"}
-    for kname, mod in (("flash_attention", fa), ("decode_attention", dec),
-                       ("paged_decode_attention", pa), ("rmsnorm", rn),
-                       ("ssd_scan", ssd)):
+                 "ssd_scan": "mamba_serve", "flash_attention_bwd": "ppo",
+                 "rmsnorm_bwd": "ppo"}
+    for kname, source, replaces in (
+            ("flash_attention", fa.SOURCE, fa.REPLACES),
+            ("decode_attention", dec.SOURCE, dec.REPLACES),
+            ("paged_decode_attention", pa.SOURCE, pa.REPLACES),
+            ("rmsnorm", rn.SOURCE, rn.REPLACES),
+            ("ssd_scan", ssd.SOURCE, ssd.REPLACES),
+            ("flash_attention_bwd", fab.SOURCE, fab.REPLACES),
+            ("rmsnorm_bwd", rn.SOURCE, rn.REPLACES_BWD)):
         main_rec = checks[kname][0]
         path = main_path.get(kname, "serve")
         kernels.append({
-            "name": kname, "route": "cuda", "source": mod.SOURCE,
-            "replaces": mod.REPLACES, "launches": paths[path][kname],
+            "name": kname, "route": "cuda", "source": source,
+            "replaces": replaces, "launches": paths[path][kname],
             "path": path,
             "launches_by_path": {p: c[kname] for p, c in paths.items()},
-            "max_abs_err": max(r["max_err"] for r in checks[kname]),
+            "max_abs_err": max(r.get("max_abs_err", r["max_err"])
+                               for r in checks[kname]),
             "ms": main_rec["ms"], "plain_ms": main_rec["plain_ms"],
             "bound_ms": main_rec["bound_ms"],
             "bound_by": main_rec["bound_by"],

@@ -1,0 +1,121 @@
+"""End-to-end hydra PPO on the PyTorch/CUDA port — the twin of
+``examples/rlhf_e2e.py``: ONE frozen trunk + per-role LoRA adapters and
+value heads (actor, critic, reward), the reference logp read off the
+base, the paper's phase-boundary memory management, and per-phase
+records of the caching allocator (live, reserved and peak bytes).
+
+On the card (the default device; it raises without one):
+
+    PYTHONPATH=src python examples/torch_rlhf_e2e.py --arch llama3_2_3b \
+        --steps 2 --batch 8 --prompt-len 512 --gen-len 64 --lora-rank 128
+
+On the CPU, the reference example's small trunk (``--smoke``, with a
+head_dim of 64, a width the card's attention kernels take; on the CPU the
+plain PyTorch path, where the records count the trainer's tensors):
+
+    PYTHONPATH=src python examples/torch_rlhf_e2e.py --arch llama3_2_3b \
+        --smoke --device cpu --steps 20
+
+``--reward adapter`` scores with the frozen reward adapter's value head
+(every phase runs the model); the default ``target`` is the reference
+example's programmatic reward (the fraction of generated 7s).
+"""
+import argparse
+import dataclasses
+import pathlib
+import sys
+import time
+
+sys.path.insert(0, str(pathlib.Path(__file__).resolve().parents[1] / "src"))
+
+import torch  # noqa: E402
+
+from repro_torch import default_device  # noqa: E402
+from repro_torch.configs import get_config  # noqa: E402
+from repro_torch.rlhf import RLHFConfig, RLHFTrainer  # noqa: E402
+from repro_torch.rlhf.reward import make_target_token_reward  # noqa: E402
+
+
+def _mib(n):
+    return "     n/a" if n is None else f"{n / 2**20:8.1f}"
+
+
+def main(argv=None):
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--arch", default="llama3_2_3b")
+    ap.add_argument("--smoke", action="store_true",
+                    help="the reference example's small trunk (CPU-sized)")
+    ap.add_argument("--layers", type=int, default=2)
+    ap.add_argument("--d-model", type=int, default=128)
+    ap.add_argument("--steps", type=int, default=2)
+    ap.add_argument("--batch", type=int, default=8)
+    ap.add_argument("--prompt-len", type=int, default=0,
+                    help="0 = 8 with --smoke, else 512")
+    ap.add_argument("--gen-len", type=int, default=0,
+                    help="0 = 16 with --smoke, else 64")
+    ap.add_argument("--lora-rank", type=int, default=0,
+                    help="0 = 16 with --smoke, else the paper's 128")
+    ap.add_argument("--lr", type=float, default=0.0,
+                    help="0 = 3e-2 with --smoke (the reference example's "
+                         "hydra rate), else 1e-5")
+    ap.add_argument("--temperature", type=float, default=1.0)
+    ap.add_argument("--top-k", type=int, default=0)
+    ap.add_argument("--reward", default="target", choices=("target", "adapter"))
+    ap.add_argument("--memory-policy", default="after_inference",
+                    choices=("none", "after_inference", "after_training",
+                             "after_all"))
+    ap.add_argument("--device", default=None,
+                    help="cuda unless given; cpu runs the plain PyTorch path")
+    ap.add_argument("--seed", type=int, default=0)
+    args = ap.parse_args(argv)
+    device = default_device(args.device)
+
+    cfg = get_config(args.arch)
+    if args.smoke:
+        cfg = dataclasses.replace(
+            cfg.smoke(), num_layers=args.layers, d_model=args.d_model,
+            d_ff=2 * args.d_model, vocab_size=64, num_heads=4,
+            num_kv_heads=2, head_dim=64)
+    small = args.smoke
+    rl = RLHFConfig(
+        prompt_len=args.prompt_len or (8 if small else 512),
+        gen_len=args.gen_len or (16 if small else 64),
+        lr=args.lr or (3e-2 if small else 1e-5),
+        critic_lr=args.lr or (3e-2 if small else 1e-5),
+        kl_coef=0.0 if small else 0.1, temperature=args.temperature,
+        top_k=args.top_k, engine="hydra",
+        lora_rank=args.lora_rank or (16 if small else 128),
+        memory_policy=args.memory_policy)
+    reward_fn = make_target_token_reward(7) if args.reward == "target" \
+        else None
+    trainer = RLHFTrainer(cfg, cfg, rl,
+                          torch.Generator(device=device).manual_seed(args.seed),
+                          reward_fn=reward_fn)
+    eng = trainer.engine
+    print(f"hydra engine on {device}: {cfg.name}, trunk "
+          f"{eng.base_param_count():,} params (frozen), actor adapter "
+          f"{eng.adapter_param_count('actor'):,} "
+          f"({100 * eng.trainable_fraction('actor'):.2f}% trainable), "
+          f"rank {rl.lora_rank}")
+
+    g = torch.Generator(device=device).manual_seed(args.seed + 1)
+    t0 = time.time()
+    for step in range(args.steps):
+        prompts = torch.randint(0, cfg.vocab_size, (args.batch, rl.prompt_len),
+                                generator=g, device=device)
+        m = trainer.train_step(prompts, g)
+        print(f"step {step:4d} reward {m['mean_reward']:+.4f} "
+              f"kl {m['kl']:.4f} clip {m['clip_frac']:.3f} "
+              f"vf {m['vf_loss']:.4f} ({time.time() - t0:.0f}s)")
+
+    # the last iteration's records: a mid-rollout sample and one per phase
+    print(f"\nlast-iteration phases (policy={args.memory_policy}; MiB):")
+    print("  phase            kind          ms     live reserved     peak")
+    for r in trainer.memory.records[-8:]:
+        print(f"  {r['phase']:16s} {r['kind']:10s} "
+              f"{r['seconds'] * 1e3:8.1f} {_mib(r['live_bytes'])} "
+              f"{_mib(r['reserved_bytes'])} {_mib(r['peak_bytes'])}")
+
+
+if __name__ == "__main__":
+    main()

@@ -20,6 +20,15 @@ Paged KV pools follow the same stacking in the reference
 ``repro/models/transformer.py:551-566``); the port keeps one pool per
 layer with one more page, the drop page (``paged/paged_cache.py``), which
 the converters add and strip.
+
+LoRA adapters follow the same stacking in the reference
+(``adapter["lora"]["segment0"]["slot{j}"]``, factors ``[n_groups, d_in,
+r]`` / ``[n_groups, r, d_out]``); the port's are per layer
+(``adapter["lora"]["layers"][i]``); the value head is fp32 ``{"w": [d, 1],
+"b": [1]}`` on both sides (:func:`adapter_from_jax`,
+:func:`adapter_to_jax`). :func:`trainer_from_jax` builds the port's hydra
+trainer from the reference trainer's trunk and adapters, so the two train
+from the same weights.
 """
 from __future__ import annotations
 
@@ -146,3 +155,53 @@ def pools_to_jax(pools: list, cfg: ModelConfig) -> list:
     layers = [{name: _to_numpy(pool[name][:-1]) for name in ("k", "v")}
               for pool in pools]
     return [{f"slot{j}": _map_stack(layers[j::per]) for j in range(per)}]
+
+
+def adapter_from_jax(adapter_np: Dict[str, Any], cfg: ModelConfig,
+                     device=None) -> dict:
+    """A reference adapter (numpy leaves) -> the port's, on ``device``."""
+    device = default_device(device)
+    lora = adapter_np.get("lora") or {}
+    extra = set(lora) - {"segment0"}
+    if extra:
+        raise NotImplementedError(f"the port carries one-segment decoders; "
+                                  f"unsupported adapter groups {sorted(extra)}")
+    out: Dict[str, Any] = {"lora": {}}
+    if lora:
+        seg = lora["segment0"]
+        per = len(cfg.period)
+        out["lora"]["layers"] = [
+            _map(seg[f"slot{j}"], lambda a, g=g: _to_torch(a[g], device))
+            for g in range(cfg.num_layers // per) for j in range(per)]
+    if "value_head" in adapter_np:
+        out["value_head"] = _map(adapter_np["value_head"],
+                                 lambda a: _to_torch(a, device))
+    return out
+
+
+def adapter_to_jax(adapter: dict, cfg: ModelConfig) -> Dict[str, Any]:
+    """The port's adapter -> the reference's layout, as numpy arrays."""
+    out: Dict[str, Any] = {"lora": {}}
+    layers = (adapter.get("lora") or {}).get("layers")
+    if layers:
+        per = len(cfg.period)
+        layers = [_map(layer, _to_numpy) for layer in layers]
+        out["lora"]["segment0"] = {f"slot{j}": _map_stack(layers[j::per])
+                                   for j in range(per)}
+    if "value_head" in adapter:
+        out["value_head"] = _map(adapter["value_head"], _to_numpy)
+    return out
+
+
+def trainer_from_jax(base_np: Dict[str, Any], adapters_np: Dict[str, Any],
+                     cfg: ModelConfig, rl, reward_fn=None, device=None):
+    """The port's hydra ``RLHFTrainer`` from the reference trainer's trunk
+    (``trainer.base_params``) and per-role adapters
+    (``trainer.engine.adapters``), all as numpy leaves, on ``device``."""
+    from repro_torch.rlhf import ModelEngine, RLHFTrainer
+    device = default_device(device)
+    engine = ModelEngine(
+        cfg, None, rank=rl.lora_rank, base_params=from_jax(base_np, cfg, device),
+        adapters={role: adapter_from_jax(ad, cfg, device)
+                  for role, ad in adapters_np.items()})
+    return RLHFTrainer(cfg, cfg, rl, reward_fn=reward_fn, engine=engine)

@@ -53,6 +53,9 @@ class ModelConfig:
     tie_embeddings: bool = False
     norm_eps: float = 1e-5
     param_dtype: str = "bfloat16"
+    optimizer: str = "adamw"                  # adamw only in the port
+    remat: str = "full"                       # none | full (per layer)
+    microbatches: int = 1                     # gradient-accumulation steps
     source: str = ""                          # citation bracket
 
     def resolved_head_dim(self) -> int:
@@ -91,6 +94,9 @@ class ModelConfig:
             head_dim=64 if self.num_heads else 0,
             sliding_window=min(self.sliding_window, 64)
             if self.sliding_window else 0,
+            remat="none",
+            optimizer="adamw",
+            microbatches=1,
             param_dtype="float32",
         )
 

@@ -86,8 +86,9 @@ constexpr size_t smem_bytes() {
 template <typename T, int D>
 __global__ void __launch_bounds__(NT)
 flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                 const T* __restrict__ v, T* __restrict__ o, int Sq, int Sk,
-                 int H, int K, int causal, int window, float scale) {
+                 const T* __restrict__ v, T* __restrict__ o,
+                 float* __restrict__ lse, int Sq, int Sk, int H, int K,
+                 int causal, int window, float scale) {
   extern __shared__ float smem[];
   float* qs = smem;
   float* ks = qs + BQ * (D + 1);
@@ -216,6 +217,8 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
     const int qi = q0 + tr * 4 + i;
     if (qi >= Sq) continue;
     const float inv = 1.f / fmaxf(l[i], 1e-30f);
+    if (lse && tc == 0)
+      lse[((size_t)b * Sq + qi) * H + h] = m[i] + logf(fmaxf(l[i], 1e-30f));
     T* orow = o + (((size_t)b * Sq + qi) * H + h) * D;
 #pragma unroll
     for (int cc = 0; cc < DC; ++cc) rt::store_f(orow + tc + 16 * cc, acc[i][cc] * inv);
@@ -224,8 +227,8 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
 
 template <typename T, int D>
 cudaError_t launch(const void* q, const void* k, const void* v, void* o,
-                   int B, int Sq, int Sk, int H, int K, int causal,
-                   int window, cudaStream_t stream) {
+                   float* lse, int B, int Sq, int Sk, int H, int K,
+                   int causal, int window, cudaStream_t stream) {
   constexpr size_t smem = smem_bytes<D>();
   cudaError_t err = cudaFuncSetAttribute(
       flash_fwd_kernel<T, D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
@@ -234,8 +237,8 @@ cudaError_t launch(const void* q, const void* k, const void* v, void* o,
   const dim3 grid((Sq + BQ - 1) / BQ, H, B);
   flash_fwd_kernel<T, D><<<grid, NT, smem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), static_cast<T*>(o), Sq, Sk, H, K, causal,
-      window, 1.0f / sqrtf((float)D));
+      static_cast<const T*>(v), static_cast<T*>(o), lse, Sq, Sk, H, K,
+      causal, window, 1.0f / sqrtf((float)D));
   return cudaGetLastError();
 }
 
@@ -252,6 +255,7 @@ constexpr int NST = 3;        // K/V ring stages (>= 3: a consumer holds one
 constexpr int NT = 288;       // 2 consumer warpgroups + 1 producer warp
 constexpr int CHUNK = 64;     // bf16 columns per 128-byte swizzled row
 constexpr float kLog2e = 1.4426950408889634f;
+constexpr float kLn2 = 0.6931471805599453f;
 
 template <int D>
 struct Layout {
@@ -290,8 +294,9 @@ __global__ void __launch_bounds__(NT, 1)
 flash_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
                    const __grid_constant__ CUtensorMap tk,
                    const __grid_constant__ CUtensorMap tv,
-                   const __grid_constant__ CUtensorMap to, int B, int Sq, int Sk,
-                   int H, int K, int causal, int window, float scale_log2) {
+                   const __grid_constant__ CUtensorMap to,
+                   float* __restrict__ lse, int B, int Sq, int Sk, int H,
+                   int K, int causal, int window, float scale_log2) {
   using L = Layout<D>;
   static_assert(NST >= 3, "the pending PV holds a stage");
   constexpr int NC = D / CHUNK;         // 64-column chunks of a row
@@ -569,10 +574,16 @@ flash_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
     // Epilogue: O / l in bf16 into this warpgroup's rows of the q buffer
     // (its wgmma reads of q are done), in the 128-byte swizzled layout the
     // tensor map expects, then one TMA store per 64-column chunk; rows
-    // past Sq are not written.
+    // past Sq are not written. With `lse`, the first lane of each quad
+    // (which holds the row's m, in log2 units, and now its whole l) also
+    // writes lse = m ln 2 + log l for its row, if the row is below Sq.
 #pragma unroll
     for (int hf = 0; hf < 2; ++hf) {
-      const float inv = 1.f / fmaxf(rt::group_sum<4>(l[hf]), 1e-30f);
+      const float lsum = fmaxf(rt::group_sum<4>(l[hf]), 1e-30f);
+      const float inv = 1.f / lsum;
+      if (lse && lane % 4 == 0 && rows[hf] < Sq)
+        lse[((size_t)tl.b * Sq + rows[hf]) * H + tl.h] =
+            m[hf] * kLn2 + logf(lsum);
       const int r = (warp % 4) * 16 + lane / 4 + 8 * hf;   // row in the region
 #pragma unroll
       for (int j = 0; j < D / 8; ++j) {
@@ -615,8 +626,8 @@ bool make_map(CUtensorMap* map, const void* ptr, int B, int S, int heads,
 
 template <int D>
 cudaError_t launch(const void* q, const void* k, const void* v, void* o,
-                   int B, int Sq, int Sk, int H, int K, int causal,
-                   int window, cudaStream_t stream) {
+                   float* lse, int B, int Sq, int Sk, int H, int K,
+                   int causal, int window, cudaStream_t stream) {
   CUtensorMap tq, tk, tv, to;
   if (!make_map(&tq, q, B, Sq, H, D, BQ) || !make_map(&tk, k, B, Sk, K, D, BK) ||
       !make_map(&tv, v, B, Sk, K, D, BK) || !make_map(&to, o, B, Sq, H, D, 64))
@@ -636,7 +647,7 @@ cudaError_t launch(const void* q, const void* k, const void* v, void* o,
   }
   const int n_tiles = (Sq + BQ - 1) / BQ * H * B;
   flash_wgmma_kernel<D><<<min(sms, n_tiles), NT, smem, stream>>>(
-      tq, tk, tv, to, B, Sq, Sk, H, K, causal,
+      tq, tk, tv, to, lse, B, Sq, Sk, H, K, causal,
       window, kLog2e / sqrtf((float)D));
   return cudaGetLastError();
 }
@@ -644,21 +655,24 @@ cudaError_t launch(const void* q, const void* k, const void* v, void* o,
 }  // namespace wg
 
 // q [B,Sq,H,D], k/v [B,Sk,K,D], o [B,Sq,H,D], all contiguous, one dtype:
-// bf16 on the tensor cores (wg), fp32 on the CUDA cores (simt).
+// bf16 on the tensor cores (wg), fp32 on the CUDA cores (simt). lse, when
+// not null, is [B,Sq,H] fp32: the log-normaliser of each row's softmax
+// (the residual of the backward, flash.py:88).
 extern "C" int rt_flash_attention_fwd(const void* q, const void* k,
-                                      const void* v, void* o, int B, int Sq,
-                                      int Sk, int H, int K, int D,
-                                      int causal, int window, int dtype,
-                                      void* stream) {
+                                      const void* v, void* o, void* lse_ptr,
+                                      int B, int Sq, int Sk, int H, int K,
+                                      int D, int causal, int window,
+                                      int dtype, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  float* lse = static_cast<float*>(lse_ptr);
   if (B <= 0 || Sq <= 0 || Sk <= 0 || K <= 0 || H % K != 0)
     return (int)cudaErrorInvalidValue;
   if (dtype == rt::kBFloat16) {
-    if (D == 64) return (int)wg::launch<64>(q, k, v, o, B, Sq, Sk, H, K, causal, window, s);
-    if (D == 128) return (int)wg::launch<128>(q, k, v, o, B, Sq, Sk, H, K, causal, window, s);
+    if (D == 64) return (int)wg::launch<64>(q, k, v, o, lse, B, Sq, Sk, H, K, causal, window, s);
+    if (D == 128) return (int)wg::launch<128>(q, k, v, o, lse, B, Sq, Sk, H, K, causal, window, s);
   } else if (dtype == rt::kFloat32) {
-    if (D == 64) return (int)simt::launch<float, 64>(q, k, v, o, B, Sq, Sk, H, K, causal, window, s);
-    if (D == 128) return (int)simt::launch<float, 128>(q, k, v, o, B, Sq, Sk, H, K, causal, window, s);
+    if (D == 64) return (int)simt::launch<float, 64>(q, k, v, o, lse, B, Sq, Sk, H, K, causal, window, s);
+    if (D == 128) return (int)simt::launch<float, 128>(q, k, v, o, lse, B, Sq, Sk, H, K, causal, window, s);
   }
   return (int)cudaErrorInvalidValue;
 }

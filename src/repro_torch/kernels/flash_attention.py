@@ -27,13 +27,16 @@ HEAD_DIMS = (64, 128)
 def _fn():
     p, i = ctypes.c_void_p, ctypes.c_int
     return build.entry("rt_flash_attention_fwd",
-                       [p, p, p, p, i, i, i, i, i, i, i, i, i, p])
+                       [p, p, p, p, p, i, i, i, i, i, i, i, i, i, p])
 
 
 def flash_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                        *, causal: bool = True,
-                        window: int = 0) -> torch.Tensor:
-    """q [B,Sq,H,D]; k/v [B,Sk,K,D] with H % K == 0 -> [B,Sq,H,D]."""
+                        *, causal: bool = True, window: int = 0,
+                        return_lse: bool = False):
+    """q [B,Sq,H,D]; k/v [B,Sk,K,D] with H % K == 0 -> out [B,Sq,H,D];
+    with ``return_lse``, (out, lse) where lse [B,Sq,H] fp32 is each row's
+    log-normaliser, the residual the backward (``flash_attention_bwd``)
+    starts from."""
     if not (q.device.type == "cuda" and k.device == q.device
             and v.device == q.device):
         raise ValueError(f"flash kernel needs CUDA tensors on one device, "
@@ -52,8 +55,11 @@ def flash_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         raise ValueError("flash kernel's tile loads need q, k and v to start "
                          "on a 16-byte boundary")
     out = torch.empty_like(q)
+    lse = torch.empty((B, Sq, H), dtype=torch.float32, device=q.device) \
+        if return_lse else None
     err = _fn()(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+                None if lse is None else lse.data_ptr(),
                 B, Sq, Sk, H, K, D, int(causal), int(window),
                 build.dtype_code(q), build.stream_ptr())
     build.check(err, "rt_flash_attention_fwd")
-    return out
+    return (out, lse) if return_lse else out

@@ -6,6 +6,12 @@ launches or raises — nothing falls back to the plain version. Unlike the
 JAX package, where ``use_kernel`` flags default to off, the model always
 routes these functions through here.
 
+Attention and RMSNorm carry gradients: when autograd needs one (grad mode
+on and an input that requires grad), :class:`FlashAttention` and
+:class:`RMSNorm` run the forward kernel and save its residuals, and their
+backward is a kernel too (B2-bwd, B1-bwd), or its plain version for a CPU
+tensor. Without a gradient the forward is the plain launch serving makes.
+
 ``launches`` counts, per kernel, the launches made through this module
 (and only those), so a run can show that its path went through the
 kernels; :func:`reset_launches` sets every count to 0.
@@ -16,13 +22,15 @@ import torch
 
 from repro_torch.kernels import decode_attention as _dec
 from repro_torch.kernels import flash_attention as _fa
+from repro_torch.kernels import flash_attention_bwd as _fab
 from repro_torch.kernels import paged_attention as _pa
 from repro_torch.kernels import ref as _ref
 from repro_torch.kernels import rmsnorm as _rn
 from repro_torch.kernels import ssd_scan as _ssd
 
 KERNELS = ("rmsnorm", "flash_attention", "decode_attention",
-           "paged_decode_attention", "ssd_scan")
+           "paged_decode_attention", "ssd_scan", "flash_attention_bwd",
+           "rmsnorm_bwd")
 launches = {name: 0 for name in KERNELS}
 
 
@@ -35,12 +43,50 @@ def _on_cpu(t: torch.Tensor) -> bool:
     return t.device.type == "cpu"
 
 
-def flash_attention(q, k, v, *, causal: bool = True, window: int = 0):
+def _needs_grad(*ts) -> bool:
+    return torch.is_grad_enabled() and any(t.requires_grad for t in ts)
+
+
+def _flash_fwd(q, k, v, causal, window, return_lse):
     if _on_cpu(q):
-        return _ref.attention_ref(q, k, v, causal=causal, window=window)
-    out = _fa.flash_attention_fwd(q, k, v, causal=causal, window=window)
+        return _ref.attention_ref(q, k, v, causal=causal, window=window,
+                                  return_lse=return_lse)
+    out = _fa.flash_attention_fwd(q, k, v, causal=causal, window=window,
+                                  return_lse=return_lse)
     launches["flash_attention"] += 1
     return out
+
+
+class FlashAttention(torch.autograd.Function):
+    """B2 with its gradient: the forward saves (q, k, v, out, lse); the
+    backward is B2-bwd (``flash_attention_bwd``). Under activation
+    checkpointing the recompute's forward saves its own out and lse."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal: bool, window: int):
+        out, lse = _flash_fwd(q, k, v, causal, window, True)
+        ctx.save_for_backward(q, k, v, out, lse)
+        ctx.causal, ctx.window = causal, window
+        return out
+
+    @staticmethod
+    def backward(ctx, dout):
+        q, k, v, out, lse = ctx.saved_tensors
+        kw = dict(causal=ctx.causal, window=ctx.window)
+        if _on_cpu(q):
+            dq, dk, dv = _ref.flash_attention_bwd_ref(q, k, v, out, lse, dout,
+                                                      **kw)
+        else:
+            dq, dk, dv = _fab.flash_attention_bwd(q, k, v, out, lse, dout,
+                                                  **kw)
+            launches["flash_attention_bwd"] += 1
+        return dq, dk, dv, None, None
+
+
+def flash_attention(q, k, v, *, causal: bool = True, window: int = 0):
+    if _needs_grad(q, k, v):
+        return FlashAttention.apply(q, k, v, causal, window)
+    return _flash_fwd(q, k, v, causal, window, False)
 
 
 def decode_attention(q, k_cache, v_cache, pos, position, *, window: int = 0):
@@ -63,12 +109,41 @@ def paged_decode_attention(q, k_pool, v_pool, block_tables, position):
     return out
 
 
-def rmsnorm(x, scale, eps: float = 1e-5):
+def _rmsnorm_fwd(x, scale, eps):
     if _on_cpu(x):
         return _ref.rmsnorm_ref(x, scale, eps)
     out = _rn.rmsnorm(x, scale, eps)
     launches["rmsnorm"] += 1
     return out
+
+
+class RMSNorm(torch.autograd.Function):
+    """B1 with its gradient: the forward saves (x, scale); the backward is
+    B1-bwd (``rmsnorm.rmsnorm_bwd``), which computes dscale only when
+    autograd asks for it (a frozen scale never does)."""
+
+    @staticmethod
+    def forward(ctx, x, scale, eps: float):
+        ctx.save_for_backward(x, scale)
+        ctx.eps = eps
+        return _rmsnorm_fwd(x, scale, eps)
+
+    @staticmethod
+    def backward(ctx, dy):
+        x, scale = ctx.saved_tensors
+        want_ds = ctx.needs_input_grad[1]
+        if _on_cpu(x):
+            dx, ds = _ref.rmsnorm_bwd_ref(x, scale, dy, ctx.eps)
+        else:
+            dx, ds = _rn.rmsnorm_bwd(x, scale, dy, ctx.eps, dscale=want_ds)
+            launches["rmsnorm_bwd"] += 1
+        return dx, (ds if want_ds else None), None
+
+
+def rmsnorm(x, scale, eps: float = 1e-5):
+    if _needs_grad(x, scale):
+        return RMSNorm.apply(x, scale, eps)
+    return _rmsnorm_fwd(x, scale, eps)
 
 
 def ssd_scan(x, a, b, c, chunk: int, initial_state=None):

@@ -16,25 +16,81 @@ import torch
 NEG_INF = -1e30
 
 
+def _mask(Sq: int, Sk: int, causal: bool, window: int, q_offset: int,
+          device) -> torch.Tensor:
+    """[Sq, Sk] validity; the window applies only when causal."""
+    qi = torch.arange(Sq, device=device)[:, None] + q_offset
+    kj = torch.arange(Sk, device=device)[None, :]
+    m = torch.ones((Sq, Sk), dtype=torch.bool, device=device)
+    if causal:
+        m = kj <= qi
+        if window:
+            m &= kj > qi - window
+    return m
+
+
 def attention_ref(q, k, v, *, causal: bool = True, window: int = 0,
-                  q_offset: int = 0):
-    """q [B,Sq,H,D], k/v [B,Sk,K,Dv]; H % K == 0. fp32 softmax, dense."""
+                  q_offset: int = 0, return_lse: bool = False):
+    """q [B,Sq,H,D], k/v [B,Sk,K,Dv]; H % K == 0. fp32 softmax, dense.
+    ``return_lse`` also returns the softmax's log-normaliser, fp32
+    [B,Sq,H] (query head h = kv head * G + g, the reference's
+    ``_flash_fwd_res`` lse [B,Sq,K,G] flattened)."""
     B, Sq, H, D = q.shape
     Sk, K = k.shape[1], k.shape[2]
     G = H // K
     qg = q.reshape(B, Sq, K, G, D).float()
     s = torch.einsum("bqkgd,btkd->bkgqt", qg, k.float()) / math.sqrt(D)
-    qi = torch.arange(Sq, device=q.device)[:, None] + q_offset
-    kj = torch.arange(Sk, device=q.device)[None, :]
-    m = torch.ones((Sq, Sk), dtype=torch.bool, device=q.device)
-    if causal:
-        m = kj <= qi
-        if window:
-            m &= kj > qi - window
+    m = _mask(Sq, Sk, causal, window, q_offset, q.device)
     s = torch.where(m, s, torch.full_like(s, NEG_INF))
     p = torch.softmax(s, dim=-1)
     o = torch.einsum("bkgqt,btkd->bqkgd", p, v.float())
-    return o.reshape(B, Sq, H, v.shape[-1]).to(q.dtype)
+    o = o.reshape(B, Sq, H, v.shape[-1]).to(q.dtype)
+    if not return_lse:
+        return o
+    lse = torch.logsumexp(s, dim=-1)                          # [B,K,G,Sq]
+    return o, lse.permute(0, 3, 1, 2).reshape(B, Sq, H)
+
+
+def flash_attention_bwd_ref(q, k, v, out, lse, dout, *, causal: bool = True,
+                            window: int = 0, chunk: int = 0):
+    """Gradients (dq, dk, dv) of :func:`attention_ref` from its saved
+    ``out`` and ``lse`` [B,Sq,H] — the reference's XLA backward
+    ``repro/models/flash.py::_bwd`` (``:98-138``) step for step: scores
+    recomputed chunk by chunk over the keys from the lse, delta =
+    sum(dout * out) in fp32, P rounded to dout's dtype before dV and dS to
+    q's dtype before dQ and dK, dQ summed over the chunks in fp32. The
+    products themselves run in fp32 (as the kernel's do); on fp32 inputs
+    every rounding is exact. ``chunk`` defaults to the reference model's
+    ``min(1024, max(Sk, 16))`` (``repro/models/layers.py:96``)."""
+    B, Sq, H, D = q.shape
+    Sk, K = k.shape[1], k.shape[2]
+    Dv = v.shape[-1]
+    G = H // K
+    scale = 1.0 / math.sqrt(D)
+    chunk = chunk or min(1024, max(Sk, 16))
+    qg = q.float().reshape(B, Sq, K, G, D) * scale
+    dog = dout.float().reshape(B, Sq, K, G, Dv)
+    og = out.float().reshape(B, Sq, K, G, Dv)
+    delta = torch.sum(dog * og, dim=-1)                         # [B,Sq,K,G]
+    lse_g = lse.float().reshape(B, Sq, K, G)
+    dq = torch.zeros((B, Sq, K, G, D), dtype=torch.float32, device=q.device)
+    dks, dvs = [], []
+    for c0 in range(0, Sk, chunk):
+        kb = k[:, c0:c0 + chunk].float()
+        vb = v[:, c0:c0 + chunk].float()
+        s = torch.einsum("bqkgd,bckd->bqkgc", qg, kb)
+        m = _mask(Sq, Sk, causal, window, 0, q.device)[:, c0:c0 + chunk]
+        s = torch.where(m[None, :, None, None, :], s,
+                        torch.full_like(s, NEG_INF))
+        p = torch.exp(s - lse_g[..., None])                     # [B,q,K,G,c]
+        p_lo = p.to(dout.dtype).float()
+        dvs.append(torch.einsum("bqkgc,bqkgd->bckd", p_lo, dog))
+        dp = torch.einsum("bqkgd,bckd->bqkgc", dog, vb)
+        ds = (p * (dp - delta[..., None])).to(q.dtype).float()
+        dq += torch.einsum("bqkgc,bckd->bqkgd", ds, kb)
+        dks.append(torch.einsum("bqkgc,bqkgd->bckd", ds, qg))
+    dq = (dq * scale).reshape(B, Sq, H, D).to(q.dtype)
+    return dq, torch.cat(dks, 1).to(k.dtype), torch.cat(dvs, 1).to(v.dtype)
 
 
 def decode_attention_ref(q, k_cache, v_cache, pos, position, *,
@@ -85,6 +141,24 @@ def rmsnorm_ref(x, scale, eps: float = 1e-5):
     x32 = x.float()
     var = torch.mean(torch.square(x32), dim=-1, keepdim=True)
     return (x32 * torch.rsqrt(var + eps) * scale.float()).to(x.dtype)
+
+
+def rmsnorm_bwd_ref(x, scale, dy, eps: float = 1e-5):
+    """Gradients (dx, dscale) of :func:`rmsnorm_ref`, as XLA's autodiff of
+    the reference's ``layers.rms_norm`` gives them, in fp32 math: with
+    r = rsqrt(mean(x^2) + eps), x_hat = x r and g = scale * dy,
+    dx = r (g - x_hat mean(g x_hat)) in x's dtype and dscale =
+    sum over rows of dy x_hat in scale's dtype."""
+    D = x.shape[-1]
+    x32 = x.float()
+    r = torch.rsqrt(torch.mean(torch.square(x32), dim=-1, keepdim=True)
+                    + eps)
+    xhat = x32 * r
+    dy32 = dy.float()
+    g = dy32 * scale.float()
+    dx = r * (g - xhat * torch.mean(g * xhat, dim=-1, keepdim=True))
+    dscale = (dy32 * xhat).reshape(-1, D).sum(0)
+    return dx.to(x.dtype), dscale.to(scale.dtype)
 
 
 def segsum(x: torch.Tensor) -> torch.Tensor:

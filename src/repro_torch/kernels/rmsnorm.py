@@ -1,4 +1,5 @@
-"""Fused RMSNorm — the CUDA kernels in ``csrc/rmsnorm.cu`` (B1).
+"""Fused RMSNorm and its backward — the CUDA kernels in ``csrc/rmsnorm.cu``
+(B1, and B1-bwd in :func:`rmsnorm_bwd`).
 
 Replaces ``repro/kernels/rmsnorm.py::rmsnorm`` (Pallas, ``_rmsnorm_kernel``).
 See the source's note for its bound on the H100 and its design: one warp
@@ -22,10 +23,13 @@ from repro_torch.kernels import build
 
 SOURCE = "src/repro_torch/kernels/csrc/rmsnorm.cu"
 REPLACES = "src/repro/kernels/rmsnorm.py:21"
+REPLACES_BWD = "src/repro/models/layers.py:33 (rms_norm, XLA autodiff)"
 VEC_BYTES = 16
 MAX_WARPS = 8                       # rows a block (csrc MAX_WARPS)
 PER_LANE = (1, 2, 4, 8, 12, 16)     # 16-byte vectors a lane may hold
 STREAM_ROWS = 1024                  # from here on, the streaming variant
+DSCALE_CHUNK = 64                   # rows a dscale partial sums
+BWD_PER_LANE = 12                   # the backward's vector route holds dy too
 
 
 class Plan(NamedTuple):
@@ -85,3 +89,49 @@ def rmsnorm(x: torch.Tensor, scale: torch.Tensor,
                 pl.per_lane, pl.warps, int(pl.streaming), build.stream_ptr())
     build.check(err, "rt_rmsnorm")
     return out
+
+
+@functools.lru_cache(maxsize=None)
+def _bwd_fn():
+    p, i = ctypes.c_void_p, ctypes.c_int
+    return build.entry("rt_rmsnorm_bwd",
+                       [p] * 7 + [i, i, ctypes.c_float] + [i] * 5 + [p])
+
+
+def rmsnorm_bwd(x: torch.Tensor, scale: torch.Tensor, dy: torch.Tensor,
+                eps: float = 1e-5, *, dscale: bool = True):
+    """Gradients of :func:`rmsnorm`: x and dy [..., D] of one dtype, scale
+    [D] -> (dx like x, dscale [D] of scale's dtype, or None when
+    ``dscale`` is False). Launched with :func:`rmsnorm`'s plan (the vector
+    route needs dy and dx aligned too, and takes rows of up to
+    ``BWD_PER_LANE`` vectors a lane; wider rows take the scalar route).
+    """
+    if not (x.device.type == "cuda" and scale.device == x.device
+            and dy.device == x.device):
+        raise ValueError(f"rmsnorm backward needs CUDA tensors on one device, "
+                         f"got {x.device}, {scale.device}, {dy.device}")
+    D = x.shape[-1]
+    if scale.shape != (D,) or dy.shape != x.shape:
+        raise ValueError(f"shapes x {tuple(x.shape)} scale "
+                         f"{tuple(scale.shape)} dy {tuple(dy.shape)}")
+    if dy.dtype != x.dtype:
+        raise TypeError(f"dy dtype {dy.dtype} != x dtype {x.dtype}")
+    x, scale, dy = x.contiguous(), scale.contiguous(), dy.contiguous()
+    dx = torch.empty_like(x)
+    rows = x.numel() // D
+    ptrs = x.data_ptr() | scale.data_ptr() | dy.data_ptr() | dx.data_ptr()
+    pl = plan(rows, D, x.dtype, scale.dtype, ptrs % VEC_BYTES == 0)
+    per_lane = pl.per_lane if pl.per_lane <= BWD_PER_LANE else 0
+    ds = rstd = part = None
+    if dscale:
+        ds = torch.empty_like(scale)
+        rstd = torch.empty((rows,), dtype=torch.float32, device=x.device)
+        part = torch.empty((-(-rows // DSCALE_CHUNK), D), dtype=torch.float32,
+                           device=x.device)
+    ptr = lambda t: None if t is None else t.data_ptr()   # noqa: E731
+    err = _bwd_fn()(x.data_ptr(), scale.data_ptr(), dy.data_ptr(),
+                    dx.data_ptr(), ptr(ds), ptr(rstd), ptr(part), rows, D,
+                    float(eps), build.dtype_code(x), build.dtype_code(scale),
+                    per_lane, pl.warps, DSCALE_CHUNK, build.stream_ptr())
+    build.check(err, "rt_rmsnorm_bwd")
+    return dx, ds

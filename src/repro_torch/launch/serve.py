@@ -28,6 +28,7 @@ from repro_torch.data import ByteTokenizer, PromptDataset, \
 from repro_torch.models import Model
 from repro_torch.obs import MetricsRegistry
 from repro_torch.rlhf import Rollout, RolloutResult, live_device_bytes
+from repro_torch.tree import leaves
 
 TOP_K = 50
 
@@ -53,7 +54,7 @@ def run(cfg: ModelConfig, *, batch: int, prompt_len: int, gen: int,
     reg = reg if reg is not None else MetricsRegistry()
     model = Model(cfg, device=device)
     params = model.init(torch.Generator(device=device).manual_seed(seed))
-    n = sum(t.numel() for t in _leaves(params))
+    n = sum(t.numel() for t in leaves(params))
     log(f"[serve] {cfg.name}: {n / 1e6:.2f}M params on {device}, "
         f"live {_mib(live_device_bytes(device))} MiB")
     reg.gauge("serve_params_m", "model size in M params").set(n / 1e6)
@@ -98,17 +99,6 @@ def run(cfg: ModelConfig, *, batch: int, prompt_len: int, gen: int,
         out.append({"result": res, "seconds": dt, "tokens_per_s": tput,
                     "live_bytes": live, "peak_bytes": peak})
     return out
-
-
-def _leaves(params):
-    if isinstance(params, torch.Tensor):
-        yield params
-    elif isinstance(params, dict):
-        for v in params.values():
-            yield from _leaves(v)
-    else:
-        for v in params:
-            yield from _leaves(v)
 
 
 def main(argv=None):

@@ -1,6 +1,9 @@
 """Core transformer layers: RMSNorm, RoPE, GQA attention (+QKV bias,
 sliding window, rolling KV cache) and (gated) MLPs — the port of
-``repro/models/layers.py:22-281, 424-444`` without LoRA adapters.
+``repro/models/layers.py:22-281, 424-444``, with the LoRA delta at the
+projection sites when an adapter is given (``adapter=``: the layer's
+subtree of a ``models/lora.py`` adapter; the small products stay
+``torch.matmul``, as the reference leaves them to XLA).
 
 Parameters are plain dicts of tensors. Projection weights keep the
 reference's *fused* head layout (``[d_model, heads*head_dim]``), so the
@@ -23,6 +26,7 @@ import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels import ops
+from repro_torch.models.lora import lora_delta
 
 NEG_INF = -1e30
 
@@ -132,12 +136,19 @@ def init_attention(generator: torch.Generator, cfg: ModelConfig,
     return p
 
 
-def _project_qkv(params, x, cfg: ModelConfig):
+def _linear(params, x, name, ad):
+    """x @ params[name], plus the LoRA delta where ``ad`` adapts it."""
+    y = x @ params[name]
+    return y + lora_delta(x, ad[name]) if ad.get(name) else y
+
+
+def _project_qkv(params, x, cfg: ModelConfig, adapter=None):
     B, S, _ = x.shape
     h, kvh, hd = cfg.num_heads, cfg.num_kv_heads, cfg.resolved_head_dim()
-    q = x @ params["wq"]
-    k = x @ params["wk"]
-    v = x @ params["wv"]
+    ad = adapter or {}
+    q = _linear(params, x, "wq", ad)
+    k = _linear(params, x, "wk", ad)
+    v = _linear(params, x, "wv", ad)
     if cfg.qkv_bias:
         q, k, v = q + params["bq"], k + params["bk"], v + params["bv"]
     return (q.reshape(B, S, h, hd), k.reshape(B, S, kvh, hd),
@@ -159,15 +170,17 @@ def _fill_cache(cache: dict, entries: dict, positions: torch.Tensor) -> dict:
 
 
 def attention_fwd(params, x, positions, cfg: ModelConfig, *,
-                  window: int = 0, init_cache: Optional[dict] = None):
-    """Full-sequence (prefill) self-attention. With ``init_cache`` also
-    returns the filled rolling KV cache (single-pass prefill)."""
-    q, k, v = _project_qkv(params, x, cfg)
+                  window: int = 0, init_cache: Optional[dict] = None,
+                  adapter=None):
+    """Full-sequence (train / prefill) self-attention. With ``init_cache``
+    also returns the filled rolling KV cache (single-pass prefill)."""
+    q, k, v = _project_qkv(params, x, cfg, adapter)
     sin, cos = rope_tables(positions, cfg.resolved_head_dim(), cfg.rope_theta)
     q = apply_rope(q, sin, cos)
     k = apply_rope(k, sin, cos)
     out = attn_core(q, k, v, causal=True, window=window)
-    out = out.reshape(x.shape[0], x.shape[1], -1) @ params["wo"]
+    out = _linear(params, out.reshape(x.shape[0], x.shape[1], -1), "wo",
+                  adapter or {})
     if init_cache is None:
         return out
     return out, _fill_cache(init_cache, {"k": k, "v": v}, positions)
@@ -227,10 +240,11 @@ def init_mlp(generator: torch.Generator, d: int, d_ff: int, gated: bool,
     return p
 
 
-def mlp_fwd(params, x, gated: bool) -> torch.Tensor:
-    h = x @ params["w_in"]
+def mlp_fwd(params, x, gated: bool, adapter=None) -> torch.Tensor:
+    ad = adapter or {}
+    h = _linear(params, x, "w_in", ad)
     if gated:
-        h = F.silu(x @ params["w_gate"]) * h
+        h = F.silu(_linear(params, x, "w_gate", ad)) * h
     else:
         h = F.gelu(h, approximate="tanh")   # jax.nn.gelu's default form
-    return h @ params["w_out"]
+    return _linear(params, h, "w_out", ad)

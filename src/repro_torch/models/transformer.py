@@ -1,7 +1,10 @@
 """Decoder LM for token-input configs of attention and Mamba2 layers — the
 port of ``repro/models/transformer.py`` (``Model``: init, embed/unembed,
 the layer stack, forward, caches, prefill and one-token decode, and the
-paged prefill and decode over per-layer page pools).
+paged prefill and decode over per-layer page pools), and the training
+forward: LoRA adapters applied unmerged (``forward(adapter=)``), the value
+head of ``forward_value``, merge/unmerge for rollout, and ``remat="full"``
+as one ``torch.utils.checkpoint`` per layer.
 
 Where the reference scans stacked ``segment{i}/slot{j}`` parameters with
 ``jax.lax.scan``, the port keeps one parameter dict per layer in
@@ -15,10 +18,12 @@ from __future__ import annotations
 from typing import List, Optional, Tuple
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch import default_device
 from repro_torch.configs.base import ATTN, MAMBA, ModelConfig
 from repro_torch.models import layers as L
+from repro_torch.models import lora as LORA
 from repro_torch.models import mamba as M
 from repro_torch.paged import attention as PA
 from repro_torch.paged import paged_cache as PC
@@ -37,6 +42,10 @@ class Model:
                 "attention and Mamba2 layers")
         if MAMBA in cfg.period and cfg.ssm is None:
             raise ValueError(f"{cfg.name}: a Mamba layer needs cfg.ssm")
+        if cfg.remat not in ("none", "full"):
+            raise NotImplementedError(
+                f"remat={cfg.remat!r}: the port checkpoints whole layers "
+                "(full) or nothing (none)")
         self.cfg = cfg
         self.kinds = cfg.layer_kinds()
         self.device = default_device(device)
@@ -81,6 +90,23 @@ class Model:
                     generator, (cfg.d_model, cfg.vocab_size), dtype=self.dtype)
         return params
 
+    # -------------------------------------------------------- lora adapters
+    def init_adapter(self, generator: torch.Generator, params, rank: int, *,
+                     with_value: bool = False) -> dict:
+        """Per-role LoRA adapter over ``params`` (``models/lora.py``)."""
+        return LORA.init_adapter(generator, params, rank,
+                                 with_value=with_value,
+                                 d_model=self.cfg.d_model)
+
+    def merge_adapter(self, params, adapter) -> dict:
+        """Fold A·B into the base weights (rollout-speed generation); the
+        result aliases the base at non-adapted leaves."""
+        return LORA.merge_adapter(params, (adapter or {}).get("lora"))
+
+    def unmerge_adapter(self, params, adapter) -> dict:
+        """Subtract A·B back out of a merged tree (fp round-off applies)."""
+        return LORA.unmerge_adapter(params, (adapter or {}).get("lora"))
+
     # ------------------------------------------------------------ embeddings
     def embed(self, params, tokens: torch.Tensor) -> torch.Tensor:
         return params["embed"][tokens]
@@ -92,17 +118,20 @@ class Model:
 
     # -------------------------------------------------------------- full seq
     def _slot_fwd(self, layer, kind, h, positions, *, window,
-                  init_cache: Optional[dict] = None):
+                  init_cache: Optional[dict] = None, adapter=None):
         """One layer. With ``init_cache`` (prefill) it also fills the
         layer's decode cache in the same pass: an attention layer's
         rolling KV cache, or a Mamba layer's conv and SSM states (copied
-        into the cache's buffers)."""
+        into the cache's buffers). ``adapter`` is the layer's LoRA subtree
+        (unmerged A·B at the attention and MLP sites)."""
         cfg = self.cfg
+        ad = adapter or {}
         x = L.rms_norm(h, layer["norm1"], cfg.norm_eps)
         cache = None
         if kind == ATTN:
             y = L.attention_fwd(layer["mixer"], x, positions, cfg,
-                                window=window, init_cache=init_cache)
+                                window=window, init_cache=init_cache,
+                                adapter=ad.get("mixer"))
             if init_cache is not None:
                 y, cache = y
         elif init_cache is not None:
@@ -115,17 +144,36 @@ class Model:
         h = h + y
         if "ffn" in layer:
             x2 = L.rms_norm(h, layer["norm2"], cfg.norm_eps)
-            h = h + L.mlp_fwd(layer["ffn"], x2, cfg.mlp_gated)
+            h = h + L.mlp_fwd(layer["ffn"], x2, cfg.mlp_gated,
+                              adapter=ad.get("ffn"))
         return h, cache
 
     def _stack_fwd(self, params, h, positions, *, window=0,
-                   init_caches: Optional[List[dict]] = None):
-        """Run every layer. Returns (h, filled caches or None)."""
+                   init_caches: Optional[List[dict]] = None, adapter=None):
+        """Run every layer. Returns (h, filled caches or None).
+        ``adapter`` is a LoRA adapter over ``params``. With
+        ``cfg.remat == "full"`` and grad mode on, each layer is one
+        activation checkpoint (non-reentrant): its forward runs again in
+        the backward, kernels included (the reference's
+        ``jax.checkpoint`` per scanned layer group)."""
+        lora = (adapter or {}).get("lora") or {}
+        ads = lora.get("layers") or [None] * len(self.kinds)
+        remat = self.cfg.remat == "full" and torch.is_grad_enabled() and \
+            init_caches is None
         caches = []
         for i, (kind, layer) in enumerate(zip(self.kinds, params["layers"])):
+            if remat:
+                h = checkpoint(
+                    lambda hh, layer=layer, kind=kind, ad=ads[i]:
+                    self._slot_fwd(layer, kind, hh, positions, window=window,
+                                   adapter=ad)[0],
+                    h, use_reentrant=False)
+                caches.append(None)
+                continue
             h, c = self._slot_fwd(
                 layer, kind, h, positions, window=window,
-                init_cache=None if init_caches is None else init_caches[i])
+                init_cache=None if init_caches is None else init_caches[i],
+                adapter=ads[i])
             caches.append(c)
         return h, (caches if init_caches is not None else None)
 
@@ -133,15 +181,29 @@ class Model:
         B, S = tokens.shape
         return torch.arange(S, device=tokens.device).expand(B, S)
 
-    @torch.no_grad()
-    def forward(self, params, batch, *, window: int = 0
+    def forward(self, params, batch, *, window: int = 0, adapter=None
                 ) -> Tuple[torch.Tensor, torch.Tensor]:
-        """Full-sequence forward -> (logits [B,S,V], h_final)."""
+        """Full-sequence forward -> (logits [B,S,V], h_final). ``adapter``
+        (a LoRA adapter) is applied unmerged. The caller picks the grad
+        mode: training differentiates through it, scoring runs it under
+        ``torch.no_grad()``."""
         tokens = batch["tokens"]
         h = self.embed(params, tokens)
         h, _ = self._stack_fwd(params, h, self._positions(tokens),
-                               window=window)
+                               window=window, adapter=adapter)
         return self.unembed(params, h), h
+
+    def forward_value(self, params, batch, adapter=None) -> torch.Tensor:
+        """[B,S] per-token fp32 values (critic / reward): the trunk with
+        ``adapter``, the final norm, then the adapter's value head (the
+        hydra engine's critic and reward share a headless trunk)."""
+        tokens = batch["tokens"]
+        h = self.embed(params, tokens)
+        h, _ = self._stack_fwd(params, h, self._positions(tokens),
+                               adapter=adapter)
+        h = L.rms_norm(h, params["final_norm"], self.cfg.norm_eps)
+        vh = (adapter or {}).get("value_head") or params["value_head"]
+        return (h.float() @ vh["w"] + vh["b"])[..., 0]
 
     # ------------------------------------------------------------- kv caches
     def init_cache(self, batch: int, capacity: int, dtype) -> List[dict]:

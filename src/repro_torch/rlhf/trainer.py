@@ -1,0 +1,302 @@
+"""The RLHF PPO trainer on the hydra engine, with the paper's
+phase-boundary memory management — the port of
+``repro/rlhf/trainer.py`` (``PhaseMemoryManager`` ``:120-335``,
+``RLHFConfig``, ``RLHFTrainer`` with ``_init_hydra``'s merged rollout
+``:812-856`` and ``make_experience``/``train_step`` ``:1064-1161``).
+
+One iteration runs the seven phases of
+``core.phases.RUNTIME_RLHF_PHASE_SEQUENCE``: rollout (from weights with the
+actor's A·B merged in, dropped at the boundary), score_reward (the frozen
+reward adapter's value forward, or a programmatic ``reward_fn``),
+score_ref (the plain base), score_values (the critic), score_old_logp (the
+actor), train_actor and train_critic (one adapter step each per PPO
+epoch). ``PhaseMemoryManager`` records each boundary on PyTorch's caching
+allocator — the allocator ``core/allocator.py`` simulates — so the paper's
+``empty_cache()`` at a phase boundary is measured, not simulated.
+
+Not ported: ``engine="separate"``, host offload, ZeRO/TP sharding,
+telemetry and attribution, speculative decoding and compile buckets;
+asking for any of them raises.
+"""
+from __future__ import annotations
+
+import gc
+import time
+from dataclasses import dataclass, field
+from typing import Any, Callable, Dict, List, Optional, Sequence
+
+import torch
+
+from repro_torch.configs.base import ModelConfig
+from repro_torch.models.lora import delete_merged
+from repro_torch.rlhf.engine import ModelEngine
+from repro_torch.rlhf.ppo import gae, kl_shaped_rewards, whiten
+from repro_torch.rlhf.reward import sequence_reward
+from repro_torch.rlhf.rollout import Rollout, live_device_bytes
+from repro_torch.steps import (_action_logp, init_lora_train_state,
+                               make_lora_train_step)
+from repro_torch.tree import nbytes
+
+MEMORY_POLICIES = ("none", "after_inference", "after_training", "after_all")
+
+
+@dataclass
+class PhaseMemoryManager:
+    """Phase-boundary memory hygiene + per-phase memory records.
+
+    At a boundary it drops the references it is handed, and under a
+    policy that covers the phase's kind (``after_inference``,
+    ``after_training``, ``after_all``) runs ``gc.collect()`` then
+    ``torch.cuda.empty_cache()`` — the paper's insertion. Each record
+    holds the phase's wall time since the last record (the device
+    synchronised on CUDA), ``live_bytes`` (``torch.cuda.memory_allocated``),
+    ``reserved_bytes`` (``memory_reserved``) and ``peak_bytes``
+    (``max_memory_allocated`` since the last boundary, which resets it);
+    a boundary's record also holds the seconds its own hygiene took
+    (``hygiene_seconds``, within ``seconds``).
+    On the CPU no allocator metric exists: ``live_bytes`` is the bytes of
+    the tensors ``tracked()`` returns, and the other two are None."""
+    policy: str = "after_inference"
+    device: torch.device = field(default_factory=lambda: torch.device("cpu"))
+    tracked: Optional[Callable[[], Any]] = None
+    records: List[dict] = field(default_factory=list)
+
+    def __post_init__(self):
+        if self.policy not in MEMORY_POLICIES:
+            raise ValueError(
+                f"unknown memory policy {self.policy!r}; "
+                f"expected one of {MEMORY_POLICIES}")
+        self.device = torch.device(self.device)
+        self._cuda = self.device.type == "cuda"
+        self._mark = time.perf_counter()
+
+    def _now(self) -> float:
+        if self._cuda:
+            torch.cuda.synchronize(self.device)
+        return time.perf_counter()
+
+    def iteration_start(self):
+        """Start the first phase's clock and peak."""
+        self._mark = self._now()
+        if self._cuda:
+            torch.cuda.reset_peak_memory_stats(self.device)
+
+    def _record(self, phase: str, kind: str, **extra) -> dict:
+        now = self._now()
+        if self._cuda:
+            live = live_device_bytes(self.device)
+            reserved = torch.cuda.memory_reserved(self.device)
+            peak = torch.cuda.max_memory_allocated(self.device)
+        else:
+            live = nbytes(self.tracked()) if self.tracked else 0
+            reserved = peak = None
+        rec = {"phase": phase, "kind": kind, "live_bytes": live,
+               "reserved_bytes": reserved, "peak_bytes": peak,
+               "seconds": now - self._mark, "t": time.time(), **extra}
+        self._mark = now
+        self.records.append(rec)
+        return rec
+
+    def sample(self, phase: str, kind: str = "inference") -> dict:
+        """Mid-phase record (no hygiene, no peak reset): where the live set
+        changes inside a phase, as in rollout decode from merged weights."""
+        return self._record(phase, kind, sample=True)
+
+    def boundary(self, phase: str, kind: str, *drop: dict) -> dict:
+        for tree in drop:
+            tree.clear()
+        t0 = self._now()
+        if (self.policy == "after_all"
+                or (self.policy == "after_inference" and kind == "inference")
+                or (self.policy == "after_training" and kind == "training")):
+            gc.collect()
+            if self._cuda:
+                torch.cuda.empty_cache()
+        rec = self._record(phase, kind, hygiene_seconds=self._now() - t0)
+        if self._cuda:
+            torch.cuda.reset_peak_memory_stats(self.device)
+        return rec
+
+
+@dataclass
+class RLHFConfig:
+    prompt_len: int = 32
+    gen_len: int = 32
+    kl_coef: float = 0.1
+    gamma: float = 1.0
+    lam: float = 0.95
+    ppo_epochs: int = 1
+    lr: float = 1e-5
+    critic_lr: float = 1e-5
+    temperature: float = 1.0
+    top_k: int = 50
+    whiten_advantages: bool = True
+    memory_policy: str = "after_inference"
+    engine: str = "separate"        # separate | hydra (the port: hydra)
+    lora_rank: int = 128            # hydra adapter rank (paper grid: 128)
+    # the reference's fields for what the port does not have yet: each
+    # must stay at its default
+    offload: str = "none"
+    spec_decode: bool = False
+    capture_buckets: Optional[Sequence[int]] = None
+
+
+_NOT_PORTED = {"offload": "none", "spec_decode": False,
+               "capture_buckets": None}
+
+
+class RLHFTrainer:
+    """PPO over (actor, critic, reference, reward) on the hydra engine.
+    The reward is the frozen reward adapter's value head at each row's
+    last generated token, or any ``reward_fn(tokens, mask) -> [B]``.
+
+    The engine is built from ``generator`` (its device is the trainer's),
+    or passed in whole (``engine=``, e.g. ``bridge.trainer_from_jax``).
+    ``critic_cfg`` is ignored, as in the reference's hydra path."""
+
+    def __init__(self, actor_cfg: ModelConfig, critic_cfg: ModelConfig,
+                 rl: RLHFConfig, generator: Optional[torch.Generator] = None,
+                 reward_fn: Optional[Callable] = None, shard=None,
+                 telemetry=None, *, engine: Optional[ModelEngine] = None):
+        if rl.engine != "hydra":
+            raise NotImplementedError(
+                f"engine={rl.engine!r}: the port has the hydra engine only")
+        for name, default in _NOT_PORTED.items():
+            if getattr(rl, name) != default:
+                raise NotImplementedError(f"RLHFConfig.{name} is not ported")
+        if shard is not None or telemetry is not None:
+            raise NotImplementedError("sharding and telemetry are not ported")
+        self.rl = rl
+        self.actor_cfg, self.critic_cfg = actor_cfg, critic_cfg
+        self.reward_fn = reward_fn
+        self.engine = engine if engine is not None else ModelEngine(
+            actor_cfg, generator, rank=rl.lora_rank)
+        self.actor = self.engine.model          # the shared headless trunk
+        self.device = self.actor.device
+        self.base_params = self.ref_params = self.engine.base_params
+        self.reward_adapter = self.engine.adapters["reward"]
+        self.actor_step = make_lora_train_step(
+            self.actor, actor_cfg, kind="ppo", lr=rl.lr, kl_coef=rl.kl_coef)
+        self.critic_step = make_lora_train_step(
+            self.actor, actor_cfg, kind="critic", lr=rl.critic_lr)
+        self.actor_state = init_lora_train_state(
+            self.engine.adapters["actor"], self.actor_step.optimizer)
+        self.critic_state = init_lora_train_state(
+            self.engine.adapters["critic"], self.critic_step.optimizer)
+        # the phase-scoped buffers (merged rollout weights, rollout
+        # outputs, experience), set and cleared by _gen / make_experience
+        # / train_step
+        self._live: Dict[str, Any] = {}
+        self.memory = PhaseMemoryManager(policy=rl.memory_policy,
+                                         device=self.device,
+                                         tracked=self._tracked)
+        self.rollout = Rollout(self.actor, actor_cfg,
+                               capacity=rl.prompt_len + rl.gen_len,
+                               temperature=rl.temperature, top_k=rl.top_k)
+
+    def _tracked(self):
+        """What the CPU's live-bytes record counts: the persistent trees
+        and the phase-scoped buffers."""
+        return [self.base_params, self.reward_adapter, self.actor_state,
+                self.critic_state, self._live]
+
+    # ---------------------------------------------------------- role calls
+    def _gen(self, prompts, generator):
+        """Rollout from merged weights: A·B of the actor folded into the
+        trunk once per phase; the merged leaves' references are dropped
+        before the boundary, so the caching allocator gets them back."""
+        adapter = self.actor_state["params"]
+        merged = self.actor.merge_adapter(self.base_params, adapter)
+        self._live["merged_rollout"] = merged
+        try:
+            ro = self.rollout.generate(merged, {"tokens": prompts},
+                                       self.rl.gen_len, generator)
+            # the live set changes inside this phase (merged weights
+            # serve): record it before the merged leaves die
+            self.memory.sample("rollout_decode")
+            return ro
+        finally:
+            delete_merged(merged, adapter.get("lora"))
+            self._live.pop("merged_rollout", None)
+
+    def _token_logp(self, adapter, batch):
+        logits = self.engine.logits(self.base_params, adapter, batch) \
+            if adapter is not None else \
+            self.engine.ref_logits(self.base_params, batch)
+        return _action_logp(logits, batch["tokens"])
+
+    def _actor_update(self, exp):
+        self.actor_state, m = self.actor_step(self.actor_state,
+                                              self.base_params, exp)
+        self.engine.adapters["actor"] = self.actor_state["params"]
+        return m
+
+    def _critic_update(self, cbatch):
+        self.critic_state, m = self.critic_step(self.critic_state,
+                                                self.base_params, cbatch)
+        self.engine.adapters["critic"] = self.critic_state["params"]
+        return m
+
+    # ------------------------------------------------------------ phases
+    def make_experience(self, prompts: torch.Tensor,
+                        generator: torch.Generator) -> Dict[str, Any]:
+        """Phases 1-5: rollout and the four scoring forwards (under
+        ``torch.no_grad()``) -> the experience batch."""
+        mm = self.memory
+        ro = self._gen(prompts, generator)
+        self._live["rollout"] = {"tokens": ro.tokens, "logp": ro.logp,
+                                 "mask": ro.mask}
+        mm.boundary("rollout", "inference")
+        batch = {"tokens": ro.tokens}
+        mask = ro.mask
+        del ro
+        with torch.no_grad():
+            if self.reward_fn is not None:
+                terminal = self.reward_fn(batch["tokens"], mask)
+            else:
+                terminal = sequence_reward(self.actor, self.base_params,
+                                           batch["tokens"], mask,
+                                           adapter=self.reward_adapter)
+            mm.boundary("score_reward", "inference")
+            ref_logp = self._token_logp(None, batch)
+            mm.boundary("score_ref", "inference")
+            values = self.engine.values(
+                self.base_params, self.critic_state["params"], batch) * mask
+            mm.boundary("score_values", "inference")
+            old_logp = self._token_logp(self.actor_state["params"], batch)
+            mm.boundary("score_old_logp", "inference")
+
+            rewards = kl_shaped_rewards(old_logp, ref_logp, terminal, mask,
+                                        kl_coef=self.rl.kl_coef)
+            adv, returns = gae(rewards, values, mask, gamma=self.rl.gamma,
+                               lam=self.rl.lam)
+            if self.rl.whiten_advantages:
+                adv = whiten(adv, mask)
+        return {"tokens": batch["tokens"], "loss_mask": mask,
+                "advantages": adv, "old_logp": old_logp * mask,
+                "ref_logp": ref_logp * mask, "returns": returns,
+                "old_values": values, "mean_reward": terminal.mean()}
+
+    def train_step(self, prompts: torch.Tensor,
+                   generator: torch.Generator) -> Dict[str, float]:
+        """One full PPO iteration (all seven phases)."""
+        self.memory.iteration_start()
+        exp = self.make_experience(prompts, generator)
+        self._live["experience"] = exp
+        mean_reward = float(exp.pop("mean_reward"))
+        old_values = exp.pop("old_values")
+        metrics = {}
+        for _ in range(self.rl.ppo_epochs):
+            m = self._actor_update(exp)
+            metrics.update({k: float(v) for k, v in m.items()})
+        self.memory.boundary("train_actor", "training")
+        cbatch = dict(exp, old_values=old_values)
+        del old_values
+        for _ in range(self.rl.ppo_epochs):
+            mc = self._critic_update(cbatch)
+            metrics.update({k: float(v) for k, v in mc.items()})
+        self._live.pop("rollout", None)
+        self._live.pop("experience", None)
+        self.memory.boundary("train_critic", "training", exp, cbatch)
+        metrics["mean_reward"] = mean_reward
+        return metrics

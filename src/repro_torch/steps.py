@@ -1,0 +1,170 @@
+"""Losses and the LoRA train step of the hydra engine — the port of
+``repro/steps.py`` (``:31-121``, ``_accumulated_grads`` ``:127``,
+``make_lora_train_step``/``init_lora_train_state`` ``:300-395``).
+
+The step computes the adapter's gradients with autograd through the
+frozen trunk (whose attention and norms differentiate through the B2-bwd
+and B1-bwd kernels), clips them by their global norm and applies the
+reference's AdamW. The shard (ZeRO/TP), MTP and full-finetune paths of
+the reference are not ported: asking for them raises.
+"""
+from __future__ import annotations
+
+from typing import Callable, Dict, Tuple
+
+import torch
+
+from repro_torch.configs.base import ModelConfig
+from repro_torch.models import Model
+from repro_torch.optim import clip_by_global_norm, make_optimizer
+from repro_torch.tree import leaves, tree_map
+
+
+# ---------------------------------------------------------------------------
+# Losses
+# ---------------------------------------------------------------------------
+def _full_seq_logp(logits, targets):
+    """Per-position log-prob of ``targets`` [B, T] under logits [B, T, V],
+    with fp32 math: the target's logit minus the log-sum-exp, shifted by
+    the (constant) row max as the reference does."""
+    tgt = torch.gather(logits, -1, targets[..., None])[..., 0]
+    mx = logits.max(-1).values.detach().float()
+    lse = mx + torch.log(torch.sum(torch.exp(logits.float() - mx[..., None]),
+                                   dim=-1))
+    return tgt.float() - lse                                # [B, T]
+
+
+def _action_logp(logits, tokens, prefix: int = 0):
+    """logits [B, P+S, V]; tokens [B, S]. Per-action log-probs aligned so
+    out[:, t] scores tokens[:, t] (t >= 1); out[:, 0] = 0."""
+    B, S = tokens.shape
+    T = logits.shape[1]
+    tgt_full = torch.zeros((B, T), dtype=tokens.dtype, device=tokens.device)
+    tgt_full[:, prefix:prefix + S - 1] = tokens[:, 1:]
+    logp_full = _full_seq_logp(logits, tgt_full.long())
+    act = logp_full[:, prefix:prefix + S - 1]
+    return torch.nn.functional.pad(act, (1, 0))             # [B, S]
+
+
+def ppo_actor_loss(logits, batch, *, prefix: int = 0, clip_eps: float = 0.2,
+                   kl_coef: float = 0.1):
+    tokens = batch["tokens"]
+    mask = batch["loss_mask"].float().clone()
+    mask[:, 0] = 0.0
+    denom = torch.clamp(mask.sum(), min=1.0)
+    logp = _action_logp(logits, tokens, prefix)
+    ratio = torch.exp(logp - batch["old_logp"])
+    adv = batch["advantages"]
+    unclipped = ratio * adv
+    clipped = torch.clamp(ratio, 1 - clip_eps, 1 + clip_eps) * adv
+    ppo = -torch.sum(torch.minimum(unclipped, clipped) * mask) / denom
+    # k3 KL estimator vs the frozen reference policy
+    log_r = batch["ref_logp"] - logp
+    kl = torch.sum((torch.exp(log_r) - 1.0 - log_r) * mask) / denom
+    loss = ppo + kl_coef * kl
+    clip_frac = torch.sum(((ratio - 1).abs() > clip_eps).float() * mask) \
+        / denom
+    return loss, {"ppo_loss": ppo, "kl": kl, "clip_frac": clip_frac}
+
+
+def critic_loss(values, batch, *, clip_eps: float = 0.2):
+    mask = batch["loss_mask"].float()
+    denom = torch.clamp(mask.sum(), min=1.0)
+    returns = batch["returns"]
+    old_v = batch.get("old_values", returns)
+    v_clip = old_v + torch.clamp(values - old_v, -clip_eps, clip_eps)
+    sq = torch.maximum(torch.square(values - returns),
+                       torch.square(v_clip - returns))
+    loss = 0.5 * torch.sum(sq * mask) / denom
+    return loss, {"vf_loss": loss}
+
+
+def lm_loss(logits, tokens, mask, *, prefix: int = 0):
+    nll = -_action_logp(logits, tokens, prefix)[:, 1:]
+    m = mask[:, 1:].float()
+    return torch.sum(nll * m) / torch.clamp(m.sum(), min=1.0)
+
+
+# ---------------------------------------------------------------------------
+# Step builders
+# ---------------------------------------------------------------------------
+def _accumulated_grads(loss_fn: Callable, params, batch, N: int):
+    """``((loss, metrics), grads)`` of ``loss_fn(params, batch)`` over the
+    trainable leaves of ``params``, with N-way microbatch accumulation
+    (N == 1 is one call), averaged over the microbatches, grads in fp32.
+    Each microbatch's graph is freed by its backward before the next."""
+    ps = list(leaves(params))
+    B = next(iter(batch.values())).shape[0]
+    if B % N:
+        raise ValueError(f"batch {B} does not split into {N} microbatches")
+    mb = B // N
+    gacc = [torch.zeros_like(p, dtype=torch.float32) for p in ps]
+    lacc, macc = 0.0, {}
+    for i in range(N):
+        sub = {k: v[i * mb:(i + 1) * mb] for k, v in batch.items()} \
+            if N > 1 else batch
+        loss, met = loss_fn(params, sub)
+        grads = torch.autograd.grad(loss, ps, allow_unused=True)
+        for a, g in zip(gacc, grads):
+            if g is not None:
+                a += g.float()
+        lacc = lacc + loss.detach()
+        for k, v in met.items():
+            macc[k] = macc.get(k, 0.0) + v.detach()
+    it = iter([a / N for a in gacc])
+    grads = tree_map(lambda _: next(it), params)
+    return (lacc / N, {k: v / N for k, v in macc.items()}), grads
+
+
+def make_lora_train_step(model: Model, cfg: ModelConfig, *, lr: float = 3e-5,
+                         kind: str = "ppo", kl_coef: float = 0.1,
+                         max_grad_norm: float = 1.0, shard=None,
+                         base_shard=None):
+    """``step(state, base_params, batch) -> (new_state, metrics)`` for one
+    role's adapter: gradients and the optimizer state cover only the
+    adapter leaves in ``state["params"]``; the frozen trunk is an input
+    that is never differentiated. kind: ppo | critic."""
+    if shard is not None or base_shard is not None:
+        raise NotImplementedError("the port's train step is single-device")
+    if getattr(cfg, "mtp_depth", 0):
+        raise NotImplementedError("MTP heads are not ported")
+    if kind not in ("ppo", "critic"):
+        raise ValueError(f"the port's LoRA step trains ppo or critic, not "
+                         f"{kind!r}")
+    optimizer = make_optimizer(cfg.optimizer)
+
+    def loss_fn(adapter, base_params, batch):
+        if kind == "critic":
+            values = model.forward_value(base_params, batch, adapter=adapter)
+            return critic_loss(values, batch)
+        logits, _ = model.forward(base_params, batch, adapter=adapter)
+        return ppo_actor_loss(logits, batch, kl_coef=kl_coef)
+
+    N = max(1, cfg.microbatches)
+
+    def train_step(state, base_params, batch
+                   ) -> Tuple[dict, Dict[str, torch.Tensor]]:
+        adapter = state["params"]
+        with torch.enable_grad():
+            (loss, metrics), grads = _accumulated_grads(
+                lambda ad, mb: loss_fn(ad, base_params, mb), adapter, batch,
+                N)
+        grads, gnorm = clip_by_global_norm(grads, max_grad_norm)
+        new_params, new_opt = optimizer.update(grads, state["opt"], adapter,
+                                               lr)
+        for p in leaves(new_params):
+            p.requires_grad_(True)
+        return ({"params": new_params, "opt": new_opt,
+                 "step": state["step"] + 1},
+                dict(metrics, loss=loss, grad_norm=gnorm))
+
+    train_step.optimizer = optimizer
+    return train_step
+
+
+def init_lora_train_state(adapter, optimizer):
+    """Train state whose params (and so optimizer moments) are only the
+    adapter tree; its leaves require grad."""
+    for p in leaves(adapter):
+        p.requires_grad_(True)
+    return {"params": adapter, "opt": optimizer.init(adapter), "step": 0}

@@ -6,7 +6,11 @@ has only PyTorch: ``pytest -m gpu tests/test_torch_gpu.py``. Tolerances:
 2e-2 in bf16 and 5e-5 in f32, as ``tests/test_kernels.py:15`` (another
 order of summation, and bf16 output rounding); B5 is held against its
 plain version on fp32 copies of its inputs at 5e-2 in bf16 and 1e-3 in
-f32, as ``tests/test_kernels.py:98`` holds the Pallas SSD kernel.
+f32, as ``tests/test_kernels.py:98`` holds the Pallas SSD kernel. The
+backward kernels (B2-bwd, B1-bwd) are held at 2e-2 in bf16 and 1e-4 in
+f32 (the reference's own gradient tolerance, ``tests/test_kernels.py:57``)
+on the error over max(1, max |plain|): gradients grow past 1, and a bf16
+output rounds to a step relative to its size.
 """
 import dataclasses
 
@@ -17,6 +21,7 @@ torch = pytest.importorskip("torch")
 from repro_torch.configs import get_config  # noqa: E402
 from repro_torch.kernels import decode_attention as tdec  # noqa: E402
 from repro_torch.kernels import flash_attention as tfa  # noqa: E402
+from repro_torch.kernels import flash_attention_bwd as tfab  # noqa: E402
 from repro_torch.kernels import ops, ref  # noqa: E402
 from repro_torch.kernels import paged_attention as tpa  # noqa: E402
 from repro_torch.kernels import rmsnorm as trn  # noqa: E402
@@ -28,6 +33,7 @@ pytestmark = pytest.mark.gpu
 
 DT = {"f32": torch.float32, "bf16": torch.bfloat16}
 TOL = {"f32": 5e-5, "bf16": 2e-2}
+TOL_BWD = {"f32": 1e-4, "bf16": 2e-2}
 
 
 @pytest.fixture
@@ -72,6 +78,109 @@ def test_flash_kernel_matches_plain(cuda, B, Sq, Sk, H, K, D, causal,
     want = ref.attention_ref(q, k, v, causal=causal, window=window)
     torch.testing.assert_close(out.float(), want.float(), atol=TOL[dt],
                                rtol=0)
+
+
+def _assert_scaled(got, want, tol):
+    """max |got - want| <= tol * max(1, max |want|)."""
+    got, want = got.float(), want.float()
+    err = (got - want).abs().max().item()
+    scale = max(1.0, want.abs().max().item())
+    assert err <= tol * scale, (err, scale)
+
+
+FLASH_BWD_CASES = [
+    (8, 576, 576, 24, 8, 128, True, 0, "bf16"),    # the training shape
+    (8, 576, 576, 24, 8, 128, True, 0, "f32"),
+    (2, 100, 100, 6, 2, 128, True, 0, "bf16"),     # ragged S = 100
+    (2, 100, 100, 6, 2, 64, True, 0, "f32"),
+    (2, 192, 192, 8, 8, 64, True, 0, "bf16"),      # G 1, D 64
+    (1, 160, 160, 16, 2, 128, True, 0, "bf16"),    # G 8
+    (1, 300, 300, 6, 2, 128, True, 100, "bf16"),   # a window that cuts tiles
+    (2, 65, 129, 4, 2, 64, False, 0, "f32"),       # full, ragged Sq != Sk
+]
+
+
+@pytest.mark.parametrize("B,Sq,Sk,H,K,D,causal,window,dt",
+                         [c for c in FLASH_BWD_CASES if c[1] < 576])
+def test_flash_lse_matches_plain(cuda, B, Sq, Sk, H, K, D, causal, window,
+                                 dt):
+    """B2's lse output, on both routes, against attention_ref's."""
+    g = torch.Generator(device=cuda).manual_seed(3)
+    q = _randn(g, B, Sq, H, D, dt=dt, device=cuda)
+    k = _randn(g, B, Sk, K, D, dt=dt, device=cuda)
+    v = _randn(g, B, Sk, K, D, dt=dt, device=cuda)
+    out, lse = tfa.flash_attention_fwd(q, k, v, causal=causal, window=window,
+                                       return_lse=True)
+    want, want_lse = ref.attention_ref(q, k, v, causal=causal, window=window,
+                                       return_lse=True)
+    torch.testing.assert_close(out.float(), want.float(), atol=TOL[dt],
+                               rtol=0)
+    torch.testing.assert_close(lse, want_lse, atol=TOL[dt], rtol=0)
+
+
+@pytest.mark.parametrize("B,Sq,Sk,H,K,D,causal,window,dt", FLASH_BWD_CASES)
+def test_flash_bwd_kernel_matches_plain(cuda, B, Sq, Sk, H, K, D, causal,
+                                        window, dt):
+    """B2-bwd against flash_attention_bwd_ref on the same saved out/lse."""
+    g = torch.Generator(device=cuda).manual_seed(4)
+    q = _randn(g, B, Sq, H, D, dt=dt, device=cuda)
+    k = _randn(g, B, Sk, K, D, dt=dt, device=cuda)
+    v = _randn(g, B, Sk, K, D, dt=dt, device=cuda)
+    dout = _randn(g, B, Sq, H, D, dt=dt, device=cuda)
+    out, lse = tfa.flash_attention_fwd(q, k, v, causal=causal, window=window,
+                                       return_lse=True)
+    got = tfab.flash_attention_bwd(q, k, v, out, lse, dout, causal=causal,
+                                   window=window)
+    want = ref.flash_attention_bwd_ref(q, k, v, out, lse, dout,
+                                       causal=causal, window=window)
+    for a, b in zip(got, want):
+        _assert_scaled(a, b, TOL_BWD[dt])
+
+
+@pytest.mark.parametrize("shape,dt,sdt", [
+    ((4608, 3072), "bf16", "bf16"),       # the training prefill's rows
+    ((8, 3072), "bf16", "bf16"),
+    ((3, 100), "f32", "f32"),
+    ((7, 384), "bf16", "f32"),            # the scalar route
+    ((2, 8192), "bf16", "bf16"),          # too wide for registers: scalar
+    ((2048, 512), "f32", "f32"),
+])
+def test_rmsnorm_bwd_kernel_matches_plain(cuda, shape, dt, sdt):
+    """B1-bwd, dx and dscale, against rmsnorm_bwd_ref."""
+    g = torch.Generator(device=cuda).manual_seed(5)
+    x = _randn(g, *shape, dt=dt, device=cuda)
+    dy = _randn(g, *shape, dt=dt, device=cuda)
+    s = (1 + 0.1 * torch.randn(shape[-1], generator=g, device=cuda)
+         ).to(DT[sdt])
+    dx, ds = trn.rmsnorm_bwd(x, s, dy, 1e-5)
+    want_dx, want_ds = ref.rmsnorm_bwd_ref(x, s, dy, 1e-5)
+    _assert_scaled(dx, want_dx, TOL_BWD[dt])
+    _assert_scaled(ds, want_ds, TOL_BWD[sdt])
+    dx2, none = trn.rmsnorm_bwd(x, s, dy, 1e-5, dscale=False)
+    assert none is None and torch.equal(dx2, dx)
+
+
+def test_autograd_counts_backward_launches(cuda):
+    """ops' autograd functions launch B2-bwd and B1-bwd once per backward,
+    and their gradients are the plain versions' on the same inputs."""
+    g = torch.Generator(device=cuda).manual_seed(6)
+    q, k, v = (_randn(g, 2, 96, h, 64, dt="bf16", device=cuda)
+               .requires_grad_() for h in (4, 2, 2))
+    x = _randn(g, 96, 256, dt="bf16", device=cuda).requires_grad_()
+    s = torch.ones(256, device=cuda, dtype=torch.bfloat16)
+    ops.reset_launches()
+    out = ops.flash_attention(q, k, v, causal=True)
+    y = ops.rmsnorm(x, s)
+    (out.float().square().sum() + y.float().square().sum()).backward()
+    assert ops.launches["flash_attention"] == 1
+    assert ops.launches["flash_attention_bwd"] == 1
+    assert ops.launches["rmsnorm"] == 1 and ops.launches["rmsnorm_bwd"] == 1
+    _, lse = ref.attention_ref(q, k, v, causal=True, return_lse=True)
+    want = ref.flash_attention_bwd_ref(q.detach(), k.detach(), v.detach(),
+                                       out.detach(), lse,
+                                       2 * out.detach().float().to(q.dtype))
+    for t, w in zip((q, k, v), want):
+        _assert_scaled(t.grad, w, TOL_BWD["bf16"])
 
 
 @pytest.mark.parametrize("B,H,K,D,C,cur,window,dt", [
@@ -209,9 +318,10 @@ def test_rmsnorm_kernel_matches_plain(cuda, shape, dt):
 
 
 @pytest.mark.parametrize("shape,dt,sdt", [
-    # every shape the serving, paged GRPO and Mamba2 paths give B1
+    # every shape the serving, paged GRPO, Mamba2 and PPO paths give B1
     ((4096, 3072), "bf16", "bf16"), ((8, 3072), "bf16", "bf16"),
     ((4032, 3072), "bf16", "bf16"), ((64, 3072), "bf16", "bf16"),
+    ((4608, 3072), "bf16", "bf16"),
     ((16384, 1024), "bf16", "bf16"), ((16384, 2048), "bf16", "bf16"),
     ((8, 2048), "bf16", "bf16"),
     ((3, 100), "f32", "f32"),             # 25 vectors: lanes left idle
@@ -328,7 +438,8 @@ def test_greedy_decode_on_card_matches_cpu(cuda):
     assert ops.launches == {"flash_attention": L,
                             "decode_attention": L * 11,
                             "paged_decode_attention": 0, "ssd_scan": 0,
-                            "rmsnorm": (2 * L + 1) * 12}
+                            "rmsnorm": (2 * L + 1) * 12,
+                            "flash_attention_bwd": 0, "rmsnorm_bwd": 0}
 
 
 def test_paged_group_rollout_on_card_matches_cpu(cuda):
@@ -358,7 +469,8 @@ def test_paged_group_rollout_on_card_matches_cpu(cuda):
                             "paged_decode_attention": L * 11,
                             "ssd_scan": 0,
                             # + the group's replicated unembedding
-                            "rmsnorm": (2 * L + 1) * 12 + 1}
+                            "rmsnorm": (2 * L + 1) * 12 + 1,
+                            "flash_attention_bwd": 0, "rmsnorm_bwd": 0}
 
 
 def test_mamba_greedy_decode_on_card_matches_cpu(cuda):
@@ -382,4 +494,5 @@ def test_mamba_greedy_decode_on_card_matches_cpu(cuda):
     L = cfg.num_layers
     assert ops.launches == {"flash_attention": 0, "decode_attention": 0,
                             "paged_decode_attention": 0, "ssd_scan": L,
-                            "rmsnorm": (2 * L + 1) * 16}
+                            "rmsnorm": (2 * L + 1) * 16,
+                            "flash_attention_bwd": 0, "rmsnorm_bwd": 0}

@@ -21,6 +21,7 @@ from repro.paged.attention import \
 from repro_torch.kernels import build, ops, ref  # noqa: E402
 from repro_torch.kernels import decode_attention as tdec  # noqa: E402
 from repro_torch.kernels import flash_attention as tfa  # noqa: E402
+from repro_torch.kernels import flash_attention_bwd as tfab  # noqa: E402
 from repro_torch.kernels import paged_attention as tpa  # noqa: E402
 from repro_torch.kernels import rmsnorm as trn  # noqa: E402
 from repro_torch.kernels import ssd_scan as tssd  # noqa: E402
@@ -135,7 +136,7 @@ def test_ops_take_the_plain_version_on_cpu_and_count_no_launch():
 
 
 @pytest.mark.parametrize("call", ["rmsnorm", "flash", "decode", "paged",
-                                  "ssd"])
+                                  "ssd", "flash_bwd", "rmsnorm_bwd"])
 def test_kernel_wrappers_refuse_non_cuda_tensors(call):
     """A wrapper launches on CUDA tensors or raises; it never computes
     the plain version itself."""
@@ -147,6 +148,10 @@ def test_kernel_wrappers_refuse_non_cuda_tensors(call):
             trn.rmsnorm(x, torch.ones(64, device="meta"))
         elif call == "flash":
             tfa.flash_attention_fwd(x, kv, kv)
+        elif call == "flash_bwd":
+            tfab.flash_attention_bwd(x, kv, kv, x, pos, x)
+        elif call == "rmsnorm_bwd":
+            trn.rmsnorm_bwd(x, torch.ones(64, device="meta"), x)
         elif call == "ssd":         # CPU tensors: ops.py's to route
             tssd.ssd_scan(torch.zeros(1, 8, 2, 16), torch.zeros(1, 8, 2),
                           torch.zeros(1, 8, 4), torch.zeros(1, 8, 4), 8)
@@ -165,7 +170,8 @@ def test_build_compiles_each_source_for_sm90a(monkeypatch, tmp_path):
     compiles, link = build.compile_commands(tmp_path)
     names = sorted(p.name for p in build.sources())
     assert names == ["decode_attention.cu", "flash_attention.cu",
-                     "paged_attention.cu", "rmsnorm.cu", "ssd_scan.cu"]
+                     "flash_attention_bwd.cu", "paged_attention.cu",
+                     "rmsnorm.cu", "ssd_scan.cu"]
     assert len(compiles) == len(names)
     for cmd in compiles + [link]:
         assert "arch=compute_90a,code=sm_90a" in cmd

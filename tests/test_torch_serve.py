@@ -97,7 +97,7 @@ def test_sample_token_top_k_and_greedy():
 
 
 _IMPORT_ALL = """
-import importlib, pathlib, pkgutil, sys
+import importlib, importlib.util, pathlib, pkgutil, sys
 sys.modules["jax"] = None
 sys.modules["repro"] = None
 sys.path[:0] = [{src!r}, {root!r}]
@@ -109,9 +109,17 @@ for name in names:
 want = {{"repro_torch.core.allocator", "repro_torch.paged.page_manager",
         "repro_torch.paged.paged_cache", "repro_torch.paged.attention",
         "repro_torch.kernels.paged_attention", "repro_torch.models.mamba",
-        "repro_torch.kernels.ssd_scan", "repro_torch.configs.mamba2_370m"}}
+        "repro_torch.kernels.ssd_scan", "repro_torch.configs.mamba2_370m",
+        "repro_torch.kernels.flash_attention_bwd", "repro_torch.models.lora",
+        "repro_torch.optim.adamw", "repro_torch.optim.clip",
+        "repro_torch.steps", "repro_torch.tree", "repro_torch.core.phases",
+        "repro_torch.rlhf.engine", "repro_torch.rlhf.ppo",
+        "repro_torch.rlhf.reward", "repro_torch.rlhf.trainer"}}
 assert want <= set(names), want - set(names)
 import chip_smoke
+spec = importlib.util.spec_from_file_location(
+    "torch_rlhf_e2e", pathlib.Path({root!r}) / "examples" / "torch_rlhf_e2e.py")
+spec.loader.exec_module(importlib.util.module_from_spec(spec))
 bad = [m for m, mod in sys.modules.items() if mod is not None
        and (m in ("jax", "repro") or m.startswith(("jax.", "repro.")))]
 assert not bad, bad
