@@ -1,10 +1,11 @@
 #!/usr/bin/env python3
-"""Device times of the port's B1 (RMSNorm), B4 (paged decode) and B5 (SSD
-chunk scan) kernels by CUDA-graph replay, to compare versions of them on
-one card in one call.
+"""Device times of the port's B1 (RMSNorm), B4 (paged decode), B5 (SSD
+chunk scan) and B2-bwd (flash-attention backward) kernels by CUDA-graph
+replay, to compare versions of them on one card in one call.
 
     python3 chip_ab.py TREE [TREE ...]   # each checkout in turn
-    python3 chip_ab.py --ablate          # B5, B4: one part of the work cut
+    python3 chip_ab.py --ablate          # B5, B4, B2-bwd: one part cut
+    python3 chip_ab.py --ablate flash_attention_bwd.cu   # one source only
 
 With checkouts (directories holding ``src/repro_torch``, e.g. a parent
 commit unpacked by ``git archive`` and ``.``), each is timed in a process
@@ -12,12 +13,13 @@ of its own, in the order given (parent, change, change, parent, to see the
 drift): B1 and ``F.rms_norm`` at every shape the serving, paged GRPO and
 Mamba2 paths give B1, B4 at the paged GRPO rollout's last decode step over
 its own forked block table and over one that puts every row on pages of
-its own, and B5 at the Mamba2 prefill's shape, warm and cold as
-``chip_smoke.py`` times them. With ``--ablate``, B5's and B4's sources
-in this checkout are compiled again with one of their steps removed at a
-time (the results are wrong; only the time counts) and each variant is
-timed: the time a step's removal saves is an upper bound on what making
-it faster can give. Needs one NVIDIA card and nvcc; prints one JSON line a run.
+its own, B5 at the Mamba2 prefill's shape, and B2-bwd at the PPO
+training shape beside SDPA's backward (fwd + bwd less fwd, both graphed),
+warm and cold as ``chip_smoke.py`` times them. With ``--ablate``, B5's,
+B4's and B2-bwd's sources in this checkout are compiled again with one
+of their steps removed at a time (the results are wrong; only the time
+counts) and each variant is timed: the time a step's removal saves is an
+upper bound on what making it faster can give. Needs one NVIDIA card and nvcc; prints one JSON line a run.
 """
 from __future__ import annotations
 
@@ -79,6 +81,26 @@ PAGED_ABLATIONS = [
     ("no_arith", [(_B4_SCORES, _B4_NO_SCORES), (_B4_PV, "")]),
     ("late_merge_trigger", [(_B4_TRIGGER, ""),
                             (_B4_END, _B4_TRIGGER + _B4_END)]),
+]
+
+# B2-bwd: the PPO training shape, q/out/dout [8,576,24,128], k/v
+# [8,576,8,128], bf16, causal
+BWD_SHAPE = (8, 576, 24, 8, 128)          # B, S, H, K, D
+# its ablations in csrc/flash_attention_bwd.cu (the bf16 route): the dQ
+# kernel's recompute of S and dP, the exponent of both kernels, and each
+# kernel whole (the prep pass alone is the time left with neither)
+_DQ_LAUNCH = "  flash_bwd_dq_wgmma_kernel<D><<<n_dq"
+_DKDV_LAUNCH = "  flash_bwd_dkdv_wgmma_kernel<D><<<n_dkdv"
+BWD_ABLATIONS = [
+    ("no_dq_recompute", [("""    issue_abt<D>(sc, qs, kt);
+    issue_abt<D>(dp, dos, vt);
+""", "")]),
+    ("no_exp", [
+        ("sm90::exp2_approx(fmaf(sc[i], scale_log2, e ? -l.y : -l.x))",
+         "sc[i]"),
+        ("sm90::exp2_approx(fmaf(sc[i], scale_log2, -lr[hf]))", "sc[i]")]),
+    ("no_dq_kernel", [(_DQ_LAUNCH, "  if (0)" + _DQ_LAUNCH[1:])]),
+    ("no_dkdv_kernel", [(_DKDV_LAUNCH, "  if (0)" + _DKDV_LAUNCH[1:])]),
 ]
 
 
@@ -178,12 +200,56 @@ def paged_us(torch, pa, PageManager) -> dict:
     return out
 
 
+def bwd_inputs(torch, fa):
+    """q, k, v, out, lse, dout of B2-bwd at ``BWD_SHAPE``, out and lse from
+    B2's forward (the checkout's ``fa``)."""
+    B, S, H, K, D = BWD_SHAPE
+    q = torch.randn(B, S, H, D, device="cuda").bfloat16()
+    k, v = (torch.randn(B, S, K, D, device="cuda").bfloat16()
+            for _ in range(2))
+    dout = torch.randn(B, S, H, D, device="cuda").bfloat16()
+    out, lse = fa.flash_attention_fwd(q, k, v, causal=True, return_lse=True)
+    return q, k, v, out, lse, dout
+
+
+def sdpa_fwd_bwd(torch, F, q, k, v, dout, backward=True):
+    """SDPA in [B, heads, S, D] with grouped KV heads, causal, and its
+    backward through autograd (the yardstick; captured whole)."""
+    qq, kk, vv = (t.transpose(1, 2).detach().requires_grad_()
+                  for t in (q, k, v))
+    o = F.scaled_dot_product_attention(qq, kk, vv, is_causal=True,
+                                       enable_gqa=True)
+    if backward:
+        torch.autograd.grad(o, (qq, kk, vv), dout.transpose(1, 2))
+
+
+def flash_bwd_us(torch, fa, fab) -> dict:
+    """B2-bwd (the wrapper module ``fab``) warm and cold, us, and SDPA's
+    backward as its fwd + bwd less its fwd, each graphed."""
+    import torch.nn.functional as F
+    out = {"flash_bwd_us": warm_cold_us(
+        torch, lambda *t: fab.flash_attention_bwd(*t, causal=True),
+        lambda: bwd_inputs(torch, fa))}
+    both = warm_cold_us(
+        torch, lambda q, k, v, o, l, d: sdpa_fwd_bwd(torch, F, q, k, v, d),
+        lambda: bwd_inputs(torch, fa))
+    fwd = warm_cold_us(
+        torch, lambda q, k, v, o, l, d: sdpa_fwd_bwd(torch, F, q, k, v, d,
+                                                     backward=False),
+        lambda: bwd_inputs(torch, fa))
+    out["sdpa_fwd_bwd_us"] = both
+    out["sdpa_bwd_us"] = [round(a - b, 2) for a, b in zip(both, fwd)]
+    return out
+
+
 def time_tree(tree: pathlib.Path) -> dict:
-    """B1 against F.rms_norm, B4 and B5, warm and cold, in checkout
-    ``tree``."""
+    """B1 against F.rms_norm, B4, B5 and B2-bwd against SDPA's backward,
+    warm and cold, in checkout ``tree``."""
     sys.path.insert(0, str(tree / "src"))
     import torch
     import torch.nn.functional as F
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import flash_attention_bwd as fab
     from repro_torch.kernels import paged_attention as pa
     from repro_torch.kernels import rmsnorm as rn
     from repro_torch.kernels import ssd_scan as ssd
@@ -207,17 +273,22 @@ def time_tree(tree: pathlib.Path) -> dict:
     out["ssd_scan_us"] = warm_cold_us(
         torch, lambda *t: ssd.ssd_scan(*t, chunk),
         lambda: ssd_inputs(torch, sliced))
+    out.update(flash_bwd_us(torch, fa, fab))
     return out
 
 
-def ablate() -> list:
-    """B5 and B4 of this checkout, each whole and with each of its
-    ablations applied (``SSD_ABLATIONS``, ``PAGED_ABLATIONS``)."""
+def ablate(only=()) -> list:
+    """B5, B4 and B2-bwd of this checkout (or the sources named in
+    ``only``), each whole and with each of its ablations applied
+    (``SSD_ABLATIONS``, ``PAGED_ABLATIONS``, ``BWD_ABLATIONS``)."""
     sys.path.insert(0, str(ROOT / "src"))
     import torch
     from repro_torch.kernels import build, ssd_scan as ssd
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import flash_attention_bwd as fab
     from repro_torch.kernels import paged_attention as pa
     from repro_torch.paged import PageManager
+    fa._fn()        # B2's forward (the inputs of B2-bwd) from the whole build
     work = ROOT / "build" / "ablate"
     work.mkdir(parents=True, exist_ok=True)
     chunk = SSD_SHAPE[-1]
@@ -228,7 +299,11 @@ def ablate() -> list:
                 lambda: ssd_inputs(torch))}),
         "paged_attention.cu": (PAGED_ABLATIONS, pa,
                                lambda: paged_us(torch, pa, PageManager)),
+        "flash_attention_bwd.cu": (BWD_ABLATIONS, fab,
+                                   lambda: flash_bwd_us(torch, fa, fab)),
     }
+    if only:
+        kernels = {src: kernels[src] for src in only}
     variants = []                    # (source, name, text)
     for src, (ablations, _, _) in kernels.items():
         source = (build.CSRC / src).read_text()
@@ -267,7 +342,9 @@ def ablate() -> list:
 def main() -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("trees", nargs="*", type=pathlib.Path)
-    ap.add_argument("--ablate", action="store_true")
+    ap.add_argument("--ablate", nargs="*", metavar="SOURCE",
+                    help="ablate these sources' kernels (all when none "
+                         "is named)")
     ap.add_argument("--one", type=pathlib.Path, help=argparse.SUPPRESS)
     args = ap.parse_args()
     import torch
@@ -283,8 +360,8 @@ def main() -> int:
     for tree in args.trees:          # a process each: one repro_torch each
         subprocess.run([sys.executable, __file__, "--one", str(tree)],
                        check=True)
-    if args.ablate:
-        ablate()
+    if args.ablate is not None:
+        ablate(args.ablate)
     return 0
 
 

@@ -9,11 +9,12 @@ Phases, each failing with a non-zero exit:
 
 1. the card (``nvidia-smi`` name and power limit), versions, and the
    kernels' build from ``src/repro_torch/kernels/csrc``; the SASS of the
-   bf16 flash and SSD-scan kernels must hold HGMMA (tensor-core)
-   instructions and the kernels redesigned for Hopper (B2's wgmma kernel,
-   B3's and B4's split and combine kernels, B5's wgmma kernel, B1's vector
-   and scalar kernels) and the backward kernels (B2-bwd's three, B1-bwd's
-   four) must not spill registers (their ptxas lines are printed);
+   bf16 flash, flash-backward and SSD-scan kernels must hold HGMMA
+   (tensor-core) instructions and the kernels redesigned for Hopper (B2's
+   wgmma kernel, B3's and B4's split and combine kernels, B5's wgmma
+   kernel, B1's vector and scalar kernels) and the backward kernels
+   (B2-bwd's three of each route, B1-bwd's four) must not spill registers
+   (their ptxas lines are printed);
 2. each kernel against its plain PyTorch version at the shapes of the
    serving, paged GRPO and Mamba2 paths and at edge cases (ragged Sq/Sk
    across the 128-row q and 64-key k tiles, Sk below one tile, a window
@@ -26,8 +27,9 @@ Phases, each failing with a non-zero exit:
    all-distinct and all-same tables of its shape, ragged positions, an
    idle row in a tile, a ragged last tile, pages of two units and a forced
    single split; B2's lse output on every case; B2-bwd at the PPO
-   training shape in bf16 and fp32, D 64, G 1 and 8, a window, ragged
-   S = 100 and a full ragged Sq != Sk; B1-bwd, dx and dscale, at the
+   training shape in bf16 (tensor cores) and fp32, D 64, G 1 and 8,
+   windows, ragged S = 100, causal Sk above and below Sq and a full
+   ragged Sq != Sk in both dtypes; B1-bwd, dx and dscale, at the
    training rows and each route), with its time, the plain version's, one
    PyTorch library
    call's (where one exists) and the least time the card could take; every
@@ -226,13 +228,16 @@ def rolling_pos(B, C, cur, device):
 NEW_KERNELS = ("flash_wgmma_kernel", "decode_split_kernel", "combine_kernel",
                "paged_split_kernel", "paged_merge_kernel",
                "ssd_wgmma_kernel", "rmsnorm_vec_kernel",
-               "rmsnorm_scalar_kernel", "flash_bwd_delta_kernel",
-               "flash_bwd_dkdv_kernel", "flash_bwd_dq_kernel",
+               "rmsnorm_scalar_kernel", "flash_bwd_prep_kernel",
+               "flash_bwd_dkdv_wgmma_kernel", "flash_bwd_dq_wgmma_kernel",
+               "flash_bwd_delta_kernel", "flash_bwd_dkdv_kernel",
+               "flash_bwd_dq_kernel",
                "rmsnorm_bwd_vec_kernel", "rmsnorm_bwd_scalar_kernel",
                "rmsnorm_dscale_partial_kernel",
                "rmsnorm_dscale_reduce_kernel")
 # the kernels that must run on the tensor cores (HGMMA in their SASS)
-HGMMA_KERNELS = ("flash_wgmma_kernel", "ssd_wgmma_kernel")
+HGMMA_KERNELS = ("flash_wgmma_kernel", "ssd_wgmma_kernel",
+                 "flash_bwd_dkdv_wgmma_kernel", "flash_bwd_dq_wgmma_kernel")
 
 
 def ptxas_table(log: str) -> dict:
@@ -273,9 +278,9 @@ def sass_hgmma(lib_path) -> dict:
 
 
 def check_build(path, log):
-    """Phase 1's checks of the built library: the bf16 flash and SSD-scan
-    kernels run on the tensor cores (HGMMA in their SASS), and no kernel
-    redesigned for Hopper spills registers."""
+    """Phase 1's checks of the built library: the bf16 flash, flash
+    backward and SSD-scan kernels run on the tensor cores (HGMMA in their
+    SASS), and no kernel redesigned for Hopper spills registers."""
     hgmma = sass_hgmma(path)
     for kname in HGMMA_KERNELS:
         found = {k: v for k, v in hgmma.items() if kname in k}
@@ -541,24 +546,41 @@ def scaled_err(got, want) -> float:
                                                  want.abs().max().item())
 
 
+def _sdpa_fwd_bwd(q, k, v, dout, causal, backward=True):
+    """SDPA (GQA) on [B, S, heads, D] inputs and, with ``backward``, its
+    backward through autograd: the yardstick, captured whole in a graph."""
+    qq, kk, vv = (t.detach().requires_grad_() for t in (q, k, v))
+    o = _gqa_sdpa(qq, kk, vv, is_causal=causal)
+    if backward:
+        torch.autograd.grad(o, (qq, kk, vv), dout.transpose(1, 2))
+
+
 def check_flash_bwd(dev, peaks, g):
     """B2-bwd against flash_attention_bwd_ref on the saved out and lse of
     B2's forward: at the PPO training shape (bf16 and fp32) and at D 64,
-    G 1 and 8, a window that cuts tiles, ragged S = 100 and a full
-    (non-causal) ragged Sq != Sk. The main shape is timed: eager and by
-    graph replay (warm, cold), beside the plain version and the backward
-    of SDPA (GQA expanded) through autograd."""
+    G 1 and 8, windows of 100 that cut tiles, ragged S = 100, causal with
+    Sk above and below Sq, and full (non-causal) ragged Sq != Sk in both
+    dtypes, so the tensor-core route sees every mask. The main shape is
+    timed: eager and by graph replay (warm, cold), beside the plain
+    version and SDPA's backward (GQA), eager through autograd and by graph
+    replay as its forward + backward less its forward."""
     S = PPROMPT + GEN
+    bf, f32 = torch.bfloat16, torch.float32
     cases = [  # (name, B, Sq, Sk, H, K, D, causal, window, dtype)
-        ("main", PBATCH, S, S, 24, 8, 128, True, 0, torch.bfloat16),
-        ("fp32", PBATCH, S, S, 24, 8, 128, True, 0, torch.float32),
-        ("d64", 2, 192, 192, 8, 2, 64, True, 0, torch.bfloat16),
-        ("g1", 2, 192, 192, 8, 8, 64, True, 0, torch.bfloat16),
-        ("g8", 1, 160, 160, 16, 2, 128, True, 0, torch.bfloat16),
-        ("window", 1, 300, 300, 6, 2, 128, True, 100, torch.bfloat16),
-        ("ragged", 2, 100, 100, 6, 2, 128, True, 0, torch.bfloat16),
-        ("ragged_fp32", 2, 100, 100, 6, 2, 64, True, 0, torch.float32),
-        ("full_ragged", 2, 65, 129, 4, 2, 64, False, 0, torch.float32),
+        ("main", PBATCH, S, S, 24, 8, 128, True, 0, bf),
+        ("fp32", PBATCH, S, S, 24, 8, 128, True, 0, f32),
+        ("d64", 2, 192, 192, 8, 2, 64, True, 0, bf),
+        ("g1", 2, 192, 192, 8, 8, 64, True, 0, bf),
+        ("g8", 1, 160, 160, 16, 2, 128, True, 0, bf),
+        ("window", 1, 300, 300, 6, 2, 128, True, 100, bf),
+        ("window_d64", 2, 200, 200, 4, 2, 64, True, 100, bf),
+        ("ragged", 2, 100, 100, 6, 2, 128, True, 0, bf),
+        ("sk_gt_sq", 2, 37, 100, 6, 2, 128, True, 0, bf),
+        ("sq_gt_sk", 2, 100, 37, 6, 2, 128, True, 0, bf),
+        ("full_ragged_bf16", 2, 65, 129, 4, 2, 64, False, 0, bf),
+        ("full_ragged_d128", 2, 129, 65, 6, 2, 128, False, 0, bf),
+        ("ragged_fp32", 2, 100, 100, 6, 2, 64, True, 0, f32),
+        ("full_ragged", 2, 65, 129, 4, 2, 64, False, 0, f32),
     ]
     out_recs = []
     for name, B, Sq, Sk, H, K, D, causal, window, dt in cases:
@@ -573,6 +595,7 @@ def check_flash_bwd(dev, peaks, g):
         torch.cuda.synchronize()
         rec = {"case": name, "shape": [B, Sq, Sk, H, K, D], "causal": causal,
                "window": window, "dtype": str(dt),
+               "route": fab.route(dt, D),
                "max_err": max(scaled_err(a, b) for a, b in zip(got, want)),
                "max_abs_err": max((a.float() - b.float()).abs().max().item()
                                   for a, b in zip(got, want)),
@@ -597,7 +620,15 @@ def check_flash_bwd(dev, peaks, g):
                 return qs, ks, vs, os_, ls, ds
             rec["device_ms"], rec["cold_ms"] = time_graph_warm_cold(
                 lambda *a: fab.flash_attention_bwd(*a, **kw), make_set)
-            rec["library_cold_ms"] = None
+            both = time_graph_warm_cold(
+                lambda qs, ks, vs, os_, ls, ds: _sdpa_fwd_bwd(
+                    qs, ks, vs, ds, causal), make_set)
+            fwd = time_graph_warm_cold(
+                lambda qs, ks, vs, os_, ls, ds: _sdpa_fwd_bwd(
+                    qs, ks, vs, ds, causal, backward=False), make_set)
+            rec["library_device_ms"] = both[0] - fwd[0]
+            rec["library_cold_ms"] = both[1] - fwd[1]
+            rec["library_fwd_bwd_cold_ms"] = both[1]
             n_ops = 5 * 2 * D * B * H * causal_pairs(Sq, Sk, causal, window)
             rec["bound_ms"], rec["bound_by"] = bound(
                 peaks, nbytes(q, k, v, out, lse, dout, *got), n_ops, dt)
@@ -1373,38 +1404,45 @@ def check_small_ppo_against_cpu(dev, steps=2, tol=1e-4):
 
 # each wrapper's CUDA kernels, by function name (no name contains
 # another's): one launch of the first kind per call; B3 and B4 add their
-# combine kernel when they split, B2-bwd its dK/dV and delta kernels,
+# combine kernel when they split, B2-bwd its dK/dV and prep (or delta)
+# kernels,
 # B1-bwd its dscale kernels when asked for dscale
 KERNEL_FUNCS = {"flash_attention": ("flash_wgmma_kernel", "flash_fwd_kernel"),
                 "decode_attention": ("decode_split_kernel",),
                 "paged_decode_attention": ("paged_split_kernel",),
                 "rmsnorm": ("rmsnorm_vec_kernel", "rmsnorm_scalar_kernel"),
                 "ssd_scan": ("ssd_wgmma_kernel", "ssd_scan_kernel"),
-                "flash_attention_bwd": ("flash_bwd_dq_kernel",),
+                "flash_attention_bwd": ("flash_bwd_dq_wgmma_kernel",
+                                        "flash_bwd_dq_kernel"),
                 "rmsnorm_bwd": ("rmsnorm_bwd_vec_kernel",
                                 "rmsnorm_bwd_scalar_kernel")}
 SECOND_KERNELS = {"decode_attention": ("combine_kernel",),
                   "paged_decode_attention": ("paged_merge_kernel",),
-                  "flash_attention_bwd": ("flash_bwd_dkdv_kernel",
+                  "flash_attention_bwd": ("flash_bwd_dkdv_wgmma_kernel",
+                                          "flash_bwd_prep_kernel",
+                                          "flash_bwd_dkdv_kernel",
                                           "flash_bwd_delta_kernel"),
                   "rmsnorm_bwd": ("rmsnorm_dscale_partial_kernel",
                                   "rmsnorm_dscale_reduce_kernel")}
 
 
 def port_kernels(rows):
-    """{wrapper: {"ms", "calls", "us_per_call"}} from profiler rows (us,
-    count, name): each wrapper's kernels' device time in the profiled
-    run."""
+    """{wrapper: {"ms", "calls", "us_per_call", "us_per_call_by_kernel"}}
+    from profiler rows (us, count, name): each wrapper's kernels' device
+    time in the profiled run, in all and per kernel function, per call of
+    the wrapper."""
     out = {}
     for wrapper, funcs in KERNEL_FUNCS.items():
-        mine = [r for r in rows if any(f in r[2] for f in funcs)]
-        calls = sum(r[1] for r in mine)
-        us = sum(r[0] for r in mine) + sum(
-            r[0] for r in rows
-            if any(f in r[2] for f in SECOND_KERNELS.get(wrapper, ())))
-        if calls:
-            out[wrapper] = {"ms": us / 1e3, "calls": calls,
-                            "us_per_call": us / calls}
+        calls = sum(r[1] for r in rows if any(f in r[2] for f in funcs))
+        if not calls:
+            continue
+        split = {f: sum(r[0] for r in rows if f in r[2])
+                 for f in funcs + SECOND_KERNELS.get(wrapper, ())}
+        us = sum(split.values())
+        out[wrapper] = {"ms": us / 1e3, "calls": calls,
+                        "us_per_call": us / calls,
+                        "us_per_call_by_kernel": {
+                            f: t / calls for f, t in split.items() if t}}
     return out
 
 
@@ -1443,8 +1481,11 @@ def print_profile(label, prof):
           f"{prof['kernel_busy_s'] * 1e3:.1f} ms, idle share "
           f"{prof['idle_share']:.3f}")
     for wrapper, k in prof["port"].items():
+        by = k["us_per_call_by_kernel"]
         print(f"  port {wrapper:22s} {k['ms']:9.3f} ms {k['calls']:6d} calls "
-              f"{k['us_per_call']:9.2f} us a call")
+              f"{k['us_per_call']:9.2f} us a call" + (" (" + ", ".join(
+                  f"{f} {t:.2f}" for f, t in by.items()) + ")"
+                  if len(by) > 1 else ""))
     for row in prof["top"][:10]:
         print(f"  {row['us'] / 1e3:9.3f} ms {row['count']:6d}x "
               f"{row['name'][:90]}")

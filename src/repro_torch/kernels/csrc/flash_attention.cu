@@ -612,25 +612,16 @@ flash_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
   if (threadIdx.x % 128 == 0) sm90::bulk_wait();
 }
 
-// [B, S, heads, D] bf16 as a 4-d map (D innermost), boxes of 64 columns x
-// `rows` sequence rows of one head, 128-byte swizzle, zeros out of range.
-bool make_map(CUtensorMap* map, const void* ptr, int B, int S, int heads,
-              int D, int rows) {
-  const cuuint64_t dims[4] = {(cuuint64_t)D, (cuuint64_t)heads, (cuuint64_t)S,
-                              (cuuint64_t)B};
-  const cuuint64_t strides[3] = {(cuuint64_t)D * 2, (cuuint64_t)heads * D * 2,
-                                 (cuuint64_t)S * heads * D * 2};
-  const cuuint32_t box[4] = {CHUNK, 1, (cuuint32_t)rows, 1};
-  return sm90::encode_bf16_map(map, ptr, 4, dims, strides, box);
-}
-
 template <int D>
 cudaError_t launch(const void* q, const void* k, const void* v, void* o,
                    float* lse, int B, int Sq, int Sk, int H, int K,
                    int causal, int window, cudaStream_t stream) {
   CUtensorMap tq, tk, tv, to;
-  if (!make_map(&tq, q, B, Sq, H, D, BQ) || !make_map(&tk, k, B, Sk, K, D, BK) ||
-      !make_map(&tv, v, B, Sk, K, D, BK) || !make_map(&to, o, B, Sq, H, D, 64))
+  using sm90::encode_bshd_map;
+  if (!encode_bshd_map(&tq, q, B, Sq, H, D, BQ) ||
+      !encode_bshd_map(&tk, k, B, Sk, K, D, BK) ||
+      !encode_bshd_map(&tv, v, B, Sk, K, D, BK) ||
+      !encode_bshd_map(&to, o, B, Sq, H, D, 64))
     return cudaErrorInvalidValue;
   constexpr size_t smem = Layout<D>::bytes;
   cudaError_t err = cudaFuncSetAttribute(

@@ -1,9 +1,9 @@
 // Hopper (sm_90a) building blocks for the port's tensor-core kernels:
 // mbarriers, TMA tile loads and the host encoding of their tensor maps,
 // the wgmma shared-memory descriptor and the wgmma instructions the flash
-// prefill (B2) and the SSD scan (B5) use. PTX as the PTX ISA (8.x) writes
-// it; the operand lists of the wgmma wrappers are spelled out because
-// inline PTX takes no register arrays.
+// prefill (B2), its backward (B2-bwd) and the SSD scan (B5) use. PTX as
+// the PTX ISA (8.x) writes it; the operand lists of the wgmma wrappers are
+// spelled out because inline PTX takes no register arrays.
 #pragma once
 
 #include <cuda.h>   // CUtensorMap and its enums only; no driver library linked
@@ -81,6 +81,17 @@ __device__ __forceinline__ void tma_load_3d(void* dst, const void* map,
       " [%0], [%1, {%3, %4, %5}], [%2];\n" ::"r"(smem_u32(dst)),
       "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "r"(c0),
       "r"(c1), "r"(c2)
+      : "memory");
+}
+
+// Copy `bytes` (a multiple of 16; both addresses 16-byte aligned) from
+// global `src` to shared `dst`; completion counts bytes on `bar`.
+__device__ __forceinline__ void bulk_load(void* dst, const void* src,
+                                          uint32_t bytes, uint64_t* bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes"
+      " [%0], [%1], %2, [%3];\n" ::"r"(smem_u32(dst)),
+      "l"(reinterpret_cast<uint64_t>(src)), "r"(bytes), "r"(smem_u32(bar))
       : "memory");
 }
 
@@ -351,6 +362,19 @@ inline bool encode_bf16_map(CUtensorMap* map, const void* ptr, int rank,
              CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
              CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
              CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+// A [B, S, heads, D] bf16 tensor as a 4-d map (D innermost), boxes of 64
+// columns x `rows` sequence rows of one head, 128-byte swizzle, zeros out
+// of range.
+inline bool encode_bshd_map(CUtensorMap* map, const void* ptr, int B, int S,
+                            int heads, int D, int rows) {
+  const cuuint64_t dims[4] = {(cuuint64_t)D, (cuuint64_t)heads, (cuuint64_t)S,
+                              (cuuint64_t)B};
+  const cuuint64_t strides[3] = {(cuuint64_t)D * 2, (cuuint64_t)heads * D * 2,
+                                 (cuuint64_t)S * heads * D * 2};
+  const cuuint32_t box[4] = {64, 1, (cuuint32_t)rows, 1};
+  return encode_bf16_map(map, ptr, 4, dims, strides, box);
 }
 
 }  // namespace sm90

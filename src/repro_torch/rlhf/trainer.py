@@ -27,6 +27,7 @@ from typing import Any, Callable, Dict, List, Optional, Sequence
 
 import torch
 
+from repro_torch import default_device
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models.lora import delete_merged
 from repro_torch.rlhf.engine import ModelEngine
@@ -55,9 +56,11 @@ class PhaseMemoryManager:
     a boundary's record also holds the seconds its own hygiene took
     (``hygiene_seconds``, within ``seconds``).
     On the CPU no allocator metric exists: ``live_bytes`` is the bytes of
-    the tensors ``tracked()`` returns, and the other two are None."""
+    the tensors ``tracked()`` returns, and the other two are None.
+    ``device`` defaults to ``repro_torch.default_device()``: CUDA, raising
+    where there is no card."""
     policy: str = "after_inference"
-    device: torch.device = field(default_factory=lambda: torch.device("cpu"))
+    device: torch.device = field(default_factory=default_device)
     tracked: Optional[Callable[[], Any]] = None
     records: List[dict] = field(default_factory=list)
 

@@ -96,7 +96,12 @@ FLASH_BWD_CASES = [
     (2, 192, 192, 8, 8, 64, True, 0, "bf16"),      # G 1, D 64
     (1, 160, 160, 16, 2, 128, True, 0, "bf16"),    # G 8
     (1, 300, 300, 6, 2, 128, True, 100, "bf16"),   # a window that cuts tiles
+    (2, 200, 200, 4, 2, 64, True, 100, "bf16"),
     (2, 65, 129, 4, 2, 64, False, 0, "f32"),       # full, ragged Sq != Sk
+    (2, 65, 129, 4, 2, 64, False, 0, "bf16"),
+    (2, 129, 65, 6, 2, 128, False, 0, "bf16"),
+    (2, 37, 100, 6, 2, 128, True, 0, "bf16"),      # causal, Sk above Sq
+    (2, 100, 37, 6, 2, 128, True, 0, "bf16"),      # causal, Sk below Sq
 ]
 
 
@@ -121,7 +126,8 @@ def test_flash_lse_matches_plain(cuda, B, Sq, Sk, H, K, D, causal, window,
 @pytest.mark.parametrize("B,Sq,Sk,H,K,D,causal,window,dt", FLASH_BWD_CASES)
 def test_flash_bwd_kernel_matches_plain(cuda, B, Sq, Sk, H, K, D, causal,
                                         window, dt):
-    """B2-bwd against flash_attention_bwd_ref on the same saved out/lse."""
+    """B2-bwd against flash_attention_bwd_ref on the same saved out/lse:
+    bf16 on the tensor-core route, fp32 on the CUDA cores."""
     g = torch.Generator(device=cuda).manual_seed(4)
     q = _randn(g, B, Sq, H, D, dt=dt, device=cuda)
     k = _randn(g, B, Sk, K, D, dt=dt, device=cuda)

@@ -7,6 +7,7 @@ Tolerances are those of ``tests/test_kernels.py:15``: 5e-5 in f32,
 2e-2 in bf16 (another order of summation, and bf16 output rounding).
 """
 import pytest
+from hypothesis import given, settings, strategies as st
 
 torch = pytest.importorskip("torch")
 
@@ -136,7 +137,8 @@ def test_ops_take_the_plain_version_on_cpu_and_count_no_launch():
 
 
 @pytest.mark.parametrize("call", ["rmsnorm", "flash", "decode", "paged",
-                                  "ssd", "flash_bwd", "rmsnorm_bwd"])
+                                  "ssd", "flash_bwd", "flash_bwd_bf16",
+                                  "rmsnorm_bwd"])
 def test_kernel_wrappers_refuse_non_cuda_tensors(call):
     """A wrapper launches on CUDA tensors or raises; it never computes
     the plain version itself."""
@@ -150,6 +152,11 @@ def test_kernel_wrappers_refuse_non_cuda_tensors(call):
             tfa.flash_attention_fwd(x, kv, kv)
         elif call == "flash_bwd":
             tfab.flash_attention_bwd(x, kv, kv, x, pos, x)
+        elif call == "flash_bwd_bf16":      # the tensor-core route
+            xb, kvb = x.bfloat16(), kv.bfloat16()
+            assert tfab.route(xb.dtype, 64) == "wgmma"
+            tfab.flash_attention_bwd(xb, kvb, kvb, xb,
+                                     torch.zeros(2, 8, 4, device="meta"), xb)
         elif call == "rmsnorm_bwd":
             trn.rmsnorm_bwd(x, torch.ones(64, device="meta"), x)
         elif call == "ssd":         # CPU tensors: ops.py's to route
@@ -520,3 +527,98 @@ def test_ssd_bc_row_stride():
         tssd.bc_row_stride(b.transpose(0, 1), c.transpose(0, 1))
     with pytest.raises(ValueError, match="one"):
         tssd.bc_row_stride(xbc[..., 64:96:2], xbc[..., 65:96:2])
+
+
+@pytest.mark.parametrize("dt,D,want", [
+    ("bf16", 128, "wgmma"), ("bf16", 64, "wgmma"),   # tensor cores
+    ("f32", 128, "simt"), ("f32", 64, "simt"),       # fp32 products
+])
+def test_flash_bwd_route(dt, D, want):
+    """B2-bwd's route reads only the dtype (and takes D 64 or 128)."""
+    assert tfab.route(DT[dt][1], D) == want
+    with pytest.raises(ValueError, match="head_dim"):
+        tfab.route(DT[dt][1], 96)
+
+
+def _bwd_walks(pl, vis, B, H, K):
+    """How often the plan's dK/dV and dQ blocks walk each (batch, query
+    head, query, key) [B, H, Sq, Sk], and the tiles each kernel walks with
+    no pair visible in ``vis`` [Sq, Sk], all heads; checks that each key
+    (q) tile of each KV (query) head has one block."""
+    t, G = pl.tile, H // K
+    Sq, Sk = vis.shape
+    walks = {}
+    for name, blocks, heads, n in (("dkdv", pl.dkdv, K, -(-Sk // t)),
+                                   ("dq", pl.dq, H, -(-Sq // t))):
+        assert sorted(blk[:3] for blk in blocks) == sorted(
+            (i, h, b) for b in range(B) for h in range(heads)
+            for i in range(n))
+        count = np.zeros((B, H, Sq, Sk), np.int64)
+        empty = 0
+        for tile, head, b, lo, hi in blocks:
+            for other in range(lo, hi):
+                qt, kt = (other, tile) if name == "dkdv" else (tile, other)
+                rows = slice(qt * t, (qt + 1) * t)
+                cols = slice(kt * t, (kt + 1) * t)
+                for h in (range(head * G, head * G + G) if name == "dkdv"
+                          else (head,)):
+                    count[b, h, rows, cols] += 1
+                    empty += not vis[rows, cols].any()
+        walks[name] = (count, empty)
+    return walks
+
+
+@settings(max_examples=60, deadline=None)
+@given(st.integers(1, 2), st.integers(1, 200), st.integers(1, 200),
+       st.sampled_from([1, 3, 8]), st.integers(1, 2), st.booleans(),
+       st.integers(0, 130), st.sampled_from([64, 128]))
+def test_flash_bwd_plan_walks_each_visible_pair_once(B, Sq, Sk, G, K, causal,
+                                                     window, D):
+    """B2-bwd's launch plan, from the shapes alone: across the dK/dV
+    blocks and again across the dQ blocks, each visible (query, key) pair
+    of each query head is walked exactly once; the tiles walked with no
+    visible pair are counted; the pair count is the one ``chip_smoke``
+    bounds the kernel by; blocks go longest walk first."""
+    import chip_smoke
+    window = window if causal else 0
+    H = G * K
+    pl = tfab.plan(B, Sq, Sk, H, K, D, causal, window)
+    vis = ref._mask(Sq, Sk, causal, window, 0, "cpu").numpy()
+    walks = _bwd_walks(pl, vis, B, H, K)
+    for name, (count, _) in walks.items():
+        assert (count[:, :, vis] == 1).all(), name
+    assert pl.empty_tiles == walks["dkdv"][1] + walks["dq"][1]
+    assert pl.pairs == B * H * int(vis.sum()) == B * H * \
+        chip_smoke.causal_pairs(Sq, Sk, causal, window)
+    for blocks in (pl.dkdv, pl.dq):
+        lengths = [hi - lo for _, _, _, lo, hi in blocks]
+        assert lengths == sorted(lengths, reverse=True)
+    table = pl.table()
+    assert table.dtype == torch.int32 and table.shape == (
+        len(pl.dkdv) + len(pl.dq), 4)
+    b0 = pl.dq[0]
+    assert table[len(pl.dkdv)].tolist() == [b0[0], b0[2] * H + b0[1],
+                                            b0[3], b0[4]]
+
+
+def test_flash_bwd_plan_at_the_path_shape_reads_shapes_only():
+    """At the PPO training shape (q [8,576,24,128], k/v [8,576,8,128],
+    causal) the plan walks no tile without a visible pair, launches the
+    key tiles with the most q tiles first, and is computed without a
+    tensor operation."""
+    import chip_smoke
+    from torch.overrides import TorchFunctionMode
+
+    class NoTensors(TorchFunctionMode):
+        def __torch_function__(self, func, types, args=(), kwargs=None):
+            raise AssertionError(f"plan ran {func}")
+
+    args = (8, 576, 576, 24, 8, 128, True, 0)
+    with NoTensors():
+        pl = tfab.plan.__wrapped__(*args)
+    assert pl == tfab.plan(*args)
+    assert pl.empty_tiles == 0 and pl.tile == tfab.TILE == 64
+    assert pl.pairs == 8 * 24 * chip_smoke.causal_pairs(576, 576, True, 0)
+    assert len(pl.dkdv) == 9 * 8 * 8 and len(pl.dq) == 9 * 24 * 8
+    assert pl.dkdv[0] == (0, 0, 0, 0, 9) and pl.dkdv[-1][3:] == (8, 9)
+    assert pl.dq[0] == (8, 0, 0, 0, 9) and pl.dq[-1][3:] == (0, 1)

@@ -533,13 +533,25 @@ def test_phase_records_on_cpu_count_tracked_tensors():
 
 def test_memory_manager_validates_policy_and_records():
     with pytest.raises(ValueError):
-        PhaseMemoryManager(policy="after_lunch")
+        PhaseMemoryManager(policy="after_lunch", device="cpu")
     for policy in MEMORY_POLICIES:
         dead = {"x": torch.ones(16)}
-        mm = PhaseMemoryManager(policy=policy, tracked=lambda: dead)
+        mm = PhaseMemoryManager(policy=policy, device="cpu",
+                                tracked=lambda: dead)
         mm.boundary("rollout", "inference", dead)
         assert dead == {}
         assert mm.records[0]["live_bytes"] == 0
+
+
+def test_memory_manager_defaults_to_the_card():
+    """Without a device the manager records on CUDA, as every entry point
+    runs, and raises where there is no card: it never falls back to the
+    CPU's figures (no reserved, no peak)."""
+    if torch.cuda.is_available():
+        assert PhaseMemoryManager().device.type == "cuda"
+    else:
+        with pytest.raises(RuntimeError, match="CUDA"):
+            PhaseMemoryManager()
 
 
 def test_trainer_refuses_what_is_not_ported():
