@@ -67,6 +67,19 @@ Phases, each failing with a non-zero exit:
    live/reserved/peak MiB above the weights printed, then again for one
    iteration under memory_policy="none"; a small model's 2 greedy fp32
    PPO steps on the card against the CPU.
+8. the paper's four-model PPO (``engine="separate"``, full-parameter
+   training) on its own pair: an opt_1_3b actor and reference, an
+   opt_350m critic and reward model (24 layers each, MHA at head_dim 64,
+   bf16), 8 prompts x (256 + 256), the reward model scoring; 2 iterations
+   with the launches of all seven counters asserted (``ppo_launches``
+   from each config's depth; B1-bwd with dscale at every norm), finite
+   metrics, the reference and reward models unchanged bit for bit,
+   every trained leaf given a gradient and moved (bar the bf16 norm
+   scales, whose lr-1e-5 steps round away), the persistent bytes equal to
+   the six trees' ``nbytes``; per-phase ms and MiB, then one iteration
+   under memory_policy="none", one hydra iteration of opt_1_3b at the
+   same shape, ``memory_accounting`` of llama3_2_3b, and a small model's
+   2 greedy fp32 separate iterations on the card against the CPU.
 
 It prints the per-kernel JSON line, the card line, and last the result
 line ``{"ok": true, "device": {...}}``. Imports nothing of JAX.
@@ -107,6 +120,7 @@ from repro_torch.paged import PageManager, gather_kv  # noqa: E402
 from repro_torch.rlhf import (ModelEngine, RLHFConfig, RLHFTrainer,  # noqa: E402
                               Rollout)
 from repro_torch.tree import leaves  # noqa: E402
+from repro_torch.tree import nbytes as tree_nbytes  # noqa: E402
 
 OUT_DIR = ROOT / "chiprun_out"
 
@@ -124,6 +138,12 @@ TOL_SSD = {torch.bfloat16: 5e-2, torch.float32: 1e-3}   # test_kernels.py:98
 # PPO iteration: llama3_2_3b, hydra engine, rank 128, 8 prompts of 512 + 64
 # generated tokens, 2 iterations (and one more under memory_policy="none")
 PBATCH, PPROMPT, PITERS = 8, 512, 2
+# separate PPO (phase 8): the paper's own pair (DeepSpeed-Chat), an
+# opt_1_3b actor and reference and an opt_350m critic and reward model, 8
+# prompts x (256 + 256), the lengths build_rlhf_phases traces by default
+SEP_ACTOR, SEP_CRITIC = "opt_1_3b", "opt_350m"
+SBATCH, SPROMPT, SGEN, SITERS = 8, 256, 256, 2
+SLEN = SPROMPT + SGEN
 
 # (memory B/s, bf16 tensor FLOP/s, fp32 FLOP/s), NVIDIA data sheets, dense
 PEAKS = {"SXM": (3.35e12, 989e12, 67e12), "PCIe": (2.0e12, 756e12, 51e12),
@@ -324,6 +344,13 @@ def check_flash(dev, peaks, g):
          torch.bfloat16),
         ("ppo", PBATCH, PPROMPT + GEN, PPROMPT + GEN, 24, 8, 128, True, 0,
          torch.bfloat16),
+        # the separate path's scoring and training: MHA (G = 1) at D 64
+        ("sep_actor", SBATCH, SLEN, SLEN, 32, 32, 64, True, 0,
+         torch.bfloat16),
+        ("sep_critic", SBATCH, SLEN, SLEN, 16, 16, 64, True, 0,
+         torch.bfloat16),
+        ("sep_prefill", SBATCH, SPROMPT, SPROMPT, 32, 32, 64, True, 0,
+         torch.bfloat16),
         ("ragged", 2, 100, 37, 24, 8, 128, False, 0, torch.bfloat16),
         ("ragged_causal", 2, 100, 37, 24, 8, 128, True, 0, torch.bfloat16),
         ("sq65_sk129", 2, 65, 129, 24, 8, 128, False, 0, torch.bfloat16),
@@ -378,7 +405,7 @@ def check_flash(dev, peaks, g):
             n_ops = 4 * B * H * D * causal_pairs(Sq, Sk, causal, window)
             rec["bound_ms"], rec["bound_by"] = bound(
                 peaks, nbytes(q, k, v, got), n_ops, dt)
-        if name == "ppo":
+        if name in ("ppo", "sep_actor"):
             # the training path's call, with the lse output: device time
             # by graph replay, warm and cold, beside SDPA's at this shape
             def make_set():
@@ -411,6 +438,8 @@ def check_decode(dev, peaks, g):
         # row 1 has no valid slot: the uniform mean over its C slots
         ("masked_row", 4, 24, 8, 128, PROMPT + GEN, 500, 0, torch.bfloat16),
         ("d64", 2, 8, 2, 64, 100, 70, 0, torch.bfloat16),
+        # the separate path's rollout (opt_1_3b, MHA at D 64), its last step
+        ("sep", SBATCH, 32, 32, 64, SLEN, SLEN - 2, 0, torch.bfloat16),
         ("fp32", 2, 6, 1, 128, 200, 150, 32, torch.float32),
         ("fp32_g8_d64", 3, 16, 2, 64, 333, 400, 0, torch.float32),
     ]
@@ -455,6 +484,21 @@ def check_decode(dev, peaks, g):
             n_ops = 4 * H * D * int(valid.sum().item())
             rec["bound_ms"], rec["bound_by"] = bound(
                 peaks, nbytes(q, kc, vc, pos, position, got), n_ops, dt)
+        if name == "sep":
+            valid = (pos >= 0) & (pos <= position[:, None])
+            mask = valid[:, None, None, :]
+
+            def make_set():
+                return [torch.randn_like(t) for t in (q, kc, vc)]
+            rec["device_ms"], rec["cold_ms"] = time_graph_warm_cold(
+                lambda qq, kk, vv: dec.decode_attention(
+                    qq, kk, vv, pos, position, window=window), make_set)
+            rec["library_cold_ms"] = time_graph_warm_cold(
+                lambda qq, kk, vv: _gqa_sdpa(qq[:, None], kk, vv,
+                                             attn_mask=mask), make_set)[1]
+            rec["bound_ms"], rec["bound_by"] = bound(
+                peaks, nbytes(q, kc, vc, pos, position, got),
+                4 * H * D * int(valid.sum().item()), dt)
         out.append(rec)
     return out
 
@@ -489,7 +533,11 @@ RMSNORM_PATH_SHAPES = {
     # the Mamba2 path: norm1 at d_model, the gated norm at d_inner
     "mamba_prefill": (MBATCH * MPROMPT, 1024),
     "mamba_gated": (MBATCH * MPROMPT, 2048),
-    "mamba_decode": (MBATCH, 2048)}
+    "mamba_decode": (MBATCH, 2048),
+    # the separate path: opt_1_3b's and opt_350m's scoring and training
+    # forwards, and the rollout's decode step
+    "sep_actor": (SBATCH * SLEN, 2048), "sep_critic": (SBATCH * SLEN, 1024),
+    "sep_decode": (SBATCH, 2048)}
 
 
 def check_rmsnorm(dev, peaks, g):
@@ -569,6 +617,9 @@ def check_flash_bwd(dev, peaks, g):
     cases = [  # (name, B, Sq, Sk, H, K, D, causal, window, dtype)
         ("main", PBATCH, S, S, 24, 8, 128, True, 0, bf),
         ("fp32", PBATCH, S, S, 24, 8, 128, True, 0, f32),
+        # the separate path's training: MHA (G = 1) at D 64
+        ("sep_actor", SBATCH, SLEN, SLEN, 32, 32, 64, True, 0, bf),
+        ("sep_critic", SBATCH, SLEN, SLEN, 16, 16, 64, True, 0, bf),
         ("d64", 2, 192, 192, 8, 2, 64, True, 0, bf),
         ("g1", 2, 192, 192, 8, 8, 64, True, 0, bf),
         ("g8", 1, 160, 160, 16, 2, 128, True, 0, bf),
@@ -612,7 +663,7 @@ def check_flash_bwd(dev, peaks, g):
             rec["library_ms"] = time_ms(lambda: torch.autograd.grad(
                 oo, (qq, kk, vv), do_t, retain_graph=True), iters=10)
             del qq, kk, vv, oo
-
+        if name in ("main", "sep_actor"):
             def make_set():
                 qs, ks, vs, ds = (torch.randn_like(t) for t in (q, k, v, dout))
                 os_, ls = fa.flash_attention_fwd(qs, ks, vs, return_lse=True,
@@ -639,10 +690,16 @@ def check_flash_bwd(dev, peaks, g):
 def check_rmsnorm_bwd(dev, peaks, g):
     """B1-bwd (dx and dscale) against rmsnorm_bwd_ref at the training
     path's rows ([8 x 576, 3072]), a decode step's rows and at each route
-    of the plan; the main shape timed without dscale (the path's: the
-    trunk is frozen) and with it, beside the backward of F.rms_norm."""
+    of the plan; the main shape timed without dscale (the hydra path's:
+    the trunk is frozen) and with it, beside the backward of F.rms_norm;
+    the separate path's two widths ([8 x 512, 2048] and [8 x 512, 1024],
+    where every scale trains) timed with dscale by graph replay beside
+    F.rms_norm's backward with the weight's gradient (its forward and
+    backward less its forward)."""
     bf = torch.bfloat16
     cases = [("main", (PBATCH * (PPROMPT + GEN), 3072), bf, bf),
+             ("sep_actor", (SBATCH * SLEN, 2048), bf, bf),
+             ("sep_critic", (SBATCH * SLEN, 1024), bf, bf),
              ("rows8", (8, 3072), bf, bf),
              ("fp32", (3, 100), torch.float32, torch.float32),
              ("fp32_scale", (7, 384), bf, torch.float32),   # scalar route
@@ -691,8 +748,33 @@ def check_rmsnorm_bwd(dev, peaks, g):
             rec["library_cold_ms"] = None
             rec["bound_ms"], rec["bound_by"] = bound(
                 peaks, nbytes(x, s, dy, dx), 8 * x.numel(), dt)
+        if name.startswith("sep"):
+            def make_set():
+                return (torch.randn(*shape, device=dev).to(dt), s,
+                        torch.randn(*shape, device=dev).to(dt))
+            rec["device_ms"], rec["cold_ms"] = time_graph_warm_cold(
+                lambda xx, ss, gg: rn.rmsnorm_bwd(xx, ss, gg, 1e-5),
+                make_set)
+            both = time_graph_warm_cold(_rms_fwd_bwd, make_set)
+            fwd = time_graph_warm_cold(
+                lambda xx, ss, gg: _rms_fwd_bwd(xx, ss, gg, backward=False),
+                make_set)
+            rec["library_device_ms"] = both[0] - fwd[0]
+            rec["library_cold_ms"] = both[1] - fwd[1]
+            # dx's 8 operations an element, dscale's product and sum
+            rec["bound_ms"], rec["bound_by"] = bound(
+                peaks, nbytes(x, s, dy, dx, ds), 10 * x.numel(), dt)
         out.append(rec)
     return out
+
+
+def _rms_fwd_bwd(x, s, dy, backward=True):
+    """F.rms_norm and, with ``backward``, its backward with the weight's
+    gradient through autograd: the yardstick, captured whole in a graph."""
+    xx, ss = x.detach().requires_grad_(), s.detach().requires_grad_()
+    y = F.rms_norm(xx, (x.shape[-1],), ss, 1e-5)
+    if backward:
+        torch.autograd.grad(y, (xx, ss), dy)
 
 
 def ssd_ops(B, S, H, P, N, chunk) -> int:
@@ -1079,7 +1161,7 @@ def paged_grpo(cfg, dev, log, profile=False):
 
 def _to(tree, device):
     if isinstance(tree, torch.Tensor):
-        return tree.to(device)
+        return tree.detach().to(device, copy=True)
     if isinstance(tree, dict):
         return {k: _to(v, device) for k, v in tree.items()}
     return [_to(v, device) for v in tree]
@@ -1211,32 +1293,41 @@ def mamba_serving(dev, log, profile=False):
 
 
 # ---------------------------------------------------------------- phase 7
-def ppo_launches(cfg, rl, reward_adapter: bool) -> dict:
-    """Kernel launches of one hydra PPO iteration, reckoned from the
-    shapes (ppo_epochs updates of each role):
+def ppo_launches(cfg, rl, model_reward: bool, critic_cfg=None) -> dict:
+    """Kernel launches of one PPO iteration, reckoned from the shapes
+    (ppo_epochs updates of each role). ``cfg`` is the actor's; on the
+    separate engine the reward model, the values and the critic's step
+    run ``critic_cfg``'s depth (the hydra engine's roles all run the one
+    trunk).
     - rollout: B2 once a layer (prefill), B3 once a layer at each of the
       gen - 1 decode steps, B1 at norm1, norm2 and the final norm of the
       prefill and each step: (2L + 1) gen;
-    - each scoring forward (reward if the reward adapter scores, ref,
-      values, old logp): B2 L, B1 2L + 1;
+    - each scoring forward (reward if a model scores, ref, values, old
+      logp): B2 L, B1 2L + 1;
     - each training step (actor, critic): the forward (B2 L, B1 2L + 1);
       with remat="full" each layer's forward again inside the backward
       (B2 L, B1 2L; the final norm is outside the checkpoints); the
-      backward: B2-bwd L and B1-bwd 2L (the final norm, every norm2 and
-      the norm1 of layers 1 .. L-1: layer 0's norm1 reads the frozen
-      embedding, so no gradient reaches it)."""
-    L, gen = cfg.num_layers, rl.gen_len
-    fwd = {"flash_attention": L, "rmsnorm": 2 * L + 1}
-    n_score = 4 if reward_adapter else 3
-    n_train = 2 * rl.ppo_epochs
-    remat = cfg.remat == "full"
+      backward: B2-bwd L and B1-bwd at every norm whose input or scale
+      trains: 2L + 1 on the separate engine, where every leaf trains, 2L
+      on the hydra engine (the final norm, every norm2 and the norm1 of
+      layers 1 .. L-1: layer 0's norm1 reads the frozen embedding with a
+      frozen scale, so no gradient reaches it)."""
+    separate = rl.engine == "separate"
+    actor = (cfg.num_layers, cfg.remat == "full")
+    other = critic_cfg if separate and critic_cfg is not None else cfg
+    critic = (other.num_layers, other.remat == "full")
+    scored = [actor, actor, critic] + ([critic] if model_reward else [])
+    trained = [actor, critic] * rl.ppo_epochs
+    La, gen = cfg.num_layers, rl.gen_len
     want = {k: 0 for k in ops.KERNELS}
-    want["flash_attention"] = L + n_score * L + n_train * L * (1 + remat)
-    want["decode_attention"] = L * (gen - 1)
-    want["rmsnorm"] = (2 * L + 1) * gen + n_score * fwd["rmsnorm"] + \
-        n_train * (fwd["rmsnorm"] + remat * 2 * L)
-    want["flash_attention_bwd"] = n_train * L
-    want["rmsnorm_bwd"] = n_train * 2 * L
+    want["flash_attention"] = La + sum(L for L, _ in scored) + \
+        sum(L * (1 + remat) for L, remat in trained)
+    want["decode_attention"] = La * (gen - 1)
+    want["rmsnorm"] = (2 * La + 1) * gen + \
+        sum(2 * L + 1 for L, _ in scored) + \
+        sum(2 * L + 1 + remat * 2 * L for L, remat in trained)
+    want["flash_attention_bwd"] = sum(L for L, _ in trained)
+    want["rmsnorm_bwd"] = sum(2 * L + separate for L, _ in trained)
     return want
 
 
@@ -1265,16 +1356,46 @@ def _print_phases(label, rows, log):
             f"{r['peak_mib']:9.1f}")
 
 
+def _requested() -> int:
+    """Bytes the caching allocator was asked for and holds, unrounded."""
+    return torch.cuda.memory_stats()["requested_bytes.all.current"]
+
+
+def _fresh(make):
+    """(what ``make()`` builds, the bytes it leaves allocated, the bytes
+    it asked the allocator for)."""
+    gc.collect()
+    torch.cuda.synchronize()
+    before, asked = torch.cuda.memory_allocated(), _requested()
+    obj = make()
+    torch.cuda.synchronize()
+    return (obj, torch.cuda.memory_allocated() - before,
+            _requested() - asked)
+
+
+def _run_ppo(tr, prompts, g, want, label, n_records):
+    """One asserted PPO iteration: launches as reckoned, finite metrics;
+    -> (seconds, metrics, launches, its ``n_records`` phase records)."""
+    torch.cuda.synchronize()
+    ops.reset_launches()
+    t0 = time.perf_counter()
+    m = tr.train_step(prompts, g)
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    made = dict(ops.launches)
+    if made != want:
+        raise SystemExit(f"{label}: launches {made} != {want}")
+    if not all(math.isfinite(v) for v in m.values()):
+        raise SystemExit(f"{label}: metrics {m}")
+    return secs, m, made, tr.memory.records[-n_records:]
+
+
 def _trainer(cfg, dev, policy, seed=0):
     """A fresh trainer and the bytes its persistent state holds (trunk,
     adapters, AdamW moments): what the records are read above."""
-    gc.collect()
-    torch.cuda.synchronize()
-    before = torch.cuda.memory_allocated()
-    tr = RLHFTrainer(cfg, cfg, RLHFConfig(memory_policy=policy, **PPO_KW),
-                     torch.Generator(device=dev).manual_seed(seed))
-    torch.cuda.synchronize()
-    return tr, torch.cuda.memory_allocated() - before
+    return _fresh(lambda: RLHFTrainer(
+        cfg, cfg, RLHFConfig(memory_policy=policy, **PPO_KW),
+        torch.Generator(device=dev).manual_seed(seed)))[:2]
 
 
 def ppo_iterations(dev, log, profile=False):
@@ -1288,7 +1409,7 @@ def ppo_iterations(dev, log, profile=False):
     on the card against the CPU."""
     cfg = get_config("llama3_2_3b")
     tr, weights = _trainer(cfg, dev, "after_inference")
-    want = ppo_launches(cfg, tr.rl, reward_adapter=True)
+    want = ppo_launches(cfg, tr.rl, model_reward=True)
     log(f"[smoke] ppo: trunk {tr.engine.base_param_count() / 1e6:.1f}M "
         f"params, adapter {tr.engine.adapter_param_count('actor') / 1e6:.1f}M"
         f" (actor), persistent {weights / 2**30:.2f} GiB")
@@ -1303,19 +1424,9 @@ def ppo_iterations(dev, log, profile=False):
     launches = None
     for it in range(PITERS):
         prompts = torch.from_numpy(next(data) % cfg.vocab_size).long().to(dev)
-        torch.cuda.synchronize()
-        ops.reset_launches()
-        t0 = time.perf_counter()
-        m = tr.train_step(prompts, g)
-        torch.cuda.synchronize()
-        secs = time.perf_counter() - t0
-        made = dict(ops.launches)
-        if made != want:
-            raise SystemExit(f"ppo iteration {it}: launches {made} != {want}")
-        launches = made
-        if not all(math.isfinite(v) for v in m.values()):
-            raise SystemExit(f"ppo iteration {it}: metrics {m}")
-        rows = _phase_rows(tr.memory.records[-8:], weights)
+        secs, m, launches, recs = _run_ppo(tr, prompts, g, want,
+                                           f"ppo iteration {it}", 8)
+        rows = _phase_rows(recs, weights)
         _print_phases(f"ppo iteration {it} ({secs * 1e3:.1f} ms)", rows, log)
         log(f"[smoke] ppo iteration {it}: " + ", ".join(
             f"{k} {v:.4g}" for k, v in sorted(m.items())))
@@ -1360,23 +1471,41 @@ def ppo_iterations(dev, log, profile=False):
     return out
 
 
-def check_small_ppo_against_cpu(dev, steps=2, tol=1e-4):
-    """2 greedy fp32 hydra PPO steps of a small model (the reference
-    tests' small config, remat="full" and the reward adapter, so every
-    kernel and its backward runs) on the card and on the CPU from the
-    same weights: the same greedy tokens, and the metrics within ``tol``
-    (fp32 sums in another order)."""
-    cfg = dataclasses.replace(get_config("llama3_2_3b").smoke(), num_layers=2,
-                              d_model=64, d_ff=128, vocab_size=64,
-                              num_heads=4, num_kv_heads=2, head_dim=64,
-                              remat="full")
-    rl = RLHFConfig(engine="hydra", lora_rank=4, prompt_len=8, gen_len=8,
-                    lr=3e-3, critic_lr=3e-3, temperature=0.0, top_k=0)
-    cpu = RLHFTrainer(cfg, cfg, rl, torch.Generator().manual_seed(0))
-    eng = cpu.engine
-    card = RLHFTrainer(cfg, cfg, rl, engine=ModelEngine(
-        cfg, None, rank=rl.lora_rank, base_params=_to(eng.base_params, dev),
-        adapters={r: _to(a, dev) for r, a in eng.adapters.items()}))
+def check_small_ppo_against_cpu(dev, steps=2, tol=1e-4, engine="hydra"):
+    """2 greedy fp32 PPO steps of a small model on the card and on the CPU
+    from the same weights: the same greedy tokens, and the metrics within
+    ``tol`` (fp32 sums in another order). Hydra: the reference tests'
+    small config, remat="full" and the reward adapter, so every kernel and
+    its backward runs. Separate: the paper pair's shape (MHA, qkv biases,
+    a GELU MLP, tied embeddings), an actor of d_model 128 (remat="none")
+    and a critic of 64 (remat="full"), heads of 64, every leaf trained,
+    the reward model scoring."""
+    small = dict(num_layers=2, d_model=64, d_ff=128, vocab_size=64,
+                 num_heads=4, head_dim=64, remat="full")
+    kw = dict(prompt_len=8, gen_len=8, temperature=0.0, top_k=0)
+    if engine == "hydra":
+        cfg = dataclasses.replace(get_config("llama3_2_3b").smoke(),
+                                  num_kv_heads=2, **small)
+        rl = RLHFConfig(engine="hydra", lora_rank=4, lr=3e-3,
+                        critic_lr=3e-3, **kw)
+        cpu = RLHFTrainer(cfg, cfg, rl, torch.Generator().manual_seed(0))
+        eng = cpu.engine
+        card = RLHFTrainer(cfg, cfg, rl, engine=ModelEngine(
+            cfg, None, rank=rl.lora_rank,
+            base_params=_to(eng.base_params, dev),
+            adapters={r: _to(a, dev) for r, a in eng.adapters.items()}))
+    else:
+        cfg = dataclasses.replace(get_config(SEP_CRITIC).smoke(),
+                                  num_kv_heads=4, **small)
+        actor = dataclasses.replace(get_config(SEP_ACTOR).smoke(),
+                                    **{**small, "num_kv_heads": 4,
+                                       "d_model": 128, "d_ff": 256,
+                                       "remat": "none"})
+        rl = RLHFConfig(engine="separate", lr=1e-3, critic_lr=1e-3, **kw)
+        cpu = RLHFTrainer(actor, cfg, rl, torch.Generator().manual_seed(0))
+        card = RLHFTrainer(actor, cfg, rl, params={
+            "actor": _to(cpu.actor_state["params"], dev),
+            "critic": _to(cpu.critic_state["params"], dev)})
     prompts = torch.randint(0, cfg.vocab_size, (4, rl.prompt_len),
                             generator=torch.Generator().manual_seed(1))
     got = {}
@@ -1394,12 +1523,197 @@ def check_small_ppo_against_cpu(dev, steps=2, tol=1e-4):
         got[name] = (toks, ms)
     if not all(torch.equal(a, b) for a, b in zip(got["cpu"][0],
                                                   got["card"][0])):
-        raise SystemExit("small PPO: greedy tokens differ card vs CPU")
+        raise SystemExit(f"small {engine} PPO: greedy tokens differ card vs "
+                         "CPU")
     err = max(abs(a[k] - b[k]) for a, b in zip(got["cpu"][1], got["card"][1])
               for k in a)
     if not err <= tol:
-        raise SystemExit(f"small PPO: metrics differ by {err}: {got}")
+        raise SystemExit(f"small {engine} PPO: metrics differ by {err}: "
+                         f"{got}")
     return {"max_err": err, "tol": tol, "metrics": got["card"][1]}
+
+
+# ---------------------------------------------------------------- phase 8
+SEP_KW = dict(prompt_len=SPROMPT, gen_len=SGEN, kl_coef=0.1,
+              temperature=1.0, top_k=50, ppo_epochs=1)
+
+
+def _separate_trainer(dev, policy, seed=0):
+    actor, critic = get_config(SEP_ACTOR), get_config(SEP_CRITIC)
+    return _fresh(lambda: RLHFTrainer(
+        actor, critic, RLHFConfig(engine="separate", memory_policy=policy,
+                                  **SEP_KW),
+        torch.Generator(device=dev).manual_seed(seed)))
+
+
+def _sep_prompts(dev, seed, vocab):
+    return torch.from_numpy(next(PromptDataset(synthetic_instruction_prompts(
+        SBATCH, seed=seed), SPROMPT).batches(SBATCH, seed=seed)) % vocab
+    ).long().to(dev)
+
+
+def _accounting_gb(acc):
+    """{layout: {"state": params + opt, "grad": ...}} in GB (1e9 bytes)."""
+    return {layout: {"state": sum(r["params"] + r["opt"]
+                                  for r in roles.values()) / 1e9,
+                     "grad": sum(r["grad"] for r in roles.values()) / 1e9}
+            for layout, roles in acc.items()}
+
+
+def _norm_scales(params):
+    """The norm scales of a model's tree: the final norm and every layer's
+    norm1 and norm2."""
+    return [params["final_norm"]["scale"]] + [
+        layer[n]["scale"] for layer in params["layers"]
+        for n in ("norm1", "norm2") if n in layer]
+
+
+def _unmoved(tr, before):
+    """{role: the number of norm scales equal to ``before``'s copies};
+    raises if a trained leaf's first moment is zero (no gradient reached
+    it) or if a leaf other than a norm scale did not move."""
+    still = {}
+    for role, copies in before.items():
+        state = getattr(tr, role + "_state")
+        scales = {id(t) for t in _norm_scales(state["params"])}
+        for i, (a, b, mu) in enumerate(zip(copies, leaves(state["params"]),
+                                           leaves(state["opt"]["mu"]))):
+            if not mu.any():
+                raise SystemExit(f"separate: {role} leaf {i} "
+                                 f"{tuple(a.shape)} got no gradient")
+            if torch.equal(a, b.detach().cpu()):
+                if id(b) not in scales:
+                    raise SystemExit(f"separate: {role} leaf {i} "
+                                     f"{tuple(a.shape)} did not move")
+                still[role] = still.get(role, 0) + 1
+    return still
+
+
+def separate_ppo(dev, log, profile=False):
+    """Phase 8: the paper's four-model PPO (engine="separate") on its own
+    pair, full width and depth, bf16: SITERS iterations under
+    ``after_inference`` with the launches of all seven counters asserted
+    (``ppo_launches`` from each config's depth), finite metrics, the
+    reference and reward models unchanged bit for bit, every actor and
+    critic leaf given a gradient and moved (a bf16 norm scale of 1.0
+    cannot move at lr 1e-5: its step is below half a bf16 ulp), the
+    persistent bytes equal to the six trees' ``nbytes``; each phase's ms
+    and memory printed; then one iteration of a fresh trainer under
+    ``none``; one hydra iteration of the actor's config at the same shape
+    (the repo's alleviation beside the paper's layout); the ported
+    ``memory_accounting`` of llama3_2_3b (whose separate layout does not
+    fit the card); and a small model's 2 greedy fp32 separate iterations
+    on the card against the CPU."""
+    actor_cfg, critic_cfg = get_config(SEP_ACTOR), get_config(SEP_CRITIC)
+    tr, weights, asked = _separate_trainer(dev, "after_inference")
+    trees = tr.persistent_trees()
+    tree_bytes = tree_nbytes(trees)
+    sizes = [t.numel() * t.element_size() for t in leaves(trees)]
+    # the caching allocator rounds every block up to 512 bytes, and gives a
+    # block above 1 MiB its whole free block when no more than 1 MiB would
+    # be left over
+    slack = 512 * len(sizes) + 2**20 * sum(n > 2**20 for n in sizes)
+    if asked != tree_bytes or not 0 <= weights - tree_bytes <= slack:
+        raise SystemExit(f"separate: {asked} bytes asked, {weights} "
+                         f"allocated for a state of {tree_bytes} "
+                         f"({len(sizes)} tensors)")
+    count = lambda t: sum(x.numel() for x in leaves(t))  # noqa: E731
+    log(f"[smoke] separate: actor {count(trees['actor_params']) / 1e6:.1f}M "
+        f"params, critic {count(trees['critic_params']) / 1e6:.1f}M; "
+        f"persistent {asked} bytes asked of the allocator ({weights} "
+        f"allocated), six trees {tree_bytes} bytes, "
+        f"{tree_bytes / 1e9:.3f} GB (" + ", ".join(
+            f"{k} {tree_nbytes(v) / 1e9:.3f}" for k, v in trees.items()) + ")")
+    want = ppo_launches(actor_cfg, tr.rl, model_reward=True,
+                        critic_cfg=critic_cfg)
+    frozen = [t.to("cpu", copy=True)
+              for t in leaves([tr.ref_params, tr.reward_params])]
+    trained = {role: [t.detach().to("cpu", copy=True) for t in
+                      leaves(getattr(tr, role + "_state")["params"])]
+               for role in ("actor", "critic")}
+    g = torch.Generator(device=dev).manual_seed(7)
+    iters, launches = [], None
+    for it in range(SITERS):
+        secs, m, launches, recs = _run_ppo(
+            tr, _sep_prompts(dev, 1 + it, actor_cfg.vocab_size), g, want,
+            f"separate iteration {it}", 7)
+        rows = _phase_rows(recs, weights)
+        _print_phases(f"separate iteration {it} ({secs * 1e3:.1f} ms)", rows,
+                      log)
+        log(f"[smoke] separate iteration {it}: " + ", ".join(
+            f"{k} {v:.4g}" for k, v in sorted(m.items())))
+        iters.append({"seconds": secs, "metrics": m, "phases": rows})
+    if not all(torch.equal(a, b.cpu()) for a, b in
+               zip(frozen, leaves([tr.ref_params, tr.reward_params]))):
+        raise SystemExit("separate: the reference or reward model moved")
+    still = _unmoved(tr, trained)
+    log(f"[smoke] separate launches per iteration {launches} (want {want}); "
+        f"ref and reward unchanged, every actor and critic leaf given a "
+        f"gradient and moved but " + ", ".join(
+            f"{v} {k} norm scales" for k, v in still.items()))
+    out = {"iterations": iters, "launches": launches,
+           "weights_bytes": weights, "requested_bytes": asked,
+           "tree_bytes": tree_bytes,
+           "tree_bytes_by_name": {k: tree_nbytes(v) for k, v in trees.items()},
+           "unmoved": still}
+    if profile:
+        prompts = _sep_prompts(dev, 9, actor_cfg.vocab_size)
+        out["profile"], out["profile_table"] = profile_call(
+            lambda: tr.train_step(prompts, g))
+    del tr, trees, frozen, trained
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    tr, weights, _ = _separate_trainer(dev, "none")
+    _, _, _, recs = _run_ppo(tr, _sep_prompts(dev, 1, actor_cfg.vocab_size),
+                             g, want, "separate, policy none", 7)
+    out["policy_none"] = _phase_rows(recs, weights)
+    _print_phases("separate iteration, memory_policy=none",
+                  out["policy_none"], log)
+    del tr
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # the repo's alleviation at the same shape: one hydra iteration of the
+    # actor's config (rank 128, the reward adapter scoring)
+    rl = RLHFConfig(engine="hydra", lora_rank=128, **SEP_KW)
+    tr, weights, asked = _fresh(lambda: RLHFTrainer(
+        actor_cfg, actor_cfg, rl,
+        torch.Generator(device=dev).manual_seed(0)))
+    secs, _, hydra_launches, recs = _run_ppo(
+        tr, _sep_prompts(dev, 1, actor_cfg.vocab_size), g,
+        ppo_launches(actor_cfg, rl, model_reward=True), "hydra opt_1_3b", 8)
+    out["hydra"] = {"seconds": secs, "weights_bytes": weights,
+                    "requested_bytes": asked,
+                    "launches": hydra_launches,
+                    "phases": _phase_rows(recs, weights),
+                    "accounting": tr.engine.memory_accounting()}
+    _print_phases(f"hydra {SEP_ACTOR} iteration ({secs * 1e3:.1f} ms; "
+                  f"persistent {weights / 1e9:.3f} GB)",
+                  out["hydra"]["phases"], log)
+    log(f"[smoke] hydra {SEP_ACTOR} launches {hydra_launches}")
+    del tr
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # the reference's accounting of llama3_2_3b: its separate layout does
+    # not fit one 80 GB card before any activation
+    eng, _, _ = _fresh(lambda: ModelEngine(
+        get_config("llama3_2_3b"), torch.Generator(device=dev).manual_seed(0),
+        rank=128))
+    acc = eng.memory_accounting()
+    del eng
+    gc.collect()
+    torch.cuda.empty_cache()
+    out["llama3_2_3b_accounting"] = acc
+    for layout, gb in _accounting_gb(acc).items():
+        log(f"[smoke] llama3_2_3b {layout}: params + AdamW state "
+            f"{gb['state']:.2f} GB, fp32 grads of the trained roles "
+            f"{gb['grad']:.2f} GB (memory_accounting)")
+    out["small_model"] = check_small_ppo_against_cpu(dev, engine="separate")
+    log(f"[smoke] small separate PPO card vs CPU: greedy tokens identical, "
+        f"metrics max_err {out['small_model']['max_err']:.3e}")
+    return out
 
 
 # each wrapper's CUDA kernels, by function name (no name contains
@@ -1496,7 +1810,8 @@ def main() -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--profile", action="store_true",
                     help="also profile one dense, one paged GRPO and one "
-                         "Mamba2 request with torch.profiler")
+                         "Mamba2 request and one hydra and one separate "
+                         "PPO iteration with torch.profiler")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; the port's kernels run only on "
@@ -1632,8 +1947,14 @@ def main() -> int:
     ppo = ppo_iterations(dev, lambda s: print(s, flush=True),
                          profile=args.profile)
     report["ppo"] = ppo
+
+    # phase 8: the paper's four-model PPO at full width and depth
+    sep = separate_ppo(dev, lambda s: print(s, flush=True),
+                       profile=args.profile)
+    report["ppo_separate"] = sep
     paths = {"serve": launches, "paged_grpo": grpo["launches"],
-             "mamba_serve": mamba["launches"], "ppo": ppo["launches"]}
+             "mamba_serve": mamba["launches"], "ppo": ppo["launches"],
+             "ppo_separate": sep["launches"]}
 
     if args.profile:
         prof, table = profile_request(cfg, dev)
@@ -1648,6 +1969,9 @@ def main() -> int:
         (OUT_DIR / "profile_mamba.txt").write_text(mamba.pop("profile_table"))
         print_profile("ppo iteration", ppo["profile"])
         (OUT_DIR / "profile_ppo.txt").write_text(ppo.pop("profile_table"))
+        print_profile("separate ppo iteration", sep["profile"])
+        (OUT_DIR / "profile_separate.txt").write_text(
+            sep.pop("profile_table"))
 
     kernels = []
     main_path = {"paged_decode_attention": "paged_grpo",

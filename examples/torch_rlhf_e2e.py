@@ -1,13 +1,19 @@
-"""End-to-end hydra PPO on the PyTorch/CUDA port — the twin of
-``examples/rlhf_e2e.py``: ONE frozen trunk + per-role LoRA adapters and
-value heads (actor, critic, reward), the reference logp read off the
-base, the paper's phase-boundary memory management, and per-phase
+"""End-to-end PPO on the PyTorch/CUDA port — the twin of
+``examples/rlhf_e2e.py``: by default the hydra engine (ONE frozen trunk +
+per-role LoRA adapters and value heads for actor, critic and reward, the
+reference logp read off the base), or with ``--engine separate`` the
+four-model pipeline it replaces (actor and reference on ``--arch``,
+critic and reward on ``--critic-arch``, every actor and critic leaf
+trained); the paper's phase-boundary memory management, and per-phase
 records of the caching allocator (live, reserved and peak bytes).
 
 On the card (the default device; it raises without one):
 
     PYTHONPATH=src python examples/torch_rlhf_e2e.py --arch llama3_2_3b \
         --steps 2 --batch 8 --prompt-len 512 --gen-len 64 --lora-rank 128
+    PYTHONPATH=src python examples/torch_rlhf_e2e.py --engine separate \
+        --arch opt_1_3b --critic-arch opt_350m --steps 2 --batch 8 \
+        --prompt-len 256 --gen-len 256 --reward adapter
 
 On the CPU, the reference example's small trunk (``--smoke``, with a
 head_dim of 64, a width the card's attention kernels take; on the CPU the
@@ -15,9 +21,12 @@ plain PyTorch path, where the records count the trainer's tensors):
 
     PYTHONPATH=src python examples/torch_rlhf_e2e.py --arch llama3_2_3b \
         --smoke --device cpu --steps 20
+    PYTHONPATH=src python examples/torch_rlhf_e2e.py --engine separate \
+        --smoke --device cpu --steps 20
 
-``--reward adapter`` scores with the frozen reward adapter's value head
-(every phase runs the model); the default ``target`` is the reference
+``--reward adapter`` scores with the frozen reward model (the reward
+adapter's value head, or on the separate engine the reward model's), so
+every phase runs a model; the default ``target`` is the reference
 example's programmatic reward (the fraction of generated 7s).
 """
 import argparse
@@ -34,6 +43,7 @@ from repro_torch import default_device  # noqa: E402
 from repro_torch.configs import get_config  # noqa: E402
 from repro_torch.rlhf import RLHFConfig, RLHFTrainer  # noqa: E402
 from repro_torch.rlhf.reward import make_target_token_reward  # noqa: E402
+from repro_torch.tree import leaves, nbytes  # noqa: E402
 
 
 def _mib(n):
@@ -43,6 +53,11 @@ def _mib(n):
 def main(argv=None):
     ap = argparse.ArgumentParser()
     ap.add_argument("--arch", default="llama3_2_3b")
+    ap.add_argument("--engine", default="hydra",
+                    choices=("hydra", "separate"))
+    ap.add_argument("--critic-arch", default="",
+                    help="the separate engine's critic and reward model "
+                         "(default: --arch)")
     ap.add_argument("--smoke", action="store_true",
                     help="the reference example's small trunk (CPU-sized)")
     ap.add_argument("--layers", type=int, default=2)
@@ -56,8 +71,8 @@ def main(argv=None):
     ap.add_argument("--lora-rank", type=int, default=0,
                     help="0 = 16 with --smoke, else the paper's 128")
     ap.add_argument("--lr", type=float, default=0.0,
-                    help="0 = 3e-2 with --smoke (the reference example's "
-                         "hydra rate), else 1e-5")
+                    help="0 = 3e-2 hydra or 3e-3 separate with --smoke (the "
+                         "reference example's rates), else 1e-5")
     ap.add_argument("--temperature", type=float, default=1.0)
     ap.add_argument("--top-k", type=int, default=0)
     ap.add_argument("--reward", default="target", choices=("target", "adapter"))
@@ -70,33 +85,48 @@ def main(argv=None):
     args = ap.parse_args(argv)
     device = default_device(args.device)
 
-    cfg = get_config(args.arch)
-    if args.smoke:
-        cfg = dataclasses.replace(
-            cfg.smoke(), num_layers=args.layers, d_model=args.d_model,
-            d_ff=2 * args.d_model, vocab_size=64, num_heads=4,
-            num_kv_heads=2, head_dim=64)
+    def config(name):
+        cfg = get_config(name)
+        if args.smoke:
+            cfg = dataclasses.replace(
+                cfg.smoke(), num_layers=args.layers, d_model=args.d_model,
+                d_ff=2 * args.d_model, vocab_size=64, num_heads=4,
+                num_kv_heads=2, head_dim=64)
+        return cfg
+
+    cfg = config(args.arch)
+    critic_cfg = config(args.critic_arch or args.arch)
     small = args.smoke
+    separate = args.engine == "separate"
+    lr = args.lr or ((3e-3 if separate else 3e-2) if small else 1e-5)
     rl = RLHFConfig(
         prompt_len=args.prompt_len or (8 if small else 512),
         gen_len=args.gen_len or (16 if small else 64),
-        lr=args.lr or (3e-2 if small else 1e-5),
-        critic_lr=args.lr or (3e-2 if small else 1e-5),
+        lr=lr, critic_lr=lr,
         kl_coef=0.0 if small else 0.1, temperature=args.temperature,
-        top_k=args.top_k, engine="hydra",
+        top_k=args.top_k, engine=args.engine,
         lora_rank=args.lora_rank or (16 if small else 128),
         memory_policy=args.memory_policy)
     reward_fn = make_target_token_reward(7) if args.reward == "target" \
         else None
-    trainer = RLHFTrainer(cfg, cfg, rl,
+    trainer = RLHFTrainer(cfg, critic_cfg, rl,
                           torch.Generator(device=device).manual_seed(args.seed),
                           reward_fn=reward_fn)
-    eng = trainer.engine
-    print(f"hydra engine on {device}: {cfg.name}, trunk "
-          f"{eng.base_param_count():,} params (frozen), actor adapter "
-          f"{eng.adapter_param_count('actor'):,} "
-          f"({100 * eng.trainable_fraction('actor'):.2f}% trainable), "
-          f"rank {rl.lora_rank}")
+    if separate:
+        trees = trainer.persistent_trees()
+        count = lambda t: sum(x.numel() for x in leaves(t))  # noqa: E731
+        print(f"separate engine on {device}: actor and reference "
+              f"{cfg.name} ({count(trees['actor_params']):,} params), critic "
+              f"and reward {critic_cfg.name} "
+              f"({count(trees['critic_params']):,} params); persistent "
+              f"state {nbytes(trees) / 2**20:.1f} MiB")
+    else:
+        eng = trainer.engine
+        print(f"hydra engine on {device}: {cfg.name}, trunk "
+              f"{eng.base_param_count():,} params (frozen), actor adapter "
+              f"{eng.adapter_param_count('actor'):,} "
+              f"({100 * eng.trainable_fraction('actor'):.2f}% trainable), "
+              f"rank {rl.lora_rank}")
 
     g = torch.Generator(device=device).manual_seed(args.seed + 1)
     t0 = time.time()
@@ -108,10 +138,12 @@ def main(argv=None):
               f"kl {m['kl']:.4f} clip {m['clip_frac']:.3f} "
               f"vf {m['vf_loss']:.4f} ({time.time() - t0:.0f}s)")
 
-    # the last iteration's records: a mid-rollout sample and one per phase
-    print(f"\nlast-iteration phases (policy={args.memory_policy}; MiB):")
+    # the last iteration's records: one per phase (and on the hydra engine
+    # a mid-rollout sample)
+    print(f"\nlast-iteration phases (policy={args.memory_policy}, "
+          f"engine={args.engine}; MiB):")
     print("  phase            kind          ms     live reserved     peak")
-    for r in trainer.memory.records[-8:]:
+    for r in trainer.memory.records[-(7 if separate else 8):]:
         print(f"  {r['phase']:16s} {r['kind']:10s} "
               f"{r['seconds'] * 1e3:8.1f} {_mib(r['live_bytes'])} "
               f"{_mib(r['reserved_bytes'])} {_mib(r['peak_bytes'])}")

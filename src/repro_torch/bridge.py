@@ -28,7 +28,10 @@ r]`` / ``[n_groups, r, d_out]``); the port's are per layer
 "b": [1]}`` on both sides (:func:`adapter_from_jax`,
 :func:`adapter_to_jax`). :func:`trainer_from_jax` builds the port's hydra
 trainer from the reference trainer's trunk and adapters, so the two train
-from the same weights.
+from the same weights; :func:`separate_trainer_from_jax` builds the port's
+separate (four-model) trainer from the reference's actor and critic
+trees (a critic's fp32 ``value_head`` is a top-level group like
+``embed``).
 """
 from __future__ import annotations
 
@@ -40,7 +43,7 @@ import torch
 from repro_torch import default_device
 from repro_torch.configs.base import ModelConfig
 
-_TOP_LEVEL = ("embed", "final_norm", "lm_head")
+_TOP_LEVEL = ("embed", "final_norm", "lm_head", "value_head")
 
 
 def _to_torch(a: np.ndarray, device) -> torch.Tensor:
@@ -205,3 +208,20 @@ def trainer_from_jax(base_np: Dict[str, Any], adapters_np: Dict[str, Any],
         adapters={role: adapter_from_jax(ad, cfg, device)
                   for role, ad in adapters_np.items()})
     return RLHFTrainer(cfg, cfg, rl, reward_fn=reward_fn, engine=engine)
+
+
+def separate_trainer_from_jax(actor_np: Dict[str, Any],
+                              critic_np: Dict[str, Any],
+                              actor_cfg: ModelConfig, critic_cfg: ModelConfig,
+                              rl, reward_fn=None, device=None):
+    """The port's separate ``RLHFTrainer`` from the reference trainer's
+    ``actor_state["params"]`` and ``critic_state["params"]`` (numpy
+    leaves), on ``device``. As in the reference, the reference model is a
+    copy of the actor's initial weights and the reward model one of the
+    critic's."""
+    from repro_torch.rlhf import RLHFTrainer
+    device = default_device(device)
+    params = {"actor": from_jax(actor_np, actor_cfg, device),
+              "critic": from_jax(critic_np, critic_cfg, device)}
+    return RLHFTrainer(actor_cfg, critic_cfg, rl, reward_fn=reward_fn,
+                       params=params)

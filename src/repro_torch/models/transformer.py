@@ -3,8 +3,10 @@ port of ``repro/models/transformer.py`` (``Model``: init, embed/unembed,
 the layer stack, forward, caches, prefill and one-token decode, and the
 paged prefill and decode over per-layer page pools), and the training
 forward: LoRA adapters applied unmerged (``forward(adapter=)``), the value
-head of ``forward_value``, merge/unmerge for rollout, and ``remat="full"``
-as one ``torch.utils.checkpoint`` per layer.
+head of ``forward_value`` (the adapter's, or the model's own with
+``with_value=True``: the separate engine's critic and reward), merge/unmerge
+for rollout, and ``remat="full"`` as one ``torch.utils.checkpoint`` per
+layer.
 
 Where the reference scans stacked ``segment{i}/slot{j}`` parameters with
 ``jax.lax.scan``, the port keeps one parameter dict per layer in
@@ -32,9 +34,12 @@ DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 
 
 class Model:
-    """cfg-driven LM on ``device`` (``cuda`` unless one is given)."""
+    """cfg-driven LM on ``device`` (``cuda`` unless one is given).
+    ``with_value=True`` adds a scalar value head (the critic and reward
+    models of the separate engine share this class)."""
 
-    def __init__(self, cfg: ModelConfig, device=None):
+    def __init__(self, cfg: ModelConfig, device=None, *,
+                 with_value: bool = False):
         if cfg.input_mode != "tokens" or \
                 any(k not in (ATTN, MAMBA) for k in cfg.period):
             raise NotImplementedError(
@@ -47,6 +52,7 @@ class Model:
                 f"remat={cfg.remat!r}: the port checkpoints whole layers "
                 "(full) or nothing (none)")
         self.cfg = cfg
+        self.with_value = with_value
         self.kinds = cfg.layer_kinds()
         self.device = default_device(device)
         self.dtype = DTYPES[cfg.param_dtype]
@@ -88,6 +94,11 @@ class Model:
             if not cfg.tie_embeddings:
                 params["lm_head"] = L._init(
                     generator, (cfg.d_model, cfg.vocab_size), dtype=self.dtype)
+            if self.with_value:
+                params["value_head"] = {
+                    "w": L._init(generator, (cfg.d_model, 1)),
+                    "b": torch.zeros((1,), dtype=torch.float32,
+                                     device=self.device)}
         return params
 
     # -------------------------------------------------------- lora adapters
@@ -196,7 +207,8 @@ class Model:
     def forward_value(self, params, batch, adapter=None) -> torch.Tensor:
         """[B,S] per-token fp32 values (critic / reward): the trunk with
         ``adapter``, the final norm, then the adapter's value head (the
-        hydra engine's critic and reward share a headless trunk)."""
+        hydra engine's critic and reward share a headless trunk), or
+        without one the model's own ``params["value_head"]``."""
         tokens = batch["tokens"]
         h = self.embed(params, tokens)
         h, _ = self._stack_fwd(params, h, self._positions(tokens),

@@ -2,7 +2,7 @@
 (``repro/optim/adamw.py``) and global-norm clipping (``clip.py``) over
 parameter trees of tensors."""
 from repro_torch.optim.adamw import AdamW
-from repro_torch.optim.clip import clip_by_global_norm, global_norm
+from repro_torch.optim.clip import clip_by_global_norm_, global_norm
 
 
 def make_optimizer(name: str, **kw):
@@ -11,4 +11,5 @@ def make_optimizer(name: str, **kw):
     raise ValueError(f"the port has adamw only, not {name!r}")
 
 
-__all__ = ["AdamW", "clip_by_global_norm", "global_norm", "make_optimizer"]
+__all__ = ["AdamW", "clip_by_global_norm_", "global_norm",
+           "make_optimizer"]

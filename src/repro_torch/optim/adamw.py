@@ -1,8 +1,10 @@
 """AdamW as the reference computes it (``repro/optim/adamw.py``), not
 ``torch.optim.AdamW``: b2 = 0.95, weight decay 0.1 added to the Adam step
 inside the update (``:47-54``), bias correction from the step count, fp32
-math and fp32 moments. The update writes new tensors and leaves its
-inputs as they are, as the reference's pure function does."""
+math and fp32 moments. :meth:`AdamW.update_` moves the params and moments
+in place, as the reference's jitted step does with its state donated
+(``repro/rlhf/trainer.py:52-58``), so a step holds no second copy of
+them."""
 from __future__ import annotations
 
 from dataclasses import dataclass
@@ -27,26 +29,27 @@ class AdamW:
                 "count": 0}
 
     @torch.no_grad()
-    def update(self, grads, state, params, lr: float):
-        count = state["count"] + 1
+    def update_(self, grads, state, params, lr: float) -> None:
+        """One AdamW step of ``params`` by ``grads`` (read only), written
+        into ``params`` and the moments of ``state`` in place."""
+        state["count"] += 1
         b1, b2 = self.b1, self.b2
-        bc1 = 1.0 - b1 ** count
-        bc2 = 1.0 - b2 ** count
-
-        def upd(g, m, v, p):
+        bc1 = 1.0 - b1 ** state["count"]
+        bc2 = 1.0 - b2 ** state["count"]
+        for g, m, v, p in zip(leaves(grads), leaves(state["mu"]),
+                              leaves(state["nu"]), leaves(params)):
             g32 = g.float()
-            m32 = b1 * m + (1 - b1) * g32
-            v32 = b2 * v + (1 - b2) * torch.square(g32)
-            step = (m32 / bc1) / (torch.sqrt(v32 / bc2) + self.eps)
-            step = step + self.weight_decay * p.float()
-            return (p.float() - lr * step).to(p.dtype), m32, v32
+            m.mul_(b1).add_((1 - b1) * g32)
+            v.mul_(b2).add_((1 - b2) * torch.square(g32))
+            step = (m / bc1).div_(torch.sqrt(v / bc2).add_(self.eps))
+            step.add_(self.weight_decay * p.float()).mul_(lr)
+            if p.dtype == torch.float32:
+                p.sub_(step)
+            else:
+                p.copy_(p.float().sub_(step))
 
-        new = [upd(*x) for x in zip(leaves(grads), leaves(state["mu"]),
-                                     leaves(state["nu"]), leaves(params))]
-
-        def rebuild(i):
-            it = iter([x[i] for x in new])
-            return tree_map(lambda _: next(it), params)
-
-        return rebuild(0), {"mu": rebuild(1), "nu": rebuild(2),
-                            "count": count}
+    def state_bytes(self, params) -> int:
+        """Bytes of the reference's optimizer state for ``params``: two
+        fp32 moments a parameter and its int32 step count (the port keeps
+        the count as a Python int)."""
+        return sum(8 * t.numel() for t in leaves(params)) + 4

@@ -3,7 +3,7 @@ from __future__ import annotations
 
 import torch
 
-from repro_torch.tree import leaves, tree_map
+from repro_torch.tree import leaves
 
 
 def global_norm(tree) -> torch.Tensor:
@@ -11,9 +11,12 @@ def global_norm(tree) -> torch.Tensor:
                           for x in leaves(tree)))
 
 
-def clip_by_global_norm(tree, max_norm: float):
-    """(tree scaled by min(1, max_norm / norm), norm); fp32 math, each leaf
-    back in its dtype."""
+@torch.no_grad()
+def clip_by_global_norm_(tree, max_norm: float):
+    """Scales a tree of fp32 tensors in place by min(1, max_norm / norm)
+    -> (tree, norm), the norm global over the tree in fp32."""
     norm = global_norm(tree)
     scale = torch.clamp(max_norm / torch.clamp(norm, min=1e-9), max=1.0)
-    return tree_map(lambda x: (x.float() * scale).to(x.dtype), tree), norm
+    for x in leaves(tree):
+        x.mul_(scale)
+    return tree, norm

@@ -11,7 +11,9 @@ no ``shard``).
     from the critic's init).
 
 Optimizer state and gradients exist only for adapter leaves
-(``steps.make_lora_train_step``).
+(``steps.make_lora_train_step``). :meth:`ModelEngine.memory_accounting`
+reckons this layout's persistent bytes beside the separate engine's on
+the same config.
 """
 from __future__ import annotations
 
@@ -22,7 +24,14 @@ import torch
 from repro_torch.configs.base import ATTN, ModelConfig
 from repro_torch.models import Model
 from repro_torch.models import lora as LORA
+from repro_torch.optim import make_optimizer
 from repro_torch.tree import leaves, tree_map
+
+
+def _tree_bytes(tree) -> int:
+    """Bytes of every leaf of ``tree``, aliases counted each time (the
+    reference's ``engine._tree_bytes``)."""
+    return sum(t.numel() * t.element_size() for t in leaves(tree))
 
 
 class ModelEngine:
@@ -89,3 +98,27 @@ class ModelEngine:
 
     def trainable_fraction(self, role: str = "actor") -> float:
         return LORA.trainable_fraction(self.base_params, self.adapters[role])
+
+    def memory_accounting(self) -> Dict[str, Dict[str, Dict[str, int]]]:
+        """Per-role {params, opt, grad} bytes for the hydra layout, plus the
+        separate engine's on the same config, as the reference reckons them
+        (``repro/rlhf/engine.py:139-171``): AdamW's state is 8 bytes a
+        parameter and its int32 count; a trained role's gradients are one
+        fp32 copy of its trainables (``steps._accumulated_grads``)."""
+        opt = make_optimizer(self.cfg.optimizer)
+        base_b = _tree_bytes(self.base_params)
+        out: Dict[str, Dict[str, int]] = {
+            "base": {"params": base_b, "opt": 0, "grad": 0}}
+        for role, ad in self.adapters.items():
+            trained = role != "reward"
+            out[role] = {
+                "params": _tree_bytes(ad),
+                "opt": opt.state_bytes(ad) if trained else 0,
+                "grad": 4 * LORA.adapter_param_count(ad) if trained else 0}
+        trained_full = {"params": base_b,
+                        "opt": opt.state_bytes(self.base_params),
+                        "grad": 4 * self.base_param_count()}
+        sep = {"actor": dict(trained_full), "critic": dict(trained_full),
+               "ref": {"params": base_b, "opt": 0, "grad": 0},
+               "reward": {"params": base_b, "opt": 0, "grad": 0}}
+        return {"hydra": out, "separate": sep}

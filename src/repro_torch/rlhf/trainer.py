@@ -1,22 +1,30 @@
-"""The RLHF PPO trainer on the hydra engine, with the paper's
-phase-boundary memory management — the port of
-``repro/rlhf/trainer.py`` (``PhaseMemoryManager`` ``:120-335``,
-``RLHFConfig``, ``RLHFTrainer`` with ``_init_hydra``'s merged rollout
-``:812-856`` and ``make_experience``/``train_step`` ``:1064-1161``).
+"""The RLHF PPO trainer, with the paper's phase-boundary memory
+management, in two engine layouts — the port of ``repro/rlhf/trainer.py``
+(``PhaseMemoryManager`` ``:120-335``, ``RLHFConfig``, ``RLHFTrainer`` with
+``_init_separate`` ``:646-745``, ``_init_hydra``'s merged rollout
+``:812-856`` and ``make_experience``/``train_step`` ``:1064-1161``):
+
+  * ``engine="separate"`` — the four-model pipeline the paper profiles:
+    actor and reference on ``actor_cfg``, critic and reward on
+    ``critic_cfg`` with a value head, as full parameter trees; the actor
+    and critic train every leaf (``steps.make_train_step``, two full AdamW
+    states); the reference is a frozen copy of the actor's initial
+    weights and the reward model one of the critic's;
+  * ``engine="hydra"`` — one frozen trunk with per-role LoRA adapters
+    (``rlhf.engine``); rollout generates from weights with the actor's
+    A·B merged in, dropped at the boundary.
 
 One iteration runs the seven phases of
-``core.phases.RUNTIME_RLHF_PHASE_SEQUENCE``: rollout (from weights with the
-actor's A·B merged in, dropped at the boundary), score_reward (the frozen
-reward adapter's value forward, or a programmatic ``reward_fn``),
-score_ref (the plain base), score_values (the critic), score_old_logp (the
-actor), train_actor and train_critic (one adapter step each per PPO
-epoch). ``PhaseMemoryManager`` records each boundary on PyTorch's caching
-allocator — the allocator ``core/allocator.py`` simulates — so the paper's
-``empty_cache()`` at a phase boundary is measured, not simulated.
+``core.phases.RUNTIME_RLHF_PHASE_SEQUENCE``: rollout, score_reward (the
+frozen reward model's value at each row's last token, or a programmatic
+``reward_fn``), score_ref, score_values, score_old_logp, train_actor and
+train_critic (one step each per PPO epoch). ``PhaseMemoryManager`` records
+each boundary on PyTorch's caching allocator — the allocator
+``core/allocator.py`` simulates — so the paper's ``empty_cache()`` at a
+phase boundary is measured, not simulated.
 
-Not ported: ``engine="separate"``, host offload, ZeRO/TP sharding,
-telemetry and attribution, speculative decoding and compile buckets;
-asking for any of them raises.
+Not ported: host offload, ZeRO/TP sharding, telemetry and attribution,
+speculative decoding and compile buckets; asking for any of them raises.
 """
 from __future__ import annotations
 
@@ -29,14 +37,16 @@ import torch
 
 from repro_torch import default_device
 from repro_torch.configs.base import ModelConfig
+from repro_torch.models import Model
 from repro_torch.models.lora import delete_merged
 from repro_torch.rlhf.engine import ModelEngine
 from repro_torch.rlhf.ppo import gae, kl_shaped_rewards, whiten
 from repro_torch.rlhf.reward import sequence_reward
 from repro_torch.rlhf.rollout import Rollout, live_device_bytes
 from repro_torch.steps import (_action_logp, init_lora_train_state,
-                               make_lora_train_step)
-from repro_torch.tree import nbytes
+                               init_train_state, make_lora_train_step,
+                               make_train_step)
+from repro_torch.tree import leaves, nbytes, tree_map
 
 MEMORY_POLICIES = ("none", "after_inference", "after_training", "after_all")
 
@@ -135,7 +145,7 @@ class RLHFConfig:
     top_k: int = 50
     whiten_advantages: bool = True
     memory_policy: str = "after_inference"
-    engine: str = "separate"        # separate | hydra (the port: hydra)
+    engine: str = "separate"        # separate | hydra
     lora_rank: int = 128            # hydra adapter rank (paper grid: 128)
     # the reference's fields for what the port does not have yet: each
     # must stay at its default
@@ -149,21 +159,25 @@ _NOT_PORTED = {"offload": "none", "spec_decode": False,
 
 
 class RLHFTrainer:
-    """PPO over (actor, critic, reference, reward) on the hydra engine.
-    The reward is the frozen reward adapter's value head at each row's
-    last generated token, or any ``reward_fn(tokens, mask) -> [B]``.
+    """PPO over (actor, critic, reference, reward). The reward is the
+    frozen reward model's value at each row's last generated token, or any
+    ``reward_fn(tokens, mask) -> [B]``.
 
-    The engine is built from ``generator`` (its device is the trainer's),
-    or passed in whole (``engine=``, e.g. ``bridge.trainer_from_jax``).
-    ``critic_cfg`` is ignored, as in the reference's hydra path."""
+    ``rl.engine`` picks the layout. Random weights come from ``generator``
+    (its device is the trainer's); or the initial weights are passed in
+    whole: ``params={"actor": ..., "critic": ...}`` for the separate engine
+    (``bridge.separate_trainer_from_jax``), ``engine=`` for the hydra one
+    (``bridge.trainer_from_jax``), whose path ignores ``critic_cfg``, as
+    the reference's does."""
 
     def __init__(self, actor_cfg: ModelConfig, critic_cfg: ModelConfig,
                  rl: RLHFConfig, generator: Optional[torch.Generator] = None,
                  reward_fn: Optional[Callable] = None, shard=None,
-                 telemetry=None, *, engine: Optional[ModelEngine] = None):
-        if rl.engine != "hydra":
-            raise NotImplementedError(
-                f"engine={rl.engine!r}: the port has the hydra engine only")
+                 telemetry=None, *, engine: Optional[ModelEngine] = None,
+                 params: Optional[Dict[str, Any]] = None):
+        if rl.engine not in ("separate", "hydra"):
+            raise ValueError(f"engine must be separate or hydra, not "
+                             f"{rl.engine!r}")
         for name, default in _NOT_PORTED.items():
             if getattr(rl, name) != default:
                 raise NotImplementedError(f"RLHFConfig.{name} is not ported")
@@ -172,20 +186,10 @@ class RLHFTrainer:
         self.rl = rl
         self.actor_cfg, self.critic_cfg = actor_cfg, critic_cfg
         self.reward_fn = reward_fn
-        self.engine = engine if engine is not None else ModelEngine(
-            actor_cfg, generator, rank=rl.lora_rank)
-        self.actor = self.engine.model          # the shared headless trunk
-        self.device = self.actor.device
-        self.base_params = self.ref_params = self.engine.base_params
-        self.reward_adapter = self.engine.adapters["reward"]
-        self.actor_step = make_lora_train_step(
-            self.actor, actor_cfg, kind="ppo", lr=rl.lr, kl_coef=rl.kl_coef)
-        self.critic_step = make_lora_train_step(
-            self.actor, actor_cfg, kind="critic", lr=rl.critic_lr)
-        self.actor_state = init_lora_train_state(
-            self.engine.adapters["actor"], self.actor_step.optimizer)
-        self.critic_state = init_lora_train_state(
-            self.engine.adapters["critic"], self.critic_step.optimizer)
+        if rl.engine == "hydra":
+            self._init_hydra(actor_cfg, rl, generator, engine)
+        else:
+            self._init_separate(actor_cfg, critic_cfg, rl, generator, params)
         # the phase-scoped buffers (merged rollout weights, rollout
         # outputs, experience), set and cleared by _gen / make_experience
         # / train_step
@@ -197,17 +201,88 @@ class RLHFTrainer:
                                capacity=rl.prompt_len + rl.gen_len,
                                temperature=rl.temperature, top_k=rl.top_k)
 
+    def _init_separate(self, actor_cfg, critic_cfg, rl, generator, params):
+        """Four full models; the actor and critic train every leaf, the
+        reference and reward models are frozen clones of their initial
+        weights."""
+        self.engine = None
+        params = params or {}
+        device = generator.device if generator is not None else \
+            next(leaves(params["actor"])).device
+        # stateless: the actor's model serves the reference's params, the
+        # critic's the reward model's
+        self.actor = Model(actor_cfg, device=device)
+        self.critic = Model(critic_cfg, device=device, with_value=True)
+        self.device = self.actor.device
+        self.actor_step = make_train_step(self.actor, actor_cfg, kind="ppo",
+                                          lr=rl.lr, kl_coef=rl.kl_coef)
+        self.critic_step = make_train_step(self.critic, critic_cfg,
+                                           kind="critic", lr=rl.critic_lr)
+        self.actor_state = init_train_state(
+            self.actor, actor_cfg, generator, self.actor_step.optimizer,
+            params=params.get("actor"))
+        self.critic_state = init_train_state(
+            self.critic, critic_cfg, generator, self.critic_step.optimizer,
+            params=params.get("critic"))
+        # reference = frozen copy of the (SFT) actor init; reward = frozen
+        # copy of the critic init (a critic that stopped learning at
+        # preference time)
+        with torch.no_grad():
+            self.ref_params = tree_map(torch.clone,
+                                       self.actor_state["params"])
+            self.reward_params = tree_map(torch.clone,
+                                          self.critic_state["params"])
+
+    def _init_hydra(self, cfg, rl, generator, engine):
+        self.engine = engine if engine is not None else ModelEngine(
+            cfg, generator, rank=rl.lora_rank)
+        self.actor = self.engine.model          # the shared headless trunk
+        self.device = self.actor.device
+        self.base_params = self.ref_params = self.engine.base_params
+        self.reward_adapter = self.engine.adapters["reward"]
+        self.actor_step = make_lora_train_step(
+            self.actor, cfg, kind="ppo", lr=rl.lr, kl_coef=rl.kl_coef)
+        self.critic_step = make_lora_train_step(
+            self.actor, cfg, kind="critic", lr=rl.critic_lr)
+        self.actor_state = init_lora_train_state(
+            self.engine.adapters["actor"], self.actor_step.optimizer)
+        self.critic_state = init_lora_train_state(
+            self.engine.adapters["critic"], self.critic_step.optimizer)
+
     def _tracked(self):
         """What the CPU's live-bytes record counts: the persistent trees
         and the phase-scoped buffers."""
-        return [self.base_params, self.reward_adapter, self.actor_state,
-                self.critic_state, self._live]
+        frozen = [self.ref_params, self.reward_params] \
+            if self.engine is None else [self.base_params,
+                                         self.reward_adapter]
+        return frozen + [self.actor_state, self.critic_state, self._live]
+
+    def persistent_trees(self) -> Dict[str, Any]:
+        """The role state that lives across iterations (the reference's
+        ``_persistent_trees``)."""
+        out = {"actor_params": self.actor_state["params"],
+               "actor_opt": self.actor_state["opt"],
+               "critic_params": self.critic_state["params"],
+               "critic_opt": self.critic_state["opt"]}
+        if self.engine is None:
+            out.update(ref_params=self.ref_params,
+                       reward_params=self.reward_params)
+        else:
+            out.update(base_params=self.base_params,
+                       reward_params=self.reward_adapter)
+        return out
 
     # ---------------------------------------------------------- role calls
     def _gen(self, prompts, generator):
-        """Rollout from merged weights: A·B of the actor folded into the
-        trunk once per phase; the merged leaves' references are dropped
-        before the boundary, so the caching allocator gets them back."""
+        """Rollout. Separate: from the actor's live params. Hydra: from
+        merged weights, A·B of the actor folded into the trunk once per
+        phase; the merged leaves' references are dropped before the
+        boundary, so the caching allocator gets them back."""
+        if self.engine is None:
+            with torch.no_grad():
+                return self.rollout.generate(
+                    self.actor_state["params"], {"tokens": prompts},
+                    self.rl.gen_len, generator)
         adapter = self.actor_state["params"]
         merged = self.actor.merge_adapter(self.base_params, adapter)
         self._live["merged_rollout"] = merged
@@ -222,23 +297,42 @@ class RLHFTrainer:
             delete_merged(merged, adapter.get("lora"))
             self._live.pop("merged_rollout", None)
 
-    def _token_logp(self, adapter, batch):
-        logits = self.engine.logits(self.base_params, adapter, batch) \
-            if adapter is not None else \
-            self.engine.ref_logits(self.base_params, batch)
+    def _reward_scores(self, tokens, mask):
+        if self.engine is None:
+            return sequence_reward(self.critic, self.reward_params, tokens,
+                                   mask)
+        return sequence_reward(self.actor, self.base_params, tokens, mask,
+                               adapter=self.reward_adapter)
+
+    def _token_logp(self, role, batch):
+        """Per-action log-probs of the actor (``role="actor"``) or the
+        frozen reference (``"ref"``)."""
+        if self.engine is None:
+            params = self.actor_state["params"] if role == "actor" \
+                else self.ref_params
+            logits = self.actor.forward(params, batch)[0]
+        elif role == "actor":
+            logits = self.engine.logits(self.base_params,
+                                        self.actor_state["params"], batch)
+        else:
+            logits = self.engine.ref_logits(self.base_params, batch)
         return _action_logp(logits, batch["tokens"])
 
+    def _values(self, batch):
+        if self.engine is None:
+            return self.critic.forward_value(self.critic_state["params"],
+                                             batch)
+        return self.engine.values(self.base_params,
+                                  self.critic_state["params"], batch)
+
     def _actor_update(self, exp):
-        self.actor_state, m = self.actor_step(self.actor_state,
-                                              self.base_params, exp)
-        self.engine.adapters["actor"] = self.actor_state["params"]
-        return m
+        """One step of the actor (its params and moments move in place)."""
+        trunk = () if self.engine is None else (self.base_params,)
+        return self.actor_step(self.actor_state, *trunk, exp)[1]
 
     def _critic_update(self, cbatch):
-        self.critic_state, m = self.critic_step(self.critic_state,
-                                                self.base_params, cbatch)
-        self.engine.adapters["critic"] = self.critic_state["params"]
-        return m
+        trunk = () if self.engine is None else (self.base_params,)
+        return self.critic_step(self.critic_state, *trunk, cbatch)[1]
 
     # ------------------------------------------------------------ phases
     def make_experience(self, prompts: torch.Tensor,
@@ -257,16 +351,13 @@ class RLHFTrainer:
             if self.reward_fn is not None:
                 terminal = self.reward_fn(batch["tokens"], mask)
             else:
-                terminal = sequence_reward(self.actor, self.base_params,
-                                           batch["tokens"], mask,
-                                           adapter=self.reward_adapter)
+                terminal = self._reward_scores(batch["tokens"], mask)
             mm.boundary("score_reward", "inference")
-            ref_logp = self._token_logp(None, batch)
+            ref_logp = self._token_logp("ref", batch)
             mm.boundary("score_ref", "inference")
-            values = self.engine.values(
-                self.base_params, self.critic_state["params"], batch) * mask
+            values = self._values(batch) * mask
             mm.boundary("score_values", "inference")
-            old_logp = self._token_logp(self.actor_state["params"], batch)
+            old_logp = self._token_logp("actor", batch)
             mm.boundary("score_old_logp", "inference")
 
             rewards = kl_shaped_rewards(old_logp, ref_logp, terminal, mask,

@@ -1,12 +1,14 @@
-"""Losses and the LoRA train step of the hydra engine — the port of
-``repro/steps.py`` (``:31-121``, ``_accumulated_grads`` ``:127``,
-``make_lora_train_step``/``init_lora_train_state`` ``:300-395``).
+"""Losses, the full-parameter train step of the separate engine and the
+LoRA train step of the hydra engine — the port of ``repro/steps.py``
+(``:31-121``, ``_accumulated_grads`` ``:127``, ``make_train_step`` /
+``init_train_state`` ``:201-297`` unsharded, ``make_lora_train_step`` /
+``init_lora_train_state`` ``:300-395``).
 
-The step computes the adapter's gradients with autograd through the
-frozen trunk (whose attention and norms differentiate through the B2-bwd
-and B1-bwd kernels), clips them by their global norm and applies the
-reference's AdamW. The shard (ZeRO/TP), MTP and full-finetune paths of
-the reference are not ported: asking for them raises.
+A step computes its gradients with autograd (attention and norms
+differentiate through the B2-bwd and B1-bwd kernels), clips them by their
+global norm and applies the reference's AdamW, both in place, as the
+reference's jitted step does with its state donated. The shard (ZeRO/TP)
+and MTP paths of the reference are not ported: asking for them raises.
 """
 from __future__ import annotations
 
@@ -16,7 +18,7 @@ import torch
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import Model
-from repro_torch.optim import clip_by_global_norm, make_optimizer
+from repro_torch.optim import clip_by_global_norm_, make_optimizer
 from repro_torch.tree import leaves, tree_map
 
 
@@ -92,7 +94,8 @@ def _accumulated_grads(loss_fn: Callable, params, batch, N: int):
     """``((loss, metrics), grads)`` of ``loss_fn(params, batch)`` over the
     trainable leaves of ``params``, with N-way microbatch accumulation
     (N == 1 is one call), averaged over the microbatches, grads in fp32.
-    Each microbatch's graph is freed by its backward before the next."""
+    Each microbatch's graph is freed by its backward before the next, and
+    each of its gradients as soon as it is added."""
     ps = list(leaves(params))
     B = next(iter(batch.values())).shape[0]
     if B % N:
@@ -104,30 +107,94 @@ def _accumulated_grads(loss_fn: Callable, params, batch, N: int):
         sub = {k: v[i * mb:(i + 1) * mb] for k, v in batch.items()} \
             if N > 1 else batch
         loss, met = loss_fn(params, sub)
-        grads = torch.autograd.grad(loss, ps, allow_unused=True)
-        for a, g in zip(gacc, grads):
-            if g is not None:
-                a += g.float()
+        grads = list(torch.autograd.grad(loss, ps, allow_unused=True))
+        for j, a in enumerate(gacc):
+            if grads[j] is not None:
+                a.add_(grads[j])        # fp32 sum, no fp32 copy of g
+            grads[j] = None
         lacc = lacc + loss.detach()
         for k, v in met.items():
             macc[k] = macc.get(k, 0.0) + v.detach()
-    it = iter([a / N for a in gacc])
+    if N > 1:
+        for a in gacc:
+            a.div_(N)
+    it = iter(gacc)
     grads = tree_map(lambda _: next(it), params)
     return (lacc / N, {k: v / N for k, v in macc.items()}), grads
+
+
+def _update_(optimizer, state, grads, lr: float, max_grad_norm: float):
+    """Clips the fp32 ``grads`` by their global norm and takes one AdamW
+    step of ``state``'s params and moments, all in place -> the norm."""
+    grads, gnorm = clip_by_global_norm_(grads, max_grad_norm)
+    optimizer.update_(grads, state["opt"], state["params"], lr)
+    state["step"] += 1
+    return gnorm
+
+
+def _check_single_device(cfg: ModelConfig, *shards) -> None:
+    if any(s is not None for s in shards):
+        raise NotImplementedError("the port's train step is single-device")
+    if getattr(cfg, "mtp_depth", 0):
+        raise NotImplementedError("MTP heads are not ported")
+
+
+def make_train_step(model: Model, cfg: ModelConfig, *, lr: float = 3e-5,
+                    kind: str = "ppo", kl_coef: float = 0.1,
+                    max_grad_norm: float = 1.0, shard=None):
+    """``step(state, batch) -> (state, metrics)`` over every leaf of
+    ``state["params"]`` (the separate engine's actor and critic). kind:
+    ppo | critic | lm. The step moves the params and moments in place
+    and returns the same state dict, one step on."""
+    _check_single_device(cfg, shard)
+    if kind not in ("ppo", "critic", "lm"):
+        raise ValueError(f"kind must be ppo, critic or lm, not {kind!r}")
+    optimizer = make_optimizer(cfg.optimizer)
+
+    def loss_fn(params, batch):
+        if kind == "critic":
+            return critic_loss(model.forward_value(params, batch), batch)
+        logits, _ = model.forward(params, batch)
+        if kind == "lm":
+            loss = lm_loss(logits, batch["tokens"], batch["loss_mask"])
+            return loss, {"lm_loss": loss}
+        return ppo_actor_loss(logits, batch, kl_coef=kl_coef)
+
+    N = max(1, cfg.microbatches)
+
+    def train_step(state, batch) -> Tuple[dict, Dict[str, torch.Tensor]]:
+        params = state["params"]
+        with torch.enable_grad():
+            (loss, metrics), grads = _accumulated_grads(loss_fn, params,
+                                                        batch, N)
+        gnorm = _update_(optimizer, state, grads, lr, max_grad_norm)
+        return state, dict(metrics, loss=loss, grad_norm=gnorm)
+
+    train_step.optimizer = optimizer
+    return train_step
+
+
+def init_train_state(model: Model, cfg: ModelConfig, generator, optimizer,
+                     *, params=None):
+    """Train state over a whole parameter tree: ``params`` (the initial
+    weights, e.g. from ``bridge.from_jax``) or ``model.init(generator)``;
+    every leaf requires grad."""
+    if params is None:
+        params = model.init(generator)
+    for p in leaves(params):
+        p.requires_grad_(True)
+    return {"params": params, "opt": optimizer.init(params), "step": 0}
 
 
 def make_lora_train_step(model: Model, cfg: ModelConfig, *, lr: float = 3e-5,
                          kind: str = "ppo", kl_coef: float = 0.1,
                          max_grad_norm: float = 1.0, shard=None,
                          base_shard=None):
-    """``step(state, base_params, batch) -> (new_state, metrics)`` for one
+    """``step(state, base_params, batch) -> (state, metrics)`` for one
     role's adapter: gradients and the optimizer state cover only the
-    adapter leaves in ``state["params"]``; the frozen trunk is an input
-    that is never differentiated. kind: ppo | critic."""
-    if shard is not None or base_shard is not None:
-        raise NotImplementedError("the port's train step is single-device")
-    if getattr(cfg, "mtp_depth", 0):
-        raise NotImplementedError("MTP heads are not ported")
+    adapter leaves in ``state["params"]``, which move in place; the frozen
+    trunk is an input that is never differentiated. kind: ppo | critic."""
+    _check_single_device(cfg, shard, base_shard)
     if kind not in ("ppo", "critic"):
         raise ValueError(f"the port's LoRA step trains ppo or critic, not "
                          f"{kind!r}")
@@ -149,14 +216,8 @@ def make_lora_train_step(model: Model, cfg: ModelConfig, *, lr: float = 3e-5,
             (loss, metrics), grads = _accumulated_grads(
                 lambda ad, mb: loss_fn(ad, base_params, mb), adapter, batch,
                 N)
-        grads, gnorm = clip_by_global_norm(grads, max_grad_norm)
-        new_params, new_opt = optimizer.update(grads, state["opt"], adapter,
-                                               lr)
-        for p in leaves(new_params):
-            p.requires_grad_(True)
-        return ({"params": new_params, "opt": new_opt,
-                 "step": state["step"] + 1},
-                dict(metrics, loss=loss, grad_norm=gnorm))
+        gnorm = _update_(optimizer, state, grads, lr, max_grad_norm)
+        return state, dict(metrics, loss=loss, grad_norm=gnorm)
 
     train_step.optimizer = optimizer
     return train_step

@@ -114,7 +114,8 @@ want = {{"repro_torch.core.allocator", "repro_torch.paged.page_manager",
         "repro_torch.optim.adamw", "repro_torch.optim.clip",
         "repro_torch.steps", "repro_torch.tree", "repro_torch.core.phases",
         "repro_torch.rlhf.engine", "repro_torch.rlhf.ppo",
-        "repro_torch.rlhf.reward", "repro_torch.rlhf.trainer"}}
+        "repro_torch.rlhf.reward", "repro_torch.rlhf.trainer",
+        "repro_torch.configs.paper_models"}}
 assert want <= set(names), want - set(names)
 import chip_smoke
 spec = importlib.util.spec_from_file_location(

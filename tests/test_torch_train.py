@@ -40,7 +40,7 @@ from repro_torch.core import RUNTIME_RLHF_PHASE_SEQUENCE  # noqa: E402
 from repro_torch.kernels import ops, ref  # noqa: E402
 from repro_torch.models import Model  # noqa: E402
 from repro_torch.models import lora as TLORA  # noqa: E402
-from repro_torch.optim import clip_by_global_norm, make_optimizer  # noqa: E402
+from repro_torch.optim import clip_by_global_norm_, make_optimizer  # noqa: E402
 from repro_torch.rlhf import (MEMORY_POLICIES, PhaseMemoryManager,  # noqa: E402
                               RLHFConfig, RLHFTrainer)
 from repro_torch.rlhf import ppo as TPPO  # noqa: E402
@@ -287,7 +287,7 @@ def test_adamw_update_and_clip_match_reference():
     params, grads = _grad_trees(5)
     grads = jax.tree.map(lambda g: 3 * g, grads)      # a norm above 1
     jc, jnorm = jax_clip(jax.tree.map(jnp.asarray, grads), 1.0)
-    tc, tnorm = clip_by_global_norm(tree_map(_t, grads), 1.0)
+    tc, tnorm = clip_by_global_norm_(tree_map(_t, grads), 1.0)
     _close(float(tnorm), float(jnorm), 1e-5)
     _trees_close(tc, jc, 1e-6)
     jopt, topt = jax_make_optimizer("adamw"), make_optimizer("adamw")
@@ -296,7 +296,7 @@ def test_adamw_update_and_clip_match_reference():
     jp, tp = jax.tree.map(jnp.asarray, params), tree_map(_t, params)
     for step in range(2):                 # the second sees nonzero moments
         jp, jstate = jopt.update(jc, jstate, jp, 1e-2)
-        tp, tstate = topt.update(tc, tstate, tp, 1e-2)
+        topt.update_(tc, tstate, tp, 1e-2)
         _trees_close(tp, jp, 1e-6)
         _trees_close(tstate["mu"], jstate["mu"], 1e-6)
         _trees_close(tstate["nu"], jstate["nu"], 1e-6)
@@ -556,7 +556,7 @@ def test_memory_manager_defaults_to_the_card():
 
 def test_trainer_refuses_what_is_not_ported():
     _, tcfg = small_cfgs()
-    for kw in ({"engine": "separate"}, {"offload": "all"},
+    for kw in ({"offload": "all"},
                {"spec_decode": True}, {"capture_buckets": (8,)}):
         with pytest.raises(NotImplementedError):
             RLHFTrainer(tcfg, tcfg, RLHFConfig(**{**RL_KW, **kw}),
