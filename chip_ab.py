@@ -1,11 +1,12 @@
 #!/usr/bin/env python3
 """Device times of the port's B1 (RMSNorm), B4 (paged decode), B5 (SSD
-chunk scan) and B2-bwd (flash-attention backward) kernels by CUDA-graph
-replay, to compare versions of them on one card in one call.
+chunk scan), B2-bwd (flash-attention backward) and B1-bwd (RMSNorm
+backward) kernels by CUDA-graph replay, to compare versions of them on one
+card in one call.
 
     python3 chip_ab.py TREE [TREE ...]   # each checkout in turn
-    python3 chip_ab.py --ablate          # B5, B4, B2-bwd: one part cut
-    python3 chip_ab.py --ablate flash_attention_bwd.cu   # one source only
+    python3 chip_ab.py --ablate          # B5, B4, B2-bwd, B1-bwd: one part cut
+    python3 chip_ab.py --ablate rmsnorm.cu   # one source only
 
 With checkouts (directories holding ``src/repro_torch``, e.g. a parent
 commit unpacked by ``git archive`` and ``.``), each is timed in a process
@@ -15,9 +16,11 @@ Mamba2 paths give B1, B4 at the paged GRPO rollout's last decode step over
 its own forked block table and over one that puts every row on pages of
 its own, B5 at the Mamba2 prefill's shape, and B2-bwd at the PPO
 training shape beside SDPA's backward (fwd + bwd less fwd, both graphed),
-warm and cold as ``chip_smoke.py`` times them. With ``--ablate``, B5's,
-B4's and B2-bwd's sources in this checkout are compiled again with one
-of their steps removed at a time (the results are wrong; only the time
+and B1-bwd with dscale at the separate PPO path's two widths and without
+it at the hydra path's training rows, each beside ``F.rms_norm``'s
+backward (fwd + bwd less fwd), warm and cold as ``chip_smoke.py`` times
+them. With ``--ablate``, B5's, B4's, B2-bwd's and B1-bwd's sources in this
+checkout are compiled again with one of their steps removed at a time (the results are wrong; only the time
 counts) and each variant is timed: the time a step's removal saves is an
 upper bound on what making it faster can give. Needs one NVIDIA card and nvcc; prints one JSON line a run.
 """
@@ -101,6 +104,24 @@ BWD_ABLATIONS = [
         ("sm90::exp2_approx(fmaf(sc[i], scale_log2, -lr[hf]))", "sc[i]")]),
     ("no_dq_kernel", [(_DQ_LAUNCH, "  if (0)" + _DQ_LAUNCH[1:])]),
     ("no_dkdv_kernel", [(_DKDV_LAUNCH, "  if (0)" + _DKDV_LAUNCH[1:])]),
+]
+
+# B1-bwd: (rows, width, dscale) of the separate PPO path's two widths
+# (opt_1_3b and opt_350m, 8 x 512 rows, every norm scale trained) and of
+# the hydra path's training rows (llama3_2_3b, 8 x 576, the trunk frozen)
+RMSNORM_BWD_SHAPES = [(4096, 2048, True), (4096, 1024, True),
+                      (4608, 3072, False)]
+# its ablations in csrc/rmsnorm.cu (the vector route): the dscale column
+# sum inside the fused pass, the block's sum of its warps, the kernel that
+# sums the blocks' partial rows
+RMSNORM_BWD_ABLATIONS = [
+    ("no_dscale_accumulate", [(
+        "            acc[k * V + e] = fmaf(g[e], f[e] * r, acc[k * V + e]);",
+        "            acc[k * V + e] += 0.f;")]),
+    ("no_block_partial", [("    block_partial<true>(slab, part, W, D);", "")]),
+    ("no_sum_kernel", [(
+        "  cudaError_t err = cudaLaunchKernelEx(",
+        "  cudaError_t err = cudaSuccess;\n  if (0) err = cudaLaunchKernelEx(")]),
 ]
 
 
@@ -242,9 +263,45 @@ def flash_bwd_us(torch, fa, fab) -> dict:
     return out
 
 
+def rms_fwd_bwd(torch, F, x, s, dy, dscale, backward=True):
+    """F.rms_norm and, with ``backward``, its backward through autograd,
+    with the weight's gradient when ``dscale`` (the yardstick; captured
+    whole)."""
+    xx, ss = x.detach().requires_grad_(), s.detach().requires_grad_(dscale)
+    y = F.rms_norm(xx, (x.shape[-1],), ss, 1e-5)
+    if backward:
+        torch.autograd.grad(y, (xx, ss) if dscale else (xx,), dy)
+
+
+def rmsnorm_bwd_us(torch, rn, library=True) -> dict:
+    """B1-bwd (the wrapper module ``rn``) warm and cold, us, at each of
+    ``RMSNORM_BWD_SHAPES``, and F.rms_norm's backward as its fwd + bwd less
+    its fwd, each graphed."""
+    import torch.nn.functional as F
+    out = {}
+    for rows, D, dscale in RMSNORM_BWD_SHAPES:
+        scale = (1 + 0.1 * torch.randn(D, device="cuda")).bfloat16()
+
+        def make(rows=rows, D=D, scale=scale):
+            return (torch.randn(rows, D, device="cuda").bfloat16(), scale,
+                    torch.randn(rows, D, device="cuda").bfloat16())
+        key = f"rmsnorm_bwd {rows}x{D}" + (" dscale" if dscale else "")
+        out[key] = {"kernel_us": warm_cold_us(
+            torch, lambda x, s, g, ds=dscale: rn.rmsnorm_bwd(
+                x, s, g, 1e-5, dscale=ds), make)}
+        if library:
+            both, fwd = (warm_cold_us(
+                torch, lambda x, s, g, ds=dscale, b=b: rms_fwd_bwd(
+                    torch, F, x, s, g, ds, backward=b), make)
+                for b in (True, False))
+            out[key]["library_us"] = [round(a - b, 2)
+                                      for a, b in zip(both, fwd)]
+    return out
+
+
 def time_tree(tree: pathlib.Path) -> dict:
-    """B1 against F.rms_norm, B4, B5 and B2-bwd against SDPA's backward,
-    warm and cold, in checkout ``tree``."""
+    """B1 against F.rms_norm, B4, B5, B2-bwd against SDPA's backward and
+    B1-bwd against F.rms_norm's, warm and cold, in checkout ``tree``."""
     sys.path.insert(0, str(tree / "src"))
     import torch
     import torch.nn.functional as F
@@ -274,19 +331,22 @@ def time_tree(tree: pathlib.Path) -> dict:
         torch, lambda *t: ssd.ssd_scan(*t, chunk),
         lambda: ssd_inputs(torch, sliced))
     out.update(flash_bwd_us(torch, fa, fab))
+    out.update(rmsnorm_bwd_us(torch, rn))
     return out
 
 
 def ablate(only=()) -> list:
-    """B5, B4 and B2-bwd of this checkout (or the sources named in
+    """B5, B4, B2-bwd and B1-bwd of this checkout (or the sources named in
     ``only``), each whole and with each of its ablations applied
-    (``SSD_ABLATIONS``, ``PAGED_ABLATIONS``, ``BWD_ABLATIONS``)."""
+    (``SSD_ABLATIONS``, ``PAGED_ABLATIONS``, ``BWD_ABLATIONS``,
+    ``RMSNORM_BWD_ABLATIONS``)."""
     sys.path.insert(0, str(ROOT / "src"))
     import torch
     from repro_torch.kernels import build, ssd_scan as ssd
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import flash_attention_bwd as fab
     from repro_torch.kernels import paged_attention as pa
+    from repro_torch.kernels import rmsnorm as rn
     from repro_torch.paged import PageManager
     fa._fn()        # B2's forward (the inputs of B2-bwd) from the whole build
     work = ROOT / "build" / "ablate"
@@ -301,6 +361,8 @@ def ablate(only=()) -> list:
                                lambda: paged_us(torch, pa, PageManager)),
         "flash_attention_bwd.cu": (BWD_ABLATIONS, fab,
                                    lambda: flash_bwd_us(torch, fa, fab)),
+        "rmsnorm.cu": (RMSNORM_BWD_ABLATIONS, rn, lambda: rmsnorm_bwd_us(
+            torch, rn, library=False)),
     }
     if only:
         kernels = {src: kernels[src] for src in only}
@@ -333,7 +395,9 @@ def ablate(only=()) -> list:
         _, module, time_fn = kernels[src]
         lib = ctypes.CDLL(str(work / f"{pathlib.Path(src).stem}_{name}.so"))
         build.lib = lambda lib=lib: lib        # the wrapper loads this one
-        module._fn.cache_clear()
+        for entry in ("_fn", "_bwd_fn"):
+            if hasattr(module, entry):
+                getattr(module, entry).cache_clear()
         out.append({"source": src, "variant": name, **time_fn()})
         print(json.dumps(out[-1]), flush=True)
     return out

@@ -13,7 +13,7 @@ Phases, each failing with a non-zero exit:
    (tensor-core) instructions and the kernels redesigned for Hopper (B2's
    wgmma kernel, B3's and B4's split and combine kernels, B5's wgmma
    kernel, B1's vector and scalar kernels) and the backward kernels
-   (B2-bwd's three of each route, B1-bwd's four) must not spill registers
+   (B2-bwd's three of each route, B1-bwd's three) must not spill registers
    (their ptxas lines are printed);
 2. each kernel against its plain PyTorch version at the shapes of the
    serving, paged GRPO and Mamba2 paths and at edge cases (ragged Sq/Sk
@@ -30,12 +30,13 @@ Phases, each failing with a non-zero exit:
    training shape in bf16 (tensor cores) and fp32, D 64, G 1 and 8,
    windows, ragged S = 100, causal Sk above and below Sq and a full
    ragged Sq != Sk in both dtypes; B1-bwd, dx and dscale, at the
-   training rows and each route), with its time, the plain version's, one
-   PyTorch library
-   call's (where one exists) and the least time the card could take; every
-   kernel also with its device time from CUDA-graph replay, warm and cold
-   (inputs rotated through more than the 50 MB L2, as the path finds
-   them), B1 at every path shape beside ``F.rms_norm``'s, B4 on each of
+   training rows of both PPO paths, rows not even over its blocks and
+   each route, dscale the same bits in two calls), with its time, the
+   plain version's, one PyTorch library call's (where one exists) and
+   the least time the card could take; every kernel also with its
+   device time from CUDA-graph replay, warm and cold (inputs rotated
+   through more than the 50 MB L2, as the path finds them), B1 at
+   every path shape beside ``F.rms_norm``'s, B4 on each of
    its three tables with its plan and the pages each block copies;
 3. the serving path: full-width, full-depth llama3_2_3b (28 layers, bf16,
    random weights from a seed) serves 3 requests of batch 8 x 512 prompt
@@ -127,6 +128,9 @@ OUT_DIR = ROOT / "chiprun_out"
 # serving path: llama3_2_3b, batch 8, prompt 512, 64 generated tokens
 BATCH, PROMPT, GEN, REQUESTS = 8, 512, 64, 3
 TOL = {torch.bfloat16: 2e-2, torch.float32: 1e-4}   # other summation order
+# B1-bwd: the scaled error of dx and dscale, at the forward kernels' fp32
+# tolerance (tests/test_kernels.py:15)
+TOL_RMS_BWD = {torch.bfloat16: 2e-2, torch.float32: 5e-5}
 # paged GRPO rollout: 8 prompts of 504 tokens (not a multiple of the page
 # size, so each forked row CoW-copies its partial prompt page), G = 8
 # samples each, 64 generated tokens, 2 requests
@@ -253,8 +257,7 @@ NEW_KERNELS = ("flash_wgmma_kernel", "decode_split_kernel", "combine_kernel",
                "flash_bwd_delta_kernel", "flash_bwd_dkdv_kernel",
                "flash_bwd_dq_kernel",
                "rmsnorm_bwd_vec_kernel", "rmsnorm_bwd_scalar_kernel",
-               "rmsnorm_dscale_partial_kernel",
-               "rmsnorm_dscale_reduce_kernel")
+               "rmsnorm_dscale_sum_kernel")
 # the kernels that must run on the tensor cores (HGMMA in their SASS)
 HGMMA_KERNELS = ("flash_wgmma_kernel", "ssd_wgmma_kernel",
                  "flash_bwd_dkdv_wgmma_kernel", "flash_bwd_dq_wgmma_kernel")
@@ -689,17 +692,20 @@ def check_flash_bwd(dev, peaks, g):
 
 def check_rmsnorm_bwd(dev, peaks, g):
     """B1-bwd (dx and dscale) against rmsnorm_bwd_ref at the training
-    path's rows ([8 x 576, 3072]), a decode step's rows and at each route
-    of the plan; the main shape timed without dscale (the hydra path's:
-    the trunk is frozen) and with it, beside the backward of F.rms_norm;
-    the separate path's two widths ([8 x 512, 2048] and [8 x 512, 1024],
-    where every scale trains) timed with dscale by graph replay beside
-    F.rms_norm's backward with the weight's gradient (its forward and
-    backward less its forward)."""
+    path's rows ([8 x 576, 3072]), a decode step's rows, a row count that
+    does not split evenly over the blocks and at each route of the plan;
+    dx the same bits without dscale, dscale the same bits in a second
+    call; the main shape timed without dscale (the hydra path's: the
+    trunk is frozen) and with it, beside the backward of F.rms_norm with
+    respect to x; the separate path's two widths ([8 x 512, 2048] and
+    [8 x 512, 1024], where every scale trains) timed with dscale beside
+    F.rms_norm's backward with the weight's gradient; each library time
+    by graph replay as its forward and backward less its forward."""
     bf = torch.bfloat16
     cases = [("main", (PBATCH * (PPROMPT + GEN), 3072), bf, bf),
              ("sep_actor", (SBATCH * SLEN, 2048), bf, bf),
              ("sep_critic", (SBATCH * SLEN, 1024), bf, bf),
+             ("uneven", (SBATCH * SLEN + 1, 2048), bf, bf),
              ("rows8", (8, 3072), bf, bf),
              ("fp32", (3, 100), torch.float32, torch.float32),
              ("fp32_scale", (7, 384), bf, torch.float32),   # scalar route
@@ -714,16 +720,22 @@ def check_rmsnorm_bwd(dev, peaks, g):
         dx, ds = rn.rmsnorm_bwd(x, s, dy, 1e-5)
         want_dx, want_ds = ref.rmsnorm_bwd_ref(x, s, dy, 1e-5)
         dx2, _ = rn.rmsnorm_bwd(x, s, dy, 1e-5, dscale=False)
+        _, ds2 = rn.rmsnorm_bwd(x, s, dy, 1e-5)
         torch.cuda.synchronize()
         if not torch.equal(dx, dx2):
             raise SystemExit(f"rmsnorm_bwd {name}: dx differs without dscale")
+        if not torch.equal(ds, ds2):
+            raise SystemExit(f"rmsnorm_bwd {name}: dscale differs between "
+                             f"two calls")
+        pl = rn.bwd_plan(shape[0], shape[1], dt, sdt)
         rec = {"case": name, "shape": list(shape), "dtype": str(dt),
                "max_err": max(scaled_err(dx, want_dx),
                               scaled_err(ds, want_ds)),
                "max_abs_err": max((dx.float() - want_dx.float()).abs().max()
                                   .item(), (ds.float() - want_ds.float())
                                   .abs().max().item()),
-               "tol": TOL[dt]}
+               "tol": TOL_RMS_BWD[dt], "route": pl.route,
+               "blocks": pl.blocks, "warps": pl.warps}
         if name == "main":
             D = shape[-1]
             rec["ms"] = time_ms(lambda: rn.rmsnorm_bwd(x, s, dy, 1e-5,
@@ -745,7 +757,12 @@ def check_rmsnorm_bwd(dev, peaks, g):
                 time_graph_warm_cold(
                     lambda xx, ss, gg: rn.rmsnorm_bwd(xx, ss, gg, 1e-5),
                     make_set)
-            rec["library_cold_ms"] = None
+            both, fwd = (time_graph_warm_cold(
+                lambda xx, ss, gg, b=b: _rms_fwd_bwd(
+                    xx, ss, gg, backward=b, dscale=False), make_set)
+                for b in (True, False))
+            rec["library_device_ms"] = both[0] - fwd[0]
+            rec["library_cold_ms"] = both[1] - fwd[1]
             rec["bound_ms"], rec["bound_by"] = bound(
                 peaks, nbytes(x, s, dy, dx), 8 * x.numel(), dt)
         if name.startswith("sep"):
@@ -768,13 +785,14 @@ def check_rmsnorm_bwd(dev, peaks, g):
     return out
 
 
-def _rms_fwd_bwd(x, s, dy, backward=True):
-    """F.rms_norm and, with ``backward``, its backward with the weight's
-    gradient through autograd: the yardstick, captured whole in a graph."""
-    xx, ss = x.detach().requires_grad_(), s.detach().requires_grad_()
+def _rms_fwd_bwd(x, s, dy, backward=True, dscale=True):
+    """F.rms_norm and, with ``backward``, its backward through autograd,
+    with the weight's gradient when ``dscale``: the yardstick, captured
+    whole in a graph."""
+    xx, ss = x.detach().requires_grad_(), s.detach().requires_grad_(dscale)
     y = F.rms_norm(xx, (x.shape[-1],), ss, 1e-5)
     if backward:
-        torch.autograd.grad(y, (xx, ss), dy)
+        torch.autograd.grad(y, (xx, ss) if dscale else (xx,), dy)
 
 
 def ssd_ops(B, S, H, P, N, chunk) -> int:
@@ -1720,7 +1738,7 @@ def separate_ppo(dev, log, profile=False):
 # another's): one launch of the first kind per call; B3 and B4 add their
 # combine kernel when they split, B2-bwd its dK/dV and prep (or delta)
 # kernels,
-# B1-bwd its dscale kernels when asked for dscale
+# B1-bwd its dscale sum kernel when asked for dscale
 KERNEL_FUNCS = {"flash_attention": ("flash_wgmma_kernel", "flash_fwd_kernel"),
                 "decode_attention": ("decode_split_kernel",),
                 "paged_decode_attention": ("paged_split_kernel",),
@@ -1736,8 +1754,7 @@ SECOND_KERNELS = {"decode_attention": ("combine_kernel",),
                                           "flash_bwd_prep_kernel",
                                           "flash_bwd_dkdv_kernel",
                                           "flash_bwd_delta_kernel"),
-                  "rmsnorm_bwd": ("rmsnorm_dscale_partial_kernel",
-                                  "rmsnorm_dscale_reduce_kernel")}
+                  "rmsnorm_bwd": ("rmsnorm_dscale_sum_kernel",)}
 
 
 def port_kernels(rows):

@@ -34,16 +34,34 @@
 // differentiates rms_norm through XLA): with r = rsqrt(mean(x^2) + eps),
 // x_hat = x r and g = scale * dy, dx = r (g - x_hat mean(g x_hat)) in fp32
 // math, cast to x's dtype; optionally dscale = sum over rows of dy x_hat.
-// Bound: it must read x and dy and write dx once, 85 MB at the training
-// prefill's [4608, 3072] bf16, 25 us at 3.35 TB/s. The same plan and
-// layout as the forward: one warp a row; rmsnorm_bwd_vec_kernel holds the
-// row's x and dy in registers from 16-byte loads (x and dy read once, the
-// scale from L1/L2), rmsnorm_bwd_scalar_kernel reads with scalar loads and
-// goes over the row again in the epilogue. With dscale asked for, the
-// warp also writes its row's r, and two more kernels reduce without
-// atomics: rmsnorm_dscale_partial_kernel sums dy x r over a chunk of rows
-// per column (one thread a column, coalesced), rmsnorm_dscale_reduce_kernel
-// sums the chunks' partials per column in a fixed order.
+// Bound: it must read x and dy and write dx (and dscale) once: 85 MB at
+// the hydra PPO path's [4608, 3072] bf16, 25 us at 3.35 TB/s; 50 MB at the
+// separate path's [4096, 2048], 15 us. One warp a row, x and dy each read
+// once from HBM, in one pass whether or not dscale is asked for:
+// - rmsnorm_bwd_vec_kernel (the forward's vector route, up to 12 vectors a
+//   lane): a lane loads its 16-byte vectors of x and dy (evict-first) and
+//   keeps them in registers, sums x^2 and (scale dy) x over them in one
+//   loop, then writes dx; the scale comes from L1/L2.
+// - rmsnorm_bwd_scalar_kernel (a bf16 x with an fp32 scale, rows not whole
+//   vectors or wider than 12 a lane): scalar loads, the row read again
+//   from L1 for dx.
+// dx is the same arithmetic in both instances of each kernel, so it is
+// bit-identical with and without dscale. Without dscale there is a block
+// per `warps` rows. With dscale the grid is one block an SM, each over a
+// contiguous range of rows (block_rows); a lane sums dy x r for its own
+// columns over its warp's rows as it writes dx (in registers up to 64
+// floats a lane, else in the warp's row of a shared-memory slab [warps,
+// D]; the scalar route always in the slab), the block sums its warps in
+// warp order into one fp32 partial row, and rmsnorm_dscale_sum_kernel,
+// launched as the kernel's programmatic dependent so its launch overlaps
+// the kernel's tail, sums the partial rows per column in a fixed order:
+// no atomics, and two calls give the same bits. Tried on the H100 and
+// dropped as slower: prefetching a warp's next row into registers (fewer
+// warps an SM), two or more blocks an SM and blocks of 16 warps (more
+// partial rows to sum). `chip_ab.py --ablate rmsnorm.cu` cuts the column
+// sum, the block's sum and the sum kernel one at a time: the column sum
+// inside the pass costs nothing measurable, the sum kernel most of what
+// dscale adds.
 #include "common.cuh"
 
 namespace {
@@ -183,178 +201,326 @@ cudaError_t launch_scalar(const void* x, const void* scale, void* out,
   return cudaGetLastError();
 }
 
-template <typename T, int NV>
-__global__ void __launch_bounds__(32 * MAX_WARPS)
-rmsnorm_bwd_vec_kernel(const T* __restrict__ x, const T* __restrict__ scale,
-                       const T* __restrict__ dy, T* __restrict__ dx,
-                       float* __restrict__ rstd, int rows, int D, float eps) {
-  constexpr int V = 16 / sizeof(T);
-  const int lane = threadIdx.x % 32;
-  const int row = blockIdx.x * (blockDim.x / 32) + threadIdx.x / 32;
-  if (row >= rows) return;
-  const int nvec = D / V;
-  const uint4* xr = reinterpret_cast<const uint4*>(x + (size_t)row * D);
-  const uint4* gr = reinterpret_cast<const uint4*>(dy + (size_t)row * D);
-  const uint4* sr = reinterpret_cast<const uint4*>(scale);
-  uint4 xv[NV], gv[NV];
-#pragma unroll
-  for (int k = 0; k < NV; ++k) {
-    const int i = k * 32 + lane;
-    if (i < nvec) {
-      xv[k] = xr[i];
-      gv[k] = gr[i];
-    }
-  }
-  float ss = 0.f;
-#pragma unroll
-  for (int k = 0; k < NV; ++k) {
-    if (k * 32 + lane < nvec) {
-      float f[V];
-      unpack<T>(xv[k], f);
-#pragma unroll
-      for (int e = 0; e < V; ++e) ss = fmaf(f[e], f[e], ss);
-    }
-  }
-  const float r = rsqrtf(rt::group_sum<32>(ss) / (float)D + eps);
-  float dot = 0.f;     // sum of (scale dy) x over the row
-#pragma unroll
-  for (int k = 0; k < NV; ++k) {
-    const int i = k * 32 + lane;
-    if (i < nvec) {
-      float f[V], g[V], sc[V];
-      unpack<T>(xv[k], f);
-      unpack<T>(gv[k], g);
-      unpack<T>(__ldg(sr + i), sc);
-#pragma unroll
-      for (int e = 0; e < V; ++e) dot = fmaf(sc[e] * g[e], f[e], dot);
-    }
-  }
-  const float c = rt::group_sum<32>(dot) * r * r / (float)D;
-  uint4* dr = reinterpret_cast<uint4*>(dx + (size_t)row * D);
-#pragma unroll
-  for (int k = 0; k < NV; ++k) {
-    const int i = k * 32 + lane;
-    if (i < nvec) {
-      float f[V], g[V], sc[V];
-      unpack<T>(xv[k], f);
-      unpack<T>(gv[k], g);
-      unpack<T>(__ldg(sr + i), sc);
-      uint4 u;
-      T* p = reinterpret_cast<T*>(&u);
-#pragma unroll
-      for (int e = 0; e < V; ++e)
-        rt::store_f(p + e, r * (sc[e] * g[e] - f[e] * c));
-      dr[i] = u;
-    }
-  }
-  if (rstd && lane == 0) rstd[row] = r;
+// ---------------------------------------------------------------- backward
+
+// Rows [r0, r1) of this block: `gridDim.x` contiguous ranges over `rows`
+// that differ by at most one row (rmsnorm.py::BwdPlan.block_rows).
+__device__ __forceinline__ void block_rows(int rows, int& r0, int& r1) {
+  r0 = (int)((long long)blockIdx.x * rows / gridDim.x);
+  r1 = (int)((long long)(blockIdx.x + 1) * rows / gridDim.x);
 }
 
-template <typename T, typename S>
+// part[blockIdx.x, :] = the rows of slab [warps, D] summed in warp order,
+// four columns a thread where D is whole float4s (every thread of the
+// block calls it once, after its last row).
+template <bool VEC4>
+__device__ __forceinline__ void block_partial(const float* slab,
+                                              float* __restrict__ part,
+                                              int warps, int D) {
+  __syncthreads();
+  float* out = part + (size_t)blockIdx.x * D;
+  if constexpr (VEC4) {
+    const int n = D / 4;
+    const float4* s4 = reinterpret_cast<const float4*>(slab);
+    float4* o4 = reinterpret_cast<float4*>(out);
+    for (int col = threadIdx.x; col < n; col += blockDim.x) {
+      float4 s = make_float4(0.f, 0.f, 0.f, 0.f);
+      for (int w = 0; w < warps; ++w) {
+        const float4 t = s4[(size_t)w * n + col];
+        s.x += t.x;
+        s.y += t.y;
+        s.z += t.z;
+        s.w += t.w;
+      }
+      o4[col] = s;
+    }
+  } else {
+    for (int col = threadIdx.x; col < D; col += blockDim.x) {
+      float s = 0.f;
+      for (int w = 0; w < warps; ++w) s += slab[(size_t)w * D + col];
+      out[col] = s;
+    }
+  }
+}
+
+// Let the dscale sum kernel, launched as this kernel's programmatic
+// dependent, be scheduled while this one runs (it waits for this one's
+// results in griddepcontrol.wait).
+__device__ __forceinline__ void release_dependents() {
+  asm volatile("griddepcontrol.launch_dependents;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void pack(float a, float b, float* p) {
+  p[0] = a;
+  p[1] = b;
+}
+__device__ __forceinline__ void pack(float a, float b, __nv_bfloat16* p) {
+  *reinterpret_cast<__nv_bfloat162*>(p) = __floats2bfloat162_rn(a, b);
+}
+
+// The vector route: a block takes its contiguous range of rows
+// (block_rows), its warps rows r0 + w, r0 + w + warps, ...; a lane loads
+// its NV 16-byte vectors of the row's x and of its dy (evict-first: each
+// is read once), sums x^2 and (scale dy) x over them in one pass, then
+// writes dx. With DSCALE the lane also sums dy x r for its columns over
+// its rows, in registers up to 64 floats a lane (NV 8 bf16) and in the
+// warp's row of the shared-memory slab [warps, D] above that (NV 12 bf16:
+// 96 would spill), and the block sums its warps in order into
+// part[blockIdx.x, :].
+template <typename T, int NV, bool DSCALE>
+__global__ void __launch_bounds__(32 * MAX_WARPS, 1)
+rmsnorm_bwd_vec_kernel(const T* __restrict__ x, const T* __restrict__ scale,
+                       const T* __restrict__ dy, T* __restrict__ dx,
+                       float* __restrict__ part, int rows, int D, float eps) {
+  constexpr int V = 16 / sizeof(T);
+  constexpr bool kAccSmem = DSCALE && NV * V > 64;
+  constexpr int NA = DSCALE && !kAccSmem ? NV * V : 1;
+  extern __shared__ float4 slab4[];      // [warps, D] fp32, with DSCALE
+  float* slab = reinterpret_cast<float*>(slab4);
+  const int lane = threadIdx.x % 32, warp = threadIdx.x / 32;
+  const int W = blockDim.x / 32;
+  const int nvec = D / V;
+  float* wslab = slab + (size_t)warp * D;
+  float acc[NA];
+#pragma unroll
+  for (int a = 0; a < NA; ++a) acc[a] = 0.f;
+  if constexpr (kAccSmem) {
+    for (int i = lane; i < nvec * V / 4; i += 32)
+      reinterpret_cast<float4*>(wslab)[i] = make_float4(0.f, 0.f, 0.f, 0.f);
+  }
+  if constexpr (DSCALE) release_dependents();
+  const uint4* sr = reinterpret_cast<const uint4*>(scale);
+  int r0, r1;
+  block_rows(rows, r0, r1);
+  for (int row = r0 + warp; row < r1; row += W) {
+    const uint4* xr = reinterpret_cast<const uint4*>(x + (size_t)row * D);
+    const uint4* gr = reinterpret_cast<const uint4*>(dy + (size_t)row * D);
+    uint4 xv[NV], gv[NV];
+#pragma unroll
+    for (int k = 0; k < NV; ++k) {
+      const int i = k * 32 + lane;
+      if (i < nvec) {
+        xv[k] = __ldcs(xr + i);
+        gv[k] = __ldcs(gr + i);
+      }
+    }
+    float ss = 0.f, dot = 0.f;     // sums of x^2 and of (scale dy) x
+#pragma unroll
+    for (int k = 0; k < NV; ++k) {
+      const int i = k * 32 + lane;
+      if (i < nvec) {
+        float f[V], g[V], sc[V];
+        unpack<T>(xv[k], f);
+        unpack<T>(gv[k], g);
+        unpack<T>(__ldg(sr + i), sc);
+#pragma unroll
+        for (int e = 0; e < V; ++e) {
+          ss = fmaf(f[e], f[e], ss);
+          dot = fmaf(sc[e] * g[e], f[e], dot);
+        }
+      }
+    }
+    const float r = rsqrtf(rt::group_sum<32>(ss) / (float)D + eps);
+    const float c = rt::group_sum<32>(dot) * r * r / (float)D;
+    uint4* dr = reinterpret_cast<uint4*>(dx + (size_t)row * D);
+#pragma unroll
+    for (int k = 0; k < NV; ++k) {
+      const int i = k * 32 + lane;
+      if (i < nvec) {
+        float f[V], g[V], sc[V];
+        unpack<T>(xv[k], f);
+        unpack<T>(gv[k], g);
+        unpack<T>(__ldg(sr + i), sc);
+        uint4 u;
+        T* p = reinterpret_cast<T*>(&u);
+#pragma unroll
+        for (int e = 0; e < V; e += 2)
+          pack(r * fmaf(-f[e], c, sc[e] * g[e]),
+               r * fmaf(-f[e + 1], c, sc[e + 1] * g[e + 1]), p + e);
+        dr[i] = u;
+        if constexpr (kAccSmem) {
+          float4* a = reinterpret_cast<float4*>(wslab + i * V);
+#pragma unroll
+          for (int j = 0; j < V / 4; ++j) {
+            float4 t = a[j];
+            t.x = fmaf(g[4 * j], f[4 * j] * r, t.x);
+            t.y = fmaf(g[4 * j + 1], f[4 * j + 1] * r, t.y);
+            t.z = fmaf(g[4 * j + 2], f[4 * j + 2] * r, t.z);
+            t.w = fmaf(g[4 * j + 3], f[4 * j + 3] * r, t.w);
+            a[j] = t;
+          }
+        } else if constexpr (DSCALE) {
+#pragma unroll
+          for (int e = 0; e < V; ++e)
+            acc[k * V + e] = fmaf(g[e], f[e] * r, acc[k * V + e]);
+        }
+      }
+    }
+  }
+  if constexpr (DSCALE) {
+    if constexpr (!kAccSmem) {
+#pragma unroll
+      for (int k = 0; k < NV; ++k) {
+        const int i = k * 32 + lane;
+        if (i < nvec) {
+          float4* a = reinterpret_cast<float4*>(wslab + i * V);
+#pragma unroll
+          for (int j = 0; j < V / 4; ++j)
+            a[j] = make_float4(acc[k * V + 4 * j], acc[k * V + 4 * j + 1],
+                               acc[k * V + 4 * j + 2], acc[k * V + 4 * j + 3]);
+        }
+      }
+    }
+    block_partial<true>(slab, part, W, D);
+  }
+}
+
+// The scalar route (a bf16 x with an fp32 scale, rows that are not whole
+// 16-byte vectors or wider than the vector route holds): the same rows a
+// warp, scalar loads, the row read again (from L1) for dx; with DSCALE
+// each lane sums dy x r for its columns lane, lane + 32, ... in the warp's
+// row of the shared-memory slab, and the block sums its warps in order.
+template <typename T, typename S, bool DSCALE>
 __global__ void __launch_bounds__(32 * MAX_WARPS)
 rmsnorm_bwd_scalar_kernel(const T* __restrict__ x, const S* __restrict__ scale,
                           const T* __restrict__ dy, T* __restrict__ dx,
-                          float* __restrict__ rstd, int rows, int D,
+                          float* __restrict__ part, int rows, int D,
                           float eps) {
-  const int lane = threadIdx.x % 32;
-  const int row = blockIdx.x * (blockDim.x / 32) + threadIdx.x / 32;
-  if (row >= rows) return;
-  const T* xr = x + (size_t)row * D;
-  const T* gr = dy + (size_t)row * D;
-  T* dr = dx + (size_t)row * D;
-  float ss = 0.f, dot = 0.f;
-  for (int i = lane; i < D; i += 32) {
-    const float v = rt::to_f(xr[i]);
-    ss = fmaf(v, v, ss);
-    dot = fmaf(rt::to_f(scale[i]) * rt::to_f(gr[i]), v, dot);
+  extern __shared__ float4 slab4[];      // [warps, D] fp32, with DSCALE
+  float* slab = reinterpret_cast<float*>(slab4);
+  const int lane = threadIdx.x % 32, warp = threadIdx.x / 32;
+  const int W = blockDim.x / 32;
+  float* wslab = slab + (size_t)warp * D;
+  if constexpr (DSCALE) {
+    for (int i = lane; i < D; i += 32) wslab[i] = 0.f;
+    release_dependents();
   }
-  const float r = rsqrtf(rt::group_sum<32>(ss) / (float)D + eps);
-  const float c = rt::group_sum<32>(dot) * r * r / (float)D;
-  for (int i = lane; i < D; i += 32)
-    rt::store_f(dr + i, r * (rt::to_f(scale[i]) * rt::to_f(gr[i]) -
-                             rt::to_f(xr[i]) * c));
-  if (rstd && lane == 0) rstd[row] = r;
+  int r0, r1;
+  block_rows(rows, r0, r1);
+  for (int row = r0 + warp; row < r1; row += W) {
+    const T* xr = x + (size_t)row * D;
+    const T* gr = dy + (size_t)row * D;
+    T* dr = dx + (size_t)row * D;
+    float ss = 0.f, dot = 0.f;
+    for (int i = lane; i < D; i += 32) {
+      const float v = rt::to_f(xr[i]);
+      ss = fmaf(v, v, ss);
+      dot = fmaf(rt::to_f(scale[i]) * rt::to_f(gr[i]), v, dot);
+    }
+    const float r = rsqrtf(rt::group_sum<32>(ss) / (float)D + eps);
+    const float c = rt::group_sum<32>(dot) * r * r / (float)D;
+    for (int i = lane; i < D; i += 32) {
+      const float v = rt::to_f(xr[i]), g = rt::to_f(gr[i]);
+      rt::store_f(dr + i, r * fmaf(-v, c, rt::to_f(scale[i]) * g));
+      if constexpr (DSCALE) wslab[i] = fmaf(g, v * r, wslab[i]);
+    }
+  }
+  if constexpr (DSCALE) block_partial<false>(slab, part, W, D);
 }
 
-// part[chunk, col] = sum over the chunk's rows of dy x r (fp32)
-template <typename T>
-__global__ void __launch_bounds__(256)
-rmsnorm_dscale_partial_kernel(const T* __restrict__ x,
-                              const T* __restrict__ dy,
-                              const float* __restrict__ rstd,
-                              float* __restrict__ part, int rows, int D,
-                              int chunk_rows) {
-  const int col = blockIdx.x * blockDim.x + threadIdx.x;
-  if (col >= D) return;
-  const int r0 = blockIdx.y * chunk_rows;
-  const int r1 = min(rows, r0 + chunk_rows);
-  float acc = 0.f;
-  for (int r = r0; r < r1; ++r) {
-    const size_t off = (size_t)r * D + col;
-    acc = fmaf(rt::to_f(dy[off]) * rt::to_f(x[off]), rstd[r], acc);
-  }
-  part[(size_t)blockIdx.y * D + col] = acc;
-}
-
+// dscale[col] = the sum of part[b, col] over the parts b, in a fixed
+// order: warp w sums parts [w k, (w + 1) k) of its block's 32 columns in
+// order (k = ceil(parts / 32), a lane a column), then warp 0 sums the 32
+// warps' sums in order. Launched as the backward kernel's programmatic
+// dependent: it waits for that kernel's partial rows here.
 template <typename S>
-__global__ void __launch_bounds__(256)
-rmsnorm_dscale_reduce_kernel(const float* __restrict__ part,
-                             S* __restrict__ dscale, int chunks, int D) {
-  const int col = blockIdx.x * blockDim.x + threadIdx.x;
-  if (col >= D) return;
-  float acc = 0.f;
-  for (int c = 0; c < chunks; ++c) acc += part[(size_t)c * D + col];
-  rt::store_f(dscale + col, acc);
+__global__ void __launch_bounds__(1024)
+rmsnorm_dscale_sum_kernel(const float* __restrict__ part,
+                          S* __restrict__ dscale, int parts, int D) {
+  __shared__ float chunk[32 * 32];
+  asm volatile("griddepcontrol.wait;\n" ::: "memory");
+  const int lane = threadIdx.x % 32, warp = threadIdx.x / 32;
+  const int col = blockIdx.x * 32 + lane;
+  const int k = (parts + 31) / 32;
+  const int b1 = min(parts, (warp + 1) * k);
+  float s = 0.f;
+  if (col < D)
+#pragma unroll 4
+    for (int b = warp * k; b < b1; ++b) s += part[(size_t)b * D + col];
+  chunk[warp * 32 + lane] = s;
+  __syncthreads();
+  if (warp == 0 && col < D) {
+    float t = 0.f;
+#pragma unroll
+    for (int w = 0; w < 32; ++w) t += chunk[w * 32 + lane];
+    rt::store_f(dscale + col, t);
+  }
+}
+
+constexpr int SMEM_MAX = 227 * 1024;     // dynamic shared memory a block
+
+template <typename K>
+cudaError_t set_smem(K kernel, size_t bytes) {
+  if (bytes > SMEM_MAX) return cudaErrorInvalidValue;
+  if (bytes <= 48 * 1024) return cudaSuccess;
+  return cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
+}
+
+template <typename T, int NV>
+cudaError_t launch_bwd_vec(const void* x, const void* scale, const void* dy,
+                           void* dx, float* part, int rows, int D, float eps,
+                           int warps, int blocks, cudaStream_t stream) {
+  const size_t smem = part ? (size_t)warps * D * sizeof(float) : 0;
+  auto kernel = part ? rmsnorm_bwd_vec_kernel<T, NV, true>
+                     : rmsnorm_bwd_vec_kernel<T, NV, false>;
+  cudaError_t err = set_smem(kernel, smem);
+  if (err != cudaSuccess) return err;
+  kernel<<<blocks, 32 * warps, smem, stream>>>(
+      static_cast<const T*>(x), static_cast<const T*>(scale),
+      static_cast<const T*>(dy), static_cast<T*>(dx), part, rows, D, eps);
+  return cudaGetLastError();
 }
 
 template <typename T>
 cudaError_t launch_bwd_vec(const void* x, const void* scale, const void* dy,
-                           void* dx, float* rstd, int rows, int D, float eps,
-                           int per_lane, int warps, cudaStream_t stream) {
-  const int blocks = (rows + warps - 1) / warps;
-  const T* xp = static_cast<const T*>(x);
-  const T* sp = static_cast<const T*>(scale);
-  const T* gp = static_cast<const T*>(dy);
-  T* op = static_cast<T*>(dx);
-#define RT_BWD_VEC(NV)                                                   \
-  case NV:                                                              \
-    rmsnorm_bwd_vec_kernel<T, NV><<<blocks, 32 * warps, 0, stream>>>(   \
-        xp, sp, gp, op, rstd, rows, D, eps);                            \
-    break;
+                           void* dx, float* part, int rows, int D, float eps,
+                           int per_lane, int warps, int blocks,
+                           cudaStream_t stream) {
+#define RT_BWD_VEC(NV)                                                     \
+  case NV:                                                                \
+    return launch_bwd_vec<T, NV>(x, scale, dy, dx, part, rows, D, eps,    \
+                                 warps, blocks, stream);
   switch (per_lane) {
     RT_BWD_VEC(1) RT_BWD_VEC(2) RT_BWD_VEC(4) RT_BWD_VEC(8) RT_BWD_VEC(12)
     default:
       return cudaErrorInvalidValue;
   }
 #undef RT_BWD_VEC
-  return cudaGetLastError();
 }
 
 template <typename T, typename S>
 cudaError_t launch_bwd_scalar(const void* x, const void* scale,
-                              const void* dy, void* dx, float* rstd, int rows,
-                              int D, float eps, int warps,
+                              const void* dy, void* dx, float* part, int rows,
+                              int D, float eps, int warps, int blocks,
                               cudaStream_t stream) {
-  const int blocks = (rows + warps - 1) / warps;
-  rmsnorm_bwd_scalar_kernel<T, S><<<blocks, 32 * warps, 0, stream>>>(
+  const size_t smem = part ? (size_t)warps * D * sizeof(float) : 0;
+  auto kernel = part ? rmsnorm_bwd_scalar_kernel<T, S, true>
+                     : rmsnorm_bwd_scalar_kernel<T, S, false>;
+  cudaError_t err = set_smem(kernel, smem);
+  if (err != cudaSuccess) return err;
+  kernel<<<blocks, 32 * warps, smem, stream>>>(
       static_cast<const T*>(x), static_cast<const S*>(scale),
-      static_cast<const T*>(dy), static_cast<T*>(dx), rstd, rows, D, eps);
+      static_cast<const T*>(dy), static_cast<T*>(dx), part, rows, D, eps);
   return cudaGetLastError();
 }
 
-template <typename T, typename S>
-cudaError_t launch_dscale(const void* x, const void* dy, const float* rstd,
-                          float* part, void* dscale, int rows, int D,
-                          int chunk_rows, cudaStream_t stream) {
-  const int chunks = (rows + chunk_rows - 1) / chunk_rows;
-  const int cols = (D + 255) / 256;
-  rmsnorm_dscale_partial_kernel<T><<<dim3(cols, chunks), 256, 0, stream>>>(
-      static_cast<const T*>(x), static_cast<const T*>(dy), rstd, part, rows,
-      D, chunk_rows);
-  cudaError_t err = cudaGetLastError();
+template <typename S>
+cudaError_t launch_dscale_sum(const float* part, void* dscale, int parts,
+                              int D, cudaStream_t stream) {
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3((D + 31) / 32);
+  cfg.blockDim = dim3(1024);
+  cfg.stream = stream;
+  cudaLaunchAttribute attr = {};
+  attr.id = cudaLaunchAttributeProgrammaticStreamSerialization;
+  attr.val.programmaticStreamSerializationAllowed = 1;
+  cfg.attrs = &attr;
+  cfg.numAttrs = 1;
+  cudaError_t err = cudaLaunchKernelEx(&cfg, rmsnorm_dscale_sum_kernel<S>,
+                                       part, static_cast<S*>(dscale), parts,
+                                       D);
   if (err != cudaSuccess) return err;
-  rmsnorm_dscale_reduce_kernel<S><<<cols, 256, 0, stream>>>(
-      part, static_cast<S*>(dscale), chunks, D);
   return cudaGetLastError();
 }
 
@@ -391,24 +557,24 @@ extern "C" int rt_rmsnorm(const void* x, const void* scale, void* out,
   return (int)cudaErrorInvalidValue;
 }
 
-// Backward: x, dy and dx [rows, D] contiguous of x's dtype, scale [D].
-// The plan as the forward's (per_lane > 0: the vector kernel, up to 12
-// vectors a lane, since it holds dy too: 16 spill at bf16; 0: the scalar
-// kernel; `warps` rows a block). With dscale not null, rstd [rows]
-// and part [ceil(rows / chunk_rows), D] are fp32 scratch and dscale [D]
-// of scale's dtype receives sum over rows of dy x_hat.
+// Backward: x, dy and dx [rows, D] contiguous of x's dtype, scale [D]. The
+// plan (rmsnorm.py::bwd_plan): per_lane > 0 takes the vector kernel with
+// that many 16-byte vectors a lane (up to 12), 0 the scalar kernel;
+// `warps` warps a block and `blocks` blocks, block b taking rows
+// [b rows / blocks, (b + 1) rows / blocks). With dscale not null, part
+// [blocks, D] is fp32 scratch and dscale [D] of scale's dtype receives the
+// sum over rows of dy x_hat.
 extern "C" int rt_rmsnorm_bwd(const void* x, const void* scale,
                               const void* dy, void* dx, void* dscale,
-                              void* rstd_ptr, void* part_ptr, int rows, int D,
-                              float eps, int x_dtype, int scale_dtype,
-                              int per_lane, int warps, int chunk_rows,
-                              void* stream) {
+                              void* part_ptr, int rows, int D, float eps,
+                              int x_dtype, int scale_dtype, int per_lane,
+                              int warps, int blocks, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (rows <= 0 || D <= 0 || warps <= 0 || warps > MAX_WARPS || per_lane < 0 ||
-      (dscale && (!rstd_ptr || !part_ptr || chunk_rows <= 0)))
+  if (rows <= 0 || D <= 0 || warps <= 0 || warps > MAX_WARPS ||
+      blocks <= 0 || blocks > rows || per_lane < 0 || (dscale && !part_ptr))
     return (int)cudaErrorInvalidValue;
   using bf16 = __nv_bfloat16;
-  float* rstd = dscale ? static_cast<float*>(rstd_ptr) : nullptr;
+  float* part = dscale ? static_cast<float*>(part_ptr) : nullptr;
   const bool xb = x_dtype == rt::kBFloat16, sb = scale_dtype == rt::kBFloat16;
   const bool xf = x_dtype == rt::kFloat32, sf = scale_dtype == rt::kFloat32;
   cudaError_t err = cudaErrorInvalidValue;
@@ -417,19 +583,16 @@ extern "C" int rt_rmsnorm_bwd(const void* x, const void* scale,
     const bool fits = D % V == 0 && D / V <= 32 * per_lane &&
         ((uintptr_t)x | (uintptr_t)scale | (uintptr_t)dy | (uintptr_t)dx) % 16 == 0;
     if (!fits || x_dtype != scale_dtype) return (int)cudaErrorInvalidValue;
-    if (xb) err = launch_bwd_vec<bf16>(x, scale, dy, dx, rstd, rows, D, eps, per_lane, warps, s);
-    if (xf) err = launch_bwd_vec<float>(x, scale, dy, dx, rstd, rows, D, eps, per_lane, warps, s);
+    if (xb) err = launch_bwd_vec<bf16>(x, scale, dy, dx, part, rows, D, eps, per_lane, warps, blocks, s);
+    if (xf) err = launch_bwd_vec<float>(x, scale, dy, dx, part, rows, D, eps, per_lane, warps, blocks, s);
   } else {
-    if (xb && sb) err = launch_bwd_scalar<bf16, bf16>(x, scale, dy, dx, rstd, rows, D, eps, warps, s);
-    if (xb && sf) err = launch_bwd_scalar<bf16, float>(x, scale, dy, dx, rstd, rows, D, eps, warps, s);
-    if (xf && sb) err = launch_bwd_scalar<float, bf16>(x, scale, dy, dx, rstd, rows, D, eps, warps, s);
-    if (xf && sf) err = launch_bwd_scalar<float, float>(x, scale, dy, dx, rstd, rows, D, eps, warps, s);
+    if (xb && sb) err = launch_bwd_scalar<bf16, bf16>(x, scale, dy, dx, part, rows, D, eps, warps, blocks, s);
+    if (xb && sf) err = launch_bwd_scalar<bf16, float>(x, scale, dy, dx, part, rows, D, eps, warps, blocks, s);
+    if (xf && sb) err = launch_bwd_scalar<float, bf16>(x, scale, dy, dx, part, rows, D, eps, warps, blocks, s);
+    if (xf && sf) err = launch_bwd_scalar<float, float>(x, scale, dy, dx, part, rows, D, eps, warps, blocks, s);
   }
   if (err != cudaSuccess || !dscale) return (int)err;
-  float* part = static_cast<float*>(part_ptr);
-  if (xb && sb) return (int)launch_dscale<bf16, bf16>(x, dy, rstd, part, dscale, rows, D, chunk_rows, s);
-  if (xb && sf) return (int)launch_dscale<bf16, float>(x, dy, rstd, part, dscale, rows, D, chunk_rows, s);
-  if (xf && sb) return (int)launch_dscale<float, bf16>(x, dy, rstd, part, dscale, rows, D, chunk_rows, s);
-  if (xf && sf) return (int)launch_dscale<float, float>(x, dy, rstd, part, dscale, rows, D, chunk_rows, s);
+  if (sb) return (int)launch_dscale_sum<bf16>(part, dscale, blocks, D, s);
+  if (sf) return (int)launch_dscale_sum<float>(part, dscale, blocks, D, s);
   return (int)cudaErrorInvalidValue;
 }

@@ -9,7 +9,9 @@ count, the width, the dtypes and whether the pointers are 16-byte
 aligned, never the data, and is cached: the decode step calls this
 wrapper ~60-100 times, and its host time counts there. This module
 launches the kernel on CUDA tensors only; ``kernels/ops.py`` routes a CPU
-tensor to ``ref.rmsnorm_ref``.
+tensor to ``ref.rmsnorm_ref``. The backward's launch, :func:`bwd_plan`, is
+shape-only and cached too: with dscale it fixes the blocks, the rows each
+covers and so the order of dscale's sum.
 """
 from __future__ import annotations
 
@@ -28,8 +30,9 @@ VEC_BYTES = 16
 MAX_WARPS = 8                       # rows a block (csrc MAX_WARPS)
 PER_LANE = (1, 2, 4, 8, 12, 16)     # 16-byte vectors a lane may hold
 STREAM_ROWS = 1024                  # from here on, the streaming variant
-DSCALE_CHUNK = 64                   # rows a dscale partial sums
 BWD_PER_LANE = 12                   # the backward's vector route holds dy too
+SMS = 132                           # the H100's SMs
+SMEM_BYTES = 227 * 1024             # shared memory a block may use
 
 
 class Plan(NamedTuple):
@@ -91,21 +94,66 @@ def rmsnorm(x: torch.Tensor, scale: torch.Tensor,
     return out
 
 
+class BwdPlan(NamedTuple):
+    route: str        # "vector" (16-byte loads, x and dy read once) or "scalar"
+    per_lane: int     # 16-byte vectors of x (and of dy) a lane holds
+    warps: int        # warps a block
+    blocks: int       # with dscale, also the partial rows summed
+    rows: int
+
+    def block_rows(self, b: int) -> range:
+        """The contiguous rows block ``b`` takes (csrc ``block_rows``)."""
+        return range(b * self.rows // self.blocks,
+                     (b + 1) * self.rows // self.blocks)
+
+    def warp_rows(self, b: int, w: int) -> range:
+        """The rows warp ``w`` of block ``b`` walks, in order."""
+        rows = self.block_rows(b)
+        return range(rows.start + w, rows.stop, self.warps)
+
+
+@functools.lru_cache(maxsize=256)
+def bwd_plan(rows: int, D: int, x_dtype: torch.dtype,
+             scale_dtype: torch.dtype, aligned: bool = True,
+             dscale: bool = True) -> BwdPlan:
+    """The backward's launch: :func:`plan`'s route, vectors and warps
+    (the vector route up to ``BWD_PER_LANE`` vectors a lane). Without
+    dscale one warp a row, as the forward. With dscale one block an SM
+    (no more than the rows' warps ask for), each over a contiguous range
+    of rows, and each block writes one fp32 partial row that a second
+    kernel sums; the scalar route's warps keep a row of D fp32 each in
+    shared memory, so fewer of them fit a block as D grows."""
+    fwd = plan(rows, D, x_dtype, scale_dtype, aligned)
+    route, per_lane = fwd.route, fwd.per_lane
+    if per_lane > BWD_PER_LANE:
+        route, per_lane = "scalar", 0
+    warps = fwd.warps
+    if dscale and route == "scalar":
+        warps = min(warps, SMEM_BYTES // (4 * D))
+        if warps < 1:
+            raise ValueError(f"rmsnorm backward with dscale takes rows of "
+                             f"at most {SMEM_BYTES // 4} elements, got {D}")
+    blocks = -(-rows // warps)
+    if dscale:
+        blocks = min(blocks, SMS)
+    return BwdPlan(route, per_lane, warps, blocks, rows)
+
+
 @functools.lru_cache(maxsize=None)
 def _bwd_fn():
     p, i = ctypes.c_void_p, ctypes.c_int
     return build.entry("rt_rmsnorm_bwd",
-                       [p] * 7 + [i, i, ctypes.c_float] + [i] * 5 + [p])
+                       [p] * 6 + [i, i, ctypes.c_float] + [i] * 5 + [p])
 
 
 def rmsnorm_bwd(x: torch.Tensor, scale: torch.Tensor, dy: torch.Tensor,
                 eps: float = 1e-5, *, dscale: bool = True):
     """Gradients of :func:`rmsnorm`: x and dy [..., D] of one dtype, scale
     [D] -> (dx like x, dscale [D] of scale's dtype, or None when
-    ``dscale`` is False). Launched with :func:`rmsnorm`'s plan (the vector
-    route needs dy and dx aligned too, and takes rows of up to
-    ``BWD_PER_LANE`` vectors a lane; wider rows take the scalar route).
-    """
+    ``dscale`` is False), launched by :func:`bwd_plan` (the vector route
+    needs dy and dx aligned too). With dscale, dx and dscale come from one
+    pass over x and dy; dscale's sum has a fixed order (no atomics), so two
+    calls give the same bits."""
     if not (x.device.type == "cuda" and scale.device == x.device
             and dy.device == x.device):
         raise ValueError(f"rmsnorm backward needs CUDA tensors on one device, "
@@ -120,18 +168,17 @@ def rmsnorm_bwd(x: torch.Tensor, scale: torch.Tensor, dy: torch.Tensor,
     dx = torch.empty_like(x)
     rows = x.numel() // D
     ptrs = x.data_ptr() | scale.data_ptr() | dy.data_ptr() | dx.data_ptr()
-    pl = plan(rows, D, x.dtype, scale.dtype, ptrs % VEC_BYTES == 0)
-    per_lane = pl.per_lane if pl.per_lane <= BWD_PER_LANE else 0
-    ds = rstd = part = None
+    pl = bwd_plan(rows, D, x.dtype, scale.dtype, ptrs % VEC_BYTES == 0,
+                  dscale)
+    ds = part = None
     if dscale:
         ds = torch.empty_like(scale)
-        rstd = torch.empty((rows,), dtype=torch.float32, device=x.device)
-        part = torch.empty((-(-rows // DSCALE_CHUNK), D), dtype=torch.float32,
+        part = torch.empty((pl.blocks, D), dtype=torch.float32,
                            device=x.device)
     ptr = lambda t: None if t is None else t.data_ptr()   # noqa: E731
     err = _bwd_fn()(x.data_ptr(), scale.data_ptr(), dy.data_ptr(),
-                    dx.data_ptr(), ptr(ds), ptr(rstd), ptr(part), rows, D,
-                    float(eps), build.dtype_code(x), build.dtype_code(scale),
-                    per_lane, pl.warps, DSCALE_CHUNK, build.stream_ptr())
+                    dx.data_ptr(), ptr(ds), ptr(part), rows, D, float(eps),
+                    build.dtype_code(x), build.dtype_code(scale),
+                    pl.per_lane, pl.warps, pl.blocks, build.stream_ptr())
     build.check(err, "rt_rmsnorm_bwd")
     return dx, ds

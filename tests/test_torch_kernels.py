@@ -496,6 +496,114 @@ def test_rmsnorm_plan(rows, D, dt, sdt, want):
                     aligned=False).route == "scalar"
 
 
+@pytest.mark.parametrize("dscale", [True, False])
+@pytest.mark.parametrize("dt", ["bf16", "f32"])
+@pytest.mark.parametrize("D", [100, 1024, 2048, 3072, 8192])
+@pytest.mark.parametrize("rows", [1, 7, 4096, 4608, 4097])
+def test_rmsnorm_bwd_plan_covers_each_row_once(rows, D, dt, dscale):
+    """B1-bwd's launch from the shapes alone: the blocks take contiguous
+    row ranges that differ by at most one row, each block's warps walk its
+    rows in order, and every row is walked exactly once. Without dscale a
+    warp takes at most one row (the forward's layout); with dscale there
+    is at most one block an SM, each writing one partial row, and the
+    shared-memory slab (a row of D fp32 a warp) fits a block."""
+    tdt = DT[dt][1]
+    pl = trn.bwd_plan(rows, D, tdt, tdt, True, dscale)
+    fwd = trn.plan(rows, D, tdt, tdt)
+    if fwd.route == "vector" and fwd.per_lane <= trn.BWD_PER_LANE:
+        assert (pl.route, pl.per_lane) == ("vector", fwd.per_lane)
+    else:
+        assert (pl.route, pl.per_lane) == ("scalar", 0)
+    seen = np.zeros(rows, np.int64)
+    sizes = set()
+    for b in range(pl.blocks):
+        span = pl.block_rows(b)
+        sizes.add(len(span))
+        for w in range(pl.warps):
+            walk = list(pl.warp_rows(b, w))
+            assert all(span.start <= r < span.stop for r in walk)
+            assert walk == sorted(walk)
+            assert len(walk) <= 1 or dscale
+            seen[walk] += 1
+    assert (seen == 1).all()
+    assert max(sizes) - min(sizes) <= 1 and min(sizes) >= 1
+    assert pl.block_rows(pl.blocks - 1).stop == rows
+    if dscale:
+        assert pl.blocks == min(trn.SMS, -(-rows // pl.warps))
+        assert 4 * pl.warps * D <= trn.SMEM_BYTES
+    else:
+        assert pl.blocks == -(-rows // pl.warps)
+
+
+def test_rmsnorm_bwd_plan_reads_shapes_only():
+    """The backward plan is computed from meta tensors' shapes and dtypes
+    without a tensor operation, and is cached."""
+    from torch.overrides import TorchFunctionMode
+
+    class NoTensors(TorchFunctionMode):
+        def __torch_function__(self, func, types, args=(), kwargs=None):
+            raise AssertionError(f"plan ran {func}")
+
+    x = torch.empty(8, 512, 2048, dtype=torch.bfloat16, device="meta")
+    s = torch.empty(2048, dtype=torch.bfloat16, device="meta")
+    args = (x.numel() // x.shape[-1], x.shape[-1], x.dtype, s.dtype, True,
+            True)
+    with NoTensors():
+        pl = trn.bwd_plan.__wrapped__(*args)
+    assert pl == trn.bwd_plan(*args)
+    hits = trn.bwd_plan.cache_info().hits
+    assert trn.bwd_plan(*args) is trn.bwd_plan(*args)
+    assert trn.bwd_plan.cache_info().hits == hits + 2
+    assert (pl.route, pl.per_lane, pl.warps, pl.blocks) == ("vector", 8, 8,
+                                                            trn.SMS)
+
+
+def _fused_dscale(pl, x, dy, eps):
+    """dscale in the fused kernels' order, in fp32: each lane sums dy x r
+    of its columns over its warp's rows in order, a block sums its warps
+    in order, and the sum kernel sums parts [j k, (j + 1) k) in order
+    (k = ceil(blocks / 32)), then the 32 chunks in order."""
+    x32, dy32 = x.float(), dy.float()
+    r = torch.rsqrt(x32.square().mean(-1, keepdim=True) + eps)
+    contrib = dy32 * (x32 * r)
+    parts = []
+    for b in range(pl.blocks):
+        part = torch.zeros(x.shape[-1])
+        for w in range(pl.warps):
+            acc = torch.zeros(x.shape[-1])
+            for row in pl.warp_rows(b, w):
+                acc = acc + contrib[row]
+            part = part + acc
+        parts.append(part)
+    k = -(-pl.blocks // 32)
+    total = torch.zeros(x.shape[-1])
+    for j in range(32):
+        chunk = torch.zeros(x.shape[-1])
+        for b in range(j * k, min(pl.blocks, (j + 1) * k)):
+            chunk = chunk + parts[b]
+        total = total + chunk
+    return total
+
+
+@pytest.mark.parametrize("rows,D", [(4096, 2048), (4096, 1024),
+                                    (4097, 2048)])
+def test_rmsnorm_bwd_fused_order_matches_plain(rows, D):
+    """The fused backward's dscale summation order, on the plan's own
+    partition of the separate PPO path's rows (opt_1_3b's and opt_350m's
+    widths, and a row count that does not split evenly), gives the plain
+    version's fp32 dscale within 1e-5 of its largest element."""
+    rng = np.random.RandomState(D)
+    x = torch.from_numpy(rng.randn(rows, D).astype(np.float32)).bfloat16()
+    dy = torch.from_numpy(rng.randn(rows, D).astype(np.float32)).bfloat16()
+    s = torch.from_numpy(1 + 0.1 * rng.randn(D).astype(np.float32))
+    pl = trn.bwd_plan(rows, D, torch.bfloat16, torch.bfloat16, True, True)
+    got = _fused_dscale(pl, x, dy, 1e-5)
+    _, want = ref.rmsnorm_bwd_ref(x, s, dy, 1e-5)      # fp32 scale: fp32 sum
+    assert want.dtype == torch.float32
+    err = (got - want).abs().max().item() / want.abs().max().item()
+    assert err <= 1e-5, err
+
+
 @pytest.mark.parametrize("P,N,chunk,dt,want", [
     (64, 128, 256, "bf16", "wgmma"),     # mamba2_370m's prefill
     (64, 64, 64, "bf16", "wgmma"),
