@@ -81,6 +81,22 @@ Phases, each failing with a non-zero exit:
    under memory_policy="none", one hydra iteration of opt_1_3b at the
    same shape, ``memory_accounting`` of llama3_2_3b, and a small model's
    2 greedy fp32 separate iterations on the card against the CPU.
+9. host offload (``RLHFConfig.offload``, ``repro_torch.offload``): the
+   separate OPT pair of phase 8 at ``none`` twice (does the card repeat
+   itself bit for bit?), then a fresh trainer at each of ``optimizer``,
+   ``roles`` and ``all``, and at ``roles`` under memory_policy="none",
+   each one warm and one measured iteration: the bytes left on the card
+   after the initial parks held to the trees' ``nbytes``, launches
+   (``ppo_launches``), metrics equal to ``none``'s, the reference and
+   reward models bit for bit, every record's live bytes below ``none``'s
+   by at least the bytes parked there; hydra llama3_2_3b at phase 7's
+   shape at ``none`` and at ``all``, the rollout's mid-phase sample below
+   ``none``'s by at least the trunk's adapted leaves; one actor step's
+   forward and backward under remat "full", "offload" (gradients bit for
+   bit "full"'s) and "dots" (within 2e-2), launches equal; and a 1 GiB
+   pinned copy each way as the link's yardstick. Per phase: ms, park and
+   fetch ms, GB moved and GB/s, live/reserved/peak/host MiB and the state
+   on the card; the host's MemTotal/MemAvailable before and after.
 
 It prints the per-kernel JSON line, the card line, and last the result
 line ``{"ok": true, "device": {...}}``. Imports nothing of JAX.
@@ -116,7 +132,10 @@ from repro_torch.kernels import ssd_scan as ssd  # noqa: E402
 from repro_torch.launch import serve  # noqa: E402
 from repro_torch.data import PromptDataset, \
     synthetic_instruction_prompts  # noqa: E402
+from repro_torch import steps as TS  # noqa: E402
 from repro_torch.models import Model  # noqa: E402
+from repro_torch.models import lora as LORA  # noqa: E402
+from repro_torch.offload.compat import pinned_buffer  # noqa: E402
 from repro_torch.paged import PageManager, gather_kv  # noqa: E402
 from repro_torch.rlhf import (ModelEngine, RLHFConfig, RLHFTrainer,  # noqa: E402
                               Rollout)
@@ -1323,17 +1342,18 @@ def ppo_launches(cfg, rl, model_reward: bool, critic_cfg=None) -> dict:
     - each scoring forward (reward if a model scores, ref, values, old
       logp): B2 L, B1 2L + 1;
     - each training step (actor, critic): the forward (B2 L, B1 2L + 1);
-      with remat="full" each layer's forward again inside the backward
-      (B2 L, B1 2L; the final norm is outside the checkpoints); the
+      with remat other than "none" ("full", "dots", "offload") each
+      layer's forward again inside the backward (B2 L, B1 2L; the final
+      norm is outside the checkpoints); the
       backward: B2-bwd L and B1-bwd at every norm whose input or scale
       trains: 2L + 1 on the separate engine, where every leaf trains, 2L
       on the hydra engine (the final norm, every norm2 and the norm1 of
       layers 1 .. L-1: layer 0's norm1 reads the frozen embedding with a
       frozen scale, so no gradient reaches it)."""
     separate = rl.engine == "separate"
-    actor = (cfg.num_layers, cfg.remat == "full")
+    actor = (cfg.num_layers, cfg.remat != "none")
     other = critic_cfg if separate and critic_cfg is not None else cfg
-    critic = (other.num_layers, other.remat == "full")
+    critic = (other.num_layers, other.remat != "none")
     scored = [actor, actor, critic] + ([critic] if model_reward else [])
     trained = [actor, critic] * rl.ppo_epochs
     La, gen = cfg.num_layers, rl.gen_len
@@ -1734,6 +1754,331 @@ def separate_ppo(dev, log, profile=False):
     return out
 
 
+# ---------------------------------------------------------------- phase 9
+# the offload levels phase 9 runs on the separate OPT pair (``none`` is the
+# baseline, run twice to see whether the card repeats itself bit for bit)
+OFFLOAD_RUNS = ("optimizer", "roles", "all")
+REMAT_RUNS = ("full", "offload", "dots")
+
+
+def meminfo() -> dict:
+    """The host's MemTotal and MemAvailable in bytes (``/proc/meminfo``)."""
+    out = {}
+    for line in pathlib.Path("/proc/meminfo").read_text().splitlines():
+        key, val = line.split(":", 1)
+        if key in ("MemTotal", "MemAvailable"):
+            out[key] = int(val.split()[0]) * 1024
+    return out
+
+
+def link_rate(dev) -> dict:
+    """A 1 GiB copy each way between the card and pinned host memory (the
+    parking lot's own kind of buffer), timed with CUDA events: the link's
+    yardstick; the bound of a park or fetch is its bytes over this rate."""
+    n = 1 << 30
+    host = pinned_buffer(n)
+    d = torch.empty(n, dtype=torch.uint8, device=dev)
+    d2h = time_ms(lambda: host.copy_(d, non_blocking=True), iters=5, warmup=1)
+    h2d = time_ms(lambda: d.copy_(host, non_blocking=True), iters=5, warmup=1)
+    del host, d
+    torch.cuda.empty_cache()
+    return {"bytes": n, "d2h_ms": d2h, "h2d_ms": h2d,
+            "d2h_GBps": n / d2h / 1e6, "h2d_GBps": n / h2d / 1e6}
+
+
+def _offload_rows(records, state_bytes, parked_at_start):
+    """Per record: ms, park and fetch ms, GB moved and GB/s each way,
+    live/reserved/peak/host MiB, and the persistent state resident on the
+    card during the phase the record closes (GB: the state less what the
+    lot held from the last fetch to this park; a sample's, at its own
+    point)."""
+    rows, parked = [], parked_at_start
+    for r in records:
+        sample = bool(r.get("sample"))
+        held = r["host_bytes"] if sample else parked
+        ps, fs = r.get("park_seconds", 0.0), r.get("fetch_seconds", 0.0)
+        pb, fb = r.get("park_bytes", 0), r.get("fetch_bytes", 0)
+        rows.append({
+            "phase": r["phase"] + (" (sample)" if sample else ""),
+            "ms": r["seconds"] * 1e3, "park_ms": ps * 1e3,
+            "fetch_ms": fs * 1e3, "hygiene_ms":
+            r.get("hygiene_seconds", 0.0) * 1e3,
+            "park_GB": pb / 1e9, "fetch_GB": fb / 1e9,
+            "park_GBps": pb / ps / 1e9 if pb else None,
+            "fetch_GBps": fb / fs / 1e9 if fb else None,
+            "live_mib": r["live_bytes"] / 2**20,
+            "reserved_mib": r["reserved_bytes"] / 2**20,
+            "peak_mib": r["peak_bytes"] / 2**20,
+            "host_mib": r["host_bytes"] / 2**20,
+            "resident_state_GB": (state_bytes - held) / 1e9})
+        if not sample:
+            parked = r["host_bytes"] - fb
+    return rows
+
+
+def _print_offload(label, rows, log):
+    log(f"[smoke] {label}: phase ms (park, fetch, hygiene) / GB parked, "
+        f"fetched (GB/s) / MiB live, reserved, peak, host / state on the "
+        f"card GB")
+    rate = lambda v: "   -  " if v is None else f"{v:6.2f}"  # noqa: E731
+    for r in rows:
+        log(f"  {r['phase']:25s} {r['ms']:8.1f} ({r['park_ms']:6.1f}, "
+            f"{r['fetch_ms']:6.1f}, {r['hygiene_ms']:6.1f}) "
+            f"{r['park_GB']:6.3f} ({rate(r['park_GBps'])}) "
+            f"{r['fetch_GB']:6.3f} ({rate(r['fetch_GBps'])}) "
+            f"{r['live_mib']:9.1f} {r['reserved_mib']:9.1f} "
+            f"{r['peak_mib']:9.1f} {r['host_mib']:9.1f} "
+            f"{r['resident_state_GB']:7.3f}")
+
+
+def _bits(tree):
+    """A CPU copy of every tensor of ``tree``, as raw bytes."""
+    return [t.detach().to("cpu", copy=True).contiguous().view(torch.uint8)
+            for t in leaves(tree)]
+
+
+def _offload_run(dev, engine, level, policy, want, log, seed=0, iters=2):
+    """A fresh trainer at ``level`` (the separate OPT pair, or hydra
+    llama3_2_3b at phase 7's shape) and ``iters`` iterations of it (the
+    first warm), each asserted (``_run_ppo``). Right after construction
+    (whose ``start()`` parks) the allocator must have been asked for
+    exactly the ``nbytes`` of the trees left on the card, and the lot must
+    hold the managed rest."""
+    if engine == "separate":
+        acfg, ccfg = get_config(SEP_ACTOR), get_config(SEP_CRITIC)
+        rl = RLHFConfig(engine="separate", memory_policy=policy,
+                        offload=level, **SEP_KW)
+        prompts = [_sep_prompts(dev, 1 + i, acfg.vocab_size)
+                   for i in range(iters)]
+        n_rec = 7
+    else:
+        acfg = ccfg = get_config("llama3_2_3b")
+        rl = RLHFConfig(memory_policy=policy, offload=level, **PPO_KW)
+        data = PromptDataset(synthetic_instruction_prompts(
+            PBATCH * iters, seed=1), PPROMPT).batches(PBATCH, seed=1)
+        prompts = [torch.from_numpy(next(data) % acfg.vocab_size).long()
+                   .to(dev) for _ in range(iters)]
+        n_rec = 8
+    tr, alloc, asked = _fresh(lambda: RLHFTrainer(
+        acfg, ccfg, rl, torch.Generator(device=dev).manual_seed(seed)))
+    # (no reference to a tree may outlive this line: a parked tree's
+    # device bytes come back only when the last one goes)
+    state = sum(tree_nbytes(v) for v in tr.persistent_trees().values())
+    lot = tr.offload_lot
+    parked = 0 if lot is None else lot.parked_bytes()
+    if lot is not None:
+        plan = tr.offload.plan
+        rest = plan.managed - plan.resident_for(plan.sequence[0])
+        want_parked = sum(tree_nbytes(tr.offload.states[n][0]())
+                          for n in rest)
+        if parked != want_parked or set(lot.names()) != rest:
+            raise SystemExit(f"{engine} {level}: the lot holds "
+                             f"{lot.names()} ({parked} bytes), the plan "
+                             f"parks {sorted(rest)} ({want_parked})")
+    if asked != state - parked:
+        raise SystemExit(f"{engine} {level}: {asked} bytes asked of the "
+                         f"allocator after start(), {state - parked} on "
+                         f"the card ({state} of state, {parked} parked)")
+    g = torch.Generator(device=dev).manual_seed(7)
+    out = {"level": level, "policy": policy, "state_bytes": state,
+           "requested_after_start": asked, "allocated_after_start": alloc,
+           "parked_after_start": parked}
+    for it in range(iters):
+        start = 0 if lot is None else lot.parked_bytes()
+        secs, m, launches, recs = _run_ppo(
+            tr, prompts[it], g, want, f"{engine} offload={level} "
+            f"policy={policy} iteration {it}", n_rec)
+    out.update(seconds=secs, metrics=m, launches=launches,
+               records=[dict(r) for r in recs],
+               rows=_offload_rows(recs, state, start))
+    if lot is not None:
+        out["pinned_bytes"] = lot.pinned_bytes()
+        out["peak_parked_bytes"] = lot.stats.peak_parked_bytes
+    return tr, out
+
+
+def _same_or_within(got, a, b):
+    """``got`` equals run ``a``'s metrics bit for bit when runs ``a`` and
+    ``b`` (the same seed, no offload) agree bit for bit; otherwise each
+    metric lies within their spread of one of them."""
+    if a == b:
+        return got == a
+    return all(min(abs(got[k] - a[k]), abs(got[k] - b[k])) <=
+               abs(a[k] - b[k]) for k in a)
+
+
+def _remat_grads(tr, dev, log):
+    """One actor step's forward and backward at 8 x 576 on a hydra
+    llama3_2_3b trainer under each remat, from the same adapter, trunk
+    and experience: the adapter's gradients, ms, peak MiB above what was
+    allocated, and the launches (the AdamW update after it is the same
+    for every remat)."""
+    cfg = tr.actor_cfg
+    g = torch.Generator(device=dev).manual_seed(11)
+    B, S = PBATCH, PPROMPT + GEN
+    mask = torch.zeros(B, S, device=dev)
+    mask[:, PPROMPT:] = 1
+    flat = torch.full((B, S), -math.log(cfg.vocab_size), device=dev)
+    exp = {"tokens": torch.randint(0, cfg.vocab_size, (B, S), generator=g,
+                                   device=dev),
+           "loss_mask": mask, "old_logp": flat * mask, "ref_logp": flat * mask,
+           "advantages": torch.randn(B, S, generator=g, device=dev) * mask}
+    adapter = tr.actor_state["params"]
+    out = {}
+    for remat in ("full",) + REMAT_RUNS:      # the first "full" warms up
+        model = Model(dataclasses.replace(cfg, remat=remat), device=dev)
+        gc.collect()
+        torch.cuda.synchronize()
+        before = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        ops.reset_launches()
+        t0 = time.perf_counter()
+        with torch.enable_grad():
+            logits, _ = model.forward(tr.base_params, exp, adapter=adapter)
+            loss, _ = TS.ppo_actor_loss(logits, exp, kl_coef=0.1)
+            del logits
+            grads = torch.autograd.grad(loss, list(leaves(adapter)))
+        torch.cuda.synchronize()
+        out[remat] = {"ms": (time.perf_counter() - t0) * 1e3,
+                      "peak_mib": (torch.cuda.max_memory_allocated() - before)
+                      / 2**20, "launches": dict(ops.launches),
+                      "loss": float(loss.detach()), "grads": grads}
+    full = out["full"]["grads"]
+    if not all(torch.equal(a, b) for a, b in zip(out["offload"]["grads"],
+                                                  full)):
+        raise SystemExit("remat offload: gradients differ from full")
+    err = max(scaled_err(a, b) for a, b in zip(out["dots"]["grads"], full))
+    if not err <= TOL[torch.bfloat16]:
+        raise SystemExit(f"remat dots: gradients {err} from full")
+    if any(out[r]["launches"] != out["full"]["launches"] for r in REMAT_RUNS):
+        raise SystemExit(f"remat launches differ: "
+                         f"{ {r: out[r]['launches'] for r in REMAT_RUNS} }")
+    for r in REMAT_RUNS:
+        del out[r]["grads"]
+        log(f"[smoke] remat {r:8s}: actor fwd + bwd {out[r]['ms']:8.1f} ms, "
+            f"peak {out[r]['peak_mib']:8.1f} MiB above the state, loss "
+            f"{out[r]['loss']:.6f}")
+    log(f"[smoke] remat: offload gradients bit-identical to full, dots "
+        f"within {err:.3e} (tol {TOL[torch.bfloat16]}); launches "
+        f"{out['full']['launches']} under each")
+    return {r: out[r] for r in REMAT_RUNS} | {"dots_max_err": err}
+
+
+def offload_ppo(dev, log):
+    """Phase 9: host offload on the card. (a) The separate OPT pair at
+    phase 8's shape: the same-seed ``none`` iteration twice, then a fresh
+    trainer at each of ``optimizer``, ``roles`` and ``all`` under
+    ``after_inference`` and one at ``roles`` under ``none`` (no
+    ``empty_cache``: parked bytes leave ``memory_allocated`` but stay
+    reserved); each a warm iteration and a measured one, asserted: the
+    bytes left on the card after ``start()``, launches (``ppo_launches``),
+    metrics equal to ``none`` (bit for bit if ``none`` repeats itself,
+    else within its spread), the reference and reward models bit for bit,
+    and every record's live bytes below ``none``'s by at least the bytes
+    parked there. (b) Hydra llama3_2_3b at ``all`` (phase 7's shape): the
+    rollout's mid-phase sample below ``none``'s by at least the trunk's
+    adapted leaves. (c) One actor step's forward and backward on that
+    trainer under remat "full", "offload" and "dots". And the link's
+    yardstick: a 1 GiB pinned copy each way."""
+    out = {"meminfo_before": meminfo(), "link": link_rate(dev)}
+    ln = out["link"]
+    log(f"[smoke] offload: host {out['meminfo_before']}; 1 GiB pinned copy "
+        f"D2H {ln['d2h_ms']:.2f} ms ({ln['d2h_GBps']:.2f} GB/s), H2D "
+        f"{ln['h2d_ms']:.2f} ms ({ln['h2d_GBps']:.2f} GB/s)")
+    acfg, ccfg = get_config(SEP_ACTOR), get_config(SEP_CRITIC)
+    want = ppo_launches(acfg, RLHFConfig(engine="separate", **SEP_KW),
+                        model_reward=True, critic_cfg=ccfg)
+    runs, frozen = {}, None
+    for key, level, policy in ([("none", "none", "after_inference"),
+                                ("none_again", "none", "after_inference")]
+                               + [(lv, lv, "after_inference")
+                                  for lv in OFFLOAD_RUNS]
+                               + [("roles_policy_none", "roles", "none")]):
+        tr, run = _offload_run(dev, "separate", level, policy, want, log)
+        bits = _bits([tr.ref_params, tr.reward_params])
+        if frozen is None:
+            frozen = bits
+        elif not all(torch.equal(a, b) for a, b in zip(bits, frozen)):
+            raise SystemExit(f"separate offload={level}: the reference or "
+                             "reward model changed")
+        del tr, bits
+        gc.collect()
+        torch.cuda.empty_cache()
+        run["mem_available_after"] = meminfo()["MemAvailable"]
+        runs[key] = run
+        _print_offload(f"separate offload={level} policy={policy} "
+                       f"({run['seconds'] * 1e3:.1f} ms)", run["rows"], log)
+    a, b = runs["none"]["metrics"], runs["none_again"]["metrics"]
+    out["none_repeats_bitwise"] = a == b
+    out["none_spread"] = {k: abs(a[k] - b[k]) for k in a}
+    log(f"[smoke] separate none twice: bit for bit {a == b}; spread "
+        f"{out['none_spread']}")
+    for key, run in runs.items():
+        if key.startswith("none"):
+            continue
+        if not _same_or_within(run["metrics"], a, b):
+            raise SystemExit(f"separate {key}: metrics {run['metrics']} "
+                             f"against none {a}, {b}")
+        for r0, r in zip(runs["none"]["records"], run["records"]):
+            if r0["live_bytes"] - r["live_bytes"] < r["host_bytes"]:
+                raise SystemExit(f"separate {key} {r['phase']}: live "
+                                 f"{r['live_bytes']} against none's "
+                                 f"{r0['live_bytes']}, {r['host_bytes']} "
+                                 "parked")
+        if run["policy"] == "none" and min(
+                r["reserved_bytes"] for r in run["records"]) < \
+                run["state_bytes"]:
+            raise SystemExit(f"separate {key}: reserved fell below the "
+                             "state without empty_cache")
+        log(f"[smoke] separate {key}: metrics "
+            f"{'bit for bit' if a == b else 'within the spread of'} none's; "
+            f"{run['requested_after_start']} bytes on the card after "
+            f"start(), {run['parked_after_start']} parked; pinned "
+            f"{run['pinned_bytes']} bytes for a parked peak of "
+            f"{run['peak_parked_bytes']}")
+    out["separate"] = runs
+
+    # (b) hydra llama3_2_3b at "all": the trunk's adapted leaves parked
+    # while the merged copy serves rollout
+    cfg = get_config("llama3_2_3b")
+    want_h = ppo_launches(cfg, RLHFConfig(**PPO_KW), model_reward=True)
+    tr, none_run = _offload_run(dev, "hydra", "none", "after_inference",
+                                want_h, log)
+    del tr
+    gc.collect()
+    torch.cuda.empty_cache()
+    tr, all_run = _offload_run(dev, "hydra", "all", "after_inference",
+                               want_h, log)
+    adapted = tree_nbytes(LORA.adapted_subtree(tr.base_params,
+                                               tr.engine.lora_sites()))
+    drop = none_run["records"][0]["live_bytes"] - \
+        all_run["records"][0]["live_bytes"]
+    if all_run["records"][0]["phase"] != "rollout_decode" or drop < adapted:
+        raise SystemExit(f"hydra all: the rollout sample is {drop} bytes "
+                         f"below none's, the adapted leaves {adapted}")
+    _print_offload("hydra llama3_2_3b offload=none", none_run["rows"], log)
+    _print_offload(f"hydra llama3_2_3b offload=all "
+                   f"({all_run['seconds'] * 1e3:.1f} ms)", all_run["rows"],
+                   log)
+    log(f"[smoke] hydra all: rollout sample {drop} bytes below none's "
+        f"(the adapted leaves: {adapted})")
+    out["hydra"] = {"none": none_run, "all": all_run,
+                    "adapted_bytes": adapted, "sample_drop_bytes": drop}
+
+    # (c) remat on the same trainer
+    out["remat"] = _remat_grads(tr, dev, log)
+    del tr, frozen
+    gc.collect()
+    torch.cuda.empty_cache()
+    out["meminfo_after"] = meminfo()
+    log(f"[smoke] offload: host MemAvailable after each separate run "
+        f"{[r['mem_available_after'] for r in runs.values()]}, at the end "
+        f"{out['meminfo_after']}")
+    out["launches"] = runs["roles"]["launches"]
+    out["hydra_launches"] = all_run["launches"]
+    return out
+
+
 # each wrapper's CUDA kernels, by function name (no name contains
 # another's): one launch of the first kind per call; B3 and B4 add their
 # combine kernel when they split, B2-bwd its dK/dV and prep (or delta)
@@ -1851,6 +2196,7 @@ def main() -> int:
     except ImportError:
         triton_v = "absent"
     print(f"[smoke] card: {smi}")
+    print(f"[smoke] host memory: {meminfo()}")
     print(f"[smoke] torch {torch.__version__} cuda {torch.version.cuda} "
           f"triton {triton_v} (unused); peaks {peaks}")
     path, log, secs = build.build()
@@ -1969,9 +2315,15 @@ def main() -> int:
     sep = separate_ppo(dev, lambda s: print(s, flush=True),
                        profile=args.profile)
     report["ppo_separate"] = sep
+
+    # phase 9: host offload on both engines at full width and depth
+    off = offload_ppo(dev, lambda s: print(s, flush=True))
+    report["offload"] = off
     paths = {"serve": launches, "paged_grpo": grpo["launches"],
              "mamba_serve": mamba["launches"], "ppo": ppo["launches"],
-             "ppo_separate": sep["launches"]}
+             "ppo_separate": sep["launches"],
+             "ppo_separate_offload": off["launches"],
+             "ppo_offload": off["hydra_launches"]}
 
     if args.profile:
         prof, table = profile_request(cfg, dev)

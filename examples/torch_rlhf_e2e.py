@@ -28,6 +28,18 @@ plain PyTorch path, where the records count the trainer's tensors):
 adapter's value head, or on the separate engine the reward model's), so
 every phase runs a model; the default ``target`` is the reference
 example's programmatic reward (the fraction of generated 7s).
+
+``--offload optimizer|roles|all`` parks the role state a phase does not
+touch to host memory between the phases that do (pinned memory on the
+card), and the report adds each phase's host MiB and park/fetch ms;
+``--remat none|full|dots|offload`` sets the model's activation
+checkpointing (``offload``: each layer's saved input goes to host):
+
+    PYTHONPATH=src python examples/torch_rlhf_e2e.py --arch llama3_2_3b \
+        --engine separate --offload roles --steps 1 --batch 8 \
+        --prompt-len 512 --gen-len 64
+    PYTHONPATH=src python examples/torch_rlhf_e2e.py --smoke --device cpu \
+        --offload all
 """
 import argparse
 import dataclasses
@@ -79,6 +91,11 @@ def main(argv=None):
     ap.add_argument("--memory-policy", default="after_inference",
                     choices=("none", "after_inference", "after_training",
                              "after_all"))
+    ap.add_argument("--offload", default="none",
+                    choices=("none", "optimizer", "roles", "all"))
+    ap.add_argument("--remat", default="",
+                    choices=("", "none", "full", "dots", "offload"),
+                    help="the configs' own unless given")
     ap.add_argument("--device", default=None,
                     help="cuda unless given; cpu runs the plain PyTorch path")
     ap.add_argument("--seed", type=int, default=0)
@@ -92,6 +109,8 @@ def main(argv=None):
                 cfg.smoke(), num_layers=args.layers, d_model=args.d_model,
                 d_ff=2 * args.d_model, vocab_size=64, num_heads=4,
                 num_kv_heads=2, head_dim=64)
+        if args.remat:
+            cfg = dataclasses.replace(cfg, remat=args.remat)
         return cfg
 
     cfg = config(args.arch)
@@ -106,7 +125,7 @@ def main(argv=None):
         kl_coef=0.0 if small else 0.1, temperature=args.temperature,
         top_k=args.top_k, engine=args.engine,
         lora_rank=args.lora_rank or (16 if small else 128),
-        memory_policy=args.memory_policy)
+        memory_policy=args.memory_policy, offload=args.offload)
     reward_fn = make_target_token_reward(7) if args.reward == "target" \
         else None
     trainer = RLHFTrainer(cfg, critic_cfg, rl,
@@ -138,15 +157,32 @@ def main(argv=None):
               f"kl {m['kl']:.4f} clip {m['clip_frac']:.3f} "
               f"vf {m['vf_loss']:.4f} ({time.time() - t0:.0f}s)")
 
+    lot = trainer.offload_lot
+    if lot is not None:
+        avail = [line for line in pathlib.Path("/proc/meminfo").read_text()
+                 .splitlines() if line.startswith("MemAvailable")] \
+            if pathlib.Path("/proc/meminfo").exists() else []
+        print(f"host offload {args.offload}: {lot.parked_bytes() / 2**30:.2f} "
+              f"GiB parked now, peak {lot.stats.peak_parked_bytes / 2**30:.2f}"
+              f" GiB, {lot.pinned_bytes() / 2**30:.2f} GiB pinned; "
+              f"{lot.stats.bytes_parked_total / 1e9:.2f} GB parked and "
+              f"{lot.stats.bytes_fetched_total / 1e9:.2f} GB fetched in all"
+              + (f"; host {avail[0]}" if avail else ""))
+
     # the last iteration's records: one per phase (and on the hydra engine
     # a mid-rollout sample)
     print(f"\nlast-iteration phases (policy={args.memory_policy}, "
-          f"engine={args.engine}; MiB):")
-    print("  phase            kind          ms     live reserved     peak")
+          f"engine={args.engine}, offload={args.offload}; MiB; park and "
+          f"fetch ms within the phase's):")
+    print("  phase            kind          ms     live reserved     peak"
+          "     host    park   fetch")
     for r in trainer.memory.records[-(7 if separate else 8):]:
         print(f"  {r['phase']:16s} {r['kind']:10s} "
               f"{r['seconds'] * 1e3:8.1f} {_mib(r['live_bytes'])} "
-              f"{_mib(r['reserved_bytes'])} {_mib(r['peak_bytes'])}")
+              f"{_mib(r['reserved_bytes'])} {_mib(r['peak_bytes'])} "
+              f"{_mib(r['host_bytes'])} "
+              f"{r.get('park_seconds', 0) * 1e3:7.1f} "
+              f"{r.get('fetch_seconds', 0) * 1e3:7.1f}")
 
 
 if __name__ == "__main__":

@@ -11,6 +11,10 @@ per-role adapters) — the port of ``repro/models/lora.py``.
   * :func:`merged_leaves` / :func:`delete_merged` — the tensors a merge
     created, and dropping the merged tree's references to them at a phase
     boundary (the non-adapted leaves alias the frozen base);
+  * :func:`adapted_subtree` / :func:`with_adapted_leaves` — the base
+    leaves at the adapted sites (the unit the offload subsystem parks
+    while merged weights serve rollout), and the base rebuilt around a
+    replacement for them;
   * :func:`adapter_param_count` / :func:`trainable_fraction`.
 
 Adapted sites, as in the reference: attention projections
@@ -165,6 +169,34 @@ def delete_merged(merged_params, lora_tree) -> None:
     frozen base is untouched."""
     for parent, k in _site_parents(merged_params, lora_tree):
         parent[k] = None
+
+
+def adapted_subtree(params, lora_tree) -> Any:
+    """The sub-tree of ``params`` at the adapted sites — exactly the leaves
+    :func:`merge_adapter` replaces (the non-adapted leaves, which a merged
+    tree aliases, are left out). Walks ``params["layers"]``'s list."""
+    if _is_site(lora_tree):
+        return params
+    if isinstance(lora_tree, list):
+        return [adapted_subtree(p, sub) for p, sub in zip(params, lora_tree)]
+    return {k: adapted_subtree(params[k], sub)
+            for k, sub in (lora_tree or {}).items() if k in params}
+
+
+def with_adapted_leaves(params, lora_tree, subtree) -> Any:
+    """``params`` rebuilt with the adapted-site leaves replaced by
+    ``subtree`` (an :func:`adapted_subtree`-shaped tree); every other leaf
+    is returned by reference."""
+    if _is_site(lora_tree):
+        return subtree
+    if isinstance(params, list):
+        return [with_adapted_leaves(p, sub, s)
+                for p, sub, s in zip(params, lora_tree, subtree)]
+    if not isinstance(params, dict):
+        return params
+    lora_tree = lora_tree or {}
+    return {k: with_adapted_leaves(v, lora_tree[k], subtree[k])
+            if k in lora_tree else v for k, v in params.items()}
 
 
 def adapter_param_count(adapter) -> int:

@@ -5,8 +5,8 @@ paged prefill and decode over per-layer page pools), and the training
 forward: LoRA adapters applied unmerged (``forward(adapter=)``), the value
 head of ``forward_value`` (the adapter's, or the model's own with
 ``with_value=True``: the separate engine's critic and reward), merge/unmerge
-for rollout, and ``remat="full"`` as one ``torch.utils.checkpoint`` per
-layer.
+for rollout, and remat as one ``torch.utils.checkpoint`` per layer under
+the policy of ``offload.policies`` ("full", "dots", "offload").
 
 Where the reference scans stacked ``segment{i}/slot{j}`` parameters with
 ``jax.lax.scan``, the port keeps one parameter dict per layer in
@@ -27,6 +27,7 @@ from repro_torch.configs.base import ATTN, MAMBA, ModelConfig
 from repro_torch.models import layers as L
 from repro_torch.models import lora as LORA
 from repro_torch.models import mamba as M
+from repro_torch.offload.policies import REMATS, remat_policy_for
 from repro_torch.paged import attention as PA
 from repro_torch.paged import paged_cache as PC
 
@@ -47,10 +48,8 @@ class Model:
                 "attention and Mamba2 layers")
         if MAMBA in cfg.period and cfg.ssm is None:
             raise ValueError(f"{cfg.name}: a Mamba layer needs cfg.ssm")
-        if cfg.remat not in ("none", "full"):
-            raise NotImplementedError(
-                f"remat={cfg.remat!r}: the port checkpoints whole layers "
-                "(full) or nothing (none)")
+        if cfg.remat not in REMATS:
+            raise ValueError(f"remat={cfg.remat!r}: expected one of {REMATS}")
         self.cfg = cfg
         self.with_value = with_value
         self.kinds = cfg.layer_kinds()
@@ -162,23 +161,28 @@ class Model:
     def _stack_fwd(self, params, h, positions, *, window=0,
                    init_caches: Optional[List[dict]] = None, adapter=None):
         """Run every layer. Returns (h, filled caches or None).
-        ``adapter`` is a LoRA adapter over ``params``. With
-        ``cfg.remat == "full"`` and grad mode on, each layer is one
-        activation checkpoint (non-reentrant): its forward runs again in
-        the backward, kernels included (the reference's
-        ``jax.checkpoint`` per scanned layer group)."""
+        ``adapter`` is a LoRA adapter over ``params``. With ``cfg.remat``
+        other than "none" and grad mode on, each layer is one activation
+        checkpoint (non-reentrant) under ``remat_policy_for(cfg.remat)``:
+        its forward runs again in the backward, kernels included (the
+        reference's ``jax.checkpoint`` per scanned layer group). "offload"
+        moves only what the checkpoint saves, the layer's input, to host:
+        the logits and the loss's residuals stay."""
         lora = (adapter or {}).get("lora") or {}
         ads = lora.get("layers") or [None] * len(self.kinds)
-        remat = self.cfg.remat == "full" and torch.is_grad_enabled() and \
+        remat = self.cfg.remat != "none" and torch.is_grad_enabled() and \
             init_caches is None
+        if remat:
+            ckpt_kw, around = remat_policy_for(self.cfg.remat)
         caches = []
         for i, (kind, layer) in enumerate(zip(self.kinds, params["layers"])):
             if remat:
-                h = checkpoint(
-                    lambda hh, layer=layer, kind=kind, ad=ads[i]:
-                    self._slot_fwd(layer, kind, hh, positions, window=window,
-                                   adapter=ad)[0],
-                    h, use_reentrant=False)
+                with around():
+                    h = checkpoint(
+                        lambda hh, layer=layer, kind=kind, ad=ads[i]:
+                        self._slot_fwd(layer, kind, hh, positions,
+                                       window=window, adapter=ad)[0],
+                        h, use_reentrant=False, **ckpt_kw)
                 caches.append(None)
                 continue
             h, c = self._slot_fwd(

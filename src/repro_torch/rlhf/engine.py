@@ -89,6 +89,13 @@ class ModelEngine:
         """Critic/reward forward: base ⊕ adapter + its value head."""
         return self.model.forward_value(base_params, batch, adapter=adapter)
 
+    def lora_sites(self):
+        """Structure-only copy of the adapter site tree (every leaf True).
+        The offload subsystem walks it to find the trunk's adapted leaves
+        (``lora.adapted_subtree``); every role shares the site layout, so
+        the actor's adapter defines it."""
+        return tree_map(lambda _: True, self.adapters["actor"]["lora"])
+
     # ---------------------------------------------------------- accounting
     def base_param_count(self) -> int:
         return sum(t.numel() for t in leaves(self.base_params))

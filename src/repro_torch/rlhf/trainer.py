@@ -23,8 +23,15 @@ each boundary on PyTorch's caching allocator — the allocator
 ``core/allocator.py`` simulates — so the paper's ``empty_cache()`` at a
 phase boundary is measured, not simulated.
 
-Not ported: host offload, ZeRO/TP sharding, telemetry and attribution,
-speculative decoding and compile buckets; asking for any of them raises.
+``rl.offload`` (``optimizer``, ``roles``, ``all``) parks the role state a
+phase does not touch to host memory between the phases that do
+(``repro_torch.offload``; the reference's ``_init_offload`` and
+``_offload_states``, ``:563-643``): pinned memory on the card, committed
+copies on the CPU. It is a pure placement change: the same phases run the
+same kernels on the same values.
+
+Not ported: ZeRO/TP sharding, telemetry and attribution, speculative
+decoding and compile buckets; asking for any of them raises.
 """
 from __future__ import annotations
 
@@ -38,7 +45,9 @@ import torch
 from repro_torch import default_device
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import Model
+from repro_torch.models import lora as LORA
 from repro_torch.models.lora import delete_merged
+from repro_torch.offload import HostParkingLot, OffloadExecutor, OffloadPlan
 from repro_torch.rlhf.engine import ModelEngine
 from repro_torch.rlhf.ppo import gae, kl_shaped_rewards, whiten
 from repro_torch.rlhf.reward import sequence_reward
@@ -68,11 +77,22 @@ class PhaseMemoryManager:
     On the CPU no allocator metric exists: ``live_bytes`` is the bytes of
     the tensors ``tracked()`` returns, and the other two are None.
     ``device`` defaults to ``repro_torch.default_device()``: CUDA, raising
-    where there is no card."""
+    where there is no card.
+
+    With an ``offload`` executor attached (``rl.offload != "none"``) a
+    boundary runs, in the reference's order (``repro/rlhf/trainer.py:
+    309-334``): drop, **park** the trees the next phase does not touch,
+    gc and ``empty_cache`` (per policy), record, reset the peak, then
+    **fetch** the next phase's trees. Every record holds ``host_bytes``
+    (the lot's parked bytes); a boundary's also ``park_seconds`` and
+    ``fetch_seconds`` with the bytes each moved (``park_bytes``,
+    ``fetch_bytes``), apart from ``hygiene_seconds`` and all within
+    ``seconds``, which so runs to the end of the fetch."""
     policy: str = "after_inference"
     device: torch.device = field(default_factory=default_device)
     tracked: Optional[Callable[[], Any]] = None
     records: List[dict] = field(default_factory=list)
+    offload: Optional[OffloadExecutor] = None
 
     def __post_init__(self):
         if self.policy not in MEMORY_POLICIES:
@@ -103,31 +123,64 @@ class PhaseMemoryManager:
         else:
             live = nbytes(self.tracked()) if self.tracked else 0
             reserved = peak = None
+        host = 0 if self.offload is None else self.offload.lot.parked_bytes()
         rec = {"phase": phase, "kind": kind, "live_bytes": live,
                "reserved_bytes": reserved, "peak_bytes": peak,
-               "seconds": now - self._mark, "t": time.time(), **extra}
+               "host_bytes": host, "seconds": now - self._mark,
+               "t": time.time(), **extra}
         self._mark = now
         self.records.append(rec)
         return rec
 
-    def sample(self, phase: str, kind: str = "inference") -> dict:
+    def sample(self, phase: str, kind: str = "inference", **extra) -> dict:
         """Mid-phase record (no hygiene, no peak reset): where the live set
         changes inside a phase, as in rollout decode from merged weights."""
-        return self._record(phase, kind, sample=True)
+        return self._record(phase, kind, sample=True, **extra)
+
+    def _moved(self) -> tuple:
+        """(bytes parked, bytes fetched) by the lot so far."""
+        if self.offload is None:
+            return 0, 0
+        st = self.offload.lot.stats
+        return st.bytes_parked_total, st.bytes_fetched_total
+
+    def park_merged(self) -> dict:
+        """Hydra rollout's mid-phase park (``offload="all"``: the trunk's
+        adapted leaves are dead while merged weights serve; the rollout
+        boundary fetches them back) -> its seconds and bytes, for the
+        phase's sample."""
+        t0, (parked0, _) = self._now(), self._moved()
+        self.offload.rollout_merged()
+        return {"park_seconds": self._now() - t0,
+                "park_bytes": self._moved()[0] - parked0}
 
     def boundary(self, phase: str, kind: str, *drop: dict) -> dict:
         for tree in drop:
             tree.clear()
         t0 = self._now()
+        parked0, _ = self._moved()
+        if self.offload is not None:
+            self.offload.park_for_boundary(phase)
+        t1 = self._now()
         if (self.policy == "after_all"
                 or (self.policy == "after_inference" and kind == "inference")
                 or (self.policy == "after_training" and kind == "training")):
             gc.collect()
             if self._cuda:
                 torch.cuda.empty_cache()
-        rec = self._record(phase, kind, hygiene_seconds=self._now() - t0)
+        parked1, fetched1 = self._moved()
+        rec = self._record(phase, kind, hygiene_seconds=self._now() - t1,
+                           park_seconds=t1 - t0, park_bytes=parked1 - parked0,
+                           fetch_seconds=0.0, fetch_bytes=0)
         if self._cuda:
             torch.cuda.reset_peak_memory_stats(self.device)
+        if self.offload is not None:
+            self.offload.fetch_for_boundary(phase)
+            now = self._now()
+            rec["fetch_seconds"] = now - self._mark
+            rec["fetch_bytes"] = self._moved()[1] - fetched1
+            rec["seconds"] += rec["fetch_seconds"]
+            self._mark = now
         return rec
 
 
@@ -147,15 +200,18 @@ class RLHFConfig:
     memory_policy: str = "after_inference"
     engine: str = "separate"        # separate | hydra
     lora_rank: int = 128            # hydra adapter rank (paper grid: 128)
+    # runtime host-offload level (repro_torch.offload): none | optimizer |
+    # roles | all — which role state is parked to host between the phases
+    # that touch it ("all" also parks the hydra trunk's adapted leaves
+    # while merged weights serve rollout)
+    offload: str = "none"
     # the reference's fields for what the port does not have yet: each
     # must stay at its default
-    offload: str = "none"
     spec_decode: bool = False
     capture_buckets: Optional[Sequence[int]] = None
 
 
-_NOT_PORTED = {"offload": "none", "spec_decode": False,
-               "capture_buckets": None}
+_NOT_PORTED = {"spec_decode": False, "capture_buckets": None}
 
 
 class RLHFTrainer:
@@ -200,6 +256,9 @@ class RLHFTrainer:
         self.rollout = Rollout(self.actor, actor_cfg,
                                capacity=rl.prompt_len + rl.gen_len,
                                temperature=rl.temperature, top_k=rl.top_k)
+        self.offload = self.offload_lot = None
+        if rl.offload != "none":
+            self._init_offload(rl)
 
     def _init_separate(self, actor_cfg, critic_cfg, rl, generator, params):
         """Four full models; the actor and critic train every leaf, the
@@ -251,11 +310,89 @@ class RLHFTrainer:
 
     def _tracked(self):
         """What the CPU's live-bytes record counts: the persistent trees
-        and the phase-scoped buffers."""
+        and the phase-scoped buffers, less the parked trees (the lot's
+        host copies, as the reference's numpy parks are not device
+        bytes)."""
         frozen = [self.ref_params, self.reward_params] \
             if self.engine is None else [self.base_params,
                                          self.reward_adapter]
-        return frozen + [self.actor_state, self.critic_state, self._live]
+        trees = frozen + [self.actor_state, self.critic_state, self._live]
+        if self.offload_lot is None:
+            return trees
+        lot = self.offload_lot
+        parked = {id(t) for n in lot.names() for t in leaves(lot.peek(n))}
+        return [t for t in leaves(trees) if id(t) not in parked]
+
+    # ------------------------------------------------------------- offload
+    def _init_offload(self, rl: RLHFConfig):
+        """Runtime host offload: compile the phase plan, bind it to a
+        parking lot over the trainer's state accessors, and do the initial
+        placement (everything rollout does not touch goes to host)."""
+        states = self._offload_states()
+        # a programmatic reward_fn means score_reward never touches the
+        # reward model: park it once at start instead of swapping it
+        # every iteration
+        unused = ("reward_params",) if self.reward_fn is not None else ()
+        plan = OffloadPlan.compile(rl.offload, engine=rl.engine,
+                                   states=states, frozen_unused=unused)
+        self.offload_lot = HostParkingLot(self.device)
+        self.offload = OffloadExecutor(plan, self.offload_lot, states)
+        self.memory.offload = self.offload
+        self.offload.start()
+
+    def _offload_states(self) -> Dict[str, Any]:
+        """name -> (get, set) accessors over the trainer's live trees. The
+        setters repoint every alias (train-state dicts, engine views, the
+        hydra reference), so a parked device tensor keeps no reference."""
+
+        def state_slot(state_attr, slot, alias=None):
+            def get():
+                return getattr(self, state_attr)[slot]
+
+            def set_(v):
+                getattr(self, state_attr)[slot] = v
+                if alias is not None:
+                    self.engine.adapters[alias] = v
+            return get, set_
+
+        def attr(name):
+            return (lambda: getattr(self, name),
+                    lambda v: setattr(self, name, v))
+
+        if self.engine is None:
+            return {
+                "actor_params": state_slot("actor_state", "params"),
+                "actor_opt": state_slot("actor_state", "opt"),
+                "critic_params": state_slot("critic_state", "params"),
+                "critic_opt": state_slot("critic_state", "opt"),
+                "ref_params": attr("ref_params"),
+                "reward_params": attr("reward_params"),
+            }
+
+        # hydra: the swappable unit of the trunk is its adapted-site
+        # subtree, exactly the leaves merge_adapter replaces; the merged
+        # rollout copy aliases everything else, which must stay put
+        sites = self.engine.lora_sites()
+
+        def set_base(subtree):
+            new = LORA.with_adapted_leaves(self.base_params, sites, subtree)
+            self.base_params = self.engine.base_params = new
+            self.ref_params = new          # the reference IS the base
+
+        def set_reward(v):
+            self.reward_adapter = self.engine.adapters["reward"] = v
+
+        return {
+            "base_params": (lambda: LORA.adapted_subtree(self.base_params,
+                                                         sites), set_base),
+            "actor_params": state_slot("actor_state", "params",
+                                       alias="actor"),
+            "actor_opt": state_slot("actor_state", "opt"),
+            "critic_params": state_slot("critic_state", "params",
+                                        alias="critic"),
+            "critic_opt": state_slot("critic_state", "opt"),
+            "reward_params": (lambda: self.reward_adapter, set_reward),
+        }
 
     def persistent_trees(self) -> Dict[str, Any]:
         """The role state that lives across iterations (the reference's
@@ -286,12 +423,14 @@ class RLHFTrainer:
         adapter = self.actor_state["params"]
         merged = self.actor.merge_adapter(self.base_params, adapter)
         self._live["merged_rollout"] = merged
+        parked = self.memory.park_merged() if self.offload is not None \
+            else {}
         try:
             ro = self.rollout.generate(merged, {"tokens": prompts},
                                        self.rl.gen_len, generator)
             # the live set changes inside this phase (merged weights
             # serve): record it before the merged leaves die
-            self.memory.sample("rollout_decode")
+            self.memory.sample("rollout_decode", **parked)
             return ro
         finally:
             delete_merged(merged, adapter.get("lora"))

@@ -28,7 +28,10 @@ from repro_torch.kernels import paged_attention as tpa  # noqa: E402
 from repro_torch.kernels import rmsnorm as trn  # noqa: E402
 from repro_torch.kernels import ssd_scan as tssd  # noqa: E402
 from repro_torch.models import Model  # noqa: E402
+from repro_torch.offload import (HostParkingLot, OffloadExecutor,  # noqa: E402
+                                 OffloadPlan, tree_nbytes)
 from repro_torch.rlhf import Rollout  # noqa: E402
+from repro_torch.tree import leaves  # noqa: E402
 
 pytestmark = pytest.mark.gpu
 
@@ -511,3 +514,90 @@ def test_mamba_greedy_decode_on_card_matches_cpu(cuda):
                             "paged_decode_attention": 0, "ssd_scan": L,
                             "rmsnorm": (2 * L + 1) * 16,
                             "flash_attention_bwd": 0, "rmsnorm_bwd": 0}
+
+
+# ------------------------------------------------------------ host offload
+def test_offload_pinned_round_trip_is_bit_for_bit(cuda):
+    """A tree of bf16, fp32 (trainable) and int64 leaves and a Python int
+    parks into one pinned buffer the size of its bytes (up to each leaf's
+    alignment) and comes back bit for bit, the trainable leaf still
+    trainable; a second park reuses the buffer."""
+    g = torch.Generator(device=cuda).manual_seed(0)
+    tree = {"w": _randn(g, 1000, 77, dt="bf16", device=cuda),
+            "b": [torch.randn(5, generator=g, device=cuda).requires_grad_(),
+                  3],
+            "m": torch.arange(10, device=cuda)}
+    want = [t.detach().clone() for t in leaves(tree)]
+    lot = HostParkingLot(cuda)
+    lot.park("t", tree)
+    host = list(leaves(lot.peek("t")))
+    assert all(t.device.type == "cpu" and t.is_pinned() for t in host)
+    assert 0 <= lot.pinned_bytes() - tree_nbytes(tree) < 8 * len(host)
+    buf = lot._buffers["t"].data_ptr()
+    lot.prefetch("t")
+    got = lot.fetch("t")
+    assert got["b"][1] == 3 and got["b"][0].requires_grad
+    for a, b in zip(leaves(got), want):
+        assert a.device == b.device and a.dtype == b.dtype
+        assert torch.equal(a.detach().view(torch.uint8) if a.dim() else a,
+                           b.view(torch.uint8) if b.dim() else b)
+    lot.park("t", got)
+    assert lot._buffers["t"].data_ptr() == buf
+
+
+def test_offload_park_frees_device_bytes(cuda):
+    """Parking a state through the executor gives ``memory_allocated`` back
+    its bytes once the setter drops the last device reference; the fetch
+    takes them again."""
+    state = {"params": {"w": torch.randn(1 << 20, device=cuda),
+                        "v": torch.randn(3, 1 << 18, device=cuda)}}
+    nb = tree_nbytes(state["params"])
+    plan = OffloadPlan.compile("roles", engine="separate",
+                               states=("actor_params",))
+    ex = OffloadExecutor(plan, HostParkingLot(cuda), {"actor_params": (
+        lambda: state["params"], lambda v: state.__setitem__("params", v))})
+    torch.cuda.synchronize()
+    before = torch.cuda.memory_allocated()
+    ex.park_for_boundary("rollout")          # score_reward: not the actor's
+    assert torch.cuda.memory_allocated() == before - nb
+    ex.fetch_for_boundary("score_ref")       # score_values: still parked
+    assert torch.cuda.memory_allocated() == before - nb
+    ex.fetch_for_boundary("score_values")    # score_old_logp: the actor's
+    assert torch.cuda.memory_allocated() == before
+    assert state["params"]["w"].is_cuda
+
+
+def test_offload_parked_tree_reached_by_a_forward_raises(cuda):
+    """While parked, a tree's stand-in is pinned host memory, which the
+    card could read over the bus: a forward that reaches it raises
+    instead, as does every kernel wrapper handed a host tensor."""
+    cfg = dataclasses.replace(get_config("llama3_2_3b").smoke(),
+                              num_kv_heads=2)
+    model = Model(cfg, device=cuda)
+    params = model.init(torch.Generator(device=cuda).manual_seed(0))
+    lot = HostParkingLot(cuda)
+    lot.park("p", {"layers": params["layers"]})
+    parked = dict(params, **lot.peek("p"))
+    tokens = torch.randint(0, cfg.vocab_size, (2, 16), device=cuda)
+    with pytest.raises((RuntimeError, ValueError)):
+        model.forward(parked, {"tokens": tokens})
+    g = torch.Generator(device=cuda).manual_seed(1)
+    x = _randn(g, 16, 128, dt="bf16", device=cuda)
+    q = _randn(g, 2, 16, 4, 64, dt="bf16", device=cuda)
+    q1 = _randn(g, 2, 4, 64, dt="bf16", device=cuda)
+    host = lambda t: t.cpu().pin_memory()  # noqa: E731
+    pos = torch.zeros(2, 16, dtype=torch.int32, device=cuda)
+    at = torch.full((2,), 15, dtype=torch.int32, device=cuda)
+    calls = [
+        lambda: trn.rmsnorm(x, host(x[0]), 1e-5),
+        lambda: trn.rmsnorm_bwd(x, x[0], host(x), 1e-5),
+        lambda: tfa.flash_attention_fwd(q, host(q), q),
+        lambda: tfab.flash_attention_bwd(q, q, q, q, host(q[..., 0]), q),
+        lambda: tdec.decode_attention(q1, host(q), q, pos, at),
+        lambda: tpa.paged_decode_attention(q1, host(q), q, pos, at),
+        lambda: tssd.ssd_scan(q, host(q[..., 0]), q[..., 0, :], q[..., 0, :],
+                              16),
+    ]
+    for call in calls:
+        with pytest.raises(ValueError):
+            call()

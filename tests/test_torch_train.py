@@ -556,8 +556,7 @@ def test_memory_manager_defaults_to_the_card():
 
 def test_trainer_refuses_what_is_not_ported():
     _, tcfg = small_cfgs()
-    for kw in ({"offload": "all"},
-               {"spec_decode": True}, {"capture_buckets": (8,)}):
+    for kw in ({"spec_decode": True}, {"capture_buckets": (8,)}):
         with pytest.raises(NotImplementedError):
             RLHFTrainer(tcfg, tcfg, RLHFConfig(**{**RL_KW, **kw}),
                         torch.Generator())
@@ -565,7 +564,8 @@ def test_trainer_refuses_what_is_not_ported():
         TS.make_lora_train_step(Model(tcfg, device="cpu"), tcfg, shard=object())
 
 
-@pytest.mark.parametrize("remat,reward", [("full", False), ("none", True)])
+@pytest.mark.parametrize("remat,reward", [("full", False), ("none", True),
+                                          ("offload", True), ("dots", False)])
 def test_ppo_launch_reckoning_matches_a_run(monkeypatch, remat, reward):
     """chip_smoke.py phase 7 asserts the launches of one PPO iteration as
     ``ppo_launches`` reckons them. Here the kernels' wrappers are stood in
