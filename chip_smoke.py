@@ -98,6 +98,25 @@ Phases, each failing with a non-zero exit:
    fetch ms, GB moved and GB/s, live/reserved/peak/host MiB and the state
    on the card; the host's MemTotal/MemAvailable before and after.
 
+10. decode graphs (``rlhf/decode_graph.py``): every decode path eagerly
+   and graphed in this call, from one seed — serving llama3_2_3b 8 x
+   (512 + 64), the paged GRPO rollout (8 x 504, G = 8, 64 generated),
+   mamba2_370m 8 x (2048 + 64), the hydra PPO rollout of llama3_2_3b 8 x
+   (512 + 64) and the separate PPO rollout of opt_1_3b 8 x (256 + 256):
+   tokens and log-probs the same bits (sampled, and greedy), launches and
+   the live bytes after each call equal; ms a decode step both ways, the
+   capture's ms and the graph pool's MiB; the paged step's host time
+   split between the page manager and the rest; one PPO iteration each
+   way on both engines (the rollout boundary's live bytes equal); with
+   ``--profile`` the idle share of a graphed and an eager serving call and
+   of a graphed paged GRPO call, each with the kernels in its trace held
+   to ``ops.launches`` for it.
+
+Phases 3 and 5-9 run graphed, the default on the card: every decode step
+after a call's first replays its captured step (in a call of two decode
+steps or more), and the launch counts they assert are the eager path's
+(``ops.capturing``).
+
 It prints the per-kernel JSON line, the card line, and last the result
 line ``{"ok": true, "device": {...}}``. Imports nothing of JAX.
 """
@@ -2079,6 +2098,294 @@ def offload_ppo(dev, log):
     return out
 
 
+# ---------------------------------------------------------------- phase 10
+def _decode_call(ro, run, graphs, temperature, n):
+    """One generate call of ``n`` new tokens through ``ro``, graphed or
+    eager: ((tokens, log-probs) on the host, synchronised host seconds,
+    launches from 0, live bytes after it with its result dropped, its
+    decode stats)."""
+    ro._graphs, ro.temperature = graphs, temperature
+    torch.cuda.synchronize()
+    ops.reset_launches()
+    t0 = time.perf_counter()
+    res = run(n)
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    bits = (res.tokens.cpu(), res.logp.cpu())
+    del res
+    st = dict(ro.decode_stats)
+    # a call captures only where a replay follows: two decode steps or more
+    if st["graphed"] != (graphs and n >= 3):
+        raise SystemExit(f"asked graphed={graphs}, ran {st}")
+    return (bits, secs, dict(ops.launches), torch.cuda.memory_allocated(),
+            st)
+
+
+def _same_bits(a, b) -> bool:
+    return torch.equal(a[0], b[0]) and torch.equal(a[1], b[1])
+
+
+def decode_graph_path(label, ro, run, gen, log):
+    """One decode path graphed against eager, from one seed, in this call:
+    sampled at the path's temperature in turns (eager, graphed, graphed,
+    eager: the host clock moves between calls) and greedy (graphed,
+    eager). Fails unless every call gives the same tokens and log-probs
+    (per temperature), the same launches and the same live bytes after
+    it, and every graphed step after the first is a replay. ms a decode
+    step: (call - prefill call) / (gen - 1), the prefill call being the
+    same call with one new token (no decode step); graphed with the
+    capture in it, and without it. The paged path's host time a step is
+    split between the page manager and the rest (dispatch and sampling).
+    ``run(n)`` makes one call of n new tokens from the path's seed."""
+    temp = ro.temperature
+    sampled = [_decode_call(ro, run, g, temp, gen)
+               for g in (False, True, True, False)]
+    greedy = [_decode_call(ro, run, g, 0.0, gen) for g in (True, False)]
+    pre = _decode_call(ro, run, True, temp, 1)
+    ro._graphs, ro.temperature = True, temp
+    calls = sampled + greedy
+    for name, group in (("sampled", sampled), ("greedy", greedy)):
+        if not all(_same_bits(c[0], group[0][0]) for c in group):
+            raise SystemExit(f"{label}: {name} tokens or log-probs differ "
+                             f"graphed vs eager")
+    if any(c[2] != calls[0][2] for c in calls):
+        raise SystemExit(f"{label}: launches differ graphed vs eager: "
+                         f"{[c[2] for c in calls]}")
+    if any(c[3] != calls[0][3] for c in calls):
+        raise SystemExit(f"{label}: live bytes after the call differ: "
+                         f"{[c[3] for c in calls]}")
+    for c in calls:
+        st = c[4]
+        if st["replays"] != (gen - 2 if st["graphed"] else 0) or \
+                (st["graphed"] and st["capture_ms"] is None):
+            raise SystemExit(f"{label}: not every graphed step after the "
+                             f"first was a replay: {st}")
+    gst = sampled[1][4]
+    eager_s = (sampled[0][1] + sampled[3][1]) / 2
+    graph_s = (sampled[1][1] + sampled[2][1]) / 2
+    cap_ms = (sampled[1][4]["capture_ms"] + sampled[2][4]["capture_ms"]) / 2
+    per = lambda s: (s - pre[1]) * 1e3 / (gen - 1)  # noqa: E731
+    out = {"path": label, "gen": gen, "same_sampled_bits": True,
+           "same_greedy_bits": True, "launches": calls[0][2],
+           "live_bytes_after": calls[0][3],
+           "call_ms": {"eager": [sampled[0][1] * 1e3, sampled[3][1] * 1e3],
+                       "graphed": [sampled[1][1] * 1e3,
+                                   sampled[2][1] * 1e3]},
+           "prefill_call_ms": pre[1] * 1e3,
+           "eager_step_ms": per(eager_s), "graphed_step_ms": per(graph_s),
+           "graphed_step_ms_without_capture": per(graph_s - cap_ms / 1e3),
+           "capture_ms": cap_ms, "pool_mib": gst["pool_bytes"] / 2**20,
+           "greedy_step_ms": {"graphed": per(greedy[0][1]),
+                              "eager": per(greedy[1][1])},
+           "host_ms_a_step": {
+               "eager": sampled[0][4]["host_ms"] / (gen - 1),
+               "graphed": gst["host_ms"] / (gen - 1)},
+           "greedy_host_ms_a_step": {
+               "graphed": greedy[0][4]["host_ms"] / (gen - 1),
+               "eager": greedy[1][4]["host_ms"] / (gen - 1)},
+           "page_manager_ms_a_step": {
+               "eager": sampled[0][4]["page_manager_ms"] / (gen - 1),
+               "graphed": gst["page_manager_ms"] / (gen - 1)}}
+    log(f"[smoke] decode graph {label}: tokens and log-probs the same bits "
+        f"graphed and eager (sampled at T {temp}, and greedy); launches "
+        f"equal {calls[0][2]}; live after {calls[0][3] / 2**20:.1f} MiB "
+        f"both ways")
+    log(f"[smoke]   ms a decode step: eager {out['eager_step_ms']:.3f}, "
+        f"graphed {out['graphed_step_ms']:.3f} "
+        f"({out['graphed_step_ms_without_capture']:.3f} without the "
+        f"capture); capture {cap_ms:.1f} ms, pool {out['pool_mib']:.1f} MiB"
+        f"; calls eager "
+        f"{sampled[0][1] * 1e3:.1f} / {sampled[3][1] * 1e3:.1f} ms, graphed "
+        f"{sampled[1][1] * 1e3:.1f} / {sampled[2][1] * 1e3:.1f} ms, prefill "
+        f"call {pre[1] * 1e3:.1f} ms")
+    hm, pm = out["host_ms_a_step"], out["page_manager_ms_a_step"]
+    gs, gh = out["greedy_step_ms"], out["greedy_host_ms_a_step"]
+    log(f"[smoke]   host ms a step in the loop (sampled; the sampler's "
+        f"validity check waits for the card): eager {hm['eager']:.3f} "
+        f"(page manager {pm['eager']:.3f}), graphed {hm['graphed']:.3f} "
+        f"(page manager {pm['graphed']:.3f}); greedy (no wait in the "
+        f"loop): ms a step eager {gs['eager']:.3f}, graphed "
+        f"{gs['graphed']:.3f}, of which the loop's host ms eager "
+        f"{gh['eager']:.3f}, graphed {gh['graphed']:.3f}")
+    return out
+
+
+def _trainer_run(tr, prompts, seed):
+    """``run(n)`` for a trainer's rollout phase (``_gen``: the hydra
+    engine's merged weights, or the separate actor's)."""
+    gen_len = tr.rl.gen_len
+
+    def run(n):
+        tr.rl.gen_len = n
+        try:
+            return tr._gen(prompts, torch.Generator(
+                device=prompts.device).manual_seed(seed))
+        finally:
+            tr.rl.gen_len = gen_len
+    return run
+
+
+def _iterations_both_ways(tr, prompts, want, label, log):
+    """One PPO iteration eager, then one graphed, on the same trainer:
+    iteration and rollout ms, and the rollout boundary's live bytes (the
+    adapters move between the two, so this times, it does not compare
+    bits); launches asserted both ways."""
+    g = torch.Generator(device=prompts.device).manual_seed(11)
+    out = {}
+    n = 8 if tr.engine is not None else 7
+    for graphs in (False, True):
+        tr.rollout._graphs = graphs
+        secs, _, _, recs = _run_ppo(tr, prompts, g, want,
+                                    f"{label} graphed={graphs}", n)
+        ro = [r for r in recs if r["phase"] == "rollout"][0]
+        dec = [r for r in recs if r["phase"] == "rollout_decode"]
+        out["graphed" if graphs else "eager"] = {
+            "seconds": secs, "rollout_ms": (ro["seconds"] + sum(
+                r["seconds"] for r in dec)) * 1e3,
+            "rollout_live_bytes": ro["live_bytes"]}
+    tr.rollout._graphs = True
+    e, gr = out["eager"], out["graphed"]
+    log(f"[smoke]   {label} iteration: eager {e['seconds'] * 1e3:.1f} ms "
+        f"(rollout {e['rollout_ms']:.1f}), graphed "
+        f"{gr['seconds'] * 1e3:.1f} ms (rollout {gr['rollout_ms']:.1f}); "
+        f"live at the rollout boundary {e['rollout_live_bytes']} / "
+        f"{gr['rollout_live_bytes']} bytes")
+    if e["rollout_live_bytes"] != gr["rollout_live_bytes"]:
+        raise SystemExit(f"{label}: live bytes at the rollout boundary "
+                         f"differ graphed vs eager")
+    return out
+
+
+def profiled_call(label, ro, run, graphs, log):
+    """One profiled call of ``GEN`` new tokens through ``ro``, graphed or
+    eager. The first-kind kernels the trace holds, per wrapper, must equal
+    ``ops.launches`` for the call: on a graphed call those counts are the
+    capture's record added once a replay, so this holds them to what the
+    card ran."""
+    ro._graphs = graphs
+    ops.reset_launches()
+    prof, _ = profile_call(lambda: run(GEN))
+    want = {w: ops.launches[w] for w in KERNEL_FUNCS}
+    seen = {w: prof["port"].get(w, {}).get("calls", 0) for w in KERNEL_FUNCS}
+    if seen != want:
+        raise SystemExit(f"{label}: kernels in the trace {seen} differ from "
+                         f"ops.launches {want}")
+    print_profile(label, prof)
+    log(f"[smoke]   {label}: the trace's kernels equal ops.launches "
+        f"{ {w: n for w, n in want.items() if n} }")
+    return prof
+
+
+def decode_graphs(dev, log, profile=False):
+    """Phase 10: every decode path eagerly and graphed in this call, from
+    one seed (``decode_graph_path``): serving llama3_2_3b 8 x (512 + 64),
+    the paged GRPO rollout (8 prompts x 504, G = 8, 64 generated), Mamba2
+    mamba2_370m 8 x (2048 + 64), the hydra PPO rollout of llama3_2_3b 8 x
+    (512 + 64) and the separate PPO rollout of opt_1_3b 8 x (256 + 256);
+    for the two PPO paths also one iteration each way. With ``profile``,
+    the device's idle share over a graphed and an eager serving call."""
+    out = {}
+    cfg = get_config("llama3_2_3b")
+    model = Model(cfg, device=dev)
+    params = model.init(torch.Generator(device=dev).manual_seed(0))
+    ids = torch.from_numpy(next(PromptDataset(synthetic_instruction_prompts(
+        BATCH, seed=0), PROMPT).batches(BATCH, seed=0)) % cfg.vocab_size
+    ).long().to(dev)
+    ro = Rollout(model, cfg, capacity=PROMPT + GEN, temperature=0.8,
+                 top_k=serve.TOP_K)
+    run = lambda n: ro.generate(  # noqa: E731
+        params, {"tokens": ids}, n, torch.Generator(device=dev).manual_seed(1))
+    out["serve"] = decode_graph_path("serve llama3_2_3b", ro, run, GEN, log)
+    if profile:
+        for graphs in (True, False):
+            key = "profile_graphed" if graphs else "profile_eager"
+            prof = profiled_call(f"serving request, {key[8:]}", ro, run,
+                                 graphs, log)
+            out["serve"][key] = {k: prof[k] for k in (
+                "profiled_wall_s", "kernel_busy_s", "idle_share")}
+        ro._graphs = True
+
+    gids = torch.from_numpy(next(PromptDataset(synthetic_instruction_prompts(
+        GROUPS, seed=0), GPROMPT).batches(GROUPS, seed=0)) % cfg.vocab_size
+    ).long().to(dev)
+    pro = Rollout(model, cfg, capacity=GPROMPT + GEN, backend="paged",
+                  page_size=PAGE, temperature=0.8, top_k=serve.TOP_K)
+    prun = lambda n: pro.generate(  # noqa: E731
+        params, {"tokens": gids}, n,
+        torch.Generator(device=dev).manual_seed(1), group_size=GSIZE)
+    out["paged_grpo"] = decode_graph_path("paged GRPO llama3_2_3b", pro,
+                                          prun, GEN, log)
+    log("[smoke] decode graphs: B3's combine and B4's merge were captured "
+        "with their programmatic dependent launch (a toolkit that refused "
+        "it would fail the capture)")
+    if profile:
+        prof = profiled_call("paged GRPO request, graphed", pro, prun, True,
+                             log)
+        out["paged_grpo"]["profile_graphed"] = {k: prof[k] for k in (
+            "profiled_wall_s", "kernel_busy_s", "idle_share")}
+    del model, params, ro, pro
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    mcfg = get_config("mamba2_370m")
+    model = Model(mcfg, device=dev)
+    params = model.init(torch.Generator(device=dev).manual_seed(0))
+    mids = torch.randint(0, mcfg.vocab_size, (MBATCH, MPROMPT), device=dev,
+                         generator=torch.Generator(device=dev).manual_seed(2))
+    ro = Rollout(model, mcfg, capacity=MPROMPT + GEN, temperature=0.8,
+                 top_k=serve.TOP_K)
+    run = lambda n: ro.generate(  # noqa: E731
+        params, {"tokens": mids}, n,
+        torch.Generator(device=dev).manual_seed(1))
+    out["mamba"] = decode_graph_path("mamba2 mamba2_370m", ro, run, GEN, log)
+    del model, params, ro
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    tr, _ = _trainer(cfg, dev, "after_inference")
+    prompts = torch.from_numpy(next(PromptDataset(
+        synthetic_instruction_prompts(PBATCH, seed=1), PPROMPT).batches(
+            PBATCH, seed=1)) % cfg.vocab_size).long().to(dev)
+    out["ppo_hydra"] = decode_graph_path(
+        "hydra PPO rollout llama3_2_3b", tr.rollout,
+        _trainer_run(tr, prompts, 3), GEN, log)
+    out["ppo_hydra"]["iterations"] = _iterations_both_ways(
+        tr, prompts, ppo_launches(cfg, tr.rl, model_reward=True),
+        "hydra PPO", log)
+    del tr
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    tr, _, _ = _separate_trainer(dev, "after_inference")
+    prompts = _sep_prompts(dev, 1, tr.actor_cfg.vocab_size)
+    out["ppo_separate"] = decode_graph_path(
+        "separate PPO rollout opt_1_3b", tr.rollout,
+        _trainer_run(tr, prompts, 3), SGEN, log)
+    out["ppo_separate"]["iterations"] = _iterations_both_ways(
+        tr, prompts, ppo_launches(tr.actor_cfg, tr.rl, model_reward=True,
+                                  critic_cfg=tr.critic_cfg),
+        "separate PPO", log)
+    del tr
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # what one capture stream costs for the process: cuBLAS's workspace
+    # for a stream it has not run on yet (one more stream, measured here)
+    a = torch.randn(64, 64, device=dev)
+    torch.cuda.synchronize()
+    before = torch.cuda.memory_allocated()
+    side = torch.cuda.Stream()
+    with torch.cuda.stream(side):
+        y = a @ a
+    side.synchronize()
+    out["stream_workspace_bytes"] = torch.cuda.memory_allocated() - before \
+        - y.numel() * y.element_size()
+    log(f"[smoke] decode graphs: the capture stream's cuBLAS workspace, "
+        f"allocated once a process: {out['stream_workspace_bytes']} bytes")
+    del y, a
+    return out
+
+
 # each wrapper's CUDA kernels, by function name (no name contains
 # another's): one launch of the first kind per call; B3 and B4 add their
 # combine kernel when they split, B2-bwd its dK/dV and prep (or delta)
@@ -2173,7 +2480,8 @@ def main() -> int:
     ap.add_argument("--profile", action="store_true",
                     help="also profile one dense, one paged GRPO and one "
                          "Mamba2 request and one hydra and one separate "
-                         "PPO iteration with torch.profiler")
+                         "PPO iteration with torch.profiler, and one "
+                         "serving request graphed and eager")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; the port's kernels run only on "
@@ -2319,6 +2627,10 @@ def main() -> int:
     # phase 9: host offload on both engines at full width and depth
     off = offload_ppo(dev, lambda s: print(s, flush=True))
     report["offload"] = off
+    # phase 10: every decode path graphed against eager in this call
+    report["decode_graphs"] = decode_graphs(
+        dev, lambda s: print(s, flush=True), profile=args.profile)
+
     paths = {"serve": launches, "paged_grpo": grpo["launches"],
              "mamba_serve": mamba["launches"], "ppo": ppo["launches"],
              "ppo_separate": sep["launches"],

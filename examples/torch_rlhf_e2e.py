@@ -40,6 +40,12 @@ checkpointing (``offload``: each layer's saved input goes to host):
         --prompt-len 512 --gen-len 64
     PYTHONPATH=src python examples/torch_rlhf_e2e.py --smoke --device cpu \
         --offload all
+
+``--capture-buckets 8,16,32`` pads the rollout's prompts to a rung of that
+compile-bucket ladder, as the reference example's flag does, and prints
+the compile cache's hits, misses and recompiles at the end. On the card
+every rollout's decode steps replay one CUDA graph of the step; the end
+report gives the last rollout's capture ms and graph pool.
 """
 import argparse
 import dataclasses
@@ -96,6 +102,9 @@ def main(argv=None):
     ap.add_argument("--remat", default="",
                     choices=("", "none", "full", "dots", "offload"),
                     help="the configs' own unless given")
+    ap.add_argument("--capture-buckets", default="",
+                    help="comma list of prefill compile-bucket sizes, "
+                         "e.g. 8,16,32")
     ap.add_argument("--device", default=None,
                     help="cuda unless given; cpu runs the plain PyTorch path")
     ap.add_argument("--seed", type=int, default=0)
@@ -125,7 +134,9 @@ def main(argv=None):
         kl_coef=0.0 if small else 0.1, temperature=args.temperature,
         top_k=args.top_k, engine=args.engine,
         lora_rank=args.lora_rank or (16 if small else 128),
-        memory_policy=args.memory_policy, offload=args.offload)
+        memory_policy=args.memory_policy, offload=args.offload,
+        capture_buckets=tuple(int(b) for b in args.capture_buckets.split(","))
+        if args.capture_buckets else None)
     reward_fn = make_target_token_reward(7) if args.reward == "target" \
         else None
     trainer = RLHFTrainer(cfg, critic_cfg, rl,
@@ -156,6 +167,17 @@ def main(argv=None):
         print(f"step {step:4d} reward {m['mean_reward']:+.4f} "
               f"kl {m['kl']:.4f} clip {m['clip_frac']:.3f} "
               f"vf {m['vf_loss']:.4f} ({time.time() - t0:.0f}s)")
+
+    ro = trainer.rollout
+    if ro.prefill_ladder is not None:
+        print(f"compile cache: {ro.compile_cache.stats()}")
+    ds = ro.decode_stats
+    print(f"last rollout: {ds['steps']} decode steps, "
+          + (f"graphed ({ds['replays']} replays, capture "
+             f"{ds['capture_ms']:.1f} ms, pool "
+             f"{ds['pool_bytes'] / 2**20:.1f} MiB)" if ds["graphed"]
+             else "eager")
+          + f", loop host {ds['host_ms']:.1f} ms")
 
     lot = trainer.offload_lot
     if lot is not None:

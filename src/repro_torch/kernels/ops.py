@@ -14,9 +14,16 @@ tensor. Without a gradient the forward is the plain launch serving makes.
 
 ``launches`` counts, per kernel, the launches made through this module
 (and only those), so a run can show that its path went through the
-kernels; :func:`reset_launches` sets every count to 0.
+kernels; :func:`reset_launches` sets every count to 0. The counts are
+kept on the host, and a CUDA graph's replay runs no Python: a capture
+(which records launches and runs none) goes inside :func:`capturing`,
+which takes what it counted back off, and each replay adds it again with
+:func:`add_launches`, so a graphed run counts what an eager one does.
 """
 from __future__ import annotations
+
+import contextlib
+from typing import Dict, Iterator
 
 import torch
 
@@ -37,6 +44,27 @@ launches = {name: 0 for name in KERNELS}
 def reset_launches() -> None:
     for name in KERNELS:
         launches[name] = 0
+
+
+@contextlib.contextmanager
+def capturing() -> Iterator[Dict[str, int]]:
+    """Around a CUDA graph capture: yields a dict that holds, on exit, the
+    launches counted inside, per kernel, and takes them back off
+    ``launches``."""
+    before = dict(launches)
+    made: Dict[str, int] = {}
+    try:
+        yield made
+    finally:
+        for name in KERNELS:
+            made[name] = launches[name] - before[name]
+            launches[name] = before[name]
+
+
+def add_launches(made: Dict[str, int]) -> None:
+    """Count one replay of a graph whose capture counted ``made``."""
+    for name, n in made.items():
+        launches[name] += n
 
 
 def _on_cpu(t: torch.Tensor) -> bool:

@@ -30,8 +30,10 @@ phase does not touch to host memory between the phases that do
 copies on the CPU. It is a pure placement change: the same phases run the
 same kernels on the same values.
 
-Not ported: ZeRO/TP sharding, telemetry and attribution, speculative
-decoding and compile buckets; asking for any of them raises.
+``rl.capture_buckets`` pads the rollout's prompts to a compile-bucket
+rung (``Rollout(capture_buckets=)``), as the reference does. Not ported:
+ZeRO/TP sharding, telemetry and attribution, and speculative decoding;
+asking for any of them raises.
 """
 from __future__ import annotations
 
@@ -205,13 +207,15 @@ class RLHFConfig:
     # that touch it ("all" also parks the hydra trunk's adapted leaves
     # while merged weights serve rollout)
     offload: str = "none"
-    # the reference's fields for what the port does not have yet: each
-    # must stay at its default
+    # the reference's field for what the port does not have yet: it must
+    # stay at its default
     spec_decode: bool = False
+    # prefill compile-bucket ladder for the rollout's prompts (None: pad
+    # nothing)
     capture_buckets: Optional[Sequence[int]] = None
 
 
-_NOT_PORTED = {"spec_decode": False, "capture_buckets": None}
+_NOT_PORTED = {"spec_decode": False}
 
 
 class RLHFTrainer:
@@ -255,7 +259,8 @@ class RLHFTrainer:
                                          tracked=self._tracked)
         self.rollout = Rollout(self.actor, actor_cfg,
                                capacity=rl.prompt_len + rl.gen_len,
-                               temperature=rl.temperature, top_k=rl.top_k)
+                               temperature=rl.temperature, top_k=rl.top_k,
+                               capture_buckets=rl.capture_buckets)
         self.offload = self.offload_lot = None
         if rl.offload != "none":
             self._init_offload(rl)

@@ -1,4 +1,5 @@
-"""The port's CUDA kernels against their plain versions, on a card.
+"""The port's CUDA kernels against their plain versions, on a card, and
+the decode step's CUDA graph against the eager loop.
 
 These tests need an NVIDIA card and nvcc; elsewhere they skip (the kernels
 have no CPU mode). The file imports no JAX, so it runs on a machine that
@@ -31,6 +32,7 @@ from repro_torch.models import Model  # noqa: E402
 from repro_torch.offload import (HostParkingLot, OffloadExecutor,  # noqa: E402
                                  OffloadPlan, tree_nbytes)
 from repro_torch.rlhf import Rollout  # noqa: E402
+from repro_torch.rlhf import decode_graph as DG  # noqa: E402
 from repro_torch.tree import leaves  # noqa: E402
 
 pytestmark = pytest.mark.gpu
@@ -514,6 +516,130 @@ def test_mamba_greedy_decode_on_card_matches_cpu(cuda):
                             "paged_decode_attention": 0, "ssd_scan": L,
                             "rmsnorm": (2 * L + 1) * 16,
                             "flash_attention_bwd": 0, "rmsnorm_bwd": 0}
+
+
+# ---------------------------------------------------- decode CUDA graphs
+def _small(cuda, case):
+    """A small model on the card, random weights from a seed: the GQA
+    smoke model (f32, head_dim 64) or mamba2_370m's smoke config."""
+    cfg = get_config("mamba2_370m").smoke() if case == "mamba" else \
+        dataclasses.replace(get_config("llama3_2_3b").smoke(),
+                            num_kv_heads=2)
+    model = Model(cfg, device=cuda)
+    return cfg, model, model.init(torch.Generator(device=cuda).manual_seed(0))
+
+
+@pytest.mark.parametrize("temperature", [0.0, 0.8], ids=["greedy", "sampled"])
+@pytest.mark.parametrize("case", ["dense", "paged", "mamba"])
+def test_graphed_decode_matches_eager(cuda, case, temperature):
+    """Every decode step after the first replays the captured step: the
+    tokens and log-probs are the eager loop's bits (greedy and sampled;
+    the paged case forks G = 3 off a partial prompt page), ``ops.launches``
+    counts the same, and the live bytes after the call are the same (the
+    graph and its pool went with the caches)."""
+    cfg, model, params = _small(cuda, case)
+    P, G = (64, 1) if case == "mamba" else (21, 3 if case == "paged" else 1)
+    tokens = torch.randint(0, cfg.vocab_size, (2, P), device=cuda,
+                           generator=torch.Generator(device=cuda)
+                           .manual_seed(1))
+    kw = dict(backend="paged", page_size=8) if case == "paged" else {}
+    ro = Rollout(model, cfg, capacity=P + 12, temperature=temperature,
+                 top_k=20 if temperature else 0, **kw)
+    out = []
+    for graphs in (True, False):
+        ro._graphs = graphs
+        torch.cuda.synchronize()
+        ops.reset_launches()
+        res = ro.generate(params, {"tokens": tokens}, 12,
+                          torch.Generator(device=cuda).manual_seed(2),
+                          group_size=G)
+        torch.cuda.synchronize()
+        bits = (res.tokens.cpu(), res.logp.cpu())
+        del res                       # live bytes without this call's result
+        out.append((bits, dict(ops.launches), dict(ro.decode_stats),
+                    torch.cuda.memory_allocated()))
+    (gres, glaunch, gst, glive), (eres, elaunch, est, elive) = out
+    assert gst["graphed"] and gst["replays"] == 10 and gst["capture_ms"] > 0
+    assert gst["pool_bytes"] > 0
+    assert not est["graphed"] and est["replays"] == 0
+    assert torch.equal(gres[0], eres[0]) and torch.equal(gres[1], eres[1])
+    assert glaunch == elaunch
+    L = cfg.num_layers
+    assert glaunch["rmsnorm"] == (2 * L + 1) * 12 + (G > 1)
+    assert glive == elive
+
+
+def test_a_call_without_a_replay_is_not_captured(cuda):
+    """A call of two new tokens makes one decode step, which no replay
+    would follow: it runs eagerly and captures nothing. Three new tokens
+    make two steps: step 1 eager, then the capture, and one replay."""
+    cfg, model, params = _small(cuda, "dense")
+    tokens = torch.randint(0, cfg.vocab_size, (2, 16), device=cuda,
+                           generator=torch.Generator(device=cuda)
+                           .manual_seed(5))
+    ro = Rollout(model, cfg, capacity=24, temperature=0.0)
+    for n, graphed, replays in ((1, False, 0), (2, False, 0), (3, True, 1)):
+        ro.generate(params, {"tokens": tokens}, n, torch.Generator(
+            device=cuda))
+        st = ro.decode_stats
+        assert (st["graphed"], st["replays"]) == (graphed, replays), n
+        assert (st["capture_ms"] is not None) == graphed
+
+
+def test_capture_after_an_offload_cycle_reads_the_new_trees(cuda):
+    """The weights park to pinned host memory and come back at new
+    addresses (the old device tensors are kept, so no address is reused,
+    and then zeroed): the next call's capture reads the fetched trees and
+    gives the eager loop's tokens and log-probs."""
+    cfg, model, params = _small(cuda, "dense")
+    tokens = torch.randint(0, cfg.vocab_size, (2, 24), device=cuda,
+                           generator=torch.Generator(device=cuda)
+                           .manual_seed(3))
+    ro = Rollout(model, cfg, capacity=40, temperature=0.8, top_k=20)
+
+    def run(p, graphs):
+        ro._graphs = graphs
+        return ro.generate(p, {"tokens": tokens}, 10,
+                           torch.Generator(device=cuda).manual_seed(4))
+
+    want = run(params, False)
+    first = run(params, True)
+    lot = HostParkingLot(cuda)
+    lot.park("p", params)
+    lot.prefetch("p")
+    fetched = lot.fetch("p")
+    old = {t.data_ptr() for t in leaves(params)}
+    assert old.isdisjoint(t.data_ptr() for t in leaves(fetched))
+    for t in leaves(params):
+        t.zero_()
+    second = run(fetched, True)
+    assert ro.decode_stats["graphed"] and ro.decode_stats["replays"] == 8
+    for res in (first, second):
+        assert torch.equal(res.tokens, want.tokens)
+        assert torch.equal(res.logp, want.logp)
+
+
+def test_a_capture_that_cannot_succeed_raises(cuda):
+    """A step whose body syncs with the host (``.item()``) runs eagerly
+    at step 1 and cannot be captured: the call raises (no eager fallback),
+    the capture counts no launch, and the card goes on working, the
+    default generator included (a failed capture leaves it marked as
+    capturing until a capture succeeds)."""
+    x = torch.ones(4, device=cuda)
+
+    def body(tok, pos):
+        ops.launches["rmsnorm"] += 1
+        return x * float(pos.sum().item())
+
+    ops.reset_launches()
+    g = DG.DecodeGraph(body, 4, cuda, steps=2)
+    with pytest.raises(RuntimeError):
+        g(torch.zeros(4, dtype=torch.long, device=cuda), 3)
+    assert ops.launches["rmsnorm"] == 1          # step 1's, not the capture's
+    ops.reset_launches()
+    torch.cuda.synchronize()
+    assert float((x * 2).sum()) == 8.0
+    assert torch.rand(3, device=cuda).shape == (3,)
 
 
 # ------------------------------------------------------------ host offload

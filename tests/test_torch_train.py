@@ -556,10 +556,9 @@ def test_memory_manager_defaults_to_the_card():
 
 def test_trainer_refuses_what_is_not_ported():
     _, tcfg = small_cfgs()
-    for kw in ({"spec_decode": True}, {"capture_buckets": (8,)}):
-        with pytest.raises(NotImplementedError):
-            RLHFTrainer(tcfg, tcfg, RLHFConfig(**{**RL_KW, **kw}),
-                        torch.Generator())
+    with pytest.raises(NotImplementedError):
+        RLHFTrainer(tcfg, tcfg, RLHFConfig(**{**RL_KW, "spec_decode": True}),
+                    torch.Generator())
     with pytest.raises(NotImplementedError):
         TS.make_lora_train_step(Model(tcfg, device="cpu"), tcfg, shard=object())
 
