@@ -112,6 +112,23 @@ Phases, each failing with a non-zero exit:
    of a graphed paged GRPO call, each with the kernels in its trace held
    to ``ops.launches`` for it.
 
+11. the paper's memory study on the card (``repro_torch.core``): phase
+   8's OPT pair with decode eager (the simulator models one pool, a graph
+   keeps its own) under each ``empty_cache`` policy, a warm, a timed and
+   a recorded iteration (the last from an emptied cache, with the caching
+   allocator's history on, no stack context); per phase the card's live,
+   reserved and peak bytes and cudaMallocs; the recorded stream replayed
+   through ``core.CachingAllocator`` (the stream's live requested bytes
+   must equal ``requested_bytes.all.current`` at every boundary);
+   ``run_iteration`` on the port's own ``meta`` traces of the same
+   programs beside it, each trace's peak beside the card's and
+   ``train_actor``'s broken down by tag and op; the simulated state on
+   the card and host at each offload level held to phase 9's per
+   boundary, to the MiB; one iteration at remat "full"; R1-R3 as the card
+   shows them beside the simulator; and ``GRPOTrainer`` on opt_1_3b at
+   ``build_grpo_phases``' shape (2 prompts x G 8, 256 + 256, paged),
+   launches asserted (B3 never), beside the simulator.
+
 Phases 3 and 5-9 run graphed, the default on the card: every decode step
 after a call's first replays its captured step (in a call of two decode
 steps or more), and the launch counts they assert are the eager path's
@@ -158,6 +175,11 @@ from repro_torch.offload.compat import pinned_buffer  # noqa: E402
 from repro_torch.paged import PageManager, gather_kv  # noqa: E402
 from repro_torch.rlhf import (ModelEngine, RLHFConfig, RLHFTrainer,  # noqa: E402
                               Rollout)
+from repro_torch.core import (POLICIES, CachingAllocator,  # noqa: E402
+                              MemoryStrategy, OFFLOAD_LEVELS,
+                              RUNTIME_RLHF_PHASE_SEQUENCE, build_grpo_phases,
+                              build_rlhf_phases, run_iteration)
+from repro_torch.rlhf import GRPOConfig, GRPOTrainer  # noqa: E402
 from repro_torch.tree import leaves  # noqa: E402
 from repro_torch.tree import nbytes as tree_nbytes  # noqa: E402
 
@@ -2386,6 +2408,541 @@ def decode_graphs(dev, log, profile=False):
     return out
 
 
+# ---------------------------------------------------------------- phase 11
+# entries the caching allocator's history keeps (an eager separate
+# iteration makes ~2e5); recorded with no stack context
+HISTORY_ENTRIES = 2_000_000
+# GRPO at build_grpo_phases' own shape: 2 prompts x G 8, 256 + 256, paged
+GR_PROMPTS, GR_GROUP, GR_ITERS = 2, 8, 2
+MIB = 2**20
+
+
+def _empties(policy, kind) -> bool:
+    """Whether ``policy`` runs ``empty_cache`` at a boundary of ``kind``."""
+    return policy == "after_all" or policy == f"after_{kind}"
+
+
+def record_stream(run):
+    """``run()`` with the caching allocator's history on (no stack
+    context) -> (its result, the blocks live when recording began as
+    (address, requested bytes), the bytes reserved then, and the trace's
+    alloc / free_completed / segment_alloc / segment_free entries since,
+    in order, as (action, address, bytes, time_us, stream)). The trace's
+    sizes are the requested (unrounded) bytes, its times the host's
+    microseconds since the epoch (checked on torch 2.11 before this
+    relied on them)."""
+    torch.cuda.synchronize()
+    t0 = time.time_ns() // 1000
+    torch.cuda.memory._record_memory_history(
+        enabled="all", context=None, stacks="python",
+        max_entries=HISTORY_ENTRIES)
+    try:
+        start = torch.cuda.memory._snapshot()
+        out = run()
+        torch.cuda.synchronize()
+        snap = torch.cuda.memory._snapshot()
+    finally:
+        torch.cuda.memory._record_memory_history(enabled=None)
+    dev = torch.cuda.current_device()
+    trace = snap["device_traces"][dev]
+    if len(trace) >= HISTORY_ENTRIES:
+        raise SystemExit("memory history full: raise HISTORY_ENTRIES")
+    segs = [s for s in start["segments"] if s["device"] == dev]
+    seeds = [(b["address"], b["requested_size"]) for s in segs
+             for b in s["blocks"] if b["state"] in (
+                 "active_allocated", "active_pending_free")]
+    keep = ("alloc", "free_completed", "segment_alloc", "segment_free")
+    events = [(e["action"], e["addr"], e["size"], e["time_us"], e["stream"])
+              for e in trace if e["action"] in keep and e["time_us"] >= t0]
+    return out, seeds, sum(s["total_size"] for s in segs), events
+
+
+def _block(nb: int) -> int:
+    """The caching allocator's block for a request: 512-byte multiples."""
+    return max(512, -(-nb // 512) * 512)
+
+
+def replay_stream(seeds, reserved0, events, records, policy, capacity):
+    """The card's recorded stream through ``core.CachingAllocator`` (the
+    reference's model, at the card's ``capacity``), seeded with the blocks
+    live when recording began, with ``empty_cache`` at the boundaries
+    ``policy`` names (before the record, as the runtime does). Per
+    boundary record: the stream's live requested bytes, the card's
+    reserved bytes from its segment events and its cudaMallocs in the
+    phase, and the replay's allocated and reserved bytes and cudaMallocs.
+    Over the stream: the card's peak reserved and its fragmentation when
+    it was set (reserved less the live blocks rounded as the allocator
+    rounds, at the cudaMalloc that set it), the streams seen, and the
+    replay's peak reserved, fragmentation at peak and cudaMallocs."""
+    sim = CachingAllocator(capacity=capacity)
+    handles, live, blocks = {}, 0, 0
+    for addr, nb in seeds:
+        handles[addr] = (sim.malloc(nb), nb)
+        live, blocks = live + nb, blocks + _block(nb)
+    sim0 = sim.stats.n_cuda_malloc
+    reserved = peak = reserved0
+    frag = reserved0 - blocks
+    rows, mallocs, streams, i = [], 0, set(), 0
+    last_sim = sim.stats.n_cuda_malloc
+
+    def boundary(rec):
+        nonlocal mallocs, last_sim
+        if _empties(policy, rec["kind"]):
+            sim.empty_cache()
+        rows.append({"phase": rec["phase"], "stream_live": live,
+                     "card_requested": rec["requested_bytes"],
+                     "card_reserved_from_stream": reserved,
+                     "card_reserved": rec["reserved_bytes"],
+                     "card_mallocs": mallocs,
+                     "replay_allocated": sim.allocated,
+                     "replay_reserved": sim.reserved,
+                     "replay_mallocs": sim.stats.n_cuda_malloc - last_sim})
+        mallocs, last_sim = 0, sim.stats.n_cuda_malloc
+
+    for act, addr, size, t, stream in events:
+        while i < len(records) and t > records[i]["t"] * 1e6:
+            boundary(records[i])
+            i += 1
+        streams.add(stream)
+        if act == "alloc":
+            handles[addr] = (sim.malloc(size), size)
+            live, blocks = live + size, blocks + _block(size)
+        elif act == "free_completed":
+            h, nb = handles.pop(addr)
+            sim.free(h)
+            live, blocks = live - nb, blocks - _block(nb)
+        elif act == "segment_alloc":
+            if reserved + size > peak:
+                peak, frag = reserved + size, reserved - blocks
+            reserved += size
+            mallocs += 1
+        else:
+            reserved -= size
+    while i < len(records):
+        boundary(records[i])
+        i += 1
+    st = sim.stats
+    return rows, {"card_peak_reserved": peak, "card_frag_at_peak": frag,
+                  "streams": sorted(streams),
+                  "replay_peak_reserved": st.peak_reserved,
+                  "replay_frag_at_peak": st.frag_at_peak,
+                  "replay_mallocs": st.n_cuda_malloc - sim0,
+                  "replay_peak_allocated": st.peak_allocated}
+
+
+def _sim_rows(result, phases):
+    """The simulator's records mapped onto the runtime's boundaries
+    (``RUNTIME_RLHF_PHASE_SEQUENCE``: its rollout is the simulator's
+    prefill and decode, whose peak is the larger of theirs)."""
+    recs = {r.name: r for r in result.phase_records}
+    out = []
+    for name in phases:
+        if name == "rollout":
+            r = recs["rollout_decode"]
+            peak = max(r.alloc_peak, recs["rollout_prefill"].alloc_peak)
+        else:
+            r, peak = recs[name], recs[name].alloc_peak
+        out.append({"phase": name, "reserved_end": r.reserved_end,
+                    "allocated_end": r.allocated_end, "alloc_peak": peak,
+                    "host_bytes": r.host_bytes,
+                    "state_bytes_end": sum(r.state_bytes_end.values())})
+    return out
+
+
+def _unsliced_peak(trace) -> int:
+    """A trace's peak live bytes without its ``layer_slice`` events: those
+    stand for ZeRO-3's per-layer gathers, which a one-card run makes none
+    of (the simulator scales them to 0 below stage 3)."""
+    live = peak = 0
+    for op, _, nb, tag in trace.events:
+        if tag != "layer_slice":
+            live += nb if op == "alloc" else -nb
+            peak = max(peak, live)
+    return peak
+
+
+def _trace_peaks(phases):
+    """Each runtime phase's trace peak without layer slices (the rollout:
+    its prefill's and decode's larger)."""
+    peak = {p.name: _unsliced_peak(p.trace) for p in phases}
+    peak["rollout"] = max(peak.pop("rollout_prefill"),
+                          peak.pop("rollout_decode"))
+    return peak
+
+
+def _study_run(tr, prompts, g, want, policy, label):
+    """One policy on the separate trainer: a warm and a timed iteration
+    (the cache as the last left it: the steady state), then the cache
+    emptied and a recorded iteration (history on), so that the card and
+    the replay of its stream both start with no free cached block -> the
+    timed ms and records, the recorded iteration's records and its
+    stream's replay."""
+    tr.memory.policy = policy
+    _run_ppo(tr, prompts[0], g, want, f"{label} warm", 7)
+    secs, _, _, steady = _run_ppo(tr, prompts[1], g, want, f"{label} timed",
+                                  7)
+    steady = [dict(r) for r in steady]
+    gc.collect()
+    torch.cuda.empty_cache()
+    (_, _, _, recs), seeds, reserved0, events = record_stream(
+        lambda: _run_ppo(tr, prompts[2], g, want, f"{label} recorded", 7))
+    recs = [dict(r) for r in recs]
+    return {"policy": policy, "ms": secs * 1e3, "steady": steady,
+            "records": recs, "n_events": len(events), "seeds": len(seeds),
+            "reserved_at_start": reserved0,
+            "replay": replay_stream(seeds, reserved0, events, recs, policy,
+                                    torch.cuda.mem_get_info()[1])}
+
+
+def _print_study(label, run, sim_rows, trace_peak, state, log):
+    """Per phase of the recorded iteration: the card (live, reserved, peak
+    MiB; cudaMallocs), the replay of its own stream (allocated, reserved
+    MiB; cudaMallocs), and the simulator on the port's traces (allocated,
+    reserved, peak MiB); then the card's peak above the state and above
+    what was live when the phase began, beside the trace's peak; and the
+    reserved MiB of the timed (steady-state) iteration."""
+    rows, _ = run["replay"]
+    log(f"[smoke] {label} ({run['ms']:.1f} ms timed): card live / reserved "
+        f"/ peak MiB, cudaMallocs | replay of its stream allocated / "
+        f"reserved MiB, cudaMallocs | simulator on the port's traces "
+        f"allocated / reserved / peak MiB | peak MiB above the state, above "
+        f"the phase's first live bytes: card, card, trace | steady reserved")
+    start = run["records"][-1]["live_bytes"]
+    for rec, row, sim, st in zip(run["records"], rows, sim_rows,
+                                 run["steady"]):
+        log(f"  {rec['phase']:15s} {rec['live_bytes'] / MIB:9.1f} "
+            f"{rec['reserved_bytes'] / MIB:9.1f} {rec['peak_bytes'] / MIB:9.1f}"
+            f" {row['card_mallocs']:4d} | {row['replay_allocated'] / MIB:9.1f}"
+            f" {row['replay_reserved'] / MIB:9.1f} {row['replay_mallocs']:4d} "
+            f"| {sim['allocated_end'] / MIB:9.1f} {sim['reserved_end'] / MIB:9.1f}"
+            f" {sim['alloc_peak'] / MIB:9.1f} | "
+            f"{(rec['peak_bytes'] - state) / MIB:9.1f} "
+            f"{(rec['peak_bytes'] - start) / MIB:9.1f} "
+            f"{trace_peak[rec['phase']] / MIB:9.1f} | "
+            f"{st['reserved_bytes'] / MIB:9.1f}")
+        start = rec["live_bytes"]
+
+
+def grpo_launches(cfg, gen: int) -> dict:
+    """Kernel launches of one GRPO iteration on the paged backend: the
+    rollout (the paged prefill, B2 once a layer and B1 at 2L + 1 and once
+    more for the group's replicated unembedding; B4 once a layer at each
+    of the gen - 1 decode steps, B1 (2L + 1) a step), two scoring forwards
+    (actor and reference: B2 L, B1 2L + 1 each), and the actor's step at
+    remat "none" (its forward, B2-bwd L and B1-bwd at every norm)."""
+    L = cfg.num_layers
+    want = {k: 0 for k in ops.KERNELS}
+    want["flash_attention"] = 4 * L
+    want["paged_decode_attention"] = L * (gen - 1)
+    want["rmsnorm"] = (2 * L + 1) * gen + 1 + 3 * (2 * L + 1)
+    want["flash_attention_bwd"] = L
+    want["rmsnorm_bwd"] = 2 * L + 1
+    return want
+
+
+def even_token_reward(tokens, mask):
+    """The fraction of a row's generated tokens that are even: a
+    programmatic reward that a random model's samples spread, so a group's
+    advantages are not all zero."""
+    hit = (tokens % 2 == 0).float() * mask
+    return hit.sum(-1) / torch.clamp(mask.sum(-1), min=1.0)
+
+
+def grpo_on_card(dev, capacity, log):
+    """(f) ``GRPOTrainer`` on opt_1_3b at ``build_grpo_phases``' shape,
+    paged rollout (eager decode), ``even_token_reward``, GR_ITERS
+    iterations with their launches asserted (B3 never) and a gradient
+    given; the last iteration's records beside ``run_iteration`` on the
+    port's ``build_grpo_phases`` at that shape."""
+    cfg = get_config(SEP_ACTOR)
+    rl = GRPOConfig(prompt_len=SPROMPT, gen_len=SGEN, group_size=GR_GROUP,
+                    kl_coef=0.02, lr=1e-5, temperature=1.0, top_k=50,
+                    rollout_backend="paged", page_size=PAGE)
+    tr, state, _ = _fresh(lambda: GRPOTrainer(
+        cfg, rl, torch.Generator(device=dev).manual_seed(0),
+        even_token_reward))
+    tr.rollout._graphs = False
+    want = grpo_launches(cfg, SGEN)
+    g = torch.Generator(device=dev).manual_seed(7)
+    its = []
+    for it in range(GR_ITERS):
+        prompts = _sep_prompts(dev, 20 + it, cfg.vocab_size)[:GR_PROMPTS]
+        torch.cuda.synchronize()
+        ops.reset_launches()
+        t0 = time.perf_counter()
+        m = tr.train_step(prompts, g)
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        if dict(ops.launches) != want:
+            raise SystemExit(f"GRPO iteration {it}: launches "
+                             f"{dict(ops.launches)} != {want}")
+        if not all(math.isfinite(v) for v in m.values()) or \
+                not m["grad_norm"] > 0:
+            raise SystemExit(f"GRPO iteration {it}: metrics {m}")
+        its.append({"ms": secs * 1e3, "metrics": m,
+                    "records": [dict(r) for r in tr.memory.records[-3:]]})
+    del tr
+    gc.collect()
+    torch.cuda.empty_cache()
+    phases, per = build_grpo_phases(cfg, batch=GR_PROMPTS,
+                                    group_size=GR_GROUP, prompt_len=SPROMPT,
+                                    gen_len=SGEN)
+    sim = run_iteration(phases, per, MemoryStrategy("None"),
+                        "after_inference", ndp=1, trainable_fraction=1.0,
+                        capacity=capacity)
+    recs = {r.name: r for r in sim.phase_records}
+    sim_state = sum(nb for v in per.buffers.values() for nb, _ in v)
+    pairs = (("rollout", "rollout_decode"), ("score", "score_old_logp"),
+             ("train_actor", "train_actor"))
+    log(f"[smoke] GRPO {SEP_ACTOR} paged, {GR_PROMPTS} prompts x G "
+        f"{GR_GROUP}, {SPROMPT} + {SGEN}: metrics " + ", ".join(
+            f"{k} {v:.4g}" for k, v in sorted(its[-1]["metrics"].items())))
+    log(f"[smoke] GRPO: {its[-1]['ms']:.1f} ms, launches "
+        f"{want} (B3 none); state {state / MIB:.1f} MiB on the card, "
+        f"{sim_state / MIB:.1f} simulated. Per phase MiB: card live / "
+        f"reserved / peak | simulator allocated / reserved / peak")
+    rows = []
+    for rec, (name, sname) in zip(its[-1]["records"], pairs):
+        r = recs[sname]
+        peak = max(r.alloc_peak, recs["rollout_prefill"].alloc_peak) \
+            if name == "rollout" else r.alloc_peak
+        rows.append({"phase": name, "card": {k: rec[k] for k in (
+            "live_bytes", "reserved_bytes", "peak_bytes")},
+            "sim": {"allocated_end": r.allocated_end,
+                    "reserved_end": r.reserved_end, "alloc_peak": peak}})
+        log(f"  {name:12s} {rec['live_bytes'] / MIB:9.1f} "
+            f"{rec['reserved_bytes'] / MIB:9.1f} {rec['peak_bytes'] / MIB:9.1f}"
+            f" | {r.allocated_end / MIB:9.1f} {r.reserved_end / MIB:9.1f} "
+            f"{peak / MIB:9.1f}")
+    return {"launches": want, "state_bytes": state, "sim_state": sim_state,
+            "iterations": its, "rows": rows}
+
+
+def memory_study(dev, log, sep, off):
+    """Phase 11: the paper's memory study on the H100, the separate OPT
+    pair at phase 8's shape (the reward model scoring), decode eager (the
+    simulator models one pool; a graph keeps its own). (a) Per policy of
+    ``POLICIES``: a warm, a timed and a recorded iteration; per phase the
+    card's live, reserved and peak bytes and cudaMallocs, and the timed
+    ms; one iteration at remat "full" against "none". (b) Each recorded
+    iteration's own allocator stream replayed through
+    ``core.CachingAllocator``; hard check: the stream's live requested
+    bytes equal ``requested_bytes.all.current`` at every boundary. (c)
+    ``run_iteration`` on the port's own traces (``build_rlhf_phases`` at
+    this shape) under each policy, the traces' peaks beside the card's,
+    and ``train_actor``'s peak broken down by tag and by op. (d) The
+    simulated state on the card and on the host at every boundary of
+    each offload level equal to phase 9's measured to the MiB (hard
+    check). (e) R1-R3 as the card shows them beside the simulator. (f)
+    GRPO on the card (``grpo_on_card``). ``sep``, ``off``: phases 8's and
+    9's reports."""
+    actor_cfg, critic_cfg = get_config(SEP_ACTOR), get_config(SEP_CRITIC)
+    capacity = torch.cuda.mem_get_info()[1]
+    out = {"capacity": capacity}
+    tr, state, _ = _separate_trainer(dev, "after_inference")
+    tr.rollout._graphs = False
+    want = ppo_launches(actor_cfg, tr.rl, model_reward=True,
+                        critic_cfg=critic_cfg)
+    g = torch.Generator(device=dev).manual_seed(7)
+    prompts = [_sep_prompts(dev, 30 + i, actor_cfg.vocab_size)
+               for i in range(3)]
+    runs = {}
+    for policy in POLICIES:
+        runs[policy] = _study_run(tr, prompts, g, want, policy,
+                                  f"memory study {policy}")
+        for row in runs[policy]["replay"][0]:
+            if row["stream_live"] != row["card_requested"]:
+                raise SystemExit(
+                    f"memory study {policy} {row['phase']}: the stream's "
+                    f"live requested bytes {row['stream_live']} != "
+                    f"requested_bytes.all.current {row['card_requested']}")
+    del tr
+    gc.collect()
+    torch.cuda.empty_cache()
+    # R2's checkpointing half: the same pair at remat "full", against the
+    # recorded after_inference iteration above (the pair's remat is "none")
+    tr, _, _ = _fresh(lambda: RLHFTrainer(
+        dataclasses.replace(actor_cfg, remat="full"),
+        dataclasses.replace(critic_cfg, remat="full"),
+        RLHFConfig(engine="separate", **SEP_KW),
+        torch.Generator(device=dev).manual_seed(0)))
+    tr.rollout._graphs = False
+    w = ppo_launches(tr.actor_cfg, tr.rl, model_reward=True,
+                     critic_cfg=tr.critic_cfg)
+    _run_ppo(tr, prompts[0], g, w, "remat full warm", 7)
+    secs, _, _, recs = _run_ppo(tr, prompts[1], g, w, "remat full", 7)
+    remat = {"full": {"ms": secs * 1e3, "peak_allocated": max(
+        r["peak_bytes"] for r in recs)}, "none": {
+        "ms": runs["after_inference"]["ms"], "peak_allocated": max(
+            r["peak_bytes"] for r in runs["after_inference"]["records"])}}
+    del tr
+    gc.collect()
+    torch.cuda.empty_cache()
+    log(f"[smoke] remat full: {remat['full']['ms']:.1f} ms, peak allocated "
+        f"{remat['full']['peak_allocated'] / MIB:.1f} MiB; none "
+        f"{remat['none']['ms']:.1f} ms, "
+        f"{remat['none']['peak_allocated'] / MIB:.1f} MiB")
+    out["remat"] = remat
+
+    # (c) the simulator on the port's own traces at this shape
+    t0 = time.perf_counter()
+    phases, per = build_rlhf_phases(actor_cfg, critic_cfg, batch=SBATCH,
+                                    prompt_len=SPROMPT, gen_len=SGEN,
+                                    naive_generation=False)
+    ck_phases, ck_per = build_rlhf_phases(
+        actor_cfg, critic_cfg, batch=SBATCH, prompt_len=SPROMPT,
+        gen_len=SGEN, naive_generation=False, grad_ckpt=True)
+    out["trace_seconds"] = time.perf_counter() - t0
+    sims = {p: run_iteration(phases, per, MemoryStrategy("None"), p, ndp=1,
+                             trainable_fraction=1.0, capacity=capacity)
+            for p in POLICIES}
+    trace_peak = _trace_peaks(phases)
+    sim_state = sum(nb for v in per.buffers.values() for nb, _ in v)
+    log(f"[smoke] memory study: state {state} bytes on the card, "
+        f"{sim_state} simulated; capacity {capacity}; traces built on meta "
+        f"in {out['trace_seconds']:.1f} s")
+    study = {}
+    for policy in POLICIES:
+        run = runs[policy]
+        sim_rows = _sim_rows(sims[policy], RUNTIME_RLHF_PHASE_SEQUENCE)
+        _print_study(f"memory study, policy {policy}", run, sim_rows,
+                     trace_peak, state, log)
+        rows, whole = run["replay"]
+        log(f"[smoke]   stream: {run['n_events']} events from "
+            f"{run['seeds']} live blocks, streams {whole['streams']}; live "
+            f"requested bytes equal requested_bytes.all.current at all "
+            f"{len(rows)} boundaries. Peak reserved MiB: card "
+            f"{whole['card_peak_reserved'] / MIB:.1f} (fragmentation then "
+            f"{whole['card_frag_at_peak'] / MIB:.1f}), replay "
+            f"{whole['replay_peak_reserved'] / MIB:.1f} "
+            f"({whole['replay_frag_at_peak'] / MIB:.1f}), simulator "
+            f"{sims[policy].peak_reserved / MIB:.1f} "
+            f"({sims[policy].frag_at_peak / MIB:.1f}); cudaMallocs card "
+            f"{sum(r['card_mallocs'] for r in rows)}, replay "
+            f"{whole['replay_mallocs']}")
+        study[policy] = {"ms": run["ms"], "records": run["records"],
+                         "steady": run["steady"],
+                         "replay_rows": rows, "replay": whole,
+                         "sim_rows": sim_rows,
+                         "sim": {k: getattr(sims[policy], k) for k in (
+                             "peak_reserved", "peak_allocated",
+                             "frag_at_peak", "n_cuda_malloc", "time_s")}}
+    out["study"] = study
+    out["trace_peak"] = trace_peak
+    by_tag, by_op = phases[6].trace.live_at_peak()
+    out["train_actor_peak"] = {"by_tag": by_tag, "by_op": by_op,
+                               "inputs": phases[6].trace.inputs}
+    log("[smoke] train_actor's trace at its peak, MiB by tag: " + ", ".join(
+        f"{k} {v / MIB:.1f}" for k, v in sorted(by_tag.items())) +
+        "; inputs (persistent) " + ", ".join(
+        f"{k} {v / MIB:.1f}" for k, v in sorted(
+            phases[6].trace.inputs.items())) + "; by op: " + ", ".join(
+        f"{k} {v / MIB:.1f}" for k, v in sorted(
+            by_op.items(), key=lambda kv: -kv[1])[:8]))
+    eager = study["after_inference"]["records"]
+    graphed = sep["iterations"][-1]["phases"]
+    log("[smoke] phase 8's graphed iteration beside this eager one "
+        "(after_inference), MiB above the state: live / reserved / peak")
+    for rec, row in zip(eager, graphed):
+        log(f"  {rec['phase']:15s} eager {(rec['live_bytes'] - state) / MIB:9.1f}"
+            f" {(rec['reserved_bytes'] - state) / MIB:9.1f} "
+            f"{(rec['peak_bytes'] - state) / MIB:9.1f} | graphed "
+            f"{row['live_mib']:9.1f} {row['reserved_mib']:9.1f} "
+            f"{row['peak_mib']:9.1f}")
+
+    # (d) the simulated offload state against phase 9's measured, per
+    # boundary: on the card (the state less the parked) and on the host
+    # run_iteration leaves out leaves under 4096 bytes: opt_350m's biases
+    # and norm scales, under 0.5 MiB
+    dropped = sum(nb for v in per.buffers.values() for nb, _ in v
+                  if nb < 4096)
+    offload = {}
+    for level in OFFLOAD_LEVELS:
+        run9 = off["separate"][level]
+        sim = run_iteration(phases, per, MemoryStrategy("None", offload=level),
+                            run9["policy"], ndp=1, trainable_fraction=1.0,
+                            capacity=capacity)
+        rows = []
+        for rec, s in zip(run9["records"], _sim_rows(
+                sim, RUNTIME_RLHF_PHASE_SEQUENCE)):
+            card = run9["state_bytes"] - rec["host_bytes"]
+            rows.append({"phase": rec["phase"], "card_state": card,
+                         "sim_state": s["state_bytes_end"],
+                         "card_host": rec["host_bytes"],
+                         "sim_host": s["host_bytes"]})
+            if abs(card - s["state_bytes_end"]) >= MIB or \
+                    abs(rec["host_bytes"] - s["host_bytes"]) >= MIB:
+                raise SystemExit(f"offload {level} {rec['phase']}: card "
+                                 f"state {card} host {rec['host_bytes']}, "
+                                 f"simulated {s['state_bytes_end']} "
+                                 f"{s['host_bytes']}")
+        offload[level] = rows
+        log(f"[smoke] offload {level}: simulated state on the card / host "
+            f"GB per boundary equal phase 9's to the MiB: " + ", ".join(
+                f"{r['phase']} {r['sim_state'] / 1e9:.3f}/"
+                f"{r['sim_host'] / 1e9:.3f}" for r in rows))
+    out["offload"] = offload
+
+    # (e) R1-R3 on the card beside the simulator
+    def frag(r):
+        return r["card_frag_at_peak"] / (r["card_peak_reserved"]
+                                         - r["card_frag_at_peak"])
+    none, ai, aa = (study[p] for p in ("none", "after_inference",
+                                       "after_all"))
+    sim_none, sim_ai, sim_aa = (sims[p] for p in ("none", "after_inference",
+                                                  "after_all"))
+    ck = run_iteration(ck_phases, ck_per, MemoryStrategy("None"),
+                       "after_inference", ndp=1, trainable_fraction=1.0,
+                       capacity=capacity)
+    roles_sim = run_iteration(phases, per, MemoryStrategy(
+        "None", offload="roles"), "after_inference", ndp=1,
+        trainable_fraction=1.0, capacity=capacity)
+    res9 = {k: max(r["reserved_bytes"] for r in off["separate"][k]["records"])
+            for k in ("none", "roles")}
+    claims = {
+        "R1_frag_over_used": {
+            "card": frag(none["replay"]),
+            "replay": none["replay"]["replay_frag_at_peak"] / (
+                none["replay"]["replay_peak_reserved"]
+                - none["replay"]["replay_frag_at_peak"]),
+            "sim": sim_none.frag_at_peak / (sim_none.peak_reserved
+                                            - sim_none.frag_at_peak)},
+        "R3_reserved_cut_after_inference": {
+            "card": 1 - ai["replay"]["card_peak_reserved"]
+            / none["replay"]["card_peak_reserved"],
+            "sim": 1 - sim_ai.peak_reserved / sim_none.peak_reserved},
+        "R3_steady_reserved_cut_after_inference": {
+            "card": 1 - max(r["reserved_bytes"] for r in ai["steady"])
+            / max(r["reserved_bytes"] for r in none["steady"])},
+        "R3_time_overhead_after_inference": {
+            "card": ai["ms"] / none["ms"] - 1,
+            "sim": sim_ai.time_s / sim_none.time_s - 1},
+        "R3_after_all_vs_after_inference_reserved": {
+            "card": aa["replay"]["card_peak_reserved"]
+            / ai["replay"]["card_peak_reserved"] - 1,
+            "sim": sim_aa.peak_reserved / sim_ai.peak_reserved - 1},
+        "R3_after_all_vs_after_inference_time": {
+            "card": aa["ms"] / ai["ms"] - 1,
+            "sim": sim_aa.time_s / sim_ai.time_s - 1},
+        "R2_remat_cut_peak_allocated": {
+            "card": 1 - remat["full"]["peak_allocated"]
+            / remat["none"]["peak_allocated"],
+            "sim": 1 - ck.peak_allocated / sim_ai.peak_allocated},
+        "R2_roles_cut_peak_reserved": {
+            "card": 1 - res9["roles"] / res9["none"],
+            "sim": 1 - roles_sim.peak_reserved / sim_ai.peak_reserved}}
+    out["claims"] = claims
+    out["dropped_small_leaves"] = dropped
+    log("[smoke] R1-R3 on the card (card / simulator on the port's traces; "
+        "R1 also the replay of the card's stream; R2's roles cut from "
+        "phase 9's boundary records, graphed; R1's naive-cache mechanism "
+        "stays a simulator result, the runtime has a fixed cache):")
+    for k, v in claims.items():
+        log(f"  {k:42s} " + ", ".join(f"{n} {x:+.4f}" for n, x in v.items()))
+    out["grpo"] = grpo_on_card(dev, capacity, log)
+    return out
+
+
 # each wrapper's CUDA kernels, by function name (no name contains
 # another's): one launch of the first kind per call; B3 and B4 add their
 # combine kernel when they split, B2-bwd its dK/dV and prep (or delta)
@@ -2630,6 +3187,9 @@ def main() -> int:
     # phase 10: every decode path graphed against eager in this call
     report["decode_graphs"] = decode_graphs(
         dev, lambda s: print(s, flush=True), profile=args.profile)
+    # phase 11: the paper's memory study on the card, and GRPO
+    report["memory_study"] = memory_study(
+        dev, lambda s: print(s, flush=True), sep, off)
 
     paths = {"serve": launches, "paged_grpo": grpo["launches"],
              "mamba_serve": mamba["launches"], "ppo": ppo["launches"],

@@ -29,7 +29,8 @@ r]`` / ``[n_groups, r, d_out]``); the port's are per layer
 :func:`adapter_to_jax`). :func:`trainer_from_jax` builds the port's hydra
 trainer from the reference trainer's trunk and adapters, so the two train
 from the same weights; :func:`separate_trainer_from_jax` builds the port's
-separate (four-model) trainer from the reference's actor and critic
+separate (four-model) trainer, and :func:`grpo_trainer_from_jax` its GRPO
+trainer, from the reference's actor and critic
 trees (a critic's fp32 ``value_head`` is a top-level group like
 ``embed``).
 """
@@ -225,3 +226,14 @@ def separate_trainer_from_jax(actor_np: Dict[str, Any],
               "critic": from_jax(critic_np, critic_cfg, device)}
     return RLHFTrainer(actor_cfg, critic_cfg, rl, reward_fn=reward_fn,
                        params=params)
+
+
+def grpo_trainer_from_jax(actor_np: Dict[str, Any], cfg: ModelConfig, rl,
+                          reward_fn, device=None):
+    """The port's ``GRPOTrainer`` from the reference trainer's
+    ``actor_state["params"]`` (numpy leaves), on ``device``; as in the
+    reference, the frozen reference model is a copy of them."""
+    from repro_torch.rlhf import GRPOTrainer
+    device = default_device(device)
+    return GRPOTrainer(cfg, rl, None, reward_fn,
+                       params=from_jax(actor_np, cfg, device))

@@ -70,6 +70,39 @@ class ModelConfig:
         reps = -(-self.num_layers // len(self.period))
         return tuple((self.period * reps)[: self.num_layers])
 
+    def param_count(self) -> int:
+        """Analytic parameter count (rooflines, 6ND; the simulator's phase
+        flops and weight bytes) — ``repro/configs/base.py:124-172``. The
+        MLA, MoE and encoder branches read fields the port's config does
+        not have; for every config it registers they add nothing."""
+        d, v = self.d_model, self.vocab_size
+        hd = self.resolved_head_dim()
+        total = v * d  # embeddings
+        if not self.tie_embeddings:
+            total += v * d
+        for kind in self.layer_kinds():
+            total += 2 * d  # two norms
+            if kind == ATTN:
+                q = d * self.num_heads * hd
+                kv = 2 * d * self.num_kv_heads * hd
+                o = self.num_heads * hd * d
+                total += q + kv + o
+                if self.qkv_bias:
+                    total += (self.num_heads + 2 * self.num_kv_heads) * hd
+            elif kind == MAMBA:
+                s = self.ssm
+                di = s.d_inner(d)
+                nh = s.n_heads(d)
+                total += d * (2 * di + 2 * s.d_state * 0 + nh)  # in_proj(zx)+dt
+                total += d * 2 * s.d_state * 2                  # B,C projections
+                total += s.d_conv * (di + 2 * s.d_state)        # conv
+                total += di * d                                 # out_proj
+                total += 2 * nh                                 # A_log, D
+            if kind != MAMBA:
+                total += (3 if self.mlp_gated else 2) * d * self.d_ff
+        total += d  # final norm
+        return total
+
     def smoke(self) -> "ModelConfig":
         """Reduced same-family variant for CPU tests: the same widths as
         the JAX package's ``ModelConfig.smoke()`` for the fields kept here."""

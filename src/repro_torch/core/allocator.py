@@ -15,11 +15,13 @@ Faithful to the PyTorch CUDA caching allocator (paper §2.2 / Appendix A):
   * ``empty_cache()`` releases every segment with no live block back to the
     driver (the paper's §3.3 mitigation).
 
-In the reference the simulator is driven by the alloc/free event streams
-of its jaxpr liveness tracer (`repro/core/trace.py`), one stream per RLHF
-phase; in the port it replays the paged KV cache's page events
-(``repro_torch.paged.page_manager.PageManager.replay_into``). A copy of
-``repro/core/allocator.py``: the port imports nothing of ``repro``.
+The simulator is driven by the alloc/free event streams of the liveness
+tracer (``core/trace.py``), one stream per RLHF phase, by the paged KV
+cache's page events (``paged.page_manager.PageManager.replay_into``), and
+on the card by the caching allocator's own recorded stream
+(``chip_smoke.py``). A copy of ``repro/core/allocator.py``, kept as the
+reference's model and not fitted to the real allocator: the port imports
+nothing of ``repro``.
 """
 from __future__ import annotations
 

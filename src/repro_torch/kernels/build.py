@@ -14,6 +14,11 @@ where ``torch.utils.cpp_extension.load`` takes minutes.
 
 Callers launch on ``torch.cuda.current_stream().cuda_stream``; every C
 entry returns ``cudaGetLastError()`` and :func:`check` raises on non-zero.
+
+A wrapper also takes ``meta`` tensors (:data:`DEVICES`): it then allocates
+exactly what its launch allocates, its outputs and scratch, and stops
+before the launch (:func:`shape_only`), so that ``core.trace`` sees the
+kernel's own footprint. A ``meta`` tensor computes nothing anywhere.
 """
 from __future__ import annotations
 
@@ -135,6 +140,15 @@ def dtype_code(t: torch.Tensor) -> int:
     if t.dtype not in DTYPE_CODES:
         raise TypeError(f"kernel takes float32 or bfloat16, got {t.dtype}")
     return DTYPE_CODES[t.dtype]
+
+
+DEVICES = ("cuda", "meta")
+
+
+def shape_only(t: torch.Tensor) -> bool:
+    """True for a ``meta`` tensor: the wrapper has allocated what its launch
+    would and launches nothing."""
+    return t.device.type == "meta"
 
 
 def stream_ptr() -> int:

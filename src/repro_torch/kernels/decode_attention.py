@@ -62,7 +62,8 @@ def decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
     """q [B,H,D]; caches [B,C,K,D]; pos [B,C] int32; position [B] ->
     [B,H,D]."""
     tensors = (q, k_cache, v_cache, pos, position)
-    if q.device.type != "cuda" or any(t.device != q.device for t in tensors):
+    if q.device.type not in build.DEVICES or \
+            any(t.device != q.device for t in tensors):
         raise ValueError("decode kernel needs CUDA tensors on one device, "
                          f"got {[str(t.device) for t in tensors]}")
     B, H, D = q.shape
@@ -90,6 +91,8 @@ def decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
     splits, span = split_plan(B, K, C)
     part = None if splits == 1 else torch.empty(
         B * H * splits * (D + 2), dtype=torch.float32, device=q.device)
+    if build.shape_only(q):
+        return out
     err = _fn()(q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(),
                 pos.data_ptr(), position.data_ptr(), out.data_ptr(),
                 None if part is None else part.data_ptr(),

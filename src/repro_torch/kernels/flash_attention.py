@@ -37,7 +37,7 @@ def flash_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     with ``return_lse``, (out, lse) where lse [B,Sq,H] fp32 is each row's
     log-normaliser, the residual the backward (``flash_attention_bwd``)
     starts from."""
-    if not (q.device.type == "cuda" and k.device == q.device
+    if not (q.device.type in build.DEVICES and k.device == q.device
             and v.device == q.device):
         raise ValueError(f"flash kernel needs CUDA tensors on one device, "
                          f"got {q.device}, {k.device}, {v.device}")
@@ -57,6 +57,8 @@ def flash_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     out = torch.empty_like(q)
     lse = torch.empty((B, Sq, H), dtype=torch.float32, device=q.device) \
         if return_lse else None
+    if build.shape_only(q):
+        return (out, lse) if return_lse else out
     err = _fn()(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
                 None if lse is None else lse.data_ptr(),
                 B, Sq, Sk, H, K, D, int(causal), int(window),

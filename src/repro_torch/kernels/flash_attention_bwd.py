@@ -143,7 +143,8 @@ def flash_attention_bwd(q, k, v, out, lse, dout, *, causal: bool = True,
     ``flash_attention_fwd(return_lse=True)``) -> (dq, dk, dv) in the
     inputs' shapes and dtype."""
     ts = (q, k, v, out, lse, dout)
-    if not all(t.device.type == "cuda" and t.device == q.device for t in ts):
+    if not all(t.device.type in build.DEVICES and t.device == q.device
+               for t in ts):
         raise ValueError("flash backward needs CUDA tensors on one device, "
                          f"got {[str(t.device) for t in ts]}")
     B, Sq, H, D = q.shape
@@ -168,10 +169,13 @@ def flash_attention_bwd(q, k, v, out, lse, dout, *, causal: bool = True,
                          "start on 16-byte boundaries")
     args = (B, Sq, Sk, H, K, D, bool(causal), int(window))
     pl = plan(*args)
-    table = _device_table(q.device, *args)
     sqp = -(-Sq // TILE) * TILE
     scratch = torch.empty(2 * B * H * sqp if kind == "wgmma" else B * Sq * H,
                           dtype=torch.float32, device=q.device)
+    if build.shape_only(q):
+        return dq, dk, dv
+    # uploaded once a shape and kept: not a per-call allocation
+    table = _device_table(q.device, *args)
     err = _fn()(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
                 dout.data_ptr(), lse.data_ptr(), scratch.data_ptr(),
                 table.data_ptr(), dq.data_ptr(), dk.data_ptr(),

@@ -12,6 +12,10 @@ on and an input that requires grad), :class:`FlashAttention` and
 backward is a kernel too (B2-bwd, B1-bwd), or its plain version for a CPU
 tensor. Without a gradient the forward is the plain launch serving makes.
 
+A ``meta`` tensor (``core.trace``'s walk) goes to the kernel's wrapper,
+which allocates what its launch would and launches nothing
+(``build.shape_only``): it counts no launch.
+
 ``launches`` counts, per kernel, the launches made through this module
 (and only those), so a run can show that its path went through the
 kernels; :func:`reset_launches` sets every count to 0. The counts are
@@ -27,6 +31,7 @@ from typing import Dict, Iterator
 
 import torch
 
+from repro_torch.kernels import build as _build
 from repro_torch.kernels import decode_attention as _dec
 from repro_torch.kernels import flash_attention as _fa
 from repro_torch.kernels import flash_attention_bwd as _fab
@@ -71,6 +76,12 @@ def _on_cpu(t: torch.Tensor) -> bool:
     return t.device.type == "cpu"
 
 
+def _count(name: str, t: torch.Tensor) -> None:
+    """One launch of ``name``, made on ``t``'s device (none on ``meta``)."""
+    if not _build.shape_only(t):
+        launches[name] += 1
+
+
 def _needs_grad(*ts) -> bool:
     return torch.is_grad_enabled() and any(t.requires_grad for t in ts)
 
@@ -81,7 +92,7 @@ def _flash_fwd(q, k, v, causal, window, return_lse):
                                   return_lse=return_lse)
     out = _fa.flash_attention_fwd(q, k, v, causal=causal, window=window,
                                   return_lse=return_lse)
-    launches["flash_attention"] += 1
+    _count("flash_attention", q)
     return out
 
 
@@ -107,7 +118,7 @@ class FlashAttention(torch.autograd.Function):
         else:
             dq, dk, dv = _fab.flash_attention_bwd(q, k, v, out, lse, dout,
                                                   **kw)
-            launches["flash_attention_bwd"] += 1
+            _count("flash_attention_bwd", q)
         return dq, dk, dv, None, None
 
 
@@ -123,7 +134,7 @@ def decode_attention(q, k_cache, v_cache, pos, position, *, window: int = 0):
                                          window=window)
     out = _dec.decode_attention(q, k_cache, v_cache, pos, position,
                                 window=window)
-    launches["decode_attention"] += 1
+    _count("decode_attention", q)
     return out
 
 
@@ -133,7 +144,7 @@ def paged_decode_attention(q, k_pool, v_pool, block_tables, position):
                                         position)
     out = _pa.paged_decode_attention(q, k_pool, v_pool, block_tables,
                                      position)
-    launches["paged_decode_attention"] += 1
+    _count("paged_decode_attention", q)
     return out
 
 
@@ -141,7 +152,7 @@ def _rmsnorm_fwd(x, scale, eps):
     if _on_cpu(x):
         return _ref.rmsnorm_ref(x, scale, eps)
     out = _rn.rmsnorm(x, scale, eps)
-    launches["rmsnorm"] += 1
+    _count("rmsnorm", x)
     return out
 
 
@@ -164,7 +175,7 @@ class RMSNorm(torch.autograd.Function):
             dx, ds = _ref.rmsnorm_bwd_ref(x, scale, dy, ctx.eps)
         else:
             dx, ds = _rn.rmsnorm_bwd(x, scale, dy, ctx.eps, dscale=want_ds)
-            launches["rmsnorm_bwd"] += 1
+            _count("rmsnorm_bwd", x)
         return dx, (ds if want_ds else None), None
 
 
@@ -186,5 +197,5 @@ def ssd_scan(x, a, b, c, chunk: int, initial_state=None):
         raise NotImplementedError(
             "the ssd scan kernel starts from a zero state (prefill)")
     out = _ssd.ssd_scan(x, a, b, c, chunk)
-    launches["ssd_scan"] += 1
+    _count("ssd_scan", x)
     return out

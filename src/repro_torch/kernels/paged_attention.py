@@ -128,7 +128,8 @@ def paged_decode_attention(q: torch.Tensor, k_pool: torch.Tensor,
     in [-1, P); position [B] int32 -> [B,H,D]. ``splits`` overrides the
     plan's split count."""
     tensors = (q, k_pool, v_pool, block_tables, position)
-    if q.device.type != "cuda" or any(t.device != q.device for t in tensors):
+    if q.device.type not in build.DEVICES or \
+            any(t.device != q.device for t in tensors):
         raise ValueError("paged decode kernel needs CUDA tensors on one "
                          f"device, got {[str(t.device) for t in tensors]}")
     B, H, D = q.shape
@@ -161,6 +162,8 @@ def paged_decode_attention(q: torch.Tensor, k_pool: torch.Tensor,
                          "needs 16-byte aligned q and pools")
     part = None if n_splits == 1 else torch.empty(
         B * H * n_splits * (D + 2), dtype=torch.float32, device=q.device)
+    if build.shape_only(q):
+        return out
     err = _fn()(q.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(),
                 bt.data_ptr(), position.data_ptr(), out.data_ptr(),
                 None if part is None else part.data_ptr(),

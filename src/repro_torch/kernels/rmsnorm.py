@@ -74,7 +74,7 @@ def _fn():
 def rmsnorm(x: torch.Tensor, scale: torch.Tensor,
             eps: float = 1e-5) -> torch.Tensor:
     """x [..., D] (bf16 or f32), scale [D] -> x's shape and dtype."""
-    if x.device.type != "cuda" or scale.device != x.device:
+    if x.device.type not in build.DEVICES or scale.device != x.device:
         raise ValueError(f"rmsnorm kernel needs CUDA tensors on one device, "
                          f"got {x.device} and {scale.device}")
     D = x.shape[-1]
@@ -87,6 +87,8 @@ def rmsnorm(x: torch.Tensor, scale: torch.Tensor,
     ptrs = x.data_ptr() | scale.data_ptr() | out.data_ptr()
     aligned = ptrs % VEC_BYTES == 0
     pl = plan(rows, D, x.dtype, scale.dtype, aligned)
+    if build.shape_only(x):
+        return out
     err = _fn()(x.data_ptr(), scale.data_ptr(), out.data_ptr(), rows, D,
                 float(eps), build.dtype_code(x), build.dtype_code(scale),
                 pl.per_lane, pl.warps, int(pl.streaming), build.stream_ptr())
@@ -154,7 +156,7 @@ def rmsnorm_bwd(x: torch.Tensor, scale: torch.Tensor, dy: torch.Tensor,
     needs dy and dx aligned too). With dscale, dx and dscale come from one
     pass over x and dy; dscale's sum has a fixed order (no atomics), so two
     calls give the same bits."""
-    if not (x.device.type == "cuda" and scale.device == x.device
+    if not (x.device.type in build.DEVICES and scale.device == x.device
             and dy.device == x.device):
         raise ValueError(f"rmsnorm backward needs CUDA tensors on one device, "
                          f"got {x.device}, {scale.device}, {dy.device}")
@@ -175,6 +177,8 @@ def rmsnorm_bwd(x: torch.Tensor, scale: torch.Tensor, dy: torch.Tensor,
         ds = torch.empty_like(scale)
         part = torch.empty((pl.blocks, D), dtype=torch.float32,
                            device=x.device)
+    if build.shape_only(x):
+        return dx, ds
     ptr = lambda t: None if t is None else t.data_ptr()   # noqa: E731
     err = _bwd_fn()(x.data_ptr(), scale.data_ptr(), dy.data_ptr(),
                     dx.data_ptr(), ptr(ds), ptr(part), rows, D, float(eps),

@@ -68,7 +68,8 @@ def ssd_scan(x: torch.Tensor, a: torch.Tensor, b: torch.Tensor,
     (fp32 or x's dtype), b/c [B,S,N] of x's dtype -> (y [B,S,H,P],
     final_state [B,H,P,N]) in x's dtype, from a zero initial state."""
     tensors = (x, a, b, c)
-    if x.device.type != "cuda" or any(t.device != x.device for t in tensors):
+    if x.device.type not in build.DEVICES or \
+            any(t.device != x.device for t in tensors):
         raise ValueError("ssd scan kernel needs CUDA tensors on one device, "
                          f"got {[str(t.device) for t in tensors]}")
     B, S, H, P = x.shape
@@ -99,6 +100,8 @@ def ssd_scan(x: torch.Tensor, a: torch.Tensor, b: torch.Tensor,
                          f"b/c rows be a multiple of 16 bytes apart (ld {ld})")
     y = torch.empty_like(x)
     fin = torch.empty((B, H, P, N), dtype=x.dtype, device=x.device)
+    if build.shape_only(x):
+        return y, fin
     err = _fn()(x.data_ptr(), a.data_ptr(), b.data_ptr(), c.data_ptr(),
                 y.data_ptr(), fin.data_ptr(), B, S, H, P, N, chunk, ld,
                 ROUTES.index(kind), build.dtype_code(x), build.dtype_code(a),

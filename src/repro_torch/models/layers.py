@@ -31,9 +31,24 @@ from repro_torch.models.lora import lora_delta
 NEG_INF = -1e30
 
 
+class ShapeOnly:
+    """The generator of a model on ``meta``, which has no
+    ``torch.Generator``: the init functions build shapes and dtypes from
+    it, and no values."""
+    device = torch.device("meta")
+
+
+SHAPE_ONLY = ShapeOnly()
+
+
+def draws(generator):
+    """What a random draw takes as its generator: None on ``meta``."""
+    return None if generator.device.type == "meta" else generator
+
+
 def _init(generator: torch.Generator, shape, scale=0.02,
           dtype=torch.float32) -> torch.Tensor:
-    x = torch.randn(shape, generator=generator, dtype=torch.float32,
+    x = torch.randn(shape, generator=draws(generator), dtype=torch.float32,
                     device=generator.device)
     return (scale * x).to(dtype)
 

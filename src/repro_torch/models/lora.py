@@ -54,7 +54,8 @@ def _adaptable_names(parent: Dict[str, Any], path_names) -> List[str]:
 
 
 def _normal(generator: torch.Generator, shape, scale: float, device):
-    x = torch.randn(shape, generator=generator, dtype=torch.float32,
+    draw = None if generator.device.type == "meta" else generator
+    x = torch.randn(shape, generator=draw, dtype=torch.float32,
                     device=generator.device)
     return (scale * x).to(device)
 

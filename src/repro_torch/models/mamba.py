@@ -32,7 +32,7 @@ def init_mamba(generator: torch.Generator, cfg: ModelConfig, dtype) -> dict:
     nh = s.n_heads(d)
     conv_dim = di + 2 * s.d_state
     dev = generator.device
-    u = torch.rand((nh,), generator=generator, device=dev)
+    u = torch.rand((nh,), generator=L.draws(generator), device=dev)
     dt = torch.exp(u * (math.log(0.1) - math.log(0.001)) + math.log(0.001))
     return {
         "in_proj": L._init(generator, (d, 2 * di + 2 * s.d_state + nh),

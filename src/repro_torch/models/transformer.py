@@ -72,11 +72,14 @@ class Model:
                                       cfg.mlp_gated, cfg.num_layers, dt)
         return layer
 
-    def init(self, generator: torch.Generator) -> dict:
+    def init(self, generator: Optional[torch.Generator] = None) -> dict:
         """Random weights from ``generator`` (which lives on the model's
         device). The reference's init draws from ``jax.random``, so the two
         packages' random weights differ; ``bridge.from_jax`` carries the
-        reference's weights across instead."""
+        reference's weights across instead. A model on ``meta`` builds the
+        tree's shapes and dtypes alone (the reference's ``jax.eval_shape``
+        of its init) and takes no generator."""
+        generator = self._generator(generator)
         if generator.device.type != self.device.type:
             raise ValueError(f"generator on {generator.device}, model on "
                              f"{self.device}")
@@ -100,11 +103,20 @@ class Model:
                                      device=self.device)}
         return params
 
+    def _generator(self, generator):
+        if generator is None and self.device.type == "meta":
+            return L.SHAPE_ONLY
+        if generator is None:
+            raise ValueError(f"a model on {self.device} draws its weights "
+                             "from a generator")
+        return generator
+
     # -------------------------------------------------------- lora adapters
-    def init_adapter(self, generator: torch.Generator, params, rank: int, *,
-                     with_value: bool = False) -> dict:
-        """Per-role LoRA adapter over ``params`` (``models/lora.py``)."""
-        return LORA.init_adapter(generator, params, rank,
+    def init_adapter(self, generator: Optional[torch.Generator], params,
+                     rank: int, *, with_value: bool = False) -> dict:
+        """Per-role LoRA adapter over ``params`` (``models/lora.py``); on
+        ``meta`` shapes alone, with no generator."""
+        return LORA.init_adapter(self._generator(generator), params, rank,
                                  with_value=with_value,
                                  d_model=self.cfg.d_model)
 

@@ -72,12 +72,14 @@ class PhaseMemoryManager:
     ``torch.cuda.empty_cache()`` — the paper's insertion. Each record
     holds the phase's wall time since the last record (the device
     synchronised on CUDA), ``live_bytes`` (``torch.cuda.memory_allocated``),
-    ``reserved_bytes`` (``memory_reserved``) and ``peak_bytes``
-    (``max_memory_allocated`` since the last boundary, which resets it);
+    ``reserved_bytes`` (``memory_reserved``), ``peak_bytes``
+    (``max_memory_allocated`` since the last boundary, which resets it) and
+    ``requested_bytes`` (the live tensors' bytes as asked for, unrounded:
+    ``memory_stats()["requested_bytes.all.current"]``);
     a boundary's record also holds the seconds its own hygiene took
     (``hygiene_seconds``, within ``seconds``).
     On the CPU no allocator metric exists: ``live_bytes`` is the bytes of
-    the tensors ``tracked()`` returns, and the other two are None.
+    the tensors ``tracked()`` returns, and the other three are None.
     ``device`` defaults to ``repro_torch.default_device()``: CUDA, raising
     where there is no card.
 
@@ -122,12 +124,15 @@ class PhaseMemoryManager:
             live = live_device_bytes(self.device)
             reserved = torch.cuda.memory_reserved(self.device)
             peak = torch.cuda.max_memory_allocated(self.device)
+            requested = torch.cuda.memory_stats(self.device)[
+                "requested_bytes.all.current"]
         else:
             live = nbytes(self.tracked()) if self.tracked else 0
-            reserved = peak = None
+            reserved = peak = requested = None
         host = 0 if self.offload is None else self.offload.lot.parked_bytes()
         rec = {"phase": phase, "kind": kind, "live_bytes": live,
                "reserved_bytes": reserved, "peak_bytes": peak,
+               "requested_bytes": requested,
                "host_bytes": host, "seconds": now - self._mark,
                "t": time.time(), **extra}
         self._mark = now

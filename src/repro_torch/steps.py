@@ -2,7 +2,8 @@
 LoRA train step of the hydra engine — the port of ``repro/steps.py``
 (``:31-121``, ``_accumulated_grads`` ``:127``, ``make_train_step`` /
 ``init_train_state`` ``:201-297`` unsharded, ``make_lora_train_step`` /
-``init_lora_train_state`` ``:300-395``).
+``init_lora_train_state`` ``:300-395``, ``make_prefill_step`` /
+``make_decode_step`` ``:398-409``).
 
 A step computes its gradients with autograd (attention and norms
 differentiate through the B2-bwd and B1-bwd kernels), clips them by their
@@ -229,3 +230,17 @@ def init_lora_train_state(adapter, optimizer):
     for p in leaves(adapter):
         p.requires_grad_(True)
     return {"params": adapter, "opt": optimizer.init(adapter), "step": 0}
+
+
+def make_prefill_step(model: Model, cfg: ModelConfig, *, capacity: int,
+                      window: int = 0):
+    def prefill_step(params, batch):
+        return model.prefill(params, batch, capacity, window=window)
+    return prefill_step
+
+
+def make_decode_step(model: Model, cfg: ModelConfig, *, window: int = 0):
+    def decode_step(params, caches, token, position):
+        return model.decode_step(params, caches, token, position,
+                                 window=window)
+    return decode_step

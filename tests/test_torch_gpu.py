@@ -727,3 +727,83 @@ def test_offload_parked_tree_reached_by_a_forward_raises(cuda):
     for call in calls:
         with pytest.raises(ValueError):
             call()
+
+
+def _chip_smoke():
+    import pathlib
+    import sys
+    sys.path.insert(0, str(pathlib.Path(__file__).resolve().parents[1]))
+    import chip_smoke
+    return chip_smoke
+
+
+def _small_opt(**kw):
+    return dataclasses.replace(get_config("opt_1_3b").smoke(), num_layers=2,
+                               d_model=128, d_ff=256, vocab_size=64,
+                               num_heads=2, num_kv_heads=2, head_dim=64, **kw)
+
+
+def test_allocator_stream_replays_to_requested_bytes(cuda):
+    """chip_smoke.py phase 11's stream check on a small separate PPO
+    iteration: the caching allocator's recorded alloc / free_completed
+    stream, seeded with the blocks live when recording began, holds at
+    every boundary exactly the bytes ``requested_bytes.all.current``
+    reports; the replay through the simulator ends with the stream's live
+    blocks allocated."""
+    from repro_torch.rlhf import RLHFConfig, RLHFTrainer
+    from repro_torch.rlhf.reward import make_target_token_reward
+    cs = _chip_smoke()
+    cfg = _small_opt(param_dtype="bfloat16")
+    tr = RLHFTrainer(cfg, cfg, RLHFConfig(engine="separate", prompt_len=16,
+                                          gen_len=8, top_k=0),
+                     torch.Generator(device=cuda).manual_seed(0),
+                     reward_fn=make_target_token_reward(7))
+    tr.rollout._graphs = False
+    prompts = torch.randint(0, 64, (4, 16), device=cuda)
+    g = torch.Generator(device=cuda).manual_seed(1)
+    tr.train_step(prompts, g)
+    _, seeds, reserved, events = cs.record_stream(
+        lambda: tr.train_step(prompts, g))
+    recs = tr.memory.records[-7:]
+    rows, whole = cs.replay_stream(seeds, reserved, events, recs,
+                                   tr.rl.memory_policy,
+                                   torch.cuda.mem_get_info()[1])
+    assert [r["stream_live"] for r in rows] == \
+        [r["requested_bytes"] for r in recs]
+    assert [r["card_reserved_from_stream"] for r in rows] == \
+        [r["reserved_bytes"] for r in recs]
+    assert rows[-1]["replay_allocated"] >= rows[-1]["stream_live"]
+    assert len(whole["streams"]) == 1      # eager: one stream, one pool
+
+
+def test_grpo_step_on_card_matches_cpu(cuda):
+    """Two greedy f32 GRPO steps on the paged backend, card against CPU
+    from the same weights: the same tokens' metrics within 1e-4, the
+    launches as ``chip_smoke.grpo_launches`` reckons them."""
+    from repro_torch.rlhf import GRPOConfig, GRPOTrainer
+    from repro_torch.rlhf.reward import make_target_token_reward
+    cfg = _small_opt()
+    rl = GRPOConfig(prompt_len=16, gen_len=6, group_size=4, lr=1e-3,
+                    temperature=0.0, rollout_backend="paged", page_size=4)
+    cpu = GRPOTrainer(cfg, rl, torch.Generator().manual_seed(0),
+                      make_target_token_reward(7))
+    card = GRPOTrainer(cfg, rl, None, make_target_token_reward(7),
+                       params=_to_device(cpu.actor_state["params"], cuda))
+    prompts = torch.randint(0, 64, (2, 16),
+                            generator=torch.Generator().manual_seed(3))
+    for step in range(2):
+        ops.reset_launches()
+        got = card.train_step(prompts.to(cuda), torch.Generator(device=cuda))
+        assert dict(ops.launches) == _chip_smoke().grpo_launches(
+            cfg, rl.gen_len)
+        want = cpu.train_step(prompts, torch.Generator())
+        for k in want:
+            assert abs(got[k] - want[k]) <= 1e-4, (step, k, got[k], want[k])
+
+
+def _to_device(tree, device):
+    if isinstance(tree, dict):
+        return {k: _to_device(v, device) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [_to_device(v, device) for v in tree]
+    return tree.detach().to(device)

@@ -140,14 +140,16 @@ def test_ops_take_the_plain_version_on_cpu_and_count_no_launch():
                                   "ssd", "flash_bwd", "flash_bwd_bf16",
                                   "rmsnorm_bwd"])
 def test_kernel_wrappers_refuse_non_cuda_tensors(call):
-    """A wrapper launches on CUDA tensors or raises; it never computes
-    the plain version itself."""
-    x = torch.zeros(2, 8, 4, 64, device="meta")
-    kv = torch.zeros(2, 8, 2, 64, device="meta")
-    pos = torch.zeros(2, 8, dtype=torch.int32, device="meta")
+    """A wrapper launches on CUDA tensors (on ``meta`` ones it allocates
+    what its launch would and launches nothing: tests/test_torch_core.py)
+    or raises; it never computes the plain version itself. CPU tensors
+    here, which ``kernels/ops.py`` routes to the plain version."""
+    x = torch.zeros(2, 8, 4, 64)
+    kv = torch.zeros(2, 8, 2, 64)
+    pos = torch.zeros(2, 8, dtype=torch.int32)
     with pytest.raises(ValueError, match="CUDA"):
         if call == "rmsnorm":
-            trn.rmsnorm(x, torch.ones(64, device="meta"))
+            trn.rmsnorm(x, torch.ones(64))
         elif call == "flash":
             tfa.flash_attention_fwd(x, kv, kv)
         elif call == "flash_bwd":
@@ -156,20 +158,18 @@ def test_kernel_wrappers_refuse_non_cuda_tensors(call):
             xb, kvb = x.bfloat16(), kv.bfloat16()
             assert tfab.route(xb.dtype, 64) == "wgmma"
             tfab.flash_attention_bwd(xb, kvb, kvb, xb,
-                                     torch.zeros(2, 8, 4, device="meta"), xb)
+                                     torch.zeros(2, 8, 4), xb)
         elif call == "rmsnorm_bwd":
-            trn.rmsnorm_bwd(x, torch.ones(64, device="meta"), x)
-        elif call == "ssd":         # CPU tensors: ops.py's to route
+            trn.rmsnorm_bwd(x, torch.ones(64), x)
+        elif call == "ssd":
             tssd.ssd_scan(torch.zeros(1, 8, 2, 16), torch.zeros(1, 8, 2),
                           torch.zeros(1, 8, 4), torch.zeros(1, 8, 4), 8)
         elif call == "paged":
             tpa.paged_decode_attention(x[:, 0], kv, kv, pos,
-                                       torch.zeros(2, dtype=torch.int32,
-                                                   device="meta"))
+                                       torch.zeros(2, dtype=torch.int32))
         else:
             tdec.decode_attention(x[:, 0], kv, kv, pos,
-                                  torch.zeros(2, dtype=torch.int32,
-                                              device="meta"))
+                                  torch.zeros(2, dtype=torch.int32))
 
 
 def test_build_compiles_each_source_for_sm90a(monkeypatch, tmp_path):

@@ -115,12 +115,15 @@ want = {{"repro_torch.core.allocator", "repro_torch.paged.page_manager",
         "repro_torch.steps", "repro_torch.tree", "repro_torch.core.phases",
         "repro_torch.rlhf.engine", "repro_torch.rlhf.ppo",
         "repro_torch.rlhf.reward", "repro_torch.rlhf.trainer",
-        "repro_torch.configs.paper_models"}}
+        "repro_torch.configs.paper_models", "repro_torch.core.trace",
+        "repro_torch.core.profiler", "repro_torch.core.strategies",
+        "repro_torch.rlhf.grpo"}}
 assert want <= set(names), want - set(names)
 import chip_smoke
-spec = importlib.util.spec_from_file_location(
-    "torch_rlhf_e2e", pathlib.Path({root!r}) / "examples" / "torch_rlhf_e2e.py")
-spec.loader.exec_module(importlib.util.module_from_spec(spec))
+for example in ("torch_rlhf_e2e", "torch_memory_study"):
+    spec = importlib.util.spec_from_file_location(
+        example, pathlib.Path({root!r}) / "examples" / (example + ".py"))
+    spec.loader.exec_module(importlib.util.module_from_spec(spec))
 bad = [m for m, mod in sys.modules.items() if mod is not None
        and (m in ("jax", "repro") or m.startswith(("jax.", "repro.")))]
 assert not bad, bad
