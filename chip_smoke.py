@@ -129,7 +129,24 @@ Phases, each failing with a non-zero exit:
    ``build_grpo_phases``' shape (2 prompts x G 8, 256 + 256, paged),
    launches asserted (B3 never), beside the simulator.
 
-Phases 3 and 5-9 run graphed, the default on the card: every decode step
+12. runtime telemetry (``repro_torch.obs``): phase 8's OPT pair, 2
+   iterations with ``RunTelemetry.create(sim_delta=True, annotate=True)``,
+   the trainer's memory attributor and a flight recorder at watermark
+   0.2: launches asserted, metrics equal to phase 8's same-seed
+   iterations to the bit; 7 phase spans an iteration tiling it; at every
+   record the owner table plus residue equal to ``memory_allocated``, the
+   six state owners their trees' bytes within the allocator's rounding;
+   the simulator's bytes on every span (printed beside the measured, with
+   the owner table); the watermark dump; self-time at most 2% of an
+   iteration; the JSONL rendered by ``launch.report``; then a fresh
+   trainer capped at 0.31 of the card must raise
+   ``torch.cuda.OutOfMemoryError`` in train_actor with its dump. With
+   ``--profile`` the phases must be user annotations of a profiler trace.
+   Files: ``chiprun_out/telemetry.jsonl``, ``telemetry_trace.json``,
+   ``telemetry_report.txt``, ``flight_watermark.json``,
+   ``flight_oom.json``.
+
+Phases 3 and 5-9 and 12 run graphed, the default on the card: every decode step
 after a call's first replays its captured step (in a call of two decode
 steps or more), and the launch counts they assert are the eager path's
 (``ops.capturing``).
@@ -2943,6 +2960,258 @@ def memory_study(dev, log, sep, off):
     return out
 
 
+# ---------------------------------------------------------------- phase 12
+# the flight recorder's watermark: below the boundary live share of phase
+# 8's pair (19.2 of 79.2 GiB), so the first boundary trips it
+WATERMARK = 0.2
+# the OOM cap: between the rollout's reserved (~20.3 GiB) and train_actor's
+# (~32.6 GiB) on the 79.2 GiB card
+OOM_FRACTION = 0.31
+STATE_OWNERS = ("ref_params", "reward_params", "actor_params", "actor_opt",
+                "critic_params", "critic_opt")
+
+
+def _checked_records(tr, dev, seen):
+    """Wrap ``tr.memory._record`` so that each record's owner table plus
+    residue, its live bytes and ``memory_allocated`` read just after it go
+    into ``seen``."""
+    record = tr.memory._record
+
+    def checked(*a, **k):
+        rec = record(*a, **k)
+        seen.append((sum(rec["attrib"].values()) + rec["attrib_unattributed"],
+                     rec["live_bytes"], torch.cuda.memory_allocated(dev),
+                     dict(rec["attrib"]), rec["phase"]))
+        return rec
+    tr.memory._record = checked
+
+
+def _print_telemetry(spans, log):
+    log("[smoke] telemetry phase spans (MiB): measured / simulated live, "
+        "delta | measured / simulated peak, delta | unattributed")
+    for s in spans:
+        a = s.args
+        log(f"  {s.name:15s} {a['measured_bytes'] / MIB:9.1f} "
+            f"{a['sim_bytes'] / MIB:9.1f} {a['sim_delta_bytes'] / MIB:+8.1f} "
+            f"| {a['measured_peak_bytes'] / MIB:9.1f} "
+            f"{a['sim_peak_bytes'] / MIB:9.1f} "
+            f"{(a['measured_peak_bytes'] - a['sim_peak_bytes']) / MIB:+8.1f} "
+            f"| {a['attrib_unattributed'] / MIB:8.1f}")
+
+
+def telemetry_ppo(dev, log, plain=None, profile=False):
+    """Phase 12: runtime telemetry on the card (``repro_torch.obs``) on
+    phase 8's OPT pair and shape, graphed decode, the reward model
+    scoring. (a) Two iterations with ``RunTelemetry.create(sim_delta=True,
+    annotate=True)``, the trainer's attributor and a flight recorder at
+    watermark 0.2, launches asserted (``ppo_launches``): 7 phase spans an
+    iteration in order, tiling it; at every record the owner table plus
+    residue equal to the measured bytes and to ``memory_allocated``; the
+    six state owners each their trees' ``nbytes`` within the allocator's
+    512-byte rounding, together the persistent state; the simulator's
+    bytes on every span; the watermark dump with owners, top buffers and
+    phase history; metrics equal to ``plain`` (phase 8's iterations of the
+    same seeds, or two run here) to the bit; the tracer's self-time at
+    most 2% of the second iteration's wall; the per-record and the full
+    (block) walk timed; the JSONL rendered by ``launch.report``; the
+    JSONL, Chrome trace and dumps written under ``chiprun_out/``. (b) A
+    fresh trainer capped at ``OOM_FRACTION`` of the card: ``train_step``
+    must raise ``torch.cuda.OutOfMemoryError`` in train_actor, dumped
+    with its owners and top buffers. With ``profile``, one more iteration
+    under ``torch.profiler`` must hold every phase name as a user
+    annotation."""
+    from repro_torch.launch import report as RP
+    from repro_torch.obs import FlightRecorder, RunTelemetry
+    actor_cfg, critic_cfg = get_config(SEP_ACTOR), get_config(SEP_CRITIC)
+    rl = RLHFConfig(engine="separate", memory_policy="after_inference",
+                    **SEP_KW)
+    want = ppo_launches(actor_cfg, rl, model_reward=True,
+                        critic_cfg=critic_cfg)
+    prompts = [_sep_prompts(dev, 1 + it, actor_cfg.vocab_size)
+               for it in range(SITERS)]
+    out = {}
+    if plain is None:
+        tr, _, _ = _separate_trainer(dev, "after_inference")
+        g = torch.Generator(device=dev).manual_seed(7)
+        plain = [_run_ppo(tr, p, g, want, "plain", 7)[1] for p in prompts]
+        del tr
+        gc.collect()
+        torch.cuda.empty_cache()
+
+    # (a) two iterations with telemetry
+    fl = FlightRecorder(watermark=WATERMARK, ring=256,
+                        path=str(OUT_DIR / "flight_watermark.json"))
+    tel = RunTelemetry.create(sim_delta=True, annotate=True, flight=fl,
+                              engine="separate", actor=SEP_ACTOR,
+                              critic=SEP_CRITIC, batch=SBATCH,
+                              prompt_len=SPROMPT, gen_len=SGEN)
+    tr, state, _ = _fresh(lambda: RLHFTrainer(
+        actor_cfg, critic_cfg, rl, torch.Generator(device=dev).manual_seed(0),
+        telemetry=tel))
+    trees = tr.persistent_trees()
+    seen = []
+    _checked_records(tr, dev, seen)
+    g = torch.Generator(device=dev).manual_seed(7)
+    iters = []
+    for it, p in enumerate(prompts):
+        self0 = tel.tracer.self_time_s
+        secs, m, launches, _ = _run_ppo(tr, p, g, want,
+                                        f"telemetry iteration {it}", 7)
+        iters.append({"seconds": secs, "metrics": m,
+                      "self_time_s": tel.tracer.self_time_s - self0})
+        if m != plain[it]:
+            raise SystemExit(f"telemetry iteration {it}: metrics {m} != "
+                             f"{plain[it]} without telemetry")
+    t0 = time.perf_counter()
+    quick = tel.attribution.snapshot()
+    t1 = time.perf_counter()
+    full = tel.attribution.snapshot(full=True)
+    t2 = time.perf_counter()
+    walks = {"plain_ms": (t1 - t0) * 1e3, "full_ms": (t2 - t1) * 1e3,
+             "n_owner_storages": quick.n_arrays, "n_blocks": full.n_arrays,
+             "owners_plain": quick.owners, "owners_full": full.owners}
+    log(f"[smoke] telemetry walks: per record {walks['plain_ms']:.2f} ms over "
+        f"{quick.n_arrays} owner storages, full (allocator blocks) "
+        f"{walks['full_ms']:.2f} ms over {full.n_arrays} blocks; owners "
+        f"plain and full differ by " + ", ".join(
+            f"{k} {full.owners[k] - v:+d}" for k, v in quick.owners.items()
+            if full.owners[k] != v))
+    overhead = iters[-1]["self_time_s"] / iters[-1]["seconds"]
+    log(f"[smoke] telemetry iterations: " + ", ".join(
+        f"{r['seconds'] * 1e3:.1f} ms (self {r['self_time_s'] * 1e3:.2f} ms)"
+        for r in iters) + f"; overhead {overhead:.4%} of the second; "
+        f"metrics equal to the run without telemetry to the bit")
+    if overhead > 0.02:
+        raise SystemExit(f"telemetry overhead {overhead:.4f} > 0.02")
+
+    # every record: exact, and the allocator's own figure
+    bad = [s for s in seen if not s[0] == s[1] == s[2]]
+    if len(seen) != 7 * SITERS or bad:
+        raise SystemExit(f"telemetry records: {len(seen)} records, not exact "
+                         f"at {[(s[4], s[:3]) for s in bad]}")
+    rounding = {n: 512 * sum(1 for _ in leaves(trees[n])) for n in trees}
+    for *_, attrib, phase in seen:
+        for n in STATE_OWNERS:
+            nb = tree_nbytes(trees[n])
+            if not nb <= attrib.get(n, 0) <= nb + rounding[n]:
+                raise SystemExit(f"telemetry {phase}: owner {n} "
+                                 f"{attrib.get(n, 0)} for a tree of {nb}")
+        if sum(attrib.get(n, 0) for n in STATE_OWNERS) < tree_nbytes(trees):
+            raise SystemExit(f"telemetry {phase}: state owners below the "
+                             f"state's {tree_nbytes(trees)} bytes")
+    spans = [s for s in tel.tracer.spans if s.cat == "phase"]
+    its = [s for s in tel.tracer.spans if s.cat == "iteration"]
+    n = len(RUNTIME_RLHF_PHASE_SEQUENCE)
+    if [s.name for s in spans] != list(RUNTIME_RLHF_PHASE_SEQUENCE) * SITERS \
+            or len(its) != SITERS:
+        raise SystemExit(f"telemetry spans {[s.name for s in spans]}")
+    for i, it in enumerate(its):
+        mine = spans[i * n:(i + 1) * n]
+        ends = [s.ts_us + s.dur_us for s in mine]
+        if mine[0].ts_us != it.ts_us or any(
+                b.ts_us != e for b, e in zip(mine[1:], ends)) or \
+                ends[-1] > it.ts_us + it.dur_us:
+            raise SystemExit(f"telemetry iteration {i}: phases do not tile")
+    for s in spans:
+        if not {"sim_bytes", "sim_peak_bytes", "sim_delta_bytes"} <= set(
+                s.args):
+            raise SystemExit(f"telemetry {s.name}: no simulator prediction")
+    _print_telemetry(spans[-n:], log)
+    last = spans[-n:]
+    log("[smoke] owners at each boundary of the second iteration (MiB):")
+    for owner in sorted({k for s in last for k in s.args["attrib"]}):
+        log(f"  {owner:16s} " + " ".join(
+            f"{s.args['attrib'].get(owner, 0) / MIB:9.1f}" for s in last))
+    log(f"  {'(unattributed)':16s} " + " ".join(
+        f"{s.args['attrib_unattributed'] / MIB:9.1f}" for s in last))
+    if not fl.dumps:
+        raise SystemExit("telemetry: the watermark never tripped")
+    dump = fl.dumps[0]
+    if not (dump["trigger"] == "watermark" and dump["owners_ranked"]
+            and dump["top_buffers"] and dump["phase_history"]):
+        raise SystemExit(f"telemetry watermark dump: {dump}")
+    log(RP.flight_summary(dump))
+    jsonl = tel.write_jsonl(str(OUT_DIR / "telemetry.jsonl"))
+    tel.write_chrome_trace(str(OUT_DIR / "telemetry_trace.json"))
+    rendered = RP.render(jsonl, show_metrics=True)
+    (OUT_DIR / "telemetry_report.txt").write_text(rendered)
+    log(RP.phase_table(RP.load(jsonl)[1]))
+    out.update(iterations=iters, overhead=overhead, walks=walks,
+               launches=launches, state_bytes=state,
+               spans=[{"name": s.name, **{k: v for k, v in s.args.items()
+                                          if k != "sim_owner_bytes"}}
+                      for s in last],
+               watermark_dump={k: dump[k] for k in (
+                   "phase", "live_bytes", "capacity_bytes", "owners",
+                   "unattributed", "top_buffers")},
+               sim_phase_bytes=tr.memory.sim_phase_bytes)
+    if profile:
+        from torch.profiler import ProfilerActivity, profile as prof_ctx
+        torch.cuda.synchronize()
+        with prof_ctx(activities=[ProfilerActivity.CPU,
+                                  ProfilerActivity.CUDA]) as prof:
+            tr.train_step(prompts[0], g)
+            torch.cuda.synchronize()
+        names = {e.key for e in prof.key_averages()}
+        missing = [p for p in RUNTIME_RLHF_PHASE_SEQUENCE + ("ppo_iteration",)
+                   if p not in names]
+        if missing:
+            raise SystemExit(f"telemetry: no profiler annotation {missing}")
+        log("[smoke] telemetry under torch.profiler: every phase span is a "
+            "user annotation")
+    # the attributor's getters hold the trainer: drop the bundle with it
+    del tr, trees, quick, full, tel
+    gc.collect()
+    torch.cuda.empty_cache()
+    out["oom"] = caught_oom(dev, log, rl, prompts[0])
+    return out
+
+
+def caught_oom(dev, log, rl, prompts):
+    """Phase 12 (b): a fresh trainer of phase 8's pair with telemetry, the
+    process capped at ``OOM_FRACTION`` of the card: ``train_step`` must
+    raise ``torch.cuda.OutOfMemoryError``, and the flight recorder hold one
+    dump of it, in train_actor, with the CUDA message, owners and top
+    buffers; the cap is lifted and the trainer dropped after."""
+    from repro_torch.launch import report as RP
+    from repro_torch.obs import FlightRecorder, RunTelemetry
+    fl = FlightRecorder(path=str(OUT_DIR / "flight_oom.json"))
+    tel = RunTelemetry.create(sim_delta=False, flight=fl)
+    tr, _, _ = _fresh(lambda: RLHFTrainer(
+        get_config(SEP_ACTOR), get_config(SEP_CRITIC), rl,
+        torch.Generator(device=dev).manual_seed(0), telemetry=tel))
+    cap = int(OOM_FRACTION * torch.cuda.mem_get_info()[1])
+    card = torch.cuda.current_device()
+    torch.cuda.empty_cache()
+    torch.cuda.set_per_process_memory_fraction(OOM_FRACTION, card)
+    msg = None
+    try:
+        tr.train_step(prompts, torch.Generator(device=dev).manual_seed(7))
+    except torch.cuda.OutOfMemoryError as e:
+        msg = str(e)
+    finally:
+        torch.cuda.set_per_process_memory_fraction(1.0, card)
+    del tr, tel
+    gc.collect()
+    torch.cuda.empty_cache()
+    if msg is None:
+        raise SystemExit(f"telemetry: no OutOfMemoryError under a cap of "
+                         f"{cap} bytes")
+    (oom,) = fl.dumps
+    if not (oom["trigger"] == "resource_exhausted"
+            and oom["error"] == f"OutOfMemoryError: {msg}"[:2000]
+            and oom["phase"] == "train_actor" and oom["owners"]
+            and oom["top_buffers"]):
+        raise SystemExit(f"telemetry OOM dump: {oom}")
+    log(f"[smoke] OOM under a cap of {cap / MIB:.0f} MiB: raised and "
+        f"re-raised, dumped in {oom['phase']}")
+    log(RP.flight_summary(oom))
+    out = {k: oom[k] for k in ("phase", "error", "live_bytes", "owners",
+                               "unattributed", "top_buffers")}
+    out["cap_bytes"] = cap
+    return out
+
+
 # each wrapper's CUDA kernels, by function name (no name contains
 # another's): one launch of the first kind per call; B3 and B4 add their
 # combine kernel when they split, B2-bwd its dK/dV and prep (or delta)
@@ -3190,12 +3459,18 @@ def main() -> int:
     # phase 11: the paper's memory study on the card, and GRPO
     report["memory_study"] = memory_study(
         dev, lambda s: print(s, flush=True), sep, off)
+    # phase 12: runtime telemetry on phase 8's pair, and a caught OOM
+    report["telemetry"] = telemetry_ppo(
+        dev, lambda s: print(s, flush=True),
+        plain=[r["metrics"] for r in sep["iterations"]],
+        profile=args.profile)
 
     paths = {"serve": launches, "paged_grpo": grpo["launches"],
              "mamba_serve": mamba["launches"], "ppo": ppo["launches"],
              "ppo_separate": sep["launches"],
              "ppo_separate_offload": off["launches"],
-             "ppo_offload": off["hydra_launches"]}
+             "ppo_offload": off["hydra_launches"],
+             "ppo_telemetry": report["telemetry"]["launches"]}
 
     if args.profile:
         prof, table = profile_request(cfg, dev)

@@ -46,9 +46,22 @@ compile-bucket ladder, as the reference example's flag does, and prints
 the compile cache's hits, misses and recompiles at the end. On the card
 every rollout's decode steps replay one CUDA graph of the step; the end
 report gives the last rollout's capture ms and graph pool.
+
+Runtime telemetry (``repro_torch.obs``), the reference example's flags:
+``--metrics-out`` writes the run's JSONL (phase spans with measured and
+simulated bytes and the owner tables, offload spans, metrics),
+``--trace-out`` a Chrome trace (Perfetto), ``--watermark F`` arms the OOM
+flight recorder at that fraction of the card's memory, and
+``--attrib-out`` writes the per-phase owner tables and any flight dumps:
+
+    PYTHONPATH=src python examples/torch_rlhf_e2e.py --smoke --device cpu \
+        --steps 2 --offload all --metrics-out /tmp/m.jsonl \
+        --trace-out /tmp/t.json --watermark 0.9 --attrib-out /tmp/a.json
+    PYTHONPATH=src python -m repro_torch.launch.report /tmp/m.jsonl --metrics
 """
 import argparse
 import dataclasses
+import json
 import pathlib
 import sys
 import time
@@ -108,8 +121,32 @@ def main(argv=None):
     ap.add_argument("--device", default=None,
                     help="cuda unless given; cpu runs the plain PyTorch path")
     ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--metrics-out", default="", metavar="PATH",
+                    help="write the run's telemetry JSONL (spans + metrics; "
+                         "render with python -m repro_torch.launch.report)")
+    ap.add_argument("--trace-out", default="", metavar="PATH",
+                    help="write a Chrome-trace JSON (Perfetto-loadable)")
+    ap.add_argument("--watermark", type=float, default=0.0,
+                    metavar="FRACTION",
+                    help="arm the OOM flight recorder: dump a forensic "
+                         "owner/buffer bundle when live bytes cross this "
+                         "fraction of capacity (or on a CUDA out-of-memory "
+                         "error); 0 disables")
+    ap.add_argument("--attrib-out", default="", metavar="PATH",
+                    help="write the per-phase owner attribution tables + "
+                         "any flight-recorder dumps as JSON (render dumps "
+                         "with python -m repro_torch.launch.report --flight)")
     args = ap.parse_args(argv)
     device = default_device(args.device)
+    telemetry = None
+    if args.metrics_out or args.trace_out or args.watermark \
+            or args.attrib_out:
+        from repro_torch.obs import FlightRecorder, RunTelemetry
+        flight = FlightRecorder(watermark=args.watermark, device=device) \
+            if args.watermark else None
+        telemetry = RunTelemetry.create(
+            engine=args.engine, offload=args.offload,
+            memory_policy=args.memory_policy, flight=flight)
 
     def config(name):
         cfg = get_config(name)
@@ -141,7 +178,7 @@ def main(argv=None):
         else None
     trainer = RLHFTrainer(cfg, critic_cfg, rl,
                           torch.Generator(device=device).manual_seed(args.seed),
-                          reward_fn=reward_fn)
+                          reward_fn=reward_fn, telemetry=telemetry)
     if separate:
         trees = trainer.persistent_trees()
         count = lambda t: sum(x.numel() for x in leaves(t))  # noqa: E731
@@ -205,6 +242,30 @@ def main(argv=None):
               f"{_mib(r['host_bytes'])} "
               f"{r.get('park_seconds', 0) * 1e3:7.1f} "
               f"{r.get('fetch_seconds', 0) * 1e3:7.1f}")
+
+    if telemetry is not None:
+        telemetry.write(args.metrics_out or None, args.trace_out or None)
+        for p in (args.metrics_out, args.trace_out):
+            if p:
+                print("telemetry:", p)
+    if args.attrib_out and telemetry is not None:
+        phases = {}
+        for sp in telemetry.tracer.spans:
+            if sp.cat == "phase" and "attrib" in sp.args:
+                phases[sp.name] = {
+                    "owners": sp.args["attrib"],
+                    "unattributed": sp.args["attrib_unattributed"],
+                    "measured_bytes": sp.args["measured_bytes"],
+                    "sim_delta": sp.args.get("attrib_sim_delta")}
+        fl = telemetry.flight
+        bundle = {"schema": "attribution/v1", "engine": args.engine,
+                  "offload": args.offload,
+                  "final": telemetry.attribution.snapshot().to_record(),
+                  "phases": phases,
+                  "flight_dumps": list(fl.dumps) if fl is not None else []}
+        with open(args.attrib_out, "w") as f:
+            json.dump(bundle, f, indent=1, default=str)
+        print("attribution:", args.attrib_out)
 
 
 if __name__ == "__main__":

@@ -198,34 +198,38 @@ def adapter_to_jax(adapter: dict, cfg: ModelConfig) -> Dict[str, Any]:
 
 
 def trainer_from_jax(base_np: Dict[str, Any], adapters_np: Dict[str, Any],
-                     cfg: ModelConfig, rl, reward_fn=None, device=None):
+                     cfg: ModelConfig, rl, reward_fn=None, device=None,
+                     telemetry=None):
     """The port's hydra ``RLHFTrainer`` from the reference trainer's trunk
     (``trainer.base_params``) and per-role adapters
-    (``trainer.engine.adapters``), all as numpy leaves, on ``device``."""
+    (``trainer.engine.adapters``), all as numpy leaves, on ``device``,
+    with ``telemetry`` (``obs.RunTelemetry``) if given."""
     from repro_torch.rlhf import ModelEngine, RLHFTrainer
     device = default_device(device)
     engine = ModelEngine(
         cfg, None, rank=rl.lora_rank, base_params=from_jax(base_np, cfg, device),
         adapters={role: adapter_from_jax(ad, cfg, device)
                   for role, ad in adapters_np.items()})
-    return RLHFTrainer(cfg, cfg, rl, reward_fn=reward_fn, engine=engine)
+    return RLHFTrainer(cfg, cfg, rl, reward_fn=reward_fn, engine=engine,
+                       telemetry=telemetry)
 
 
 def separate_trainer_from_jax(actor_np: Dict[str, Any],
                               critic_np: Dict[str, Any],
                               actor_cfg: ModelConfig, critic_cfg: ModelConfig,
-                              rl, reward_fn=None, device=None):
+                              rl, reward_fn=None, device=None,
+                              telemetry=None):
     """The port's separate ``RLHFTrainer`` from the reference trainer's
     ``actor_state["params"]`` and ``critic_state["params"]`` (numpy
-    leaves), on ``device``. As in the reference, the reference model is a
-    copy of the actor's initial weights and the reward model one of the
-    critic's."""
+    leaves), on ``device``, with ``telemetry`` if given. As in the
+    reference, the reference model is a copy of the actor's initial
+    weights and the reward model one of the critic's."""
     from repro_torch.rlhf import RLHFTrainer
     device = default_device(device)
     params = {"actor": from_jax(actor_np, actor_cfg, device),
               "critic": from_jax(critic_np, critic_cfg, device)}
     return RLHFTrainer(actor_cfg, critic_cfg, rl, reward_fn=reward_fn,
-                       params=params)
+                       params=params, telemetry=telemetry)
 
 
 def grpo_trainer_from_jax(actor_np: Dict[str, Any], cfg: ModelConfig, rl,

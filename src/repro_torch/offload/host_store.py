@@ -153,6 +153,10 @@ class HostParkingLot:
     def parked_bytes(self) -> int:
         return self.stats.parked_bytes
 
+    def parked_bytes_by_name(self) -> Dict[str, int]:
+        """Each parked tree's host bytes, by name."""
+        return {name: e.nbytes for name, e in self._entries.items()}
+
     def requires_grad(self, name: str) -> List[bool]:
         """Per leaf of parked ``name``, in order: whether its fetch requires
         grad."""

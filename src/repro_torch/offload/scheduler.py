@@ -19,8 +19,12 @@ folded A·B into a rollout copy of the trunk, the trunk's adapted leaves
 are redundant until scoring — ``rollout_merged()`` parks them (the
 ``offload="all"`` level), and the rollout boundary fetches them back.
 
-The reference's ``telemetry=`` (spans and counters per park and fetch)
-is not ported: anything but None raises.
+With ``telemetry=`` (``obs.RunTelemetry``) each boundary's park and
+fetch close an ``offload`` span (``park:<phase>`` / ``fetch:<phase>``)
+with the lot's byte and prefetch-hit deltas, feed the
+``offload_{parked,fetched}_bytes_total`` counters and the
+``offload_host_bytes`` gauge, and note the traffic to the run's flight
+recorder, as the reference's ``:100-185`` do.
 """
 from __future__ import annotations
 
@@ -95,14 +99,48 @@ class OffloadExecutor:
 
     def __init__(self, plan: OffloadPlan, lot: HostParkingLot,
                  states: Dict[str, StateAccessor], *, telemetry=None):
-        if telemetry is not None:
-            raise NotImplementedError("offload telemetry is not ported")
         missing = plan.managed - set(states)
         if missing:
             raise ValueError(f"no accessor for managed states {missing}")
         self.plan = plan
         self.lot = lot
         self.states = states
+        self.telemetry = telemetry          # obs.RunTelemetry | None
+
+    # ------------------------------------------------------------ telemetry
+    def _marks(self) -> Tuple[int, int, int]:
+        st = self.lot.stats
+        return (st.bytes_parked_total, st.bytes_fetched_total,
+                st.n_prefetch_hits)
+
+    def _emit(self, name: str, t0_us: float, parked0: int, fetched0: int,
+              hits0: int) -> None:
+        """One offload span + the PCIe traffic counters, measured as lot
+        stats deltas across the park/fetch window (nothing recomputed)."""
+        tel = self.telemetry
+        st = self.lot.stats
+        parked = st.bytes_parked_total - parked0
+        fetched = st.bytes_fetched_total - fetched0
+        tr = tel.tracer
+        tr.complete(name, "offload", t0_us, tr.now_us() - t0_us,
+                    parked_bytes=parked, fetched_bytes=fetched,
+                    prefetch_hits=st.n_prefetch_hits - hits0,
+                    host_bytes=st.parked_bytes)
+        reg = tel.registry
+        if parked:
+            reg.counter("offload_parked_bytes_total",
+                        "cumulative device->host park traffic").inc(parked)
+        if fetched:
+            reg.counter("offload_fetched_bytes_total",
+                        "cumulative host->device fetch traffic").inc(fetched)
+        reg.gauge("offload_host_bytes",
+                  "bytes currently parked on host").set(st.parked_bytes)
+        # flight-recorder context: a dump replays the recent park/fetch
+        # traffic leading up to the breach
+        fl = getattr(tel, "flight", None)
+        if fl is not None:
+            fl.note("offload", op=name, parked_bytes=parked,
+                    fetched_bytes=fetched, host_bytes=st.parked_bytes)
 
     def start(self) -> None:
         """Initial placement: park everything the first phase (rollout)
@@ -112,7 +150,12 @@ class OffloadExecutor:
     def park_for_boundary(self, completed: str) -> None:
         """Boundary half 1 (before the record): evict managed trees the
         next phase doesn't touch."""
+        if self.telemetry is None:
+            self._park_except(self.plan.next_phase(completed))
+            return
+        t0, marks = self.telemetry.tracer.now_us(), self._marks()
         self._park_except(self.plan.next_phase(completed))
+        self._emit(f"park:{completed}", t0, *marks)
 
     def fetch_for_boundary(self, completed: str) -> None:
         """Boundary half 2 (after the record): bring the next phase's
@@ -121,10 +164,14 @@ class OffloadExecutor:
         nxt = self.plan.next_phase(completed)
         names = [n for n in sorted(self.plan.resident_for(nxt))
                  if n in self.lot]
+        if self.telemetry is not None:
+            t0, marks = self.telemetry.tracer.now_us(), self._marks()
         for name in names:
             self.lot.prefetch(name)
         for name in names:
             self.states[name][1](self.lot.fetch(name))
+        if self.telemetry is not None:
+            self._emit(f"fetch:{nxt}", t0, *marks)
 
     def rollout_merged(self) -> None:
         """Hydra mid-rollout hook: the merged rollout weights now carry the

@@ -31,21 +31,32 @@ copies on the CPU. It is a pure placement change: the same phases run the
 same kernels on the same values.
 
 ``rl.capture_buckets`` pads the rollout's prompts to a compile-bucket
-rung (``Rollout(capture_buckets=)``), as the reference does. Not ported:
-ZeRO/TP sharding, telemetry and attribution, and speculative decoding;
-asking for any of them raises.
+rung (``Rollout(capture_buckets=)``), as the reference does.
+
+``telemetry=`` (``repro_torch.obs.RunTelemetry``; the reference's
+``:130-335``, ``:448-486`` and ``:905-1123``) makes every boundary close a
+``phase`` span with the record's measured bytes, the per-owner attribution
+table (``obs.MemoryAttributor``) and the traced simulator's prediction
+for the phase (``core.build_rlhf_phases`` + ``run_iteration``, replayed
+once at the first ``train_step``), feeds the ``rlhf_*`` metrics, and
+notes each record to the run's ``obs.FlightRecorder``; a caught
+``torch.cuda.OutOfMemoryError`` is dumped with its owners and re-raised.
+Telemetry observes: the same kernels run on the same values. Not ported:
+ZeRO/TP sharding and speculative decoding; asking for either raises.
 """
 from __future__ import annotations
 
 import gc
 import time
+import warnings
 from dataclasses import dataclass, field
-from typing import Any, Callable, Dict, List, Optional, Sequence
+from typing import Any, Callable, Dict, List, Optional, Sequence, Tuple
 
 import torch
 
 from repro_torch import default_device
 from repro_torch.configs.base import ModelConfig
+from repro_torch.core.phases import RUNTIME_RLHF_PHASE_SEQUENCE
 from repro_torch.models import Model
 from repro_torch.models import lora as LORA
 from repro_torch.models.lora import delete_merged
@@ -91,12 +102,35 @@ class PhaseMemoryManager:
     (the lot's parked bytes); a boundary's also ``park_seconds`` and
     ``fetch_seconds`` with the bytes each moved (``park_bytes``,
     ``fetch_bytes``), apart from ``hygiene_seconds`` and all within
-    ``seconds``, which so runs to the end of the fetch."""
+    ``seconds``, which so runs to the end of the fetch.
+
+    With a ``telemetry`` bundle attached (``obs.RunTelemetry``), every
+    boundary also closes one tracer span per runtime phase — carrying the
+    measured bytes of the record it just took (nothing recomputed) and,
+    when the trainer attached ``sim_phase_bytes``, the traced simulator's
+    predicted bytes for that phase and the sim-vs-measured delta — feeds
+    the ``rlhf_phase_*`` metrics, and notes the record to the run's flight
+    recorder before the fetch. Phase spans tile the iteration: each runs
+    from the previous boundary (or ``iteration_start``) to this one. On
+    CUDA a span's ``measured_peak_bytes`` is the record's ``peak_bytes``,
+    the allocator's own peak since the last boundary; on the CPU it is the
+    largest of the phase's records, as in the reference. With an
+    ``attributor`` (``obs.MemoryAttributor``) every record splits its live
+    bytes by owner in one walk, and the record's ``live_bytes`` IS the
+    walk's total, so ``attrib`` and ``attrib_unattributed`` sum to it.
+    ``phase`` is the PPO phase in progress (the OOM dump's), the one after
+    the last boundary in ``RUNTIME_RLHF_PHASE_SEQUENCE``; with
+    ``annotate`` the tracer holds a profiler range open for it."""
     policy: str = "after_inference"
     device: torch.device = field(default_factory=default_device)
     tracked: Optional[Callable[[], Any]] = None
     records: List[dict] = field(default_factory=list)
     offload: Optional[OffloadExecutor] = None
+    telemetry: Optional[Any] = None    # obs.RunTelemetry
+    attributor: Optional[Any] = None   # obs.MemoryAttributor
+    # runtime phase -> {"sim_bytes", "sim_peak_bytes", "sim_owner_bytes"}
+    # from the traced simulator (attached by RLHFTrainer under sim_delta)
+    sim_phase_bytes: Dict[str, dict] = field(default_factory=dict)
 
     def __post_init__(self):
         if self.policy not in MEMORY_POLICIES:
@@ -106,28 +140,81 @@ class PhaseMemoryManager:
         self.device = torch.device(self.device)
         self._cuda = self.device.type == "cuda"
         self._mark = time.perf_counter()
+        self.phase: Optional[str] = None         # the phase in progress
+        self._phase_t0: Optional[float] = None   # tracer µs of phase start
+        self._phase_peak = 0                     # mid-phase record peak
+        self._pcie_mark = 0                      # lot traffic at phase start
+        self._iter_n = 0
 
     def _now(self) -> float:
         if self._cuda:
             torch.cuda.synchronize(self.device)
         return time.perf_counter()
 
+    @property
+    def flight(self):
+        """The run's ``obs.FlightRecorder``, if any."""
+        return getattr(self.telemetry, "flight", None)
+
+    def live_bytes(self) -> int:
+        """The live bytes a record takes: ``memory_allocated`` on CUDA, the
+        tracked tensors' bytes on the CPU."""
+        if self._cuda:
+            return live_device_bytes(self.device)
+        return nbytes(self.tracked()) if self.tracked else 0
+
+    @staticmethod
+    def _next(phase: str) -> Optional[str]:
+        """The PPO phase after ``phase`` in this iteration, if any."""
+        seq = RUNTIME_RLHF_PHASE_SEQUENCE
+        if phase not in seq or phase == seq[-1]:
+            return None
+        return seq[seq.index(phase) + 1]
+
     def iteration_start(self):
-        """Start the first phase's clock and peak."""
+        """Start the first phase's clock and peak (and, with telemetry, the
+        per-iteration parent span)."""
         self._mark = self._now()
         if self._cuda:
             torch.cuda.reset_peak_memory_stats(self.device)
+        self.phase = RUNTIME_RLHF_PHASE_SEQUENCE[0]
+        if self.telemetry is None:
+            return
+        tr = self.telemetry.tracer
+        # the first phase starts with the iteration: the phases tile it
+        self._phase_t0 = tr.begin("ppo_iteration", cat="iteration",
+                                  n=self._iter_n).ts_us
+        tr.push_annotation(self.phase)
+        self._phase_peak = 0
+        self._pcie_mark = self._pcie_total()
+
+    def iteration_end(self, **args):
+        if self.telemetry is None:
+            return
+        self.telemetry.tracer.end(**args)
+        self.telemetry.registry.counter(
+            "rlhf_iterations_total", "completed PPO iterations").inc()
+        self._iter_n += 1
+        self._phase_t0 = None
 
     def _record(self, phase: str, kind: str, **extra) -> dict:
         now = self._now()
+        snap = None
+        if self.attributor is not None:
+            snap = self.attributor.snapshot()
+            live = snap.total_bytes
+            if self.telemetry is not None:
+                # the classification pass is telemetry work: charge it to
+                # self-time so the <=2% overhead gate covers attribution
+                self.telemetry.tracer.self_time_s += snap.walk_s
+        else:
+            live = self.live_bytes()
         if self._cuda:
-            live = live_device_bytes(self.device)
             reserved = torch.cuda.memory_reserved(self.device)
             peak = torch.cuda.max_memory_allocated(self.device)
             requested = torch.cuda.memory_stats(self.device)[
                 "requested_bytes.all.current"]
         else:
-            live = nbytes(self.tracked()) if self.tracked else 0
             reserved = peak = requested = None
         host = 0 if self.offload is None else self.offload.lot.parked_bytes()
         rec = {"phase": phase, "kind": kind, "live_bytes": live,
@@ -135,16 +222,109 @@ class PhaseMemoryManager:
                "requested_bytes": requested,
                "host_bytes": host, "seconds": now - self._mark,
                "t": time.time(), **extra}
+        if snap is not None:
+            rec["attrib"] = snap.table()
+            rec["attrib_unattributed"] = snap.unattributed
         self._mark = now
         self.records.append(rec)
         return rec
 
+    # ----------------------------------------------------------- telemetry
+    def _pcie_total(self) -> int:
+        return sum(self._moved())
+
+    def _snapshot_for_dump(self):
+        """The flight recorder's snapshot: a full walk (top buffers; on
+        CUDA the allocator's blocks) of the live set the triggering record
+        just took."""
+        if self.attributor is None:
+            return None
+        return self.attributor.snapshot(full=True)
+
+    def _observe(self, event: str, rec: dict, **note) -> None:
+        """Note the record to the flight recorder and check its
+        watermark."""
+        fl = self.flight
+        if fl is None:
+            return
+        fl.note(event, phase=rec["phase"], live_bytes=rec["live_bytes"],
+                host_bytes=rec["host_bytes"], **note)
+        fl.check(rec["live_bytes"], snapshot_fn=self._snapshot_for_dump,
+                 phase=rec["phase"], source="rlhf")
+
+    def _emit_phase_span(self, phase: str, kind: str, rec: dict):
+        tel = self.telemetry
+        tr = tel.tracer
+        now = tr.now_us()
+        t0 = self._phase_t0 if self._phase_t0 is not None else now
+        pcie_now = self._pcie_total()
+        peak = rec["peak_bytes"] if rec["peak_bytes"] is not None else \
+            max(rec["live_bytes"], self._phase_peak)
+        args = {"kind": kind,
+                "measured_bytes": rec["live_bytes"],
+                "measured_peak_bytes": peak,
+                "measured_bytes_per_device": rec["live_bytes"],
+                "host_bytes": rec["host_bytes"],
+                "pcie_bytes": pcie_now - self._pcie_mark}
+        if "attrib" in rec:
+            args["attrib"] = rec["attrib"]
+            args["attrib_unattributed"] = rec["attrib_unattributed"]
+        sim = self.sim_phase_bytes.get(phase)
+        if sim is not None:
+            args.update(sim)
+            args["sim_delta_bytes"] = rec["live_bytes"] - sim["sim_bytes"]
+            # per-owner sim deltas: the measured owner table against the
+            # simulator's per-state ledger at this boundary, over the
+            # simulator's group names (the same taxonomy on both sides)
+            sim_owners = sim.get("sim_owner_bytes")
+            if sim_owners and "attrib" in rec:
+                args["attrib_sim_delta"] = {
+                    k: rec["attrib"].get(k, 0) - v
+                    for k, v in sim_owners.items()}
+        tr.pop_annotation()
+        tr.complete(phase, "phase", t0, now - t0, **args)
+        tr.sample("memory", {"device_mib": rec["live_bytes"] / 2**20,
+                             "host_mib": rec["host_bytes"] / 2**20},
+                  ts_us=now)
+        reg = tel.registry
+        reg.counter("rlhf_phase_total", "phase boundaries crossed").inc(
+            phase=phase)
+        reg.gauge("rlhf_phase_live_bytes",
+                  "live device bytes at phase end").set(
+            rec["live_bytes"], phase=phase)
+        reg.gauge("rlhf_phase_host_bytes",
+                  "host-resident bytes at phase end").set(
+            rec["host_bytes"], phase=phase)
+        reg.histogram("rlhf_phase_seconds", "wall time per phase").observe(
+            (now - t0) / 1e6, phase=phase)
+        for owner, b in rec.get("attrib", {}).items():
+            reg.gauge("rlhf_owner_live_bytes",
+                      "live device bytes by owner at phase end").set(
+                b, owner=owner, phase=phase)
+        if self.phase is not None:
+            tr.push_annotation(self.phase)
+        self._phase_t0 = now
+        self._phase_peak = 0
+        self._pcie_mark = pcie_now
+
     def sample(self, phase: str, kind: str = "inference", **extra) -> dict:
         """Mid-phase record (no hygiene, no peak reset): where the live set
         changes inside a phase, as in rollout decode from merged weights."""
-        return self._record(phase, kind, sample=True, **extra)
+        rec = self._record(phase, kind, sample=True, **extra)
+        self._phase_peak = max(self._phase_peak, rec["live_bytes"])
+        if self.telemetry is not None:
+            tr = self.telemetry.tracer
+            attrib = {k: rec[k] for k in ("attrib", "attrib_unattributed")
+                      if k in rec}
+            tr.instant(f"{phase}:sample", cat="phase",
+                       measured_bytes=rec["live_bytes"],
+                       host_bytes=rec["host_bytes"], **attrib)
+            tr.sample("memory", {"device_mib": rec["live_bytes"] / 2**20,
+                                 "host_mib": rec["host_bytes"] / 2**20})
+        self._observe("sample", rec)
+        return rec
 
-    def _moved(self) -> tuple:
+    def _moved(self) -> Tuple[int, int]:
         """(bytes parked, bytes fetched) by the lot so far."""
         if self.offload is None:
             return 0, 0
@@ -179,6 +359,12 @@ class PhaseMemoryManager:
         rec = self._record(phase, kind, hygiene_seconds=self._now() - t1,
                            park_seconds=t1 - t0, park_bytes=parked1 - parked0,
                            fetch_seconds=0.0, fetch_bytes=0)
+        self.phase = self._next(phase)
+        if self.telemetry is not None:
+            self._emit_phase_span(phase, kind, rec)
+        # checked before the fetch: the record is the post-hygiene,
+        # pre-fetch trough, the point the simulator records
+        self._observe("phase", rec, kind=kind)
         if self._cuda:
             torch.cuda.reset_peak_memory_stats(self.device)
         if self.offload is not None:
@@ -233,7 +419,11 @@ class RLHFTrainer:
     whole: ``params={"actor": ..., "critic": ...}`` for the separate engine
     (``bridge.separate_trainer_from_jax``), ``engine=`` for the hydra one
     (``bridge.trainer_from_jax``), whose path ignores ``critic_cfg``, as
-    the reference's does."""
+    the reference's does.
+
+    ``telemetry`` (``obs.RunTelemetry``) instruments every iteration (the
+    module docstring); the bundle's attributor is created when absent,
+    and this trainer's owner trees are registered in it."""
 
     def __init__(self, actor_cfg: ModelConfig, critic_cfg: ModelConfig,
                  rl: RLHFConfig, generator: Optional[torch.Generator] = None,
@@ -246,11 +436,14 @@ class RLHFTrainer:
         for name, default in _NOT_PORTED.items():
             if getattr(rl, name) != default:
                 raise NotImplementedError(f"RLHFConfig.{name} is not ported")
-        if shard is not None or telemetry is not None:
-            raise NotImplementedError("sharding and telemetry are not ported")
+        if shard is not None:
+            raise NotImplementedError("sharding is not ported")
         self.rl = rl
         self.actor_cfg, self.critic_cfg = actor_cfg, critic_cfg
         self.reward_fn = reward_fn
+        self.telemetry = telemetry
+        self._sim_attached = False
+        self._compiled_recorded: set = set()
         if rl.engine == "hydra":
             self._init_hydra(actor_cfg, rl, generator, engine)
         else:
@@ -261,7 +454,8 @@ class RLHFTrainer:
         self._live: Dict[str, Any] = {}
         self.memory = PhaseMemoryManager(policy=rl.memory_policy,
                                          device=self.device,
-                                         tracked=self._tracked)
+                                         tracked=self._tracked,
+                                         telemetry=telemetry)
         self.rollout = Rollout(self.actor, actor_cfg,
                                capacity=rl.prompt_len + rl.gen_len,
                                temperature=rl.temperature, top_k=rl.top_k,
@@ -269,6 +463,8 @@ class RLHFTrainer:
         self.offload = self.offload_lot = None
         if rl.offload != "none":
             self._init_offload(rl)
+        if telemetry is not None:
+            self._init_attribution(telemetry)
 
     def _init_separate(self, actor_cfg, critic_cfg, rl, generator, params):
         """Four full models; the actor and critic train every leaf, the
@@ -333,6 +529,133 @@ class RLHFTrainer:
         parked = {id(t) for n in lot.names() for t in leaves(lot.peek(n))}
         return [t for t in leaves(trees) if id(t) not in parked]
 
+    # --------------------------------------------------------- attribution
+    def _init_attribution(self, telemetry) -> None:
+        """Create (or adopt) the run's MemoryAttributor and register this
+        trainer's owner trees. Registration order is priority order on
+        aliased storages: the hydra trunk goes first, so the reference
+        (which IS the base) and the merged rollout leaves that alias
+        non-adapted trunk tensors attribute to ``base_params``;
+        ``merged_rollout`` then claims only the freshly merged copies.
+        The ZeRO/TP gather owners come with sharding."""
+        from repro_torch.obs import MemoryAttributor
+        at = telemetry.attribution
+        if at is None:
+            at = telemetry.attribution = MemoryAttributor(device=self.device)
+        elif at.device is None:
+            at.device = self.device
+        elif at.device.type != self.device.type:
+            raise ValueError(f"the telemetry's attributor measures "
+                             f"{at.device}, the trainer runs on "
+                             f"{self.device}")
+        at.tracked, at.lot = self._tracked, self.offload_lot
+        if self.engine is None:
+            at.register("ref_params", lambda: self.ref_params)
+            at.register("reward_params", lambda: self.reward_params)
+        else:
+            at.register("base_params", lambda: self.base_params)
+            at.register("reward_params", lambda: self.reward_adapter)
+        at.register("actor_params", lambda: self.actor_state["params"])
+        at.register("actor_opt", lambda: self.actor_state["opt"])
+        at.register("critic_params", lambda: self.critic_state["params"])
+        at.register("critic_opt", lambda: self.critic_state["opt"])
+        for owner, key in (("merged_rollout", "merged_rollout"),
+                           ("rollout_buffers", "rollout"),
+                           ("experience", "experience")):
+            at.register(owner, lambda key=key: self._live.get(key))
+        self.memory.attributor = at
+
+    def _attach_sim_predictions(self, batch_size: int) -> None:
+        """Run the traced allocator simulator once for THIS run's shape
+        (engine, batch, lengths, LoRA rank, remat, offload level) and
+        attach its per-phase predicted bytes to the memory manager, so
+        every phase span carries a sim-vs-measured delta: strategy "None",
+        policy "none", one device, no capacity. One-time setup (at the
+        first train_step); a failure degrades to spans without
+        predictions, with a warning. ``run_iteration`` scales the traces'
+        ``layer_slice`` events (ZeRO-3's per-layer gathers) to 0 below
+        stage 3, so the predicted peaks leave them out."""
+        from repro_torch.core import (MemoryStrategy, build_rlhf_phases,
+                                      run_iteration)
+        ckpt = self.actor_cfg.remat == "full"
+        try:
+            ph, persist = build_rlhf_phases(
+                self.actor_cfg, self.critic_cfg, batch=batch_size,
+                prompt_len=self.rl.prompt_len, gen_len=self.rl.gen_len,
+                engine=self.rl.engine, lora_rank=self.rl.lora_rank,
+                grad_ckpt=ckpt, ppo_epochs=self.rl.ppo_epochs,
+                min_bytes=2048)
+            r = run_iteration(
+                ph, persist, MemoryStrategy("None", offload=self.rl.offload,
+                                            grad_ckpt=ckpt),
+                "none", ndp=1, ntp=1, trainable_fraction=1.0, capacity=None)
+        except Exception as e:
+            warnings.warn(f"telemetry: simulator prediction unavailable "
+                          f"({e!r}); phase spans carry measured bytes only",
+                          stacklevel=3)
+            return
+        sim: Dict[str, dict] = {}
+        for rec in r.phase_records:
+            # the simulator's rollout_prefill and rollout_decode fold into
+            # the runtime's rollout: the last record's bytes, the larger
+            # peak
+            name = "rollout" if rec.name.startswith("rollout") else rec.name
+            cur = sim.setdefault(name, {"sim_bytes": 0, "sim_peak_bytes": 0})
+            cur["sim_bytes"] = rec.allocated_end
+            cur["sim_peak_bytes"] = max(cur["sim_peak_bytes"], rec.alloc_peak)
+            if rec.state_bytes_end:
+                cur["sim_owner_bytes"] = dict(rec.state_bytes_end)
+        self.memory.sim_phase_bytes = sim
+
+    def _record_compiled(self, program: str, fn, *args) -> None:
+        """Per-program memory accounting, once a program: a ``meta`` trace
+        of ``fn(*args)`` (``obs.record_compiled_memory``; never executed)
+        into the metrics registry. One-time setup, not charged to the
+        tracer's self-time."""
+        if self.telemetry is None or program in self._compiled_recorded:
+            return
+        self._compiled_recorded.add(program)
+        from repro_torch.obs import record_compiled_memory
+        record_compiled_memory(self.telemetry.registry, program, fn, *args)
+
+    def _record_compiled_programs(self, batch, mask) -> None:
+        """Compiled-memory stats for the scoring programs (at the first
+        make_experience, on the real batch's shapes), each a function of
+        the trees it reads so that the trace sees them as arguments."""
+        if self.engine is None:
+            def logp(p, b):
+                return _action_logp(self.actor.forward(p, b)[0], b["tokens"])
+            progs = {
+                "score_old_logp": (logp, self.actor_state["params"], batch),
+                "score_ref": (logp, self.ref_params, batch),
+                "score_values": (self.critic.forward_value,
+                                 self.critic_state["params"], batch),
+                "score_reward": (
+                    lambda p, t, m: sequence_reward(self.critic, p, t, m),
+                    self.reward_params, batch["tokens"], mask)}
+        else:
+            eng = self.engine
+            progs = {
+                "score_old_logp": (
+                    lambda base, ad, b: _action_logp(eng.logits(base, ad, b),
+                                                     b["tokens"]),
+                    self.base_params, self.actor_state["params"], batch),
+                "score_ref": (
+                    lambda base, b: _action_logp(eng.ref_logits(base, b),
+                                                 b["tokens"]),
+                    self.base_params, batch),
+                "score_values": (eng.values, self.base_params,
+                                 self.critic_state["params"], batch),
+                "score_reward": (
+                    lambda base, ad, t, m: sequence_reward(
+                        self.actor, base, t, m, adapter=ad),
+                    self.base_params, self.reward_adapter, batch["tokens"],
+                    mask)}
+        if self.reward_fn is not None:
+            del progs["score_reward"]
+        for name, (fn, *args) in progs.items():
+            self._record_compiled(name, fn, *args)
+
     # ------------------------------------------------------------- offload
     def _init_offload(self, rl: RLHFConfig):
         """Runtime host offload: compile the phase plan, bind it to a
@@ -346,7 +669,8 @@ class RLHFTrainer:
         plan = OffloadPlan.compile(rl.offload, engine=rl.engine,
                                    states=states, frozen_unused=unused)
         self.offload_lot = HostParkingLot(self.device)
-        self.offload = OffloadExecutor(plan, self.offload_lot, states)
+        self.offload = OffloadExecutor(plan, self.offload_lot, states,
+                                       telemetry=self.telemetry)
         self.memory.offload = self.offload
         self.offload.start()
 
@@ -497,6 +821,8 @@ class RLHFTrainer:
         mask = ro.mask
         del ro
         with torch.no_grad():
+            if self.telemetry is not None:
+                self._record_compiled_programs(batch, mask)
             if self.reward_fn is not None:
                 terminal = self.reward_fn(batch["tokens"], mask)
             else:
@@ -522,12 +848,38 @@ class RLHFTrainer:
 
     def train_step(self, prompts: torch.Tensor,
                    generator: torch.Generator) -> Dict[str, float]:
-        """One full PPO iteration (all seven phases)."""
+        """One full PPO iteration (all seven phases). A caught
+        ``torch.cuda.OutOfMemoryError`` is captured by the run's flight
+        recorder (owner table, top buffers and the phase in progress at
+        the moment of failure) and re-raised: the recorder observes, it
+        never swallows."""
+        try:
+            return self._train_step(prompts, generator)
+        except Exception as e:
+            fl = self.memory.flight
+            if fl is not None and fl.is_oom(e):
+                at = self.memory.attributor
+                fl.record_oom(
+                    e, snapshot_fn=None if at is None
+                    else lambda: at.snapshot(full=True),
+                    live_bytes=self.memory.live_bytes(),
+                    phase=self.memory.phase, source="rlhf")
+            raise
+
+    def _train_step(self, prompts, generator) -> Dict[str, float]:
+        tel = self.telemetry
+        if tel is not None and tel.sim_delta and not self._sim_attached:
+            self._sim_attached = True
+            self._attach_sim_predictions(int(prompts.shape[0]))
         self.memory.iteration_start()
         exp = self.make_experience(prompts, generator)
         self._live["experience"] = exp
         mean_reward = float(exp.pop("mean_reward"))
         old_values = exp.pop("old_values")
+        trunk = () if self.engine is None else (self.base_params,)
+        self._record_compiled(
+            "train_actor", lambda s, *a: self.actor_step(s, *a)[1],
+            self.actor_state, *trunk, exp)
         metrics = {}
         for _ in range(self.rl.ppo_epochs):
             m = self._actor_update(exp)
@@ -535,6 +887,9 @@ class RLHFTrainer:
         self.memory.boundary("train_actor", "training")
         cbatch = dict(exp, old_values=old_values)
         del old_values
+        self._record_compiled(
+            "train_critic", lambda s, *a: self.critic_step(s, *a)[1],
+            self.critic_state, *trunk, cbatch)
         for _ in range(self.rl.ppo_epochs):
             mc = self._critic_update(cbatch)
             metrics.update({k: float(v) for k, v in mc.items()})
@@ -542,4 +897,5 @@ class RLHFTrainer:
         self._live.pop("experience", None)
         self.memory.boundary("train_critic", "training", exp, cbatch)
         metrics["mean_reward"] = mean_reward
+        self.memory.iteration_end(mean_reward=mean_reward)
         return metrics

@@ -807,3 +807,117 @@ def _to_device(tree, device):
     if isinstance(tree, list):
         return [_to_device(v, device) for v in tree]
     return tree.detach().to(device)
+
+
+# ------------------------------------------------------ runtime telemetry
+def test_attribution_is_exact_on_cuda(cuda):
+    """On the card the total is ``memory_allocated`` and each owner is
+    charged its storage's block: the request rounded to 512 bytes, or with
+    ``full`` the allocator's own block; a view counts once; a parked tree
+    is a host owner; the residue is what no owner holds."""
+    from repro_torch.obs import MemoryAttributor
+    torch.cuda.synchronize()
+    a = torch.ones(1000, device=cuda)               # 4000 -> 4096
+    b = torch.ones(3, 5, device=cuda)               # 60 -> 512
+    c = torch.ones(1 << 20, device=cuda)            # 4 MiB, unowned
+    lot = HostParkingLot(cuda)
+    parked = {"w": torch.ones(256, device=cuda)}
+    lot.park("opt", parked)
+    at = MemoryAttributor(device=cuda, lot=lot, top_k=1 << 20)
+    at.register("a", lambda: {"x": a, "view": a[10:]})
+    at.register("b", lambda: [b, a])
+    at.register("opt", lambda: lot.peek("opt"))
+    for full in (False, True):
+        snap = at.snapshot(full=full)
+        assert snap.total_bytes == torch.cuda.memory_allocated(cuda)
+        assert snap.owners == {"a": 4096, "b": 512, "opt": 0}
+        assert snap.unattributed == snap.total_bytes - 4608 >= c.nbytes
+        assert snap.host_owners == {"opt": 1024}
+    top = snap.top_buffers             # every active block, largest first
+    assert [t["nbytes"] for t in top] == sorted(
+        (t["nbytes"] for t in top), reverse=True)
+    assert sum(t["nbytes"] for t in top) == snap.total_bytes
+    assert {"nbytes": c.nbytes, "shape": "?", "dtype": "?",
+            "owner": "(unattributed)", "path": ""} in top
+    assert {"nbytes": 4096, "shape": "(1000,)", "dtype": "float32",
+            "owner": "a", "path": "['x']"} in top
+
+
+def test_is_oom_on_a_capped_allocation(cuda):
+    """A real out-of-memory error under a per-process cap is one the
+    flight recorder recognises, and its dump keeps the CUDA message."""
+    from repro_torch.obs import FlightRecorder
+    fl = FlightRecorder(device=cuda)
+    assert fl.capacity_bytes == torch.cuda.mem_get_info(cuda)[1]
+    card = torch.cuda.current_device()
+    torch.cuda.empty_cache()
+    torch.cuda.set_per_process_memory_fraction(0.01, card)
+    try:
+        with pytest.raises(torch.cuda.OutOfMemoryError) as err:
+            torch.empty(fl.capacity_bytes // 10, dtype=torch.uint8,
+                        device=cuda)
+    finally:
+        torch.cuda.set_per_process_memory_fraction(1.0, card)
+    assert fl.is_oom(err.value)
+    dump = fl.record_oom(err.value, live_bytes=1, phase="p")
+    assert "out of memory" in dump["error"]
+
+
+def test_annotated_spans_in_a_cuda_profile(cuda):
+    """``annotate=True`` on the card: record_function ranges (and NVTX
+    ranges) around the spans show in a torch.profiler trace with CUDA
+    activity."""
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.obs import SpanTracer
+    tr = SpanTracer(annotate=True)
+    assert tr._nvtx
+    x = torch.ones(256, 256, device=cuda)
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        tr.begin("ppo_iteration", "iteration")
+        tr.push_annotation("train_actor")
+        (x @ x).sum().item()
+        tr.pop_annotation()
+        tr.end()
+    names = {e.key for e in prof.key_averages()}
+    assert {"ppo_iteration", "train_actor"} <= names
+
+
+def test_ppo_telemetry_on_card(cuda):
+    """A small separate PPO iteration with telemetry on the card: every
+    record's owner table and residue sum to ``memory_allocated``, the
+    spans carry the simulator's bytes, the launches are the run's without
+    telemetry, and the metrics the same bits."""
+    from repro_torch.obs import RunTelemetry
+    from repro_torch.rlhf import RLHFConfig, RLHFTrainer
+    from repro_torch.rlhf.reward import make_target_token_reward
+    cfg = _small_opt(param_dtype="bfloat16")
+    rl = RLHFConfig(engine="separate", prompt_len=16, gen_len=8, top_k=0)
+    prompts = torch.randint(0, 64, (4, 16), device=cuda)
+    out = []
+    for tel in (None, RunTelemetry.create(annotate=True)):
+        tr = RLHFTrainer(cfg, cfg, rl,
+                         torch.Generator(device=cuda).manual_seed(0),
+                         reward_fn=make_target_token_reward(7),
+                         telemetry=tel)
+        seen = []
+        if tel is not None:
+            record = tr.memory._record
+
+            def checked(*a, **k):
+                rec = record(*a, **k)
+                seen.append((sum(rec["attrib"].values())
+                             + rec["attrib_unattributed"], rec["live_bytes"],
+                             torch.cuda.memory_allocated(cuda)))
+                return rec
+            tr.memory._record = checked
+        ops.reset_launches()
+        m = tr.train_step(prompts, torch.Generator(device=cuda).manual_seed(1))
+        out.append((m, dict(ops.launches)))
+        del tr
+    assert out[0] == out[1]
+    assert len(seen) == 7 and all(a == b == c for a, b, c in seen)
+    spans = [s for s in tel.tracer.spans if s.cat == "phase"]
+    assert all("sim_peak_bytes" in s.args for s in spans)
+    assert all(s.args["measured_peak_bytes"] >= s.args["measured_bytes"]
+               for s in spans)

@@ -45,6 +45,7 @@ from repro_torch.core import (OFFLOAD_LEVELS, offload_managed_states,  # noqa: E
                               phase_state_touches, runtime_state_touches)
 from repro_torch.models import Model  # noqa: E402
 from repro_torch.models import lora as TLORA  # noqa: E402
+from repro_torch.obs import RunTelemetry  # noqa: E402
 from repro_torch.offload import (RUNTIME_PHASE_SEQUENCE,  # noqa: E402
                                  HostParkingLot, OffloadExecutor,
                                  OffloadPlan, tree_nbytes)
@@ -138,9 +139,9 @@ def test_plan_and_executor_refuse_what_they_cannot_do():
     lot = HostParkingLot("cpu")
     with pytest.raises(ValueError):            # a managed state unbound
         OffloadExecutor(plan, lot, {})
-    with pytest.raises(NotImplementedError):   # telemetry is not ported
-        OffloadExecutor(OffloadPlan.compile("none"), lot, {},
-                        telemetry=object())
+    tel = RunTelemetry.create()                # telemetry is ported
+    assert OffloadExecutor(OffloadPlan.compile("none"), lot, {},
+                           telemetry=tel).telemetry is tel
     tcfg = micro_cfgs()[1]
     with pytest.raises(ValueError):
         RLHFTrainer(tcfg, tcfg,
