@@ -146,7 +146,30 @@ Phases, each failing with a non-zero exit:
    ``telemetry_report.txt``, ``flight_watermark.json``,
    ``flight_oom.json``.
 
-Phases 3 and 5-9 and 12 run graphed, the default on the card: every decode step
+13. MTP self-speculative decoding (``Rollout(spec_decode=)``,
+   ``RLHFConfig.spec_decode``): (a) full-width llama3_2_3b with 2 random
+   MTP heads (bf16, from a seed), 8 x (512 + 64), spec_k 2, on the dense
+   and the paged backend: vanilla greedy, the spec rollout graphed and
+   eager (the same bits), launches as reckoned (``spec_launches``: B3 and
+   B4 never), pages invariant and all free after each call; the eager
+   verify's logits against an fp32 forward of the same tokens, whose
+   largest per-query RMS error must be within 2x vanilla's decode steps'
+   against an fp32 forward of vanilla's tokens, and an off-by-one mask
+   planted in the verify's attention, either way, must fail that check;
+   the rows that leave vanilla greedy's tokens, and where, printed; ms a
+   verify step, ms an emitted token beside vanilla's ms a step, accept
+   rate, peak MiB above the weights; (b) the same with ``forced_drafts``
+   standing in for the heads' drafts (the spec run's own continuation:
+   full acceptance; the heads still run, their drafts dropped); (c) the
+   reference's decode bench (its tiny llama at mtp_depth 3, head_dim 64,
+   trained 300 steps on the cyclic-token task through the port, then 4 x
+   (8 + 64) greedy vanilla against spec: tokens bit for bit, logp within
+   1e-5, accept rate at least 0.90; speedup printed); (d) a small model's
+   2 greedy spec PPO steps on the card against the CPU on both engines;
+   (e) one hydra spec PPO iteration of phase 7's shape with 2 MTP heads:
+   launches asserted, per-phase ms and MiB, the actor's ``mtp_loss``.
+
+Phases 3 and 5-9, 12 and 13 run graphed, the default on the card: every decode step
 after a call's first replays its captured step (in a call of two decode
 steps or more), and the launch counts they assert are the eager path's
 (``ops.capturing``).
@@ -187,6 +210,7 @@ from repro_torch.data import PromptDataset, \
     synthetic_instruction_prompts  # noqa: E402
 from repro_torch import steps as TS  # noqa: E402
 from repro_torch.models import Model  # noqa: E402
+from repro_torch.models import layers as LAYERS  # noqa: E402
 from repro_torch.models import lora as LORA  # noqa: E402
 from repro_torch.offload.compat import pinned_buffer  # noqa: E402
 from repro_torch.paged import PageManager, gather_kv  # noqa: E402
@@ -197,7 +221,7 @@ from repro_torch.core import (POLICIES, CachingAllocator,  # noqa: E402
                               RUNTIME_RLHF_PHASE_SEQUENCE, build_grpo_phases,
                               build_rlhf_phases, run_iteration)
 from repro_torch.rlhf import GRPOConfig, GRPOTrainer  # noqa: E402
-from repro_torch.tree import leaves  # noqa: E402
+from repro_torch.tree import leaves, tree_map  # noqa: E402
 from repro_torch.tree import nbytes as tree_nbytes  # noqa: E402
 
 OUT_DIR = ROOT / "chiprun_out"
@@ -219,6 +243,9 @@ TOL_SSD = {torch.bfloat16: 5e-2, torch.float32: 1e-3}   # test_kernels.py:98
 # PPO iteration: llama3_2_3b, hydra engine, rank 128, 8 prompts of 512 + 64
 # generated tokens, 2 iterations (and one more under memory_policy="none")
 PBATCH, PPROMPT, PITERS = 8, 512, 2
+# speculative decoding (phase 13): llama3_2_3b with 2 MTP heads (random,
+# from a seed) at the serving shape, 8 x (512 + 64), spec_k 2
+SPEC_K, SPEC_DEPTH = 2, 2
 # separate PPO (phase 8): the paper's own pair (DeepSpeed-Chat), an
 # opt_1_3b actor and reference and an opt_350m critic and reward model, 8
 # prompts x (256 + 256), the lengths build_rlhf_phases traces by default
@@ -443,6 +470,10 @@ def check_flash(dev, peaks, g):
         ("d64_full", 1, 129, 65, 4, 4, 64, False, 0, torch.bfloat16),
         ("fp32", 2, 130, 130, 6, 2, 128, True, 16, torch.float32),
         ("fp32_d64", 2, 100, 37, 4, 2, 64, False, 0, torch.float32),
+        # each MTP draft: one layer at one position (phase 13's spec path,
+        # and the cyclic-token bench's fp32 model)
+        ("mtp_draft", BATCH, 1, 1, 24, 8, 128, True, 0, torch.bfloat16),
+        ("cyc_mtp_draft", CYC_B, 1, 1, 2, 1, 64, True, 0, torch.float32),
     ]
     out = []
     for name, B, Sq, Sk, H, K, D, causal, window, dt in cases:
@@ -617,7 +648,9 @@ RMSNORM_PATH_SHAPES = {
     # the separate path: opt_1_3b's and opt_350m's scoring and training
     # forwards, and the rollout's decode step
     "sep_actor": (SBATCH * SLEN, 2048), "sep_critic": (SBATCH * SLEN, 1024),
-    "sep_decode": (SBATCH, 2048)}
+    "sep_decode": (SBATCH, 2048),
+    # the speculative verify: k + 1 tokens a row
+    "spec_verify": (BATCH * (SPEC_K + 1), 3072)}
 
 
 def check_rmsnorm(dev, peaks, g):
@@ -632,6 +665,9 @@ def check_rmsnorm(dev, peaks, g):
         ("rows13", (13, 3072), bf, bf),     # a block of 5 of its 8 warps
         ("d100_bf16", (5, 100), bf, bf),    # 200-byte rows: scalar route
         ("wide", (2, 8192), bf, bf),        # too wide for registers: scalar
+        # the cyclic-token bench's verify (fp32, d_model 128)
+        ("cyc_verify", (CYC_B * (CYC_K + 1), 128), torch.float32,
+         torch.float32),
     ]
     out = []
     for name, shape, dt, sdt in cases:
@@ -1388,7 +1424,8 @@ def mamba_serving(dev, log, profile=False):
 
 
 # ---------------------------------------------------------------- phase 7
-def ppo_launches(cfg, rl, model_reward: bool, critic_cfg=None) -> dict:
+def ppo_launches(cfg, rl, model_reward: bool, critic_cfg=None,
+                 spec_steps: int = 0) -> dict:
     """Kernel launches of one PPO iteration, reckoned from the shapes
     (ppo_epochs updates of each role). ``cfg`` is the actor's; on the
     separate engine the reward model, the values and the critic's step
@@ -1396,7 +1433,9 @@ def ppo_launches(cfg, rl, model_reward: bool, critic_cfg=None) -> dict:
     trunk).
     - rollout: B2 once a layer (prefill), B3 once a layer at each of the
       gen - 1 decode steps, B1 at norm1, norm2 and the final norm of the
-      prefill and each step: (2L + 1) gen;
+      prefill and each step: (2L + 1) gen; with ``rl.spec_decode``, the
+      speculative rollout of ``spec_steps`` verify steps instead
+      (:func:`spec_launches`: no B3);
     - each scoring forward (reward if a model scores, ref, values, old
       logp): B2 L, B1 2L + 1;
     - each training step (actor, critic): the forward (B2 L, B1 2L + 1);
@@ -1407,7 +1446,12 @@ def ppo_launches(cfg, rl, model_reward: bool, critic_cfg=None) -> dict:
       trains: 2L + 1 on the separate engine, where every leaf trains, 2L
       on the hydra engine (the final norm, every norm2 and the norm1 of
       layers 1 .. L-1: layer 0's norm1 reads the frozen embedding with a
-      frozen scale, so no gradient reaches it)."""
+      frozen scale, so no gradient reaches it);
+    - with ``cfg.mtp_depth`` D, each actor step also runs the MTP chain
+      (never checkpointed): B2 D, B1 5D (norm_h, norm_e, the module
+      layer's two norms, the final norm), B2-bwd D and B1-bwd 5D on the
+      separate engine, 4D on the hydra engine (norm_e reads the frozen
+      embedding with a frozen scale)."""
     separate = rl.engine == "separate"
     actor = (cfg.num_layers, cfg.remat != "none")
     other = critic_cfg if separate and critic_cfg is not None else cfg
@@ -1416,15 +1460,68 @@ def ppo_launches(cfg, rl, model_reward: bool, critic_cfg=None) -> dict:
     trained = [actor, critic] * rl.ppo_epochs
     La, gen = cfg.num_layers, rl.gen_len
     want = {k: 0 for k in ops.KERNELS}
-    want["flash_attention"] = La + sum(L for L, _ in scored) + \
+    if rl.spec_decode:
+        want.update(spec_launches(cfg, spec_steps, rl.spec_k))
+    else:
+        want["flash_attention"] = La
+        want["decode_attention"] = La * (gen - 1)
+        want["rmsnorm"] = (2 * La + 1) * gen
+    want["flash_attention"] += sum(L for L, _ in scored) + \
         sum(L * (1 + remat) for L, remat in trained)
-    want["decode_attention"] = La * (gen - 1)
-    want["rmsnorm"] = (2 * La + 1) * gen + \
-        sum(2 * L + 1 for L, _ in scored) + \
+    want["rmsnorm"] += sum(2 * L + 1 for L, _ in scored) + \
         sum(2 * L + 1 + remat * 2 * L for L, remat in trained)
     want["flash_attention_bwd"] = sum(L for L, _ in trained)
     want["rmsnorm_bwd"] = sum(2 * L + separate for L, _ in trained)
+    D = cfg.mtp_depth * rl.ppo_epochs
+    want["flash_attention"] += D
+    want["rmsnorm"] += 5 * D
+    want["flash_attention_bwd"] += D
+    want["rmsnorm_bwd"] += (5 if separate else 4) * D
     return want
+
+
+def spec_launches(cfg, steps: int, spec_k: int) -> dict:
+    """Kernel launches of one speculative rollout call of ``steps``
+    verify steps: the prefill (B2 L, B1 2L + 1), then each step's spec_k
+    MTP drafts (each one layer at one position: B2 1, B1 5) and its
+    verify forward (B1 2L + 1; its attention is the plain masked softmax,
+    so neither B3 nor B4)."""
+    L = cfg.num_layers
+    want = {k: 0 for k in ops.KERNELS}
+    want["flash_attention"] = L + spec_k * steps
+    want["rmsnorm"] = (2 * L + 1) * (1 + steps) + 5 * spec_k * steps
+    return want
+
+
+def forced_drafts(model, continuation: torch.Tensor, spec_k: int):
+    """Stand-in for ``model.mtp_draft`` that proposes a known greedy
+    continuation (``continuation`` [B, N], the generated tokens of a
+    greedy run: vanilla's, or the spec run's own): a counter on the
+    tensors' device follows the rows through the calls, k+1 tokens a
+    call, as full acceptance advances them (so no host read, and a CUDA
+    graph captures it). A row that rejects has left the continuation (a
+    near-tie flipped) and drafts wrong from then on, so the call takes
+    more steps; the index stops at a zero column past the end, and
+    verification keeps the output exact. Each call still runs the heads'
+    own ``mtp_draft`` (the k MTP layers and their unembeds) and drops its
+    drafts, so a step costs what it would with heads that drafted right.
+    Set it as ``model.mtp_draft`` on an instance; never in the package."""
+    heads = model.mtp_draft
+    B, N = continuation.shape
+    dev = continuation.device
+    pad = torch.cat([continuation, torch.zeros(
+        (B, 1), dtype=continuation.dtype, device=dev)], dim=1)
+    cursor = torch.zeros((), dtype=torch.long, device=dev)
+    ks = torch.arange(1, spec_k + 1, device=dev)
+
+    def draft(params, h_last, first_tok, k):
+        heads(params, h_last, first_tok, k)
+        idx = torch.clamp(cursor + ks, max=N)[None].expand(B, k)
+        out = torch.gather(pad, 1, idx)
+        cursor.add_(k + 1)
+        return out
+
+    return draft
 
 
 PPO_KW = dict(engine="hydra", lora_rank=128, prompt_len=PPROMPT,
@@ -1567,10 +1664,12 @@ def ppo_iterations(dev, log, profile=False):
     return out
 
 
-def check_small_ppo_against_cpu(dev, steps=2, tol=1e-4, engine="hydra"):
+def check_small_ppo_against_cpu(dev, steps=2, tol=1e-4, engine="hydra",
+                                spec=False):
     """2 greedy fp32 PPO steps of a small model on the card and on the CPU
     from the same weights: the same greedy tokens, and the metrics within
-    ``tol`` (fp32 sums in another order). Hydra: the reference tests'
+    ``tol`` (fp32 sums in another order). ``spec``: the actor has 2 MTP
+    heads and the rollout is speculative (``spec_decode``, k 2). Hydra: the reference tests'
     small config, remat="full" and the reward adapter, so every kernel and
     its backward runs. Separate: the paper pair's shape (MHA, qkv biases,
     a GELU MLP, tied embeddings), an actor of d_model 128 (remat="none")
@@ -1578,10 +1677,12 @@ def check_small_ppo_against_cpu(dev, steps=2, tol=1e-4, engine="hydra"):
     the reward model scoring."""
     small = dict(num_layers=2, d_model=64, d_ff=128, vocab_size=64,
                  num_heads=4, head_dim=64, remat="full")
-    kw = dict(prompt_len=8, gen_len=8, temperature=0.0, top_k=0)
+    kw = dict(prompt_len=8, gen_len=8, temperature=0.0, top_k=0,
+              spec_decode=spec)
+    mtp = dict(mtp_depth=2 if spec else 0)
     if engine == "hydra":
         cfg = dataclasses.replace(get_config("llama3_2_3b").smoke(),
-                                  num_kv_heads=2, **small)
+                                  num_kv_heads=2, **small, **mtp)
         rl = RLHFConfig(engine="hydra", lora_rank=4, lr=3e-3,
                         critic_lr=3e-3, **kw)
         cpu = RLHFTrainer(cfg, cfg, rl, torch.Generator().manual_seed(0))
@@ -1596,7 +1697,7 @@ def check_small_ppo_against_cpu(dev, steps=2, tol=1e-4, engine="hydra"):
         actor = dataclasses.replace(get_config(SEP_ACTOR).smoke(),
                                     **{**small, "num_kv_heads": 4,
                                        "d_model": 128, "d_ff": 256,
-                                       "remat": "none"})
+                                       "remat": "none"}, **mtp)
         rl = RLHFConfig(engine="separate", lr=1e-3, critic_lr=1e-3, **kw)
         cpu = RLHFTrainer(actor, cfg, rl, torch.Generator().manual_seed(0))
         card = RLHFTrainer(actor, cfg, rl, params={
@@ -1621,6 +1722,8 @@ def check_small_ppo_against_cpu(dev, steps=2, tol=1e-4, engine="hydra"):
                                                   got["card"][0])):
         raise SystemExit(f"small {engine} PPO: greedy tokens differ card vs "
                          "CPU")
+    if spec and not all("mtp_loss" in m for m in got["card"][1]):
+        raise SystemExit(f"small spec {engine} PPO: no mtp_loss")
     err = max(abs(a[k] - b[k]) for a, b in zip(got["cpu"][1], got["card"][1])
               for k in a)
     if not err <= tol:
@@ -3212,6 +3315,506 @@ def caught_oom(dev, log, rl, prompts):
     return out
 
 
+# ---------------------------------------------------------------- phase 13
+# the verify's logits are held against an fp32 forward of the same tokens
+# (the weights cast to fp32, the full-sequence path), as vanilla's
+# decode-step logits are against one of vanilla's tokens: per query the RMS
+# error over the vocabulary, and the verify's largest must be within
+# SPEC_ERR_RATIO of vanilla's largest. Both bf16 paths stand ~0.05 RMS off
+# the fp32 function, and each flips ~10% of its argmaxes against it where
+# random init makes near-ties: so a row may leave vanilla greedy's tokens
+# without either being wrong. Each call also plants an off-by-one position
+# mask in the verify's attention, both ways (SPEC_FAULTS), and the check
+# must refuse each (the card's readings: PERF.md §6, PR 25).
+SPEC_ERR_RATIO = 2.0
+SPEC_FAULTS = ("drops_own_position", "sees_next_position")
+# the reference's decode bench (benchmarks/run.py:413-535): its tiny llama
+# at mtp_depth 3 trained 300 steps on t_{i+1} = (t_i + 1) mod 64, then
+# 4 x (8 + 64) greedy
+CYC_V, CYC_K, CYC_STEPS, CYC_S, CYC_TB = 64, 3, 300, 32, 8
+CYC_B, CYC_P, CYC_G = 4, 8, 64
+
+
+def _spec_call(ro, params, prompts, n, dev):
+    """One generate call of ``n`` new tokens: its tokens and log-probs on
+    the host, synchronised seconds, launches from 0, peak allocated bytes
+    and the call's decode, spec and page-manager records."""
+    gc.collect()
+    torch.cuda.synchronize()
+    ops.reset_launches()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    res = ro.generate(params, {"tokens": prompts}, n,
+                      torch.Generator(device=dev))
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    out = {"bits": (res.tokens.cpu(), res.logp.cpu()), "s": secs,
+           "launches": dict(ops.launches),
+           "peak": torch.cuda.max_memory_allocated(),
+           "decode": dict(ro.decode_stats),
+           "spec": dict(ro.spec_stats) if ro.spec_decode and n > 1 else None}
+    pm = ro.page_manager
+    if ro.backend == "paged":
+        pm.check_invariants()
+        if pm.stats.pages_in_use:
+            raise SystemExit(f"{pm.stats.pages_in_use} pages in use after "
+                             "the call")
+        out["pages"] = {"peak_pages_in_use": pm.stats.peak_pages_in_use,
+                        "n_page_alloc": pm.stats.n_page_alloc}
+    del res
+    return out
+
+
+def _greedy_logits(ro, params, prompts, n, dev):
+    """A vanilla greedy call with each step's logits kept (``sample_token``
+    wrapped in this script): (call, logits [B, n, V] on the card, as the
+    step made them)."""
+    from repro_torch.rlhf import rollout as RO
+    plain, kept = RO.sample_token, []
+
+    def recording(generator, logits, **kw):
+        kept.append(logits.clone())
+        return plain(generator, logits, **kw)
+
+    RO.sample_token = recording
+    try:
+        call = _spec_call(ro, params, prompts, n, dev)
+    finally:
+        RO.sample_token = plain
+    return call, torch.stack(kept, 1)
+
+
+def _verify_logits(model, backend, run):
+    """``run()`` (an eager spec call) with each verify forward's tokens,
+    positions and logits kept (the instance's ``decode_multi`` or
+    ``paged_decode_multi`` wrapped in this script) -> (its result,
+    [(tokens [B,T], positions [B,T], logits [B,T,V])])."""
+    name = "paged_decode_multi" if backend == "paged" else "decode_multi"
+    plain, kept = getattr(model, name), []
+
+    def keep(params, state, tokens, positions, *rest):
+        out = plain(params, state, tokens, positions, *rest)
+        kept.append((tokens.clone(), positions.clone(), out[0].clone()))
+        return out
+
+    setattr(model, name, keep)
+    try:
+        return run(), kept
+    finally:
+        delattr(model, name)
+
+
+def _fp32_logits(model, p32, tokens, start):
+    """Logits [B, S - start, V] of the fp32 full-sequence forward
+    (``p32``: the weights cast to fp32) over ``tokens`` [B, S] on the
+    card, a row at a time, from position ``start`` on."""
+    out = []
+    with torch.no_grad():
+        for b in range(tokens.shape[0]):
+            lg = model.forward(p32, {"tokens": tokens[b:b + 1]})[0]
+            out.append(lg[0, start:].clone())
+            del lg
+    return torch.stack(out)
+
+
+def _query_error(got, want):
+    """(largest per-query RMS over the vocabulary of ``got - want``,
+    argmax flips, queries) for logits [Q, V]."""
+    rms = (got.float() - want).pow(2).mean(-1).sqrt()
+    flips = int((got.float().argmax(-1) != want.argmax(-1)).sum())
+    return float(rms.max()), flips, rms.numel()
+
+
+def _verify_error(model, p32, tokens, kept, prompt):
+    """Every kept verify query whose context is the run's own tokens
+    (``tokens`` [B, S] up to the query's position: each step's first
+    query, and a draft's when the drafts up to it were accepted) against
+    the fp32 forward of ``tokens`` -> ``_query_error``."""
+    ref = _fp32_logits(model, p32, tokens, prompt)
+    own, S = tokens.cpu(), tokens.shape[1]
+    got, want = [], []
+    for tk, pos, lg in kept:
+        tk, pos = tk.cpu(), pos.cpu()
+        for b, j in ((b, j) for b in range(tk.shape[0])
+                     for j in range(tk.shape[1])):
+            p = int(pos[b, j])
+            if prompt <= p < S and torch.equal(tk[b, :j + 1],
+                                               own[b, p - j:p + 1]):
+                got.append(lg[b, j])
+                want.append(ref[b, p - prompt])
+    del ref
+    return _query_error(torch.stack(got), torch.stack(want))
+
+
+def _plant(fault):
+    """Swap ``layers.sdpa``, which the verify's attention alone calls
+    (dense and paged), for one whose mask is off by one position: each
+    query loses its own position, or sees the next one (the next draft).
+    -> the function to put back."""
+    plain = LAYERS.sdpa
+
+    def planted(q, k, v, mask):
+        shift = -1 if fault == "drops_own_position" else 1
+        moved = torch.roll(mask, shift, -1)
+        return plain(q, k, v, mask & moved if shift < 0 else mask | moved)
+
+    LAYERS.sdpa = planted
+    return plain
+
+
+def _verify_check(model, params, prompts, spec, backend, van, van_logits,
+                  eager, kept, dev):
+    """Phase 13 (a)'s check of the verify's logits (see SPEC_ERR_RATIO)
+    on the eager spec call ``eager`` (its verify forwards ``kept``) and
+    the vanilla greedy call ``van`` (its step logits ``van_logits``); then
+    the same for each planted fault, which must fail it. Also each row's
+    first divergence from vanilla's tokens, with the fp32 logit of
+    vanilla's token there less the spec run's."""
+    p32 = tree_map(lambda t: t.float(), params)
+    van_tokens = van["bits"][0].to(dev)
+    ref = _fp32_logits(model, p32, van_tokens, PROMPT - 1)
+    n = van_logits.shape[1]
+    # step i's logits score token PROMPT + i; step 0's are the prefill's
+    dec = _query_error(van_logits[:, 1:].flatten(0, 1),
+                       ref[:, 1:n].flatten(0, 1))
+    spec_tokens = eager["bits"][0]
+    rows = []
+    for b in range(van_tokens.shape[0]):
+        d = (spec_tokens[b, PROMPT:] != van_tokens[b, PROMPT:].cpu()) \
+            .nonzero()
+        if len(d):
+            i = int(d[0])
+            w = int(van_tokens[b, PROMPT + i])
+            g = int(spec_tokens[b, PROMPT + i])
+            rows.append({"row": b, "index": i,
+                         "fp32_gap": float(ref[b, i, w] - ref[b, i, g])})
+    del ref
+    ver = _verify_error(model, p32, spec_tokens.to(dev), kept, PROMPT)
+    out = {"verify_rms": ver[0], "verify_flips": ver[1],
+           "verify_queries": ver[2], "vanilla_rms": dec[0],
+           "vanilla_flips": dec[1], "vanilla_queries": dec[2],
+           "ratio": ver[0] / dec[0], "diverged": rows, "faults": {}}
+    for fault in SPEC_FAULTS:
+        plain = _plant(fault)
+        try:
+            c, kept_f = _verify_logits(model, backend, lambda: _spec_call(
+                spec, params, prompts, GEN, dev))
+        finally:
+            LAYERS.sdpa = plain
+        e = _verify_error(model, p32, c["bits"][0].to(dev), kept_f, PROMPT)
+        out["faults"][fault] = {"rms": e[0], "flips": e[1], "queries": e[2],
+                                "ratio": e[0] / dec[0]}
+        del c, kept_f
+    del p32
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def _spec_backend(model, cfg, params, prompts, backend, weights, dev, log):
+    """Phase 13 (a) and (b) on one backend: vanilla greedy (its logits
+    kept), the spec rollout eager (its verify logits kept) and graphed
+    (the same bits), graphed with the forced drafter; then, timed in
+    turns, the prefill calls, vanilla, spec, forced, spec, vanilla."""
+    kw = dict(capacity=PROMPT + GEN, temperature=0.0, top_k=0,
+              backend=backend, page_size=PAGE)
+    van = Rollout(model, cfg, **kw)
+    spec = Rollout(model, cfg, spec_decode=True, spec_k=SPEC_K, **kw)
+    label = f"spec {backend} llama3_2_3b"
+    van_first, van_logits = _greedy_logits(van, params, prompts, GEN, dev)
+    spec._graphs = False
+    eager, kept = _verify_logits(model, backend, lambda: _spec_call(
+        spec, params, prompts, GEN, dev))
+    check = _verify_check(model, params, prompts, spec, backend, van_first,
+                          van_logits, eager, kept, dev)
+    del van_logits, kept
+    spec._graphs = True
+    graphed = _spec_call(spec, params, prompts, GEN, dev)
+    # the spec run's own continuation: vanilla's parts from it at a
+    # near-tie, after which vanilla's tokens would be refused for good
+    cont = eager["bits"][0][:, PROMPT:].to(dev)
+
+    def forced_call():
+        model.mtp_draft = forced_drafts(model, cont, SPEC_K)
+        try:
+            return _spec_call(spec, params, prompts, GEN, dev)
+        finally:
+            del model.mtp_draft
+
+    van_pre = _spec_call(van, params, prompts, 1, dev)
+    spec_pre = _spec_call(spec, params, prompts, 1, dev)
+    van_a = _spec_call(van, params, prompts, GEN, dev)
+    graphed_b = _spec_call(spec, params, prompts, GEN, dev)
+    forced = forced_call()
+    forced_b = forced_call()
+    van_b = _spec_call(van, params, prompts, GEN, dev)
+    for c in (van_a, van_b):
+        if not _same_bits(c["bits"], van_first["bits"]):
+            raise SystemExit(f"{label}: vanilla greedy differs call to call")
+    for c in (graphed, graphed_b):
+        if not _same_bits(c["bits"], eager["bits"]):
+            raise SystemExit(f"{label}: the graphed spec step's tokens or "
+                             "log-probs differ from the eager step's")
+    if not _same_bits(forced["bits"], forced_b["bits"]):
+        raise SystemExit(f"{label}: forced runs differ call to call")
+    # the drafts never change the output: accepted or refused, every token
+    # is the verify's own argmax of the same context
+    if not torch.equal(forced["bits"][0], eager["bits"][0]):
+        raise SystemExit(f"{label}: the forced drafts changed the tokens")
+    forced_lp_err = float((forced["bits"][1] - eager["bits"][1]).abs().max())
+    if not (graphed["decode"]["graphed"] and not eager["decode"]["graphed"]
+            and graphed["decode"]["replays"] == graphed["spec"]["steps"] - 1):
+        raise SystemExit(f"{label}: not graphed as asked: "
+                         f"{graphed['decode']} / {eager['decode']}")
+    for name, c in (("graphed", graphed), ("eager", eager),
+                    ("forced", forced)):
+        want = spec_launches(cfg, c["spec"]["steps"], SPEC_K)
+        if c["launches"] != want:
+            raise SystemExit(f"{label} {name}: launches {c['launches']} != "
+                             f"{want}")
+    L = cfg.num_layers
+    kern = "paged_decode_attention" if backend == "paged" \
+        else "decode_attention"
+    if van_a["launches"][kern] != L * (GEN - 1):
+        raise SystemExit(f"{label}: vanilla {kern} {van_a['launches']}")
+    van_s = (van_a["s"] + van_b["s"]) / 2
+    van_cap = (van_a["decode"]["capture_ms"]
+               + van_b["decode"]["capture_ms"]) / 2e3
+    van_step = (van_s - van_pre["s"] - van_cap) * 1e3 / (GEN - 1)
+    out = {"backend": backend, "vanilla_step_ms": van_step,
+           "vanilla_call_ms": [van_a["s"] * 1e3, van_b["s"] * 1e3],
+           "vanilla_prefill_call_ms": van_pre["s"] * 1e3,
+           "vanilla_peak_mib": (van_a["peak"] - weights) / 2**20,
+           "spec_prefill_call_ms": spec_pre["s"] * 1e3,
+           "launches": graphed["launches"],
+           "vanilla_launches": van_a["launches"],
+           "graphed_equals_eager": True, "verify_check": check,
+           "forced_logp_err": forced_lp_err}
+    for name, cs_ in (("random", (graphed, graphed_b)),
+                      ("forced", (forced, forced_b))):
+        c = cs_[1]
+        st = c["spec"]
+        cap = (c["decode"]["capture_ms"] or 0.0) / 1e3
+        loop = (c["s"] - spec_pre["s"] - cap) * 1e3
+        acc = st["accepted"] / max(st["drafted"], 1)
+        out[name] = {"call_ms": [x["s"] * 1e3 for x in cs_],
+                     "capture_ms": cap * 1e3,
+                     "steps": st["steps"], "accept_rate": acc,
+                     "verify_step_ms": loop / st["steps"],
+                     "ms_per_token": loop / (GEN - 1),
+                     "speedup_vs_vanilla": van_step / (loop / (GEN - 1)),
+                     "peak_mib": (c["peak"] - weights) / 2**20,
+                     "pages": c.get("pages")}
+        o = out[name]
+        log(f"[smoke] {label} ({name} heads): {st['steps']} verify steps, "
+            f"accept {acc:.3f}; {o['verify_step_ms']:.3f} ms a verify "
+            f"step, {o['ms_per_token']:.3f} ms an emitted token against "
+            f"vanilla's {van_step:.3f} ms a step "
+            f"({o['speedup_vs_vanilla']:.2f}x); capture "
+            f"{o['capture_ms']:.1f} ms; peak {o['peak_mib']:.1f} MiB above "
+            f"the weights (vanilla {out['vanilla_peak_mib']:.1f})"
+            + ("" if name == "random" else f"; tokens the random heads' "
+               f"run's, logp within {forced_lp_err:.1e}"))
+    log(f"[smoke] {label}: graphed spec = eager spec bits; launches "
+        f"{graphed['launches']} (B3/B4 0)"
+        + (f"; pages {graphed['pages']}, 0 in use after" if backend ==
+           "paged" else ""))
+    f = check["faults"]
+    log(f"[smoke] {label}: against an fp32 forward of the same tokens, "
+        f"the verify's largest per-query logit RMS {check['verify_rms']:.4f}"
+        f" ({check['verify_queries']} queries, {check['verify_flips']} "
+        f"argmax flips), vanilla's decode steps' "
+        f"{check['vanilla_rms']:.4f} ({check['vanilla_queries']}, "
+        f"{check['vanilla_flips']} flips): {check['ratio']:.3f}x (limit "
+        f"{SPEC_ERR_RATIO}); planted faults "
+        + ", ".join(f"{k} {v['rms']:.4f} ({v['ratio']:.2f}x, {v['flips']} "
+                    f"flips)" for k, v in f.items())
+        + f"; rows leaving vanilla greedy {len(check['diverged'])} of "
+        f"{prompts.shape[0]}: "
+        + ", ".join(f"row {r['row']} at {r['index']} (fp32 logit of "
+                    f"vanilla's token less the spec's {r['fp32_gap']:+.4f})"
+                    for r in check["diverged"]))
+    if not check["ratio"] <= SPEC_ERR_RATIO:
+        raise SystemExit(f"{label}: the verify's logits are {check['ratio']}"
+                         f"x vanilla's error against fp32 (limit "
+                         f"{SPEC_ERR_RATIO})")
+    blind = [k for k, v in f.items() if not v["ratio"] > SPEC_ERR_RATIO]
+    if blind:
+        raise SystemExit(f"{label}: the verify check passes the planted "
+                         f"faults {blind}: {f}")
+    return out
+
+
+def _cyclic_bench(dev, log):
+    """Phase 13 (c): the reference's decode bench through the port. Its
+    tiny llama at mtp_depth 3, with head_dim 64 (2 heads, 1 KV head: the
+    same d_model 128 and GQA ratio; the card's attention kernels take
+    head_dim 64 or 128, not the reference's 32), f32, trained 300 AdamW
+    steps (lr 3e-3) on the cyclic-token task with the chain at window 1;
+    then 4 x (8 + 64) greedy, vanilla against spec (k 3), graphed, best
+    of 7 calls each after a first: tokens bit for bit, logp within 1e-5,
+    accept rate at least 0.90 (the reference's gate); the speedup is
+    printed beside the reference's gate of 1.2x."""
+    from repro_torch.optim import AdamW
+    cfg = dataclasses.replace(
+        get_config("llama3_2_3b").smoke(), num_layers=2, d_model=128,
+        d_ff=256, vocab_size=CYC_V, num_heads=2, num_kv_heads=1,
+        head_dim=64, mtp_depth=CYC_K)
+    model = Model(cfg, device=dev)
+    params = model.init(torch.Generator(device=dev).manual_seed(0))
+    for p in leaves(params):
+        p.requires_grad_(True)
+    opt = AdamW()
+    state = opt.init(params)
+    g = torch.Generator().manual_seed(0)
+    ar = torch.arange(CYC_S)
+    t0 = time.perf_counter()
+    for _ in range(CYC_STEPS):
+        start = torch.randint(0, CYC_V, (CYC_TB, 1), generator=g)
+        tokens = ((start + ar[None]) % CYC_V).to(dev)
+        mask = torch.ones_like(tokens)
+        with torch.enable_grad():
+            logits, h = model.forward(params, {"tokens": tokens})
+            loss = TS.lm_loss(logits, tokens, mask)
+            for d, lg in enumerate(model.mtp_chain_logits(
+                    params, h, tokens, window=1), start=1):
+                loss = loss + TS.mtp_loss(lg, tokens, mask,
+                                          offset=d + 1) / CYC_K
+            grads = torch.autograd.grad(loss, list(leaves(params)))
+        it = iter(grads)
+        opt.update_(tree_map(lambda _: next(it), params), state, params,
+                    3e-3)
+    torch.cuda.synchronize()
+    train_s = time.perf_counter() - t0
+    final = float(loss.detach())
+    for p in leaves(params):
+        p.requires_grad_(False)
+    prompts = ((torch.randint(0, CYC_V, (CYC_B, 1), generator=g)
+                + torch.arange(CYC_P)[None]) % CYC_V).to(dev)
+    runs = {}
+    for name, kw in (("vanilla", {}),
+                     ("spec", {"spec_decode": True, "spec_k": CYC_K})):
+        ro = Rollout(model, cfg, capacity=CYC_P + CYC_G, temperature=0.0,
+                     top_k=0, **kw)
+        first = _spec_call(ro, params, prompts, CYC_G, dev)
+        best = min(_spec_call(ro, params, prompts, CYC_G, dev)["s"]
+                   for _ in range(7))
+        runs[name] = (first, best, ro)
+    (van, tv, _), (spec, ts, ro) = runs["vanilla"], runs["spec"]
+    if not torch.equal(van["bits"][0], spec["bits"][0]):
+        raise SystemExit("cyclic bench: spec tokens differ from vanilla's")
+    lp_err = float((van["bits"][1] - spec["bits"][1]).abs().max())
+    if not lp_err < 1e-5:
+        raise SystemExit(f"cyclic bench: logp differ by {lp_err}")
+    st = spec["spec"]
+    accept = st["accepted"] / max(st["drafted"], 1)
+    if not accept >= 0.90:
+        raise SystemExit(f"cyclic bench: accept rate {accept:.3f} < 0.90")
+    out = {"train_s": train_s, "final_loss": final,
+           "vanilla_tok_s": CYC_B * CYC_G / tv,
+           "spec_tok_s": CYC_B * CYC_G / ts, "speedup": tv / ts,
+           "accept_rate": accept, "steps": st["steps"],
+           "dispatch_reduction": CYC_G / st["steps"], "logp_err": lp_err,
+           "vanilla_call_ms": tv * 1e3, "spec_call_ms": ts * 1e3}
+    log(f"[smoke] cyclic-token bench (the reference's decode bench, head_dim"
+        f" 64): {CYC_STEPS} train steps in {train_s:.1f} s, final loss "
+        f"{final:.4f}; vanilla {out['vanilla_tok_s']:.0f} tok/s, spec "
+        f"{out['spec_tok_s']:.0f} tok/s: speedup {out['speedup']:.2f}x "
+        f"(the reference's gate 1.2x), accept {accept:.3f} (gate 0.90), "
+        f"{st['steps']} verify steps ({out['dispatch_reduction']:.2f}x fewer"
+        f" dispatches); tokens identical, logp within {lp_err:.1e}")
+    return out
+
+
+def _spec_ppo(dev, log):
+    """Phase 13 (e): one hydra PPO iteration of phase 7's llama3_2_3b
+    shape with 2 MTP heads and ``spec_decode`` (k 2): launches as
+    reckoned (``ppo_launches`` with the rollout's verify steps), finite
+    metrics with the actor's ``mtp_loss``; per-phase ms and MiB above
+    the state."""
+    cfg = dataclasses.replace(get_config("llama3_2_3b"),
+                              mtp_depth=SPEC_DEPTH)
+    rl = RLHFConfig(memory_policy="after_inference", spec_decode=True,
+                    spec_k=SPEC_K, **PPO_KW)
+    tr, state = _fresh(lambda: RLHFTrainer(
+        cfg, cfg, rl, torch.Generator(device=dev).manual_seed(0)))[:2]
+    prompts = torch.randint(0, cfg.vocab_size, (PBATCH, PPROMPT),
+                            device=dev, generator=torch.Generator(
+                                device=dev).manual_seed(1))
+    torch.cuda.synchronize()
+    ops.reset_launches()
+    t0 = time.perf_counter()
+    m = tr.train_step(prompts, torch.Generator(device=dev).manual_seed(2))
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    made = dict(ops.launches)
+    st = dict(tr.rollout.spec_stats)
+    want = ppo_launches(cfg, rl, True, spec_steps=st["steps"])
+    if made != want:
+        raise SystemExit(f"spec PPO: launches {made} != {want}")
+    if not all(math.isfinite(v) for v in m.values()) or \
+            not m.get("mtp_loss", 0) > 0:
+        raise SystemExit(f"spec PPO: metrics {m}")
+    rows = _phase_rows(tr.memory.records[-8:], state)
+    _print_phases(f"spec hydra PPO llama3_2_3b + {SPEC_DEPTH} MTP heads "
+                  f"(k {SPEC_K}, {st['steps']} verify steps, accept "
+                  f"{st['accepted'] / max(st['drafted'], 1):.3f}), "
+                  f"{secs:.2f} s", rows, log)
+    log(f"[smoke] spec PPO: launches {made} as reckoned; mtp_loss "
+        f"{m['mtp_loss']:.4f} in the actor's loss")
+    out = {"seconds": secs, "launches": made, "metrics": m, "phases": rows,
+           "spec": st, "state_bytes": state}
+    del tr
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def spec_decoding(dev, log, profile=False):
+    """Phase 13: MTP self-speculative decoding (see the module's note):
+    (a, b) full-width llama3_2_3b with 2 MTP heads on both backends, (c)
+    the cyclic-token bench, (d) small spec PPO card vs CPU on both
+    engines, (e) a hydra spec PPO iteration at phase 7's shape. With
+    ``profile``, a graphed dense spec call and a graphed vanilla call of
+    the same prompts under the profiler."""
+    cfg = dataclasses.replace(get_config("llama3_2_3b"),
+                              mtp_depth=SPEC_DEPTH)
+    model = Model(cfg, device=dev)
+    params = model.init(torch.Generator(device=dev).manual_seed(0))
+    torch.cuda.synchronize()
+    weights = torch.cuda.memory_allocated()    # the weights and all else live
+    prompts = torch.randint(0, cfg.vocab_size, (BATCH, PROMPT), device=dev,
+                            generator=torch.Generator(device=dev)
+                            .manual_seed(1))
+    out = {"serve": {b: _spec_backend(model, cfg, params, prompts, b,
+                                      weights, dev, log)
+                     for b in ("dense", "paged")}}
+    if profile:
+        kw = dict(capacity=PROMPT + GEN, temperature=0.0, top_k=0)
+        for name, ro in (("spec", Rollout(model, cfg, spec_decode=True,
+                                          spec_k=SPEC_K, **kw)),
+                         ("vanilla", Rollout(model, cfg, **kw))):
+            prof, table = profile_call(lambda ro=ro: ro.generate(
+                params, {"tokens": prompts}, GEN,
+                torch.Generator(device=dev)))
+            print_profile(f"{name} dense request (graphed)", prof)
+            (OUT_DIR / f"profile_{name}_dense.txt").write_text(table)
+            out["serve"]["dense"][f"profile_{name}"] = prof
+    del params, model
+    gc.collect()
+    torch.cuda.empty_cache()
+    out["cyclic"] = _cyclic_bench(dev, log)
+    out["small_ppo"] = {}
+    for engine in ("hydra", "separate"):
+        r = check_small_ppo_against_cpu(dev, engine=engine, spec=True)
+        log(f"[smoke] small spec {engine} PPO card vs CPU: greedy tokens "
+            f"identical, metrics max_err {r['max_err']:.3e} "
+            f"(tol {r['tol']:g})")
+        out["small_ppo"][engine] = r
+    out["ppo"] = _spec_ppo(dev, log)
+    return out
+
+
 # each wrapper's CUDA kernels, by function name (no name contains
 # another's): one launch of the first kind per call; B3 and B4 add their
 # combine kernel when they split, B2-bwd its dK/dV and prep (or delta)
@@ -3464,13 +4067,19 @@ def main() -> int:
         dev, lambda s: print(s, flush=True),
         plain=[r["metrics"] for r in sep["iterations"]],
         profile=args.profile)
+    # phase 13: MTP self-speculative decoding
+    report["spec"] = spec_decoding(dev, lambda s: print(s, flush=True),
+                                   profile=args.profile)
 
     paths = {"serve": launches, "paged_grpo": grpo["launches"],
              "mamba_serve": mamba["launches"], "ppo": ppo["launches"],
              "ppo_separate": sep["launches"],
              "ppo_separate_offload": off["launches"],
              "ppo_offload": off["hydra_launches"],
-             "ppo_telemetry": report["telemetry"]["launches"]}
+             "ppo_telemetry": report["telemetry"]["launches"],
+             "spec_serve": report["spec"]["serve"]["dense"]["launches"],
+             "spec_paged": report["spec"]["serve"]["paged"]["launches"],
+             "ppo_spec": report["spec"]["ppo"]["launches"]}
 
     if args.profile:
         prof, table = profile_request(cfg, dev)

@@ -47,6 +47,18 @@ the compile cache's hits, misses and recompiles at the end. On the card
 every rollout's decode steps replay one CUDA graph of the step; the end
 report gives the last rollout's capture ms and graph pool.
 
+``--spec-decode`` (with ``--spec-k``, 2 by default) gives the actor
+``mtp_depth = spec_k`` MTP heads and makes the rollout self-speculative,
+as the reference example's flags do: greedy (temperature and top-k are
+overridden), drafting spec_k tokens a step from the MTP chain and
+verifying them in one forward, the same tokens as greedy decoding; the
+end report gives the last rollout's spec steps and accept rate:
+
+    PYTHONPATH=src python examples/torch_rlhf_e2e.py --smoke --device cpu \
+        --steps 3 --spec-decode
+    PYTHONPATH=src python examples/torch_rlhf_e2e.py --arch llama3_2_3b \
+        --steps 2 --batch 8 --prompt-len 512 --gen-len 64 --spec-decode
+
 Runtime telemetry (``repro_torch.obs``), the reference example's flags:
 ``--metrics-out`` writes the run's JSONL (phase spans with measured and
 simulated bytes and the owner tables, offload spans, metrics),
@@ -118,6 +130,12 @@ def main(argv=None):
     ap.add_argument("--capture-buckets", default="",
                     help="comma list of prefill compile-bucket sizes, "
                          "e.g. 8,16,32")
+    ap.add_argument("--spec-decode", action="store_true",
+                    help="MTP self-speculative greedy rollout (the tokens "
+                         "of greedy decoding; gives the actor mtp_depth = "
+                         "spec_k MTP heads)")
+    ap.add_argument("--spec-k", type=int, default=2,
+                    help="draft tokens per speculative step")
     ap.add_argument("--device", default=None,
                     help="cuda unless given; cpu runs the plain PyTorch path")
     ap.add_argument("--seed", type=int, default=0)
@@ -161,6 +179,8 @@ def main(argv=None):
 
     cfg = config(args.arch)
     critic_cfg = config(args.critic_arch or args.arch)
+    if args.spec_decode:
+        cfg = dataclasses.replace(cfg, mtp_depth=args.spec_k)
     small = args.smoke
     separate = args.engine == "separate"
     lr = args.lr or ((3e-3 if separate else 3e-2) if small else 1e-5)
@@ -172,6 +192,7 @@ def main(argv=None):
         top_k=args.top_k, engine=args.engine,
         lora_rank=args.lora_rank or (16 if small else 128),
         memory_policy=args.memory_policy, offload=args.offload,
+        spec_decode=args.spec_decode, spec_k=args.spec_k,
         capture_buckets=tuple(int(b) for b in args.capture_buckets.split(","))
         if args.capture_buckets else None)
     reward_fn = make_target_token_reward(7) if args.reward == "target" \
@@ -215,6 +236,11 @@ def main(argv=None):
              f"{ds['pool_bytes'] / 2**20:.1f} MiB)" if ds["graphed"]
              else "eager")
           + f", loop host {ds['host_ms']:.1f} ms")
+    if ro.spec_decode:
+        st = ro.spec_stats
+        print(f"spec decode (k={ro.spec_k}): {st['steps']} verify steps, "
+              f"accepted {st['accepted']}/{st['drafted']} drafts "
+              f"({st['accepted'] / max(st['drafted'], 1):.1%})")
 
     lot = trainer.offload_lot
     if lot is not None:

@@ -11,6 +11,12 @@ layout and their own dtype (a Mamba mixer's ``dt_bias``, ``A_log`` and
 so this module needs no JAX: the caller passes
 ``jax.tree.map(np.asarray, params)``.
 
+MTP heads: the reference keeps depth 1 in ``params["mtp"]`` (its layer
+under ``["layer"]["slot0"]``) and stacks depths 2..k on
+``params["mtp_extra"]``'s lead axis; the port keeps one module a depth in
+the list ``params["mtp"]`` (its layer dict under ``["layer"]``). Adapters
+over them follow the same two layouts.
+
 Decode caches follow the same stacking
 (``caches["segments"][0]["slot{j}"]``, each leaf ``[n_groups, B, ...]``:
 an attention slot's ``k``/``v``/``pos``, a Mamba slot's ``conv_state`` and
@@ -70,8 +76,51 @@ def _map(tree, fn):
     return fn(tree)
 
 
+_MTP = ("mtp", "mtp_extra")
+
+
+def _mtp_from_jax(tree_np: Dict[str, Any], fn) -> list:
+    """The reference's ``mtp`` module and stacked ``mtp_extra`` modules
+    (parameters or their LoRA subtrees) -> the port's depth-ordered list,
+    each leaf through ``fn``."""
+    def module(m):
+        out = {k: v for k, v in m.items() if k != "layer"}
+        if "layer" in m:
+            out["layer"] = m["layer"]["slot0"]
+        return _map(out, fn)
+
+    mods = [module(tree_np["mtp"])]
+    extra = tree_np.get("mtp_extra")
+    if extra is not None:
+        n = len(np.asarray(_first_leaf(extra)))
+        mods += [module(_map(extra, lambda a, j=j: np.asarray(a)[j]))
+                 for j in range(n)]
+    return mods
+
+
+def _mtp_to_jax(mods: list) -> Dict[str, Any]:
+    """The port's MTP list (numpy leaves) -> ``{"mtp": ...[, "mtp_extra":
+    stacked depths 2..k]}`` in the reference's layout."""
+    def module(m):
+        out = {k: v for k, v in m.items() if k != "layer"}
+        if "layer" in m:
+            out["layer"] = {"slot0": m["layer"]}
+        return out
+
+    out = {"mtp": module(mods[0])}
+    if len(mods) > 1:
+        out["mtp_extra"] = _map_stack([module(m) for m in mods[1:]])
+    return out
+
+
+def _first_leaf(tree):
+    while isinstance(tree, dict):
+        tree = next(iter(tree.values()))
+    return tree
+
+
 def _check_supported(params_np: Dict[str, Any], cfg: ModelConfig) -> None:
-    extra = set(params_np) - set(_TOP_LEVEL) - {"segment0"}
+    extra = set(params_np) - set(_TOP_LEVEL) - {"segment0"} - set(_MTP)
     if extra:
         raise NotImplementedError(
             f"the port carries one-segment token-input decoders; "
@@ -95,6 +144,9 @@ def from_jax(params_np: Dict[str, Any], cfg: ModelConfig,
             layers.append(_map(seg[f"slot{j}"],
                                lambda a, g=g: _to_torch(a[g], device)))
     out["layers"] = layers
+    if "mtp" in params_np:
+        out["mtp"] = _mtp_from_jax(params_np,
+                                   lambda a: _to_torch(a, device))
     return out
 
 
@@ -109,6 +161,8 @@ def to_jax(params: dict, cfg: ModelConfig) -> Dict[str, Any]:
         group = layers[j::per]
         slots[f"slot{j}"] = _map_stack(group)
     out["segment0"] = slots
+    if "mtp" in params:
+        out.update(_mtp_to_jax([_map(m, _to_numpy) for m in params["mtp"]]))
     return out
 
 
@@ -166,7 +220,7 @@ def adapter_from_jax(adapter_np: Dict[str, Any], cfg: ModelConfig,
     """A reference adapter (numpy leaves) -> the port's, on ``device``."""
     device = default_device(device)
     lora = adapter_np.get("lora") or {}
-    extra = set(lora) - {"segment0"}
+    extra = set(lora) - {"segment0"} - set(_MTP)
     if extra:
         raise NotImplementedError(f"the port carries one-segment decoders; "
                                   f"unsupported adapter groups {sorted(extra)}")
@@ -177,6 +231,9 @@ def adapter_from_jax(adapter_np: Dict[str, Any], cfg: ModelConfig,
         out["lora"]["layers"] = [
             _map(seg[f"slot{j}"], lambda a, g=g: _to_torch(a[g], device))
             for g in range(cfg.num_layers // per) for j in range(per)]
+    if "mtp" in lora:
+        out["lora"]["mtp"] = _mtp_from_jax(lora,
+                                           lambda a: _to_torch(a, device))
     if "value_head" in adapter_np:
         out["value_head"] = _map(adapter_np["value_head"],
                                  lambda a: _to_torch(a, device))
@@ -192,6 +249,9 @@ def adapter_to_jax(adapter: dict, cfg: ModelConfig) -> Dict[str, Any]:
         layers = [_map(layer, _to_numpy) for layer in layers]
         out["lora"]["segment0"] = {f"slot{j}": _map_stack(layers[j::per])
                                    for j in range(per)}
+    mtp = (adapter.get("lora") or {}).get("mtp")
+    if mtp:
+        out["lora"].update(_mtp_to_jax([_map(m, _to_numpy) for m in mtp]))
     if "value_head" in adapter:
         out["value_head"] = _map(adapter["value_head"], _to_numpy)
     return out

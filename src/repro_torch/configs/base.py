@@ -56,6 +56,7 @@ class ModelConfig:
     optimizer: str = "adamw"                  # adamw only in the port
     remat: str = "full"                       # none | full (per layer)
     microbatches: int = 1                     # gradient-accumulation steps
+    mtp_depth: int = 0                        # DeepSeek multi-token prediction
     source: str = ""                          # citation bracket
 
     def resolved_head_dim(self) -> int:

@@ -1,5 +1,6 @@
 """Core transformer layers: RMSNorm, RoPE, GQA attention (+QKV bias,
-sliding window, rolling KV cache) and (gated) MLPs — the port of
+sliding window, rolling KV cache, the T-token verify of speculative
+decoding) and (gated) MLPs — the port of
 ``repro/models/layers.py:22-281, 424-444``, with the LoRA delta at the
 projection sites when an adapter is given (``adapter=``: the layer's
 subtree of a ``models/lora.py`` adapter; the small products stay
@@ -11,8 +12,9 @@ bridge copies them as they are. RMSNorm, prefill attention and decode
 attention go through ``kernels/ops.py``: the hand-written kernel on CUDA,
 the plain version on the CPU.
 
-Unlike the reference's pure functions, :func:`_fill_cache` and
-:func:`attention_decode` write the KV cache in place: the cache is
+Unlike the reference's pure functions, :func:`_fill_cache`,
+:func:`attention_decode` and :func:`attention_decode_multi` write the KV
+cache in place: the cache is
 allocated once and a functional update would copy a layer's whole cache
 on every decode step.
 """
@@ -96,8 +98,11 @@ def sdpa(q, k, v, mask):
     """q [B,Sq,H,D], k/v [B,Sk,K,D] with H % K == 0; mask [B,1|H,Sq,Sk]
     bool. Softmax in fp32, probabilities cast to q's dtype (as the
     reference's ``sdpa``). The model routes its attention through the
-    kernels; this dense form is the layer-level counterpart of the
-    reference's."""
+    kernels, but for the speculative verify's T queries a row, which no
+    kernel takes: there it runs on fp32 copies of q, k and v, so its
+    scores stay fp32 as B3's and B4's do (in bf16 the reference's rounds
+    them, which would part the verify from the one-query decode kernels
+    more than the products' rounding does)."""
     B, Sq, H, D = q.shape
     K = k.shape[2]
     group = H // K
@@ -238,6 +243,38 @@ def attention_decode(params, x, position, cache, cfg: ModelConfig, *,
                                position, window=window)
     out = out.reshape(B, 1, -1) @ params["wo"]
     return out, cache
+
+
+def attention_decode_multi(params, x, positions, cache, cfg: ModelConfig, *,
+                           window: int = 0):
+    """T-token decode (the speculative-decode verify). x [B,T,D], positions
+    [B,T] absolute (consecutive per row; a -1 row writes a dead entry that
+    stays masked). All T K/V entries are written first, then every query
+    attends over the updated rolling buffer under its own position mask,
+    so draft token j is context for draft token j+1, as if the T tokens
+    had been decoded one by one. The attention is plain masked softmax
+    (:func:`sdpa` in fp32; the reference's is plain too: no kernel takes
+    T queries a row). The cache is updated in place; returns
+    (out [B,T,D], cache)."""
+    B, T = x.shape[:2]
+    cap = cache["k"].shape[1]
+    q, k, v = _project_qkv(params, x, cfg)
+    sin, cos = rope_tables(positions, cfg.resolved_head_dim(), cfg.rope_theta)
+    q = apply_rope(q, sin, cos)
+    k = apply_rope(k, sin, cos)
+    slots = (positions % cap).long()                        # [B, T]
+    bi = torch.arange(B, device=x.device)[:, None]
+    cache["k"][bi, slots] = k
+    cache["v"][bi, slots] = v
+    cache["pos"][bi, slots] = positions.to(torch.int32)
+    pos = cache["pos"][:, None, :]
+    qpos = positions[:, :, None]
+    valid = (pos >= 0) & (pos <= qpos)                      # [B, T, cap]
+    if window:
+        valid &= pos > qpos - window
+    out = sdpa(q.float(), cache["k"].float(), cache["v"].float(),
+               valid[:, None]).to(q.dtype)
+    return out.reshape(B, T, -1) @ params["wo"], cache
 
 
 # ---------------------------------------------------------------------------

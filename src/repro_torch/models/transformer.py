@@ -1,7 +1,11 @@
 """Decoder LM for token-input configs of attention and Mamba2 layers — the
 port of ``repro/models/transformer.py`` (``Model``: init, embed/unembed,
 the layer stack, forward, caches, prefill and one-token decode, and the
-paged prefill and decode over per-layer page pools), and the training
+paged prefill and decode over per-layer page pools), DeepSeek's chained
+multi-token-prediction (MTP) heads with the self-speculative decode they
+draft for (``mtp_chain_logits``, ``mtp_draft``, the T-token verify
+forwards ``decode_multi`` and ``paged_decode_multi``, and the paged
+suffix prefill over a cached prefix), and the training
 forward: LoRA adapters applied unmerged (``forward(adapter=)``), the value
 head of ``forward_value`` (the adapter's, or the model's own with
 ``with_value=True``: the separate engine's critic and reward), merge/unmerge
@@ -10,8 +14,11 @@ the policy of ``offload.policies`` ("full", "dots", "offload").
 
 Where the reference scans stacked ``segment{i}/slot{j}`` parameters with
 ``jax.lax.scan``, the port keeps one parameter dict per layer in
-``params["layers"]`` and runs a Python loop over them
-(``repro_torch.bridge`` converts between the two layouts). Caches and
+``params["layers"]`` and runs a Python loop over them; the MTP modules
+are a list too, ``params["mtp"]`` (depth 1 first), where the reference
+keeps depth 1 in ``params["mtp"]`` and stacks depths 2..k on
+``params["mtp_extra"]``'s lead axis (``repro_torch.bridge`` converts
+between the two layouts). Caches and
 paged pools are one dict per layer, updated in place: a rolling KV cache
 for an attention layer, the conv and SSM states for a Mamba layer.
 """
@@ -101,7 +108,24 @@ class Model:
                     "w": L._init(generator, (cfg.d_model, 1)),
                     "b": torch.zeros((1,), dtype=torch.float32,
                                      device=self.device)}
+            if cfg.mtp_depth:
+                params["mtp"] = [self._init_mtp_module(generator)
+                                 for _ in range(cfg.mtp_depth)]
         return params
+
+    def _init_mtp_module(self, generator: torch.Generator) -> dict:
+        """One MTP module: ``proj`` [2D, D] over the normed (h, emb) pair,
+        ``norm_h``, ``norm_e`` and one layer of the kind the reference
+        gives it (its last segment's first)."""
+        cfg, dt, dev = self.cfg, self.dtype, self.device
+        return {"proj": L._init(generator, (2 * cfg.d_model, cfg.d_model),
+                                dtype=dt),
+                "norm_h": L.init_norm(cfg.d_model, dt, dev),
+                "norm_e": L.init_norm(cfg.d_model, dt, dev),
+                "layer": self._init_layer(generator, self._mtp_kind())}
+
+    def _mtp_kind(self) -> str:
+        return self.cfg.period[0]
 
     def _generator(self, generator):
         if generator is None and self.device.type == "meta":
@@ -233,6 +257,75 @@ class Model:
         vh = (adapter or {}).get("value_head") or params["value_head"]
         return (h.float() @ vh["w"] + vh["b"])[..., 0]
 
+    # ------------------------------------------------- multi-token prediction
+    def _mtp_module_fwd(self, module, h_prev, e_next, positions, *,
+                        window: int = 0) -> torch.Tensor:
+        """One MTP module: combine h^{d-1} with emb(t_{i+d}) and run the
+        module's layer. Returns h^d (pre-final-norm)."""
+        eps = self.cfg.norm_eps
+        h_in = torch.cat([L.rms_norm(h_prev, module["norm_h"], eps),
+                          L.rms_norm(e_next, module["norm_e"], eps)], -1)
+        hh, _ = self._slot_fwd(module["layer"], self._mtp_kind(),
+                               h_in @ module["proj"], positions,
+                               window=window)
+        return hh
+
+    def mtp_logits(self, params, h, tokens) -> torch.Tensor:
+        """DeepSeek multi-token prediction: predict t_{i+2} from h_i and
+        emb(t_{i+1}), over the full (shifted, end-padded) sequence. Returns
+        logits [B, S, V] where index i scores tokens[:, i+2] (the last two
+        positions are padding — the loss masks them)."""
+        shifted = torch.nn.functional.pad(tokens[:, 1:], (0, 1))
+        hh = self._mtp_module_fwd(params["mtp"][0], h,
+                                  self.embed(params, shifted),
+                                  self._positions(tokens))
+        return self.unembed(params, hh)
+
+    def mtp_chain_logits(self, params, h, tokens, *, window: int = 0
+                         ) -> List[torch.Tensor]:
+        """Depth-k chained MTP (arXiv:2412.19437): module d consumes
+        h^{d-1} and emb(tokens shifted by d) and predicts t_{i+d+1}.
+        Returns one logits [B, S, V] a depth; entry d-1's index i scores
+        tokens[:, i+d+1] (``steps.mtp_loss(offset=d+1)``). Depth 1 is
+        :meth:`mtp_logits`. ``window=1`` trains the chain under the
+        identity mask (each position sees only itself), the function
+        :meth:`mtp_draft` evaluates at decode time."""
+        positions = self._positions(tokens)
+        out = []
+        h_prev = h
+        for d, module in enumerate(params["mtp"], start=1):
+            shifted = torch.nn.functional.pad(tokens[:, d:], (0, d))
+            h_prev = self._mtp_module_fwd(module, h_prev,
+                                          self.embed(params, shifted),
+                                          positions, window=window)
+            out.append(self.unembed(params, h_prev))
+        return out
+
+    @torch.no_grad()
+    def mtp_draft(self, params, h_last, first_tok, k_draft: int
+                  ) -> torch.Tensor:
+        """Draft ``k_draft`` greedy tokens from the MTP chain. ``h_last``
+        [B, D] is the trunk state at position i (whose logits gave
+        ``first_tok`` = t_{i+1}); the chain predicts t_{i+2}, t_{i+3}, ...
+        Each module runs at one position, where attention is v(x) alone —
+        independent of position and RoPE, the ``window=1`` chain — so
+        drafts are a function of (h_last, first_tok). Depths beyond
+        ``mtp_depth`` reuse the deepest module. Returns drafts [B, k]
+        int64."""
+        modules = params["mtp"]
+        h = h_last[:, None]                               # [B, 1, D]
+        tok = first_tok
+        positions = torch.zeros(h.shape[:2], dtype=torch.int32,
+                                device=h.device)
+        drafts = []
+        for d in range(k_draft):
+            module = modules[min(d, len(modules) - 1)]
+            e = self.embed(params, tok[:, None])
+            h = self._mtp_module_fwd(module, h, e, positions)
+            tok = torch.argmax(self.unembed(params, h)[:, 0].float(), -1)
+            drafts.append(tok)
+        return torch.stack(drafts, dim=1)
+
     # ------------------------------------------------------------- kv caches
     def init_cache(self, batch: int, capacity: int, dtype) -> List[dict]:
         """One decode cache per layer: a rolling KV cache of ``capacity``
@@ -285,19 +378,24 @@ class Model:
             c["pos"].masked_fill_(c["pos"] >= lengths[:, None], -1)
         return h[torch.arange(B, device=h.device), idx], filled
 
-    def _decode(self, params, token, mix) -> torch.Tensor:
-        """One-token pass over every layer; ``mix(i, mixer, x)`` steps layer
-        i's mixer on its cache (dense or paged KV, or Mamba states).
-        -> logits [B,V]."""
+    def _decode_h(self, params, tokens, mix) -> torch.Tensor:
+        """A pass of ``tokens`` [B, T] over every layer; ``mix(i, mixer,
+        x)`` steps layer i's mixer on its cache (dense or paged KV, or
+        Mamba states). -> h [B, T, D], pre-final-norm."""
         cfg = self.cfg
-        h = self.embed(params, token[:, None])
+        h = self.embed(params, tokens)
         for i, layer in enumerate(params["layers"]):
             x = L.rms_norm(h, layer["norm1"], cfg.norm_eps)
             h = h + mix(i, layer["mixer"], x)
             if "ffn" in layer:
                 x2 = L.rms_norm(h, layer["norm2"], cfg.norm_eps)
                 h = h + L.mlp_fwd(layer["ffn"], x2, cfg.mlp_gated)
-        return self.unembed(params, h)[:, 0]
+        return h
+
+    def _decode(self, params, token, mix) -> torch.Tensor:
+        """One-token pass over every layer -> logits [B,V]."""
+        return self.unembed(params, self._decode_h(params, token[:, None],
+                                                   mix))[:, 0]
 
     @torch.no_grad()
     def decode_step(self, params, caches, token, position, *,
@@ -363,3 +461,79 @@ class Model:
                                   mixer, x, position, pools[i],
                                   block_tables, self.cfg)[0])
         return logits, pools
+
+    @torch.no_grad()
+    def paged_prefill_suffix(self, params, batch, pools, block_tables,
+                             start, lengths, *, return_h: bool = False):
+        """Prefill only the suffix of a prompt whose prefix K/V already
+        sits in the pools (a prefix-cache hit). batch["tokens"] [B, Sb]
+        holds ``prompt[start:]`` right-padded; ``start`` [B] is each row's
+        count of cached prefix tokens and ``lengths`` [B] its full prompt
+        length. The suffix K/V is appended to the pools first and attention
+        gathers from them (:meth:`paged_decode_multi`), so a query at
+        position p sees cached prefix entries and earlier suffix entries
+        through one mask: a cold run (start = 0) and a warm one compute
+        the same function at each position. Returns (last-prompt-position
+        logits [B, V], pools[, h_last [B, D]])."""
+        tokens = batch["tokens"]
+        B, Sb = tokens.shape
+        j = torch.arange(Sb, dtype=torch.int32, device=tokens.device)[None]
+        pos = start[:, None].to(torch.int32) + j
+        positions = torch.where(pos < lengths[:, None], pos,
+                                torch.full_like(pos, -1))
+        logits_all, h_all, pools = self.paged_decode_multi(
+            params, pools, tokens, positions, block_tables)
+        idx = torch.clamp(lengths - start - 1, 0, Sb - 1).long()
+        rows = torch.arange(B, device=tokens.device)
+        logits = logits_all[rows, idx]
+        if return_h:
+            return logits, pools, h_all[rows, idx]
+        return logits, pools
+
+    # --------------------------------------------------- speculative decoding
+    def supports_spec_decode(self) -> bool:
+        """The draft/verify path covers token-input attention-only nets
+        with MTP heads: rejected drafts need no rollback in a rolling cache
+        or a paged pool (position masks hide them); Mamba states cannot
+        roll back."""
+        return self.cfg.input_mode == "tokens" and self.cfg.mtp_depth > 0 \
+            and all(k == ATTN for k in self.kinds)
+
+    def _check_attention_only(self, what: str) -> None:
+        if any(k != ATTN for k in self.kinds):
+            raise ValueError(f"{what} needs an attention-only model")
+
+    @torch.no_grad()
+    def decode_multi(self, params, caches, tokens, positions, *,
+                     window: int = 0):
+        """T-token verify forward over the dense rolling caches. tokens
+        [B, T], positions [B, T] absolute (consecutive per row; a row at
+        -1 writes only dead entries). Returns (logits [B, T, V], h [B, T,
+        D] pre-final-norm, caches); logits[:, j] scores the token at
+        ``positions[:, j] + 1``. The caches are written in place. Entries
+        of rejected drafts need no rollback: their positions exceed any
+        later query's, so the mask hides them until they are
+        overwritten."""
+        self._check_attention_only("decode_multi")
+        layers = caches["layers"]
+        h = self._decode_h(params, tokens, lambda i, mixer, x:
+                           L.attention_decode_multi(
+                               mixer, x, positions, layers[i], self.cfg,
+                               window=window)[0])
+        return self.unembed(params, h), h, caches
+
+    @torch.no_grad()
+    def paged_decode_multi(self, params, pools, tokens, positions,
+                           block_tables):
+        """T-token verify forward over paged pools (the paged twin of
+        :meth:`decode_multi`). tokens/positions [B, T]; -1 positions are
+        dropped writes (idle or finished rows). The page manager must have
+        grown each live row by T tokens first (``append_tokens``), and the
+        caller truncates it back after acceptance. Returns (logits [B, T,
+        V], h [B, T, D], pools)."""
+        self._check_attention_only("paged_decode_multi")
+        h = self._decode_h(params, tokens, lambda i, mixer, x:
+                           PA.paged_attention_decode_multi(
+                               mixer, x, positions, pools[i], block_tables,
+                               self.cfg)[0])
+        return self.unembed(params, h), h, pools

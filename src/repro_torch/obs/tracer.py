@@ -28,6 +28,12 @@ Export targets, the same files as the reference's, key for key:
   * :meth:`write_jsonl` — one JSON object per span/instant/sample, the
     file ``launch/report.py`` renders without recomputation.
 
+The clock is whole microseconds held in floats (integer nanoseconds from
+``time.perf_counter_ns``, floored to the µs): sums and differences of
+such values are exact below 2**53, so a span recorded as ``complete(name,
+t0, now - t0)`` ends exactly where the next one, starting at ``now``,
+begins — phase spans tile their iteration bit for bit.
+
 Self-accounting: every public recording method adds its own elapsed time
 to ``self_time_s``, so a run reports the telemetry tax directly
 (``overhead_fraction(wall_s)``).
@@ -59,8 +65,8 @@ _CATEGORY_TIDS = {"iteration": 1, "phase": 2, "offload": 3, "serving": 4,
 class Span:
     name: str
     cat: str
-    ts_us: float                 # start, µs since tracer epoch
-    dur_us: float = 0.0
+    ts_us: float                 # start, whole µs since tracer epoch
+    dur_us: float = 0.0          # whole µs
     depth: int = 0
     args: Dict[str, Any] = field(default_factory=dict)
 
@@ -73,7 +79,7 @@ class Span:
 class SpanTracer:
     def __init__(self, *, annotate: bool = False):
         self.t0_wall = time.time()           # epoch anchor for export
-        self._t0 = time.perf_counter()
+        self._t0_ns = time.perf_counter_ns()
         self.spans: List[Span] = []          # finished, in completion order
         self.instants: List[dict] = []
         self.samples: List[dict] = []        # counter-track samples
@@ -85,7 +91,9 @@ class SpanTracer:
 
     # ------------------------------------------------------------- clock
     def now_us(self) -> float:
-        return (time.perf_counter() - self._t0) * 1e6
+        """Whole µs since the tracer's epoch, as a float (exact: see the
+        module's note)."""
+        return float((time.perf_counter_ns() - self._t0_ns) // 1000)
 
     @property
     def depth(self) -> int:

@@ -1,9 +1,13 @@
 """Layer-level paged decode — the port of
 ``repro/paged/attention.py::paged_attention_decode`` (the paged twin of
-``layers.attention_decode``), without the LoRA adapter.
+``layers.attention_decode``), without the LoRA adapter, and of its
+T-query twin for the speculative-decode verify
+(``paged_attention_reference_multi``, ``paged_attention_decode_multi``).
 
-The attention itself goes through ``kernels/ops.py``: the hand-written
-paged-decode kernel (B4) on CUDA, its plain version on the CPU.
+The one-query attention goes through ``kernels/ops.py``: the
+hand-written paged-decode kernel (B4) on CUDA, its plain version on the
+CPU. The T-query attention is the reference's plain gather and masked
+fp32 softmax on both, as the reference runs it outside Pallas.
 """
 from __future__ import annotations
 
@@ -12,7 +16,8 @@ import torch
 from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels import ops
 from repro_torch.models import layers as L
-from repro_torch.paged.paged_cache import Pool, append_decode
+from repro_torch.paged.paged_cache import (Pool, append_decode,
+                                           append_decode_multi, gather_kv)
 
 
 def paged_attention_decode(params, x: torch.Tensor, position: torch.Tensor,
@@ -32,3 +37,46 @@ def paged_attention_decode(params, x: torch.Tensor, position: torch.Tensor,
     out = ops.paged_decode_attention(q[:, 0], pool["k"], pool["v"],
                                      block_tables, position)
     return out.reshape(B, 1, -1) @ params["wo"], pool
+
+
+def paged_attention_reference_multi(q: torch.Tensor, pool: Pool,
+                                    block_tables: torch.Tensor,
+                                    positions: torch.Tensor) -> torch.Tensor:
+    """Multi-query paged attention. q [B,T,H,D]; positions [B,T] (each
+    query's last valid logical index; a -1 query sees nothing and gives a
+    row the caller ignores) -> [B,T,H,D]. Token j of a draft run is
+    context for token j+1, since validity is per query. Gathers the
+    sequences' pages ([B, nb*ps, K, D]), then ``layers.sdpa`` in fp32."""
+    B = q.shape[0]
+    ps = pool["k"].shape[1]
+    k, v = gather_kv(pool, block_tables)                 # [B, S, K, D]
+    S = k.shape[1]
+    idx = torch.arange(S, device=q.device)
+    nb = block_tables.shape[1]
+    # expanded, not repeat_interleave'd: no host sync inside a graph capture
+    allocated = (block_tables >= 0)[:, :, None].expand(B, nb, ps) \
+        .reshape(B, S)
+    valid = allocated[:, None, :] \
+        & (idx[None, None, :] <= positions[:, :, None])  # [B, T, S]
+    return L.sdpa(q.float(), k.float(), v.float(),
+                  valid[:, None]).to(q.dtype)
+
+
+def paged_attention_decode_multi(params, x: torch.Tensor,
+                                 positions: torch.Tensor, pool: Pool,
+                                 block_tables: torch.Tensor,
+                                 cfg: ModelConfig):
+    """T-token decode against a paged pool (the speculative-decode
+    verify). x [B,T,D]; positions [B,T] logical indices (consecutive per
+    row; -1 entries are dropped writes and all-masked queries). Appends
+    all T K/V in place first, then attends with per-query position masks.
+    Returns (out [B,T,D], pool)."""
+    B, T = x.shape[:2]
+    q, k, v = L._project_qkv(params, x, cfg)
+    sin, cos = L.rope_tables(positions, cfg.resolved_head_dim(),
+                             cfg.rope_theta)
+    q = L.apply_rope(q, sin, cos)
+    k = L.apply_rope(k, sin, cos)
+    append_decode_multi(pool, k, v, block_tables, positions)
+    out = paged_attention_reference_multi(q, pool, block_tables, positions)
+    return out.reshape(B, T, -1) @ params["wo"], pool

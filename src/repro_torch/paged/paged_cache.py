@@ -101,6 +101,26 @@ def append_decode(pool: Pool, k_t: torch.Tensor, v_t: torch.Tensor,
     return pool
 
 
+def append_decode_multi(pool: Pool, k_t: torch.Tensor, v_t: torch.Tensor,
+                        block_tables: torch.Tensor,
+                        positions: torch.Tensor) -> Pool:
+    """Write T tokens per sequence at logical indices ``positions`` (the
+    speculative-decode verify), in place. k_t/v_t [B, T, kvh, hd];
+    positions [B, T]. Entries at -1 or without an allocated page write to
+    the drop page — :func:`append_decode`'s masking, over T at once."""
+    ps = pool["k"].shape[1]
+    B, T = positions.shape
+    pos = torch.clamp(positions, min=0).long()
+    blk = torch.clamp(pos // ps, max=block_tables.shape[1] - 1)   # [B, T]
+    page = torch.gather(block_tables, 1, blk)                     # [B, T]
+    valid = (page >= 0) & (positions >= 0)
+    page = torch.where(valid, page, pool_pages(pool)).reshape(-1).long()
+    slot = (pos % ps).reshape(-1)
+    pool["k"][page, slot] = k_t.reshape(B * T, *k_t.shape[2:])
+    pool["v"][page, slot] = v_t.reshape(B * T, *v_t.shape[2:])
+    return pool
+
+
 def gather_kv(pool: Pool, block_tables: torch.Tensor):
     """Materialise per-sequence K/V [B, nb*ps, kvh, hd] (plain path).
     Unallocated blocks gather page 0 — callers mask by position."""

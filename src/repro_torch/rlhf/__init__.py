@@ -3,8 +3,9 @@ from repro_torch.rlhf.rollout import (Rollout, RolloutResult, live_device_bytes,
 from repro_torch.rlhf.trainer import (MEMORY_POLICIES, PhaseMemoryManager,
                                       RLHFConfig, RLHFTrainer)
 from repro_torch.rlhf.engine import ModelEngine
+from repro_torch.rlhf.experience import ExperienceBuffer
 from repro_torch.rlhf.grpo import GRPOConfig, GRPOTrainer
 
-__all__ = ["GRPOConfig", "GRPOTrainer", "MEMORY_POLICIES", "ModelEngine", "PhaseMemoryManager",
+__all__ = ["ExperienceBuffer", "GRPOConfig", "GRPOTrainer", "MEMORY_POLICIES", "ModelEngine", "PhaseMemoryManager",
            "RLHFConfig", "RLHFTrainer", "Rollout", "RolloutResult",
            "live_device_bytes", "sample_token"]

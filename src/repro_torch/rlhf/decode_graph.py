@@ -34,12 +34,21 @@ body every step, as the kernels take their plain versions there.
 Launch counts: a capture counts nothing (``ops.capturing``) and each
 replay adds what the capture recorded (``ops.add_launches``), so
 ``ops.launches`` after a graphed run equals the eager run's.
+
+:class:`SpecGraph` is the same for the speculative-decode step (the
+counterpart of the reference's jitted ``_spec``,
+``repro/rlhf/rollout.py:190-199, 226-233``): MTP drafts, the T-token
+verify forward and the greedy accept, over static buffers for the trunk
+state ``h_last`` [B, D], the token [B], the per-row positions [B] and
+``live`` [B] (and the paged block table), with the step's outputs
+(greedy tokens, their log-probs, accepted counts and the new trunk state)
+in static buffers the host reads each step.
 """
 from __future__ import annotations
 
 import functools
 import time
-from typing import Callable, Optional
+from typing import Callable, Optional, Sequence
 
 import numpy as np
 import torch
@@ -89,6 +98,10 @@ def _end_capture(graph: "torch.cuda.CUDAGraph", *, strict: bool) -> None:
             raise
 
 
+def _tensors(out) -> Sequence[torch.Tensor]:
+    return (out,) if isinstance(out, torch.Tensor) else tuple(out)
+
+
 class DecodeGraph:
     """One rollout's decode step over static inputs (see the module's
     note). ``body(token, position[, table]) -> logits`` closes over the
@@ -113,7 +126,7 @@ class DecodeGraph:
         self._staging: Optional[torch.Tensor] = None
         self._copied: Optional["torch.cuda.Event"] = None
         self._graph: Optional["torch.cuda.CUDAGraph"] = None
-        self._logits: Optional[torch.Tensor] = None
+        self._out = None      # the step's output(s), static on replay
         self._made: dict = {}
         self.stats = {"graphed": capture and dev.type == "cuda"
                       and steps >= 2, "replays": 0, "capture_ms": None,
@@ -150,6 +163,11 @@ class DecodeGraph:
         replay: read them (sample) before calling again."""
         self.token.copy_(token)
         self.position.fill_(position)
+        return self._run()
+
+    def _run(self):
+        """The step on the static inputs as they stand: the body (eager),
+        step 1 and the capture, or a replay."""
         if not self.stats["graphed"]:
             return self._body(*self._inputs())
         if self._graph is None:
@@ -157,9 +175,9 @@ class DecodeGraph:
         self._graph.replay()
         ops.add_launches(self._made)
         self.stats["replays"] += 1
-        return self._logits
+        return self._out
 
-    def _first(self) -> torch.Tensor:
+    def _first(self):
         """Step 1 eagerly on the capturing stream, then the capture."""
         dev = self.token.device
         index = torch.cuda.current_device() if dev.index is None else dev.index
@@ -167,30 +185,70 @@ class DecodeGraph:
         side = capture_stream(index)
         side.wait_stream(main)
         with torch.cuda.stream(side):
-            logits = self._body(*self._inputs())
+            out = self._body(*self._inputs())
         side.synchronize()
         reserved = torch.cuda.memory_reserved(dev)
         t0 = time.perf_counter()
         graph = torch.cuda.CUDAGraph()
         with torch.cuda.stream(side), ops.capturing() as made:
-            self._logits = _capture(graph, lambda: self._body(
+            self._out = _capture(graph, lambda: self._body(
                 *self._inputs()))
         side.synchronize()
         self.stats["capture_ms"] = (time.perf_counter() - t0) * 1e3
         self.stats["pool_bytes"] = torch.cuda.memory_reserved(dev) - reserved
         self._graph, self._made = graph, made
         main.wait_stream(side)
-        logits.record_stream(main)
-        return logits
+        for t in _tensors(out):
+            t.record_stream(main)
+        return out
 
     def release(self) -> dict:
         """Drop the graph, its private pool, the static buffers and the
         body (and with it the weights and caches it closes over); returns
         ``stats``."""
-        self._body = self._logits = None
+        self._body = self._out = None
         if self._graph is not None:
             self._graph.reset()
             self._graph = None
         self.token = self.position = self.table = self._staging = None
         self._copied = None
         return self.stats
+
+
+class SpecGraph(DecodeGraph):
+    """One rollout's speculative-decode step over static inputs (see the
+    module's note). ``body(h_last, token, position, live[, table]) ->
+    (greedy [B, k+1], logp [B, k+1], n_acc [B], h_new [B, D])`` closes
+    over the weights, the caches or pools and the draft depth; ``width``
+    and ``dtype`` are the trunk state's. ``position`` here is per row
+    (int32 [B]), ``live`` bool [B]. ``steps`` is the least number of
+    calls the rollout will make (every call emits at most k+1 tokens a
+    row)."""
+
+    def __init__(self, body: Callable[..., tuple], batch: int, device, *,
+                 width: int, dtype, steps: int, table_blocks: int = 0,
+                 capture: bool = True):
+        super().__init__(body, batch, device, steps=steps,
+                         table_blocks=table_blocks, capture=capture)
+        dev = self.token.device
+        self.h_last = torch.zeros((batch, width), dtype=dtype, device=dev)
+        self.live = torch.zeros(batch, dtype=torch.bool, device=dev)
+
+    def _inputs(self) -> tuple:
+        return (self.h_last, self.token, self.position, self.live) + \
+            (() if self.table is None else (self.table,))
+
+    def __call__(self, token: torch.Tensor, position: torch.Tensor,
+                 live: torch.Tensor) -> tuple:
+        """One draft + verify + accept step from the state in ``h_last``
+        (the caller writes it: the prefill's, then each step's ``h_new``).
+        A replay's outputs are static buffers, rewritten by the next
+        replay: read them before calling again."""
+        self.token.copy_(token)
+        self.position.copy_(position)
+        self.live.copy_(live)
+        return self._run()
+
+    def release(self) -> dict:
+        self.h_last = self.live = None
+        return super().release()

@@ -18,7 +18,17 @@ gives the reference's results and cache stats, at the cost of the padded
 prefill work. On the dense backend a rung above ``capacity`` raises,
 since the rolling cache would keep the padding and drop the prompt's
 first positions.
-Speculative decoding, adapters and meshes are not ported yet.
+``spec_decode`` is the reference's MTP self-speculative greedy decoding:
+each step drafts ``spec_k`` tokens from the model's MTP chain, verifies
+them in one (spec_k+1)-token forward and accepts the greedy-consistent
+prefix, so every emitted token is the verify forward's own fp32 argmax
+and its logp the same ``log_softmax`` gather as vanilla greedy; only the
+number of forwards changes. Greedy only (temperature 0, top_k 0), no EOS
+early exit, full attention. On the card the draft + verify + accept step
+is captured once per call (``decode_graph.SpecGraph``) and replayed; the
+host reads each step's accepted counts, as the reference's does.
+Adapters and meshes are not ported: the trainer hands the rollout merged
+weights.
 
 On a Mamba model the dense backend runs unchanged: a Mamba layer's cache
 is its conv and SSM states, which ``capacity`` does not size and the
@@ -30,13 +40,14 @@ import time
 from dataclasses import dataclass
 from typing import List, Optional, Sequence
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import Model
 from repro_torch.paged import PageManager, copy_pages, pool_token_bytes
-from repro_torch.rlhf.decode_graph import DecodeGraph
+from repro_torch.rlhf.decode_graph import DecodeGraph, SpecGraph
 from repro_torch.serving import BucketLadder, CompileCache
 
 
@@ -67,6 +78,41 @@ def sample_token(generator: torch.Generator, logits: torch.Tensor, *,
     return tok, torch.gather(logp, -1, tok[:, None])[:, 0]
 
 
+def spec_verify_step(model: Model, spec_k: int, verify_fn, params, h_last,
+                     tok, pos, live):
+    """The draft / verify / accept core of self-speculative greedy decode
+    (``repro/rlhf/rollout.py:59-88``), on tensors alone (no host sync, so
+    a CUDA graph captures it whole). ``verify_fn(seq [B,T], positions
+    [B,T]) -> (logits [B,T,V], h [B,T,D])`` runs the T = spec_k + 1 token
+    forward; rows with ``live`` False get position -1 (dead writes).
+
+    logits[:, j] is the function of its context a sequential decode
+    would compute there (drafts j' <= j are context for query j), so
+    ``argmax(fp32 logits[:, j])`` is the vanilla greedy token once tokens
+    0..j-1 are accepted, and its gathered ``log_softmax`` is
+    ``sample_token``'s logp at top_k 0: the accepted prefix yields
+    ``n_acc + 1`` vanilla-exact (token, logp) pairs.
+
+    Returns (greedy [B, k+1], logp [B, k+1], n_acc [B], h_new [B, D]: the
+    trunk state at each row's last accepted position)."""
+    B = tok.shape[0]
+    drafts = model.mtp_draft(params, h_last, tok, spec_k)        # [B, k]
+    seq = torch.cat([tok[:, None], drafts], dim=1)               # [B, k+1]
+    steps = torch.arange(spec_k + 1, dtype=torch.int32, device=tok.device)
+    positions = pos[:, None] + steps[None]
+    positions = torch.where(live[:, None], positions,
+                            torch.full_like(positions, -1))
+    logits, h = verify_fn(seq, positions)
+    lg32 = logits.float()
+    greedy = torch.argmax(lg32, dim=-1)
+    logp = torch.gather(torch.log_softmax(lg32, dim=-1), -1,
+                        greedy[..., None])[..., 0]
+    acc = torch.cumprod((greedy[:, :-1] == drafts).int(), dim=1)
+    n_acc = acc.sum(dim=1)                                       # [B]
+    h_new = h[torch.arange(B, device=h.device), n_acc]           # [B, D]
+    return greedy, logp, n_acc, h_new
+
+
 def live_device_bytes(device: torch.device) -> Optional[int]:
     """Bytes the CUDA caching allocator holds in live tensors on
     ``device``; None off the card (no device metric exists there)."""
@@ -86,7 +132,15 @@ class Rollout:
     then raises, as the reference's does, since the mask cannot cover its
     states, and on the dense backend a rung above ``capacity`` raises. ``decode_stats`` holds the last call's decode-loop record:
     the graph's stats (``DecodeGraph.stats``), its steps, the loop's host
-    ms and, on the paged backend, the page manager's share of them."""
+    ms and, on the paged backend, the page manager's share of them.
+
+    ``spec_decode`` (greedy only: ``temperature`` 0, ``top_k`` 0, no
+    ``eos_id``, ``window`` 0, a model with MTP heads and attention
+    layers alone) drafts ``spec_k`` tokens a step; the rolling cache and
+    the pool's page count are sized ``capacity + spec_k``, since a verify
+    writes up to ``spec_k`` positions past the last one needed.
+    ``spec_stats`` holds the last spec call's steps, drafted and accepted
+    tokens."""
 
     # class-level switch read per call; an instance set to False runs the
     # decode loop eagerly on the card (to hold the graph against it)
@@ -96,9 +150,26 @@ class Rollout:
                  temperature: float = 1.0, top_k: int = 0,
                  eos_id: Optional[int] = None, window: int = 0,
                  backend: str = "dense", page_size: int = 16,
-                 capture_buckets: Optional[Sequence[int]] = None):
+                 capture_buckets: Optional[Sequence[int]] = None,
+                 spec_decode: bool = False, spec_k: int = 2):
         if backend not in ("dense", "paged"):
             raise ValueError(f"backend must be dense or paged, got {backend}")
+        if spec_decode:
+            if not model.supports_spec_decode():
+                raise ValueError("spec decode needs a token-input "
+                                 "attention-only model with mtp_depth > 0")
+            if temperature > 0.0 or top_k:
+                raise ValueError("spec decode is greedy-only "
+                                 "(temperature=0, top_k=0)")
+            if eos_id is not None:
+                raise ValueError(
+                    "spec decode has no EOS early exit (vanilla feeds "
+                    "zeroed post-EOS tokens through the cache); mask EOS "
+                    "downstream")
+            if window:
+                raise ValueError("spec decode is full-attention")
+            if spec_k < 1:
+                raise ValueError(f"spec_k must be at least 1, not {spec_k}")
         if backend == "paged":
             if not model.supports_paged():
                 raise ValueError("paged rollout needs an attention-only "
@@ -117,6 +188,9 @@ class Rollout:
         self.compile_cache = CompileCache()
         self.prefill_ladder = (BucketLadder(capture_buckets)
                                if capture_buckets else None)
+        self.spec_decode, self.spec_k = spec_decode, spec_k
+        self._cap_eff = capacity + (spec_k if spec_decode else 0)
+        self.spec_stats: Optional[dict] = None           # set per spec call
 
     def warmup(self, params, batch_size: int,
                max_prompt_len: Optional[int] = None) -> None:
@@ -133,7 +207,7 @@ class Rollout:
                                                dtype=torch.long, device=dev)}
                 lens = torch.zeros((batch_size,), dtype=torch.int32,
                                    device=dev)
-                self.model.prefill(params, batch, self.capacity,
+                self.model.prefill(params, batch, self._cap_eff,
                                    window=self.window, lengths=lens)
                 self.compile_cache.warm(("prefill", self.backend, Sb))
         self.compile_cache.finish_warmup()
@@ -151,7 +225,13 @@ class Rollout:
         The dense backend repeats the prompts up front; the paged backend
         prefills each prompt once and forks its G samples off it, sharing
         the prompt's pages copy-on-write — the same sampling stream (the
-        prefill's logits come out replicated row-wise, G per prompt)."""
+        prefill's logits come out replicated row-wise, G per prompt). The
+        speculative path repeats the prompts up front on both backends."""
+        if self.spec_decode:
+            tokens = batch["tokens"]
+            if group_size > 1:
+                tokens = torch.repeat_interleave(tokens, group_size, dim=0)
+            return self._generate_spec(params, tokens, max_new_tokens)
         if self.backend == "paged":
             return self._generate_paged(params, batch, max_new_tokens,
                                         generator, group_size)
@@ -160,13 +240,7 @@ class Rollout:
             tokens = torch.repeat_interleave(tokens, group_size, dim=0)
         B, P = tokens.shape
         if self.prefill_ladder is not None:
-            pbatch, lens, Sb = self._bucketed_prompt(tokens)
-            if Sb != P and Sb > self.capacity:
-                raise ValueError(
-                    f"a prompt of {P} tokens pads to the rung {Sb}, above "
-                    f"the dense cache's capacity {self.capacity}: the "
-                    "padding would push the prompt's first positions out")
-            self.compile_cache.lookup(("prefill", "dense", Sb))
+            pbatch, lens, Sb = self._dense_prompt(tokens)
             logits, caches = self.model.prefill(params, pbatch, self.capacity,
                                                 window=self.window,
                                                 lengths=lens)
@@ -220,6 +294,21 @@ class Rollout:
         self.decode_stats["steps"] = max(max_new_tokens - 1, 0)
         self.decode_stats["host_ms"] = (time.perf_counter() - t0) * 1e3
         return out_toks, out_logp
+
+    def _dense_prompt(self, tokens: torch.Tensor):
+        """:meth:`_bucketed_prompt` for the dense backend, whose rolling
+        cache holds ``capacity`` positions (``capacity + spec_k`` on the
+        speculative path): a rung above that raises; the compile-cache key
+        is looked up."""
+        P = tokens.shape[1]
+        pbatch, lens, Sb = self._bucketed_prompt(tokens)
+        if Sb != P and Sb > self._cap_eff:
+            raise ValueError(
+                f"a prompt of {P} tokens pads to the rung {Sb}, above "
+                f"the dense cache's capacity {self._cap_eff}: the "
+                "padding would push the prompt's first positions out")
+        self.compile_cache.lookup(("prefill", "dense", Sb))
+        return pbatch, lens, Sb
 
     def _bucketed_prompt(self, tokens: torch.Tensor):
         """Pad [B, P] prompts (right, with 0) up to their ladder rung Sb;
@@ -315,17 +404,144 @@ class Rollout:
         self.page_manager = pm
         return self._finalize(tokens, out_toks, out_logp, pools, graph)
 
+    def _generate_spec(self, params, tokens: torch.Tensor,
+                       max_new_tokens: int) -> RolloutResult:
+        """Self-speculative greedy generation on either backend
+        (``repro/rlhf/rollout.py:447-533``). Each step drafts ``spec_k``
+        tokens a row from the MTP chain, runs one (spec_k+1)-token verify
+        forward and accepts the greedy-consistent prefix: ``n_acc + 1``
+        tokens and log-probs, the same as vanilla greedy's. Rows that
+        reach ``max_new_tokens`` early get position -1 (dead writes) until
+        the batch drains; emission counts are host state, so rows advance
+        at their own accept rates. On the paged backend each live row
+        grows by spec_k+1 tokens before a verify and is truncated back to
+        its accepted length after it."""
+        B, P = tokens.shape
+        dev = tokens.device
+        N = max_new_tokens
+        k1 = self.spec_k + 1
+        stats = self.spec_stats = {"steps": 0, "drafted": 0, "accepted": 0}
+        pm = None
+        if self.backend == "paged":
+            pbatch, lens, Sb = self._bucketed_prompt(tokens)
+            self.compile_cache.lookup(("prefill", "paged", Sb))
+            ps = self.page_size
+            # one pool shape a Rollout: sized by capacity, not P + N
+            nb = -(-self._cap_eff // ps)
+            dtype = params["embed"].dtype
+            pm = PageManager(B * nb, ps,
+                             bytes_per_token=pool_token_bytes(self.cfg, dtype)
+                             * self.cfg.num_layers)
+            seq_ids = list(range(B))
+            for b in seq_ids:
+                pm.allocate(b, P)
+            kv = self.model.init_paged_pools(B * nb, ps, dtype)
+            table = pm.block_table_array(seq_ids, nb)
+            logits, kv, h_last = self.model.paged_prefill(
+                params, pbatch, kv, torch.from_numpy(table).to(dev), lens,
+                return_h=True)
+
+            def verify(seq, positions, bt):
+                return self.model.paged_decode_multi(params, kv, seq,
+                                                     positions, bt)[:2]
+        else:
+            pbatch, lens, Sb = self._dense_prompt(tokens)
+            logits, caches, h_last = self.model.prefill(
+                params, pbatch, self._cap_eff, lengths=lens, return_h=True)
+            kv = caches["layers"]
+
+            def verify(seq, positions):
+                return self.model.decode_multi(params, caches, seq,
+                                               positions)[:2]
+
+        def body(h, tok, pos, live, *table):
+            return spec_verify_step(
+                self.model, self.spec_k,
+                lambda seq, positions: verify(seq, positions, *table),
+                params, h, tok, pos, live)
+
+        self.decode_stats = {"steps": 0, "host_ms": 0.0,
+                             "page_manager_ms": 0.0}
+        graph = SpecGraph(body, B, dev, width=h_last.shape[-1],
+                          dtype=h_last.dtype, steps=-(-(N - 1) // k1),
+                          table_blocks=nb if pm is not None else 0,
+                          capture=self._graphs)
+        graph.h_last.copy_(h_last)
+        del h_last
+        t0 = time.perf_counter()
+        tok0, logp0 = sample_token(None, logits, temperature=0.0)
+        gen = np.zeros((B, N), np.int64)
+        gen_lp = np.zeros((B, N), np.float32)
+        gen[:, 0] = tok0.cpu().numpy()
+        gen_lp[:, 0] = logp0.cpu().numpy()
+        n_em = np.ones(B, np.int64)              # tokens emitted a row
+        last_tok = gen[:, 0].copy()
+        written = None
+        while (n_em < N).any():
+            live = n_em < N
+            pos = np.where(live, P + n_em - 1, -1).astype(np.int32)
+            if pm is not None:
+                t1 = time.perf_counter()
+                for b in np.nonzero(live)[0]:
+                    pm.append_tokens(int(b), k1)
+                table = pm.block_table_array(seq_ids, nb)
+                self.decode_stats["page_manager_ms"] += \
+                    (time.perf_counter() - t1) * 1e3
+                if written is None or not np.array_equal(table, written):
+                    graph.write_table(table)
+                    written = table
+                self.compile_cache.lookup(("spec", "paged", B, k1))
+            else:
+                self.compile_cache.lookup(("spec", "dense", B, k1))
+            greedy, lp, n_acc, h_new = graph(torch.from_numpy(last_tok),
+                                             torch.from_numpy(pos),
+                                             torch.from_numpy(live))
+            graph.h_last.copy_(h_new)
+            greedy = greedy.cpu().numpy()
+            lp = lp.cpu().numpy()
+            n_acc = n_acc.cpu().numpy()
+            stats["steps"] += 1
+            stats["drafted"] += self.spec_k * int(live.sum())
+            stats["accepted"] += int(n_acc[live].sum())
+            t1 = time.perf_counter()
+            for b in np.nonzero(live)[0]:
+                take = min(int(n_acc[b]) + 1, N - int(n_em[b]))
+                e = int(n_em[b])
+                gen[b, e:e + take] = greedy[b, :take]
+                gen_lp[b, e:e + take] = lp[b, :take]
+                n_em[b] += take
+                last_tok[b] = greedy[b, take - 1]
+                if pm is not None:
+                    # drop the pages of rejected or untaken drafts: the
+                    # logical length is the position of the row's last token
+                    pm.truncate(int(b), P + int(n_em[b]) - 1)
+            if pm is not None:
+                self.decode_stats["page_manager_ms"] += \
+                    (time.perf_counter() - t1) * 1e3
+        self.decode_stats["steps"] = stats["steps"]
+        self.decode_stats["host_ms"] = (time.perf_counter() - t0) * 1e3
+        if pm is not None:
+            for b in seq_ids:
+                pm.free_seq(b)
+            self.page_manager = pm
+        out_toks = torch.from_numpy(gen).to(dev)
+        out_logp = torch.from_numpy(gen_lp).to(dev)
+        return self._finalize(tokens, out_toks, out_logp, kv, graph)
+
     def _finalize(self, tokens, out_toks, out_logp, kv: List[dict],
                   graph: DecodeGraph) -> RolloutResult:
-        """Stack outputs, mask everything after (and including the pad
+        """Stack outputs (per-step lists, or [B, N] tensors), mask everything after (and including the pad
         after) EOS, and drop the decode graph (its private pool, static
         buffers and the body's references) and the per-layer caches or
         pools, so their memory returns to the allocator at the phase
         boundary."""
         B, P = tokens.shape
         dev = tokens.device
-        gen = torch.stack(out_toks, dim=1).to(tokens.dtype)
-        gen_logp = torch.stack(out_logp, dim=1)
+        gen = out_toks if isinstance(out_toks, torch.Tensor) else \
+            torch.stack(out_toks, dim=1)
+        gen = gen.to(tokens.dtype)
+        gen_logp = out_logp if isinstance(out_logp, torch.Tensor) else \
+            torch.stack(out_logp, dim=1)
         full = torch.cat([tokens, gen], dim=1)
         logp = torch.cat([torch.zeros((B, P), device=dev), gen_logp], dim=1)
         mask = torch.cat([torch.zeros((B, P), device=dev),

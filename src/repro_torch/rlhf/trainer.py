@@ -32,6 +32,10 @@ same kernels on the same values.
 
 ``rl.capture_buckets`` pads the rollout's prompts to a compile-bucket
 rung (``Rollout(capture_buckets=)``), as the reference does.
+``rl.spec_decode`` makes the rollout MTP self-speculative
+(``Rollout(spec_decode=, spec_k=)``; the actor's config needs
+``mtp_depth`` > 0), greedy: it forces ``temperature`` 0 and ``top_k`` 0
+on the rollout, as the reference does (``:372-376, 432-434``).
 
 ``telemetry=`` (``repro_torch.obs.RunTelemetry``; the reference's
 ``:130-335``, ``:448-486`` and ``:905-1123``) makes every boundary close a
@@ -42,7 +46,7 @@ once at the first ``train_step``), feeds the ``rlhf_*`` metrics, and
 notes each record to the run's ``obs.FlightRecorder``; a caught
 ``torch.cuda.OutOfMemoryError`` is dumped with its owners and re-raised.
 Telemetry observes: the same kernels run on the same values. Not ported:
-ZeRO/TP sharding and speculative decoding; asking for either raises.
+ZeRO/TP sharding; asking for it raises.
 """
 from __future__ import annotations
 
@@ -398,15 +402,15 @@ class RLHFConfig:
     # that touch it ("all" also parks the hydra trunk's adapted leaves
     # while merged weights serve rollout)
     offload: str = "none"
-    # the reference's field for what the port does not have yet: it must
-    # stay at its default
+    # MTP self-speculative greedy rollout: draft spec_k tokens a step from
+    # the actor's MTP chain, verify them in one forward (tokens and logps
+    # those of greedy decoding). Forces temperature=0 / top_k=0 for the
+    # rollout.
     spec_decode: bool = False
+    spec_k: int = 2
     # prefill compile-bucket ladder for the rollout's prompts (None: pad
     # nothing)
     capture_buckets: Optional[Sequence[int]] = None
-
-
-_NOT_PORTED = {"spec_decode": False}
 
 
 class RLHFTrainer:
@@ -433,9 +437,6 @@ class RLHFTrainer:
         if rl.engine not in ("separate", "hydra"):
             raise ValueError(f"engine must be separate or hydra, not "
                              f"{rl.engine!r}")
-        for name, default in _NOT_PORTED.items():
-            if getattr(rl, name) != default:
-                raise NotImplementedError(f"RLHFConfig.{name} is not ported")
         if shard is not None:
             raise NotImplementedError("sharding is not ported")
         self.rl = rl
@@ -456,10 +457,12 @@ class RLHFTrainer:
                                          device=self.device,
                                          tracked=self._tracked,
                                          telemetry=telemetry)
-        self.rollout = Rollout(self.actor, actor_cfg,
-                               capacity=rl.prompt_len + rl.gen_len,
-                               temperature=rl.temperature, top_k=rl.top_k,
-                               capture_buckets=rl.capture_buckets)
+        self.rollout = Rollout(
+            self.actor, actor_cfg, capacity=rl.prompt_len + rl.gen_len,
+            temperature=0.0 if rl.spec_decode else rl.temperature,
+            top_k=0 if rl.spec_decode else rl.top_k,
+            capture_buckets=rl.capture_buckets,
+            spec_decode=rl.spec_decode, spec_k=rl.spec_k)
         self.offload = self.offload_lot = None
         if rl.offload != "none":
             self._init_offload(rl)

@@ -8,8 +8,11 @@ LoRA train step of the hydra engine — the port of ``repro/steps.py``
 A step computes its gradients with autograd (attention and norms
 differentiate through the B2-bwd and B1-bwd kernels), clips them by their
 global norm and applies the reference's AdamW, both in place, as the
-reference's jitted step does with its state donated. The shard (ZeRO/TP)
-and MTP paths of the reference are not ported: asking for them raises.
+reference's jitted step does with its state donated. With
+``cfg.mtp_depth`` set, the ppo and lm steps add ``0.1 * mtp_chain_loss``
+(``:90-110``); the hydra step runs the chain on the frozen trunk,
+adapter-free, as the reference does. The shard (ZeRO/TP) path of the
+reference is not ported: asking for it raises.
 """
 from __future__ import annotations
 
@@ -82,6 +85,40 @@ def critic_loss(values, batch, *, clip_eps: float = 0.2):
     return loss, {"vf_loss": loss}
 
 
+def mtp_loss(logits, tokens, mask, *, offset: int = 2):
+    """MTP cross-entropy: logits[:, i] scores tokens[:, i+offset]
+    (full-length logits; the last ``offset`` positions are padding). The
+    depth-d logits of the chain use ``offset = d + 1``."""
+    S = tokens.shape[1]
+    tgt_full = torch.nn.functional.pad(tokens[:, offset:], (0, offset))
+    nll = -_full_seq_logp(logits, tgt_full.long())[:, :S - offset]
+    m = mask[:, offset:].float()
+    return torch.sum(nll * m) / torch.clamp(m.sum(), min=1.0)
+
+
+def mtp_chain_loss(model: Model, params, h, batch):
+    """Mean cross-entropy over the depth-k MTP chain. ``params`` may be a
+    frozen trunk (hydra): the chain always runs adapter-free."""
+    lgs = model.mtp_chain_logits(params, h, batch["tokens"])
+    losses = [mtp_loss(lg, batch["tokens"], batch["loss_mask"], offset=d + 1)
+              for d, lg in enumerate(lgs, start=1)]
+    total = losses[0]
+    for extra in losses[1:]:
+        total = total + extra
+    return total / len(losses)
+
+
+def _with_mtp(cfg: ModelConfig, kind: str, loss, metrics, mtp_fn):
+    """Add the MTP auxiliary loss (``0.1 * mtp_chain_loss``, reported as
+    ``mtp_loss``) where the config has MTP heads and the step is not the
+    critic's."""
+    if cfg.mtp_depth and kind != "critic":
+        mtp = mtp_fn()
+        loss = loss + 0.1 * mtp
+        metrics = dict(metrics, mtp_loss=mtp)
+    return loss, metrics
+
+
 def lm_loss(logits, tokens, mask, *, prefix: int = 0):
     nll = -_action_logp(logits, tokens, prefix)[:, 1:]
     m = mask[:, 1:].float()
@@ -133,11 +170,9 @@ def _update_(optimizer, state, grads, lr: float, max_grad_norm: float):
     return gnorm
 
 
-def _check_single_device(cfg: ModelConfig, *shards) -> None:
+def _check_single_device(*shards) -> None:
     if any(s is not None for s in shards):
         raise NotImplementedError("the port's train step is single-device")
-    if getattr(cfg, "mtp_depth", 0):
-        raise NotImplementedError("MTP heads are not ported")
 
 
 def make_train_step(model: Model, cfg: ModelConfig, *, lr: float = 3e-5,
@@ -147,7 +182,7 @@ def make_train_step(model: Model, cfg: ModelConfig, *, lr: float = 3e-5,
     ``state["params"]`` (the separate engine's actor and critic). kind:
     ppo | critic | lm. The step moves the params and moments in place
     and returns the same state dict, one step on."""
-    _check_single_device(cfg, shard)
+    _check_single_device(shard)
     if kind not in ("ppo", "critic", "lm"):
         raise ValueError(f"kind must be ppo, critic or lm, not {kind!r}")
     optimizer = make_optimizer(cfg.optimizer)
@@ -155,11 +190,14 @@ def make_train_step(model: Model, cfg: ModelConfig, *, lr: float = 3e-5,
     def loss_fn(params, batch):
         if kind == "critic":
             return critic_loss(model.forward_value(params, batch), batch)
-        logits, _ = model.forward(params, batch)
+        logits, h = model.forward(params, batch)
         if kind == "lm":
             loss = lm_loss(logits, batch["tokens"], batch["loss_mask"])
-            return loss, {"lm_loss": loss}
-        return ppo_actor_loss(logits, batch, kl_coef=kl_coef)
+            metrics = {"lm_loss": loss}
+        else:
+            loss, metrics = ppo_actor_loss(logits, batch, kl_coef=kl_coef)
+        return _with_mtp(cfg, kind, loss, metrics, lambda: mtp_chain_loss(
+            model, params, h, batch))
 
     N = max(1, cfg.microbatches)
 
@@ -195,7 +233,7 @@ def make_lora_train_step(model: Model, cfg: ModelConfig, *, lr: float = 3e-5,
     role's adapter: gradients and the optimizer state cover only the
     adapter leaves in ``state["params"]``, which move in place; the frozen
     trunk is an input that is never differentiated. kind: ppo | critic."""
-    _check_single_device(cfg, shard, base_shard)
+    _check_single_device(shard, base_shard)
     if kind not in ("ppo", "critic"):
         raise ValueError(f"the port's LoRA step trains ppo or critic, not "
                          f"{kind!r}")
@@ -205,8 +243,10 @@ def make_lora_train_step(model: Model, cfg: ModelConfig, *, lr: float = 3e-5,
         if kind == "critic":
             values = model.forward_value(base_params, batch, adapter=adapter)
             return critic_loss(values, batch)
-        logits, _ = model.forward(base_params, batch, adapter=adapter)
-        return ppo_actor_loss(logits, batch, kl_coef=kl_coef)
+        logits, h = model.forward(base_params, batch, adapter=adapter)
+        loss, metrics = ppo_actor_loss(logits, batch, kl_coef=kl_coef)
+        return _with_mtp(cfg, kind, loss, metrics, lambda: mtp_chain_loss(
+            model, base_params, h, batch))
 
     N = max(1, cfg.microbatches)
 

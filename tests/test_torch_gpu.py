@@ -619,6 +619,88 @@ def test_capture_after_an_offload_cycle_reads_the_new_trees(cuda):
         assert torch.equal(res.logp, want.logp)
 
 
+def _spec_call(ro, params, tokens, n, cuda):
+    torch.cuda.synchronize()
+    ops.reset_launches()
+    res = ro.generate(params, {"tokens": tokens}, n,
+                      torch.Generator(device=cuda))
+    torch.cuda.synchronize()
+    return ((res.tokens.cpu(), res.logp.cpu()), dict(ops.launches),
+            dict(ro.decode_stats), dict(ro.spec_stats or {}))
+
+
+@pytest.mark.parametrize("backend", ["dense", "paged"])
+def test_graphed_spec_step_matches_eager(cuda, backend):
+    """The speculative step (MTP drafts through B2's one-position layer,
+    the verify forward, the accept) replayed from its capture gives the
+    eager step's tokens and log-probs to the bit, counts the launches the
+    reckoning gives (B3 and B4 never), and every step after the first is
+    a replay; the paged pool's pages are all free after the call."""
+    cfg, _, _ = _small(cuda, "dense")
+    cfg = dataclasses.replace(cfg, mtp_depth=2)
+    model = Model(cfg, device=cuda)
+    params = model.init(torch.Generator(device=cuda).manual_seed(0))
+    tokens = torch.randint(0, cfg.vocab_size, (3, 21), device=cuda,
+                           generator=torch.Generator(device=cuda)
+                           .manual_seed(1))
+    kw = dict(backend="paged", page_size=8) if backend == "paged" else {}
+    ro = Rollout(model, cfg, capacity=21 + 12, temperature=0.0, top_k=0,
+                 spec_decode=True, spec_k=2, **kw)
+    out = []
+    for graphs in (True, False):
+        ro._graphs = graphs
+        out.append(_spec_call(ro, params, tokens, 12, cuda))
+        if backend == "paged":
+            ro.page_manager.check_invariants()
+            assert ro.page_manager.stats.pages_in_use == 0
+    (gbits, glaunch, gst, gspec), (ebits, elaunch, est, espec) = out
+    assert gst["graphed"] and not est["graphed"]
+    assert gst["replays"] == gspec["steps"] - 1 and gst["capture_ms"] > 0
+    assert gspec == espec
+    assert torch.equal(gbits[0], ebits[0]) and torch.equal(gbits[1], ebits[1])
+    want = _chip_smoke().spec_launches(cfg, gspec["steps"], 2)
+    assert glaunch == elaunch == want
+    assert want["decode_attention"] == want["paged_decode_attention"] == 0
+    van = Rollout(model, cfg, capacity=21 + 12, temperature=0.0, top_k=0,
+                  **kw)
+    vbits = _spec_call(van, params, tokens, 12, cuda)[0]
+    assert torch.equal(vbits[0], gbits[0])
+
+
+@pytest.mark.parametrize("backend", ["dense", "paged"])
+def test_spec_rollout_at_full_acceptance(cuda, backend):
+    """With ``chip_smoke.forced_drafts`` proposing vanilla greedy's own
+    continuation (a device counter, advanced inside the captured step),
+    every draft but those past the end is accepted: k+1 tokens a verify
+    step, vanilla's tokens and log-probs (f32, within 1e-5), the heads'
+    own drafts still launched (and dropped), B3/B4 never."""
+    cs = _chip_smoke()
+    cfg, _, _ = _small(cuda, "dense")
+    cfg = dataclasses.replace(cfg, mtp_depth=2)
+    model = Model(cfg, device=cuda)
+    params = model.init(torch.Generator(device=cuda).manual_seed(0))
+    tokens = torch.randint(0, cfg.vocab_size, (3, 21), device=cuda,
+                           generator=torch.Generator(device=cuda)
+                           .manual_seed(2))
+    kw = dict(backend="paged", page_size=8) if backend == "paged" else {}
+    N, k = 16, 2
+    van = Rollout(model, cfg, capacity=21 + N, temperature=0.0, top_k=0,
+                  **kw)
+    vbits = _spec_call(van, params, tokens, N, cuda)[0]
+    ro = Rollout(model, cfg, capacity=21 + N, temperature=0.0, top_k=0,
+                 spec_decode=True, spec_k=k, **kw)
+    model.mtp_draft = cs.forced_drafts(model, vbits[0][:, 21:].to(cuda), k)
+    try:
+        bits, launches, st, spec = _spec_call(ro, params, tokens, N, cuda)
+    finally:
+        del model.mtp_draft
+    assert st["graphed"] and spec["steps"] == -(-(N - 1) // (k + 1))
+    assert spec["accepted"] >= spec["drafted"] - 3 * k
+    assert torch.equal(bits[0], vbits[0])
+    assert float((bits[1] - vbits[1]).abs().max()) <= 1e-5
+    assert launches == cs.spec_launches(cfg, spec["steps"], k)
+
+
 def test_a_capture_that_cannot_succeed_raises(cuda):
     """A step whose body syncs with the host (``.item()``) runs eagerly
     at step 1 and cannot be captured: the call raises (no eager fallback),

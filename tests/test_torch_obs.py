@@ -222,6 +222,52 @@ def test_phase_span_coverage_both_engines(engine):
     assert tel.registry.counter("rlhf_iterations_total").value() == 2
 
 
+class _FakeClock:
+    """``time.perf_counter``/``perf_counter_ns`` held at ``seconds`` until
+    the test moves it."""
+
+    def __init__(self):
+        self.seconds = 0.0
+
+    def perf_counter(self):
+        return self.seconds
+
+    def perf_counter_ns(self):
+        return int(round(self.seconds * 1e9))
+
+
+def test_phase_spans_tile_exactly_under_awkward_clock(monkeypatch):
+    """Phase spans tile their iteration to the bit even where the clock's
+    readings do not add up in plain float µs: the readings of a run where
+    ``ts + dur`` came out one ulp off the next phase's start (12154.938...
+    µs to the first boundary, then 1113306.859... µs)."""
+    import time as _time
+    from repro_torch.rlhf import PhaseMemoryManager
+    clock = _FakeClock()
+    monkeypatch.setattr(_time, "perf_counter", clock.perf_counter)
+    monkeypatch.setattr(_time, "perf_counter_ns", clock.perf_counter_ns)
+    tel = RunTelemetry.create(sim_delta=False)
+    mm = PhaseMemoryManager(policy="none", device="cpu", telemetry=tel)
+    readings = [12154.938000094262, 1125461.797000753, 1125461.9,
+                2231890.123456789, 3000000.1, 3333333.3333333335,
+                4321987.654321, 5555555.555555556]
+    kinds = ("inference",) * 5 + ("training",) * 2
+    clock.seconds = readings[0] / 1e6
+    mm.iteration_start()
+    for phase, kind, t in zip(RUNTIME_RLHF_PHASE_SEQUENCE, kinds,
+                              readings[1:]):
+        clock.seconds = t / 1e6
+        mm.boundary(phase, kind)
+    mm.iteration_end()
+    spans = _phase_spans(tel)
+    (it,) = [s for s in tel.tracer.spans if s.cat == "iteration"]
+    assert [s.name for s in spans] == list(RUNTIME_RLHF_PHASE_SEQUENCE)
+    assert spans[0].ts_us == it.ts_us
+    for a, b in zip(spans, spans[1:]):
+        assert b.ts_us == a.ts_us + a.dur_us
+    assert spans[-1].ts_us + spans[-1].dur_us == it.ts_us + it.dur_us
+
+
 @pytest.mark.slow
 def test_sim_vs_measured_delta_smoke():
     tel = RunTelemetry.create(sim_delta=True)

@@ -119,7 +119,8 @@ want = {{"repro_torch.core.allocator", "repro_torch.paged.page_manager",
         "repro_torch.core.profiler", "repro_torch.core.strategies",
         "repro_torch.rlhf.grpo", "repro_torch.obs.tracer",
         "repro_torch.obs.attribution", "repro_torch.obs.flight",
-        "repro_torch.launch.report"}}
+        "repro_torch.launch.report", "repro_torch.optim.schedule",
+        "repro_torch.rlhf.experience"}}
 assert want <= set(names), want - set(names)
 import chip_smoke
 for example in ("torch_rlhf_e2e", "torch_memory_study"):

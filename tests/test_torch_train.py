@@ -555,8 +555,13 @@ def test_memory_manager_defaults_to_the_card():
 
 
 def test_trainer_refuses_what_is_not_ported():
+    """Sharding is not ported; speculative decoding is, and refuses an
+    actor without MTP heads as the reference's Rollout does."""
     _, tcfg = small_cfgs()
     with pytest.raises(NotImplementedError):
+        RLHFTrainer(tcfg, tcfg, RLHFConfig(**RL_KW), torch.Generator(),
+                    shard=object())
+    with pytest.raises(ValueError, match="mtp_depth"):
         RLHFTrainer(tcfg, tcfg, RLHFConfig(**{**RL_KW, "spec_decode": True}),
                     torch.Generator())
     with pytest.raises(NotImplementedError):
