@@ -169,9 +169,32 @@ Phases, each failing with a non-zero exit:
    (e) one hydra spec PPO iteration of phase 7's shape with 2 MTP heads:
    launches asserted, per-phase ms and MiB, the actor's ``mtp_loss``.
 
-Phases 3 and 5-9, 12 and 13 run graphed, the default on the card: every decode step
-after a call's first replays its captured step (in a call of two decode
-steps or more), and the launch counts they assert are the eager path's
+14. the continuous batcher (``serving/scheduler.py::ContinuousBatcher``):
+   full-width llama3_2_3b (bf16, random weights from a seed), 8 slots over
+   a 1024-token capacity, buckets (2, 4, 8, 64, 128, 256, 512) (slot rungs
+   2, 4 and 8), greedy traffic with no EOS: 32 requests of 32-480 prompt
+   tokens and 16-96 new ones on the dense backend, the paged one, and a
+   paged pool of a third of the dense reservation (admission waits on
+   pages, a request is preempted); 16 requests sharing a 256-token system
+   prompt with the prefix cache, two tenants weighted 2:1; 8 requests of
+   spec decode (k 2, phase 13's 2-head model) on both backends. Each run
+   graphed (one CUDA graph a decode rung, captured at warmup) and eager:
+   the same tokens, steps, launches and pages at every step; every
+   request at its length, no recompile after warmup, launches as the
+   run's own prefills and steps imply (``batcher_launches``), the pool
+   empty after (with the prefix cache only its parked pages); after
+   ``update_params`` to a second seed's weights the graphed batcher's
+   tokens are a fresh eager batcher's (dense, paged, prefix; there the
+   first admission hits no old prefix). Printed: ms a decode-only step at
+   each rung graphed and eager, tok/s, pages in use, reserved KV against
+   dense, admission latency p50/p99, each graph's capture ms and pool, peak
+   memory above the weights; then a small f32 batcher on the card against
+   the CPU on both backends, the prefix cache and spec decode.
+
+Phases 3 and 5-9 and 12-14 run graphed, the default on the card: every
+decode step after a call's first replays its captured step (in a call of
+two decode steps or more; the batcher's graphs live as long as it does),
+and the launch counts they assert are the eager path's
 (``ops.capturing``).
 
 It prints the per-kernel JSON line, the card line, and last the result
@@ -194,6 +217,7 @@ import time
 ROOT = pathlib.Path(__file__).resolve().parent
 sys.path.insert(0, str(ROOT / "src"))
 
+import numpy as np  # noqa: E402
 import torch  # noqa: E402
 import torch.nn.functional as F  # noqa: E402
 
@@ -221,6 +245,7 @@ from repro_torch.core import (POLICIES, CachingAllocator,  # noqa: E402
                               RUNTIME_RLHF_PHASE_SEQUENCE, build_grpo_phases,
                               build_rlhf_phases, run_iteration)
 from repro_torch.rlhf import GRPOConfig, GRPOTrainer  # noqa: E402
+from repro_torch.serving import ContinuousBatcher  # noqa: E402
 from repro_torch.tree import leaves, tree_map  # noqa: E402
 from repro_torch.tree import nbytes as tree_nbytes  # noqa: E402
 
@@ -3815,6 +3840,448 @@ def spec_decoding(dev, log, profile=False):
     return out
 
 
+# ---------------------------------------------------------------- phase 14
+# the continuous batcher (serving/scheduler.py) at full width and depth:
+# llama3_2_3b, 8 slots over a 1024-token capacity, the ladder's slot rungs
+# 2, 4 and 8 and its prefill rungs up to 512 (and the capacity); mixed
+# greedy traffic with no EOS, so slots turn over
+CB_SLOTS, CB_CAP, CB_PAGE = 8, 1024, 16
+CB_BUCKETS = (2, 4, 8, 64, 128, 256, 512)
+CB_PROMPT, CB_GEN = (32, 480), (16, 96)        # drawn, both ends included
+CB_REQUESTS, CB_SPEC_REQUESTS, CB_AFTER = 32, 8, 8
+CB_SYSTEM, CB_PREFIX_REQUESTS = 256, 16        # a shared system prompt
+CB_TENANTS = {"gold": 2.0, "bronze": 1.0}
+# name -> (batcher options, traffic); "paged_tight" pools a third of the
+# dense reservation, so admission waits on pages and requests are preempted
+CB_RUNS = {
+    "dense": (dict(cache_backend="dense"), "mixed"),
+    "paged": (dict(cache_backend="paged", page_size=CB_PAGE), "mixed"),
+    "paged_tight": (dict(cache_backend="paged", page_size=CB_PAGE,
+                         num_pages=CB_SLOTS * (CB_CAP // CB_PAGE) // 3),
+                    "mixed"),
+    "prefix": (dict(cache_backend="paged", page_size=CB_PAGE,
+                    prefix_cache=True, tenant_weights=CB_TENANTS), "prefix"),
+}
+# spec decode (phase 13's model, 2 MTP heads) on both backends
+CB_SPEC_RUNS = {
+    "spec_dense": (dict(cache_backend="dense", spec_decode=True,
+                        spec_k=SPEC_K), "spec"),
+    "spec_paged": (dict(cache_backend="paged", page_size=CB_PAGE,
+                        spec_decode=True, spec_k=SPEC_K), "spec"),
+}
+# runs whose graphed batcher then takes a second seed's weights
+CB_UPDATE = ("dense", "paged", "prefix")
+
+
+def batcher_traffic(vocab: int, kind: str, seed: int, n: int = 0) -> list:
+    """(prompt, max_new_tokens, tenant) for each request, drawn from
+    ``seed``: "mixed" and "spec" prompts of CB_PROMPT tokens, "prefix"
+    ones the shared CB_SYSTEM-token prompt and a user part (CB_PROMPT in
+    all), alternating between CB_TENANTS. The lengths come from their own
+    stream, so the schedule (there is no EOS) does not depend on
+    ``vocab``: a small model on the CPU rehearses the card's."""
+    lens, toks = np.random.RandomState(seed), np.random.RandomState(seed + 1)
+    lo, hi = CB_PROMPT
+    n = n or {"prefix": CB_PREFIX_REQUESTS, "spec": CB_SPEC_REQUESTS}.get(
+        kind, CB_REQUESTS)
+    if kind == "prefix":
+        lo, hi = lo, hi - CB_SYSTEM
+    shape = [(int(lens.randint(lo, hi + 1)),
+              int(lens.randint(CB_GEN[0], CB_GEN[1] + 1))) for _ in range(n)]
+    if kind != "prefix":
+        return [(toks.randint(0, vocab, size=p), g, "default")
+                for p, g in shape]
+    system = toks.randint(0, vocab, size=CB_SYSTEM)
+    tenants = list(CB_TENANTS)
+    return [(np.concatenate([system, toks.randint(0, vocab, size=p)]), g,
+             tenants[i % len(tenants)]) for i, (p, g) in enumerate(shape)]
+
+
+def batcher_launches(cfg, cb) -> dict:
+    """Kernel launches of a batcher's life so far, from its program calls
+    (``cb.calls``, warmup's included): each prefill B2 L and B1 2L + 1
+    (with the prefix cache a suffix prefill, whose attention is plain: no
+    B2), each decode step B3 (dense) or B4 (paged) L and B1 2L + 1, each
+    spec step spec_k MTP drafts (B2 1 and B1 5 each) and a verify (B1
+    2L + 1, plain attention)."""
+    L = cfg.num_layers
+    pre, dec, spec = (cb.calls[k] for k in ("prefill", "decode", "spec"))
+    want = {k: 0 for k in ops.KERNELS}
+    want["flash_attention"] = (0 if cb.prefix_cache else L * pre) + \
+        cb.spec_k * spec
+    kernel = "decode_attention" if cb.backend == "dense" else \
+        "paged_decode_attention"
+    want[kernel] = L * dec
+    want["rmsnorm"] = (2 * L + 1) * (pre + dec + spec) + 5 * cb.spec_k * spec
+    return want
+
+
+def _sync(dev):
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)
+
+
+def drain_batcher(cb, traffic, dev) -> dict:
+    """Submit ``traffic`` and step ``cb`` until drained, timing each step
+    (synchronised): its ms, the slot rung it decoded at, its prefills,
+    whether admission waited on pages (a free slot and a queue, and no
+    prefill), pages in use and reserved KV bytes after it; each request's
+    tokens, preemptions, cached prompt tokens and admission latency (from
+    submit to the end of the step that admitted it)."""
+    reqs = [cb.submit(p, n, tenant=t) for p, n, t in traffic]
+    steps, admitted = [], {}
+    t0 = time.perf_counter()
+    while cb.n_queued or any(r is not None for r in cb.active):
+        free = sum(r is None for r in cb.active)
+        queued, pre = cb.n_queued, cb.calls["prefill"]
+        t = time.perf_counter()
+        done = cb.step()
+        _sync(dev)
+        now = time.perf_counter()
+        n_live = sum(r is not None for r in cb.active) + len(done)
+        prefills = cb.calls["prefill"] - pre
+        steps.append({
+            "ms": (now - t) * 1e3, "prefills": prefills,
+            "rung": cb.slot_ladder.fit(n_live) if cb.slot_ladder else cb.B,
+            "waited": bool(free and queued and not prefills),
+            "pages": cb.pm.stats.pages_in_use if cb.pm else None,
+            "reserved": cb.kv_reserved_bytes()})
+        for r in reqs:
+            if r.out_tokens and r.rid not in admitted:
+                admitted[r.rid] = now - r.t_submit
+    wall = time.perf_counter() - t0
+    return {"tokens": [list(r.out_tokens) for r in reqs],
+            "want_len": [n for _, n, _ in traffic],
+            "preempted": [r.n_preempted for r in reqs],
+            "cached": [r.n_cached_tokens for r in reqs],
+            "admit_s": [admitted[r.rid] for r in reqs],
+            "steps": steps, "wall_s": wall}
+
+
+def serve_batcher(model, cfg, params, kw, traffic, graphs: bool, dev,
+                  update=None) -> dict:
+    """One batcher (graphed, or eager with ``ContinuousBatcher._graphs``
+    off) through warmup and ``traffic``: the drain's record, its launches
+    (from 0 before construction) beside ``batcher_launches``, compile-cache
+    stats, each graph's stats, and peak allocated bytes above what was
+    live before construction. ``update`` = (params, traffic): then
+    ``update_params`` and a second drain, recorded under "after"."""
+    ContinuousBatcher._graphs = graphs
+    try:
+        gc.collect()
+        _sync(dev)
+        base = torch.cuda.memory_allocated(dev) if dev.type == "cuda" else 0
+        if dev.type == "cuda":
+            torch.cuda.reset_peak_memory_stats(dev)
+        ops.reset_launches()
+        t0 = time.perf_counter()
+        cb = ContinuousBatcher(model, cfg, params, slots=CB_SLOTS,
+                               capacity=CB_CAP, temperature=0.0, top_k=0,
+                               seed=0, capture_buckets=CB_BUCKETS, **kw)
+        _sync(dev)
+        warm_s = time.perf_counter() - t0
+        rec = drain_batcher(cb, traffic, dev)
+        rec.update(
+            warm_s=warm_s, graphs=cb.graph_stats(),
+            launches=dict(ops.launches),
+            want=batcher_launches(cfg, cb), calls=dict(cb.calls),
+            cache=cb.compile_cache.stats(),
+            peak_above=(torch.cuda.max_memory_allocated(dev) - base
+                        if dev.type == "cuda" else None))
+        if cb.pm is not None:
+            cb.pm.check_invariants()
+            rec["left_pages"] = cb.pm.stats.pages_in_use
+            rec["parked_pages"] = cb.pm.num_cached_pages
+            rec["hit_rate"] = cb.prefix_hit_rate()
+        if update is not None:
+            captures = cb.n_captures
+            cb.update_params(update[0])
+            rec["after"] = drain_batcher(cb, update[1], dev)
+            rec["after"]["recaptures"] = cb.n_captures - captures
+            rec["after"]["invalidations"] = \
+                cb.pm.stats.n_prefix_invalidations if cb.pm else 0
+        del cb
+        return rec
+    finally:
+        ContinuousBatcher._graphs = True
+
+
+def _check_batcher_run(name, rec, log):
+    """Every request drained at its length, no recompile after warmup,
+    launches as reckoned, and the pool empty (with the prefix cache, only
+    its parked pages left)."""
+    lens = [len(t) for t in rec["tokens"]]
+    if lens != rec["want_len"]:
+        raise SystemExit(f"batcher {name}: lengths {lens} != "
+                         f"{rec['want_len']}")
+    if rec["cache"]["recompiles"]:
+        raise SystemExit(f"batcher {name}: {rec['cache']['recompiles']} "
+                         f"recompiles after warmup")
+    if rec["launches"] != rec["want"]:
+        raise SystemExit(f"batcher {name}: launches {rec['launches']} != "
+                         f"{rec['want']}")
+    if "left_pages" in rec and rec["left_pages"] != rec["parked_pages"]:
+        raise SystemExit(f"batcher {name}: {rec['left_pages']} pages in "
+                         f"use after the drain, {rec['parked_pages']} parked")
+
+
+def _same_run(name, graphed, eager):
+    for key in ("tokens", "preempted", "cached", "launches", "calls"):
+        if graphed[key] != eager[key]:
+            raise SystemExit(f"batcher {name}: graphed {key} differ from "
+                             f"eager")
+    for key in ("pages", "rung", "prefills"):
+        if [s[key] for s in graphed["steps"]] != \
+                [s[key] for s in eager["steps"]]:
+            raise SystemExit(f"batcher {name}: graphed steps' {key} differ "
+                             f"from eager")
+
+
+def _step_ms(rec) -> dict:
+    """Mean ms of the steps that decoded at each rung and admitted
+    nothing."""
+    by = {}
+    for s in rec["steps"]:
+        if not s["prefills"]:
+            by.setdefault(s["rung"], []).append(s["ms"])
+    return {r: (sum(v) / len(v), len(v)) for r, v in sorted(by.items())}
+
+
+def _print_batcher(name, g, e, dense_reserved, smi, log):
+    tok = sum(len(t) for t in g["tokens"])
+    ms_g, ms_e = _step_ms(g), _step_ms(e)
+    rungs = ", ".join(f"{r}: {ms_g[r][0]:.3f} / {ms_e.get(r, (0.0,))[0]:.3f}"
+                      f" ms (x{ms_g[r][1]})" for r in ms_g)
+    lat = sorted(g["admit_s"])
+    p50 = lat[len(lat) // 2]
+    p99 = lat[min(len(lat) - 1, math.ceil(0.99 * len(lat)) - 1)]
+    log(f"[smoke] batcher {name} [{smi}]: {len(g['tokens'])} requests, "
+        f"{tok} tokens in {len(g['steps'])} steps, {g['wall_s']:.3f} s "
+        f"graphed ({tok / g['wall_s']:.1f} tok/s) vs {e['wall_s']:.3f} s "
+        f"eager ({tok / e['wall_s']:.1f} tok/s); warmup {g['warm_s']:.2f} "
+        f"s; graphed / eager ms a decode-only step by slot rung: {rungs}")
+    pages = [s["pages"] for s in g["steps"] if s["pages"] is not None]
+    reserved = max(s["reserved"] for s in g["steps"])
+    line = (f"[smoke] batcher {name} [{smi}]: admission latency p50 "
+            f"{p50 * 1e3:.1f} "
+            f"ms, p99 {p99 * 1e3:.1f} ms; kv_reserved_bytes peak "
+            f"{reserved / 2**20:.1f} MiB (dense {dense_reserved / 2**20:.1f}"
+            f" MiB); peak above the weights {g['peak_above'] / 2**20:.1f} MiB"
+            f" graphed, {e['peak_above'] / 2**20:.1f} MiB eager; "
+            f"preempted {sum(g['preempted'])}, waits on pages "
+            f"{sum(s['waited'] for s in g['steps'])}")
+    if pages:
+        line += (f"; pages in use mean {sum(pages) / len(pages):.1f}, peak "
+                 f"{max(pages)}")
+    if any(g["cached"]):
+        line += (f"; prefix hit rate {g['hit_rate']:.3f}, "
+                 f"{g['parked_pages']} pages parked after")
+    log(line)
+    for key, st in g["graphs"].items():
+        log(f"[smoke] batcher {name} graph {key} [{smi}]: capture "
+            f"{st['capture_ms']:.1f} ms, pool "
+            f"{st['pool_bytes'] / 2**20:.2f} MiB")
+
+
+def _batcher_pair(name, model, cfg, params, kw, kind, dev, smi, log,
+                  params2=None):
+    """A run graphed then eager (with ``params2``: the update check) ->
+    the graphed record, checked."""
+    traffic = batcher_traffic(cfg.vocab_size, kind, seed=0)
+    update = None
+    if params2 is not None:
+        update = (params2, batcher_traffic(
+            cfg.vocab_size, kind, seed=0 if kind == "prefix" else 1,
+            n=CB_AFTER))
+    g = serve_batcher(model, cfg, params, kw, traffic, True, dev, update)
+    e = serve_batcher(model, cfg, params, kw, traffic, False, dev)
+    for rec in (g, e):
+        _check_batcher_run(name, rec, log)
+    _same_run(name, g, e)
+    if not all(s["graphed"] and s["replays"] > 0
+               for s in g["graphs"].values()):
+        raise SystemExit(f"batcher {name}: a graph never replayed: "
+                         f"{g['graphs']}")
+    dense_reserved = sum(t.numel() * t.element_size() for t in leaves(
+        model.init_cache(CB_SLOTS, CB_CAP, params["embed"].dtype, "meta")))
+    _print_batcher(name, g, e, dense_reserved, smi, log)
+    if update is not None:
+        fresh = serve_batcher(model, cfg, params2, kw, update[1], False, dev)
+        after = g.pop("after")
+        if after["tokens"] != fresh["tokens"] or \
+                after["cached"] != fresh["cached"]:
+            raise SystemExit(f"batcher {name}: after update_params the "
+                             f"tokens are not a fresh batcher's on the new "
+                             f"weights")
+        if kind == "prefix" and (after["cached"][0] or
+                                 after["invalidations"] != 1):
+            raise SystemExit(f"batcher {name}: the drain after "
+                             f"update_params hit an old prefix")
+        log(f"[smoke] batcher {name} [{smi}]: after update_params, "
+            f"{CB_AFTER} requests on a second seed's weights = a fresh eager "
+            f"batcher's tokens; {after['recaptures']} graphs recaptured"
+            + (f"; first admission cached {after['cached'][0]} tokens, "
+               f"{sum(after['cached'])} in all (fresh: "
+               f"{sum(fresh['cached'])})" if kind == "prefix" else ""))
+        g["after"] = {k: after[k] for k in ("recaptures", "cached")}
+    return g
+
+
+def suffix_prefill_ms(model, cfg, params, dev, prompt=CB_PROMPT[1],
+                     reps=5) -> dict:
+    """A cold prefill of one ``prompt``-token request padded to its rung,
+    two ways: the paged prefill (B2) and the prefix cache's suffix
+    prefill from position 0 (its attention plain: a masked fp32 softmax
+    of every query over the gathered pages) -> synchronised ms of each
+    (the mean of ``reps`` after a warm call) and their logits' largest
+    difference."""
+    Sb = next(b for b in CB_BUCKETS if b >= prompt)
+    nb = CB_CAP // CB_PAGE
+    pm = PageManager(nb, CB_PAGE)
+    pm.allocate(0, prompt)
+    pools = model.init_paged_pools(nb, CB_PAGE, params["embed"].dtype)
+    bt = torch.from_numpy(pm.block_table_array([0], nb)).to(dev)
+    tokens = torch.zeros((1, Sb), dtype=torch.long, device=dev)
+    tokens[0, :prompt] = torch.randint(
+        0, cfg.vocab_size, (prompt,), device=dev,
+        generator=torch.Generator(device=dev).manual_seed(7))
+    lens = torch.full((1,), prompt, dtype=torch.int32, device=dev)
+    start = torch.zeros((1,), dtype=torch.int32, device=dev)
+    runs = {"flash": lambda: model.paged_prefill(
+                params, {"tokens": tokens}, pools, bt, lens)[0],
+            "suffix": lambda: model.paged_prefill_suffix(
+                params, {"tokens": tokens}, pools, bt, start, lens)[0]}
+    out, logits = {}, {}
+    for name, fn in runs.items():
+        logits[name] = fn().float()
+        _sync(dev)
+        t0 = time.perf_counter()
+        for _ in range(reps):
+            fn()
+        _sync(dev)
+        out[name] = (time.perf_counter() - t0) * 1e3 / reps
+    out["max_logit_diff"] = (logits["flash"] - logits["suffix"]).abs() \
+        .max().item()
+    return out
+
+
+def graph_pool_mib(model, cfg, params, kw, dev) -> dict:
+    """The bytes a batcher's warmup captures add to the allocator's
+    reserve, summed over its graphs (MiB): with the batcher's one shared
+    pool, and with each graph in a private pool
+    (``torch.cuda.graph_pool_handle`` stood in for by None, so every
+    capture takes its own)."""
+    out = {}
+    for name in ("shared", "private"):
+        handle = torch.cuda.graph_pool_handle
+        if name == "private":
+            torch.cuda.graph_pool_handle = lambda: None
+        try:
+            gc.collect()
+            torch.cuda.empty_cache()
+            cb = ContinuousBatcher(model, cfg, params, slots=CB_SLOTS,
+                                   capacity=CB_CAP, temperature=0.0,
+                                   capture_buckets=CB_BUCKETS, **kw)
+            out[name] = sum(st["pool_bytes"] for st in
+                            cb.graph_stats().values()) / 2**20
+            del cb
+        finally:
+            torch.cuda.graph_pool_handle = handle
+    return out
+
+
+def check_small_batcher_against_cpu(dev, seed=3) -> dict:
+    """A small f32 model (the GQA smoke model with 2 MTP heads) served by
+    the batcher on the card through the kernels and on the CPU through the
+    plain versions, greedy: the same tokens, on both backends, with the
+    prefix cache and with spec decode."""
+    cfg = dataclasses.replace(get_config("llama3_2_3b").smoke(),
+                              num_kv_heads=2, mtp_depth=SPEC_DEPTH)
+    cpu_model = Model(cfg, device="cpu")
+    params = cpu_model.init(torch.Generator().manual_seed(seed))
+    gpu_model = Model(cfg, device=dev)
+    gparams = _to(params, dev)
+    rng = np.random.RandomState(seed)
+    system = rng.randint(0, cfg.vocab_size, size=32)
+    prompts = [np.concatenate([system, rng.randint(
+        0, cfg.vocab_size, size=int(rng.randint(4, 40)))]) for _ in range(6)]
+    gens = [int(rng.randint(6, 20)) for _ in prompts]
+    out = {}
+    for name, kw in (("dense", dict(cache_backend="dense")),
+                     ("paged", dict(cache_backend="paged", page_size=16)),
+                     ("prefix", dict(cache_backend="paged", page_size=16,
+                                     prefix_cache=True)),
+                     ("spec_dense", dict(spec_decode=True, spec_k=SPEC_K)),
+                     ("spec_paged", dict(cache_backend="paged", page_size=16,
+                                         spec_decode=True, spec_k=SPEC_K))):
+        toks = []
+        for model, p in ((cpu_model, params), (gpu_model, gparams)):
+            cb = ContinuousBatcher(model, cfg, p, slots=3, capacity=96,
+                                   temperature=0.0, seed=0,
+                                   capture_buckets=(2, 4, 16, 32, 64), **kw)
+            reqs = [cb.submit(q, n) for q, n in zip(prompts, gens)]
+            cb.run_until_drained()
+            toks.append([r.out_tokens for r in reqs])
+        if toks[0] != toks[1]:
+            raise SystemExit(f"small batcher {name}: card tokens differ from "
+                             f"the CPU's")
+        out[name] = sum(len(t) for t in toks[1])
+    return out
+
+
+def continuous_batching(dev, log) -> dict:
+    """Phase 14: the continuous batcher at full width and depth (see the
+    module's note); returns each run's graphed record."""
+    smi = sh(["nvidia-smi", "--query-gpu=name,power.limit",
+              "--format=csv,noheader"]).strip()
+    cfg = get_config("llama3_2_3b")
+    model = Model(cfg, device=dev)
+    params = model.init(torch.Generator(device=dev).manual_seed(0))
+    params2 = model.init(torch.Generator(device=dev).manual_seed(1))
+    out = {}
+    for name, (kw, kind) in CB_RUNS.items():
+        out[name] = _batcher_pair(name, model, cfg, params, kw, kind, dev,
+                                  smi, log, params2 if name in CB_UPDATE
+                                  else None)
+    if not sum(out["paged_tight"]["preempted"]) or \
+            not any(s["waited"] for s in out["paged_tight"]["steps"]):
+        raise SystemExit("batcher paged_tight: no preemption or no wait "
+                         "on pages")
+    pre = suffix_prefill_ms(model, cfg, params, dev)
+    log(f"[smoke] batcher prefill of {CB_PROMPT[1]} tokens (rung 512) "
+        f"[{smi}]: paged (B2) {pre['flash']:.3f} ms, prefix-cache suffix "
+        f"from 0 (plain attention) {pre['suffix']:.3f} ms "
+        f"({pre['suffix'] / pre['flash']:.2f}x); logits differ by "
+        f"{pre['max_logit_diff']:.3e}")
+    out["prefill_ms"] = pre
+    del params, params2, model
+    gc.collect()
+    torch.cuda.empty_cache()
+    scfg = dataclasses.replace(cfg, mtp_depth=SPEC_DEPTH)
+    model = Model(scfg, device=dev)
+    params = model.init(torch.Generator(device=dev).manual_seed(0))
+    for name, (kw, kind) in CB_SPEC_RUNS.items():
+        out[name] = _batcher_pair(name, model, scfg, params, kw, kind, dev,
+                                  smi, log)
+    pools = graph_pool_mib(model, scfg, params, CB_SPEC_RUNS["spec_paged"][0],
+                           dev)
+    log(f"[smoke] batcher spec_paged graphs' pools [{smi}]: "
+        f"{pools['shared']:.2f} MiB shared, {pools['private']:.2f} MiB "
+        f"private")
+    out["graph_pool_mib"] = pools
+    del params, model
+    gc.collect()
+    torch.cuda.empty_cache()
+    small = check_small_batcher_against_cpu(dev)
+    runs = ", ".join(f"{k} ({v} tokens)" for k, v in small.items())
+    log(f"[smoke] small batcher card vs CPU [{smi}]: greedy tokens "
+        f"identical on {runs}")
+    for name in (*CB_RUNS, *CB_SPEC_RUNS):
+        out[name].pop("steps")
+        out[name].pop("tokens")
+    return out
+
+
 # each wrapper's CUDA kernels, by function name (no name contains
 # another's): one launch of the first kind per call; B3 and B4 add their
 # combine kernel when they split, B2-bwd its dK/dV and prep (or delta)
@@ -4070,6 +4537,9 @@ def main() -> int:
     # phase 13: MTP self-speculative decoding
     report["spec"] = spec_decoding(dev, lambda s: print(s, flush=True),
                                    profile=args.profile)
+    # phase 14: the continuous batcher, graphed against eager
+    report["batcher"] = continuous_batching(dev,
+                                            lambda s: print(s, flush=True))
 
     paths = {"serve": launches, "paged_grpo": grpo["launches"],
              "mamba_serve": mamba["launches"], "ppo": ppo["launches"],
@@ -4080,6 +4550,8 @@ def main() -> int:
              "spec_serve": report["spec"]["serve"]["dense"]["launches"],
              "spec_paged": report["spec"]["serve"]["paged"]["launches"],
              "ppo_spec": report["spec"]["ppo"]["launches"]}
+    paths.update({f"batcher_{name}": report["batcher"][name]["launches"]
+                  for name in (*CB_RUNS, *CB_SPEC_RUNS)})
 
     if args.profile:
         prof, table = profile_request(cfg, dev)

@@ -222,13 +222,14 @@ def init_kv_cache(cfg: ModelConfig, batch: int, capacity: int, dtype,
 
 
 def attention_decode(params, x, position, cache, cfg: ModelConfig, *,
-                     window: int = 0):
+                     window: int = 0, adapter=None):
     """One-token decode. x [B,1,D], position [B] absolute. Rolling buffer:
-    slot = position % capacity. The cache is updated in place; returns
-    (out [B,1,D], cache)."""
+    slot = position % capacity. ``adapter`` is the layer's LoRA site dict
+    (unmerged A·B on the projections). The cache is updated in place;
+    returns (out [B,1,D], cache)."""
     B = x.shape[0]
     cap = cache["k"].shape[1]
-    q, k, v = _project_qkv(params, x, cfg)
+    q, k, v = _project_qkv(params, x, cfg, adapter)
     sin, cos = rope_tables(position[:, None], cfg.resolved_head_dim(),
                            cfg.rope_theta)
     q = apply_rope(q, sin, cos)
@@ -241,12 +242,11 @@ def attention_decode(params, x, position, cache, cfg: ModelConfig, *,
     # flash-decode kernel (B3): masks come from the per-slot positions
     out = ops.decode_attention(q[:, 0], cache["k"], cache["v"], cache["pos"],
                                position, window=window)
-    out = out.reshape(B, 1, -1) @ params["wo"]
-    return out, cache
+    return _linear(params, out.reshape(B, 1, -1), "wo", adapter or {}), cache
 
 
 def attention_decode_multi(params, x, positions, cache, cfg: ModelConfig, *,
-                           window: int = 0):
+                           window: int = 0, adapter=None):
     """T-token decode (the speculative-decode verify). x [B,T,D], positions
     [B,T] absolute (consecutive per row; a -1 row writes a dead entry that
     stays masked). All T K/V entries are written first, then every query
@@ -254,11 +254,11 @@ def attention_decode_multi(params, x, positions, cache, cfg: ModelConfig, *,
     so draft token j is context for draft token j+1, as if the T tokens
     had been decoded one by one. The attention is plain masked softmax
     (:func:`sdpa` in fp32; the reference's is plain too: no kernel takes
-    T queries a row). The cache is updated in place; returns
-    (out [B,T,D], cache)."""
+    T queries a row). ``adapter`` as in :func:`attention_decode`. The
+    cache is updated in place; returns (out [B,T,D], cache)."""
     B, T = x.shape[:2]
     cap = cache["k"].shape[1]
-    q, k, v = _project_qkv(params, x, cfg)
+    q, k, v = _project_qkv(params, x, cfg, adapter)
     sin, cos = rope_tables(positions, cfg.resolved_head_dim(), cfg.rope_theta)
     q = apply_rope(q, sin, cos)
     k = apply_rope(k, sin, cos)
@@ -274,7 +274,7 @@ def attention_decode_multi(params, x, positions, cache, cfg: ModelConfig, *,
         valid &= pos > qpos - window
     out = sdpa(q.float(), cache["k"].float(), cache["v"].float(),
                valid[:, None]).to(q.dtype)
-    return out.reshape(B, T, -1) @ params["wo"], cache
+    return _linear(params, out.reshape(B, T, -1), "wo", adapter or {}), cache
 
 
 # ---------------------------------------------------------------------------

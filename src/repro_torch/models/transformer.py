@@ -6,8 +6,9 @@ multi-token-prediction (MTP) heads with the self-speculative decode they
 draft for (``mtp_chain_logits``, ``mtp_draft``, the T-token verify
 forwards ``decode_multi`` and ``paged_decode_multi``, and the paged
 suffix prefill over a cached prefix), and the training
-forward: LoRA adapters applied unmerged (``forward(adapter=)``), the value
-head of ``forward_value`` (the adapter's, or the model's own with
+forward: LoRA adapters applied unmerged (``forward(adapter=)``, and
+``adapter=`` on every cache path: prefill, decode, paged and verify), the
+value head of ``forward_value`` (the adapter's, or the model's own with
 ``with_value=True``: the separate engine's critic and reward), merge/unmerge
 for rollout, and remat as one ``torch.utils.checkpoint`` per layer under
 the policy of ``offload.policies`` ("full", "dots", "offload").
@@ -327,19 +328,22 @@ class Model:
         return torch.stack(drafts, dim=1)
 
     # ------------------------------------------------------------- kv caches
-    def init_cache(self, batch: int, capacity: int, dtype) -> List[dict]:
+    def init_cache(self, batch: int, capacity: int, dtype,
+                   device=None) -> List[dict]:
         """One decode cache per layer: a rolling KV cache of ``capacity``
         slots for an attention layer; the conv and SSM states for a Mamba
-        layer, whose size ``capacity`` does not touch."""
-        return [L.init_kv_cache(self.cfg, batch, capacity, dtype, self.device)
+        layer, whose size ``capacity`` does not touch. On the model's
+        device unless ``device`` is given (a ``meta`` trace's)."""
+        device = self.device if device is None else device
+        return [L.init_kv_cache(self.cfg, batch, capacity, dtype, device)
                 if kind == ATTN else
-                M.init_mamba_cache(self.cfg, batch, dtype, self.device)
+                M.init_mamba_cache(self.cfg, batch, dtype, device)
                 for kind in self.kinds]
 
     @torch.no_grad()
     def prefill(self, params, batch, capacity: int, *, window: int = 0,
                 lengths: Optional[torch.Tensor] = None,
-                return_h: bool = False):
+                return_h: bool = False, adapter=None):
         """Process a prompt, returning (last-position logits [B,V], caches).
         caches = {"layers": [...]}: each holds the last ``min(S, capacity)``
         positions of a rolling buffer. Single pass.
@@ -351,15 +355,18 @@ class Model:
         positions. Attention layers only: a Mamba state cannot be masked
         after the fact, so a Mamba model raises on ``lengths``.
         ``return_h=True`` also returns the pre-final-norm hidden state at
-        the logits position [B, D]."""
+        the logits position [B, D]. ``adapter`` (a LoRA adapter, here and
+        on every cache path below) is applied unmerged, as in
+        :meth:`forward`."""
         h_last, filled = self._prefill_h(params, batch, capacity, window,
-                                         lengths)
+                                         lengths, adapter)
         logits = self.unembed(params, h_last[:, None])[:, 0]
         if return_h:
             return logits, {"layers": filled}, h_last
         return logits, {"layers": filled}
 
-    def _prefill_h(self, params, batch, capacity, window, lengths):
+    def _prefill_h(self, params, batch, capacity, window, lengths,
+                   adapter=None):
         """The prefill's trunk: (hidden state at each row's last valid
         position [B, D], filled caches)."""
         if lengths is not None and MAMBA in self.kinds:
@@ -368,9 +375,10 @@ class Model:
         tokens = batch["tokens"]
         h = self.embed(params, tokens)
         B = h.shape[0]
-        init_caches = self.init_cache(B, capacity, h.dtype)
+        init_caches = self.init_cache(B, capacity, h.dtype, h.device)
         h, filled = self._stack_fwd(params, h, self._positions(tokens),
-                                    window=window, init_caches=init_caches)
+                                    window=window, init_caches=init_caches,
+                                    adapter=adapter)
         if lengths is None:
             return h[:, -1], filled
         idx = torch.clamp(lengths - 1, min=0).long()
@@ -378,40 +386,46 @@ class Model:
             c["pos"].masked_fill_(c["pos"] >= lengths[:, None], -1)
         return h[torch.arange(B, device=h.device), idx], filled
 
-    def _decode_h(self, params, tokens, mix) -> torch.Tensor:
+    def _decode_h(self, params, tokens, mix, adapter=None) -> torch.Tensor:
         """A pass of ``tokens`` [B, T] over every layer; ``mix(i, mixer,
-        x)`` steps layer i's mixer on its cache (dense or paged KV, or
-        Mamba states). -> h [B, T, D], pre-final-norm."""
+        x, ad)`` steps layer i's mixer on its cache (dense or paged KV, or
+        Mamba states) under the mixer's LoRA sites ``ad`` (None without an
+        adapter). -> h [B, T, D], pre-final-norm."""
         cfg = self.cfg
+        lora = (adapter or {}).get("lora") or {}
+        ads = lora.get("layers") or [None] * len(self.kinds)
         h = self.embed(params, tokens)
         for i, layer in enumerate(params["layers"]):
+            ad = ads[i] or {}
             x = L.rms_norm(h, layer["norm1"], cfg.norm_eps)
-            h = h + mix(i, layer["mixer"], x)
+            h = h + mix(i, layer["mixer"], x, ad.get("mixer"))
             if "ffn" in layer:
                 x2 = L.rms_norm(h, layer["norm2"], cfg.norm_eps)
-                h = h + L.mlp_fwd(layer["ffn"], x2, cfg.mlp_gated)
+                h = h + L.mlp_fwd(layer["ffn"], x2, cfg.mlp_gated,
+                                  adapter=ad.get("ffn"))
         return h
 
-    def _decode(self, params, token, mix) -> torch.Tensor:
+    def _decode(self, params, token, mix, adapter=None) -> torch.Tensor:
         """One-token pass over every layer -> logits [B,V]."""
         return self.unembed(params, self._decode_h(params, token[:, None],
-                                                   mix))[:, 0]
+                                                   mix, adapter))[:, 0]
 
     @torch.no_grad()
     def decode_step(self, params, caches, token, position, *,
-                    window: int = 0):
+                    window: int = 0, adapter=None):
         """token [B] int, position [B] int32 -> (logits [B,V], caches);
         the caches are updated in place. A Mamba layer ignores
-        ``position``."""
+        ``position`` (and, as in the reference, the adapter)."""
         layers = caches["layers"]
 
-        def mix(i, mixer, x):
+        def mix(i, mixer, x, ad):
             if self.kinds[i] == ATTN:
                 return L.attention_decode(mixer, x, position, layers[i],
-                                          self.cfg, window=window)[0]
+                                          self.cfg, window=window,
+                                          adapter=ad)[0]
             return M.mamba_decode(mixer, x, layers[i], self.cfg)[0]
 
-        return self._decode(params, token, mix), caches
+        return self._decode(params, token, mix, adapter), caches
 
     # ------------------------------------------------------- paged kv caches
     def supports_paged(self) -> bool:
@@ -433,7 +447,7 @@ class Model:
 
     @torch.no_grad()
     def paged_prefill(self, params, batch, pools, block_tables, lengths, *,
-                      return_h: bool = False):
+                      return_h: bool = False, adapter=None):
         """Prefill into paged pools: the dense single-pass prompt compute
         (capacity S, through the flash kernel), then each layer's K/V
         scattered to the sequences' pages, in place. batch["tokens"]
@@ -441,7 +455,8 @@ class Model:
         — logits come from position ``lengths-1``. Returns
         (last-valid-position logits [B, V], pools[, h_last])."""
         S = batch["tokens"].shape[1]
-        h_last, filled = self._prefill_h(params, batch, S, 0, lengths)
+        h_last, filled = self._prefill_h(params, batch, S, 0, lengths,
+                                         adapter)
         for pool, c in zip(pools, filled):
             PC.scatter_prefill(pool, c["k"], c["v"], block_tables, lengths)
         filled.clear()                # the dense prefill cache was transient
@@ -452,19 +467,21 @@ class Model:
 
     @torch.no_grad()
     def paged_decode_step(self, params, pools, token, position,
-                          block_tables):
+                          block_tables, *, adapter=None):
         """One-token decode over paged pools. token/position [B] (position
         is the logical index being written); block_tables [B, nb]. The
         pools are updated in place. Returns (logits [B, V], pools)."""
-        logits = self._decode(params, token, lambda i, mixer, x:
+        logits = self._decode(params, token, lambda i, mixer, x, ad:
                               PA.paged_attention_decode(
                                   mixer, x, position, pools[i],
-                                  block_tables, self.cfg)[0])
+                                  block_tables, self.cfg, adapter=ad)[0],
+                              adapter)
         return logits, pools
 
     @torch.no_grad()
     def paged_prefill_suffix(self, params, batch, pools, block_tables,
-                             start, lengths, *, return_h: bool = False):
+                             start, lengths, *, return_h: bool = False,
+                             adapter=None):
         """Prefill only the suffix of a prompt whose prefix K/V already
         sits in the pools (a prefix-cache hit). batch["tokens"] [B, Sb]
         holds ``prompt[start:]`` right-padded; ``start`` [B] is each row's
@@ -482,7 +499,7 @@ class Model:
         positions = torch.where(pos < lengths[:, None], pos,
                                 torch.full_like(pos, -1))
         logits_all, h_all, pools = self.paged_decode_multi(
-            params, pools, tokens, positions, block_tables)
+            params, pools, tokens, positions, block_tables, adapter=adapter)
         idx = torch.clamp(lengths - start - 1, 0, Sb - 1).long()
         rows = torch.arange(B, device=tokens.device)
         logits = logits_all[rows, idx]
@@ -505,7 +522,7 @@ class Model:
 
     @torch.no_grad()
     def decode_multi(self, params, caches, tokens, positions, *,
-                     window: int = 0):
+                     window: int = 0, adapter=None):
         """T-token verify forward over the dense rolling caches. tokens
         [B, T], positions [B, T] absolute (consecutive per row; a row at
         -1 writes only dead entries). Returns (logits [B, T, V], h [B, T,
@@ -516,15 +533,15 @@ class Model:
         overwritten."""
         self._check_attention_only("decode_multi")
         layers = caches["layers"]
-        h = self._decode_h(params, tokens, lambda i, mixer, x:
+        h = self._decode_h(params, tokens, lambda i, mixer, x, ad:
                            L.attention_decode_multi(
                                mixer, x, positions, layers[i], self.cfg,
-                               window=window)[0])
+                               window=window, adapter=ad)[0], adapter)
         return self.unembed(params, h), h, caches
 
     @torch.no_grad()
     def paged_decode_multi(self, params, pools, tokens, positions,
-                           block_tables):
+                           block_tables, *, adapter=None):
         """T-token verify forward over paged pools (the paged twin of
         :meth:`decode_multi`). tokens/positions [B, T]; -1 positions are
         dropped writes (idle or finished rows). The page manager must have
@@ -532,8 +549,8 @@ class Model:
         caller truncates it back after acceptance. Returns (logits [B, T,
         V], h [B, T, D], pools)."""
         self._check_attention_only("paged_decode_multi")
-        h = self._decode_h(params, tokens, lambda i, mixer, x:
+        h = self._decode_h(params, tokens, lambda i, mixer, x, ad:
                            PA.paged_attention_decode_multi(
                                mixer, x, positions, pools[i], block_tables,
-                               self.cfg)[0])
+                               self.cfg, adapter=ad)[0], adapter)
         return self.unembed(params, h), h, pools

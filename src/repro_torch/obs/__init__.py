@@ -13,10 +13,12 @@ registry + one span tracer per run, written out as
 ``RLHFTrainer(..., telemetry=...)`` emits one span per runtime PPO phase
 carrying measured bytes AND the traced allocator simulator's prediction
 (the sim-vs-measured delta), with the per-owner attribution table;
-``OffloadExecutor`` emits park/fetch spans with PCIe bytes. The files are
-the reference's, key for key (DESIGN.md §4 has the span taxonomy and
-metric names). Not ported yet: the serving batcher's telemetry and the
-sharding counters.
+``OffloadExecutor`` emits park/fetch spans with PCIe bytes;
+``ContinuousBatcher(..., telemetry=...)`` one ``serve_step:<n>`` span a
+step with the ``serving_*`` and ``paged_*`` metrics, its owners and each
+compile-cache key's program memory. The files are the reference's, key
+for key (DESIGN.md §4 has the span taxonomy and metric names). Not ported
+yet: the sharding counters.
 """
 from __future__ import annotations
 

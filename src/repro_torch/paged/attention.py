@@ -1,6 +1,6 @@
 """Layer-level paged decode — the port of
 ``repro/paged/attention.py::paged_attention_decode`` (the paged twin of
-``layers.attention_decode``), without the LoRA adapter, and of its
+``layers.attention_decode``, with its LoRA ``adapter=``), and of its
 T-query twin for the speculative-decode verify
 (``paged_attention_reference_multi``, ``paged_attention_decode_multi``).
 
@@ -22,13 +22,14 @@ from repro_torch.paged.paged_cache import (Pool, append_decode,
 
 def paged_attention_decode(params, x: torch.Tensor, position: torch.Tensor,
                            pool: Pool, block_tables: torch.Tensor,
-                           cfg: ModelConfig):
+                           cfg: ModelConfig, adapter=None):
     """One-token decode against a paged pool. x [B,1,D]; position [B]
     absolute (== logical index; paged sequences are densely 0-indexed).
-    Appends this step's K/V to the pool in place, then attends over the
-    block table. Returns (out [B,1,D], pool)."""
+    ``adapter``: the layer's LoRA site dict (unmerged A·B on the
+    projections). Appends this step's K/V to the pool in place, then
+    attends over the block table. Returns (out [B,1,D], pool)."""
     B = x.shape[0]
-    q, k, v = L._project_qkv(params, x, cfg)
+    q, k, v = L._project_qkv(params, x, cfg, adapter)
     sin, cos = L.rope_tables(position[:, None], cfg.resolved_head_dim(),
                              cfg.rope_theta)
     q = L.apply_rope(q, sin, cos)
@@ -36,7 +37,7 @@ def paged_attention_decode(params, x: torch.Tensor, position: torch.Tensor,
     append_decode(pool, k[:, 0], v[:, 0], block_tables, position)
     out = ops.paged_decode_attention(q[:, 0], pool["k"], pool["v"],
                                      block_tables, position)
-    return out.reshape(B, 1, -1) @ params["wo"], pool
+    return L._linear(params, out.reshape(B, 1, -1), "wo", adapter or {}), pool
 
 
 def paged_attention_reference_multi(q: torch.Tensor, pool: Pool,
@@ -65,18 +66,19 @@ def paged_attention_reference_multi(q: torch.Tensor, pool: Pool,
 def paged_attention_decode_multi(params, x: torch.Tensor,
                                  positions: torch.Tensor, pool: Pool,
                                  block_tables: torch.Tensor,
-                                 cfg: ModelConfig):
+                                 cfg: ModelConfig, adapter=None):
     """T-token decode against a paged pool (the speculative-decode
     verify). x [B,T,D]; positions [B,T] logical indices (consecutive per
-    row; -1 entries are dropped writes and all-masked queries). Appends
-    all T K/V in place first, then attends with per-query position masks.
-    Returns (out [B,T,D], pool)."""
+    row; -1 entries are dropped writes and all-masked queries);
+    ``adapter`` as in :func:`paged_attention_decode`. Appends all T K/V
+    in place first, then attends with per-query position masks. Returns
+    (out [B,T,D], pool)."""
     B, T = x.shape[:2]
-    q, k, v = L._project_qkv(params, x, cfg)
+    q, k, v = L._project_qkv(params, x, cfg, adapter)
     sin, cos = L.rope_tables(positions, cfg.resolved_head_dim(),
                              cfg.rope_theta)
     q = L.apply_rope(q, sin, cos)
     k = L.apply_rope(k, sin, cos)
     append_decode_multi(pool, k, v, block_tables, positions)
     out = paged_attention_reference_multi(q, pool, block_tables, positions)
-    return out.reshape(B, T, -1) @ params["wo"], pool
+    return L._linear(params, out.reshape(B, T, -1), "wo", adapter or {}), pool

@@ -31,6 +31,12 @@ the caches, before the phase boundary's ``empty_cache``. On the CPU,
 where CUDA graphs do not exist, the same static-buffer loop runs the
 body every step, as the kernels take their plain versions there.
 
+The continuous batcher (``serving/scheduler.py``) keeps one graph per
+decode shape for its whole life instead: :meth:`DecodeGraph.rows` takes a
+position per row (idle and pad rows at -1), and ``pool`` lets the
+batcher's graphs share one memory pool (``torch.cuda.graph_pool_handle``),
+since they replay one at a time on one stream and each keeps its outputs.
+
 Launch counts: a capture counts nothing (``ops.capturing``) and each
 replay adds what the capture recorded (``ops.add_launches``), so
 ``ops.launches`` after a graphed run equals the eager run's.
@@ -47,6 +53,7 @@ in static buffers the host reads each step.
 from __future__ import annotations
 
 import functools
+import gc
 import time
 from typing import Callable, Optional, Sequence
 
@@ -66,12 +73,12 @@ def capture_stream(device_index: int) -> "torch.cuda.Stream":
     return torch.cuda.Stream(torch.device("cuda", device_index))
 
 
-def _capture(graph: "torch.cuda.CUDAGraph", fn: Callable[[], torch.Tensor]
-             ) -> torch.Tensor:
+def _capture(graph: "torch.cuda.CUDAGraph", fn: Callable[[], torch.Tensor],
+             pool=None) -> torch.Tensor:
     """Capture ``fn`` into ``graph`` on the current stream; returns its
-    output (in the graph's private pool). A capture that fails is ended
-    before its error propagates."""
-    graph.capture_begin()
+    output (in the graph's private pool, or in ``pool`` when one is
+    given). A capture that fails is ended before its error propagates."""
+    graph.capture_begin(pool=pool)
     try:
         out = fn()
     except BaseException:
@@ -109,13 +116,15 @@ class DecodeGraph:
     block table [batch, table_blocks]. ``capture=False`` (or a CPU
     ``device``, or ``steps`` < 2: no replay would follow the capture)
     runs the body every step on the same static buffers; ``steps`` is the
-    number of calls the rollout will make. ``stats`` holds whether the
-    step was graphed, the replays, the capture's host ms (synchronised)
-    and the bytes the graph's private pool reserved."""
+    number of calls the rollout will make. ``pool`` (a
+    ``torch.cuda.graph_pool_handle()``) captures into a pool shared with
+    other graphs. ``stats`` holds whether the step was graphed, the
+    replays, the capture's host ms (synchronised) and the bytes the
+    capture added to the allocator's reserve (its pool's growth)."""
 
     def __init__(self, body: Callable[..., torch.Tensor], batch: int,
                  device, *, steps: int, table_blocks: int = 0,
-                 capture: bool = True):
+                 capture: bool = True, pool=None):
         dev = torch.device(device)
         self.token = torch.zeros(batch, dtype=torch.int64, device=dev)
         self.position = torch.zeros(batch, dtype=torch.int32, device=dev)
@@ -128,6 +137,7 @@ class DecodeGraph:
         self._graph: Optional["torch.cuda.CUDAGraph"] = None
         self._out = None      # the step's output(s), static on replay
         self._made: dict = {}
+        self._pool = pool
         self.stats = {"graphed": capture and dev.type == "cuda"
                       and steps >= 2, "replays": 0, "capture_ms": None,
                       "pool_bytes": None}
@@ -165,6 +175,15 @@ class DecodeGraph:
         self.position.fill_(position)
         return self._run()
 
+    def rows(self, token: torch.Tensor, position: torch.Tensor
+             ) -> torch.Tensor:
+        """One decode step with a position per row: ``token`` [B] and
+        ``position`` [B] int32 (-1: an idle row, whose paged write is
+        dropped) -> logits [B, V], as :meth:`__call__`."""
+        self.token.copy_(token)
+        self.position.copy_(position)
+        return self._run()
+
     def _run(self):
         """The step on the static inputs as they stand: the body (eager),
         step 1 and the capture, or a replay."""
@@ -190,9 +209,18 @@ class DecodeGraph:
         reserved = torch.cuda.memory_reserved(dev)
         t0 = time.perf_counter()
         graph = torch.cuda.CUDAGraph()
-        with torch.cuda.stream(side), ops.capturing() as made:
-            self._out = _capture(graph, lambda: self._body(
-                *self._inputs()))
+        # no cyclic collection inside the capture: a collected object
+        # holding another graph would reset it, which CUDA forbids while
+        # a stream captures, and which invalidates this capture
+        collecting = gc.isenabled()
+        gc.disable()
+        try:
+            with torch.cuda.stream(side), ops.capturing() as made:
+                self._out = _capture(graph, lambda: self._body(
+                    *self._inputs()), self._pool)
+        finally:
+            if collecting:
+                gc.enable()
         side.synchronize()
         self.stats["capture_ms"] = (time.perf_counter() - t0) * 1e3
         self.stats["pool_bytes"] = torch.cuda.memory_reserved(dev) - reserved
@@ -227,9 +255,10 @@ class SpecGraph(DecodeGraph):
 
     def __init__(self, body: Callable[..., tuple], batch: int, device, *,
                  width: int, dtype, steps: int, table_blocks: int = 0,
-                 capture: bool = True):
+                 capture: bool = True, pool=None):
         super().__init__(body, batch, device, steps=steps,
-                         table_blocks=table_blocks, capture=capture)
+                         table_blocks=table_blocks, capture=capture,
+                         pool=pool)
         dev = self.token.device
         self.h_last = torch.zeros((batch, width), dtype=dtype, device=dev)
         self.live = torch.zeros(batch, dtype=torch.bool, device=dev)

@@ -1003,3 +1003,101 @@ def test_ppo_telemetry_on_card(cuda):
     assert all("sim_peak_bytes" in s.args for s in spans)
     assert all(s.args["measured_peak_bytes"] >= s.args["measured_bytes"]
                for s in spans)
+
+
+# ------------------------------------------------ the continuous batcher
+BATCHER_CASES = {
+    "dense": dict(cache_backend="dense"),
+    "paged": dict(cache_backend="paged", page_size=8),
+    "paged_tight": dict(cache_backend="paged", page_size=8, num_pages=16),
+    "prefix": dict(cache_backend="paged", page_size=8, prefix_cache=True),
+    "spec_dense": dict(cache_backend="dense", spec_decode=True, spec_k=2),
+    "spec_paged": dict(cache_backend="paged", page_size=8, spec_decode=True,
+                       spec_k=2),
+}
+
+
+def _batcher_drain(model, cfg, params, graphs, traffic, **kw):
+    """A batcher (graphed, or eager with the class switch off) through
+    warmup and ``traffic`` -> ((tokens, preemptions) a request, steps,
+    pages after each step, launches, its graphs' stats, the batcher)."""
+    from repro_torch.serving import ContinuousBatcher
+    ContinuousBatcher._graphs = graphs
+    try:
+        ops.reset_launches()
+        cb = ContinuousBatcher(model, cfg, params, slots=4, capacity=96,
+                               seed=5, capture_buckets=(2, 4, 32, 64), **kw)
+        reqs = [cb.submit(p, n) for p, n in traffic]
+        pages = []
+        while cb.n_queued or any(r is not None for r in cb.active):
+            cb.step()
+            pages.append(cb.pm.stats.pages_in_use if cb.pm else None)
+        if cb.device.type == "cuda":
+            torch.cuda.synchronize()
+        return ([(r.out_tokens, r.n_preempted) for r in reqs], cb.steps,
+                pages,
+                dict(ops.launches), cb.graph_stats(), cb)
+    finally:
+        ContinuousBatcher._graphs = True
+
+
+def _batcher_traffic(cfg, seed, n=7):
+    g = torch.Generator().manual_seed(seed)
+    system = torch.randint(0, cfg.vocab_size, (16,), generator=g)
+    out = []
+    for i in range(n):
+        tail = torch.randint(0, cfg.vocab_size,
+                             (int(torch.randint(3, 30, (1,), generator=g)),),
+                             generator=g)
+        out.append((torch.cat([system, tail]).numpy(),
+                    int(torch.randint(5, 24, (1,), generator=g))))
+    return out
+
+
+@pytest.mark.parametrize("case", sorted(BATCHER_CASES))
+def test_graphed_batcher_matches_eager(cuda, case):
+    """The batcher's decode graphs (one a slot rung, captured at warmup and
+    replayed every step) give the eager batcher's tokens (sampled where
+    the case allows it, greedy under spec decode), steps, pages at every
+    step and launches; every graph replayed, none recompiled."""
+    kw = BATCHER_CASES[case]
+    spec = kw.get("spec_decode", False)
+    cfg = dataclasses.replace(get_config("llama3_2_3b").smoke(),
+                              num_kv_heads=2, mtp_depth=2 if spec else 0)
+    model = Model(cfg, device=cuda)
+    params = model.init(torch.Generator(device=cuda).manual_seed(0))
+    samp = dict(temperature=0.0) if spec else dict(temperature=0.8, top_k=20)
+    traffic = _batcher_traffic(cfg, 1)
+    g = _batcher_drain(model, cfg, params, True, traffic, **kw, **samp)
+    e = _batcher_drain(model, cfg, params, False, traffic, **kw, **samp)
+    assert g[:4] == e[:4]
+    assert all(st["graphed"] and st["replays"] > 0 for st in g[4].values())
+    assert not any(st["graphed"] for st in e[4].values())
+    assert g[5].compile_cache.recompiles == 0
+    if case == "paged_tight":
+        assert sum(n for _, n in g[0]) >= 1
+
+
+@pytest.mark.parametrize("backend", ["dense", "paged"])
+def test_batcher_update_params_recaptures(cuda, backend):
+    """``update_params`` drops the graphs (they captured the old weights'
+    addresses); the next decodes recapture on the new weights, and the
+    tokens are a fresh eager batcher's on them."""
+    cfg = dataclasses.replace(get_config("llama3_2_3b").smoke(),
+                              num_kv_heads=2)
+    model = Model(cfg, device=cuda)
+    params = model.init(torch.Generator(device=cuda).manual_seed(0))
+    other = model.init(torch.Generator(device=cuda).manual_seed(1))
+    kw = dict(cache_backend=backend, page_size=8, temperature=0.0)
+    _, _, _, _, _, cb = _batcher_drain(model, cfg, params, True,
+                                       _batcher_traffic(cfg, 1), **kw)
+    captures = cb.n_captures
+    cb.update_params(other)
+    assert not cb.graphs
+    traffic = _batcher_traffic(cfg, 2)
+    reqs = [cb.submit(p, n) for p, n in traffic]
+    cb.run_until_drained()
+    assert cb.n_captures > captures
+    assert all(st["graphed"] for st in cb.graph_stats().values())
+    fresh = _batcher_drain(model, cfg, other, False, traffic, **kw)
+    assert [(r.out_tokens, r.n_preempted) for r in reqs] == fresh[0]

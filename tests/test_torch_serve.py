@@ -120,10 +120,11 @@ want = {{"repro_torch.core.allocator", "repro_torch.paged.page_manager",
         "repro_torch.rlhf.grpo", "repro_torch.obs.tracer",
         "repro_torch.obs.attribution", "repro_torch.obs.flight",
         "repro_torch.launch.report", "repro_torch.optim.schedule",
-        "repro_torch.rlhf.experience"}}
+        "repro_torch.rlhf.experience", "repro_torch.serving.scheduler"}}
 assert want <= set(names), want - set(names)
 import chip_smoke
-for example in ("torch_rlhf_e2e", "torch_memory_study"):
+for example in ("torch_rlhf_e2e", "torch_memory_study", "torch_serving",
+                "torch_continuous_batching"):
     spec = importlib.util.spec_from_file_location(
         example, pathlib.Path({root!r}) / "examples" / (example + ".py"))
     spec.loader.exec_module(importlib.util.module_from_spec(spec))
