@@ -191,7 +191,24 @@ Phases, each failing with a non-zero exit:
    memory above the weights; then a small f32 batcher on the card against
    the CPU on both backends, the prefix cache and spec decode.
 
-Phases 3 and 5-9 and 12-14 run graphed, the default on the card: every
+15. ZeRO data parallelism (``repro_torch.sharding``,
+   ``RLHFTrainer(shard=)``): (a) over NCCL at ndp 1, phase 8's OPT pair
+   (separate) and phase 7's hydra llama3_2_3b, each at ZeRO-1 and at
+   ZeRO-3 with per-layer gathers, 2 iterations: metrics bit for bit
+   phases 7 and 8's unsharded ones, launches as theirs; (b) two ranks over
+   gloo on the one card (``torch.multiprocessing`` spawn, both on
+   ``cuda:0``; every collective stages through pinned host memory), the
+   separate OPT pair with 7 prompts (ndp 2 does not divide 7: the batch
+   replicates) at ZeRO-1, ZeRO-3 ``tree`` and ZeRO-3 ``layer``, one
+   iteration each: metrics bit for bit a one-rank run of the same
+   prompts, and the trained trees after the sharded update (gathered)
+   the same bits by fingerprint; each rank's persistent state bytes, per-phase peak
+   ``max_memory_allocated`` and reserved-minus-allocated, and train
+   peak printed with the simulator's prediction; ZeRO-3 must keep at most
+   0.55 of ndp 1's persistent bytes on a rank, and ``layer`` must peak in
+   training below ``tree`` by at least half of (actor tree - one layer).
+
+Phases 3 and 5-9 and 12-15 run graphed, the default on the card: every
 decode step after a call's first replays its captured step (in a call of
 two decode steps or more; the batcher's graphs live as long as it does),
 and the launch counts they assert are the eager path's
@@ -207,6 +224,7 @@ import dataclasses
 import gc
 import json
 import math
+import os
 import pathlib
 import re
 import shutil
@@ -243,9 +261,11 @@ from repro_torch.rlhf import (ModelEngine, RLHFConfig, RLHFTrainer,  # noqa: E40
 from repro_torch.core import (POLICIES, CachingAllocator,  # noqa: E402
                               MemoryStrategy, OFFLOAD_LEVELS,
                               RUNTIME_RLHF_PHASE_SEQUENCE, build_grpo_phases,
-                              build_rlhf_phases, run_iteration)
+                              build_rlhf_phases, run_iteration,
+                              traced_strategy, traced_zero_scales)
 from repro_torch.rlhf import GRPOConfig, GRPOTrainer  # noqa: E402
 from repro_torch.serving import ContinuousBatcher  # noqa: E402
+from repro_torch.sharding import ShardedContext, delete_tree  # noqa: E402
 from repro_torch.tree import leaves, tree_map  # noqa: E402
 from repro_torch.tree import nbytes as tree_nbytes  # noqa: E402
 
@@ -4305,6 +4325,367 @@ SECOND_KERNELS = {"decode_attention": ("combine_kernel",),
                   "rmsnorm_bwd": ("rmsnorm_dscale_sum_kernel",)}
 
 
+# --------------------------------------------------------------- phase 15
+# ZeRO: the runs over NCCL at ndp 1 (stage, gather mode) on both engines,
+# and the ranks, prompts and runs over gloo on the one card
+ZERO_NCCL_RUNS = ((1, "layer"), (3, "layer"))
+ZERO_NDP, ZERO_PROMPTS = 2, 7
+ZERO_GLOO_RUNS = ((1, "tree"), (3, "tree"), (3, "layer"))
+# one iteration a gloo run (two ranks share the card and every gathered
+# byte crosses loopback TCP: 9-26 s an iteration); what its sharded update
+# left is held to the one rank's by a fingerprint of the gathered trees
+ZERO_GLOO_ITERS = 1
+ZERO_JOIN_S = 420          # a hung rendezvous or rank fails in this time
+ZERO_LAYER_MARGIN = 0.5    # layer peaks below tree by this share of (tree
+                           # - one layer) of the actor
+
+
+def _init_group(backend, world, rank, path):
+    import datetime
+
+    import torch.distributed as dist
+    dist.init_process_group(backend, store=dist.FileStore(path, world),
+                            rank=rank, world_size=world,
+                            timeout=datetime.timedelta(seconds=120))
+
+
+def _zero_trainer(engine, dev, shard, policy="after_inference"):
+    """Phase 7's hydra trainer or phase 8's separate one, seed 0, on
+    ``shard``."""
+    g = torch.Generator(device=dev).manual_seed(0)
+    if engine == "hydra":
+        cfg = get_config("llama3_2_3b")
+        return RLHFTrainer(cfg, cfg, RLHFConfig(memory_policy=policy,
+                                                **PPO_KW), g, shard=shard)
+    return RLHFTrainer(get_config(SEP_ACTOR), get_config(SEP_CRITIC),
+                       RLHFConfig(engine="separate", memory_policy=policy,
+                                  **SEP_KW), g, shard=shard)
+
+
+def _zero_prompts(engine, dev, it, n=None):
+    """Phase 7's or phase 8's prompts of iteration ``it`` (the first
+    ``n``)."""
+    if engine == "hydra":
+        cfg = get_config("llama3_2_3b")
+        data = PromptDataset(synthetic_instruction_prompts(
+            PBATCH * PITERS, seed=1), PPROMPT).batches(PBATCH, seed=1)
+        for _ in range(it):
+            next(data)
+        p = torch.from_numpy(next(data) % cfg.vocab_size).long().to(dev)
+    else:
+        p = _sep_prompts(dev, 1 + it, get_config(SEP_ACTOR).vocab_size)
+    return p if n is None else p[:n]
+
+
+def _zero_want(tr, engine):
+    if engine == "hydra":
+        return ppo_launches(tr.actor_cfg, tr.rl, model_reward=True)
+    return ppo_launches(tr.actor_cfg, tr.rl, model_reward=True,
+                        critic_cfg=tr.critic_cfg)
+
+
+def _zero_iterations(tr, engine, dev, n=None, iters=2):
+    """``iters`` asserted iterations (phase 7/8's prompts and generator)
+    -> per iteration (seconds, metrics, its records)."""
+    g = torch.Generator(device=dev).manual_seed(7)
+    want = _zero_want(tr, engine)
+    nrec = 8 if engine == "hydra" else 7
+    out = []
+    for it in range(iters):
+        secs, m, _, recs = _run_ppo(tr, _zero_prompts(engine, dev, it, n), g,
+                                    want, f"zero {engine} iteration {it}",
+                                    nrec)
+        out.append((secs, m, recs))
+    return out
+
+
+def _fingerprint(tree) -> list:
+    """Per leaf, two sums over its raw bits (plain and weighted by the
+    element's position), on the card: equal trees give equal lists."""
+    out = []
+    for t in leaves(tree):
+        t = t.detach().contiguous()
+        v = t.view(torch.int16 if t.element_size() == 2 else torch.int32
+                   ).reshape(-1).to(torch.int64)
+        w = torch.arange(v.numel(), device=v.device) % 1_000_003 + 1
+        out.append((int(v.sum()), int((v * w).sum())))
+        del v, w
+    return out
+
+
+def _trained_fingerprint(tr) -> list:
+    """:func:`_fingerprint` of the separate engine's trained trees, whole
+    (a ZeRO-3 rank gathers them: a collective every rank runs)."""
+    out = []
+    for plan, tree in ((getattr(tr, "actor_plan", None),
+                        tr.actor_state["params"]),
+                       (getattr(tr, "critic_plan", None),
+                        tr.critic_state["params"])):
+        full, owned = (tree, False) if plan is None else \
+            plan.gather_copy(tree)
+        out += _fingerprint(full)
+        if owned:
+            delete_tree(full)
+    return out
+
+
+def _zero_rank_stats(tr, runs) -> dict:
+    """One rank's numbers of a run: persistent bytes on this rank and the
+    largest over the ranks, per phase (the last iteration's records) the
+    allocator's peak and reserved - allocated, the train phases' peak,
+    iteration seconds and metrics."""
+    recs = runs[-1][2]
+    trees = tr.persistent_trees()
+    train = [r["peak_bytes"] for r in recs if r["kind"] == "training"]
+    comm = None if tr.shard is None else tr.shard.comm
+    return {"state_bytes": tree_nbytes(list(trees.values())),
+            "state_bytes_max": tr.per_device_state_bytes(),
+            "actor_bytes": tree_nbytes(trees["actor_params"]),
+            "peaks": {r["phase"]: r["peak_bytes"] for r in recs},
+            "slack": {r["phase"]: r["reserved_bytes"] - r["live_bytes"]
+                      for r in recs},
+            "train_peak": max(train),
+            "seconds": [secs for secs, _, _ in runs],
+            "metrics": [m for _, m, _ in runs],
+            "staged_bytes": 0 if comm is None else comm.staged_bytes,
+            "launches": dict(ops.launches),
+            "trained": _trained_fingerprint(tr)}
+
+
+def _zero_rank(rank, world, path, queue):
+    """One gloo rank of phase 15 (b), on ``cuda:0`` beside the other: the
+    three ``ZERO_GLOO_RUNS`` on the separate pair, 7 prompts."""
+    try:
+        import torch.distributed as dist
+        torch.cuda.set_device(0)
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.backends.cudnn.allow_tf32 = False
+        dev = torch.device("cuda")
+        _init_group("gloo", world, rank, path)
+        out = {}
+        for stage, mode in ZERO_GLOO_RUNS:
+            sc = ShardedContext.create(world, zero_stage=stage,
+                                       gather_mode=mode, device="cuda",
+                                       backend="gloo")
+            gc.collect()
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats()
+            t0 = time.perf_counter()
+            tr = _zero_trainer("separate", dev, sc)
+            init_s = time.perf_counter() - t0
+            runs = _zero_iterations(tr, "separate", dev, n=ZERO_PROMPTS,
+                                    iters=ZERO_GLOO_ITERS)
+            st = _zero_rank_stats(tr, runs)
+            st["init_s"] = init_s
+            out[f"{stage}-{mode}"] = st
+            del tr, runs, sc
+            gc.collect()
+            torch.cuda.empty_cache()
+        dist.destroy_process_group()
+        queue.put((rank, out, None))
+    except BaseException as e:       # reported to the parent, which fails
+        import traceback
+        queue.put((rank, None, f"{e!r}\n{traceback.format_exc()}"))
+
+
+def _sim_state(trees_by_name, engine, stage, mode, ndp) -> float:
+    """The simulator's persistent bytes a rank: each state group's bytes
+    at its fraction traced from the spec trees (``traced_zero_scales``)."""
+    if engine == "hydra":
+        cfgs = (get_config("llama3_2_3b"), None)
+        kw = dict(lora_rank=PPO_KW["lora_rank"])
+    else:
+        cfgs = (get_config(SEP_ACTOR), get_config(SEP_CRITIC))
+        kw = {}
+    frac = dict(traced_zero_scales(*cfgs, ndp=ndp, zero_stage=stage,
+                                   engine=engine, gather_mode=mode, **kw))
+    return sum(b * frac[f"{k}:{'opt' if k.endswith('_opt') else 'param'}"]
+               for k, b in trees_by_name.items())
+
+
+def _zero_sim(tr_plain, stage, mode, ndp, ph_per) -> dict:
+    """The traced simulator's one-rank prediction of a separate run:
+    persistent state bytes and the train phases' peak, policy
+    after_inference."""
+    ph, per = ph_per
+    strat = traced_strategy(
+        MemoryStrategy(f"zero-{stage}", zero_stage=stage, gather_mode=mode),
+        get_config(SEP_ACTOR), get_config(SEP_CRITIC), ndp=ndp,
+        engine="separate")
+    r = run_iteration(ph, per, strat, "after_inference", ndp=ndp,
+                      trainable_fraction=1.0, capacity=None)
+    train = max(rec.alloc_peak for rec in r.phase_records
+                if rec.name.startswith("train"))
+    return {"state_bytes": _sim_state(tr_plain["state_by_name"], "separate",
+                                      stage, mode, ndp),
+            "train_peak": train}
+
+
+def zero_ppo(dev, log, hydra_plain=None, sep_plain=None) -> dict:
+    """Phase 15: ZeRO on the card (the module docstring). ``hydra_plain``
+    and ``sep_plain`` are phase 7's and phase 8's unsharded metrics a
+    iteration; run alone (None) the phase runs them itself."""
+    import tempfile
+
+    import torch.distributed as dist
+    import torch.multiprocessing as mp
+    out = {"nccl": {}, "gloo": {}}
+    t_phase = time.perf_counter()
+    # (a) NCCL, ndp 1: the multi-card path's code at one rank
+    torch.cuda.set_device(0)
+    tmp = tempfile.mkdtemp(prefix="zero-")
+    _init_group("nccl", 1, 0, os.path.join(tmp, "nccl"))
+    try:
+        for engine, plain in (("separate", sep_plain),
+                              ("hydra", hydra_plain)):
+            if plain is None:
+                tr = _zero_trainer(engine, dev, None)
+                plain = [m for _, m, _ in _zero_iterations(tr, engine, dev)]
+                del tr
+                gc.collect()
+                torch.cuda.empty_cache()
+            for stage, mode in ZERO_NCCL_RUNS:
+                sc = ShardedContext.create(1, zero_stage=stage,
+                                           gather_mode=mode, device="cuda")
+                tr = _zero_trainer(engine, dev, sc)
+                runs = _zero_iterations(tr, engine, dev)
+                got = [m for _, m, _ in runs]
+                if got != plain:
+                    raise SystemExit(f"zero nccl {engine} ZeRO-{stage} "
+                                     f"{mode}: metrics {got} != unsharded "
+                                     f"{plain}")
+                key = f"{engine}-{stage}-{mode}"
+                sim = _sim_state({k: tree_nbytes(v) for k, v in
+                                  tr.persistent_trees().items()},
+                                 engine, stage, mode, 1)
+                out["nccl"][key] = {
+                    "seconds": [secs for secs, _, _ in runs],
+                    "state_bytes": tr.per_device_state_bytes(),
+                    "sim_state_bytes": sim,
+                    "launches": dict(ops.launches)}
+                log(f"[smoke] zero nccl run {engine} ZeRO-{stage} {mode} ndp "
+                    f"1: metrics bit for bit unsharded, launches as phases "
+                    f"7/8 {out['nccl'][key]['launches']}; "
+                    f"{', '.join(f'{s * 1e3:.1f}' for s, _, _ in runs)} ms"
+                    f" an iteration, state {out['nccl'][key]['state_bytes']}"
+                    f" bytes a rank (sim {sim:.0f})")
+                del tr, runs, sc
+                gc.collect()
+                torch.cuda.empty_cache()
+    finally:
+        dist.destroy_process_group()
+
+    # (b) gloo, ndp 2 on the one card: first the one-rank run of the same
+    # 7 prompts, then the two ranks
+    torch.cuda.reset_peak_memory_stats()
+    tr = _zero_trainer("separate", dev, None)
+    runs = _zero_iterations(tr, "separate", dev, n=ZERO_PROMPTS,
+                            iters=ZERO_GLOO_ITERS)
+    one = _zero_rank_stats(tr, runs)
+    one["state_by_name"] = {k: tree_nbytes(v) for k, v in
+                            tr.persistent_trees().items()}
+    layer_bytes = tree_nbytes(tr.actor_state["params"]["layers"][0])
+    del tr, runs
+    gc.collect()
+    torch.cuda.empty_cache()
+    ctx = mp.get_context("spawn")
+    queue = ctx.Queue()
+    store = os.path.join(tmp, "gloo")
+    procs = [ctx.Process(target=_zero_rank, args=(r, ZERO_NDP, store, queue))
+             for r in range(ZERO_NDP)]
+    t0 = time.perf_counter()
+    for p in procs:
+        p.start()
+    got = {}
+    try:
+        # the simulator's predictions, on the host while the ranks run
+        t1 = time.perf_counter()
+        ph_per = build_rlhf_phases(
+            get_config(SEP_ACTOR), get_config(SEP_CRITIC),
+            batch=ZERO_PROMPTS, prompt_len=SPROMPT, gen_len=SGEN,
+            engine="separate", min_bytes=2048)
+        sim1 = _zero_sim(one, 0, "tree", 1, ph_per)
+        sims = {f"{s}-{m}": _zero_sim(one, s, m, ZERO_NDP, ph_per)
+                for s, m in ZERO_GLOO_RUNS}
+        del ph_per
+        out["sim_seconds"] = time.perf_counter() - t1
+        log(f"[smoke] zero gloo run separate ndp 1 ({ZERO_PROMPTS} prompts):"
+            f" state {one['state_bytes']} bytes (sim "
+            f"{sim1['state_bytes']:.0f}), train peak {one['train_peak']} "
+            f"(sim {sim1['train_peak']}), peaks " + ", ".join(
+                f"{k} {v / MIB:.0f}" for k, v in one["peaks"].items())
+            + " MiB, reserved-allocated " + ", ".join(
+                f"{k} {v / MIB:.0f}" for k, v in one["slack"].items())
+            + f" MiB; {', '.join(f'{s * 1e3:.1f}' for s in one['seconds'])}"
+            f" ms an iteration")
+        while len(got) < ZERO_NDP:
+            if time.perf_counter() - t0 > ZERO_JOIN_S:
+                raise SystemExit(f"zero gloo: ranks {sorted(got)} reported "
+                                 f"of {ZERO_NDP} in {ZERO_JOIN_S} s")
+            try:
+                rank, res, err = queue.get(timeout=5.0)
+            except Exception:
+                dead = [r for r, p in enumerate(procs)
+                        if r not in got and p.exitcode not in (None, 0)]
+                if dead:
+                    raise SystemExit(f"zero gloo: ranks {dead} exited "
+                                     f"without a result")
+                continue
+            if err is not None:
+                raise SystemExit(f"zero gloo rank {rank} failed: {err}")
+            got[rank] = res
+    finally:
+        for p in procs:
+            p.join(timeout=30)
+            if p.is_alive():
+                p.kill()
+                p.join()
+        shutil.rmtree(tmp, ignore_errors=True)
+    out["gloo_seconds"] = time.perf_counter() - t0
+    for key in (f"{s}-{m}" for s, m in ZERO_GLOO_RUNS):
+        ranks = [got[r][key] for r in range(ZERO_NDP)]
+        for r, st in enumerate(ranks):
+            if st["metrics"] != one["metrics"]:
+                raise SystemExit(f"zero gloo {key} rank {r}: metrics "
+                                 f"{st['metrics']} != one rank's "
+                                 f"{one['metrics']}")
+            if st["trained"] != one["trained"]:
+                raise SystemExit(f"zero gloo {key} rank {r}: the trained "
+                                 f"trees differ from one rank's")
+            log(f"[smoke] zero gloo run separate ZeRO-{key} ndp {ZERO_NDP} "
+                f"rank {r}: state {st['state_bytes']} bytes (max over ranks "
+                f"{st['state_bytes_max']}; sim {sims[key]['state_bytes']:.0f})"
+                f", train peak {st['train_peak']} (sim "
+                f"{sims[key]['train_peak']}), peaks " + ", ".join(
+                    f"{k} {v / MIB:.0f}" for k, v in st["peaks"].items())
+                + " MiB, reserved-allocated " + ", ".join(
+                    f"{k} {v / MIB:.0f}" for k, v in st["slack"].items())
+                + f" MiB; {', '.join(f'{s * 1e3:.1f}' for s in st['seconds'])}"
+                f" ms an iteration, init {st['init_s']:.1f} s, staged "
+                f"{st['staged_bytes'] / 1e9:.2f} GB")
+        out["gloo"][key] = {"ranks": ranks, "sim": sims[key]}
+    cut = max(got[r]["3-tree"]["state_bytes"] for r in got) / \
+        one["state_bytes"]
+    if cut > 0.55:
+        raise SystemExit(f"zero gloo: ZeRO-3 keeps {cut:.3f} of ndp 1's "
+                         f"persistent bytes on a rank (at most 0.55)")
+    need = ZERO_LAYER_MARGIN * (one["actor_bytes"] - layer_bytes)
+    for r in got:
+        tree, layer = got[r]["3-tree"]["train_peak"], \
+            got[r]["3-layer"]["train_peak"]
+        if not tree - layer >= need:
+            raise SystemExit(f"zero gloo rank {r}: layer train peak {layer} "
+                             f"not below tree's {tree} by {need:.0f}")
+    out["state_cut"] = cut
+    out["layer_margin_bytes"] = need
+    out["seconds"] = time.perf_counter() - t_phase
+    log(f"[smoke] zero: ZeRO-3 keeps {cut:.4f} of ndp 1's persistent bytes "
+        f"a rank; layer peaks below tree by >= {need / MIB:.0f} MiB; phase "
+        f"15 {out['seconds']:.1f} s (gloo ranks {out['gloo_seconds']:.1f} s,"
+        f" simulator {out['sim_seconds']:.1f} s)")
+    return out
+
+
 def port_kernels(rows):
     """{wrapper: {"ms", "calls", "us_per_call", "us_per_call_by_kernel"}}
     from profiler rows (us, count, name): each wrapper's kernels' device
@@ -4387,7 +4768,17 @@ def main() -> int:
     torch.backends.cuda.matmul.allow_tf32 = False   # plain versions in fp32
     torch.backends.cudnn.allow_tf32 = False
     OUT_DIR.mkdir(exist_ok=True)
-    report = {}
+    report = {"phase_seconds": {}}
+    t_start = t_last = time.perf_counter()
+
+    def lap(phase):
+        """Print and keep the wall time of the phase just ended."""
+        nonlocal t_last
+        now = time.perf_counter()
+        report["phase_seconds"][phase] = now - t_last
+        print(f"[smoke] phase {phase}: {now - t_last:.1f} s (at "
+              f"{now - t_start:.1f} s)", flush=True)
+        t_last = now
 
     # phase 1: card, versions, build
     smi = sh(["nvidia-smi", "--query-gpu=name,power.limit",
@@ -4411,6 +4802,7 @@ def main() -> int:
     report.update(card=smi, torch=torch.__version__, cuda=torch.version.cuda,
                   build_s=secs, sass=check_build(path, log))
 
+    lap(1)
     # phase 2: kernels against their plain versions
     g = torch.Generator(device=dev).manual_seed(0)
     checks = {"flash_attention": check_flash(dev, peaks, g),
@@ -4470,6 +4862,7 @@ def main() -> int:
         raise SystemExit(f"kernels disagree with their plain versions: "
                          f"{failures}")
 
+    lap(2)
     # phase 3: the serving path at full width and depth
     cfg = get_config("llama3_2_3b")
     torch.cuda.synchronize()
@@ -4491,6 +4884,7 @@ def main() -> int:
     report["requests"] = [{k: v for k, v in r.items() if k != "result"}
                           for r in results]
 
+    lap(3)
     # phase 4: outputs
     check_outputs(results, cfg.vocab_size)
     small_err = check_small_model_against_cpu(dev)
@@ -4498,6 +4892,7 @@ def main() -> int:
           f"max_err {small_err:.3e}, 16 greedy tokens identical")
     report["small_model_max_err"] = small_err
 
+    lap(4)
     # phase 5: the paged GRPO rollout at full width and depth
     grpo = paged_grpo(cfg, dev, lambda s: print(s, flush=True),
                       profile=args.profile)
@@ -4505,42 +4900,58 @@ def main() -> int:
           f"{GREQUESTS} requests; forks {grpo['requests'][0]['forks']}")
     report["paged_grpo"] = grpo
 
+    lap(5)
     # phase 6: Mamba2 serving at full width and depth
     mamba = mamba_serving(dev, lambda s: print(s, flush=True),
                           profile=args.profile)
     report["mamba"] = mamba
 
+    lap(6)
     # phase 7: hydra PPO iterations at full width and depth
     ppo = ppo_iterations(dev, lambda s: print(s, flush=True),
                          profile=args.profile)
     report["ppo"] = ppo
 
+    lap(7)
     # phase 8: the paper's four-model PPO at full width and depth
     sep = separate_ppo(dev, lambda s: print(s, flush=True),
                        profile=args.profile)
     report["ppo_separate"] = sep
 
+    lap(8)
     # phase 9: host offload on both engines at full width and depth
     off = offload_ppo(dev, lambda s: print(s, flush=True))
     report["offload"] = off
+    lap(9)
     # phase 10: every decode path graphed against eager in this call
     report["decode_graphs"] = decode_graphs(
         dev, lambda s: print(s, flush=True), profile=args.profile)
+    lap(10)
     # phase 11: the paper's memory study on the card, and GRPO
     report["memory_study"] = memory_study(
         dev, lambda s: print(s, flush=True), sep, off)
+    lap(11)
     # phase 12: runtime telemetry on phase 8's pair, and a caught OOM
     report["telemetry"] = telemetry_ppo(
         dev, lambda s: print(s, flush=True),
         plain=[r["metrics"] for r in sep["iterations"]],
         profile=args.profile)
+    lap(12)
     # phase 13: MTP self-speculative decoding
     report["spec"] = spec_decoding(dev, lambda s: print(s, flush=True),
                                    profile=args.profile)
+    lap(13)
     # phase 14: the continuous batcher, graphed against eager
     report["batcher"] = continuous_batching(dev,
                                             lambda s: print(s, flush=True))
+    lap(14)
+    # phase 15: ZeRO over NCCL at ndp 1 and over gloo at ndp 2 on one card
+    report["zero"] = zero_ppo(
+        dev, lambda s: print(s, flush=True),
+        hydra_plain=[r["metrics"] for r in ppo["iterations"]],
+        sep_plain=[r["metrics"] for r in sep["iterations"]])
 
+    lap(15)
     paths = {"serve": launches, "paged_grpo": grpo["launches"],
              "mamba_serve": mamba["launches"], "ppo": ppo["launches"],
              "ppo_separate": sep["launches"],
@@ -4552,6 +4963,11 @@ def main() -> int:
              "ppo_spec": report["spec"]["ppo"]["launches"]}
     paths.update({f"batcher_{name}": report["batcher"][name]["launches"]
                   for name in (*CB_RUNS, *CB_SPEC_RUNS)})
+    paths.update({f"zero_{key}": run["launches"]
+                  for key, run in report["zero"]["nccl"].items()})
+    paths.update({f"zero_gloo_{key}": run["ranks"][0]["launches"]
+                  for key, run in report["zero"]["gloo"].items()
+                  if key != "ndp1"})
 
     if args.profile:
         prof, table = profile_request(cfg, dev)

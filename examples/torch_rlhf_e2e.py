@@ -59,6 +59,19 @@ end report gives the last rollout's spec steps and accept rate:
     PYTHONPATH=src python examples/torch_rlhf_e2e.py --arch llama3_2_3b \
         --steps 2 --batch 8 --prompt-len 512 --gen-len 64 --spec-decode
 
+``--ndp N`` runs ZeRO data parallelism (``repro_torch.sharding``) over N
+ranks, one process each, spawned here: over gloo with ``--device cpu``,
+over NCCL on N cards otherwise (rank r on ``cuda:r``; fewer cards raise).
+``--zero-stage`` (3 by default) and ``--gather-mode layer|tree`` pick the
+strategy; every rank runs the same steps with the same seeds, rank 0
+prints, and the per-device persistent state line gives the largest over
+the ranks, as the reference example's ``--ndp`` does:
+
+    PYTHONPATH=src python examples/torch_rlhf_e2e.py --smoke --device cpu \
+        --steps 3 --ndp 4 --zero-stage 3
+    PYTHONPATH=src python examples/torch_rlhf_e2e.py --engine separate \
+        --smoke --device cpu --steps 3 --ndp 2 --zero-stage 1
+
 Runtime telemetry (``repro_torch.obs``), the reference example's flags:
 ``--metrics-out`` writes the run's JSONL (phase spans with measured and
 simulated bytes and the owner tables, offload spans, metrics),
@@ -73,9 +86,13 @@ flight recorder at that fraction of the card's memory, and
 """
 import argparse
 import dataclasses
+import datetime
 import json
+import os
 import pathlib
+import shutil
 import sys
+import tempfile
 import time
 
 sys.path.insert(0, str(pathlib.Path(__file__).resolve().parents[1] / "src"))
@@ -154,7 +171,59 @@ def main(argv=None):
                     help="write the per-phase owner attribution tables + "
                          "any flight-recorder dumps as JSON (render dumps "
                          "with python -m repro_torch.launch.report --flight)")
+    ap.add_argument("--ndp", type=int, default=1,
+                    help="ZeRO data parallelism over this many ranks, one "
+                         "process each (gloo on the CPU, NCCL on as many "
+                         "cards)")
+    ap.add_argument("--zero-stage", type=int, default=3,
+                    choices=(0, 1, 2, 3), help="ZeRO stage for --ndp > 1")
+    ap.add_argument("--gather-mode", default="layer",
+                    choices=("layer", "tree"),
+                    help="ZeRO-3's gathers: one layer at a time or the "
+                         "whole tree")
     args = ap.parse_args(argv)
+    if args.ndp <= 1:
+        return run(args)
+    import torch.multiprocessing as mp
+    cpu = torch.device(args.device or "cuda").type == "cpu"
+    if not cpu and torch.cuda.device_count() < args.ndp:
+        raise SystemExit(f"--ndp {args.ndp} over NCCL needs {args.ndp} "
+                         f"cards, found {torch.cuda.device_count()}; pass "
+                         "--device cpu for gloo ranks on the CPU")
+    tmp = tempfile.mkdtemp(prefix="torch_rlhf_e2e-")
+    try:
+        mp.spawn(_rank, args=(args, os.path.join(tmp, "store")),
+                 nprocs=args.ndp, join=True)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
+def _rank(rank, args, store):
+    """One rank of ``--ndp``: its process group, its device, the run."""
+    import torch.distributed as dist
+    from repro_torch.sharding import ShardedContext
+    cpu = torch.device(args.device or "cuda").type == "cpu"
+    if cpu:
+        torch.set_num_threads(max(1, (os.cpu_count() or 1) // args.ndp))
+    else:
+        torch.cuda.set_device(rank)
+        args.device = f"cuda:{rank}"
+    dist.init_process_group("gloo" if cpu else "nccl",
+                            store=dist.FileStore(store, args.ndp), rank=rank,
+                            world_size=args.ndp,
+                            timeout=datetime.timedelta(seconds=300))
+    try:
+        shard = ShardedContext.create(
+            args.ndp, zero_stage=args.zero_stage,
+            gather_mode=args.gather_mode, device="cpu" if cpu else "cuda")
+        run(args, shard, rank)
+    finally:
+        dist.destroy_process_group()
+
+
+def run(args, shard=None, rank=0):
+    """The run (one rank's, under ``shard``): rank 0 prints."""
+    print_ = print if rank == 0 else (lambda *a, **k: None)
     device = default_device(args.device)
     telemetry = None
     if args.metrics_out or args.trace_out or args.watermark \
@@ -199,18 +268,27 @@ def main(argv=None):
         else None
     trainer = RLHFTrainer(cfg, critic_cfg, rl,
                           torch.Generator(device=device).manual_seed(args.seed),
-                          reward_fn=reward_fn, telemetry=telemetry)
+                          reward_fn=reward_fn, telemetry=telemetry,
+                          shard=shard)
+    if shard is not None:
+        # a collective: every rank takes part, rank 0 prints
+        per_device = trainer.per_device_state_bytes()
+        mode = f" ({shard.strat.gather_mode} gathers)" \
+            if shard.zero_stage >= 3 else ""
+        print_(f"ZeRO-{shard.zero_stage}{mode} over {shard.ndp} ranks "
+               f"({shard.comm.backend})")
+        print_(f"per-device persistent state: {per_device / 2**20:.2f} MiB")
     if separate:
         trees = trainer.persistent_trees()
         count = lambda t: sum(x.numel() for x in leaves(t))  # noqa: E731
-        print(f"separate engine on {device}: actor and reference "
+        print_(f"separate engine on {device}: actor and reference "
               f"{cfg.name} ({count(trees['actor_params']):,} params), critic "
               f"and reward {critic_cfg.name} "
               f"({count(trees['critic_params']):,} params); persistent "
               f"state {nbytes(trees) / 2**20:.1f} MiB")
     else:
         eng = trainer.engine
-        print(f"hydra engine on {device}: {cfg.name}, trunk "
+        print_(f"hydra engine on {device}: {cfg.name}, trunk "
               f"{eng.base_param_count():,} params (frozen), actor adapter "
               f"{eng.adapter_param_count('actor'):,} "
               f"({100 * eng.trainable_fraction('actor'):.2f}% trainable), "
@@ -222,15 +300,15 @@ def main(argv=None):
         prompts = torch.randint(0, cfg.vocab_size, (args.batch, rl.prompt_len),
                                 generator=g, device=device)
         m = trainer.train_step(prompts, g)
-        print(f"step {step:4d} reward {m['mean_reward']:+.4f} "
+        print_(f"step {step:4d} reward {m['mean_reward']:+.4f} "
               f"kl {m['kl']:.4f} clip {m['clip_frac']:.3f} "
               f"vf {m['vf_loss']:.4f} ({time.time() - t0:.0f}s)")
 
     ro = trainer.rollout
     if ro.prefill_ladder is not None:
-        print(f"compile cache: {ro.compile_cache.stats()}")
+        print_(f"compile cache: {ro.compile_cache.stats()}")
     ds = ro.decode_stats
-    print(f"last rollout: {ds['steps']} decode steps, "
+    print_(f"last rollout: {ds['steps']} decode steps, "
           + (f"graphed ({ds['replays']} replays, capture "
              f"{ds['capture_ms']:.1f} ms, pool "
              f"{ds['pool_bytes'] / 2**20:.1f} MiB)" if ds["graphed"]
@@ -238,7 +316,7 @@ def main(argv=None):
           + f", loop host {ds['host_ms']:.1f} ms")
     if ro.spec_decode:
         st = ro.spec_stats
-        print(f"spec decode (k={ro.spec_k}): {st['steps']} verify steps, "
+        print_(f"spec decode (k={ro.spec_k}): {st['steps']} verify steps, "
               f"accepted {st['accepted']}/{st['drafted']} drafts "
               f"({st['accepted'] / max(st['drafted'], 1):.1%})")
 
@@ -247,7 +325,7 @@ def main(argv=None):
         avail = [line for line in pathlib.Path("/proc/meminfo").read_text()
                  .splitlines() if line.startswith("MemAvailable")] \
             if pathlib.Path("/proc/meminfo").exists() else []
-        print(f"host offload {args.offload}: {lot.parked_bytes() / 2**30:.2f} "
+        print_(f"host offload {args.offload}: {lot.parked_bytes() / 2**30:.2f} "
               f"GiB parked now, peak {lot.stats.peak_parked_bytes / 2**30:.2f}"
               f" GiB, {lot.pinned_bytes() / 2**30:.2f} GiB pinned; "
               f"{lot.stats.bytes_parked_total / 1e9:.2f} GB parked and "
@@ -256,13 +334,13 @@ def main(argv=None):
 
     # the last iteration's records: one per phase (and on the hydra engine
     # a mid-rollout sample)
-    print(f"\nlast-iteration phases (policy={args.memory_policy}, "
+    print_(f"\nlast-iteration phases (policy={args.memory_policy}, "
           f"engine={args.engine}, offload={args.offload}; MiB; park and "
           f"fetch ms within the phase's):")
-    print("  phase            kind          ms     live reserved     peak"
+    print_("  phase            kind          ms     live reserved     peak"
           "     host    park   fetch")
     for r in trainer.memory.records[-(7 if separate else 8):]:
-        print(f"  {r['phase']:16s} {r['kind']:10s} "
+        print_(f"  {r['phase']:16s} {r['kind']:10s} "
               f"{r['seconds'] * 1e3:8.1f} {_mib(r['live_bytes'])} "
               f"{_mib(r['reserved_bytes'])} {_mib(r['peak_bytes'])} "
               f"{_mib(r['host_bytes'])} "
@@ -273,7 +351,7 @@ def main(argv=None):
         telemetry.write(args.metrics_out or None, args.trace_out or None)
         for p in (args.metrics_out, args.trace_out):
             if p:
-                print("telemetry:", p)
+                print_("telemetry:", p)
     if args.attrib_out and telemetry is not None:
         phases = {}
         for sp in telemetry.tracer.spans:
@@ -291,7 +369,7 @@ def main(argv=None):
                   "flight_dumps": list(fl.dumps) if fl is not None else []}
         with open(args.attrib_out, "w") as f:
             json.dump(bundle, f, indent=1, default=str)
-        print("attribution:", args.attrib_out)
+        print_("attribution:", args.attrib_out)
 
 
 if __name__ == "__main__":

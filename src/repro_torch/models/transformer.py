@@ -38,6 +38,7 @@ from repro_torch.models import mamba as M
 from repro_torch.offload.policies import REMATS, remat_policy_for
 from repro_torch.paged import attention as PA
 from repro_torch.paged import paged_cache as PC
+from repro_torch.sharding import ctx
 
 DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 
@@ -196,7 +197,8 @@ class Model:
         return h, cache
 
     def _stack_fwd(self, params, h, positions, *, window=0,
-                   init_caches: Optional[List[dict]] = None, adapter=None):
+                   init_caches: Optional[List[dict]] = None, adapter=None,
+                   layer_specs=None):
         """Run every layer. Returns (h, filled caches or None).
         ``adapter`` is a LoRA adapter over ``params``. With ``cfg.remat``
         other than "none" and grad mode on, each layer is one activation
@@ -204,11 +206,27 @@ class Model:
         its forward runs again in the backward, kernels included (the
         reference's ``jax.checkpoint`` per scanned layer group). "offload"
         moves only what the checkpoint saves, the layer's input, to host:
-        the logits and the loss's residuals stay."""
+        the logits and the loss's residuals stay.
+
+        ``layer_specs`` (a ``sharding.TreePlan.layer_specs``; by default
+        the ambient ``sharding.ctx.segment_param_specs()``) is the ZeRO-3
+        per-layer gather: ``params["layers"]`` holds the rank's shards and
+        each layer is gathered just before it runs, its gathered leaves
+        dead after it: under remat the gather runs inside the checkpoint,
+        so the checkpoint keeps the shards and the recompute gathers
+        again; without remat, in a recorded forward, the weights the
+        layer's ops save for the backward are kept as shards and gathered
+        again there (``LayerGather.saving_shards``)."""
         lora = (adapter or {}).get("lora") or {}
         ads = lora.get("layers") or [None] * len(self.kinds)
         remat = self.cfg.remat != "none" and torch.is_grad_enabled() and \
             init_caches is None
+        lg = layer_specs if layer_specs is not None \
+            else ctx.segment_param_specs()
+
+        def gathered(i, layer):
+            return layer if lg is None else lg.gather(i, layer)
+
         if remat:
             ckpt_kw, around = remat_policy_for(self.cfg.remat)
         caches = []
@@ -216,14 +234,23 @@ class Model:
             if remat:
                 with around():
                     h = checkpoint(
-                        lambda hh, layer=layer, kind=kind, ad=ads[i]:
-                        self._slot_fwd(layer, kind, hh, positions,
-                                       window=window, adapter=ad)[0],
+                        lambda hh, i=i, layer=layer, kind=kind, ad=ads[i]:
+                        self._slot_fwd(gathered(i, layer), kind, hh,
+                                       positions, window=window,
+                                       adapter=ad)[0],
                         h, use_reentrant=False, **ckpt_kw)
                 caches.append(None)
                 continue
+            if lg is not None and torch.is_grad_enabled():
+                # a recorded forward: the weights autograd saves are kept
+                # as shards and gathered again by the backward
+                with lg.saving_shards(i, layer) as full:
+                    h, c = self._slot_fwd(full, kind, h, positions,
+                                          window=window, adapter=ads[i])
+                caches.append(c)
+                continue
             h, c = self._slot_fwd(
-                layer, kind, h, positions, window=window,
+                gathered(i, layer), kind, h, positions, window=window,
                 init_cache=None if init_caches is None else init_caches[i],
                 adapter=ads[i])
             caches.append(c)
@@ -233,19 +260,22 @@ class Model:
         B, S = tokens.shape
         return torch.arange(S, device=tokens.device).expand(B, S)
 
-    def forward(self, params, batch, *, window: int = 0, adapter=None
-                ) -> Tuple[torch.Tensor, torch.Tensor]:
+    def forward(self, params, batch, *, window: int = 0, adapter=None,
+                layer_specs=None) -> Tuple[torch.Tensor, torch.Tensor]:
         """Full-sequence forward -> (logits [B,S,V], h_final). ``adapter``
-        (a LoRA adapter) is applied unmerged. The caller picks the grad
-        mode: training differentiates through it, scoring runs it under
-        ``torch.no_grad()``."""
+        (a LoRA adapter) is applied unmerged; ``layer_specs`` gathers a
+        ZeRO-3 tree's layers one at a time (:meth:`_stack_fwd`). The
+        caller picks the grad mode: training differentiates through it,
+        scoring runs it under ``torch.no_grad()``."""
         tokens = batch["tokens"]
         h = self.embed(params, tokens)
         h, _ = self._stack_fwd(params, h, self._positions(tokens),
-                               window=window, adapter=adapter)
+                               window=window, adapter=adapter,
+                               layer_specs=layer_specs)
         return self.unembed(params, h), h
 
-    def forward_value(self, params, batch, adapter=None) -> torch.Tensor:
+    def forward_value(self, params, batch, adapter=None,
+                      layer_specs=None) -> torch.Tensor:
         """[B,S] per-token fp32 values (critic / reward): the trunk with
         ``adapter``, the final norm, then the adapter's value head (the
         hydra engine's critic and reward share a headless trunk), or
@@ -253,7 +283,7 @@ class Model:
         tokens = batch["tokens"]
         h = self.embed(params, tokens)
         h, _ = self._stack_fwd(params, h, self._positions(tokens),
-                               adapter=adapter)
+                               adapter=adapter, layer_specs=layer_specs)
         h = L.rms_norm(h, params["final_norm"], self.cfg.norm_eps)
         vh = (adapter or {}).get("value_head") or params["value_head"]
         return (h.float() @ vh["w"] + vh["b"])[..., 0]

@@ -16,9 +16,11 @@ carrying measured bytes AND the traced allocator simulator's prediction
 ``OffloadExecutor`` emits park/fetch spans with PCIe bytes;
 ``ContinuousBatcher(..., telemetry=...)`` one ``serve_step:<n>`` span a
 step with the ``serving_*`` and ``paged_*`` metrics, its owners and each
-compile-cache key's program memory. The files are the reference's, key
-for key (DESIGN.md §4 has the span taxonomy and metric names). Not ported
-yet: the sharding counters.
+compile-cache key's program memory; ZeRO's gathers count their bytes
+into the global registry (``global_registry()``:
+``sharding_gather_copy_bytes_total``) and the trainer's
+(``sharding_step_gathered_bytes_total``). The files are the reference's,
+key for key (DESIGN.md §4 has the span taxonomy and metric names).
 """
 from __future__ import annotations
 
@@ -33,13 +35,14 @@ from repro_torch.obs.attribution import (AttributionSnapshot,
                                          record_compiled_memory)
 from repro_torch.obs.flight import FlightRecorder
 from repro_torch.obs.metrics import (Counter, Gauge, Histogram,
-                                     MetricsRegistry)
+                                     MetricsRegistry, global_registry,
+                                     set_global_registry)
 from repro_torch.obs.tracer import Span, SpanTracer
 
 __all__ = ["AttributionSnapshot", "Counter", "FlightRecorder", "Gauge",
            "Histogram", "MemoryAttributor", "MetricsRegistry", "RunTelemetry",
-           "Span", "SpanTracer", "compiled_memory_stats",
-           "record_compiled_memory"]
+           "Span", "SpanTracer", "compiled_memory_stats", "global_registry",
+           "record_compiled_memory", "set_global_registry"]
 
 
 @dataclass

@@ -206,3 +206,24 @@ class MetricsRegistry:
                 for r in recs:
                     f.write(json.dumps(r, sort_keys=True) + "\n")
         return len(recs)
+
+
+_GLOBAL: Optional[MetricsRegistry] = None
+
+
+def global_registry() -> MetricsRegistry:
+    """The process-global default registry, for instruments that cannot
+    thread a registry through their call sites (``sharding.TreePlan``'s
+    gathers). Created lazily; never None."""
+    global _GLOBAL
+    if _GLOBAL is None:
+        _GLOBAL = MetricsRegistry()
+    return _GLOBAL
+
+
+def set_global_registry(reg: Optional[MetricsRegistry]) -> MetricsRegistry:
+    """Swap the global registry (``None`` resets it to a fresh one) ->
+    the registry now installed."""
+    global _GLOBAL
+    _GLOBAL = reg if reg is not None else MetricsRegistry()
+    return _GLOBAL

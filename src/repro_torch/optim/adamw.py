@@ -28,6 +28,12 @@ class AdamW:
         return {"mu": tree_map(zeros, params), "nu": tree_map(zeros, params),
                 "count": 0}
 
+    def init_specs(self, param_specs, params=None):
+        """Optimizer-state specs mirroring ``param_specs`` (ZeRO: the
+        caller passes ``zero_opt_pspecs``); the count is a host int."""
+        from repro_torch.sharding.rules import P
+        return {"mu": param_specs, "nu": param_specs, "count": P()}
+
     @torch.no_grad()
     def update_(self, grads, state, params, lr: float) -> None:
         """One AdamW step of ``params`` by ``grads`` (read only), written

@@ -1,6 +1,5 @@
 """Shared-base "hydra" RLHF engine: one frozen trunk, per-role LoRA
-adapters — the port of ``repro/rlhf/engine.py::ModelEngine`` (one device,
-no ``shard``).
+adapters — the port of ``repro/rlhf/engine.py::ModelEngine``.
 
   * **base**      — ONE frozen parameter tree;
   * **actor**     — base ⊕ actor adapter (trained);
@@ -14,6 +13,11 @@ Optimizer state and gradients exist only for adapter leaves
 (``steps.make_lora_train_step``). :meth:`ModelEngine.memory_accounting`
 reckons this layout's persistent bytes beside the separate engine's on
 the same config.
+
+``shard`` (a ``sharding.ShardedContext``) places the trunk by
+``rules.param_pspecs`` (sharded over ``data`` at ZeRO-3) and each role's
+adapter by ``rules.adapter_pspecs``; the values are unchanged, only each
+rank's part is kept (:meth:`ModelEngine.shard_with`).
 """
 from __future__ import annotations
 
@@ -44,10 +48,10 @@ class ModelEngine:
 
     def __init__(self, cfg: ModelConfig, generator: Optional[torch.Generator],
                  *, rank: int = 128, base_params=None,
-                 adapters: Optional[Dict[str, Any]] = None):
+                 adapters: Optional[Dict[str, Any]] = None, shard=None):
         """Random weights from ``generator`` (on the device the engine
         runs on), or the given ``base_params`` and ``adapters`` (then
-        ``generator`` may be None)."""
+        ``generator`` may be None); placed by ``shard`` if given."""
         if cfg.input_mode != "tokens":
             raise ValueError(f"hydra engine needs token-input models, got "
                              f"{cfg.input_mode}")
@@ -75,19 +79,45 @@ class ModelEngine:
                 self.adapters[role] = self.model.init_adapter(
                     generator, self.base_params, rank,
                     with_value=role in self.VALUE_ROLES)
+        self.shard = None
+        self.base_plan = None
+        self.adapter_plans: Dict[str, Any] = {}
+        if shard is not None:
+            self.shard_with(shard)
+
+    def shard_with(self, shard) -> None:
+        """Keep this rank's part of the trunk (``shard.plan_params``) and of
+        each adapter (``shard.plan_adapter``, with the optimizer specs of
+        the config's optimizer); the plans land in ``base_plan`` and
+        ``adapter_plans``."""
+        if self.shard is not None:
+            raise ValueError("the engine is sharded already")
+        self.shard = shard
+        opt = make_optimizer(self.cfg.optimizer)
+        self.base_plan = shard.plan_params(self.cfg, self.base_params)
+        self.base_params = self.base_plan.place_params(self.base_params)
+        for role, ad in self.adapters.items():
+            plan = shard.plan_adapter(ad, opt)
+            self.adapter_plans[role] = plan
+            self.adapters[role] = plan.place_params(ad)
 
     # ------------------------------------------------------ role forwards
-    def logits(self, base_params, adapter, batch):
+    # ``layer_specs`` (the base plan's) gathers a ZeRO-3 trunk layer by
+    # layer inside the forward
+    def logits(self, base_params, adapter, batch, layer_specs=None):
         """Role-switched forward: base ⊕ adapter -> [B,S,V] logits."""
-        return self.model.forward(base_params, batch, adapter=adapter)[0]
+        return self.model.forward(base_params, batch, adapter=adapter,
+                                  layer_specs=layer_specs)[0]
 
-    def ref_logits(self, base_params, batch):
+    def ref_logits(self, base_params, batch, layer_specs=None):
         """The reference forward IS the plain base pass."""
-        return self.model.forward(base_params, batch)[0]
+        return self.model.forward(base_params, batch,
+                                  layer_specs=layer_specs)[0]
 
-    def values(self, base_params, adapter, batch):
+    def values(self, base_params, adapter, batch, layer_specs=None):
         """Critic/reward forward: base ⊕ adapter + its value head."""
-        return self.model.forward_value(base_params, batch, adapter=adapter)
+        return self.model.forward_value(base_params, batch, adapter=adapter,
+                                        layer_specs=layer_specs)
 
     def lora_sites(self):
         """Structure-only copy of the adapter site tree (every leaf True).

@@ -7,9 +7,12 @@ import torch
 from repro_torch.models import Model
 
 
-def sequence_reward(model: Model, params, tokens, mask, adapter=None):
-    """Score = value-head output at each row's last generated token. [B]."""
-    v = model.forward_value(params, {"tokens": tokens}, adapter=adapter)
+def sequence_reward(model: Model, params, tokens, mask, adapter=None,
+                    layer_specs=None):
+    """Score = value-head output at each row's last generated token. [B].
+    ``layer_specs`` gathers a ZeRO-3 tree layer by layer."""
+    v = model.forward_value(params, {"tokens": tokens}, adapter=adapter,
+                            layer_specs=layer_specs)
     idx = torch.clamp(mask.sum(-1).long() - 1, min=0)
     return torch.gather(v, 1, idx[:, None])[:, 0]
 

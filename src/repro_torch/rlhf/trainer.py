@@ -45,11 +45,25 @@ for the phase (``core.build_rlhf_phases`` + ``run_iteration``, replayed
 once at the first ``train_step``), feeds the ``rlhf_*`` metrics, and
 notes each record to the run's ``obs.FlightRecorder``; a caught
 ``torch.cuda.OutOfMemoryError`` is dumped with its owners and re-raised.
-Telemetry observes: the same kernels run on the same values. Not ported:
-ZeRO/TP sharding; asking for it raises.
+Telemetry observes: the same kernels run on the same values.
+
+``shard=`` (``sharding.ShardedContext``; the reference's ``:358-371,
+405-506``) runs ZeRO data parallelism on both engines, SPMD: every rank
+runs the same calls with the same generator seeds. The separate engine
+shards its four role trees; hydra the trunk (``rules.param_pspecs``) and
+the role adapters (``rules.adapter_pspecs``). The rollout runs on every
+rank from a ``gather_copy`` (the same tokens on every rank), freed at the
+phase boundary; no collective runs inside a captured decode graph, since
+the gather comes before ``generate``. Scoring and training gather as the
+plans say (whole, or layer by layer). ``rl.batch_shard`` splits a batch
+that divides ndp over the ranks (``"throughput"``: summed gradients, ~ulp
+drift; a batch that does not divide is replicated with a warning,
+``"strict"`` raises on it); a replicated batch gives the unsharded bits.
+``offload`` composes: the lot parks and fetches each rank's shards.
 """
 from __future__ import annotations
 
+import dataclasses
 import gc
 import time
 import warnings
@@ -65,10 +79,12 @@ from repro_torch.models import Model
 from repro_torch.models import lora as LORA
 from repro_torch.models.lora import delete_merged
 from repro_torch.offload import HostParkingLot, OffloadExecutor, OffloadPlan
+from repro_torch.optim import make_optimizer
 from repro_torch.rlhf.engine import ModelEngine
 from repro_torch.rlhf.ppo import gae, kl_shaped_rewards, whiten
 from repro_torch.rlhf.reward import sequence_reward
 from repro_torch.rlhf.rollout import Rollout, live_device_bytes
+from repro_torch.sharding.context import delete_tree, tree_per_device_bytes
 from repro_torch.steps import (_action_logp, init_lora_train_state,
                                init_train_state, make_lora_train_step,
                                make_train_step)
@@ -135,6 +151,9 @@ class PhaseMemoryManager:
     # runtime phase -> {"sim_bytes", "sim_peak_bytes", "sim_owner_bytes"}
     # from the traced simulator (attached by RLHFTrainer under sim_delta)
     sim_phase_bytes: Dict[str, dict] = field(default_factory=dict)
+    # under ZeRO, a rank's bytes -> the largest over the ranks (the
+    # spans' measured_bytes_per_device); None: this rank's
+    per_device: Optional[Callable[[int], int]] = None
 
     def __post_init__(self):
         if self.policy not in MEMORY_POLICIES:
@@ -267,7 +286,9 @@ class PhaseMemoryManager:
         args = {"kind": kind,
                 "measured_bytes": rec["live_bytes"],
                 "measured_peak_bytes": peak,
-                "measured_bytes_per_device": rec["live_bytes"],
+                "measured_bytes_per_device": (
+                    rec["live_bytes"] if self.per_device is None
+                    else self.per_device(rec["live_bytes"])),
                 "host_bytes": rec["host_bytes"],
                 "pcie_bytes": pcie_now - self._pcie_mark}
         if "attrib" in rec:
@@ -411,6 +432,13 @@ class RLHFConfig:
     # prefill compile-bucket ladder for the rollout's prompts (None: pad
     # nothing)
     capture_buckets: Optional[Sequence[int]] = None
+    # DP batch sharding of the scoring and training batches under ZeRO:
+    #   "throughput" — a batch that divides ndp is split over the ranks
+    #     (loss denominators over the whole batch, gradients summed: a
+    #     change of summation order, ~ulp); one that does not divide is
+    #     replicated, with a warning;
+    #   "strict" — a batch that does not divide ndp raises.
+    batch_shard: str = "throughput"
 
 
 class RLHFTrainer:
@@ -427,7 +455,8 @@ class RLHFTrainer:
 
     ``telemetry`` (``obs.RunTelemetry``) instruments every iteration (the
     module docstring); the bundle's attributor is created when absent,
-    and this trainer's owner trees are registered in it."""
+    and this trainer's owner trees are registered in it. ``shard``
+    (``sharding.ShardedContext``) runs ZeRO over its ``data`` ranks."""
 
     def __init__(self, actor_cfg: ModelConfig, critic_cfg: ModelConfig,
                  rl: RLHFConfig, generator: Optional[torch.Generator] = None,
@@ -437,9 +466,20 @@ class RLHFTrainer:
         if rl.engine not in ("separate", "hydra"):
             raise ValueError(f"engine must be separate or hydra, not "
                              f"{rl.engine!r}")
-        if shard is not None:
-            raise NotImplementedError("sharding is not ported")
+        if rl.batch_shard not in ("strict", "throughput"):
+            raise ValueError(f"unknown batch_shard {rl.batch_shard!r}; "
+                             "expected 'strict' or 'throughput'")
+        if shard is not None and shard.ntp > 1:
+            raise NotImplementedError(
+                "tensor parallelism (a model axis above 1) is not ported "
+                "yet; the trainer runs ZeRO over data")
+        if shard is not None and shard.comm is None:
+            raise ValueError("a ShardedContext on a SpecMesh names specs "
+                             "only; the trainer needs a process group")
         self.rl = rl
+        self.shard = shard
+        self._gather_step_bytes: Optional[Dict[str, int]] = None
+        self._batch_shard_warned = False
         self.actor_cfg, self.critic_cfg = actor_cfg, critic_cfg
         self.reward_fn = reward_fn
         self.telemetry = telemetry
@@ -457,6 +497,8 @@ class RLHFTrainer:
                                          device=self.device,
                                          tracked=self._tracked,
                                          telemetry=telemetry)
+        if shard is not None:
+            self.memory.per_device = shard.comm.max_int
         self.rollout = Rollout(
             self.actor, actor_cfg, capacity=rl.prompt_len + rl.gen_len,
             temperature=0.0 if rl.spec_decode else rl.temperature,
@@ -482,16 +524,29 @@ class RLHFTrainer:
         self.actor = Model(actor_cfg, device=device)
         self.critic = Model(critic_cfg, device=device, with_value=True)
         self.device = self.actor.device
+        # one ZeRO plan a role tree (the reference and reward models share
+        # the actor's and the critic's), from the trees' shapes on meta
+        self.actor_plan = self.critic_plan = None
+        if self.shard is not None:
+            self.actor_plan = self.shard.plan_params(
+                actor_cfg, Model(actor_cfg, device="meta").init(),
+                make_optimizer(actor_cfg.optimizer))
+            self.critic_plan = self.shard.plan_params(
+                critic_cfg,
+                Model(critic_cfg, device="meta", with_value=True).init(),
+                make_optimizer(critic_cfg.optimizer))
         self.actor_step = make_train_step(self.actor, actor_cfg, kind="ppo",
-                                          lr=rl.lr, kl_coef=rl.kl_coef)
+                                          lr=rl.lr, kl_coef=rl.kl_coef,
+                                          shard=self.actor_plan)
         self.critic_step = make_train_step(self.critic, critic_cfg,
-                                           kind="critic", lr=rl.critic_lr)
-        self.actor_state = init_train_state(
+                                           kind="critic", lr=rl.critic_lr,
+                                           shard=self.critic_plan)
+        self.actor_state = self._init_state(
             self.actor, actor_cfg, generator, self.actor_step.optimizer,
-            params=params.get("actor"))
-        self.critic_state = init_train_state(
+            params.get("actor"), self.actor_plan)
+        self.critic_state = self._init_state(
             self.critic, critic_cfg, generator, self.critic_step.optimizer,
-            params=params.get("critic"))
+            params.get("critic"), self.critic_plan)
         # reference = frozen copy of the (SFT) actor init; reward = frozen
         # copy of the critic init (a critic that stopped learning at
         # preference time)
@@ -501,21 +556,51 @@ class RLHFTrainer:
             self.reward_params = tree_map(torch.clone,
                                           self.critic_state["params"])
 
+    @staticmethod
+    def _init_state(model, cfg, generator, optimizer, params, plan):
+        """A role's train state; under ZeRO this rank's part of it: the
+        whole params drawn (every rank draws the same), placed, and the
+        moments made at the placed shapes (no whole moments are made)."""
+        if plan is None:
+            return init_train_state(model, cfg, generator, optimizer,
+                                    params=params)
+        if params is None:
+            params = model.init(generator)
+        params = plan.place_params(params)
+        for p in leaves(params):
+            p.requires_grad_(True)
+        return {"params": params,
+                "opt": optimizer.init(plan.update_views(params)), "step": 0}
+
     def _init_hydra(self, cfg, rl, generator, engine):
         self.engine = engine if engine is not None else ModelEngine(
             cfg, generator, rank=rl.lora_rank)
+        if self.shard is not None and self.engine.shard is None:
+            self.engine.shard_with(self.shard)
         self.actor = self.engine.model          # the shared headless trunk
         self.device = self.actor.device
         self.base_params = self.ref_params = self.engine.base_params
         self.reward_adapter = self.engine.adapters["reward"]
+        base_plan = self.engine.base_plan
+        a_plan = self.engine.adapter_plans.get("actor")
+        c_plan = self.engine.adapter_plans.get("critic")
         self.actor_step = make_lora_train_step(
-            self.actor, cfg, kind="ppo", lr=rl.lr, kl_coef=rl.kl_coef)
+            self.actor, cfg, kind="ppo", lr=rl.lr, kl_coef=rl.kl_coef,
+            shard=a_plan, base_shard=base_plan)
         self.critic_step = make_lora_train_step(
-            self.actor, cfg, kind="critic", lr=rl.critic_lr)
+            self.actor, cfg, kind="critic", lr=rl.critic_lr,
+            shard=c_plan, base_shard=base_plan)
         self.actor_state = init_lora_train_state(
             self.engine.adapters["actor"], self.actor_step.optimizer)
         self.critic_state = init_lora_train_state(
             self.engine.adapters["critic"], self.critic_step.optimizer)
+        if a_plan is not None:
+            # the moments were made from the placed adapters: keep this
+            # rank's part of those the ZeRO-1/2 layout shards
+            self.actor_state["opt"] = a_plan.place_opt(
+                self.actor_state["opt"])
+            self.critic_state["opt"] = c_plan.place_opt(
+                self.critic_state["opt"])
 
     def _tracked(self):
         """What the CPU's live-bytes record counts: the persistent trees
@@ -540,7 +625,10 @@ class RLHFTrainer:
         (which IS the base) and the merged rollout leaves that alias
         non-adapted trunk tensors attribute to ``base_params``;
         ``merged_rollout`` then claims only the freshly merged copies.
-        The ZeRO/TP gather owners come with sharding."""
+        The ZeRO-3 rollout gather copies (``zero_gather``; ``tp_gather``
+        stays empty until tensor parallelism runs) register before
+        ``merged_rollout``: the merged tree's non-adapted leaves alias the
+        gathered trunk."""
         from repro_torch.obs import MemoryAttributor
         at = telemetry.attribution
         if at is None:
@@ -562,7 +650,9 @@ class RLHFTrainer:
         at.register("actor_opt", lambda: self.actor_state["opt"])
         at.register("critic_params", lambda: self.critic_state["params"])
         at.register("critic_opt", lambda: self.critic_state["opt"])
-        for owner, key in (("merged_rollout", "merged_rollout"),
+        for owner, key in (("zero_gather", "zero_gather"),
+                           ("tp_gather", "tp_gather"),
+                           ("merged_rollout", "merged_rollout"),
                            ("rollout_buffers", "rollout"),
                            ("experience", "experience")):
             at.register(owner, lambda key=key: self._live.get(key))
@@ -577,9 +667,11 @@ class RLHFTrainer:
         first train_step); a failure degrades to spans without
         predictions, with a warning. ``run_iteration`` scales the traces'
         ``layer_slice`` events (ZeRO-3's per-layer gathers) to 0 below
-        stage 3, so the predicted peaks leave them out."""
+        stage 3, so the predicted peaks leave them out. Under ``shard``
+        the prediction is one rank's, its fractions traced from the spec
+        trees the state was placed by (``core.traced_strategy``)."""
         from repro_torch.core import (MemoryStrategy, build_rlhf_phases,
-                                      run_iteration)
+                                      run_iteration, traced_strategy)
         ckpt = self.actor_cfg.remat == "full"
         try:
             ph, persist = build_rlhf_phases(
@@ -588,10 +680,19 @@ class RLHFTrainer:
                 engine=self.rl.engine, lora_rank=self.rl.lora_rank,
                 grad_ckpt=ckpt, ppo_epochs=self.rl.ppo_epochs,
                 min_bytes=2048)
-            r = run_iteration(
-                ph, persist, MemoryStrategy("None", offload=self.rl.offload,
-                                            grad_ckpt=ckpt),
-                "none", ndp=1, ntp=1, trainable_fraction=1.0, capacity=None)
+            strat = MemoryStrategy("None", offload=self.rl.offload,
+                                   grad_ckpt=ckpt)
+            ndp = ntp = 1
+            if self.shard is not None:
+                ndp, ntp = self.shard.ndp, self.shard.ntp
+                strat = traced_strategy(
+                    dataclasses.replace(
+                        strat, zero_stage=self.shard.zero_stage,
+                        gather_mode=self.shard.strat.gather_mode, ntp=ntp),
+                    self.actor_cfg, self.critic_cfg, ndp=ndp,
+                    engine=self.rl.engine, lora_rank=self.rl.lora_rank)
+            r = run_iteration(ph, persist, strat, "none", ndp=ndp, ntp=ntp,
+                              trainable_fraction=1.0, capacity=None)
         except Exception as e:
             warnings.warn(f"telemetry: simulator prediction unavailable "
                           f"({e!r}); phase spans carry measured bytes only",
@@ -614,8 +715,11 @@ class RLHFTrainer:
         """Per-program memory accounting, once a program: a ``meta`` trace
         of ``fn(*args)`` (``obs.record_compiled_memory``; never executed)
         into the metrics registry. One-time setup, not charged to the
-        tracer's self-time."""
-        if self.telemetry is None or program in self._compiled_recorded:
+        tracer's self-time. Under ``shard`` nothing is recorded: a
+        ``meta`` trace cannot run a sharded tree's gathers (the reference
+        skips its ZeRO train programs likewise)."""
+        if self.telemetry is None or self.shard is not None or \
+                program in self._compiled_recorded:
             return
         self._compiled_recorded.add(program)
         from repro_torch.obs import record_compiled_memory
@@ -746,19 +850,144 @@ class RLHFTrainer:
                        reward_params=self.reward_adapter)
         return out
 
+    # ------------------------------------------------------------ sharding
+    def per_device_state_bytes(self) -> int:
+        """The largest over the ranks of the persistent role state's bytes
+        on a rank (params and moments): the figure the ZeRO stages cut.
+        Unsharded, this process's bytes."""
+        return tree_per_device_bytes(
+            list(self.persistent_trees().values()),
+            None if self.shard is None else self.shard.comm)
+
+    def _plans(self):
+        """(trunk or actor plan, actor, critic, reward plans): the
+        separate engine's reference and reward trees use the actor's and
+        the critic's plans; all None unsharded."""
+        if self.engine is not None:
+            ap = self.engine.adapter_plans
+            return (self.engine.base_plan, ap.get("actor"), ap.get("critic"),
+                    ap.get("reward"))
+        return (None, self.actor_plan, self.critic_plan, self.critic_plan)
+
+    @staticmethod
+    def _g(plan, tree):
+        return tree if plan is None else plan.gather(tree)
+
+    @staticmethod
+    def _ls(plan):
+        return getattr(plan, "layer_specs", None)
+
+    def _split(self, B: int) -> bool:
+        """Whether a batch of B rows runs split over the ranks
+        (``rl.batch_shard``)."""
+        if self.shard is None or self.shard.ndp <= 1:
+            return False
+        ndp = self.shard.ndp
+        if B % ndp == 0:
+            return True
+        if self.rl.batch_shard == "strict":
+            raise ValueError(
+                f"batch_shard='strict': global batch {B} does not divide "
+                f"the DP size {ndp}; the batch would replicate. Pad the "
+                "batch or use batch_shard='throughput'.")
+        if not self._batch_shard_warned:
+            self._batch_shard_warned = True
+            warnings.warn(f"RLHF batch {B} does not divide ndp={ndp}: "
+                          "replicating the batch over the DP ranks (state "
+                          "still shards; see RLHFConfig.batch_shard)",
+                          stacklevel=3)
+        return False
+
+    def _rows(self, x: torch.Tensor, N: int) -> torch.Tensor:
+        """This rank's rows of a split batch: with N microbatches, its
+        share of each, so that microbatch i is every rank's share of the
+        unsplit batch's microbatch i."""
+        comm = self.shard.comm
+        N = max(1, N)
+        b = x.shape[0] // (N * comm.size)
+        return x.reshape((N, comm.size, b) + tuple(x.shape[1:]))[
+            :, comm.rank].reshape((N * b,) + tuple(x.shape[1:]))
+
+    def _scored(self, fn, *args):
+        """``fn(*args)`` over the batch's rows ([B, ...] tensors): split
+        over the ranks where the batch splits, and the rows all-gathered
+        back in order."""
+        B = args[0].shape[0]
+        if not self._split(B):
+            return fn(*args)
+        comm = self.shard.comm
+        n = B // comm.size
+        out = fn(*(a.narrow(0, comm.rank * n, n) for a in args))
+        return comm.all_gather(out, 0)
+
+    def _role_gather_bytes(self) -> Dict[str, int]:
+        """ZeRO-3 all-gather bytes of each update program (the plans'
+        ``gathered_bytes``, computed once): what the step's tree or layer
+        gathers move each time it runs."""
+        if self._gather_step_bytes is None:
+            base, a_plan, c_plan, _ = self._plans()
+            if self.engine is not None:
+                trunk = 0 if base is None else \
+                    base.gathered_bytes(self.base_params)
+                ga = trunk + (0 if a_plan is None else a_plan.gathered_bytes(
+                    self.actor_state["params"]))
+                gc_ = trunk + (0 if c_plan is None else c_plan.gathered_bytes(
+                    self.critic_state["params"]))
+            else:
+                ga = 0 if a_plan is None else a_plan.gathered_bytes(
+                    self.actor_state["params"])
+                gc_ = 0 if c_plan is None else c_plan.gathered_bytes(
+                    self.critic_state["params"])
+            self._gather_step_bytes = {"train_actor": ga,
+                                       "train_critic": gc_}
+        return self._gather_step_bytes
+
+    def _count_gather(self, program: str) -> None:
+        if self.telemetry is None:
+            return
+        b = self._role_gather_bytes().get(program, 0)
+        if b:
+            self.telemetry.registry.counter(
+                "sharding_step_gathered_bytes_total",
+                "bytes all-gathered by ZeRO-3 per update program "
+                "(analytic, from the TreePlan)").inc(b, program=program)
+
     # ---------------------------------------------------------- role calls
     def _gen(self, prompts, generator):
-        """Rollout. Separate: from the actor's live params. Hydra: from
-        merged weights, A·B of the actor folded into the trunk once per
-        phase; the merged leaves' references are dropped before the
-        boundary, so the caching allocator gets them back."""
+        """Rollout. Separate: from the actor's params. Hydra: from merged
+        weights, A·B of the actor folded into the trunk once per phase.
+        Under ZeRO-3 both run from a gathered copy (``gather_copy``), owned
+        by ``zero_gather`` and dropped at the end of the phase; the merged
+        leaves' references are dropped before the boundary, so the caching
+        allocator gets them back."""
+        base_plan, a_plan, _, _ = self._plans()
         if self.engine is None:
-            with torch.no_grad():
-                return self.rollout.generate(
-                    self.actor_state["params"], {"tokens": prompts},
-                    self.rl.gen_len, generator)
-        adapter = self.actor_state["params"]
-        merged = self.actor.merge_adapter(self.base_params, adapter)
+            p, owned = self.actor_state["params"], False
+            if a_plan is not None:
+                p, owned = a_plan.gather_copy(p)
+                self._live["zero_gather"] = {"actor": p}
+            try:
+                with torch.no_grad():
+                    return self.rollout.generate(
+                        p, {"tokens": prompts}, self.rl.gen_len, generator)
+            finally:
+                self._live.pop("zero_gather", None)
+                if owned:
+                    delete_tree(p)
+        adapter, owned_a = self.actor_state["params"], False
+        base, owned_b = self.base_params, False
+        if base_plan is not None:
+            base, owned_b = base_plan.gather_copy(base)
+            adapter, owned_a = a_plan.gather_copy(adapter)
+        copies = {k: t for k, t, owned in (("base", base, owned_b),
+                                          ("adapter", adapter, owned_a))
+                  if owned}
+        if copies:
+            self._live["zero_gather"] = copies
+        merged = self.actor.merge_adapter(base, adapter)
+        # the merged tree holds what the rollout reads; no live trunk may
+        # be held here (offload "all" parks its adapted leaves mid-phase)
+        del base
         self._live["merged_rollout"] = merged
         parked = self.memory.park_merged() if self.offload is not None \
             else {}
@@ -772,43 +1001,77 @@ class RLHFTrainer:
         finally:
             delete_merged(merged, adapter.get("lora"))
             self._live.pop("merged_rollout", None)
+            self._live.pop("zero_gather", None)
+            delete_tree(copies)
 
     def _reward_scores(self, tokens, mask):
+        base_plan, _, _, rw_plan = self._plans()
         if self.engine is None:
-            return sequence_reward(self.critic, self.reward_params, tokens,
-                                   mask)
-        return sequence_reward(self.actor, self.base_params, tokens, mask,
-                               adapter=self.reward_adapter)
+            return self._scored(lambda t, m: sequence_reward(
+                self.critic, self._g(rw_plan, self.reward_params), t, m,
+                layer_specs=self._ls(rw_plan)), tokens, mask)
+        return self._scored(lambda t, m: sequence_reward(
+            self.actor, self._g(base_plan, self.base_params), t, m,
+            adapter=self._g(rw_plan, self.reward_adapter),
+            layer_specs=self._ls(base_plan)), tokens, mask)
 
     def _token_logp(self, role, batch):
         """Per-action log-probs of the actor (``role="actor"``) or the
         frozen reference (``"ref"``)."""
+        base_plan, a_plan, _, _ = self._plans()
         if self.engine is None:
             params = self.actor_state["params"] if role == "actor" \
                 else self.ref_params
-            logits = self.actor.forward(params, batch)[0]
+
+            def logits(b):
+                return self.actor.forward(self._g(a_plan, params), b,
+                                          layer_specs=self._ls(a_plan))[0]
         elif role == "actor":
-            logits = self.engine.logits(self.base_params,
-                                        self.actor_state["params"], batch)
+            def logits(b):
+                return self.engine.logits(
+                    self._g(base_plan, self.base_params),
+                    self._g(a_plan, self.actor_state["params"]), b,
+                    layer_specs=self._ls(base_plan))
         else:
-            logits = self.engine.ref_logits(self.base_params, batch)
-        return _action_logp(logits, batch["tokens"])
+            def logits(b):
+                return self.engine.ref_logits(
+                    self._g(base_plan, self.base_params), b,
+                    layer_specs=self._ls(base_plan))
+        return self._scored(lambda t: _action_logp(logits({"tokens": t}), t),
+                            batch["tokens"])
 
     def _values(self, batch):
+        base_plan, _, c_plan, _ = self._plans()
         if self.engine is None:
-            return self.critic.forward_value(self.critic_state["params"],
-                                             batch)
-        return self.engine.values(self.base_params,
-                                  self.critic_state["params"], batch)
+            return self._scored(lambda t: self.critic.forward_value(
+                self._g(c_plan, self.critic_state["params"]), {"tokens": t},
+                layer_specs=self._ls(c_plan)), batch["tokens"])
+        return self._scored(lambda t: self.engine.values(
+            self._g(base_plan, self.base_params),
+            self._g(c_plan, self.critic_state["params"]), {"tokens": t},
+            layer_specs=self._ls(base_plan)), batch["tokens"])
+
+    def _update(self, step, state, batch, cfg):
+        """One step of a role (its params and moments move in place), on
+        this rank's share of the batch where the batch splits."""
+        trunk = () if self.engine is None else (self.base_params,)
+        B = batch["tokens"].shape[0]
+        if not self._split(B):
+            return step(state, *trunk, batch)[1]
+        local = {k: self._rows(v, cfg.microbatches)
+                 if torch.is_tensor(v) and v.dim() >= 1 and v.shape[0] == B
+                 else v for k, v in batch.items()}
+        with self.shard.sharded_batch():
+            return step(state, *trunk, local)[1]
 
     def _actor_update(self, exp):
         """One step of the actor (its params and moments move in place)."""
-        trunk = () if self.engine is None else (self.base_params,)
-        return self.actor_step(self.actor_state, *trunk, exp)[1]
+        return self._update(self.actor_step, self.actor_state, exp,
+                            self.actor_cfg)
 
     def _critic_update(self, cbatch):
-        trunk = () if self.engine is None else (self.base_params,)
-        return self.critic_step(self.critic_state, *trunk, cbatch)[1]
+        cfg = self.critic_cfg if self.engine is None else self.actor_cfg
+        return self._update(self.critic_step, self.critic_state, cbatch, cfg)
 
     # ------------------------------------------------------------ phases
     def make_experience(self, prompts: torch.Tensor,
@@ -887,6 +1150,7 @@ class RLHFTrainer:
         for _ in range(self.rl.ppo_epochs):
             m = self._actor_update(exp)
             metrics.update({k: float(v) for k, v in m.items()})
+            self._count_gather("train_actor")
         self.memory.boundary("train_actor", "training")
         cbatch = dict(exp, old_values=old_values)
         del old_values
@@ -896,6 +1160,7 @@ class RLHFTrainer:
         for _ in range(self.rl.ppo_epochs):
             mc = self._critic_update(cbatch)
             metrics.update({k: float(v) for k, v in mc.items()})
+            self._count_gather("train_critic")
         self._live.pop("rollout", None)
         self._live.pop("experience", None)
         self.memory.boundary("train_critic", "training", exp, cbatch)

@@ -11,12 +11,24 @@ global norm and applies the reference's AdamW, both in place, as the
 reference's jitted step does with its state donated. With
 ``cfg.mtp_depth`` set, the ppo and lm steps add ``0.1 * mtp_chain_loss``
 (``:90-110``); the hydra step runs the chain on the frozen trunk,
-adapter-free, as the reference does. The shard (ZeRO/TP) path of the
-reference is not ported: asking for it raises.
+adapter-free, as the reference does.
+
+``shard=`` (a ``sharding.TreePlan``; the LoRA step's ``base_shard=`` for
+the frozen trunk) makes a step ZeRO-aware with the reference's contract
+(``:156-279, 300-340``): the params are gathered to the compute specs
+before the forward (a whole tree, or layer by layer inside the model in
+"layer" mode), the loss and gradients are computed on the gathered values,
+the gradients are clipped by the norm of the full gradients, sliced to the
+rank's part of the update layout and AdamW runs there in place; stages
+1-2 then all-gather the new params. With a replicated batch every stage
+gives the unsharded bits. Under ``ShardedContext.sharded_batch()`` each
+rank runs on its share of the batch: loss denominators count the whole
+batch and gradients and metrics are summed over the ranks (a change of
+summation order, ~ulp).
 """
 from __future__ import annotations
 
-from typing import Callable, Dict, Tuple
+from typing import Callable, Dict, Optional, Tuple
 
 import torch
 
@@ -24,6 +36,23 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.models import Model
 from repro_torch.optim import clip_by_global_norm_, make_optimizer
 from repro_torch.tree import leaves, tree_map
+
+Count = Optional[Callable[[torch.Tensor], torch.Tensor]]
+
+
+def _count(count: Count, x: torch.Tensor) -> torch.Tensor:
+    """A loss denominator's count: ``x`` itself, or ``count(x)`` (under a
+    sharded batch, its sum over the ranks)."""
+    return x if count is None else count(x)
+
+
+def _batch_count(plan) -> Count:
+    """The losses' ``count`` for a step on ``plan``: the sum over the ranks
+    while the batch is sharded (``ShardedContext.sharded_batch``)."""
+    comm = getattr(plan, "comm", None)
+    if comm is None or not comm.batch_sharded:
+        return None
+    return lambda x: comm.all_reduce_(x.detach().clone())
 
 
 # ---------------------------------------------------------------------------
@@ -53,11 +82,11 @@ def _action_logp(logits, tokens, prefix: int = 0):
 
 
 def ppo_actor_loss(logits, batch, *, prefix: int = 0, clip_eps: float = 0.2,
-                   kl_coef: float = 0.1):
+                   kl_coef: float = 0.1, count: Count = None):
     tokens = batch["tokens"]
     mask = batch["loss_mask"].float().clone()
     mask[:, 0] = 0.0
-    denom = torch.clamp(mask.sum(), min=1.0)
+    denom = torch.clamp(_count(count, mask.sum()), min=1.0)
     logp = _action_logp(logits, tokens, prefix)
     ratio = torch.exp(logp - batch["old_logp"])
     adv = batch["advantages"]
@@ -73,9 +102,10 @@ def ppo_actor_loss(logits, batch, *, prefix: int = 0, clip_eps: float = 0.2,
     return loss, {"ppo_loss": ppo, "kl": kl, "clip_frac": clip_frac}
 
 
-def critic_loss(values, batch, *, clip_eps: float = 0.2):
+def critic_loss(values, batch, *, clip_eps: float = 0.2,
+                count: Count = None):
     mask = batch["loss_mask"].float()
-    denom = torch.clamp(mask.sum(), min=1.0)
+    denom = torch.clamp(_count(count, mask.sum()), min=1.0)
     returns = batch["returns"]
     old_v = batch.get("old_values", returns)
     v_clip = old_v + torch.clamp(values - old_v, -clip_eps, clip_eps)
@@ -85,7 +115,7 @@ def critic_loss(values, batch, *, clip_eps: float = 0.2):
     return loss, {"vf_loss": loss}
 
 
-def mtp_loss(logits, tokens, mask, *, offset: int = 2):
+def mtp_loss(logits, tokens, mask, *, offset: int = 2, count: Count = None):
     """MTP cross-entropy: logits[:, i] scores tokens[:, i+offset]
     (full-length logits; the last ``offset`` positions are padding). The
     depth-d logits of the chain use ``offset = d + 1``."""
@@ -93,14 +123,15 @@ def mtp_loss(logits, tokens, mask, *, offset: int = 2):
     tgt_full = torch.nn.functional.pad(tokens[:, offset:], (0, offset))
     nll = -_full_seq_logp(logits, tgt_full.long())[:, :S - offset]
     m = mask[:, offset:].float()
-    return torch.sum(nll * m) / torch.clamp(m.sum(), min=1.0)
+    return torch.sum(nll * m) / torch.clamp(_count(count, m.sum()), min=1.0)
 
 
-def mtp_chain_loss(model: Model, params, h, batch):
+def mtp_chain_loss(model: Model, params, h, batch, count: Count = None):
     """Mean cross-entropy over the depth-k MTP chain. ``params`` may be a
     frozen trunk (hydra): the chain always runs adapter-free."""
     lgs = model.mtp_chain_logits(params, h, batch["tokens"])
-    losses = [mtp_loss(lg, batch["tokens"], batch["loss_mask"], offset=d + 1)
+    losses = [mtp_loss(lg, batch["tokens"], batch["loss_mask"], offset=d + 1,
+                       count=count)
               for d, lg in enumerate(lgs, start=1)]
     total = losses[0]
     for extra in losses[1:]:
@@ -119,10 +150,10 @@ def _with_mtp(cfg: ModelConfig, kind: str, loss, metrics, mtp_fn):
     return loss, metrics
 
 
-def lm_loss(logits, tokens, mask, *, prefix: int = 0):
+def lm_loss(logits, tokens, mask, *, prefix: int = 0, count: Count = None):
     nll = -_action_logp(logits, tokens, prefix)[:, 1:]
     m = mask[:, 1:].float()
-    return torch.sum(nll * m) / torch.clamp(m.sum(), min=1.0)
+    return torch.sum(nll * m) / torch.clamp(_count(count, m.sum()), min=1.0)
 
 
 # ---------------------------------------------------------------------------
@@ -170,9 +201,73 @@ def _update_(optimizer, state, grads, lr: float, max_grad_norm: float):
     return gnorm
 
 
-def _check_single_device(*shards) -> None:
-    if any(s is not None for s in shards):
-        raise NotImplementedError("the port's train step is single-device")
+def _check_dp_only(*plans) -> None:
+    """A plan with a model axis (tensor parallelism) is refused: the port
+    runs ZeRO over ``data`` only."""
+    for plan in plans:
+        if plan is not None and getattr(plan.strat, "ntp", 1) > 1:
+            raise NotImplementedError(
+                "tensor-parallel train steps (a plan with ntp > 1) are not "
+                "ported yet; ZeRO over data runs at ntp 1")
+
+
+def _reset_stash(plan) -> None:
+    if hasattr(plan.layer_specs, "reset"):
+        plan.layer_specs.reset()
+
+
+def _sharded_update_(optimizer, plan, state, grads, lr: float,
+                     max_grad_norm: float):
+    """The ZeRO half of a step, in place (the reference's
+    ``_run_sharded_update``): under a sharded batch the per-rank partial
+    gradients are summed (a layer-mode shard's was reduce-scattered in the
+    backward); the global norm is taken over the full gradients, leaf by
+    leaf in the unsharded order (a shard's leaf gathered for its sum
+    alone); the gradients are sliced to this rank's part of the update
+    layout and scaled there; AdamW updates the rank's part; stages 1-2
+    all-gather the new params -> the norm. A layer-mode shard's sum of
+    squares was noted by its gather's backward (one microbatch); with
+    several, its gradient is gathered for it."""
+    comm = plan.comm
+    flat = list(leaves(grads))
+    layout = plan.grad_layout(grads)
+    if comm.batch_sharded:
+        for g, (is_shard, _) in zip(flat, layout):
+            if not is_shard:
+                comm.all_reduce_(g)
+    lg = plan.layer_specs
+    sums = []
+    with torch.no_grad():
+        for p, g, (is_shard, d) in zip(leaves(state["params"]), flat,
+                                       layout):
+            s = lg.take_sumsq(p) if is_shard else None
+            if s is None:
+                full = comm.all_gather(g, d) if is_shard else g
+                s = torch.sum(torch.square(full.float()))
+                del full
+            sums.append(s)
+        norm = torch.sqrt(sum(sums))
+        scale = torch.clamp(max_grad_norm / torch.clamp(norm, min=1e-9),
+                            max=1.0)
+        upd = plan.place_grads(grads)
+        del grads, flat
+        for g in leaves(upd):
+            g.mul_(scale)
+        optimizer.update_(upd, state["opt"],
+                          plan.update_views(state["params"]), lr)
+    state["step"] += 1
+    plan.all_gather_updated_(state["params"])
+    return norm
+
+
+def _summed_metrics(plan, metrics: dict) -> dict:
+    """Under a sharded batch each rank's loss terms are its rows' share:
+    sum them over the ranks."""
+    comm = plan.comm
+    if not comm.batch_sharded:
+        return metrics
+    return {k: comm.all_reduce_(v.detach().clone()) for k, v in
+            metrics.items()}
 
 
 def make_train_step(model: Model, cfg: ModelConfig, *, lr: float = 3e-5,
@@ -181,33 +276,50 @@ def make_train_step(model: Model, cfg: ModelConfig, *, lr: float = 3e-5,
     """``step(state, batch) -> (state, metrics)`` over every leaf of
     ``state["params"]`` (the separate engine's actor and critic). kind:
     ppo | critic | lm. The step moves the params and moments in place
-    and returns the same state dict, one step on."""
-    _check_single_device(shard)
+    and returns the same state dict, one step on. ``shard`` (the tree's
+    ``TreePlan``) makes it ZeRO-aware (the module docstring)."""
     if kind not in ("ppo", "critic", "lm"):
         raise ValueError(f"kind must be ppo, critic or lm, not {kind!r}")
+    _check_dp_only(shard)
     optimizer = make_optimizer(cfg.optimizer)
+    # per-layer ZeRO-3 gather (gather_mode "layer") inside the model
+    lspecs = getattr(shard, "layer_specs", None)
 
     def loss_fn(params, batch):
+        count = _batch_count(shard)
         if kind == "critic":
-            return critic_loss(model.forward_value(params, batch), batch)
-        logits, h = model.forward(params, batch)
+            return critic_loss(model.forward_value(
+                params, batch, layer_specs=lspecs), batch, count=count)
+        logits, h = model.forward(params, batch, layer_specs=lspecs)
         if kind == "lm":
-            loss = lm_loss(logits, batch["tokens"], batch["loss_mask"])
+            loss = lm_loss(logits, batch["tokens"], batch["loss_mask"],
+                           count=count)
             metrics = {"lm_loss": loss}
         else:
-            loss, metrics = ppo_actor_loss(logits, batch, kl_coef=kl_coef)
+            loss, metrics = ppo_actor_loss(logits, batch, kl_coef=kl_coef,
+                                           count=count)
         return _with_mtp(cfg, kind, loss, metrics, lambda: mtp_chain_loss(
-            model, params, h, batch))
+            model, params, h, batch, count=count))
 
     N = max(1, cfg.microbatches)
 
     def train_step(state, batch) -> Tuple[dict, Dict[str, torch.Tensor]]:
-        params = state["params"]
+        if shard is None:
+            with torch.enable_grad():
+                (loss, metrics), grads = _accumulated_grads(
+                    loss_fn, state["params"], batch, N)
+            gnorm = _update_(optimizer, state, grads, lr, max_grad_norm)
+            return state, dict(metrics, loss=loss, grad_norm=gnorm)
+        _reset_stash(shard)
         with torch.enable_grad():
-            (loss, metrics), grads = _accumulated_grads(loss_fn, params,
+            compute = shard.gather(state["params"])
+            (loss, metrics), grads = _accumulated_grads(loss_fn, compute,
                                                         batch, N)
-        gnorm = _update_(optimizer, state, grads, lr, max_grad_norm)
-        return state, dict(metrics, loss=loss, grad_norm=gnorm)
+            del compute
+            metrics = _summed_metrics(shard, dict(metrics, loss=loss))
+            gnorm = _sharded_update_(optimizer, shard, state, grads, lr,
+                                     max_grad_norm)
+        return state, dict(metrics, grad_norm=gnorm)
 
     train_step.optimizer = optimizer
     return train_step
@@ -232,33 +344,55 @@ def make_lora_train_step(model: Model, cfg: ModelConfig, *, lr: float = 3e-5,
     """``step(state, base_params, batch) -> (state, metrics)`` for one
     role's adapter: gradients and the optimizer state cover only the
     adapter leaves in ``state["params"]``, which move in place; the frozen
-    trunk is an input that is never differentiated. kind: ppo | critic."""
-    _check_single_device(shard, base_shard)
+    trunk is an input that is never differentiated. kind: ppo | critic.
+    ``shard`` (the adapter's ``TreePlan``) and ``base_shard`` (the
+    trunk's) make it ZeRO-aware: the trunk is gathered for the forward
+    (layer by layer in "layer" mode), the adapter whole."""
     if kind not in ("ppo", "critic"):
         raise ValueError(f"the port's LoRA step trains ppo or critic, not "
                          f"{kind!r}")
+    if base_shard is not None and shard is None:
+        raise ValueError("base_shard without an adapter plan")
+    _check_dp_only(shard, base_shard)
     optimizer = make_optimizer(cfg.optimizer)
+    blspecs = getattr(base_shard, "layer_specs", None)
 
     def loss_fn(adapter, base_params, batch):
+        count = _batch_count(shard)
         if kind == "critic":
-            values = model.forward_value(base_params, batch, adapter=adapter)
-            return critic_loss(values, batch)
-        logits, h = model.forward(base_params, batch, adapter=adapter)
-        loss, metrics = ppo_actor_loss(logits, batch, kl_coef=kl_coef)
+            values = model.forward_value(base_params, batch, adapter=adapter,
+                                         layer_specs=blspecs)
+            return critic_loss(values, batch, count=count)
+        logits, h = model.forward(base_params, batch, adapter=adapter,
+                                  layer_specs=blspecs)
+        loss, metrics = ppo_actor_loss(logits, batch, kl_coef=kl_coef,
+                                       count=count)
         return _with_mtp(cfg, kind, loss, metrics, lambda: mtp_chain_loss(
-            model, base_params, h, batch))
+            model, base_params, h, batch, count=count))
 
     N = max(1, cfg.microbatches)
 
     def train_step(state, base_params, batch
                    ) -> Tuple[dict, Dict[str, torch.Tensor]]:
-        adapter = state["params"]
+        if shard is None:
+            with torch.enable_grad():
+                (loss, metrics), grads = _accumulated_grads(
+                    lambda ad, mb: loss_fn(ad, base_params, mb),
+                    state["params"], batch, N)
+            gnorm = _update_(optimizer, state, grads, lr, max_grad_norm)
+            return state, dict(metrics, loss=loss, grad_norm=gnorm)
+        _reset_stash(shard)
         with torch.enable_grad():
+            base = base_params if base_shard is None \
+                else base_shard.gather(base_params)
+            adapter = shard.gather(state["params"])
             (loss, metrics), grads = _accumulated_grads(
-                lambda ad, mb: loss_fn(ad, base_params, mb), adapter, batch,
-                N)
-        gnorm = _update_(optimizer, state, grads, lr, max_grad_norm)
-        return state, dict(metrics, loss=loss, grad_norm=gnorm)
+                lambda ad, mb: loss_fn(ad, base, mb), adapter, batch, N)
+            del base, adapter
+            metrics = _summed_metrics(shard, dict(metrics, loss=loss))
+            gnorm = _sharded_update_(optimizer, shard, state, grads, lr,
+                                     max_grad_norm)
+        return state, dict(metrics, grad_norm=gnorm)
 
     train_step.optimizer = optimizer
     return train_step

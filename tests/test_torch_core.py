@@ -238,11 +238,22 @@ def test_strategy_scale_matches_reference_on_a_grid():
 
 
 def test_traced_fractions_raise_until_sharding_is_ported():
-    with pytest.raises(NotImplementedError, match="sharding"):
-        TC.traced_strategy(TC.PAPER_STRATEGIES[3], get_config("opt_1_3b"),
-                           ndp=4)
-    with pytest.raises(NotImplementedError, match="sharding"):
-        TC.traced_zero_scales(get_config("opt_1_3b"), ndp=4, zero_stage=3)
+    """Sharding is ported: the traced fractions no longer raise and give
+    the reference's numbers (``tests/test_torch_sharding.py`` holds them
+    on the whole grid)."""
+    got = TC.traced_strategy(TC.PAPER_STRATEGIES[3], get_config("opt_1_3b"),
+                             ndp=4).traced
+    want = JC.traced_strategy(JC.PAPER_STRATEGIES[3],
+                              jax_get_config("opt_1_3b"), ndp=4).traced
+    assert [k for k, _ in got] == [k for k, _ in want]
+    for (_, a), (_, b) in zip(got, want):
+        assert a == pytest.approx(b, rel=1e-12)
+    got = TC.traced_zero_scales(get_config("opt_1_3b"), ndp=4, zero_stage=3)
+    want = JC.traced_zero_scales(jax_get_config("opt_1_3b"), ndp=4,
+                                 zero_stage=3)
+    assert [k for k, _ in got] == [k for k, _ in want]
+    for (_, a), (_, b) in zip(got, want):
+        assert a == pytest.approx(b, rel=1e-12)
 
 
 @pytest.mark.parametrize("name", CONFIGS)

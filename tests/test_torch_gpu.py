@@ -1101,3 +1101,71 @@ def test_batcher_update_params_recaptures(cuda, backend):
     assert all(st["graphed"] for st in cb.graph_stats().values())
     fresh = _batcher_drain(model, cfg, other, False, traffic, **kw)
     assert [(r.out_tokens, r.n_preempted) for r in reqs] == fresh[0]
+
+
+# ------------------------------------------------------------------ ZeRO
+@pytest.fixture
+def one_rank(tmp_path):
+    """A process group of one rank for a test (``backend`` the fixture's
+    param: NCCL, or gloo on CUDA tensors), destroyed after it."""
+    import datetime
+
+    import torch.distributed as dist
+
+    def init(backend):
+        dist.init_process_group(
+            backend, store=dist.FileStore(str(tmp_path / backend), 1),
+            rank=0, world_size=1, timeout=datetime.timedelta(seconds=60))
+    yield init
+    if dist.is_initialized():
+        dist.destroy_process_group()
+
+
+def _zero_run(cfg, engine, dev, shard):
+    from repro_torch.rlhf import RLHFConfig, RLHFTrainer
+    from repro_torch.rlhf.reward import make_target_token_reward
+    rl = RLHFConfig(engine=engine, prompt_len=16, gen_len=8, top_k=0,
+                    lora_rank=8)
+    tr = RLHFTrainer(cfg, cfg, rl, torch.Generator(device=dev).manual_seed(0),
+                     reward_fn=make_target_token_reward(7), shard=shard)
+    prompts = torch.randint(0, 64, (3, 16), device=dev,
+                            generator=torch.Generator(device=dev).manual_seed(2))
+    g = torch.Generator(device=dev).manual_seed(1)
+    out = []
+    for _ in range(2):
+        ops.reset_launches()
+        out.append((tr.train_step(prompts, g), dict(ops.launches)))
+    return out, tr
+
+
+@pytest.mark.parametrize("mode", ["1-layer", "3-tree", "3-layer"])
+@pytest.mark.parametrize("engine", ["separate", "hydra"])
+def test_zero_over_nccl_at_one_rank_matches_unsharded(cuda, one_rank, engine,
+                                                      mode):
+    """``chip_smoke.py`` phase 15's NCCL path on a small bf16 model: 2
+    iterations at ZeRO-1 and ZeRO-3 (both gather modes), metrics and
+    launches bit for bit the unsharded trainer's."""
+    from repro_torch.sharding import ShardedContext
+    one_rank("nccl")
+    stage, gm = mode.split("-")
+    cfg = _small_opt(param_dtype="bfloat16")
+    want, _ = _zero_run(cfg, engine, cuda, None)
+    sc = ShardedContext.create(1, zero_stage=int(stage), gather_mode=gm,
+                               device="cuda")
+    got, _ = _zero_run(cfg, engine, cuda, sc)
+    assert got == want
+
+
+def test_zero_over_gloo_on_cuda_stages_through_host(cuda, one_rank):
+    """gloo on CUDA tensors (phase 15's two ranks on one card) at one rank:
+    the unsharded bits, every collective copied through pinned host
+    memory and counted."""
+    from repro_torch.sharding import ShardedContext
+    one_rank("gloo")
+    cfg = _small_opt(param_dtype="bfloat16")
+    want, _ = _zero_run(cfg, "separate", cuda, None)
+    sc = ShardedContext.create(1, zero_stage=3, gather_mode="layer",
+                               device="cuda", backend="gloo")
+    got, _ = _zero_run(cfg, "separate", cuda, sc)
+    assert got == want
+    assert sc.comm.stage and sc.comm.staged_bytes > 0

@@ -415,6 +415,33 @@ def test_records_on_cpu_leave_parked_trees_out(engine):
         assert a["live_bytes"] - b["live_bytes"] >= b["host_bytes"]
 
 
+def test_hydra_rollout_holds_no_parked_trunk_leaf():
+    """At ``all`` the rollout parks the trunk's adapted leaves while the
+    merged weights serve: once parked, nothing of the trainer's may still
+    hold them (else the card keeps them; ``chip_smoke.py`` phase 9 holds
+    the sample below ``none``'s by their bytes)."""
+    import gc
+    import weakref
+
+    from repro_torch.models import lora as LORA
+    tr = _port_trainer("hydra", "all")
+    sites = tr.engine.lora_sites()
+    alive = []
+    park = tr.memory.park_merged
+
+    def spy():
+        refs = [weakref.ref(t) for t in
+                leaves(LORA.adapted_subtree(tr.base_params, sites))]
+        out = park()
+        gc.collect()
+        alive.append(sum(r() is not None for r in refs))
+        return out
+
+    tr.memory.park_merged = spy
+    tr.train_step(_prompts(), torch.Generator().manual_seed(0))
+    assert alive == [0]
+
+
 # -------------------------------------------------------------- remat
 class _CountMM(TorchDispatchMode):
     """Counts the projections (``aten.mm``) dispatched while active."""

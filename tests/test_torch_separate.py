@@ -247,10 +247,16 @@ def test_full_train_step_matches_reference(kind, microbatches, arch):
 
 
 def test_train_steps_refuse_what_is_not_ported():
+    """ZeRO is ported (``tests/test_torch_zero.py``); a tensor-parallel
+    plan (a model axis of 2) is not."""
+    from repro_torch.sharding import ShardedContext, ShardingStrategy, SpecMesh
     _, tcfg = small_cfgs(64)
     model = Model(tcfg, device="cpu")
+    tp = ShardedContext(SpecMesh({"data": 2, "model": 2}),
+                        ShardingStrategy(zero_stage=3, ntp=2))
     with pytest.raises(NotImplementedError):
-        TS.make_train_step(model, tcfg, shard=object())
+        TS.make_train_step(model, tcfg, shard=tp.plan_params(
+            tcfg, Model(tcfg, device="meta").init()))
     with pytest.raises(ValueError):
         TS.make_train_step(model, tcfg, kind="dpo")
 

@@ -120,7 +120,9 @@ want = {{"repro_torch.core.allocator", "repro_torch.paged.page_manager",
         "repro_torch.rlhf.grpo", "repro_torch.obs.tracer",
         "repro_torch.obs.attribution", "repro_torch.obs.flight",
         "repro_torch.launch.report", "repro_torch.optim.schedule",
-        "repro_torch.rlhf.experience", "repro_torch.serving.scheduler"}}
+        "repro_torch.rlhf.experience", "repro_torch.serving.scheduler",
+        "repro_torch.sharding.rules", "repro_torch.sharding.context",
+        "repro_torch.sharding.ctx", "repro_torch.launch.mesh"}}
 assert want <= set(names), want - set(names)
 import chip_smoke
 for example in ("torch_rlhf_e2e", "torch_memory_study", "torch_serving",

@@ -555,17 +555,24 @@ def test_memory_manager_defaults_to_the_card():
 
 
 def test_trainer_refuses_what_is_not_ported():
-    """Sharding is not ported; speculative decoding is, and refuses an
+    """ZeRO is ported (``tests/test_torch_zero.py``); tensor parallelism
+    (a model axis of 2) is not. Speculative decoding is, and refuses an
     actor without MTP heads as the reference's Rollout does."""
+    from repro_torch.sharding import ShardedContext, ShardingStrategy, SpecMesh
     _, tcfg = small_cfgs()
+    tp = ShardedContext(SpecMesh({"data": 1, "model": 2}),
+                        ShardingStrategy(zero_stage=3, ntp=2))
     with pytest.raises(NotImplementedError):
         RLHFTrainer(tcfg, tcfg, RLHFConfig(**RL_KW), torch.Generator(),
-                    shard=object())
+                    shard=tp)
     with pytest.raises(ValueError, match="mtp_depth"):
         RLHFTrainer(tcfg, tcfg, RLHFConfig(**{**RL_KW, "spec_decode": True}),
                     torch.Generator())
+    meta = Model(tcfg, device="meta")
     with pytest.raises(NotImplementedError):
-        TS.make_lora_train_step(Model(tcfg, device="cpu"), tcfg, shard=object())
+        TS.make_lora_train_step(Model(tcfg, device="cpu"), tcfg,
+                                shard=tp.plan_adapter(meta.init_adapter(
+                                    None, meta.init(), 4)))
 
 
 @pytest.mark.parametrize("remat,reward", [("full", False), ("none", True),
