@@ -82,7 +82,8 @@ Phases, each failing with a non-zero exit:
    same shape, ``memory_accounting`` of llama3_2_3b, and a small model's
    2 greedy fp32 separate iterations on the card against the CPU.
 9. host offload (``RLHFConfig.offload``, ``repro_torch.offload``): the
-   separate OPT pair of phase 8 at ``none`` twice (does the card repeat
+   separate OPT pair of phase 8, at full width and 12 of its 24 layers
+   (``STUDY_LAYERS``), at ``none`` twice (does the card repeat
    itself bit for bit?), then a fresh trainer at each of ``optimizer``,
    ``roles`` and ``all``, and at ``roles`` under memory_policy="none",
    each one warm and one measured iteration: the bytes left on the card
@@ -113,8 +114,8 @@ Phases, each failing with a non-zero exit:
    to ``ops.launches`` for it.
 
 11. the paper's memory study on the card (``repro_torch.core``): phase
-   8's OPT pair with decode eager (the simulator models one pool, a graph
-   keeps its own) under each ``empty_cache`` policy, a warm, a timed and
+   8's OPT pair at phase 9's 12 layers, with decode eager (the simulator
+   models one pool, a graph keeps its own) under each ``empty_cache`` policy, a warm, a timed and
    a recorded iteration (the last from an emptied cache, with the caching
    allocator's history on, no stack context); per phase the card's live,
    reserved and peak bytes and cudaMallocs; the recorded stream replayed
@@ -208,7 +209,33 @@ Phases, each failing with a non-zero exit:
    0.55 of ndp 1's persistent bytes on a rank, and ``layer`` must peak in
    training below ``tree`` by at least half of (actor tree - one layer).
 
-Phases 3 and 5-9 and 12-15 run graphed, the default on the card: every
+16. Megatron tensor parallelism (``sharding/tp.py``,
+   ``ShardedContext.create(model=2)``): two ranks over gloo on the one
+   card at (ndp 1, ntp 2), each holding its half of every Megatron cut.
+   (a) One separate iteration of phase 8's OPT pair at full width and
+   depth (8 x (256 + 256), bf16), the whole trees drawn from seed 0 and
+   cut: launches per kernel phase 8's (``ppo_launches``), a rank's
+   persistent bytes at most 0.55 of ntp 1's and within 0.1% of
+   ``traced_zero_scales(ntp=2)``'s prediction (printed beside it);
+   iteration ms, staged GB and the all-reduce count printed. (b) The
+   numerics check of phase 13's kind: the rank's reference actor
+   teacher-forced on the tokens of a one-rank rollout of the same actor;
+   its log-probs' RMS error against an fp32 forward must be within 2x
+   the one-rank bf16 forward's, and with one row all-reduce skipped (a
+   planted fault) must not be; both ratios printed. (c)
+   ``ContinuousBatcher(mesh=)`` on llama3_2_3b at full width (4 slots
+   over 640 tokens, 3 greedy requests of phase 14's mixed traffic of at
+   most 24 new tokens), dense
+   and paged: launches as its calls imply (``batcher_launches``), every
+   request at its length, the KV a rank half of ntp 1's. The decode loops
+   run eagerly: a gloo collective stages through host memory and cannot
+   be captured (capture over NCCL needs a machine with more than one
+   card). Nothing across cards is measured. From a Python prompt
+   ``chip_smoke.tp_ppo(torch.device("cuda"), print)`` runs it alone after
+   ``build.build()``.
+
+Phases 3 and 5-9 and 12-15 run graphed, the default on the card
+(phase 16 eager, as above): every
 decode step after a call's first replays its captured step (in a call of
 two decode steps or more; the batcher's graphs live as long as it does),
 and the launch counts they assert are the eager path's
@@ -297,6 +324,9 @@ SPEC_K, SPEC_DEPTH = 2, 2
 SEP_ACTOR, SEP_CRITIC = "opt_1_3b", "opt_350m"
 SBATCH, SPROMPT, SGEN, SITERS = 8, 256, 256, 2
 SLEN = SPROMPT + SGEN
+# phases 9 (its separate runs) and 11 run the OPT pair at full width and
+# at 12 of its 24 layers, so that the script keeps room in its time limit
+STUDY_LAYERS = 12
 
 # (memory B/s, bf16 tensor FLOP/s, fp32 FLOP/s), NVIDIA data sheets, dense
 PEAKS = {"SXM": (3.35e12, 989e12, 67e12), "PCIe": (2.0e12, 756e12, 51e12),
@@ -519,6 +549,11 @@ def check_flash(dev, peaks, g):
         # and the cyclic-token bench's fp32 model)
         ("mtp_draft", BATCH, 1, 1, 24, 8, 128, True, 0, torch.bfloat16),
         ("cyc_mtp_draft", CYC_B, 1, 1, 2, 1, 64, True, 0, torch.float32),
+        # a tensor-parallel rank's heads at ntp 2 (phase 16): llama3_2_3b's
+        # 12 query and 4 KV heads, opt_1_3b's 16
+        ("tp_llama", BATCH, PROMPT, PROMPT, 12, 4, 128, True, 0,
+         torch.bfloat16),
+        ("tp_opt", SBATCH, SLEN, SLEN, 16, 16, 64, True, 0, torch.bfloat16),
     ]
     out = []
     for name, B, Sq, Sk, H, K, D, causal, window, dt in cases:
@@ -598,6 +633,10 @@ def check_decode(dev, peaks, g):
         ("sep", SBATCH, 32, 32, 64, SLEN, SLEN - 2, 0, torch.bfloat16),
         ("fp32", 2, 6, 1, 128, 200, 150, 32, torch.float32),
         ("fp32_g8_d64", 3, 16, 2, 64, 333, 400, 0, torch.float32),
+        # a tensor-parallel rank's heads at ntp 2 (phase 16): the batcher's
+        # llama3_2_3b step (4 slots over 640) and the OPT rollout's last
+        ("tp_llama", 4, 12, 4, 128, 640, 600, 0, torch.bfloat16),
+        ("tp_opt", SBATCH, 16, 16, 64, SLEN, SLEN - 2, 0, torch.bfloat16),
     ]
     out = []
     for name, B, H, K, D, C, cur, window, dt in cases:
@@ -1137,6 +1176,9 @@ def check_paged(dev, peaks, g):
         ("k_eq_h", 4, 8, 8, 128, 8, 7, 29, torch.bfloat16),
         ("k1_fp32", 5, 8, 1, 128, 4, 9, 46, torch.float32),
         ("fp32_d64", 4, 6, 2, 64, 16, 6, 25, torch.float32),
+        # a tensor-parallel rank's llama3_2_3b heads at ntp 2 (12 query, 4
+        # KV): phase 16's paged batcher step, 4 slots over 640 tokens
+        ("tp_llama", 4, 12, 4, 128, 16, 40, 161, torch.bfloat16),
     ]
     out = []
     for name, B, H, K, D, ps, nb, P, dt in cases:
@@ -1782,8 +1824,14 @@ SEP_KW = dict(prompt_len=SPROMPT, gen_len=SGEN, kl_coef=0.1,
               temperature=1.0, top_k=50, ppo_epochs=1)
 
 
-def _separate_trainer(dev, policy, seed=0):
-    actor, critic = get_config(SEP_ACTOR), get_config(SEP_CRITIC)
+def _study_pair():
+    """Phase 8's OPT pair at ``STUDY_LAYERS`` layers (phases 9 and 11)."""
+    return tuple(dataclasses.replace(get_config(n), num_layers=STUDY_LAYERS)
+                 for n in (SEP_ACTOR, SEP_CRITIC))
+
+
+def _separate_trainer(dev, policy, seed=0, pair=None):
+    actor, critic = pair or (get_config(SEP_ACTOR), get_config(SEP_CRITIC))
     return _fresh(lambda: RLHFTrainer(
         actor, critic, RLHFConfig(engine="separate", memory_policy=policy,
                                   **SEP_KW),
@@ -2051,7 +2099,7 @@ def _offload_run(dev, engine, level, policy, want, log, seed=0, iters=2):
     exactly the ``nbytes`` of the trees left on the card, and the lot must
     hold the managed rest."""
     if engine == "separate":
-        acfg, ccfg = get_config(SEP_ACTOR), get_config(SEP_CRITIC)
+        acfg, ccfg = _study_pair()
         rl = RLHFConfig(engine="separate", memory_policy=policy,
                         offload=level, **SEP_KW)
         prompts = [_sep_prompts(dev, 1 + i, acfg.vocab_size)
@@ -2191,7 +2239,7 @@ def offload_ppo(dev, log):
     log(f"[smoke] offload: host {out['meminfo_before']}; 1 GiB pinned copy "
         f"D2H {ln['d2h_ms']:.2f} ms ({ln['d2h_GBps']:.2f} GB/s), H2D "
         f"{ln['h2d_ms']:.2f} ms ({ln['h2d_GBps']:.2f} GB/s)")
-    acfg, ccfg = get_config(SEP_ACTOR), get_config(SEP_CRITIC)
+    acfg, ccfg = _study_pair()
     want = ppo_launches(acfg, RLHFConfig(engine="separate", **SEP_KW),
                         model_reward=True, critic_cfg=ccfg)
     runs, frozen = {}, None
@@ -2901,10 +2949,10 @@ def memory_study(dev, log, sep, off):
     check). (e) R1-R3 as the card shows them beside the simulator. (f)
     GRPO on the card (``grpo_on_card``). ``sep``, ``off``: phases 8's and
     9's reports."""
-    actor_cfg, critic_cfg = get_config(SEP_ACTOR), get_config(SEP_CRITIC)
+    actor_cfg, critic_cfg = pair = _study_pair()
     capacity = torch.cuda.mem_get_info()[1]
     out = {"capacity": capacity}
-    tr, state, _ = _separate_trainer(dev, "after_inference")
+    tr, state, _ = _separate_trainer(dev, "after_inference", pair=pair)
     tr.rollout._graphs = False
     want = ppo_launches(actor_cfg, tr.rl, model_reward=True,
                         critic_cfg=critic_cfg)
@@ -3006,8 +3054,15 @@ def memory_study(dev, log, sep, off):
             by_op.items(), key=lambda kv: -kv[1])[:8]))
     eager = study["after_inference"]["records"]
     graphed = sep["iterations"][-1]["phases"]
-    log("[smoke] phase 8's graphed iteration beside this eager one "
-        "(after_inference), MiB above the state: live / reserved / peak")
+    if actor_cfg.num_layers != get_config(SEP_ACTOR).num_layers:
+        graphed = []        # phase 8 ran the pair at full depth
+        log(f"[smoke] (phase 8's graphed iteration ran "
+            f"{get_config(SEP_ACTOR).num_layers} layers, this study "
+            f"{actor_cfg.num_layers}: not printed beside it)")
+    else:
+        log("[smoke] phase 8's graphed iteration beside this eager one "
+            "(after_inference), MiB above the state: live / reserved / "
+            "peak")
     for rec, row in zip(eager, graphed):
         log(f"  {rec['phase']:15s} eager {(rec['live_bytes'] - state) / MIB:9.1f}"
             f" {(rec['reserved_bytes'] - state) / MIB:9.1f} "
@@ -4686,6 +4741,295 @@ def zero_ppo(dev, log, hydra_plain=None, sep_plain=None) -> dict:
     return out
 
 
+# ---------------------------------------------------------------- phase 16
+TP_NTP = 2
+TP_JOIN_S = 600            # a hung rendezvous or rank fails in this time
+TP_CUT = 0.55              # a rank's persistent bytes at most this of ntp 1
+TP_SIM_TOL = 1e-3          # ... and within this of the traced prediction
+TP_ERR_RATIO = 2.0         # TP's log-prob RMS error at most this x ntp 1's
+# phase 16's batcher: llama3_2_3b, 4 slots over 640 tokens, 3 greedy
+# requests of phase 14's mixed traffic cut to at most 24 new tokens each,
+# dense and paged (an eager TP decode step stages ~58 collectives)
+TP_CB = dict(slots=4, capacity=640, temperature=0.0)
+TP_CB_REQUESTS, TP_CB_GEN = 3, 24
+
+
+def _teacher_logp(model, params, tokens):
+    """Per-action fp32 log-probs of ``tokens`` under ``params`` (teacher
+    forced, one full-sequence forward; under an ambient TP group from
+    vocab-sharded logits)."""
+    with torch.no_grad():
+        return TS._action_logp(model.forward(params, {"tokens": tokens})[0],
+                               tokens).float()
+
+
+def _rms(a, b, mask) -> float:
+    return float(torch.sqrt(((a - b) ** 2 * mask).sum() / mask.sum()))
+
+
+class _SkipRowAllReduce:
+    """The planted fault: the first row-site all-reduce after entry is
+    skipped (its partial product kept), on every rank alike."""
+
+    def __init__(self, tp):
+        self.tp, self.skipped = tp, 0
+
+    def __enter__(self):
+        plain = self.tp._all_reduce
+
+        def patched(x, site):
+            if site == "row" and not self.skipped:
+                self.skipped += 1
+                return x.clone()
+            return plain(x, site)
+
+        self.tp._all_reduce = patched
+        return self
+
+    def __exit__(self, *exc):
+        del self.tp._all_reduce
+
+
+def _tp_batcher(sc, dev) -> dict:
+    """Phase 16 (b) on one rank: llama3_2_3b at full width, the whole tree
+    drawn from seed 0 and cut to this rank's, served by
+    ``ContinuousBatcher(mesh=sc)`` dense and paged (decode eager)."""
+    cfg = get_config("llama3_2_3b")
+    model = Model(cfg, device=dev)
+    plan = sc.plan_params(cfg, Model(cfg, device="meta").init())
+    params = plan.place_params(model.init(
+        torch.Generator(device=dev).manual_seed(0)))
+    gc.collect()
+    torch.cuda.empty_cache()
+    traffic = [(p, min(n, TP_CB_GEN), t) for p, n, t in batcher_traffic(
+        cfg.vocab_size, "mixed", 16, TP_CB_REQUESTS)]
+    out = {"param_bytes": tree_nbytes(params)}
+    for backend in ("dense", "paged"):
+        ops.reset_launches()
+        sc.tp.reset_counts()
+        staged = sc.tp.comm.staged_bytes
+        kw = dict(TP_CB, cache_backend=backend)
+        if backend == "paged":
+            kw["page_size"] = CB_PAGE
+        cb = ContinuousBatcher(model, cfg, params, mesh=sc, **kw)
+        run = drain_batcher(cb, traffic, dev)
+        made, want = dict(ops.launches), batcher_launches(cfg, cb)
+        if made != want:
+            raise SystemExit(f"tp batcher {backend}: launches {made} != "
+                             f"{want}")
+        for toks, n in zip(run["tokens"], run["want_len"]):
+            if len(toks) != n or not all(0 <= t < cfg.vocab_size
+                                         for t in toks):
+                raise SystemExit(f"tp batcher {backend}: a request of "
+                                 f"{len(toks)} tokens, {n} asked")
+        kv = cb.pm.bytes_per_token if backend == "paged" else sum(
+            c[n].numel() * c[n].element_size()
+            for c in cb.caches["layers"] for n in ("k", "v"))
+        decode = [s["ms"] for s in run["steps"] if not s["prefills"]]
+        out[backend] = {"launches": made, "kv": kv,
+                        "steps": len(run["steps"]), "wall_s": run["wall_s"],
+                        "decode_ms": float(np.median(decode)),
+                        "counts": dict(sc.tp.counts),
+                        "staged_bytes": sc.tp.comm.staged_bytes - staged,
+                        "tokens": run["tokens"]}
+        del cb
+        gc.collect()
+        torch.cuda.empty_cache()
+    return out
+
+
+def _tp_rank(rank, world, path, tokens, queue):
+    """One gloo rank of phase 16, on ``cuda:0`` beside the other: (a) one
+    separate OPT-pair iteration at (ndp 1, ntp 2), then the reference
+    actor teacher-forced on the one-rank rollout's ``tokens``, clean and
+    with a row all-reduce skipped; (b) the batcher drains."""
+    try:
+        import torch.distributed as dist
+
+        from repro_torch.sharding import use_mesh
+        torch.cuda.set_device(0)
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.backends.cudnn.allow_tf32 = False
+        dev = torch.device("cuda")
+        _init_group("gloo", world, rank, path)
+        sc = ShardedContext.create(
+            1, zero_stage=0, model=world, device="cuda", backend="gloo",
+            cfg=(get_config(SEP_ACTOR), get_config(SEP_CRITIC)))
+        gc.collect()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        tr = _zero_trainer("separate", dev, sc)
+        init_s = time.perf_counter() - t0
+        sc.tp.reset_counts()
+        staged = (sc.comm.staged_bytes, sc.tp.comm.staged_bytes)
+        runs = _zero_iterations(tr, "separate", dev, iters=1)
+        st = _zero_rank_stats(tr, runs)
+        st.update(init_s=init_s, counts=dict(sc.tp.counts),
+                  tp_staged_bytes=sc.tp.comm.staged_bytes - staged[1],
+                  dp_staged_bytes=sc.comm.staged_bytes - staged[0],
+                  state_by_name={k: tree_nbytes(v) for k, v in
+                                 tr.persistent_trees().items()})
+        st.pop("trained")
+        toks = tokens.to(dev)
+        with use_mesh(sc):
+            # numpy: a tensor sent to the parent needs this process alive
+            st["logp"] = _teacher_logp(tr.actor, tr.ref_params,
+                                       toks).cpu().numpy()
+            with _SkipRowAllReduce(sc.tp) as plant:
+                st["logp_fault"] = _teacher_logp(tr.actor, tr.ref_params,
+                                                 toks).cpu().numpy()
+            if plant.skipped != 1:
+                raise SystemExit("tp: the planted fault skipped "
+                                 f"{plant.skipped} all-reduces")
+        del tr, runs, toks
+        gc.collect()
+        torch.cuda.empty_cache()
+        st["batcher"] = _tp_batcher(sc, dev)
+        dist.destroy_process_group()
+        queue.put((rank, st, None))
+    except BaseException as e:       # reported to the parent, which fails
+        import traceback
+        queue.put((rank, None, f"{e!r}\n{traceback.format_exc()}"))
+
+
+def tp_ppo(dev, log) -> dict:
+    """Phase 16: Megatron tensor parallelism on the card, two gloo ranks
+    sharing ``cuda:0`` at (ndp 1, ntp 2) (the module docstring). First the
+    one-rank numbers on this process: phase 8's pair's persistent bytes by
+    tree, a rollout of its initial actor on phase 8's first prompts, and
+    that actor's log-probs of those tokens in bf16 and in fp32."""
+    import tempfile
+
+    import torch.multiprocessing as mp
+    from repro_torch.paged import pool_token_bytes
+    t_phase = time.perf_counter()
+    out = {}
+    tr = _separate_trainer(dev, "after_inference")[0]
+    by_name = {k: tree_nbytes(v) for k, v in tr.persistent_trees().items()}
+    state = sum(by_name.values())
+    g = torch.Generator(device=dev).manual_seed(7)
+    with torch.no_grad():
+        ro = tr.rollout.generate(tr.ref_params, {"tokens": _zero_prompts(
+            "separate", dev, 0)}, SGEN, g)
+    tokens, mask = ro.tokens, ro.mask
+    del ro
+    lp1 = _teacher_logp(tr.actor, tr.ref_params, tokens)
+    p32 = tree_map(lambda t: t.float(), tr.ref_params)
+    lp32 = _teacher_logp(tr.actor, p32, tokens)
+    err1 = _rms(lp1, lp32, mask)
+    del tr, p32, lp1
+    gc.collect()
+    torch.cuda.empty_cache()
+    llama = get_config("llama3_2_3b")
+    hd = llama.resolved_head_dim()
+    kv1 = {"dense": 2 * llama.num_layers * TP_CB["slots"] *
+           TP_CB["capacity"] * llama.num_kv_heads * hd * 2,
+           "paged": pool_token_bytes(llama, torch.bfloat16) *
+           llama.num_layers}
+    frac = dict(traced_zero_scales(get_config(SEP_ACTOR),
+                                   get_config(SEP_CRITIC), ndp=1,
+                                   zero_stage=0, engine="separate",
+                                   ntp=TP_NTP))
+    sim = sum(b * frac[f"{k}:{'opt' if k.endswith('_opt') else 'param'}"]
+              for k, b in by_name.items())
+    tmp = tempfile.mkdtemp(prefix="tp-")
+    ctx = mp.get_context("spawn")
+    queue = ctx.Queue()
+    procs = [ctx.Process(target=_tp_rank, args=(
+        r, TP_NTP, os.path.join(tmp, "gloo"), tokens.cpu(), queue))
+        for r in range(TP_NTP)]
+    t0 = time.perf_counter()
+    for p in procs:
+        p.start()
+    got = {}
+    try:
+        while len(got) < TP_NTP:
+            if time.perf_counter() - t0 > TP_JOIN_S:
+                raise SystemExit(f"tp: ranks {sorted(got)} reported of "
+                                 f"{TP_NTP} in {TP_JOIN_S} s")
+            try:
+                rank, res, err = queue.get(timeout=5.0)
+            except Exception:
+                dead = [r for r, p in enumerate(procs)
+                        if r not in got and p.exitcode not in (None, 0)]
+                if dead:
+                    raise SystemExit(f"tp: ranks {dead} exited without a "
+                                     "result")
+                continue
+            if err is not None:
+                raise SystemExit(f"tp rank {rank} failed: {err}")
+            got[rank] = res
+    finally:
+        for p in procs:
+            p.join(timeout=30)
+            if p.is_alive():
+                p.kill()
+                p.join()
+        shutil.rmtree(tmp, ignore_errors=True)
+    out["ranks_seconds"] = time.perf_counter() - t0
+    mask = mask.cpu()
+    lp32 = lp32.cpu()
+    ranks = []
+    for r in range(TP_NTP):
+        st = got[r]
+        err = _rms(torch.from_numpy(st.pop("logp")), lp32, mask)
+        fault = _rms(torch.from_numpy(st.pop("logp_fault")), lp32, mask)
+        cut = st["state_bytes"] / state
+        st.update(err=err, fault_err=fault, ratio=err / err1,
+                  fault_ratio=fault / err1, state_cut=cut, sim_state=sim)
+        if not st["ratio"] <= TP_ERR_RATIO:
+            raise SystemExit(f"tp rank {r}: log-prob RMS error {err:.4e} is "
+                             f"{st['ratio']:.2f}x ntp 1's {err1:.4e}")
+        if st["fault_ratio"] <= TP_ERR_RATIO:
+            raise SystemExit(f"tp rank {r}: a skipped row all-reduce passed "
+                             f"the check ({st['fault_ratio']:.2f}x)")
+        if cut > TP_CUT:
+            raise SystemExit(f"tp rank {r}: persistent state {cut:.4f} of "
+                             f"ntp 1's (at most {TP_CUT})")
+        if abs(st["state_bytes"] - sim) > TP_SIM_TOL * sim:
+            raise SystemExit(f"tp rank {r}: persistent state "
+                             f"{st['state_bytes']} against the traced "
+                             f"prediction {sim:.0f}")
+        for backend in ("dense", "paged"):
+            b = st["batcher"][backend]
+            if b["kv"] * TP_NTP != kv1[backend]:
+                raise SystemExit(f"tp rank {r} batcher {backend}: KV "
+                                 f"{b['kv']} bytes a rank, ntp 1 "
+                                 f"{kv1[backend]}")
+        bt = st["batcher"]
+        log(f"[smoke] tp rank {r} separate (ndp 1, ntp {TP_NTP}): "
+            f"{st['seconds'][0] * 1e3:.1f} ms an iteration (init "
+            f"{st['init_s']:.1f} s), launches as phase 8 "
+            f"{st['launches']}; state {st['state_bytes']} bytes = "
+            f"{cut:.4f} of ntp 1's {state} (traced prediction {sim:.0f}, "
+            f"{(st['state_bytes'] - sim) / sim:+.2e}); train peak "
+            f"{st['train_peak'] / MIB:.0f} MiB; all-reduces/gathers "
+            f"{st['counts']}; staged {st['tp_staged_bytes'] / 1e9:.3f} GB "
+            f"(model group) + {st['dp_staged_bytes'] / 1e9:.3f} GB (data)")
+        log(f"[smoke] tp rank {r} log-prob RMS against fp32: {err:.4e} = "
+            f"{st['ratio']:.3f}x ntp 1's {err1:.4e} (at most "
+            f"{TP_ERR_RATIO}); with one row all-reduce skipped {fault:.4e} "
+            f"= {st['fault_ratio']:.1f}x (must fail)")
+        for backend in ("dense", "paged"):
+            b = bt[backend]
+            log(f"[smoke] tp rank {r} batcher llama3_2_3b {backend} (eager "
+                f"decode: a gloo collective cannot be captured): "
+                f"{TP_CB_REQUESTS} requests in {b['steps']} steps, "
+                f"{b['wall_s']:.2f} s, decode step median "
+                f"{b['decode_ms']:.2f} ms; launches {b['launches']}; KV "
+                f"{b['kv']} bytes a rank "
+                f"({'a token' if backend == 'paged' else 'K and V'}, ntp 1 "
+                f"{kv1[backend]}); all-reduces/gathers "
+                f"{b['counts']}; staged {b['staged_bytes'] / 1e9:.3f} GB")
+        ranks.append(st)
+    out.update(ranks=ranks, err1=err1, state_bytes=state, kv1=kv1,
+               sim_state=sim, seconds=time.perf_counter() - t_phase)
+    log(f"[smoke] tp: phase 16 {out['seconds']:.1f} s (ranks "
+        f"{out['ranks_seconds']:.1f} s); nothing across cards measured")
+    return out
+
+
 def port_kernels(rows):
     """{wrapper: {"ms", "calls", "us_per_call", "us_per_call_by_kernel"}}
     from profiler rows (us, count, name): each wrapper's kernels' device
@@ -4952,6 +5296,9 @@ def main() -> int:
         sep_plain=[r["metrics"] for r in sep["iterations"]])
 
     lap(15)
+    # phase 16: Megatron TP over gloo, two ranks sharing the card
+    report["tp"] = tp_ppo(dev, lambda s: print(s, flush=True))
+    lap(16)
     paths = {"serve": launches, "paged_grpo": grpo["launches"],
              "mamba_serve": mamba["launches"], "ppo": ppo["launches"],
              "ppo_separate": sep["launches"],
@@ -4968,6 +5315,9 @@ def main() -> int:
     paths.update({f"zero_gloo_{key}": run["ranks"][0]["launches"]
                   for key, run in report["zero"]["gloo"].items()
                   if key != "ndp1"})
+    paths["tp_separate"] = report["tp"]["ranks"][0]["launches"]
+    paths.update({f"tp_batcher_{b}": report["tp"]["ranks"][0]["batcher"][b][
+        "launches"] for b in ("dense", "paged")})
 
     if args.profile:
         prof, table = profile_request(cfg, dev)

@@ -72,6 +72,14 @@ the ranks, as the reference example's ``--ndp`` does:
     PYTHONPATH=src python examples/torch_rlhf_e2e.py --engine separate \
         --smoke --device cpu --steps 3 --ndp 2 --zero-stage 1
 
+``--ntp M`` adds Megatron tensor parallelism over M ranks (the mesh is
+``(data=ndp, model=ntp)``, ndp x ntp processes): each rank keeps its
+``1/ntp`` cut of every weight, the rollout decodes eagerly and samples
+from gathered rows (the reference example's ``--ntp``):
+
+    PYTHONPATH=src python examples/torch_rlhf_e2e.py --smoke --device cpu \
+        --steps 3 --ndp 2 --ntp 2 --zero-stage 3
+
 Runtime telemetry (``repro_torch.obs``), the reference example's flags:
 ``--metrics-out`` writes the run's JSONL (phase spans with measured and
 simulated bytes and the owner tables, offload spans, metrics),
@@ -181,40 +189,46 @@ def main(argv=None):
                     choices=("layer", "tree"),
                     help="ZeRO-3's gathers: one layer at a time or the "
                          "whole tree")
+    ap.add_argument("--ntp", type=int, default=1,
+                    help="Megatron tensor parallelism over this many ranks "
+                         "(ndp x ntp processes)")
     args = ap.parse_args(argv)
-    if args.ndp <= 1:
+    world = args.ndp * args.ntp
+    if world <= 1:
         return run(args)
     import torch.multiprocessing as mp
     cpu = torch.device(args.device or "cuda").type == "cpu"
-    if not cpu and torch.cuda.device_count() < args.ndp:
-        raise SystemExit(f"--ndp {args.ndp} over NCCL needs {args.ndp} "
-                         f"cards, found {torch.cuda.device_count()}; pass "
+    if not cpu and torch.cuda.device_count() < world:
+        raise SystemExit(f"{world} ranks over NCCL need {world} cards, "
+                         f"found {torch.cuda.device_count()}; pass "
                          "--device cpu for gloo ranks on the CPU")
     tmp = tempfile.mkdtemp(prefix="torch_rlhf_e2e-")
     try:
         mp.spawn(_rank, args=(args, os.path.join(tmp, "store")),
-                 nprocs=args.ndp, join=True)
+                 nprocs=world, join=True)
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
 
 
 def _rank(rank, args, store):
-    """One rank of ``--ndp``: its process group, its device, the run."""
+    """One rank of ``--ndp`` x ``--ntp``: its process group, its device,
+    the run."""
     import torch.distributed as dist
     from repro_torch.sharding import ShardedContext
     cpu = torch.device(args.device or "cuda").type == "cpu"
+    world = args.ndp * args.ntp
     if cpu:
-        torch.set_num_threads(max(1, (os.cpu_count() or 1) // args.ndp))
+        torch.set_num_threads(max(1, (os.cpu_count() or 1) // world))
     else:
         torch.cuda.set_device(rank)
         args.device = f"cuda:{rank}"
     dist.init_process_group("gloo" if cpu else "nccl",
-                            store=dist.FileStore(store, args.ndp), rank=rank,
-                            world_size=args.ndp,
+                            store=dist.FileStore(store, world), rank=rank,
+                            world_size=world,
                             timeout=datetime.timedelta(seconds=300))
     try:
         shard = ShardedContext.create(
-            args.ndp, zero_stage=args.zero_stage,
+            args.ndp, zero_stage=args.zero_stage, model=args.ntp,
             gather_mode=args.gather_mode, device="cpu" if cpu else "cuda")
         run(args, shard, rank)
     finally:
@@ -275,8 +289,8 @@ def run(args, shard=None, rank=0):
         per_device = trainer.per_device_state_bytes()
         mode = f" ({shard.strat.gather_mode} gathers)" \
             if shard.zero_stage >= 3 else ""
-        print_(f"ZeRO-{shard.zero_stage}{mode} over {shard.ndp} ranks "
-               f"({shard.comm.backend})")
+        print_(f"ZeRO-{shard.zero_stage}{mode} over {shard.ndp} ranks, "
+               f"tensor parallel over {shard.ntp} ({shard.comm.backend})")
         print_(f"per-device persistent state: {per_device / 2**20:.2f} MiB")
     if separate:
         trees = trainer.persistent_trees()

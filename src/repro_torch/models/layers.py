@@ -12,6 +12,13 @@ bridge copies them as they are. RMSNorm, prefill attention and decode
 attention go through ``kernels/ops.py``: the hand-written kernel on CUDA,
 the plain version on the CPU.
 
+Under an ambient tensor-parallel group (``sharding.tp.current()``) the
+params are the rank's Megatron cuts and the head counts the rank's (H/ntp
+query and K/ntp KV heads, read from the weights' widths; the caches hold
+K/ntp heads): a column block's input passes "copy to model" and a row
+product (``wo``, ``w_out``) ends in one all-reduce, its LoRA delta added
+after it (``TensorParallel.lora_row``/``lora_col``).
+
 Unlike the reference's pure functions, :func:`_fill_cache`,
 :func:`attention_decode` and :func:`attention_decode_multi` write the KV
 cache in place: the cache is
@@ -29,6 +36,8 @@ import torch.nn.functional as F
 from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels import ops
 from repro_torch.models.lora import lora_delta
+from repro_torch.sharding import tp as TP
+from repro_torch.sharding.rules import TP_ROW_SITES
 
 NEG_INF = -1e30
 
@@ -157,22 +166,40 @@ def init_attention(generator: torch.Generator, cfg: ModelConfig,
 
 
 def _linear(params, x, name, ad):
-    """x @ params[name], plus the LoRA delta where ``ad`` adapts it."""
+    """x @ params[name], plus the LoRA delta where ``ad`` adapts it; under
+    TP a row site's product is summed over the ranks first."""
+    tp = TP.current()
     y = x @ params[name]
-    return y + lora_delta(x, ad[name]) if ad.get(name) else y
+    row = name in TP_ROW_SITES
+    if tp is not None and row:
+        y = tp.reduce_from(y)
+    ab = ad.get(name)
+    if not ab:
+        return y
+    if tp is None:
+        return y + lora_delta(x, ab)
+    return y + (tp.lora_row(x, ab) if row else tp.lora_col(x, ab))
+
+
+def _column_input(x: torch.Tensor) -> torch.Tensor:
+    """A column block's input: under TP, "copy to model"."""
+    tp = TP.current()
+    return x if tp is None else tp.copy_to(x)
 
 
 def _project_qkv(params, x, cfg: ModelConfig, adapter=None):
+    """(q, k, v) at the rank's head counts (the weights' widths)."""
     B, S, _ = x.shape
-    h, kvh, hd = cfg.num_heads, cfg.num_kv_heads, cfg.resolved_head_dim()
+    hd = cfg.resolved_head_dim()
     ad = adapter or {}
+    x = _column_input(x)
     q = _linear(params, x, "wq", ad)
     k = _linear(params, x, "wk", ad)
     v = _linear(params, x, "wv", ad)
     if cfg.qkv_bias:
         q, k, v = q + params["bq"], k + params["bk"], v + params["bv"]
-    return (q.reshape(B, S, h, hd), k.reshape(B, S, kvh, hd),
-            v.reshape(B, S, kvh, hd))
+    return (q.reshape(B, S, -1, hd), k.reshape(B, S, -1, hd),
+            v.reshape(B, S, -1, hd))
 
 
 def _fill_cache(cache: dict, entries: dict, positions: torch.Tensor) -> dict:
@@ -209,7 +236,7 @@ def attention_fwd(params, x, positions, cfg: ModelConfig, *,
 # --- KV cache ---------------------------------------------------------------
 def init_kv_cache(cfg: ModelConfig, batch: int, capacity: int, dtype,
                   device) -> dict:
-    kvh, hd = cfg.num_kv_heads, cfg.resolved_head_dim()
+    kvh, hd = TP.kv_heads(cfg), cfg.resolved_head_dim()
     return {
         "k": torch.zeros((batch, capacity, kvh, hd), dtype=dtype,
                          device=device),
@@ -293,7 +320,9 @@ def init_mlp(generator: torch.Generator, d: int, d_ff: int, gated: bool,
 
 
 def mlp_fwd(params, x, gated: bool, adapter=None) -> torch.Tensor:
+    """The (gated) MLP at the rank's d_ff (the weights' width)."""
     ad = adapter or {}
+    x = _column_input(x)
     h = _linear(params, x, "w_in", ad)
     if gated:
         h = F.silu(_linear(params, x, "w_gate", ad)) * h

@@ -22,6 +22,14 @@ keeps depth 1 in ``params["mtp"]`` and stacks depths 2..k on
 between the two layouts). Caches and
 paged pools are one dict per layer, updated in place: a rolling KV cache
 for an attention layer, the conv and SSM states for a Mamba layer.
+
+Under an ambient tensor-parallel group (``sharding.ctx.use_mesh`` on a
+mesh whose ``model`` axis is above 1; ``sharding/tp.py``) the params are
+the rank's Megatron cuts: the embedding is vocab-parallel (a masked
+lookup of the rank's rows, summed over the ranks), and every logits the
+model returns are the rank's ``V/ntp`` columns (the losses take their
+log-probs from them, a sampler gathers the rows it draws from); the
+layers run at the rank's head counts (``models/layers.py``).
 """
 from __future__ import annotations
 
@@ -39,6 +47,7 @@ from repro_torch.offload.policies import REMATS, remat_policy_for
 from repro_torch.paged import attention as PA
 from repro_torch.paged import paged_cache as PC
 from repro_torch.sharding import ctx
+from repro_torch.sharding import tp as TP
 
 DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 
@@ -157,12 +166,24 @@ class Model:
 
     # ------------------------------------------------------------ embeddings
     def embed(self, params, tokens: torch.Tensor) -> torch.Tensor:
-        return params["embed"][tokens]
+        """Token embeddings; under TP the vocab-parallel lookup (and the
+        check that the config runs TP and ``params`` are a rank's cut)."""
+        tp = TP.current()
+        if tp is None:
+            return params["embed"][tokens]
+        TP.check_supported(self.cfg, tp.size)
+        if params["embed"].shape[0] * tp.size != self.cfg.vocab_size:
+            raise ValueError(
+                f"under a TP group of {tp.size} the params must be a rank's "
+                f"cut: embed has {params['embed'].shape[0]} of "
+                f"{self.cfg.vocab_size} vocab rows")
+        return tp.embed(params["embed"], tokens)
 
     def unembed(self, params, h: torch.Tensor) -> torch.Tensor:
+        """Logits [..., V] (under TP the rank's V/ntp columns)."""
         h = L.rms_norm(h, params["final_norm"], self.cfg.norm_eps)
         w = params["embed"].T if self.cfg.tie_embeddings else params["lm_head"]
-        return h @ w
+        return L._column_input(h) @ w
 
     # -------------------------------------------------------------- full seq
     def _slot_fwd(self, layer, kind, h, positions, *, window,

@@ -30,6 +30,7 @@ from typing import Dict, Sequence
 import torch
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.sharding import tp as TP
 
 Pool = Dict[str, torch.Tensor]
 
@@ -37,8 +38,9 @@ Pool = Dict[str, torch.Tensor]
 def init_pool(cfg: ModelConfig, num_pages: int, page_size: int, dtype,
               device) -> Pool:
     """One attention layer's paged pool: ``num_pages`` addressable pages
-    plus the drop page (k/v only — positions are dense)."""
-    kvh, hd = cfg.num_kv_heads, cfg.resolved_head_dim()
+    plus the drop page (k/v only — positions are dense); under an ambient
+    TP group the rank's K/ntp heads."""
+    kvh, hd = TP.kv_heads(cfg), cfg.resolved_head_dim()
     shape = (num_pages + 1, page_size, kvh, hd)
     return {"k": torch.zeros(shape, dtype=dtype, device=device),
             "v": torch.zeros(shape, dtype=dtype, device=device)}
@@ -50,8 +52,9 @@ def pool_pages(pool: Pool) -> int:
 
 
 def pool_token_bytes(cfg: ModelConfig, dtype) -> int:
-    """KV bytes for one token in one layer (sizing for PageManager events)."""
-    kvh, hd = cfg.num_kv_heads, cfg.resolved_head_dim()
+    """KV bytes for one token in one layer (sizing for PageManager events);
+    a rank's under an ambient TP group."""
+    kvh, hd = TP.kv_heads(cfg), cfg.resolved_head_dim()
     return 2 * kvh * hd * dtype.itemsize
 
 

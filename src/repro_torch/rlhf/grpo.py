@@ -7,6 +7,12 @@ is its reward standardized within the group. Removes the critic and reward
 models) — the memory-minimal member of the framework's RLHF family, and a
 natural beyond-paper data point for the §Paper-claims study
 (``core.phases.build_grpo_phases`` is its simulated counterpart).
+
+``shard=`` (a ``sharding.ShardedContext``) runs the actor and the
+reference on its plan, as ``RLHFTrainer(shard=)`` does: ZeRO over
+``data`` with the batch replicated, and tensor parallelism over
+``model``, every phase under the context (the rollout through
+``Rollout(mesh=)``, eager decode, sampled rows all-gathered).
 """
 from __future__ import annotations
 
@@ -17,9 +23,13 @@ import torch
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import Model
+from repro_torch.optim import make_optimizer
 from repro_torch.rlhf.rollout import Rollout
-from repro_torch.rlhf.trainer import PhaseMemoryManager
-from repro_torch.steps import _action_logp, init_train_state, make_train_step
+from repro_torch.rlhf.trainer import PhaseMemoryManager, RLHFTrainer
+from repro_torch.sharding import ctx as shctx
+from repro_torch.sharding import tp as TP
+from repro_torch.sharding.context import delete_tree
+from repro_torch.steps import _action_logp, make_train_step
 from repro_torch.tree import tree_map
 
 
@@ -45,23 +55,34 @@ class GRPOTrainer:
     ``params`` (``bridge.grpo_trainer_from_jax``); the device is ``cuda``
     unless one of the two lies elsewhere. The boundaries ``rollout``,
     ``score`` and ``train_actor`` are recorded on the caching allocator
-    (``PhaseMemoryManager``)."""
+    (``PhaseMemoryManager``). ``shard`` runs it on a ``ShardedContext``
+    (the module's note)."""
 
     def __init__(self, actor_cfg: ModelConfig, rl: GRPOConfig,
                  generator: Optional[torch.Generator], reward_fn: Callable,
-                 *, params=None):
+                 *, params=None, shard=None):
+        if shard is not None:
+            TP.check_supported(actor_cfg, shard.ntp)
+            if shard.comm is None:
+                raise ValueError("a ShardedContext on a SpecMesh names specs "
+                                 "only; the trainer needs a process group")
         self.rl = rl
         self.actor_cfg = actor_cfg
+        self.shard = shard
         device = generator.device if generator is not None else \
             params["embed"].device
         self.actor = Model(actor_cfg, device=device)
         self.device = self.actor.device
         self.reward_fn = reward_fn
+        self.plan = None if shard is None else shard.plan_params(
+            actor_cfg, Model(actor_cfg, device="meta").init(),
+            make_optimizer(actor_cfg.optimizer))
         self.actor_step = make_train_step(self.actor, actor_cfg, kind="ppo",
-                                          lr=rl.lr, kl_coef=rl.kl_coef)
-        self.actor_state = init_train_state(self.actor, actor_cfg, generator,
-                                            self.actor_step.optimizer,
-                                            params=params)
+                                          lr=rl.lr, kl_coef=rl.kl_coef,
+                                          shard=self.plan)
+        self.actor_state = RLHFTrainer._init_state(
+            self.actor, actor_cfg, generator, self.actor_step.optimizer,
+            params, self.plan)
         with torch.no_grad():
             self.ref_params = tree_map(torch.clone,
                                        self.actor_state["params"])
@@ -69,7 +90,7 @@ class GRPOTrainer:
                                capacity=rl.prompt_len + rl.gen_len,
                                temperature=rl.temperature, top_k=rl.top_k,
                                backend=rl.rollout_backend,
-                               page_size=rl.page_size)
+                               page_size=rl.page_size, mesh=shard)
         self._live: Dict[str, torch.Tensor] = {}
         self.memory = PhaseMemoryManager(
             policy=rl.memory_policy, device=self.device,
@@ -77,8 +98,27 @@ class GRPOTrainer:
 
     @torch.no_grad()
     def _token_logp(self, params, batch):
-        logits, _ = self.actor.forward(params, batch)
+        plan = self.plan
+        if plan is not None:
+            params = plan.gather(params)
+        logits, _ = self.actor.forward(
+            params, batch, layer_specs=getattr(plan, "layer_specs", None))
         return _action_logp(logits, batch["tokens"])
+
+    def _generate(self, prompts, generator, G: int):
+        """The rollout, from a ZeRO-3 ``gather_copy`` under a sharded plan
+        (freed after it)."""
+        p, owned = self.actor_state["params"], False
+        if self.plan is not None:
+            p, owned = self.plan.gather_copy(p)
+        try:
+            with torch.no_grad():
+                return self.rollout.generate(p, {"tokens": prompts},
+                                             self.rl.gen_len, generator,
+                                             group_size=G)
+        finally:
+            if owned:
+                delete_tree(p)
 
     def train_step(self, prompts: torch.Tensor,
                    generator: torch.Generator) -> Dict[str, float]:
@@ -86,13 +126,14 @@ class GRPOTrainer:
         paged rollout backend the G samples fork one shared prompt prefill
         (CoW page sharing) — same sampled stream as the dense repeat, with
         the prompt prefilled once per unique prompt."""
+        with shctx.use_mesh(None if self.shard is None else self.shard.tp):
+            return self._train_step(prompts, generator)
+
+    def _train_step(self, prompts, generator) -> Dict[str, float]:
         G = self.rl.group_size
         B = prompts.shape[0]
         self.memory.iteration_start()
-        with torch.no_grad():
-            ro = self.rollout.generate(self.actor_state["params"],
-                                       {"tokens": prompts}, self.rl.gen_len,
-                                       generator, group_size=G)  # [B*G, ...]
+        ro = self._generate(prompts, generator, G)               # [B*G, ...]
         live = self._live
         live.update(tokens=ro.tokens, mask=ro.mask)
         del ro

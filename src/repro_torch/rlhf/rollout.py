@@ -27,8 +27,21 @@ number of forwards changes. Greedy only (temperature 0, top_k 0), no EOS
 early exit, full attention. On the card the draft + verify + accept step
 is captured once per call (``decode_graph.SpecGraph``) and replayed; the
 host reads each step's accepted counts, as the reference's does.
-Adapters and meshes are not ported: the trainer hands the rollout merged
-weights.
+Adapters are not taken: the trainer hands the rollout merged weights.
+
+``mesh=`` (a ``ShardedContext``, or its ``DeviceMesh``) with a ``model``
+axis above 1 runs the rollout tensor parallel, as the reference's
+``Rollout(mesh=)``: generation runs under ``sharding.ctx.use_mesh``, the
+params are the rank's Megatron cuts (a TP plan's ``gather_copy``, or the
+live tree below ZeRO-3), the dense caches and paged pools hold the rank's
+K/ntp KV heads (the reference's ``place_kv_tp``), the page manager runs
+the same on every rank, and :func:`sample_token` all-gathers only the
+``[B, V]`` rows it draws from, so every rank draws the same token from the
+same generator seed. The decode loop then runs eagerly on the kernels: a
+gloo collective stages through host memory and cannot be captured, and
+capture over NCCL waits for a machine with more than one card;
+``graphs=True`` under such a mesh raises (``sharding.tp.refuse_graphs``).
+Speculative decoding and Mamba layers under TP raise (ROADMAP A10c).
 
 On a Mamba model the dense backend runs unchanged: a Mamba layer's cache
 is its conv and SSM states, which ``capacity`` does not size and the
@@ -49,6 +62,8 @@ from repro_torch.models import Model
 from repro_torch.paged import PageManager, copy_pages, pool_token_bytes
 from repro_torch.rlhf.decode_graph import DecodeGraph, SpecGraph
 from repro_torch.serving import BucketLadder, CompileCache
+from repro_torch.sharding import ctx as shctx
+from repro_torch.sharding import tp as TP
 
 
 @dataclass
@@ -63,7 +78,12 @@ def sample_token(generator: torch.Generator, logits: torch.Tensor, *,
                  temperature: float = 1.0, top_k: int = 0):
     """Top-k / temperature sampling (argmax at temperature 0). Returns
     (tokens [B] int64, logp [B]) where logp is the log-softmax of the
-    top-k-masked logits, as in the reference."""
+    top-k-masked logits, as in the reference. Under an ambient TP group
+    ``logits`` are the rank's vocab columns: the rows are all-gathered
+    first."""
+    tp = TP.current()
+    if tp is not None:
+        logits = tp.gather_vocab(logits)
     logits = logits.float()
     if top_k:
         kth = torch.topk(logits, top_k, dim=-1).values[..., -1:]
@@ -140,7 +160,12 @@ class Rollout:
     the pool's page count are sized ``capacity + spec_k``, since a verify
     writes up to ``spec_k`` positions past the last one needed.
     ``spec_stats`` holds the last spec call's steps, drafted and accepted
-    tokens."""
+    tokens.
+
+    ``mesh`` runs the rollout tensor parallel (the module's note);
+    ``graphs`` asks for the captured decode step (None: captured on the
+    card unless the mesh has a model axis above 1, where the loop runs
+    eagerly; True there raises)."""
 
     # class-level switch read per call; an instance set to False runs the
     # decode loop eagerly on the card (to hold the graph against it)
@@ -151,9 +176,16 @@ class Rollout:
                  eos_id: Optional[int] = None, window: int = 0,
                  backend: str = "dense", page_size: int = 16,
                  capture_buckets: Optional[Sequence[int]] = None,
-                 spec_decode: bool = False, spec_k: int = 2):
+                 spec_decode: bool = False, spec_k: int = 2, mesh=None,
+                 graphs: Optional[bool] = None):
         if backend not in ("dense", "paged"):
             raise ValueError(f"backend must be dense or paged, got {backend}")
+        ntp = TP.degree(mesh)
+        TP.check_supported(cfg, ntp, spec_decode=spec_decode)
+        if ntp > 1 and graphs:
+            raise TP.refuse_graphs()
+        self.mesh, self.want_graphs = mesh, graphs
+        self.tp = TP.resolve(mesh)
         if spec_decode:
             if not model.supports_spec_decode():
                 raise ValueError("spec decode needs a token-input "
@@ -207,14 +239,29 @@ class Rollout:
                                                dtype=torch.long, device=dev)}
                 lens = torch.zeros((batch_size,), dtype=torch.int32,
                                    device=dev)
-                self.model.prefill(params, batch, self._cap_eff,
-                                   window=self.window, lengths=lens)
+                with shctx.use_mesh(self.tp):
+                    self.model.prefill(params, batch, self._cap_eff,
+                                       window=self.window, lengths=lens)
                 self.compile_cache.warm(("prefill", self.backend, Sb))
         self.compile_cache.finish_warmup()
+
+    def _capture(self) -> bool:
+        """Whether this call's decode step is captured (on the card)."""
+        on = self._graphs if self.want_graphs is None else self.want_graphs
+        return bool(on) and self.tp is None
 
     def generate(self, params, batch, max_new_tokens: int,
                  generator: torch.Generator,
                  group_size: int = 1) -> RolloutResult:
+        """batch: {"tokens": [B, P]} prompt ids (see :meth:`_generate`);
+        under the rollout's mesh when it has one."""
+        with shctx.use_mesh(self.tp):
+            return self._generate(params, batch, max_new_tokens, generator,
+                                  group_size)
+
+    def _generate(self, params, batch, max_new_tokens: int,
+                  generator: torch.Generator,
+                  group_size: int = 1) -> RolloutResult:
         """batch: {"tokens": [B, P]} prompt ids on the model's device. One
         prefill, then a Python loop of decode steps — the serving pattern
         the paper's §3.1 traces.
@@ -266,7 +313,7 @@ class Rollout:
                              "page_manager_ms": 0.0}
         return DecodeGraph(body, batch, device,
                            steps=max(max_new_tokens - 1, 0),
-                           table_blocks=table_blocks, capture=self._graphs)
+                           table_blocks=table_blocks, capture=self._capture())
 
     def _sample_loop(self, logits, step, max_new_tokens: int,
                      generator: torch.Generator):
@@ -465,7 +512,7 @@ class Rollout:
         graph = SpecGraph(body, B, dev, width=h_last.shape[-1],
                           dtype=h_last.dtype, steps=-(-(N - 1) // k1),
                           table_blocks=nb if pm is not None else 0,
-                          capture=self._graphs)
+                          capture=self._capture())
         graph.h_last.copy_(h_last)
         del h_last
         t0 = time.perf_counter()

@@ -60,6 +60,21 @@ that divides ndp over the ranks (``"throughput"``: summed gradients, ~ulp
 drift; a batch that does not divide is replicated with a warning,
 ``"strict"`` raises on it); a replicated batch gives the unsharded bits.
 ``offload`` composes: the lot parks and fetches each rank's shards.
+
+A context with a ``model`` axis above 1 (``ShardedContext.create(ndp,
+model=ntp)``; the reference's ``:405-506``, DESIGN.md §9) adds Megatron
+tensor parallelism on both engines: each rank builds the whole trees from
+the seed (or takes the weights given) and keeps its ``1/ntp`` math cut
+under the plans' ``"model"`` entries, with ZeRO over ``data`` on top of
+it; every phase runs under the context (``sharding.ctx.use_mesh``), so the
+forwards issue the ``sharding/tp.py`` operators, the scoring and training
+log-probs come from vocab-sharded logits, and the rollout
+(``Rollout(mesh=)``) decodes eagerly with the rank's K/ntp KV heads and
+samples from all-gathered rows. The rollout's ZeRO-3 gather copies are
+then the ``tp_gather`` owner's (DP-gathered, still TP-cut), and
+``zero_gather`` stays empty; with telemetry the model group's staged
+bytes go to ``sharding_tp_staged_bytes_total``. Mamba layers, MTP heads
+and ``spec_decode`` under TP raise (ROADMAP A10c).
 """
 from __future__ import annotations
 
@@ -84,6 +99,8 @@ from repro_torch.rlhf.engine import ModelEngine
 from repro_torch.rlhf.ppo import gae, kl_shaped_rewards, whiten
 from repro_torch.rlhf.reward import sequence_reward
 from repro_torch.rlhf.rollout import Rollout, live_device_bytes
+from repro_torch.sharding import ctx as shctx
+from repro_torch.sharding import tp as TP
 from repro_torch.sharding.context import delete_tree, tree_per_device_bytes
 from repro_torch.steps import (_action_logp, init_lora_train_state,
                                init_train_state, make_lora_train_step,
@@ -456,7 +473,8 @@ class RLHFTrainer:
     ``telemetry`` (``obs.RunTelemetry``) instruments every iteration (the
     module docstring); the bundle's attributor is created when absent,
     and this trainer's owner trees are registered in it. ``shard``
-    (``sharding.ShardedContext``) runs ZeRO over its ``data`` ranks."""
+    (``sharding.ShardedContext``) runs ZeRO over its ``data`` ranks and
+    tensor parallelism over its ``model`` ranks."""
 
     def __init__(self, actor_cfg: ModelConfig, critic_cfg: ModelConfig,
                  rl: RLHFConfig, generator: Optional[torch.Generator] = None,
@@ -469,10 +487,10 @@ class RLHFTrainer:
         if rl.batch_shard not in ("strict", "throughput"):
             raise ValueError(f"unknown batch_shard {rl.batch_shard!r}; "
                              "expected 'strict' or 'throughput'")
-        if shard is not None and shard.ntp > 1:
-            raise NotImplementedError(
-                "tensor parallelism (a model axis above 1) is not ported "
-                "yet; the trainer runs ZeRO over data")
+        if shard is not None:
+            for c in ((actor_cfg,) if rl.engine == "hydra"
+                      else (actor_cfg, critic_cfg)):
+                TP.check_supported(c, shard.ntp, spec_decode=rl.spec_decode)
         if shard is not None and shard.comm is None:
             raise ValueError("a ShardedContext on a SpecMesh names specs "
                              "only; the trainer needs a process group")
@@ -504,7 +522,7 @@ class RLHFTrainer:
             temperature=0.0 if rl.spec_decode else rl.temperature,
             top_k=0 if rl.spec_decode else rl.top_k,
             capture_buckets=rl.capture_buckets,
-            spec_decode=rl.spec_decode, spec_k=rl.spec_k)
+            spec_decode=rl.spec_decode, spec_k=rl.spec_k, mesh=shard)
         self.offload = self.offload_lot = None
         if rl.offload != "none":
             self._init_offload(rl)
@@ -625,10 +643,10 @@ class RLHFTrainer:
         (which IS the base) and the merged rollout leaves that alias
         non-adapted trunk tensors attribute to ``base_params``;
         ``merged_rollout`` then claims only the freshly merged copies.
-        The ZeRO-3 rollout gather copies (``zero_gather``; ``tp_gather``
-        stays empty until tensor parallelism runs) register before
-        ``merged_rollout``: the merged tree's non-adapted leaves alias the
-        gathered trunk."""
+        The ZeRO-3 rollout gather copies (``zero_gather``, or under tensor
+        parallelism ``tp_gather``: DP-gathered, still 1/ntp a rank; one of
+        the two is ever filled) register before ``merged_rollout``: the
+        merged tree's non-adapted leaves alias the gathered trunk."""
         from repro_torch.obs import MemoryAttributor
         at = telemetry.attribution
         if at is None:
@@ -859,6 +877,16 @@ class RLHFTrainer:
             list(self.persistent_trees().values()),
             None if self.shard is None else self.shard.comm)
 
+    @property
+    def _gather_key(self) -> str:
+        """The owner of the rollout's gather copies: ``tp_gather`` under
+        tensor parallelism, else ``zero_gather``."""
+        return "tp_gather" if self._tp is not None else "zero_gather"
+
+    @property
+    def _tp(self):
+        return None if self.shard is None else self.shard.tp
+
     def _plans(self):
         """(trunk or actor plan, actor, critic, reward plans): the
         separate engine's reference and reward trees use the actor's and
@@ -965,13 +993,13 @@ class RLHFTrainer:
             p, owned = self.actor_state["params"], False
             if a_plan is not None:
                 p, owned = a_plan.gather_copy(p)
-                self._live["zero_gather"] = {"actor": p}
+                self._live[self._gather_key] = {"actor": p}
             try:
                 with torch.no_grad():
                     return self.rollout.generate(
                         p, {"tokens": prompts}, self.rl.gen_len, generator)
             finally:
-                self._live.pop("zero_gather", None)
+                self._live.pop(self._gather_key, None)
                 if owned:
                     delete_tree(p)
         adapter, owned_a = self.actor_state["params"], False
@@ -983,7 +1011,7 @@ class RLHFTrainer:
                                           ("adapter", adapter, owned_a))
                   if owned}
         if copies:
-            self._live["zero_gather"] = copies
+            self._live[self._gather_key] = copies
         merged = self.actor.merge_adapter(base, adapter)
         # the merged tree holds what the rollout reads; no live trunk may
         # be held here (offload "all" parks its adapted leaves mid-phase)
@@ -1001,7 +1029,7 @@ class RLHFTrainer:
         finally:
             delete_merged(merged, adapter.get("lora"))
             self._live.pop("merged_rollout", None)
-            self._live.pop("zero_gather", None)
+            self._live.pop(self._gather_key, None)
             delete_tree(copies)
 
     def _reward_scores(self, tokens, mask):
@@ -1078,6 +1106,10 @@ class RLHFTrainer:
                         generator: torch.Generator) -> Dict[str, Any]:
         """Phases 1-5: rollout and the four scoring forwards (under
         ``torch.no_grad()``) -> the experience batch."""
+        with shctx.use_mesh(self._tp):
+            return self._make_experience(prompts, generator)
+
+    def _make_experience(self, prompts, generator) -> Dict[str, Any]:
         mm = self.memory
         ro = self._gen(prompts, generator)
         self._live["rollout"] = {"tokens": ro.tokens, "logp": ro.logp,
@@ -1120,7 +1152,8 @@ class RLHFTrainer:
         the moment of failure) and re-raised: the recorder observes, it
         never swallows."""
         try:
-            return self._train_step(prompts, generator)
+            with shctx.use_mesh(self._tp):
+                return self._train_step(prompts, generator)
         except Exception as e:
             fl = self.memory.flight
             if fl is not None and fl.is_oom(e):
@@ -1138,7 +1171,8 @@ class RLHFTrainer:
             self._sim_attached = True
             self._attach_sim_predictions(int(prompts.shape[0]))
         self.memory.iteration_start()
-        exp = self.make_experience(prompts, generator)
+        staged0 = 0 if self._tp is None else self._tp.comm.staged_bytes
+        exp = self._make_experience(prompts, generator)
         self._live["experience"] = exp
         mean_reward = float(exp.pop("mean_reward"))
         old_values = exp.pop("old_values")
@@ -1165,5 +1199,10 @@ class RLHFTrainer:
         self._live.pop("experience", None)
         self.memory.boundary("train_critic", "training", exp, cbatch)
         metrics["mean_reward"] = mean_reward
+        if tel is not None and self._tp is not None:
+            tel.registry.counter(
+                "sharding_tp_staged_bytes_total",
+                "bytes the model group's gloo collectives staged through "
+                "pinned host memory").inc(self._tp.comm.staged_bytes - staged0)
         self.memory.iteration_end(mean_reward=mean_reward)
         return metrics

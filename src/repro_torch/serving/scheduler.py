@@ -61,7 +61,20 @@ nothing is captured.
 Random draws come from one ``torch.Generator`` on the model's device,
 seeded from ``seed``; the reference's ``jax.random`` stream differs, so
 the two packages agree token for token only where decoding is greedy.
-Tensor-parallel serving (``mesh=``) is not ported and raises.
+
+``mesh=`` (a ``ShardedContext`` or its ``DeviceMesh``) with a ``model``
+axis above 1 serves tensor parallel, as the reference's ``mesh=``: the
+construction, ``warmup`` and every ``step`` run under
+``sharding.ctx.use_mesh``, ``params`` are the rank's Megatron cuts, the
+dense caches and paged pools hold K/ntp KV heads a rank (so
+``kv_reserved_bytes`` is a rank's), the page manager and the admission
+order run the same on every rank, and sampling all-gathers the ``[B, V]``
+rows it draws from (``rlhf.rollout.sample_token``), each rank drawing the
+same token from the same seed. The decode steps then run eagerly: a gloo
+collective stages through host memory and cannot be captured (capture
+over NCCL waits for a machine with more than one card), and
+``graphs=True`` under such a mesh raises. Speculative decoding and Mamba
+layers under TP raise (ROADMAP A10c).
 """
 from __future__ import annotations
 
@@ -82,6 +95,8 @@ from repro_torch.paged import (PageManager, PagePoolExhausted, copy_pages,
 from repro_torch.rlhf import rollout as RO
 from repro_torch.rlhf.decode_graph import DecodeGraph, SpecGraph
 from repro_torch.serving.buckets import BucketLadder, CompileCache
+from repro_torch.sharding import ctx as shctx
+from repro_torch.sharding import tp as TP
 from repro_torch.tree import leaves, nbytes
 
 
@@ -119,14 +134,17 @@ class ContinuousBatcher:
                  spec_decode: bool = False, spec_k: int = 2,
                  warmup: bool = True, prefix_cache: bool = False,
                  tenant_weights: Optional[Dict[str, float]] = None,
-                 aging: float = 1.0, mesh=None):
+                 aging: float = 1.0, mesh=None,
+                 graphs: Optional[bool] = None):
         if cache_backend not in ("dense", "paged"):
             raise ValueError(f"cache_backend must be dense or paged, got "
                              f"{cache_backend}")
-        if mesh is not None:
-            raise NotImplementedError("tensor-parallel serving (mesh=) is "
-                                      "not ported")
-        self.mesh = None
+        ntp = TP.degree(mesh)
+        TP.check_supported(cfg, ntp, spec_decode=spec_decode)
+        if ntp > 1 and graphs:
+            raise TP.refuse_graphs()
+        self.mesh, self.want_graphs = mesh, graphs
+        self.tp = TP.resolve(mesh)
         if prefix_cache and cache_backend != "paged":
             raise ValueError("prefix caching needs the paged backend")
         self.model, self.cfg, self.params = model, cfg, params
@@ -188,13 +206,22 @@ class ContinuousBatcher:
                                       device=self.device)
 
         self.caches = self.pools = self.pm = None
+        with shctx.use_mesh(self.tp):       # a rank's K/ntp heads under TP
+            self._init_kv(model, cfg, slots, capacity, cache_backend,
+                          page_size, num_pages, cache_dtype)
+        if warmup and self.prefill_ladder is not None:
+            self.warmup()
+
+    def _init_kv(self, model, cfg, slots, capacity, cache_backend,
+                 page_size, num_pages, cache_dtype) -> None:
+        """The dense caches, or the page manager and its pools."""
         if cache_backend == "dense":
             self.caches = {"layers": model.init_cache(slots, capacity,
                                                       cache_dtype)}
             # the lengths-masked prefill needs attention layers; plain
             # traffic on a Mamba model keeps the unmasked prefill
             self._rich_prefill = self.prefill_ladder is not None or \
-                spec_decode
+                self.spec_decode
         else:
             self.page_size = page_size
             self.max_blocks = -(-capacity // page_size)
@@ -209,9 +236,6 @@ class ContinuousBatcher:
                 * cfg.num_layers)
             self.pools = model.init_paged_pools(num_pages, page_size,
                                                 cache_dtype)
-
-        if warmup and self.prefill_ladder is not None:
-            self.warmup()
 
     # -- telemetry set-up ----------------------------------------------------
     def _init_attribution(self, telemetry) -> None:
@@ -314,9 +338,11 @@ class ContinuousBatcher:
         if g is not None:
             return g
         fn, paged = self._decode_fn(), self.backend == "paged"
-        kw = dict(steps=2, capture=self._graphs,
+        capture = bool(self._graphs if self.want_graphs is None
+                       else self.want_graphs) and self.tp is None
+        kw = dict(steps=2, capture=capture,
                   table_blocks=self.max_blocks if paged else 0)
-        if self.device.type == "cuda" and self._graphs:
+        if self.device.type == "cuda" and capture:
             if self._graph_pool is None:
                 self._graph_pool = torch.cuda.graph_pool_handle()
             kw["pool"] = self._graph_pool
@@ -371,6 +397,10 @@ class ContinuousBatcher:
         admission — as it does at construction, when both backends are
         empty. On the card each decode rung's graph is captured here.
         After this, any compile-cache miss is a recompile."""
+        with shctx.use_mesh(self.tp):
+            self._warmup(max_prompt_len)
+
+    def _warmup(self, max_prompt_len: Optional[int]) -> None:
         cc = self.compile_cache
         dev = self.device
         pfn = self._prefill_fn()
@@ -434,8 +464,12 @@ class ContinuousBatcher:
         """Join this CompileCache key with its program's memory stats (a
         ``meta`` trace, never executed: ``obs.record_compiled_memory``):
         temp/argument/output bytes land in the registry under
-        ``program=<key>`` and in ``self.compiled_memory``."""
-        if self.telemetry is None or key in self.compiled_memory:
+        ``program=<key>`` and in ``self.compiled_memory``. Under a TP
+        mesh nothing is recorded: a ``meta`` trace cannot run the model
+        group's collectives (the trainer skips its sharded programs
+        likewise)."""
+        if self.telemetry is None or self.tp is not None or \
+                key in self.compiled_memory:
             return
         from repro_torch.obs import record_compiled_memory
         stats = record_compiled_memory(
@@ -903,7 +937,8 @@ class ContinuousBatcher:
         ``torch.cuda.OutOfMemoryError`` is captured (owner table, top
         buffers, recent serve steps) before the re-raise."""
         try:
-            done = self._step_inner()
+            with shctx.use_mesh(self.tp):
+                done = self._step_inner()
         except Exception as e:
             fl = self.flight
             if fl is not None and fl.is_oom(e):

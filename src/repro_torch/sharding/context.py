@@ -42,10 +42,22 @@ Gathers come in two granularities (``ShardingStrategy.gather_mode``):
 
 Collectives go through :class:`Collectives`. On a gloo group, CUDA
 tensors are copied through pinned host memory (``staged_bytes`` counts
-them): the port uses gloo only on the CPU and for two ranks sharing one
-card, and its CUDA paths are never asked. Tensor parallelism is not run
-yet: ``ShardedContext.create(model>1)`` raises, while contexts built on a
-``SpecMesh`` still give TP spec trees for the simulator.
+them): the port uses gloo only on the CPU and for ranks sharing one card,
+and its CUDA paths are never asked.
+
+**Tensor parallelism** (``create(model=ntp)``, ntp > 1) adds a second
+:class:`Collectives` on the ``model`` group, wrapped in a
+``sharding.tp.TensorParallel`` (``ShardedContext.tp``), and the specs'
+``"model"`` entries: a plan places a whole leaf by taking the rank's
+``1/ntp`` cut along its model entry first (every rank builds the whole
+tree from the seed, or from weights carried across from JAX, and keeps
+its cut), then its ZeRO part of that. Everything above moves the DP dim
+alone: ``shapes`` are the TP-local shapes, the compute specs keep their
+model entries (``_strip_dp``), and ZeRO gathers never touch the math cut
+(DESIGN.md §9). A step's global norm sums a model-cut leaf's squares over
+the model group and counts a replicated leaf once
+(``TreePlan.tp_cut``). Contexts on a ``SpecMesh`` give the same spec
+trees for the simulator.
 """
 from __future__ import annotations
 
@@ -56,10 +68,13 @@ from typing import Any, List, Optional, Tuple
 import torch
 import torch.distributed as dist
 
-from repro_torch.sharding.rules import (P, ShardingStrategy, SpecMesh,
-                                        _axsize, adapter_pspecs, dp_axes,
-                                        param_pspecs, spec_leaves, spec_map,
+from repro_torch.sharding.rules import (MODEL_AXIS, P, ShardingStrategy,
+                                        SpecMesh, _axsize, adapter_pspecs,
+                                        dp_axes, param_pspecs, spec_leaves,
+                                        spec_map, validate_tp,
                                         zero_opt_pspecs)
+from repro_torch.sharding.tp import (TensorParallel, check_supported,
+                                     register)
 from repro_torch.tree import leaves, nbytes
 
 
@@ -214,6 +229,14 @@ def _dp_dim(spec: P, mesh) -> Optional[int]:
     for i, e in enumerate(spec):
         es = e if isinstance(e, tuple) else (e,)
         if any(a in dp for a in es if a is not None):
+            return i
+    return None
+
+
+def _model_dim(spec: P) -> Optional[int]:
+    """The dim a spec cuts over the ``model`` axis (None: whole over it)."""
+    for i, e in enumerate(spec):
+        if e == MODEL_AXIS or (isinstance(e, tuple) and MODEL_AXIS in e):
             return i
     return None
 
@@ -390,9 +413,12 @@ class TreePlan:
     layer_param_specs: Optional[Any] = None
     layer_specs: Optional[Any] = None
     comm: Optional[Collectives] = None
-    # the whole leaves' shapes (param-shaped), so that placement and the
-    # gradients' slicing tell a whole tensor from a rank's part
+    # the whole leaves' shapes over ``data`` (param-shaped; each model
+    # entry's dim already cut to the rank's 1/ntp), so that placement and
+    # the gradients' slicing tell a whole tensor from a rank's part
     shapes: Optional[Any] = None
+    # the model group's operators (tensor parallelism), or None
+    tp: Optional[Any] = None
 
     @property
     def gather_mode(self) -> str:
@@ -487,6 +513,13 @@ class TreePlan:
                  self.shapes)
         return total
 
+    def tp_cut(self) -> List[bool]:
+        """Per leaf (param-shaped, in tree order): whether its spec cuts it
+        over the model axis (a gradient's squares are then summed over the
+        model group for the global norm; a whole leaf counts once)."""
+        return [self.tp is not None and _model_dim(s) is not None
+                for s in spec_leaves(self.param_specs)]
+
     def grad_layout(self, grads) -> List[Tuple[bool, Optional[int]]]:
         """Per leaf of ``grads`` (param-shaped, in tree order): whether the
         step's gradient is already this rank's shard (a layer-mode layer
@@ -513,15 +546,22 @@ class TreePlan:
 
     def _place(self, tree, specs, shapes):
         """Whole tensors -> this rank's parts under ``specs`` (owned
-        copies; a leaf keeps its ``requires_grad``). Leaves whose spec is
-        whole, and leaves that are parts already, come back as they are
-        (placing twice is placing once)."""
+        copies; a leaf keeps its ``requires_grad``): the model entry's cut
+        first (a leaf at its whole shape over the model axis), then the DP
+        one. Leaves whose spec is whole, and leaves that are parts
+        already, come back as they are (placing twice is placing once)."""
         if specs is None:
             return tree
 
         def place(s, x, shape):
             if not torch.is_tensor(x) or not isinstance(s, P):
                 return x
+            t = _model_dim(s)
+            if self.tp is not None and t is not None and \
+                    x.shape[t] == shape[t] * self.tp.size:
+                x = self.tp.comm.local(x.detach(), t).clone(
+                    memory_format=torch.contiguous_format
+                ).requires_grad_(x.requires_grad)
             d = _dp_dim(s, self.mesh)
             if d is None or not self._is_whole(x, shape):
                 return x
@@ -612,42 +652,50 @@ class ShardedContext:
                  device=None):
         self.strat = strat or ShardingStrategy()
         self.mesh = mesh
+        self.tp: Optional[TensorParallel] = None
         if isinstance(mesh, SpecMesh):
             self.spec_mesh = mesh
             self.comm = None
         else:
             names = mesh.mesh_dim_names
             self.spec_mesh = SpecMesh(dict(zip(names, mesh.shape)))
-            if self.spec_mesh.shape.get("model", 1) > 1:
-                raise NotImplementedError(
-                    "tensor-parallel execution (a model axis above 1) is "
-                    "not ported yet; build a SpecMesh for TP specs")
             device = torch.device(device if device is not None
                                   else mesh.device_type)
             self.comm = Collectives(mesh.get_group("data"), device)
+            if self.ntp > 1:
+                self.tp = TensorParallel(Collectives(mesh.get_group("model"),
+                                                     device))
+                register(mesh, self.tp)
 
     @classmethod
     def create(cls, ndp: int = 1, *, zero_stage: int = 3, model: int = 1,
                gather_mode: str = "layer", device: str = "cuda",
-               backend: Optional[str] = None) -> "ShardedContext":
+               backend: Optional[str] = None,
+               cfg=None) -> "ShardedContext":
         """A ``(data=ndp, model)`` context over the initialised default
         group (``launch.mesh.make_zero_mesh``): NCCL for ``device="cuda"``
         and gloo for ``"cpu"`` unless ``backend`` says otherwise (gloo on
-        CUDA tensors for ranks sharing one card). ``model > 1`` (tensor
-        parallelism) raises."""
-        if model > 1:
-            raise NotImplementedError(
-                f"ShardedContext.create(model={model}): tensor-parallel "
-                "execution is not ported yet (the TP slice of the port); "
-                "ZeRO over data runs at model=1")
+        CUDA tensors for ranks sharing one card). ``model`` is the TP
+        degree; at 1 the strategy keeps ``tensor_parallel`` off, so the
+        spec trees are the pure-ZeRO ones. ``cfg`` (a config or a
+        sequence of them) is checked against ``model`` before any group is
+        touched: ``rules.validate_tp``, and what the port does not run
+        tensor parallel (``sharding.tp.check_supported``, which refuses a
+        KV head count that ``model`` does not divide, among others);
+        ``plan_params`` checks again."""
         if gather_mode not in ("layer", "tree"):
             raise ValueError(f"gather_mode must be layer or tree, not "
                              f"{gather_mode!r}")
+        for c in (() if cfg is None else
+                  cfg if isinstance(cfg, (list, tuple)) else (cfg,)):
+            validate_tp(c, model)
+            check_supported(c, model)
         from repro_torch.launch.mesh import make_zero_mesh
         mesh = make_zero_mesh(ndp, model=model, device=device,
                               backend=backend)
         return cls(mesh, ShardingStrategy(zero_stage=zero_stage,
-                                          tensor_parallel=False,
+                                          tensor_parallel=model > 1,
+                                          ntp=model,
                                           gather_mode=gather_mode),
                    device=device)
 
@@ -698,17 +746,28 @@ class ShardedContext:
                                 for t in pspecs["layers"]]
             else:
                 layer_slices = LayerGather(pspecs["layers"], self.comm, mesh)
-        shape_tree = spec_map(lambda s, x: tuple(x.shape), pspecs, shapes)
+        ntp = self.ntp
+
+        def local_shape(s, x):
+            shape, t = list(x.shape), _model_dim(s)
+            if t is not None:
+                shape[t] //= ntp
+            return tuple(shape)
+
+        shape_tree = spec_map(local_shape, pspecs, shapes)
         return TreePlan(mesh, strat, pspecs, compute, opt_specs,
                         update_specs, layer_param_specs=layer_full,
                         layer_specs=layer_slices, comm=self.comm,
-                        shapes=shape_tree)
+                        shapes=shape_tree, tp=self.tp)
 
     def plan_params(self, cfg, params_shape, optimizer=None) -> TreePlan:
         """Plan for a full model tree (``rules.param_pspecs``). Layer mode
         gathers ``params["layers"]`` one layer at a time; configs whose
         layers are read outside the layer loop (encoder-decoder) gather
         whole, as in the reference."""
+        if self.comm is not None:     # a run; a SpecMesh names specs only
+            validate_tp(cfg, self.ntp)
+            check_supported(cfg, self.ntp)
         pspecs = param_pspecs(cfg, self.spec_mesh, self.strat, params_shape)
         layerwise = getattr(cfg, "input_mode", "tokens") != "encdec"
         return self._plan(pspecs, params_shape, optimizer,

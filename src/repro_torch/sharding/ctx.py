@@ -1,12 +1,18 @@
 """Ambient mesh and activation hints — the port of
 ``repro/sharding/ctx.py``.
 
+``use_mesh(mesh)`` scopes the ambient mesh: a ``ShardedContext``, a
+``DeviceMesh``, a ``SpecMesh``, a ``sharding.tp.TensorParallel`` or None.
+Under a mesh whose ``model`` axis is above 1 the model runs tensor
+parallel (``sharding.tp.current()`` reads the group from it), as the
+reference's model bakes its hints in under ``use_mesh``.
+
 Model code may call ``constrain(x, "dp", None, "model")`` at an activation.
 In the reference that is a GSPMD hint; the port runs SPMD with explicit
-collectives, and on a DP-only mesh every activation is whole on its rank,
-so ``constrain`` and ``constrain_spec`` return their input. A mesh with a
-``model`` axis larger than 1 (tensor parallelism) is not run yet: they
-raise on one.
+collectives (the Megatron operators of ``sharding/tp.py``), so on a
+DP-only mesh every activation is whole on its rank and ``constrain`` and
+``constrain_spec`` return their input; on a mesh with a model axis above 1
+a hint has no meaning here and raises.
 
 ``resolve_entry`` resolves a hint entry against a mesh as the reference
 does ("dp" -> the DP axes present, "model" -> itself, a non-divisible dim
@@ -35,8 +41,8 @@ def current_mesh():
 
 @contextmanager
 def use_mesh(mesh):
-    """Scoped ambient mesh; ``use_mesh(None)`` is the explicit no-mesh
-    scope."""
+    """Scoped ambient mesh (any of the module docstring's kinds);
+    ``use_mesh(None)`` is the explicit no-mesh scope."""
     global _MESH
     prev = _MESH
     _MESH = mesh
@@ -90,10 +96,12 @@ def resolve_entry(mesh, entry, dim: int):
 
 
 def _check_dp_only(mesh) -> None:
-    if _shape(mesh).get(MODEL_AXIS, 1) > 1:
+    from repro_torch.sharding.tp import degree
+    if degree(mesh) > 1:
         raise NotImplementedError(
-            "activation hints on a mesh with a model axis (tensor "
-            "parallelism) are not run yet: the TP slice of the port")
+            "activation hints on a mesh with a model axis: the port runs "
+            "tensor parallelism by explicit operators (sharding/tp.py), "
+            "not by hints")
 
 
 def constrain(x, *entries):

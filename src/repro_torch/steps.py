@@ -35,6 +35,8 @@ import torch
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import Model
 from repro_torch.optim import clip_by_global_norm_, make_optimizer
+from repro_torch.sharding import ctx as shctx
+from repro_torch.sharding import tp as TP
 from repro_torch.tree import leaves, tree_map
 
 Count = Optional[Callable[[torch.Tensor], torch.Tensor]]
@@ -61,7 +63,12 @@ def _batch_count(plan) -> Count:
 def _full_seq_logp(logits, targets):
     """Per-position log-prob of ``targets`` [B, T] under logits [B, T, V],
     with fp32 math: the target's logit minus the log-sum-exp, shifted by
-    the (constant) row max as the reference does."""
+    the (constant) row max as the reference does. Under an ambient TP
+    group the logits are the rank's vocab columns
+    (``TensorParallel.logp``)."""
+    tp = TP.current()
+    if tp is not None:
+        return tp.logp(logits, targets)
     tgt = torch.gather(logits, -1, targets[..., None])[..., 0]
     mx = logits.max(-1).values.detach().float()
     lse = mx + torch.log(torch.sum(torch.exp(logits.float() - mx[..., None]),
@@ -201,14 +208,15 @@ def _update_(optimizer, state, grads, lr: float, max_grad_norm: float):
     return gnorm
 
 
-def _check_dp_only(*plans) -> None:
-    """A plan with a model axis (tensor parallelism) is refused: the port
-    runs ZeRO over ``data`` only."""
-    for plan in plans:
-        if plan is not None and getattr(plan.strat, "ntp", 1) > 1:
-            raise NotImplementedError(
-                "tensor-parallel train steps (a plan with ntp > 1) are not "
-                "ported yet; ZeRO over data runs at ntp 1")
+def _tp_group(cfg: ModelConfig, *plans):
+    """The model group a step on ``plans`` runs under (None without one);
+    ``cfg`` is checked against what the port runs tensor parallel
+    (``sharding.tp.check_supported``)."""
+    ntp = max((getattr(p.strat, "ntp", 1) for p in plans if p is not None),
+              default=1)
+    TP.check_supported(cfg, ntp)
+    return next((p.tp for p in plans if getattr(p, "tp", None) is not None),
+                None)
 
 
 def _reset_stash(plan) -> None:
@@ -246,7 +254,16 @@ def _sharded_update_(optimizer, plan, state, grads, lr: float,
                 s = torch.sum(torch.square(full.float()))
                 del full
             sums.append(s)
-        norm = torch.sqrt(sum(sums))
+        if plan.tp is None:
+            norm = torch.sqrt(sum(sums))
+        else:
+            # a model-cut leaf's squares sum over the model group; a whole
+            # one (the same gradient on every rank) counts once
+            cut = plan.tp_cut()
+            part = torch.stack([s for s, c in zip(sums, cut) if c]).sum()
+            part = plan.tp.comm.all_reduce_(part.reshape(1))[0]
+            norm = torch.sqrt(part + sum(s for s, c in zip(sums, cut)
+                                         if not c))
         scale = torch.clamp(max_grad_norm / torch.clamp(norm, min=1e-9),
                             max=1.0)
         upd = plan.place_grads(grads)
@@ -280,7 +297,7 @@ def make_train_step(model: Model, cfg: ModelConfig, *, lr: float = 3e-5,
     ``TreePlan``) makes it ZeRO-aware (the module docstring)."""
     if kind not in ("ppo", "critic", "lm"):
         raise ValueError(f"kind must be ppo, critic or lm, not {kind!r}")
-    _check_dp_only(shard)
+    tp = _tp_group(cfg, shard)
     optimizer = make_optimizer(cfg.optimizer)
     # per-layer ZeRO-3 gather (gather_mode "layer") inside the model
     lspecs = getattr(shard, "layer_specs", None)
@@ -311,7 +328,7 @@ def make_train_step(model: Model, cfg: ModelConfig, *, lr: float = 3e-5,
             gnorm = _update_(optimizer, state, grads, lr, max_grad_norm)
             return state, dict(metrics, loss=loss, grad_norm=gnorm)
         _reset_stash(shard)
-        with torch.enable_grad():
+        with torch.enable_grad(), shctx.use_mesh(tp):
             compute = shard.gather(state["params"])
             (loss, metrics), grads = _accumulated_grads(loss_fn, compute,
                                                         batch, N)
@@ -353,7 +370,7 @@ def make_lora_train_step(model: Model, cfg: ModelConfig, *, lr: float = 3e-5,
                          f"{kind!r}")
     if base_shard is not None and shard is None:
         raise ValueError("base_shard without an adapter plan")
-    _check_dp_only(shard, base_shard)
+    tp = _tp_group(cfg, shard, base_shard)
     optimizer = make_optimizer(cfg.optimizer)
     blspecs = getattr(base_shard, "layer_specs", None)
 
@@ -382,7 +399,7 @@ def make_lora_train_step(model: Model, cfg: ModelConfig, *, lr: float = 3e-5,
             gnorm = _update_(optimizer, state, grads, lr, max_grad_norm)
             return state, dict(metrics, loss=loss, grad_norm=gnorm)
         _reset_stash(shard)
-        with torch.enable_grad():
+        with torch.enable_grad(), shctx.use_mesh(tp):
             base = base_params if base_shard is None \
                 else base_shard.gather(base_params)
             adapter = shard.gather(state["params"])

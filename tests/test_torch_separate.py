@@ -247,14 +247,16 @@ def test_full_train_step_matches_reference(kind, microbatches, arch):
 
 
 def test_train_steps_refuse_what_is_not_ported():
-    """ZeRO is ported (``tests/test_torch_zero.py``); a tensor-parallel
-    plan (a model axis of 2) is not."""
+    """ZeRO and tensor parallelism are ported (``tests/test_torch_zero.py``,
+    ``tests/test_torch_tp.py``); a tensor-parallel plan (a model axis of
+    2) for a config with MTP heads is not (ROADMAP A10c)."""
     from repro_torch.sharding import ShardedContext, ShardingStrategy, SpecMesh
     _, tcfg = small_cfgs(64)
+    tcfg = dataclasses.replace(tcfg, mtp_depth=1)
     model = Model(tcfg, device="cpu")
     tp = ShardedContext(SpecMesh({"data": 2, "model": 2}),
                         ShardingStrategy(zero_stage=3, ntp=2))
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(NotImplementedError, match="A10c"):
         TS.make_train_step(model, tcfg, shard=tp.plan_params(
             tcfg, Model(tcfg, device="meta").init()))
     with pytest.raises(ValueError):

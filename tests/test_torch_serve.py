@@ -122,7 +122,8 @@ want = {{"repro_torch.core.allocator", "repro_torch.paged.page_manager",
         "repro_torch.launch.report", "repro_torch.optim.schedule",
         "repro_torch.rlhf.experience", "repro_torch.serving.scheduler",
         "repro_torch.sharding.rules", "repro_torch.sharding.context",
-        "repro_torch.sharding.ctx", "repro_torch.launch.mesh"}}
+        "repro_torch.sharding.ctx", "repro_torch.launch.mesh",
+        "repro_torch.sharding.tp"}}
 assert want <= set(names), want - set(names)
 import chip_smoke
 for example in ("torch_rlhf_e2e", "torch_memory_study", "torch_serving",

@@ -39,6 +39,7 @@ from repro_torch.obs import FlightRecorder, RunTelemetry  # noqa: E402
 from repro_torch.paged import PageManager  # noqa: E402
 from repro_torch.rlhf.decode_graph import DecodeGraph  # noqa: E402
 from repro_torch.serving import ContinuousBatcher, Request  # noqa: E402
+from repro_torch.sharding import SpecMesh  # noqa: E402
 
 TINY = dict(num_layers=2, d_model=128, d_ff=256, vocab_size=64, num_heads=4,
             num_kv_heads=2, head_dim=32, param_dtype="float32")
@@ -301,8 +302,9 @@ def test_preemption_preserves_greedy_output(tiny):
 
 
 def test_rejects_request_beyond_capacity(tiny):
-    """tests/test_paged.py:287; a pool below one sequence and a prefix
-    cache on the dense backend are refused too."""
+    """tests/test_paged.py:287; a pool below one sequence, a prefix cache
+    on the dense backend, a mesh that is none and a captured graph asked
+    for under a tensor-parallel mesh are refused too."""
     _, (model, cfg, params) = tiny
     cb = ContinuousBatcher(model, cfg, params, slots=2, capacity=32,
                            cache_backend="paged", page_size=8)
@@ -315,8 +317,11 @@ def test_rejects_request_beyond_capacity(tiny):
                           cache_backend="paged", page_size=8, num_pages=3)
     with pytest.raises(ValueError):
         ContinuousBatcher(model, cfg, params, prefix_cache=True)
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(TypeError):
         ContinuousBatcher(model, cfg, params, mesh=object())
+    with pytest.raises(NotImplementedError, match="graph"):
+        ContinuousBatcher(model, cfg, params, graphs=True,
+                          mesh=SpecMesh({"data": 1, "model": 2}))
 
 
 # ------------------------------------------------------------ prefix cache

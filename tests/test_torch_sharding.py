@@ -334,8 +334,14 @@ def test_tree_mode_plan_has_no_layer_specs(stage, mode, expect):
 
 
 def test_create_with_a_model_axis_raises_naming_tp():
-    with pytest.raises(NotImplementedError, match="tensor-parallel"):
-        ShardedContext.create(2, zero_stage=3, model=2, device="cpu")
+    """A model axis runs (``tests/test_torch_tp.py``), but not for a config
+    whose KV heads do not divide it: the reference's head_dim fallback is
+    not ported (ROADMAP A10c), refused before any group is touched."""
+    cfg = dataclasses.replace(get_config("llama3_2_3b").smoke(),
+                              num_heads=4, num_kv_heads=1)
+    with pytest.raises(NotImplementedError, match="tensor parallel.*head_dim"):
+        ShardedContext.create(2, zero_stage=3, model=2, device="cpu",
+                              cfg=cfg)
 
 
 def test_strip_dp_keeps_tp_entries():

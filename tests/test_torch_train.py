@@ -555,22 +555,25 @@ def test_memory_manager_defaults_to_the_card():
 
 
 def test_trainer_refuses_what_is_not_ported():
-    """ZeRO is ported (``tests/test_torch_zero.py``); tensor parallelism
-    (a model axis of 2) is not. Speculative decoding is, and refuses an
-    actor without MTP heads as the reference's Rollout does."""
+    """ZeRO and tensor parallelism are ported (``tests/test_torch_zero.py``,
+    ``tests/test_torch_tp.py``); speculative decoding and MTP heads under
+    tensor parallelism (a model axis of 2) are not (ROADMAP A10c).
+    Speculative decoding is, and refuses an actor without MTP heads as the
+    reference's Rollout does."""
     from repro_torch.sharding import ShardedContext, ShardingStrategy, SpecMesh
     _, tcfg = small_cfgs()
     tp = ShardedContext(SpecMesh({"data": 1, "model": 2}),
                         ShardingStrategy(zero_stage=3, ntp=2))
-    with pytest.raises(NotImplementedError):
-        RLHFTrainer(tcfg, tcfg, RLHFConfig(**RL_KW), torch.Generator(),
-                    shard=tp)
+    with pytest.raises(NotImplementedError, match="A10c"):
+        RLHFTrainer(tcfg, tcfg, RLHFConfig(**{**RL_KW, "spec_decode": True}),
+                    torch.Generator(), shard=tp)
     with pytest.raises(ValueError, match="mtp_depth"):
         RLHFTrainer(tcfg, tcfg, RLHFConfig(**{**RL_KW, "spec_decode": True}),
                     torch.Generator())
-    meta = Model(tcfg, device="meta")
-    with pytest.raises(NotImplementedError):
-        TS.make_lora_train_step(Model(tcfg, device="cpu"), tcfg,
+    mcfg = dataclasses.replace(tcfg, mtp_depth=1)
+    meta = Model(mcfg, device="meta")
+    with pytest.raises(NotImplementedError, match="A10c"):
+        TS.make_lora_train_step(Model(mcfg, device="cpu"), mcfg,
                                 shard=tp.plan_adapter(meta.init_adapter(
                                     None, meta.init(), 4)))
 
