@@ -37,7 +37,14 @@ Phases, each failing with a non-zero exit:
    device time from CUDA-graph replay, warm and cold (inputs rotated
    through more than the 50 MB L2, as the path finds them), B1 at
    every path shape beside ``F.rms_norm``'s, B4 on each of
-   its three tables with its plan and the pages each block copies;
+   its three tables with its plan and the pages each block copies; B2,
+   B3 and B4 also at phase 17's head layouts (granite G 3 at D 64, qwen
+   G 1 and jamba G 4 at D 128) and B5 at jamba's Mamba widths (H 128, P
+   64, N 16, its CUDA-core route), B1 at each family's serving rows and
+   d_model (jamba's gated norm at 8192), granite's GRPO and separate PPO
+   rows, and B2-bwd and B1-bwd (with dscale) at granite's separate PPO
+   training shape, each timed by graph replay, warm and
+   cold, beside its bound and its library call's time where one exists;
 3. the serving path: full-width, full-depth llama3_2_3b (28 layers, bf16,
    random weights from a seed) serves 3 requests of batch 8 x 512 prompt
    tokens + 64 generated, through ``repro_torch.launch.serve.run``; the
@@ -234,7 +241,32 @@ Phases, each failing with a non-zero exit:
    ``chip_smoke.tp_ppo(torch.device("cuda"), print)`` runs it alone after
    ``build.build()``.
 
-Phases 3 and 5-9 and 12-15 run graphed, the default on the card
+17. three more model families at full width, random weights from a
+   seed (``families``): (a) qwen1_5_4b (40 layers, MHA of 20 heads of
+   128, qkv bias, an untied 151,936-column head) and (b)
+   granite_moe_3b_a800m (32 layers, every FFN MoE: 40 experts, top 8)
+   each serve 3 requests of 8 x (512 + 64) through ``serve.run``, launches
+   as ``serve_launches`` reckons them (``step_norms``: every MoE layer's
+   norm2); one greedy granite request graphed and eager, the same bits
+   and launches; (c) one paged GRPO request of granite at phase 5's
+   shape (8 prompts x 504, G = 8, 64 new tokens), launches and page stats;
+   (d) a paged ``ContinuousBatcher`` drain of granite (8 slots, 8 mixed
+   requests) graphed against eager, token for token; (e)
+   jamba_v0_1_52b at one period, 8 of its 32 layers (seven Mamba layers
+   with FFNs, four of them MoE, and one attention layer; the whole model
+   does not fit one card), 3 requests of 8 x (512 + 64), B5 on its CUDA-
+   core route; (f) one separate PPO iteration of granite, 8 x (256 +
+   256), remat "full", the actor and reference at full depth and the
+   critic and reward model at 8 layers (running out of memory fails the
+   phase), launches asserted (``ppo_launches``), per-phase
+   ms and MiB; (g) the granite and jamba smoke configs on the card
+   against the CPU. With ``--profile``, where an eager granite decode
+   step's device time goes: the MoE FFN's routing, expert products,
+   dispatch and combine, the attention mixer, B1. From a Python prompt
+   ``chip_smoke.families(torch.device("cuda"), print, "")`` runs it alone
+   after ``build.build()``.
+
+Phases 3, 5-9, 12-15 and 17 run graphed, the default on the card
 (phase 16 eager, as above): every
 decode step after a call's first replays its captured step (in a call of
 two decode steps or more; the batcher's graphs live as long as it does),
@@ -327,6 +359,23 @@ SLEN = SPROMPT + SGEN
 # phases 9 (its separate runs) and 11 run the OPT pair at full width and
 # at 12 of its 24 layers, so that the script keeps room in its time limit
 STUDY_LAYERS = 12
+# phase 17: three more families at full width, random weights from a seed.
+# Phase 2 holds B2-B4 at their head layouts (query / KV heads of D) and B5
+# at jamba's Mamba widths; FAMILY_HEADS[name] = (H, K, D)
+FAMILY_HEADS = {"granite": (24, 8, 64), "qwen": (20, 20, 128),
+                "jamba": (32, 8, 128)}
+# and B1 at their d_model (jamba's gated norm at its Mamba d_inner, 8192)
+FAMILY_WIDTHS = {"granite": 1536, "qwen": 2560, "jamba": 4096}
+JAMBA_D_INNER = 8192
+QWEN, GRANITE, JAMBA = "qwen1_5_4b", "granite_moe_3b_a800m", "jamba_v0_1_52b"
+# jamba serves one period, 8 of its 32 layers (52B params do not fit one
+# card: one period is ~12.9B, 25.7 GB in bf16)
+JAMBA_LAYERS = 8
+FAM_REQUESTS = 3                 # each family serves 3 x 8 x (512 + 64)
+FAM_CB_REQUESTS = 8              # granite's batcher drain, 8 slots
+# granite's separate PPO iteration: the actor and reference at full depth
+# (32 layers), the critic and reward at 8, 8 x (256 + 256), remat "full"
+GRANITE_CRITIC_LAYERS = 8
 
 # (memory B/s, bf16 tensor FLOP/s, fp32 FLOP/s), NVIDIA data sheets, dense
 PEAKS = {"SXM": (3.35e12, 989e12, 67e12), "PCIe": (2.0e12, 756e12, 51e12),
@@ -554,6 +603,12 @@ def check_flash(dev, peaks, g):
         ("tp_llama", BATCH, PROMPT, PROMPT, 12, 4, 128, True, 0,
          torch.bfloat16),
         ("tp_opt", SBATCH, SLEN, SLEN, 16, 16, 64, True, 0, torch.bfloat16),
+        # phase 17's serving prefills: granite G 3 at D 64, qwen G 1 and
+        # jamba G 4 at D 128; and granite's separate PPO path (with lse)
+        *[(fam, BATCH, PROMPT, PROMPT, H, K, D, True, 0, torch.bfloat16)
+          for fam, (H, K, D) in FAMILY_HEADS.items()],
+        ("granite_ppo", SBATCH, SLEN, SLEN, 24, 8, 64, True, 0,
+         torch.bfloat16),
     ]
     out = []
     for name, B, Sq, Sk, H, K, D, causal, window, dt in cases:
@@ -596,20 +651,24 @@ def check_flash(dev, peaks, g):
             n_ops = 4 * B * H * D * causal_pairs(Sq, Sk, causal, window)
             rec["bound_ms"], rec["bound_by"] = bound(
                 peaks, nbytes(q, k, v, got), n_ops, dt)
-        if name in ("ppo", "sep_actor"):
-            # the training path's call, with the lse output: device time
+        if name in ("ppo", "sep_actor", "granite_ppo", *FAMILY_HEADS):
+            # the training path's call, with the lse output (a serving
+            # prefill's, without, for phase 17's families): device time
             # by graph replay, warm and cold, beside SDPA's at this shape
+            lse_out = name not in FAMILY_HEADS
+
             def make_set():
                 return [torch.randn_like(t) for t in (q, k, v)]
             rec["device_ms"], rec["cold_ms"] = time_graph_warm_cold(
                 lambda *a: fa.flash_attention_fwd(
-                    *a, causal=causal, window=window, return_lse=True),
+                    *a, causal=causal, window=window, return_lse=lse_out),
                 make_set)
             rec["library_cold_ms"] = time_graph_warm_cold(
                 lambda *a: _gqa_sdpa(*a, is_causal=causal), make_set)[1]
             n_ops = 4 * B * H * D * causal_pairs(Sq, Sk, causal, window)
             rec["bound_ms"], rec["bound_by"] = bound(
-                peaks, nbytes(q, k, v, got, lse), n_ops, dt)
+                peaks, nbytes(q, k, v, got, *((lse,) if lse_out else ())),
+                n_ops, dt)
         out.append(rec)
     return out
 
@@ -637,6 +696,10 @@ def check_decode(dev, peaks, g):
         # llama3_2_3b step (4 slots over 640) and the OPT rollout's last
         ("tp_llama", 4, 12, 4, 128, 640, 600, 0, torch.bfloat16),
         ("tp_opt", SBATCH, 16, 16, 64, SLEN, SLEN - 2, 0, torch.bfloat16),
+        # phase 17's serving decode steps, their last: the three families'
+        # head layouts over 576 slots
+        *[(fam, BATCH, H, K, D, PROMPT + GEN, PROMPT + GEN - 2, 0,
+           torch.bfloat16) for fam, (H, K, D) in FAMILY_HEADS.items()],
     ]
     out = []
     for name, B, H, K, D, C, cur, window, dt in cases:
@@ -679,7 +742,7 @@ def check_decode(dev, peaks, g):
             n_ops = 4 * H * D * int(valid.sum().item())
             rec["bound_ms"], rec["bound_by"] = bound(
                 peaks, nbytes(q, kc, vc, pos, position, got), n_ops, dt)
-        if name == "sep":
+        if name in ("sep", *FAMILY_HEADS):
             valid = (pos >= 0) & (pos <= position[:, None])
             mask = valid[:, None, None, :]
 
@@ -734,7 +797,18 @@ RMSNORM_PATH_SHAPES = {
     "sep_actor": (SBATCH * SLEN, 2048), "sep_critic": (SBATCH * SLEN, 1024),
     "sep_decode": (SBATCH, 2048),
     # the speculative verify: k + 1 tokens a row
-    "spec_verify": (BATCH * (SPEC_K + 1), 3072)}
+    "spec_verify": (BATCH * (SPEC_K + 1), 3072),
+    # phase 17: each family's serving prefill and decode step at its
+    # d_model (the MoE layers' norm2 too), jamba's gated norm at d_inner,
+    # granite's paged GRPO request and its separate PPO iteration's
+    # scoring and training forwards (actor and critic both at 1536)
+    **{f"{fam}_{kind}": (rows, d) for fam, d in FAMILY_WIDTHS.items()
+       for kind, rows in (("prefill", BATCH * PROMPT), ("decode", BATCH))},
+    "jamba_gated": (BATCH * PROMPT, JAMBA_D_INNER),
+    "jamba_gated_decode": (BATCH, JAMBA_D_INNER),
+    "granite_grpo_prefill": (GROUPS * GPROMPT, FAMILY_WIDTHS["granite"]),
+    "granite_grpo_decode": (GROUPS * GSIZE, FAMILY_WIDTHS["granite"]),
+    "granite_ppo": (SBATCH * SLEN, FAMILY_WIDTHS["granite"])}
 
 
 def check_rmsnorm(dev, peaks, g):
@@ -808,7 +882,9 @@ def check_flash_bwd(dev, peaks, g):
     B2's forward: at the PPO training shape (bf16 and fp32) and at D 64,
     G 1 and 8, windows of 100 that cut tiles, ragged S = 100, causal with
     Sk above and below Sq, and full (non-causal) ragged Sq != Sk in both
-    dtypes, so the tensor-core route sees every mask. The main shape is
+    dtypes, so the tensor-core route sees every mask; and at the separate
+    paths' training shapes (the OPT pair's MHA and granite's G 3, both at
+    D 64). The main shape is
     timed: eager and by graph replay (warm, cold), beside the plain
     version and SDPA's backward (GQA), eager through autograd and by graph
     replay as its forward + backward less its forward."""
@@ -820,6 +896,8 @@ def check_flash_bwd(dev, peaks, g):
         # the separate path's training: MHA (G = 1) at D 64
         ("sep_actor", SBATCH, SLEN, SLEN, 32, 32, 64, True, 0, bf),
         ("sep_critic", SBATCH, SLEN, SLEN, 16, 16, 64, True, 0, bf),
+        # granite's separate PPO training (phase 17): G 3 at D 64
+        ("granite_ppo", SBATCH, SLEN, SLEN, 24, 8, 64, True, 0, bf),
         ("d64", 2, 192, 192, 8, 2, 64, True, 0, bf),
         ("g1", 2, 192, 192, 8, 8, 64, True, 0, bf),
         ("g8", 1, 160, 160, 16, 2, 128, True, 0, bf),
@@ -863,7 +941,7 @@ def check_flash_bwd(dev, peaks, g):
             rec["library_ms"] = time_ms(lambda: torch.autograd.grad(
                 oo, (qq, kk, vv), do_t, retain_graph=True), iters=10)
             del qq, kk, vv, oo
-        if name in ("main", "sep_actor"):
+        if name in ("main", "sep_actor", "granite_ppo"):
             def make_set():
                 qs, ks, vs, ds = (torch.randn_like(t) for t in (q, k, v, dout))
                 os_, ls = fa.flash_attention_fwd(qs, ks, vs, return_lse=True,
@@ -894,14 +972,17 @@ def check_rmsnorm_bwd(dev, peaks, g):
     dx the same bits without dscale, dscale the same bits in a second
     call; the main shape timed without dscale (the hydra path's: the
     trunk is frozen) and with it, beside the backward of F.rms_norm with
-    respect to x; the separate path's two widths ([8 x 512, 2048] and
-    [8 x 512, 1024], where every scale trains) timed with dscale beside
+    respect to x; the separate paths' widths ([8 x 512, 2048] and
+    [8 x 512, 1024] of the OPT pair, [8 x 512, 1536] of granite, where
+    every scale trains) timed with dscale beside
     F.rms_norm's backward with the weight's gradient; each library time
     by graph replay as its forward and backward less its forward."""
     bf = torch.bfloat16
     cases = [("main", (PBATCH * (PPROMPT + GEN), 3072), bf, bf),
              ("sep_actor", (SBATCH * SLEN, 2048), bf, bf),
              ("sep_critic", (SBATCH * SLEN, 1024), bf, bf),
+             # granite's separate PPO (phase 17), every scale trains
+             ("granite_ppo", RMSNORM_PATH_SHAPES["granite_ppo"], bf, bf),
              ("uneven", (SBATCH * SLEN + 1, 2048), bf, bf),
              ("rows8", (8, 3072), bf, bf),
              ("fp32", (3, 100), torch.float32, torch.float32),
@@ -962,7 +1043,7 @@ def check_rmsnorm_bwd(dev, peaks, g):
             rec["library_cold_ms"] = both[1] - fwd[1]
             rec["bound_ms"], rec["bound_by"] = bound(
                 peaks, nbytes(x, s, dy, dx), 8 * x.numel(), dt)
-        if name.startswith("sep"):
+        if name.startswith("sep") or name == "granite_ppo":
             def make_set():
                 return (torch.randn(*shape, device=dev).to(dt), s,
                         torch.randn(*shape, device=dev).to(dt))
@@ -1040,6 +1121,9 @@ def check_ssd(dev, peaks, g):
         ("a_bf16", 2, 512, 8, 64, 128, 128, bf, bf, 0.3, False),
         ("chunk512", 1, 1024, 2, 64, 128, 512, bf, f32, 0.3, True),
         ("fp32_sliced", 2, 256, 4, 64, 128, 64, f32, f32, 0.3, True),
+        # jamba's Mamba layers in phase 17's serving prefill: d_inner 8192
+        # in 128 heads of 64, d_state 16 (the CUDA-core route), chunk 256
+        ("jamba", BATCH, PROMPT, 128, 64, 16, 256, bf, f32, 0.3, True),
     ]
     out = []
     for name, B, S, H, P, N, chunk, dt, adt, decay, sliced in cases:
@@ -1070,6 +1154,15 @@ def check_ssd(dev, peaks, g):
                 lambda: _ssd_inputs(B, S, H, P, N, dt, adt, decay, g, dev,
                                     sliced))
             rec["library_cold_ms"] = None
+            rec["bound_ms"], rec["bound_by"] = bound(
+                peaks, nbytes(x, a, b, c, y, fin),
+                ssd_ops(B, S, H, P, N, chunk), dt)
+        if name == "jamba":
+            rec["device_ms"], rec["cold_ms"] = time_graph_warm_cold(
+                lambda *t: ssd.ssd_scan(*t, chunk),
+                lambda: _ssd_inputs(B, S, H, P, N, dt, adt, decay, g, dev,
+                                    sliced))
+            rec["library_cold_ms"] = None      # no one PyTorch call
             rec["bound_ms"], rec["bound_by"] = bound(
                 peaks, nbytes(x, a, b, c, y, fin),
                 ssd_ops(B, S, H, P, N, chunk), dt)
@@ -1179,6 +1272,10 @@ def check_paged(dev, peaks, g):
         # a tensor-parallel rank's llama3_2_3b heads at ntp 2 (12 query, 4
         # KV): phase 16's paged batcher step, 4 slots over 640 tokens
         ("tp_llama", 4, 12, 4, 128, 16, 40, 161, torch.bfloat16),
+        # the paged GRPO step's forked tables at the three families' head
+        # layouts (granite's is phase 17's paged rollout)
+        *[(fam, GROUPS * GSIZE, H, K, D, PAGE, None, None, torch.bfloat16)
+          for fam, (H, K, D) in FAMILY_HEADS.items()],
     ]
     out = []
     for name, B, H, K, D, ps, nb, P, dt in cases:
@@ -1204,7 +1301,7 @@ def check_paged(dev, peaks, g):
         err = (got.float() - want.float()).abs().max().item()
         rec = {"case": name, "shape": [B, H, K, D, P, ps, bt.shape[1]],
                "dtype": str(dt), "max_err": err, "tol": TOL[dt]}
-        if name in PAGED_TABLES:
+        if name in PAGED_TABLES or name in FAMILY_HEADS:
             n_bytes, n_ops, row_bytes, n_pages = paged_work(
                 bt.cpu(), position.cpu(), ps, K, D, H, q.element_size())
             rec["bound_ms"], rec["bound_by"] = bound(peaks, n_bytes, n_ops,
@@ -1511,6 +1608,18 @@ def mamba_serving(dev, log, profile=False):
 
 
 # ---------------------------------------------------------------- phase 7
+def step_norms(cfg) -> int:
+    """B1 calls of one pass over ``cfg``'s layers and the final norm:
+    every layer's norm1, a Mamba layer's gated norm, and norm2 where the
+    layer has an FFN (dense where ``d_ff``, MoE where ``layer_is_moe``):
+    2L + 1 for attention layers with FFNs, MoE or dense."""
+    n = 1
+    for kind, moe in zip(cfg.layer_kinds(), cfg.layer_is_moe()):
+        n += 1 + (kind == "mamba") + bool(cfg.d_ff or
+                                          (moe and cfg.moe is not None))
+    return n
+
+
 def ppo_launches(cfg, rl, model_reward: bool, critic_cfg=None,
                  spec_steps: int = 0) -> dict:
     """Kernel launches of one PPO iteration, reckoned from the shapes
@@ -1518,6 +1627,10 @@ def ppo_launches(cfg, rl, model_reward: bool, critic_cfg=None,
     separate engine the reward model, the values and the critic's step
     run ``critic_cfg``'s depth (the hydra engine's roles all run the one
     trunk).
+    Counts are per attention layer (B2, B3, B2-bwd) and per Mamba layer
+    (B5, which has no backward kernel; a hybrid's), and B1's per pass
+    come from :func:`step_norms` (2L + 1 below, for attention layers with
+    FFNs; a layer with an MoE FFN has its norm2 as a dense one does).
     - rollout: B2 once a layer (prefill), B3 once a layer at each of the
       gen - 1 decode steps, B1 at norm1, norm2 and the final norm of the
       prefill and each step: (2L + 1) gen; with ``rl.spec_decode``, the
@@ -1540,25 +1653,33 @@ def ppo_launches(cfg, rl, model_reward: bool, critic_cfg=None,
       separate engine, 4D on the hydra engine (norm_e reads the frozen
       embedding with a frozen scale)."""
     separate = rl.engine == "separate"
-    actor = (cfg.num_layers, cfg.remat != "none")
-    other = critic_cfg if separate and critic_cfg is not None else cfg
-    critic = (other.num_layers, other.remat != "none")
+
+    def role(c):     # (attention layers, Mamba layers, B1 a pass, remat)
+        attn = sum(k == "attn" for k in c.layer_kinds())
+        return (attn, c.num_layers - attn, step_norms(c),
+                c.remat != "none")
+
+    actor = role(cfg)
+    critic = role(critic_cfg if separate and critic_cfg is not None
+                  else cfg)
     scored = [actor, actor, critic] + ([critic] if model_reward else [])
     trained = [actor, critic] * rl.ppo_epochs
-    La, gen = cfg.num_layers, rl.gen_len
+    (La, Ma, _, _), gen = actor, rl.gen_len
     want = {k: 0 for k in ops.KERNELS}
     if rl.spec_decode:
         want.update(spec_launches(cfg, spec_steps, rl.spec_k))
     else:
         want["flash_attention"] = La
         want["decode_attention"] = La * (gen - 1)
-        want["rmsnorm"] = (2 * La + 1) * gen
-    want["flash_attention"] += sum(L for L, _ in scored) + \
-        sum(L * (1 + remat) for L, remat in trained)
-    want["rmsnorm"] += sum(2 * L + 1 for L, _ in scored) + \
-        sum(2 * L + 1 + remat * 2 * L for L, remat in trained)
-    want["flash_attention_bwd"] = sum(L for L, _ in trained)
-    want["rmsnorm_bwd"] = sum(2 * L + separate for L, _ in trained)
+        want["ssd_scan"] = Ma
+        want["rmsnorm"] = step_norms(cfg) * gen
+    for key, i in (("flash_attention", 0), ("ssd_scan", 1)):
+        want[key] += sum(r[i] for r in scored) + \
+            sum(r[i] * (1 + r[3]) for r in trained)
+    want["rmsnorm"] += sum(n for _, _, n, _ in scored) + \
+        sum(n + remat * (n - 1) for _, _, n, remat in trained)
+    want["flash_attention_bwd"] = sum(L for L, _, _, _ in trained)
+    want["rmsnorm_bwd"] = sum(n - 1 + separate for _, _, n, _ in trained)
     D = cfg.mtp_depth * rl.ppo_epochs
     want["flash_attention"] += D
     want["rmsnorm"] += 5 * D
@@ -2188,7 +2309,7 @@ def _remat_grads(tr, dev, log):
         ops.reset_launches()
         t0 = time.perf_counter()
         with torch.enable_grad():
-            logits, _ = model.forward(tr.base_params, exp, adapter=adapter)
+            logits = model.forward(tr.base_params, exp, adapter=adapter)[0]
             loss, _ = TS.ppo_actor_loss(logits, exp, kl_coef=0.1)
             del logits
             grads = torch.autograd.grad(loss, list(leaves(adapter)))
@@ -3774,7 +3895,7 @@ def _cyclic_bench(dev, log):
         tokens = ((start + ar[None]) % CYC_V).to(dev)
         mask = torch.ones_like(tokens)
         with torch.enable_grad():
-            logits, h = model.forward(params, {"tokens": tokens})
+            logits, _, h = model.forward(params, {"tokens": tokens})
             loss = TS.lm_loss(logits, tokens, mask)
             for d, lg in enumerate(model.mtp_chain_logits(
                     params, h, tokens, window=1), start=1):
@@ -3978,7 +4099,8 @@ def batcher_launches(cfg, cb) -> dict:
     (with the prefix cache a suffix prefill, whose attention is plain: no
     B2), each decode step B3 (dense) or B4 (paged) L and B1 2L + 1, each
     spec step spec_k MTP drafts (B2 1 and B1 5 each) and a verify (B1
-    2L + 1, plain attention)."""
+    2L + 1, plain attention); B1's 2L + 1 a pass is :func:`step_norms`,
+    for attention layers with dense or MoE FFNs."""
     L = cfg.num_layers
     pre, dec, spec = (cb.calls[k] for k in ("prefill", "decode", "spec"))
     want = {k: 0 for k in ops.KERNELS}
@@ -3987,7 +4109,8 @@ def batcher_launches(cfg, cb) -> dict:
     kernel = "decode_attention" if cb.backend == "dense" else \
         "paged_decode_attention"
     want[kernel] = L * dec
-    want["rmsnorm"] = (2 * L + 1) * (pre + dec + spec) + 5 * cb.spec_k * spec
+    want["rmsnorm"] = step_norms(cfg) * (pre + dec + spec) + \
+        5 * cb.spec_k * spec
     return want
 
 
@@ -5030,6 +5153,360 @@ def tp_ppo(dev, log) -> dict:
     return out
 
 
+# --------------------------------------------------------------- phase 17
+def serve_launches(cfg, requests: int) -> dict:
+    """Kernel launches of ``requests`` serve.run requests of BATCH x
+    (PROMPT + GEN) on ``cfg``: per request B2 once an attention layer and
+    B5 once a Mamba layer (the prefill), B3 once an attention layer at
+    each of the GEN - 1 decode steps, B1 ``step_norms(cfg)`` at the
+    prefill and at each step."""
+    kinds = cfg.layer_kinds()
+    attn = sum(k == "attn" for k in kinds)
+    want = {k: 0 for k in ops.KERNELS}
+    want.update(flash_attention=attn * requests,
+                decode_attention=attn * (GEN - 1) * requests,
+                ssd_scan=(len(kinds) - attn) * requests,
+                rmsnorm=step_norms(cfg) * GEN * requests)
+    return want
+
+
+def _free():
+    gc.collect()
+    if torch.cuda.is_available():
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+
+
+def family_serving(cfg, dev, log) -> dict:
+    """FAM_REQUESTS requests of BATCH x (PROMPT + GEN) through serve.run
+    at ``cfg``'s full width (random weights from seed 0): launches as
+    :func:`serve_launches` reckons them, outputs checked; each request's
+    ms, tok/s and peak above the weights."""
+    _free()
+    ops.reset_launches()
+    t0 = time.perf_counter()
+    results = serve.run(cfg, batch=BATCH, prompt_len=PROMPT, gen=GEN,
+                        requests=FAM_REQUESTS, temperature=0.8, seed=0,
+                        device=dev, log=log)
+    _sync(dev)
+    secs = time.perf_counter() - t0
+    launches, want = dict(ops.launches), serve_launches(cfg, FAM_REQUESTS)
+    if launches != want:
+        raise SystemExit(f"{cfg.name} serving: launches {launches} != "
+                         f"{want}")
+    reqs = []
+    for r in results:
+        check_result(r["result"], BATCH, PROMPT, cfg.vocab_size)
+        reqs.append({"seconds": r["seconds"],
+                     "tokens_per_s": r["tokens_per_s"],
+                     "weights_bytes": r["live_bytes"] or 0,
+                     "peak_above_weights": (r["peak_bytes"] or 0)
+                     - (r["live_bytes"] or 0)})
+    del results
+    log(f"[smoke] {cfg.name} ({cfg.num_layers} layers) serving: launches "
+        f"{launches} as reckoned; requests " + ", ".join(
+            f"{r['seconds'] * 1e3:.1f} ms ({r['tokens_per_s']:.1f} tok/s, "
+            f"peak {r['peak_above_weights'] / 2**20:.0f} MiB above the "
+            f"weights)" for r in reqs) + f"; weights "
+        f"{reqs[0]['weights_bytes'] / 1e9:.2f} GB; {secs:.1f} s in all")
+    return {"requests": reqs, "launches": launches, "seconds": secs,
+            "num_layers": cfg.num_layers}
+
+
+def _breakdown_ranges():
+    """Wrap the granite decode step's parts in profiler ranges (the MoE
+    FFN, its routing and its expert products; the attention mixer) ->
+    an undo function."""
+    from torch.profiler import record_function
+
+    from repro_torch.models import moe as MOE
+    from repro_torch.models import transformer as TRANSFORMER
+    saved = [(MOE, "_route", MOE._route), (MOE, "_experts", MOE._experts),
+             (TRANSFORMER.MOE, "moe_fwd", TRANSFORMER.MOE.moe_fwd),
+             (TRANSFORMER.L, "attention_decode",
+              TRANSFORMER.L.attention_decode)]
+    names = {"_route": "moe.route", "_experts": "moe.experts",
+             "moe_fwd": "moe", "attention_decode": "attention"}
+
+    def wrap(fn, label):
+        def inner(*a, **kw):
+            with record_function(label):
+                return fn(*a, **kw)
+        return inner
+
+    for mod, attr, fn in saved:
+        setattr(mod, attr, wrap(fn, names[attr]))
+
+    def undo():
+        for mod, attr, fn in saved:
+            setattr(mod, attr, fn)
+    return undo
+
+
+def granite_step_breakdown(model, params, ids, dev) -> dict:
+    """Where an eager granite decode step's device time goes (--profile):
+    a prefill, then 16 eager decode steps under torch.profiler with the
+    step's parts in ranges: ms a step of the MoE FFN (of which routing:
+    router product, top-k sort, the stable sort of the assignments and
+    the positions; expert products; the rest: dispatch scatter, combine
+    gather and sum), the attention mixer (projections, RoPE, the cache
+    write, B3), B1, and all kernels. Kernel time of the eager step, not
+    the graphed step's (the same kernels, launched by the graph)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    n = 16
+    with torch.no_grad():
+        logits, caches = model.prefill(params, {"tokens": ids}, PROMPT + GEN)
+        tok = torch.argmax(logits, -1)
+        pos = torch.full((ids.shape[0],), PROMPT, dtype=torch.int32,
+                         device=dev)
+        model.decode_step(params, caches, tok, pos)       # warm
+        undo = _breakdown_ranges()
+        try:
+            torch.cuda.synchronize()
+            with profile(activities=[ProfilerActivity.CPU,
+                                     ProfilerActivity.CUDA]) as prof:
+                for t in range(n):
+                    pos = pos + 1
+                    logits, caches = model.decode_step(params, caches, tok,
+                                                       pos)
+                    tok = torch.argmax(logits, -1)
+                torch.cuda.synchronize()
+        finally:
+            undo()
+    del caches
+    events = prof.key_averages()
+    key = "device_time_total" if hasattr(events[0], "device_time_total") \
+        else "cuda_time_total"
+    self_key = "self_" + key
+
+    labels = ("moe", "moe.route", "moe.experts", "attention")
+
+    def ms(label):
+        return sum(getattr(e, key) for e in events if e.key == label
+                   and e.device_type == DeviceType.CPU) / 1e3 / n
+
+    # device events, less the ranges' own device-side annotations
+    kernels = [e for e in events if e.device_type == DeviceType.CUDA
+               and e.key not in labels]
+    busy = sum(getattr(e, self_key) for e in kernels) / 1e3 / n
+    norms = sum(getattr(e, self_key) for e in kernels
+                if "rmsnorm" in e.key) / 1e3 / n
+    b3 = sum(getattr(e, self_key) for e in kernels
+             if any(f in e.key for f in ("decode_split_kernel",
+                                         "combine_kernel"))) / 1e3 / n
+    moe, route, experts, attn = (ms(x) for x in labels)
+    return {"steps": n, "busy_ms": busy, "moe_ms": moe, "route_ms": route,
+            "experts_ms": experts,
+            "dispatch_combine_ms": moe - route - experts,
+            "attention_ms": attn, "b3_ms": b3, "rmsnorm_ms": norms,
+            "rest_ms": busy - moe - attn - norms,
+            "top": sorted(((getattr(e, self_key) / n, e.key)
+                           for e in kernels), reverse=True)[:12]}
+
+
+def granite_paths(dev, log, smi, profile=False) -> dict:
+    """Phase 17 (b)-(d) on one full-depth granite model (seed 0): a greedy
+    request graphed and eager (the same tokens and log-probs bit for bit,
+    the same launches and live bytes), one paged GRPO request of phase
+    5's shape (launches reckoned, page stats), and a paged batcher drain
+    of FAM_CB_REQUESTS mixed requests graphed against eager token for
+    token. With ``profile``, also where an eager decode step's time
+    goes (:func:`granite_step_breakdown`)."""
+    cfg = get_config(GRANITE)
+    _free()
+    model = Model(cfg, device=dev)
+    params = model.init(torch.Generator(device=dev).manual_seed(0))
+    ids = torch.from_numpy(next(PromptDataset(synthetic_instruction_prompts(
+        BATCH, seed=0), PROMPT).batches(BATCH, seed=0)) % cfg.vocab_size
+    ).long().to(dev)
+    out = {}
+    # (b) greedy, graphed against eager
+    ro = Rollout(model, cfg, capacity=PROMPT + GEN, temperature=0.0)
+
+    def run(n):
+        return ro.generate(params, {"tokens": ids}, n,
+                           torch.Generator(device=dev).manual_seed(1))
+    calls = {g: _decode_call(ro, run, g, 0.0, GEN) for g in (True, False)}
+    (gb, gs, gl, glive, gst), (eb, es, el, elive, _) = calls[True], \
+        calls[False]
+    want = serve_launches(cfg, 1)
+    if not _same_bits(gb, eb):
+        raise SystemExit("granite: greedy tokens or log-probs differ "
+                         "graphed vs eager")
+    if gl != el or gl != want:
+        raise SystemExit(f"granite: launches graphed {gl}, eager {el}, "
+                         f"reckoned {want}")
+    if glive != elive:
+        raise SystemExit(f"granite: live bytes after the call {glive} "
+                         f"graphed, {elive} eager")
+    out["greedy"] = {"graphed_s": gs, "eager_s": es, "launches": gl,
+                     "replays": gst["replays"],
+                     "capture_ms": gst["capture_ms"],
+                     "pool_mib": gst["pool_bytes"] / 2**20}
+    log(f"[smoke] granite greedy request [{smi}]: graphed {gs * 1e3:.1f} "
+        f"ms, eager {es * 1e3:.1f} ms, the same bits; launches {gl}; "
+        f"capture {gst['capture_ms']:.1f} ms, pool "
+        f"{gst['pool_bytes'] / 2**20:.1f} MiB, {gst['replays']} replays")
+    if profile:
+        out["breakdown"] = bd = granite_step_breakdown(model, params, ids,
+                                                       dev)
+        log(f"[smoke] granite eager decode step [{smi}], device ms a step: "
+            f"kernels {bd['busy_ms']:.3f}; MoE FFN {bd['moe_ms']:.3f} "
+            f"(routing {bd['route_ms']:.3f}, expert products "
+            f"{bd['experts_ms']:.3f}, dispatch and combine "
+            f"{bd['dispatch_combine_ms']:.3f}); attention mixer "
+            f"{bd['attention_ms']:.3f} (B3 {bd['b3_ms']:.3f}); B1 "
+            f"{bd['rmsnorm_ms']:.3f}; the rest (embedding, unembedding, "
+            f"residual adds) {bd['rest_ms']:.3f}")
+        for us, name in bd["top"]:
+            log(f"  {us / 1e3:8.3f} ms a step  {name[:90]}")
+    del ro
+    _free()
+
+    # (c) one paged GRPO request of phase 5's shape
+    gids = torch.from_numpy(next(PromptDataset(synthetic_instruction_prompts(
+        GROUPS, seed=0), GPROMPT).batches(GROUPS, seed=0)) % cfg.vocab_size
+    ).long().to(dev)
+    paged = Rollout(model, cfg, capacity=GPROMPT + GEN, backend="paged",
+                    page_size=PAGE, temperature=0.8, top_k=serve.TOP_K)
+    L = cfg.num_layers
+    want = {k: 0 for k in ops.KERNELS}
+    want.update(flash_attention=L, paged_decode_attention=L * (GEN - 1),
+                rmsnorm=step_norms(cfg) * GEN + 1)
+    ops.reset_launches()
+    res, secs, peak = _req(lambda: paged.generate(
+        params, {"tokens": gids}, GEN,
+        torch.Generator(device=dev).manual_seed(1), group_size=GSIZE))
+    made = dict(ops.launches)
+    st = paged.page_manager.stats
+    if made != want:
+        raise SystemExit(f"granite paged GRPO: launches {made} != {want}")
+    if st.n_forks != GROUPS * (GSIZE - 1) or st.pages_in_use != 0:
+        raise SystemExit(f"granite paged GRPO: page stats {st}")
+    check_result(res, GROUPS * GSIZE, GPROMPT, cfg.vocab_size)
+    rows = GROUPS * GSIZE
+    out["paged_grpo"] = {"seconds": secs, "tokens_per_s": rows * GEN / secs,
+                         "peak_above_weights": peak, "launches": made,
+                         "cow_copies": st.n_cow_copies, "forks": st.n_forks}
+    log(f"[smoke] granite paged GRPO request [{smi}]: {secs * 1e3:.1f} ms "
+        f"({rows * GEN / secs:.1f} tok/s), peak {peak / 2**20:.1f} MiB "
+        f"above the weights, {st.n_cow_copies} CoW copies; launches {made}")
+    del res, paged
+    _free()
+
+    # (d) a paged batcher drain, graphed against eager
+    traffic = batcher_traffic(cfg.vocab_size, "mixed", seed=0,
+                              n=FAM_CB_REQUESTS)
+    kw = dict(cache_backend="paged", page_size=CB_PAGE)
+    g = serve_batcher(model, cfg, params, kw, traffic, True, dev)
+    e = serve_batcher(model, cfg, params, kw, traffic, False, dev)
+    for rec in (g, e):
+        _check_batcher_run("granite", rec, log)
+    _same_run("granite", g, e)
+    if not all(st["graphed"] and st["replays"] > 0
+               for st in g["graphs"].values()):
+        raise SystemExit(f"granite batcher: a graph never replayed: "
+                         f"{g['graphs']}")
+    tok = sum(len(t) for t in g["tokens"])
+    ms_g, ms_e = _step_ms(g), _step_ms(e)
+    out["batcher"] = {"tokens": tok, "steps": len(g["steps"]),
+                      "graphed_s": g["wall_s"], "eager_s": e["wall_s"],
+                      "step_ms": {r: (ms_g[r][0], ms_e.get(r, (None,))[0])
+                                  for r in ms_g},
+                      "launches": g["launches"], "warm_s": g["warm_s"]}
+    log(f"[smoke] granite batcher [{smi}]: {FAM_CB_REQUESTS} requests, "
+        f"{tok} tokens in {len(g['steps'])} steps, graphed {g['wall_s']:.3f}"
+        f" s ({tok / g['wall_s']:.1f} tok/s), eager {e['wall_s']:.3f} s "
+        f"({tok / e['wall_s']:.1f} tok/s), the same tokens; ms a "
+        f"decode-only step graphed / eager by rung: " + ", ".join(
+            f"{r}: {ms_g[r][0]:.3f} / {ms_e.get(r, (0.0,))[0]:.3f}"
+            for r in ms_g) + f"; launches {g['launches']}")
+    del model, params, g, e
+    _free()
+    return out
+
+
+def granite_separate(dev, log, smi) -> dict:
+    """Phase 17 (f): one separate PPO iteration on granite, 8 x (256 +
+    256), remat "full", the reward model scoring: the actor and reference
+    at full depth, the critic and reward model at GRANITE_CRITIC_LAYERS;
+    launches asserted (``ppo_launches``), finite metrics, the persistent
+    bytes, per-phase ms and MiB. Running out of memory fails the phase."""
+    actor = get_config(GRANITE)
+    critic = dataclasses.replace(actor, num_layers=GRANITE_CRITIC_LAYERS)
+    rl = RLHFConfig(engine="separate", memory_policy="after_inference",
+                    **SEP_KW)
+    _free()
+    torch.cuda.reset_peak_memory_stats()
+    tr, weights, asked = _fresh(lambda: RLHFTrainer(
+        actor, critic, rl, torch.Generator(device=dev).manual_seed(0)))
+    want = ppo_launches(actor, tr.rl, model_reward=True, critic_cfg=critic)
+    secs, m, launches, recs = _run_ppo(
+        tr, _sep_prompts(dev, 1, actor.vocab_size),
+        torch.Generator(device=dev).manual_seed(7), want,
+        "granite separate iteration", 7)
+    rows = _phase_rows(recs, weights)
+    # the records' peaks (each phase's from its boundary on) above the
+    # persistent state
+    peak = weights + max(r["peak_mib"] for r in rows) * 2**20
+    _print_phases(f"granite separate iteration [{smi}] ({secs * 1e3:.1f} "
+                  f"ms; actor and reference {actor.num_layers} layers, "
+                  f"critic and reward {critic.num_layers}; persistent "
+                  f"{weights / 1e9:.2f} GB, peak {peak / 1e9:.2f} GB)",
+                  rows, log)
+    log(f"[smoke] granite separate: launches {launches} as reckoned; " +
+        ", ".join(f"{k} {v:.4g}" for k, v in sorted(m.items())))
+    out = {"seconds": secs, "metrics": m, "launches": launches,
+           "phases": rows, "weights_bytes": weights,
+           "requested_bytes": asked, "peak_bytes": peak,
+           "actor_layers": actor.num_layers,
+           "critic_layers": critic.num_layers}
+    del tr
+    _free()
+    return out
+
+
+def families(dev, log, smi, profile=False) -> dict:
+    """Phase 17: qwen1_5_4b (a) and granite_moe_3b_a800m (b) serving at
+    full width and depth; granite's greedy graphed-against-eager request,
+    paged GRPO request and batcher drain (b-d, :func:`granite_paths`);
+    jamba_v0_1_52b serving at one period (e, JAMBA_LAYERS of its 32
+    layers); one separate PPO iteration of granite (f); the granite and
+    jamba smoke configs on the card against the CPU (g)."""
+    t0 = t = time.perf_counter()
+    out, parts = {}, {}
+
+    def part(name, fn):
+        nonlocal t
+        res = fn()
+        now = time.perf_counter()
+        parts[name], t = now - t, now
+        return res
+
+    out["qwen"] = part("qwen", lambda: family_serving(get_config(QWEN), dev,
+                                                      log))
+    out["granite"] = part("granite", lambda: family_serving(
+        get_config(GRANITE), dev, log))
+    out["granite"].update(part("granite_paths", lambda: granite_paths(
+        dev, log, smi, profile=profile)))
+    out["jamba"] = part("jamba", lambda: family_serving(dataclasses.replace(
+        get_config(JAMBA), num_layers=JAMBA_LAYERS), dev, log))
+    out["granite_separate"] = part("granite_separate",
+                                   lambda: granite_separate(dev, log, smi))
+    out["small"] = {}
+    for name, prompt in ((GRANITE, 40), (JAMBA, 64)):
+        out["small"][name] = part(f"small_{name}", lambda: (
+            check_small_model_against_cpu(dev, get_config(name).smoke(),
+                                          prompt=prompt, seed=5)))
+        log(f"[smoke] small {name} model card vs CPU: logits max_err "
+            f"{out['small'][name]:.3e}, 16 greedy tokens identical")
+    out["seconds"], out["part_seconds"] = time.perf_counter() - t0, parts
+    log("[smoke] families: " + ", ".join(f"{k} {v:.1f} s"
+                                          for k, v in parts.items()))
+    return out
+
+
 def port_kernels(rows):
     """{wrapper: {"ms", "calls", "us_per_call", "us_per_call_by_kernel"}}
     from profiler rows (us, count, name): each wrapper's kernels' device
@@ -5299,6 +5776,10 @@ def main() -> int:
     # phase 16: Megatron TP over gloo, two ranks sharing the card
     report["tp"] = tp_ppo(dev, lambda s: print(s, flush=True))
     lap(16)
+    # phase 17: three more families at full width: MoE, hybrid, dense MHA
+    report["families"] = fam = families(dev, lambda s: print(s, flush=True),
+                                        smi, profile=args.profile)
+    lap(17)
     paths = {"serve": launches, "paged_grpo": grpo["launches"],
              "mamba_serve": mamba["launches"], "ppo": ppo["launches"],
              "ppo_separate": sep["launches"],
@@ -5316,6 +5797,15 @@ def main() -> int:
                   for key, run in report["zero"]["gloo"].items()
                   if key != "ndp1"})
     paths["tp_separate"] = report["tp"]["ranks"][0]["launches"]
+    paths.update({"qwen_serve": fam["qwen"]["launches"],
+                  "granite_serve": fam["granite"]["launches"],
+                  "granite_greedy": fam["granite"]["greedy"]["launches"],
+                  "granite_paged_grpo":
+                      fam["granite"]["paged_grpo"]["launches"],
+                  "granite_batcher": fam["granite"]["batcher"]["launches"],
+                  "jamba_serve": fam["jamba"]["launches"],
+                  "granite_separate":
+                      fam["granite_separate"]["launches"]})
     paths.update({f"tp_batcher_{b}": report["tp"]["ranks"][0]["batcher"][b][
         "launches"] for b in ("dense", "paged")})
 

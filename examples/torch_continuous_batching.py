@@ -4,6 +4,12 @@ requests of different lengths join and leave between decode steps.
 
     PYTHONPATH=src python examples/torch_continuous_batching.py --device cpu
     PYTHONPATH=src python examples/torch_continuous_batching.py
+    PYTHONPATH=src python examples/torch_continuous_batching.py --device cpu \
+        --arch granite_moe_3b_a800m     # or jamba_v0_1_52b, qwen1_5_4b
+
+``--arch`` picks the smoke config of any of the port's token-input
+families (an MoE model routes each decode step's live and idle slot rows
+alike; a hybrid's slots hold KV and Mamba states side by side).
 
 Without ``--device cpu`` it runs on the card (and raises without one),
 where each decode step replays one CUDA graph; the batcher's other
@@ -29,12 +35,13 @@ from repro_torch.serving import ContinuousBatcher  # noqa: E402
 
 def main(argv=None):
     ap = argparse.ArgumentParser()
+    ap.add_argument("--arch", default="llama3_2_3b")
     ap.add_argument("--device", default=None,
                     help="cpu for the plain PyTorch path; the card "
                          "otherwise (raises without one)")
     args = ap.parse_args(argv)
     dev = default_device(args.device)
-    cfg = get_config("llama3_2_3b").smoke()
+    cfg = get_config(args.arch).smoke()
     model = Model(cfg, device=dev)
     params = model.init(torch.Generator(device=dev).manual_seed(0))
     cb = ContinuousBatcher(model, cfg, params, slots=4, capacity=96,

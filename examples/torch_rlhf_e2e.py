@@ -24,6 +24,13 @@ plain PyTorch path, where the records count the trainer's tensors):
     PYTHONPATH=src python examples/torch_rlhf_e2e.py --engine separate \
         --smoke --device cpu --steps 20
 
+The MoE and hybrid families (``granite_moe_3b_a800m``, ``jamba_v0_1_52b``)
+train on the separate engine only; the hydra engine refuses them, as the
+reference's does:
+
+    PYTHONPATH=src python examples/torch_rlhf_e2e.py --engine separate \
+        --arch granite_moe_3b_a800m --smoke --device cpu --steps 3
+
 ``--reward adapter`` scores with the frozen reward model (the reward
 adapter's value head, or on the separate engine the reward model's), so
 every phase runs a model; the default ``target`` is the reference
@@ -254,7 +261,8 @@ def run(args, shard=None, rank=0):
         if args.smoke:
             cfg = dataclasses.replace(
                 cfg.smoke(), num_layers=args.layers, d_model=args.d_model,
-                d_ff=2 * args.d_model, vocab_size=64, num_heads=4,
+                d_ff=2 * args.d_model if cfg.d_ff else 0, vocab_size=64,
+                num_heads=4,
                 num_kv_heads=2, head_dim=64)
         if args.remat:
             cfg = dataclasses.replace(cfg, remat=args.remat)

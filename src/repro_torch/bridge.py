@@ -7,7 +7,11 @@ The reference stacks each segment's layers on a leading group axis
 per layer in ``params["layers"]``. Layer ``g * len(period) + j`` is group
 ``g`` of slot ``j``. Leaves keep their fused ``[d_model, heads*head_dim]``
 layout and their own dtype (a Mamba mixer's ``dt_bias``, ``A_log`` and
-``D`` stay fp32 in a bf16 model). Both sides are handled as numpy arrays,
+``D`` stay fp32 in a bf16 model, as does an MoE FFN's ``router``; its
+experts' ``w_in``/``w_gate`` [E, D, F] and ``w_out`` [E, F, D] stack over
+groups like any leaf). A period of several slots (Jamba's 8: Mamba,
+attention, dense and MoE FFNs) maps slot by slot, each slot's dict of
+its own shape. Both sides are handled as numpy arrays,
 so this module needs no JAX: the caller passes
 ``jax.tree.map(np.asarray, params)``.
 

@@ -1,8 +1,9 @@
 """Model configs and the architecture registry.
 
 A copy of the parts of ``repro/configs/base.py`` that the port's
-decoder reads (attention and Mamba2 layers); the port keeps its own copy
-so that it imports nothing of ``repro``. Each architecture lives in its own
+decoder reads (attention and Mamba2 layers, dense and Mixture-of-Experts
+FFNs); the port keeps its own copy so that it imports nothing of
+``repro``. Each architecture lives in its own
 ``configs/<id>.py`` file and registers a full-size :class:`ModelConfig`;
 ``smoke()`` derives the reduced variant the CPU tests use.
 """
@@ -14,6 +15,16 @@ from typing import Optional, Tuple
 
 ATTN = "attn"     # (sliding-window capable) GQA/MHA self-attention block
 MAMBA = "mamba"   # Mamba2 SSD block
+
+
+@dataclass(frozen=True)
+class MoEConfig:
+    num_experts: int
+    top_k: int
+    d_expert: int                 # per-expert FFN hidden size
+    num_shared_experts: int = 0   # DeepSeek-style always-on shared experts
+    router_aux_coef: float = 0.01
+    capacity_factor: float = 1.25
 
 
 @dataclass(frozen=True)
@@ -40,9 +51,13 @@ class ModelConfig:
     d_model: int
     num_heads: int                # query heads (0 for attention-free)
     num_kv_heads: int
-    d_ff: int                     # dense FFN hidden (0 if every layer is SSM)
+    d_ff: int                     # dense FFN hidden (0 if every layer is MoE/SSM)
     vocab_size: int
+    # The network is ``num_layers / len(period)`` repetitions of ``period``.
     period: Tuple[str, ...] = (ATTN,)
+    moe_period: Tuple[bool, ...] = (False,)   # which period slots are MoE FFNs
+    first_k_dense: int = 0                    # leading layers forced dense FFN
+    moe: Optional[MoEConfig] = None
     ssm: Optional[SSMConfig] = None
     head_dim: int = 0                         # 0 => d_model // num_heads
     qkv_bias: bool = False
@@ -53,7 +68,7 @@ class ModelConfig:
     tie_embeddings: bool = False
     norm_eps: float = 1e-5
     param_dtype: str = "bfloat16"
-    optimizer: str = "adamw"                  # adamw only in the port
+    optimizer: str = "adamw"                  # adamw (adamw_bf16, adafactor: A11)
     remat: str = "full"                       # none | full (per layer)
     microbatches: int = 1                     # gradient-accumulation steps
     mtp_depth: int = 0                        # DeepSeek multi-token prediction
@@ -71,17 +86,26 @@ class ModelConfig:
         reps = -(-self.num_layers // len(self.period))
         return tuple((self.period * reps)[: self.num_layers])
 
+    def layer_is_moe(self) -> Tuple[bool, ...]:
+        """Per-layer MoE flag: ``moe_period`` repeated, the first
+        ``first_k_dense`` layers forced dense."""
+        reps = -(-self.num_layers // len(self.moe_period))
+        flags = list((self.moe_period * reps)[: self.num_layers])
+        for i in range(min(self.first_k_dense, self.num_layers)):
+            flags[i] = False
+        return tuple(flags)
+
     def param_count(self) -> int:
         """Analytic parameter count (rooflines, 6ND; the simulator's phase
         flops and weight bytes) — ``repro/configs/base.py:124-172``. The
-        MLA, MoE and encoder branches read fields the port's config does
-        not have; for every config it registers they add nothing."""
+        MLA and encoder branches read fields the port's config does not
+        have; for every config it registers they add nothing."""
         d, v = self.d_model, self.vocab_size
         hd = self.resolved_head_dim()
         total = v * d  # embeddings
         if not self.tie_embeddings:
             total += v * d
-        for kind in self.layer_kinds():
+        for kind, moe_l in zip(self.layer_kinds(), self.layer_is_moe()):
             total += 2 * d  # two norms
             if kind == ATTN:
                 q = d * self.num_heads * hd
@@ -99,10 +123,26 @@ class ModelConfig:
                 total += s.d_conv * (di + 2 * s.d_state)        # conv
                 total += di * d                                 # out_proj
                 total += 2 * nh                                 # A_log, D
-            if kind != MAMBA:
+            if moe_l and self.moe is not None:
+                e = self.moe
+                per = 3 * d * e.d_expert
+                total += (e.num_experts + e.num_shared_experts) * per
+                total += d * e.num_experts  # router
+            elif kind != MAMBA:
                 total += (3 if self.mlp_gated else 2) * d * self.d_ff
         total += d  # final norm
         return total
+
+    def active_param_count(self) -> int:
+        """Params touched per token (MoE: routed top-k + shared only)."""
+        if self.moe is None:
+            return self.param_count()
+        e = self.moe
+        dense_equiv = replace(
+            self, moe=MoEConfig(
+                num_experts=e.top_k, top_k=e.top_k, d_expert=e.d_expert,
+                num_shared_experts=e.num_shared_experts))
+        return dense_equiv.param_count()
 
     def smoke(self) -> "ModelConfig":
         """Reduced same-family variant for CPU tests: the same widths as
@@ -119,6 +159,12 @@ class ModelConfig:
             name=self.name + "-smoke",
             ssm=SSMConfig(d_state=16, d_conv=4, expand=2, head_dim=32,
                           chunk_size=32) if self.ssm is not None else None,
+            moe=MoEConfig(
+                num_experts=4, top_k=2, d_expert=128,
+                num_shared_experts=min(self.moe.num_shared_experts, 1),
+                capacity_factor=8.0)   # drop-free: exact decode==forward
+            if self.moe is not None else None,
+            first_k_dense=min(self.first_k_dense, 1),
             num_layers=n_layers,
             d_model=256,
             num_heads=nh,

@@ -190,12 +190,19 @@ def ssd_scan(x, a, b, c, chunk: int, initial_state=None):
     zero state (the prefill's case), as the reference's kernel path does
     (``repro/kernels/ops.py:37-42``). ``initial_state`` mirrors the
     reference's signature; nothing on the port's path passes it until the
-    paged suffix prefill is ported."""
+    paged suffix prefill is ported. B5 has no backward kernel: on a CUDA
+    tensor that needs a gradient it raises rather than return outputs
+    the gradient would not flow through (a Mamba layer trains on the CPU
+    path only; ROADMAP A11)."""
     if _on_cpu(x):
         return _ref.ssd_scan_ref(x, a, b, c, chunk, initial_state)
     if initial_state is not None:
         raise NotImplementedError(
             "the ssd scan kernel starts from a zero state (prefill)")
+    if x.device.type == "cuda" and _needs_grad(x, a, b, c):
+        raise NotImplementedError(
+            "the ssd scan kernel (B5) has no backward: training a Mamba "
+            "layer on the card is not ported (ROADMAP A11)")
     out = _ssd.ssd_scan(x, a, b, c, chunk)
     _count("ssd_scan", x)
     return out

@@ -1,5 +1,6 @@
-"""Decoder LM for token-input configs of attention and Mamba2 layers — the
-port of ``repro/models/transformer.py`` (``Model``: init, embed/unembed,
+"""Decoder LM for token-input configs of attention and Mamba2 layers with
+dense or Mixture-of-Experts FFNs (``models/moe.py``) — the port of
+``repro/models/transformer.py`` (``Model``: init, embed/unembed,
 the layer stack, forward, caches, prefill and one-token decode, and the
 paged prefill and decode over per-layer page pools), DeepSeek's chained
 multi-token-prediction (MTP) heads with the self-speculative decode they
@@ -21,7 +22,15 @@ keeps depth 1 in ``params["mtp"]`` and stacks depths 2..k on
 ``params["mtp_extra"]``'s lead axis (``repro_torch.bridge`` converts
 between the two layouts). Caches and
 paged pools are one dict per layer, updated in place: a rolling KV cache
-for an attention layer, the conv and SSM states for a Mamba layer.
+for an attention layer, the conv and SSM states for a Mamba layer (a
+hybrid such as Jamba holds both kinds in one list).
+
+A layer's FFN is MoE where ``cfg.layer_is_moe()`` says so and dense
+where ``cfg.d_ff`` (a Mamba layer carries one too, as the reference's
+``_seg_has_ffn``); an MoE FFN is told by its ``router`` leaf. The full
+forward sums the MoE layers' load-balance losses (``forward`` returns
+``(logits, aux, h)``, as the reference); the cache paths run the same
+MoE FFNs and drop the loss.
 
 Under an ambient tensor-parallel group (``sharding.ctx.use_mesh`` on a
 mesh whose ``model`` axis is above 1; ``sharding/tp.py``) the params are
@@ -33,7 +42,7 @@ layers run at the rank's head counts (``models/layers.py``).
 """
 from __future__ import annotations
 
-from typing import List, Optional, Tuple
+from typing import List, Optional
 
 import torch
 from torch.utils.checkpoint import checkpoint
@@ -43,6 +52,7 @@ from repro_torch.configs.base import ATTN, MAMBA, ModelConfig
 from repro_torch.models import layers as L
 from repro_torch.models import lora as LORA
 from repro_torch.models import mamba as M
+from repro_torch.models import moe as MOE
 from repro_torch.offload.policies import REMATS, remat_policy_for
 from repro_torch.paged import attention as PA
 from repro_torch.paged import paged_cache as PC
@@ -59,11 +69,15 @@ class Model:
 
     def __init__(self, cfg: ModelConfig, device=None, *,
                  with_value: bool = False):
-        if cfg.input_mode != "tokens" or \
-                any(k not in (ATTN, MAMBA) for k in cfg.period):
-            raise NotImplementedError(
-                f"{cfg.name}: the port serves token-input configs of "
-                "attention and Mamba2 layers")
+        if any(k not in (ATTN, MAMBA) for k in cfg.period):
+            raise NotImplementedError(f"{cfg.name}: the port does not run "
+                                      "MLA layers yet (ROADMAP A11 4)")
+        if cfg.input_mode != "tokens":
+            what = {"encdec": "an encoder-decoder",
+                    "embeddings": "prefix embeddings"}.get(
+                        cfg.input_mode, f"{cfg.input_mode!r} inputs")
+            raise NotImplementedError(f"{cfg.name}: the port does not run "
+                                      f"{what} yet (ROADMAP A11 6)")
         if MAMBA in cfg.period and cfg.ssm is None:
             raise ValueError(f"{cfg.name}: a Mamba layer needs cfg.ssm")
         if cfg.remat not in REMATS:
@@ -71,20 +85,27 @@ class Model:
         self.cfg = cfg
         self.with_value = with_value
         self.kinds = cfg.layer_kinds()
+        self.moe_flags = tuple(m and cfg.moe is not None
+                               for m in cfg.layer_is_moe())
         self.device = default_device(device)
         self.dtype = DTYPES[cfg.param_dtype]
 
     # ------------------------------------------------------------------ init
-    def _init_layer(self, generator: torch.Generator, kind: str) -> dict:
-        """One layer's parameters; ``norm2`` and ``ffn`` only when the
-        config has an FFN (``d_ff > 0``), as in the reference."""
+    def _init_layer(self, generator: torch.Generator, kind: str,
+                    is_moe: bool) -> dict:
+        """One layer's parameters: ``norm2`` with an MoE ``ffn`` where
+        ``is_moe``, else with a dense one where the config has ``d_ff``,
+        else neither (the reference's ``_init_slot``)."""
         cfg, dt, dev = self.cfg, self.dtype, self.device
         layer = {"norm1": L.init_norm(cfg.d_model, dt, dev)}
         if kind == ATTN:
             layer["mixer"] = L.init_attention(generator, cfg, dt)
         else:
             layer["mixer"] = M.init_mamba(generator, cfg, dt)
-        if cfg.d_ff:
+        if is_moe:
+            layer["norm2"] = L.init_norm(cfg.d_model, dt, dev)
+            layer["ffn"] = MOE.init_moe(generator, cfg, dt)
+        elif cfg.d_ff:
             layer["norm2"] = L.init_norm(cfg.d_model, dt, dev)
             layer["ffn"] = L.init_mlp(generator, cfg.d_model, cfg.d_ff,
                                       cfg.mlp_gated, cfg.num_layers, dt)
@@ -108,8 +129,9 @@ class Model:
                                  dtype=self.dtype),
                 "final_norm": L.init_norm(cfg.d_model, self.dtype,
                                           self.device),
-                "layers": [self._init_layer(generator, kind)
-                           for kind in self.kinds],
+                "layers": [self._init_layer(generator, kind, is_moe)
+                           for kind, is_moe in zip(self.kinds,
+                                                   self.moe_flags)],
             }
             if not cfg.tie_embeddings:
                 params["lm_head"] = L._init(
@@ -127,13 +149,16 @@ class Model:
     def _init_mtp_module(self, generator: torch.Generator) -> dict:
         """One MTP module: ``proj`` [2D, D] over the normed (h, emb) pair,
         ``norm_h``, ``norm_e`` and one layer of the kind the reference
-        gives it (its last segment's first)."""
+        gives it (its last segment's first: the period's first kind and
+        MoE flag)."""
         cfg, dt, dev = self.cfg, self.dtype, self.device
         return {"proj": L._init(generator, (2 * cfg.d_model, cfg.d_model),
                                 dtype=dt),
                 "norm_h": L.init_norm(cfg.d_model, dt, dev),
                 "norm_e": L.init_norm(cfg.d_model, dt, dev),
-                "layer": self._init_layer(generator, self._mtp_kind())}
+                "layer": self._init_layer(
+                    generator, self._mtp_kind(),
+                    cfg.moe is not None and cfg.moe_period[0])}
 
     def _mtp_kind(self) -> str:
         return self.cfg.period[0]
@@ -186,9 +211,24 @@ class Model:
         return L._column_input(h) @ w
 
     # -------------------------------------------------------------- full seq
+    def _ffn(self, layer, h, ad):
+        """The layer's FFN on the residual ``h`` -> (h, MoE aux loss or
+        None): MoE where its ``ffn`` has a router (no adapter, as in the
+        reference), else the dense MLP with its LoRA sites."""
+        if "ffn" not in layer:
+            return h, None
+        cfg = self.cfg
+        x2 = L.rms_norm(h, layer["norm2"], cfg.norm_eps)
+        if "router" in layer["ffn"]:
+            y, aux = MOE.moe_fwd(layer["ffn"], x2, cfg)
+            return h + y, aux
+        return h + L.mlp_fwd(layer["ffn"], x2, cfg.mlp_gated,
+                             adapter=ad.get("ffn")), None
+
     def _slot_fwd(self, layer, kind, h, positions, *, window,
                   init_cache: Optional[dict] = None, adapter=None):
-        """One layer. With ``init_cache`` (prefill) it also fills the
+        """One layer -> (h, MoE aux loss or None, filled cache or None).
+        With ``init_cache`` (prefill) it also fills the
         layer's decode cache in the same pass: an attention layer's
         rolling KV cache, or a Mamba layer's conv and SSM states (copied
         into the cache's buffers). ``adapter`` is the layer's LoRA subtree
@@ -210,18 +250,16 @@ class Model:
             cache = init_cache
         else:
             y = M.mamba_fwd(layer["mixer"], x, cfg)
-        h = h + y
-        if "ffn" in layer:
-            x2 = L.rms_norm(h, layer["norm2"], cfg.norm_eps)
-            h = h + L.mlp_fwd(layer["ffn"], x2, cfg.mlp_gated,
-                              adapter=ad.get("ffn"))
-        return h, cache
+        h, aux = self._ffn(layer, h + y, ad)
+        return h, aux, cache
 
     def _stack_fwd(self, params, h, positions, *, window=0,
                    init_caches: Optional[List[dict]] = None, adapter=None,
                    layer_specs=None):
-        """Run every layer. Returns (h, filled caches or None).
-        ``adapter`` is a LoRA adapter over ``params``. With ``cfg.remat``
+        """Run every layer. Returns (h, aux, filled caches or None): aux is
+        the sum of the MoE layers' load-balance losses (a 0-d fp32
+        tensor; 0.0 without an MoE layer). ``adapter`` is a LoRA adapter
+        over ``params``. With ``cfg.remat``
         other than "none" and grad mode on, each layer is one activation
         checkpoint (non-reentrant) under ``remat_policy_for(cfg.remat)``:
         its forward runs again in the backward, kernels included (the
@@ -251,49 +289,52 @@ class Model:
         if remat:
             ckpt_kw, around = remat_policy_for(self.cfg.remat)
         caches = []
+        aux_total = 0.0
         for i, (kind, layer) in enumerate(zip(self.kinds, params["layers"])):
             if remat:
                 with around():
-                    h = checkpoint(
+                    h, a = checkpoint(
                         lambda hh, i=i, layer=layer, kind=kind, ad=ads[i]:
                         self._slot_fwd(gathered(i, layer), kind, hh,
                                        positions, window=window,
-                                       adapter=ad)[0],
+                                       adapter=ad)[:2],
                         h, use_reentrant=False, **ckpt_kw)
-                caches.append(None)
-                continue
-            if lg is not None and torch.is_grad_enabled():
+                c = None
+            elif lg is not None and torch.is_grad_enabled():
                 # a recorded forward: the weights autograd saves are kept
                 # as shards and gathered again by the backward
                 with lg.saving_shards(i, layer) as full:
-                    h, c = self._slot_fwd(full, kind, h, positions,
-                                          window=window, adapter=ads[i])
-                caches.append(c)
-                continue
-            h, c = self._slot_fwd(
-                gathered(i, layer), kind, h, positions, window=window,
-                init_cache=None if init_caches is None else init_caches[i],
-                adapter=ads[i])
+                    h, a, c = self._slot_fwd(full, kind, h, positions,
+                                             window=window, adapter=ads[i])
+            else:
+                h, a, c = self._slot_fwd(
+                    gathered(i, layer), kind, h, positions, window=window,
+                    init_cache=None if init_caches is None
+                    else init_caches[i], adapter=ads[i])
             caches.append(c)
-        return h, (caches if init_caches is not None else None)
+            if a is not None:
+                aux_total = aux_total + a
+        return h, aux_total, (caches if init_caches is not None else None)
 
     def _positions(self, tokens: torch.Tensor) -> torch.Tensor:
         B, S = tokens.shape
         return torch.arange(S, device=tokens.device).expand(B, S)
 
     def forward(self, params, batch, *, window: int = 0, adapter=None,
-                layer_specs=None) -> Tuple[torch.Tensor, torch.Tensor]:
-        """Full-sequence forward -> (logits [B,S,V], h_final). ``adapter``
+                layer_specs=None):
+        """Full-sequence forward -> (logits [B,S,V], aux, h_final), as the
+        reference's: aux is the MoE load-balance loss (a 0-d fp32 tensor
+        on an MoE model, 0.0 on one without MoE layers). ``adapter``
         (a LoRA adapter) is applied unmerged; ``layer_specs`` gathers a
         ZeRO-3 tree's layers one at a time (:meth:`_stack_fwd`). The
         caller picks the grad mode: training differentiates through it,
         scoring runs it under ``torch.no_grad()``."""
         tokens = batch["tokens"]
         h = self.embed(params, tokens)
-        h, _ = self._stack_fwd(params, h, self._positions(tokens),
-                               window=window, adapter=adapter,
-                               layer_specs=layer_specs)
-        return self.unembed(params, h), h
+        h, aux, _ = self._stack_fwd(params, h, self._positions(tokens),
+                                    window=window, adapter=adapter,
+                                    layer_specs=layer_specs)
+        return self.unembed(params, h), aux, h
 
     def forward_value(self, params, batch, adapter=None,
                       layer_specs=None) -> torch.Tensor:
@@ -303,8 +344,8 @@ class Model:
         without one the model's own ``params["value_head"]``."""
         tokens = batch["tokens"]
         h = self.embed(params, tokens)
-        h, _ = self._stack_fwd(params, h, self._positions(tokens),
-                               adapter=adapter, layer_specs=layer_specs)
+        h, _, _ = self._stack_fwd(params, h, self._positions(tokens),
+                                  adapter=adapter, layer_specs=layer_specs)
         h = L.rms_norm(h, params["final_norm"], self.cfg.norm_eps)
         vh = (adapter or {}).get("value_head") or params["value_head"]
         return (h.float() @ vh["w"] + vh["b"])[..., 0]
@@ -317,10 +358,9 @@ class Model:
         eps = self.cfg.norm_eps
         h_in = torch.cat([L.rms_norm(h_prev, module["norm_h"], eps),
                           L.rms_norm(e_next, module["norm_e"], eps)], -1)
-        hh, _ = self._slot_fwd(module["layer"], self._mtp_kind(),
-                               h_in @ module["proj"], positions,
-                               window=window)
-        return hh
+        return self._slot_fwd(module["layer"], self._mtp_kind(),
+                              h_in @ module["proj"], positions,
+                              window=window)[0]
 
     def mtp_logits(self, params, h, tokens) -> torch.Tensor:
         """DeepSeek multi-token prediction: predict t_{i+2} from h_i and
@@ -427,9 +467,10 @@ class Model:
         h = self.embed(params, tokens)
         B = h.shape[0]
         init_caches = self.init_cache(B, capacity, h.dtype, h.device)
-        h, filled = self._stack_fwd(params, h, self._positions(tokens),
-                                    window=window, init_caches=init_caches,
-                                    adapter=adapter)
+        h, _, filled = self._stack_fwd(params, h, self._positions(tokens),
+                                       window=window,
+                                       init_caches=init_caches,
+                                       adapter=adapter)
         if lengths is None:
             return h[:, -1], filled
         idx = torch.clamp(lengths - 1, min=0).long()
@@ -441,7 +482,9 @@ class Model:
         """A pass of ``tokens`` [B, T] over every layer; ``mix(i, mixer,
         x, ad)`` steps layer i's mixer on its cache (dense or paged KV, or
         Mamba states) under the mixer's LoRA sites ``ad`` (None without an
-        adapter). -> h [B, T, D], pre-final-norm."""
+        adapter), then the layer's FFN runs (an MoE one routes these B*T
+        tokens, idle rows included; its loss is dropped). -> h [B, T, D],
+        pre-final-norm."""
         cfg = self.cfg
         lora = (adapter or {}).get("lora") or {}
         ads = lora.get("layers") or [None] * len(self.kinds)
@@ -450,10 +493,7 @@ class Model:
             ad = ads[i] or {}
             x = L.rms_norm(h, layer["norm1"], cfg.norm_eps)
             h = h + mix(i, layer["mixer"], x, ad.get("mixer"))
-            if "ffn" in layer:
-                x2 = L.rms_norm(h, layer["norm2"], cfg.norm_eps)
-                h = h + L.mlp_fwd(layer["ffn"], x2, cfg.mlp_gated,
-                                  adapter=ad.get("ffn"))
+            h = self._ffn(layer, h, ad)[0]
         return h
 
     def _decode(self, params, token, mix, adapter=None) -> torch.Tensor:

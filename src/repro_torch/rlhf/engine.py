@@ -58,6 +58,10 @@ class ModelEngine:
         if not all(k == ATTN for k in cfg.layer_kinds()):
             raise ValueError(f"hydra engine covers attention-only trunks, "
                              f"got {cfg.name}")
+        if cfg.moe is not None:
+            raise ValueError(f"hydra engine covers dense FFNs, got "
+                             f"{cfg.name}'s MoE layers (engine='separate' "
+                             "trains them)")
         self.cfg = cfg
         self.rank = rank
         if base_params is None:

@@ -101,8 +101,8 @@ class GRPOTrainer:
         plan = self.plan
         if plan is not None:
             params = plan.gather(params)
-        logits, _ = self.actor.forward(
-            params, batch, layer_specs=getattr(plan, "layer_specs", None))
+        logits = self.actor.forward(
+            params, batch, layer_specs=getattr(plan, "layer_specs", None))[0]
         return _action_logp(logits, batch["tokens"])
 
     def _generate(self, prompts, generator, G: int):
@@ -126,7 +126,7 @@ class GRPOTrainer:
         paged rollout backend the G samples fork one shared prompt prefill
         (CoW page sharing) — same sampled stream as the dense repeat, with
         the prompt prefilled once per unique prompt."""
-        with shctx.use_mesh(None if self.shard is None else self.shard.tp):
+        with shctx.use_mesh(self.shard):
             return self._train_step(prompts, generator)
 
     def _train_step(self, prompts, generator) -> Dict[str, float]:

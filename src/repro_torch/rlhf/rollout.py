@@ -239,7 +239,7 @@ class Rollout:
                                                dtype=torch.long, device=dev)}
                 lens = torch.zeros((batch_size,), dtype=torch.int32,
                                    device=dev)
-                with shctx.use_mesh(self.tp):
+                with shctx.use_mesh(self.mesh):
                     self.model.prefill(params, batch, self._cap_eff,
                                        window=self.window, lengths=lens)
                 self.compile_cache.warm(("prefill", self.backend, Sb))
@@ -255,7 +255,7 @@ class Rollout:
                  group_size: int = 1) -> RolloutResult:
         """batch: {"tokens": [B, P]} prompt ids (see :meth:`_generate`);
         under the rollout's mesh when it has one."""
-        with shctx.use_mesh(self.tp):
+        with shctx.use_mesh(self.mesh):
             return self._generate(params, batch, max_new_tokens, generator,
                                   group_size)
 

@@ -945,7 +945,8 @@ class RLHFTrainer:
             return fn(*args)
         comm = self.shard.comm
         n = B // comm.size
-        out = fn(*(a.narrow(0, comm.rank * n, n) for a in args))
+        with self.shard.sharded_batch():
+            out = fn(*(a.narrow(0, comm.rank * n, n) for a in args))
         return comm.all_gather(out, 0)
 
     def _role_gather_bytes(self) -> Dict[str, int]:
@@ -1106,7 +1107,7 @@ class RLHFTrainer:
                         generator: torch.Generator) -> Dict[str, Any]:
         """Phases 1-5: rollout and the four scoring forwards (under
         ``torch.no_grad()``) -> the experience batch."""
-        with shctx.use_mesh(self._tp):
+        with shctx.use_mesh(self.shard):
             return self._make_experience(prompts, generator)
 
     def _make_experience(self, prompts, generator) -> Dict[str, Any]:
@@ -1152,7 +1153,7 @@ class RLHFTrainer:
         the moment of failure) and re-raised: the recorder observes, it
         never swallows."""
         try:
-            with shctx.use_mesh(self._tp):
+            with shctx.use_mesh(self.shard):
                 return self._train_step(prompts, generator)
         except Exception as e:
             fl = self.memory.flight

@@ -62,7 +62,7 @@ trees for the simulator.
 from __future__ import annotations
 
 from contextlib import contextmanager
-from dataclasses import dataclass
+from dataclasses import dataclass, field
 from typing import Any, List, Optional, Tuple
 
 import torch
@@ -419,6 +419,10 @@ class TreePlan:
     shapes: Optional[Any] = None
     # the model group's operators (tensor parallelism), or None
     tp: Optional[Any] = None
+    # the ShardedContext that made the plan: the ambient mesh of a step on
+    # it (``steps``), whose data axis and ``comm.batch_sharded`` the MoE
+    # FFN's routing reads (``models/moe.py``)
+    context: Optional[Any] = field(default=None, repr=False, compare=False)
 
     @property
     def gather_mode(self) -> str:
@@ -758,7 +762,7 @@ class ShardedContext:
         return TreePlan(mesh, strat, pspecs, compute, opt_specs,
                         update_specs, layer_param_specs=layer_full,
                         layer_specs=layer_slices, comm=self.comm,
-                        shapes=shape_tree, tp=self.tp)
+                        shapes=shape_tree, tp=self.tp, context=self)
 
     def plan_params(self, cfg, params_shape, optimizer=None) -> TreePlan:
         """Plan for a full model tree (``rules.param_pspecs``). Layer mode

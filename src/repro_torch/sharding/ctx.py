@@ -14,6 +14,10 @@ DP-only mesh every activation is whole on its rank and ``constrain`` and
 ``constrain_spec`` return their input; on a mesh with a model axis above 1
 a hint has no meaning here and raises.
 
+``dp_size`` reads the ambient mesh's data-parallel domain, which the MoE
+FFN routes over (``models/moe.py``: one routing group a DP shard, as the
+reference's ``_num_dp_shards``).
+
 ``resolve_entry`` resolves a hint entry against a mesh as the reference
 does ("dp" -> the DP axes present, "model" -> itself, a non-divisible dim
 -> None). ``segment_param_specs`` is the ambient per-layer gather hook:
@@ -50,6 +54,21 @@ def use_mesh(mesh):
         yield mesh
     finally:
         _MESH = prev
+
+
+def dp_size(mesh=None) -> int:
+    """The size of the DP axes of ``mesh`` (by default the ambient one):
+    a ``ShardedContext``'s ``ndp``, the product of a ``SpecMesh``'s or a
+    ``DeviceMesh``'s DP axes; 1 without a mesh or for a TP group alone."""
+    mesh = _MESH if mesh is None else mesh
+    if mesh is None:
+        return 1
+    if hasattr(mesh, "spec_mesh"):
+        return mesh.ndp
+    if not hasattr(mesh, "shape"):
+        return 1
+    shape = _shape(mesh)
+    return _axsize(mesh, tuple(a for a in DP_AXIS_NAMES if a in shape))
 
 
 def _shape(mesh) -> dict:

@@ -46,7 +46,7 @@ from typing import Dict, Optional, Tuple
 import torch
 import torch.distributed as dist
 
-from repro_torch.configs.base import ATTN, MAMBA, ModelConfig
+from repro_torch.configs.base import MAMBA, ModelConfig
 from repro_torch.sharding import ctx as shctx
 
 A10C = "ROADMAP A10c"
@@ -55,9 +55,15 @@ A10C = "ROADMAP A10c"
 SITES = ("row", "embed", "logits", "lora", "grad", "gather")
 
 
-def _not_ported(what: str) -> NotImplementedError:
+def _not_ported(what: str, item: str = "") -> NotImplementedError:
     return NotImplementedError(
-        f"tensor parallelism (ntp > 1) with {what} is not ported ({A10C})")
+        f"tensor parallelism (ntp > 1) with {what} is not ported "
+        f"({A10C}{' ' + item if item else ''})")
+
+
+def moe_refusal(name: str) -> NotImplementedError:
+    """MoE under TP: ``models/moe_shard_map.py`` is ROADMAP A10c 4."""
+    return _not_ported(f"{name}'s MoE layers (moe_shard_map)", "4")
 
 
 def check_supported(cfg: ModelConfig, ntp: int, *,
@@ -66,8 +72,8 @@ def check_supported(cfg: ModelConfig, ntp: int, *,
     ROADMAP item; nothing at ``ntp`` 1."""
     if ntp <= 1:
         return
-    if any(k not in (ATTN, MAMBA) for k in cfg.period):
-        raise _not_ported(f"{cfg.name}'s MoE layers (moe_shard_map)")
+    if cfg.moe is not None and any(cfg.layer_is_moe()):
+        raise moe_refusal(cfg.name)
     if MAMBA in cfg.period:
         raise _not_ported(f"{cfg.name}'s Mamba layers")
     if cfg.mtp_depth:
@@ -275,5 +281,5 @@ def kv_heads(cfg: ModelConfig) -> int:
 
 
 __all__ = ["A10C", "SITES", "TensorParallel", "check_supported", "current",
-           "degree", "kv_heads", "refuse_graphs", "register", "resolve",
-           "size"]
+           "degree", "kv_heads", "moe_refusal", "refuse_graphs", "register",
+           "resolve", "size"]

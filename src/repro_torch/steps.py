@@ -146,14 +146,17 @@ def mtp_chain_loss(model: Model, params, h, batch, count: Count = None):
     return total / len(losses)
 
 
-def _with_mtp(cfg: ModelConfig, kind: str, loss, metrics, mtp_fn):
+def _with_aux(cfg: ModelConfig, kind: str, loss, metrics, aux, mtp_fn):
     """Add the MTP auxiliary loss (``0.1 * mtp_chain_loss``, reported as
     ``mtp_loss``) where the config has MTP heads and the step is not the
-    critic's."""
+    critic's, then the forward's MoE load-balance loss ``aux`` (the
+    reference's ``loss + aux``; nothing on a model without MoE layers)."""
     if cfg.mtp_depth and kind != "critic":
         mtp = mtp_fn()
         loss = loss + 0.1 * mtp
         metrics = dict(metrics, mtp_loss=mtp)
+    if torch.is_tensor(aux):
+        loss = loss + aux
     return loss, metrics
 
 
@@ -208,15 +211,14 @@ def _update_(optimizer, state, grads, lr: float, max_grad_norm: float):
     return gnorm
 
 
-def _tp_group(cfg: ModelConfig, *plans):
-    """The model group a step on ``plans`` runs under (None without one);
-    ``cfg`` is checked against what the port runs tensor parallel
-    (``sharding.tp.check_supported``)."""
+def _check_tp(cfg: ModelConfig, *plans) -> None:
+    """``cfg`` against what the port runs tensor parallel at the plans'
+    model degree (``sharding.tp.check_supported``). A sharded step runs
+    under its plan's ``ShardedContext`` (``sharding.ctx.use_mesh``): its
+    model group, its data axis and whether the batch is split."""
     ntp = max((getattr(p.strat, "ntp", 1) for p in plans if p is not None),
               default=1)
     TP.check_supported(cfg, ntp)
-    return next((p.tp for p in plans if getattr(p, "tp", None) is not None),
-                None)
 
 
 def _reset_stash(plan) -> None:
@@ -297,7 +299,7 @@ def make_train_step(model: Model, cfg: ModelConfig, *, lr: float = 3e-5,
     ``TreePlan``) makes it ZeRO-aware (the module docstring)."""
     if kind not in ("ppo", "critic", "lm"):
         raise ValueError(f"kind must be ppo, critic or lm, not {kind!r}")
-    tp = _tp_group(cfg, shard)
+    _check_tp(cfg, shard)
     optimizer = make_optimizer(cfg.optimizer)
     # per-layer ZeRO-3 gather (gather_mode "layer") inside the model
     lspecs = getattr(shard, "layer_specs", None)
@@ -307,7 +309,7 @@ def make_train_step(model: Model, cfg: ModelConfig, *, lr: float = 3e-5,
         if kind == "critic":
             return critic_loss(model.forward_value(
                 params, batch, layer_specs=lspecs), batch, count=count)
-        logits, h = model.forward(params, batch, layer_specs=lspecs)
+        logits, aux, h = model.forward(params, batch, layer_specs=lspecs)
         if kind == "lm":
             loss = lm_loss(logits, batch["tokens"], batch["loss_mask"],
                            count=count)
@@ -315,8 +317,9 @@ def make_train_step(model: Model, cfg: ModelConfig, *, lr: float = 3e-5,
         else:
             loss, metrics = ppo_actor_loss(logits, batch, kl_coef=kl_coef,
                                            count=count)
-        return _with_mtp(cfg, kind, loss, metrics, lambda: mtp_chain_loss(
-            model, params, h, batch, count=count))
+        return _with_aux(cfg, kind, loss, metrics, aux,
+                         lambda: mtp_chain_loss(model, params, h, batch,
+                                                count=count))
 
     N = max(1, cfg.microbatches)
 
@@ -328,7 +331,7 @@ def make_train_step(model: Model, cfg: ModelConfig, *, lr: float = 3e-5,
             gnorm = _update_(optimizer, state, grads, lr, max_grad_norm)
             return state, dict(metrics, loss=loss, grad_norm=gnorm)
         _reset_stash(shard)
-        with torch.enable_grad(), shctx.use_mesh(tp):
+        with torch.enable_grad(), shctx.use_mesh(shard.context):
             compute = shard.gather(state["params"])
             (loss, metrics), grads = _accumulated_grads(loss_fn, compute,
                                                         batch, N)
@@ -370,7 +373,7 @@ def make_lora_train_step(model: Model, cfg: ModelConfig, *, lr: float = 3e-5,
                          f"{kind!r}")
     if base_shard is not None and shard is None:
         raise ValueError("base_shard without an adapter plan")
-    tp = _tp_group(cfg, shard, base_shard)
+    _check_tp(cfg, shard, base_shard)
     optimizer = make_optimizer(cfg.optimizer)
     blspecs = getattr(base_shard, "layer_specs", None)
 
@@ -380,12 +383,13 @@ def make_lora_train_step(model: Model, cfg: ModelConfig, *, lr: float = 3e-5,
             values = model.forward_value(base_params, batch, adapter=adapter,
                                          layer_specs=blspecs)
             return critic_loss(values, batch, count=count)
-        logits, h = model.forward(base_params, batch, adapter=adapter,
-                                  layer_specs=blspecs)
+        logits, aux, h = model.forward(base_params, batch, adapter=adapter,
+                                       layer_specs=blspecs)
         loss, metrics = ppo_actor_loss(logits, batch, kl_coef=kl_coef,
                                        count=count)
-        return _with_mtp(cfg, kind, loss, metrics, lambda: mtp_chain_loss(
-            model, base_params, h, batch, count=count))
+        return _with_aux(cfg, kind, loss, metrics, aux,
+                         lambda: mtp_chain_loss(model, base_params, h, batch,
+                                                count=count))
 
     N = max(1, cfg.microbatches)
 
@@ -399,7 +403,7 @@ def make_lora_train_step(model: Model, cfg: ModelConfig, *, lr: float = 3e-5,
             gnorm = _update_(optimizer, state, grads, lr, max_grad_norm)
             return state, dict(metrics, loss=loss, grad_norm=gnorm)
         _reset_stash(shard)
-        with torch.enable_grad(), shctx.use_mesh(tp):
+        with torch.enable_grad(), shctx.use_mesh(shard.context):
             base = base_params if base_shard is None \
                 else base_shard.gather(base_params)
             adapter = shard.gather(state["params"])

@@ -198,7 +198,7 @@ def test_adapter_decode_matches_adapter_forward(setup):
                                        adapter=adapter)
         toks.append(torch.argmax(lg, -1))
     full = torch.cat([t, torch.stack(toks[:-1], 1)], 1)
-    lg_full, _ = model.forward(params, {"tokens": full}, adapter=adapter)
+    lg_full = model.forward(params, {"tokens": full}, adapter=adapter)[0]
     greedy = torch.argmax(lg_full[:, P - 1:], -1)
     assert torch.equal(torch.stack(toks, 1), greedy)
 

@@ -427,6 +427,20 @@ def test_ssd_kernel_refuses_misaligned_rows(cuda):
         tssd.ssd_scan(x, a, bc[..., :64], bc[..., 64:128], 64)
 
 
+def test_ssd_scan_refuses_a_gradient_on_card(cuda):
+    """B5 has no backward kernel: ``ops.ssd_scan`` on CUDA inputs that
+    need a gradient raises (a Mamba layer trains on the CPU path only),
+    and runs under ``no_grad``."""
+    x = torch.randn(1, 64, 2, 32, device=cuda, requires_grad=True)
+    a = -torch.rand(1, 64, 2, device=cuda)
+    b = torch.randn(1, 64, 16, device=cuda)
+    with pytest.raises(NotImplementedError, match="no backward"):
+        ops.ssd_scan(x, a, b, b.clone(), 32)
+    with torch.no_grad():
+        y, _ = ops.ssd_scan(x, a, b, b.clone(), 32)
+    assert y.shape == x.shape
+
+
 def _to(tree, device):
     if isinstance(tree, torch.Tensor):
         return tree.to(device)

@@ -306,7 +306,7 @@ def test_model_forward_last_position_matches_prefill():
     _, tcfg, _, _, tm, tparams = _models()
     tokens = torch.from_numpy(
         np.random.RandomState(5).randint(0, tcfg.vocab_size, (2, 32)))
-    logits, h = tm.forward(tparams, {"tokens": tokens})
+    logits, _, h = tm.forward(tparams, {"tokens": tokens})
     assert logits.shape == (2, 32, tcfg.vocab_size)
     assert h.shape == (2, 32, tcfg.d_model)
     last, _ = tm.prefill(tparams, {"tokens": tokens}, 40)

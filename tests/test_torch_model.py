@@ -185,7 +185,7 @@ def test_model_forward_last_position_matches_prefill():
     params = tm.init(torch.Generator().manual_seed(0))
     tokens = torch.from_numpy(
         np.random.RandomState(5).randint(0, tcfg.vocab_size, (2, 10)))
-    logits, h = tm.forward(params, {"tokens": tokens})
+    logits, _, h = tm.forward(params, {"tokens": tokens})
     assert logits.shape == (2, 10, tcfg.vocab_size)
     assert h.shape == (2, 10, tcfg.d_model)
     last, _ = tm.prefill(params, {"tokens": tokens}, 16)

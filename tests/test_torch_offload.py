@@ -466,7 +466,7 @@ def _lm_grads(remat):
         t.requires_grad_(True)
     tokens = np.random.default_rng(1).integers(0, 32, (2, 8))
     batch = {"tokens": torch.from_numpy(tokens), "loss_mask": torch.ones(2, 8)}
-    logits, _ = Model(tcfg, device="cpu").forward(params, batch)
+    logits = Model(tcfg, device="cpu").forward(params, batch)[0]
     loss = TS.lm_loss(logits, batch["tokens"], batch["loss_mask"])
     with _CountMM() as mm:
         grads = torch.autograd.grad(loss, list(leaves(params)))

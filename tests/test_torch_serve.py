@@ -123,7 +123,10 @@ want = {{"repro_torch.core.allocator", "repro_torch.paged.page_manager",
         "repro_torch.rlhf.experience", "repro_torch.serving.scheduler",
         "repro_torch.sharding.rules", "repro_torch.sharding.context",
         "repro_torch.sharding.ctx", "repro_torch.launch.mesh",
-        "repro_torch.sharding.tp"}}
+        "repro_torch.sharding.tp", "repro_torch.models.moe",
+        "repro_torch.configs.qwen1_5_4b",
+        "repro_torch.configs.granite_moe_3b_a800m",
+        "repro_torch.configs.jamba_v0_1_52b"}}
 assert want <= set(names), want - set(names)
 import chip_smoke
 for example in ("torch_rlhf_e2e", "torch_memory_study", "torch_serving",

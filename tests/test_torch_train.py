@@ -208,8 +208,8 @@ def test_lora_forward_and_value_match_reference(lora_setup):
     jmodel, jparams, ad, model, params, adapter, tokens = lora_setup
     want, _, _ = jmodel.forward(jparams, {"tokens": jnp.asarray(tokens)},
                                 adapter=ad)
-    got, _ = model.forward(params, {"tokens": torch.from_numpy(tokens)},
-                           adapter=adapter)
+    got, _, _ = model.forward(params, {"tokens": torch.from_numpy(tokens)},
+                              adapter=adapter)
     _close(got.detach().numpy(), want, 1e-4)
     want_v = jmodel.forward_value(jparams, {"tokens": jnp.asarray(tokens)},
                                   adapter=ad)
@@ -221,11 +221,11 @@ def test_lora_forward_and_value_match_reference(lora_setup):
 def test_lora_merged_matches_unmerged_and_unmerge_restores(lora_setup):
     _, _, _, model, params, adapter, tokens = lora_setup
     batch = {"tokens": torch.from_numpy(tokens)}
-    unmerged, _ = model.forward(params, batch, adapter=adapter)
+    unmerged = model.forward(params, batch, adapter=adapter)[0]
     merged = model.merge_adapter(params, adapter)
-    merged_lg, _ = model.forward(merged, batch)
+    merged_lg = model.forward(merged, batch)[0]
     _close(unmerged.detach().numpy(), merged_lg.numpy(), 2e-5)
-    base_lg, _ = model.forward(params, batch)
+    base_lg = model.forward(params, batch)[0]
     assert float((unmerged - base_lg).abs().max()) > 1e-3
     restored = model.unmerge_adapter(merged, adapter)
     for a, b in zip(leaves(params), leaves(restored)):
@@ -356,7 +356,7 @@ def test_losses_match_reference(step_setup):
     jexp = jax.tree.map(jnp.asarray, exp)
     tex = _texp(exp)
     jlg, _, _ = jmodel.forward(jparams, jexp, adapter=ad)
-    tlg, _ = model.forward(params, tex, adapter=adapter)
+    tlg = model.forward(params, tex, adapter=adapter)[0]
     jl, jm = JS.ppo_actor_loss(jlg, jexp, kl_coef=0.1)
     tl, tm = TS.ppo_actor_loss(tlg, tex, kl_coef=0.1)
     _close(float(tl), float(jl), 1e-5)

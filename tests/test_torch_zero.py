@@ -24,7 +24,15 @@ process. With 3 prompts (ndp 2 and 4 do not divide 3) the batch replicates:
   (``tests/test_obs.py::test_gather_copy_counts_bytes``);
 * a ZeRO-3 ``layer`` run at ndp 2 from the JAX trainer's initial weights,
   greedy, against the JAX trainer's single-device metrics within 1e-4
-  (the parity tolerance of ``tests/test_torch_separate.py``).
+  (the parity tolerance of ``tests/test_torch_separate.py``);
+* the same on granite's MoE shape (2 layers, 4 experts, top 2, capacity
+  factor 1.25): each rank holds the replicated batch and routes it as 2
+  groups where the token count is even (``models/moe.py``), against the
+  JAX trainer with ``repro.models.moe._num_dp_shards`` patched to 2 for
+  its run (the reference's routing under a 2-way data mesh; its own
+  pure-DP trainer traces without a mesh); and with 4 prompts under
+  ``batch_shard="throughput"``, where each rank scores and trains on its
+  own 2 rows and routes them as one group.
 """
 import dataclasses
 import datetime
@@ -65,6 +73,18 @@ def _cfg(get=get_config, **kw):
     return dataclasses.replace(get("llama3_2_3b").smoke(), **SMOKE, **kw)
 
 
+def _moe_cfg(get=get_config):
+    cfg = dataclasses.replace(get("granite_moe_3b_a800m").smoke(),
+                              **dict(SMOKE, d_ff=0))
+    return dataclasses.replace(cfg, moe=dataclasses.replace(
+        cfg.moe, capacity_factor=1.25))
+
+
+def _two_shards(T):
+    """The reference's routing groups under a 2-way data mesh."""
+    return 2 if T % 2 == 0 else 1
+
+
 def _rl(engine, **kw):
     base = dict(prompt_len=P, gen_len=G, lr=1e-3, critic_lr=1e-3,
                 kl_coef=0.0, top_k=0, engine=engine, lora_rank=8)
@@ -95,8 +115,8 @@ def _digest(tr) -> str:
 
 
 def _run(engine, shard, *, steps=2, n=B, telemetry=None, params=None,
-         remat="none", **rl_kw):
-    cfg = _cfg(remat=remat)
+         remat="none", cfg=None, **rl_kw):
+    cfg = dataclasses.replace(cfg or _cfg(), remat=remat)
     kw = {} if params is None else {"params": params}
     tr = RLHFTrainer(cfg, cfg, _rl(engine, **rl_kw),
                      None if params is not None
@@ -221,7 +241,23 @@ def _rank_jobs(ndp, jax_params):
         params = torch.load(jax_params)
         tr, ms = _run("separate", sc, temperature=0.0, params=params)
         out["jax"] = ms
+        sc = ShardedContext.create(ndp, zero_stage=3, gather_mode="layer",
+                                   device="cpu")
+        params = torch.load(_moe_path(jax_params))
+        tr, ms = _run("separate", sc, temperature=0.0, params=params,
+                      cfg=_moe_cfg())
+        out["jax_moe"] = ms
+        sc = ShardedContext.create(ndp, zero_stage=3, gather_mode="layer",
+                                   device="cpu")
+        params = torch.load(_moe_path(jax_params))    # the run above trains
+        tr, ms = _run("separate", sc, n=4, temperature=0.0, params=params,
+                      cfg=_moe_cfg(), batch_shard="throughput")
+        out["jax_moe_split"] = (ms, tr._split(4))
     return out
+
+
+def _moe_path(path: str) -> str:
+    return path.replace(".pt", "_moe.pt")
 
 
 def _whole_bytes(plan, tree) -> int:
@@ -256,38 +292,63 @@ def _worker(rank, ndp, store, results, jax_params):
 
 
 def _jax_reference(path):
-    """The JAX trainer (separate, greedy, f32, the smoke config) from its
-    own initial weights: its 2 metrics, and those weights in the port's
-    layout saved to ``path``."""
+    """The JAX trainers (separate, greedy, f32) on the smoke config and on
+    the MoE one (under the two-group routing patch; with 3 prompts and
+    with 4), each config from its own initial weights: a function running
+    the three for their 2 metrics each, and those weights in the port's
+    layout saved to ``path`` and ``_moe_path(path)``."""
     import jax
     import jax.numpy as jnp
 
     from repro.configs import get_config as jax_get_config
+    from repro.models import moe as jax_moe
     from repro.rlhf import RLHFConfig as JaxRLHFConfig
     from repro.rlhf import RLHFTrainer as JaxRLHFTrainer
     from repro.rlhf.reward import make_target_token_reward as jax_reward
     from repro_torch import bridge
 
-    jcfg = _cfg(jax_get_config)
     rl = JaxRLHFConfig(prompt_len=P, gen_len=G, lr=1e-3, critic_lr=1e-3,
                        kl_coef=0.0, top_k=0, temperature=0.0,
                        engine="separate")
-    tr = JaxRLHFTrainer(jcfg, jcfg, rl, jax.random.PRNGKey(0),
-                        reward_fn=jax_reward(7))
     np_tree = lambda t: jax.tree.map(lambda x: np.asarray(x).copy(), t)  # noqa: E731
-    cfg = _cfg()
-    torch.save({"actor": bridge.from_jax(np_tree(tr.actor_state["params"]),
-                                         cfg, "cpu"),
-                "critic": bridge.from_jax(
-                    np_tree(tr.critic_state["params"]), cfg, "cpu")}, path)
     prompts = jnp.asarray(_prompts().numpy())
-    return lambda: [tr.train_step(prompts, jax.random.PRNGKey(s))
-                    for s in range(2)]
+    trainers = []
+    for get_cfg, out in ((_cfg, path), (_moe_cfg, _moe_path(path))):
+        jcfg = get_cfg(jax_get_config)
+        tr = JaxRLHFTrainer(jcfg, jcfg, rl, jax.random.PRNGKey(0),
+                            reward_fn=jax_reward(7))
+        cfg = get_cfg()
+        torch.save({"actor": bridge.from_jax(
+                        np_tree(tr.actor_state["params"]), cfg, "cpu"),
+                    "critic": bridge.from_jax(
+                        np_tree(tr.critic_state["params"]), cfg, "cpu")},
+                   out)
+        trainers.append(tr)
+    jcfg = _moe_cfg(jax_get_config)
+    trainers.append(JaxRLHFTrainer(jcfg, jcfg, rl, jax.random.PRNGKey(0),
+                                   reward_fn=jax_reward(7)))
+    prompts4 = jnp.asarray(_prompts(4).numpy())
+
+    def run():
+        dense = [trainers[0].train_step(prompts, jax.random.PRNGKey(s))
+                 for s in range(2)]
+        plain = jax_moe._num_dp_shards
+        jax_moe._num_dp_shards = _two_shards
+        try:
+            moe = [trainers[1].train_step(prompts, jax.random.PRNGKey(s))
+                   for s in range(2)]
+            split = [trainers[2].train_step(prompts4, jax.random.PRNGKey(s))
+                     for s in range(2)]
+        finally:
+            jax_moe._num_dp_shards = plain
+        return dense, moe, split
+    return run
 
 
 @pytest.fixture(scope="module")
 def ranks(tmp_path_factory):
-    """{ndp: [rank 0's results, rank 1's, ...]} and the JAX metrics."""
+    """({ndp: [rank 0's results, rank 1's, ...]}, the JAX metrics, the
+    JAX metrics of the MoE run with 3 prompts and with 4)."""
     tmp = tmp_path_factory.mktemp("zero")
     jax_params = str(tmp / "jax_params.pt")
     jax_steps = _jax_reference(jax_params)
@@ -300,8 +361,9 @@ def ranks(tmp_path_factory):
     for p in procs:
         p.start()
     try:
-        jax_metrics = [{k: float(v) for k, v in m.items()}
-                       for m in jax_steps()]
+        jax_metrics, jax_moe, jax_split = (
+            [{k: float(v) for k, v in m.items()} for m in ms]
+            for ms in jax_steps())
         got = {}
         while len(got) < len(procs):
             if time.perf_counter() - t0 > JOIN_S:
@@ -325,7 +387,7 @@ def ranks(tmp_path_factory):
                 p.kill()
                 p.join()
     return ({ndp: [got[ndp, r] for r in range(ndp)] for ndp in NDPS},
-            jax_metrics)
+            jax_metrics, jax_moe, jax_split)
 
 
 @pytest.mark.parametrize("mode", [f"{s}-{m}" for s, m in RUNS])
@@ -474,6 +536,38 @@ def test_zero3_matches_jax_trainer(ranks):
     want = ranks[1]
     for out in ranks[0][2]:
         for a, b in zip(want, out["jax"]):
+            for k in ("loss", "ppo_loss", "kl", "vf_loss", "grad_norm",
+                      "mean_reward"):
+                assert b[k] == pytest.approx(a[k], abs=TOL_JAX), k
+
+
+def test_zero3_moe_matches_jax_trainer(ranks):
+    """Granite's MoE shape at ZeRO-3 ``layer``, ndp 2, 3 prompts
+    (replicated): each rank routes its whole batch as 2 groups where the
+    token count is even (the prefill's 24 tokens, the scoring and training
+    forwards' 60; a decode step's 3 rows route as one), as the JAX trainer
+    does with its routing patched to 2 groups: its metrics within 1e-4."""
+    want = ranks[2]
+    for out in ranks[0][2]:
+        for a, b in zip(want, out["jax_moe"]):
+            for k in ("loss", "ppo_loss", "kl", "vf_loss", "grad_norm",
+                      "mean_reward"):
+                assert b[k] == pytest.approx(a[k], abs=TOL_JAX), k
+
+
+def test_zero3_moe_split_batch_matches_jax_trainer(ranks):
+    """Granite's MoE shape at ZeRO-3 ``layer``, ndp 2, 4 prompts under
+    ``batch_shard="throughput"``: the scoring and training forwards split
+    the batch, so each rank routes its own 2 rows as one group and its aux
+    loss is half that group's (``models/moe.py``), while the rollout from
+    the gathered copy routes the whole batch as 2 groups; the step's sum
+    over the ranks is the JAX trainer's mean over its 2 patched groups:
+    its metrics within 1e-4."""
+    want = ranks[3]
+    for out in ranks[0][2]:
+        got, split = out["jax_moe_split"]
+        assert split
+        for a, b in zip(want, got):
             for k in ("loss", "ppo_loss", "kl", "vf_loss", "grad_norm",
                       "mean_reward"):
                 assert b[k] == pytest.approx(a[k], abs=TOL_JAX), k
