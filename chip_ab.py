@@ -1,8 +1,8 @@
 #!/usr/bin/env python3
-"""Device times of the port's B1 (RMSNorm), B4 (paged decode), B5 (SSD
-chunk scan), B2-bwd (flash-attention backward) and B1-bwd (RMSNorm
-backward) kernels by CUDA-graph replay, to compare versions of them on one
-card in one call.
+"""Device times of the port's B1 (RMSNorm), B2 (flash attention), B4
+(paged decode), B5 (SSD chunk scan), B2-bwd (flash-attention backward)
+and B1-bwd (RMSNorm backward) kernels by CUDA-graph replay, to compare
+versions of them on one card in one call.
 
     python3 chip_ab.py TREE [TREE ...]   # each checkout in turn
     python3 chip_ab.py --ablate          # B5, B4, B2-bwd, B1-bwd: one part cut
@@ -12,10 +12,14 @@ With checkouts (directories holding ``src/repro_torch``, e.g. a parent
 commit unpacked by ``git archive`` and ``.``), each is timed in a process
 of its own, in the order given (parent, change, change, parent, to see the
 drift): B1 and ``F.rms_norm`` at every shape the serving, paged GRPO and
-Mamba2 paths give B1, B4 at the paged GRPO rollout's last decode step over
+Mamba2 paths give B1, B2 at the serving prefill's and the two PPO paths'
+training shapes (head widths 128 and 64, the latter two with lse) and,
+where the checkout takes it, at phase 18's MLA widths (q/k 192, v 128),
+B4 at the paged GRPO rollout's last decode step over
 its own forked block table and over one that puts every row on pages of
 its own, B5 at the Mamba2 prefill's shape, and B2-bwd at the PPO
-training shape beside SDPA's backward (fwd + bwd less fwd, both graphed),
+training shape beside SDPA's backward (fwd + bwd less fwd, both graphed)
+and at the separate path's (head width 64),
 and B1-bwd with dscale at the separate PPO path's two widths and without
 it at the hydra path's training rows, each beside ``F.rms_norm``'s
 backward (fwd + bwd less fwd), warm and cold as ``chip_smoke.py`` times
@@ -86,9 +90,17 @@ PAGED_ABLATIONS = [
                             (_B4_END, _B4_TRIGGER + _B4_END)]),
 ]
 
+# B2: (name, B, S, H, K, D, Dv, lse) at phase 2's shapes: the serving
+# prefill, the hydra and separate PPO training (with lse), and phase 18's
+# MLA serving prefill (a checkout whose B2 takes (192, 128))
+FWD_SHAPES = [("serve", 8, 512, 24, 8, 128, 128, False),
+              ("ppo", 8, 576, 24, 8, 128, 128, True),
+              ("sep_actor", 8, 512, 32, 32, 64, 64, True),
+              ("mla_serve", 8, 512, 128, 128, 192, 128, False)]
 # B2-bwd: the PPO training shape, q/out/dout [8,576,24,128], k/v
-# [8,576,8,128], bf16, causal
+# [8,576,8,128], bf16, causal; and the separate path's at head width 64
 BWD_SHAPE = (8, 576, 24, 8, 128)          # B, S, H, K, D
+BWD_SEP_SHAPE = (8, 512, 32, 32, 64)
 # its ablations in csrc/flash_attention_bwd.cu (the bf16 route): the dQ
 # kernel's recompute of S and dP, the exponent of both kernels, and each
 # kernel whole (the prep pass alone is the time left with neither)
@@ -221,10 +233,29 @@ def paged_us(torch, pa, PageManager) -> dict:
     return out
 
 
-def bwd_inputs(torch, fa):
-    """q, k, v, out, lse, dout of B2-bwd at ``BWD_SHAPE``, out and lse from
+def flash_fwd_us(torch, fa) -> dict:
+    """B2 (the wrapper module ``fa``) warm and cold, us, at each of
+    ``FWD_SHAPES`` the checkout takes."""
+    out = {}
+    for name, B, S, H, K, D, Dv, lse in FWD_SHAPES:
+        pairs = [p if isinstance(p, tuple) else (p, p) for p in fa.HEAD_DIMS]
+        if (D, Dv) not in pairs:
+            continue
+
+        def make(B=B, S=S, H=H, K=K, D=D, Dv=Dv):
+            return (torch.randn(B, S, H, D, device="cuda").bfloat16(),
+                    torch.randn(B, S, K, D, device="cuda").bfloat16(),
+                    torch.randn(B, S, K, Dv, device="cuda").bfloat16())
+        out[f"flash_fwd {name}_us"] = warm_cold_us(
+            torch, lambda q, k, v, lse=lse: fa.flash_attention_fwd(
+                q, k, v, causal=True, return_lse=lse), make)
+    return out
+
+
+def bwd_inputs(torch, fa, shape=BWD_SHAPE):
+    """q, k, v, out, lse, dout of B2-bwd at ``shape``, out and lse from
     B2's forward (the checkout's ``fa``)."""
-    B, S, H, K, D = BWD_SHAPE
+    B, S, H, K, D = shape
     q = torch.randn(B, S, H, D, device="cuda").bfloat16()
     k, v = (torch.randn(B, S, K, D, device="cuda").bfloat16()
             for _ in range(2))
@@ -300,8 +331,9 @@ def rmsnorm_bwd_us(torch, rn, library=True) -> dict:
 
 
 def time_tree(tree: pathlib.Path) -> dict:
-    """B1 against F.rms_norm, B4, B5, B2-bwd against SDPA's backward and
-    B1-bwd against F.rms_norm's, warm and cold, in checkout ``tree``."""
+    """B1 against F.rms_norm, B2, B4, B5, B2-bwd against SDPA's backward
+    and B1-bwd against F.rms_norm's, warm and cold, in checkout
+    ``tree``."""
     sys.path.insert(0, str(tree / "src"))
     import torch
     import torch.nn.functional as F
@@ -330,7 +362,11 @@ def time_tree(tree: pathlib.Path) -> dict:
     out["ssd_scan_us"] = warm_cold_us(
         torch, lambda *t: ssd.ssd_scan(*t, chunk),
         lambda: ssd_inputs(torch, sliced))
+    out.update(flash_fwd_us(torch, fa))
     out.update(flash_bwd_us(torch, fa, fab))
+    out["flash_bwd sep_actor_us"] = warm_cold_us(
+        torch, lambda *t: fab.flash_attention_bwd(*t, causal=True),
+        lambda: bwd_inputs(torch, fa, BWD_SEP_SHAPE))
     out.update(rmsnorm_bwd_us(torch, rn))
     return out
 

@@ -45,6 +45,12 @@ Phases, each failing with a non-zero exit:
    rows, and B2-bwd and B1-bwd (with dscale) at granite's separate PPO
    training shape, each timed by graph replay, warm and
    cold, beside its bound and its library call's time where one exists;
+   and at phase 18's shapes: B2 at deepseek's MLA head widths (q/k 192,
+   v 128, 128 heads) at its serving prefill and its train step (with
+   lse), B2-bwd at its train step (the CUDA-core route), both at windows,
+   ragged Sq != Sk and fp32, B1 at d_model 7168 (the scalar route), 1536
+   and 512 (q_norm, kv_norm) at the serving and training rows, and B1-bwd
+   with dscale at the training rows;
 3. the serving path: full-width, full-depth llama3_2_3b (28 layers, bf16,
    random weights from a seed) serves 3 requests of batch 8 x 512 prompt
    tokens + 64 generated, through ``repro_torch.launch.serve.run``; the
@@ -266,7 +272,28 @@ Phases, each failing with a non-zero exit:
    ``chip_smoke.families(torch.device("cuda"), print, "")`` runs it alone
    after ``build.build()``.
 
-Phases 3, 5-9, 12-15 and 17 run graphed, the default on the card
+18. deepseek_v3_671b (MLA layers, a dense leading segment, 256-expert
+   MoE, MTP, Adafactor) at full width, random weights from a seed
+   (``deepseek``): (a) serving at 4 of its 61 layers (its 3 dense layers
+   and its first MoE one) and its MTP module, 26.7B params, 3 greedy
+   requests of 8 x (512 + 64), decode graphed, launches as
+   ``serve_launches`` reckons them (B2 once an MLA layer, no B3: the
+   latent-space decode is plain products), request 0 again eager to the
+   same tokens, the decode cache's bytes a token against expanded K and
+   V's; (b) one Adafactor ``make_train_step`` of 2 x 256 tokens with the
+   trunk cut to its first dense layer, its MTP module (the reference's MTP
+   layer takes its last segment's kind: MLA with a dense FFN here) and
+   the MTP loss, at 2 microbatches (bf16 accumulation); (c) one on one
+   MoE layer (256 routed experts and the shared one), at one microbatch;
+   each with launches asserted (``train_launches``), the peak against the
+   reckoning and Adafactor's state bytes; (d) a small MLA model (q/k 192,
+   v 128, f32) on the card against the CPU, prefill, greedy tokens and two
+   Adafactor steps' metrics. From a Python prompt ``chip_smoke.deepseek(
+   torch.device("cuda"), print, "")`` runs it alone after
+   ``build.build()``. Phase 16 runs the OPT pair at 12 of its 24 layers
+   (``TP_LAYERS``) since then, to leave the script room.
+
+Phases 3, 5-9, 12-15, 17 and 18 run graphed, the default on the card
 (phase 16 eager, as above): every
 decode step after a call's first replays its captured step (in a call of
 two decode steps or more; the batcher's graphs live as long as it does),
@@ -376,6 +403,25 @@ FAM_CB_REQUESTS = 8              # granite's batcher drain, 8 slots
 # granite's separate PPO iteration: the actor and reference at full depth
 # (32 layers), the critic and reward at 8, 8 x (256 + 256), remat "full"
 GRANITE_CRITIC_LAYERS = 8
+# phase 16's separate iteration on the OPT pair: at full width and at 12
+# of its 24 layers, so that the script keeps room for phase 18
+TP_LAYERS = 12
+# phase 18: deepseek_v3_671b at full width, random weights from a seed.
+# MLA attends with q/k heads of 192 (nope 128 + rope 64) and v heads of 128
+DEEPSEEK = "deepseek_v3_671b"
+MLA_HEADS = (128, 128, (192, 128))            # (H, K, (D, Dv)), G 1
+DS_WIDTHS = {"d_model": 7168, "q_lora": 1536, "kv_lora": 512}
+# serving: its 3 dense layers and its first MoE layer (256 routed experts
+# and a shared one) of 61, and its MTP module (671B do not fit one card; 4
+# layers and the MTP module are 26.7B, 53.4 GB in bf16)
+DS_SERVE_LAYERS = 4
+# one Adafactor train step of 2 x 256 tokens (kind "lm"): (a) the trunk cut
+# to its first dense layer, with its MTP module and the MTP loss, at 2
+# microbatches (bf16 accumulation); (b) one MoE layer, at one microbatch
+DS_TBATCH, DS_TSEQ = 2, 256
+# a train step's peak above its reckoning (the state and its bf16
+# gradients): activations, the MoE's dispatch and Adafactor's blocks
+DS_PEAK_SLACK = 8 * 2**30
 
 # (memory B/s, bf16 tensor FLOP/s, fp32 FLOP/s), NVIDIA data sheets, dense
 PEAKS = {"SXM": (3.35e12, 989e12, 67e12), "PCIe": (2.0e12, 756e12, 51e12),
@@ -568,8 +614,15 @@ def _gqa_sdpa(q, k, v, **kw):
                                           **kw)
 
 
+def _widths(D):
+    """A case's head widths: D, or (D, Dv) where v's rows are narrower
+    (MLA's (192, 128))."""
+    return D if isinstance(D, tuple) else (D, D)
+
+
 def check_flash(dev, peaks, g):
-    cases = [  # (name, B, Sq, Sk, H, K, D, causal, window, dtype)
+    H_, K_, D_ = MLA_HEADS
+    cases = [  # (name, B, Sq, Sk, H, K, D or (D, Dv), causal, window, dtype)
         ("main", BATCH, PROMPT, PROMPT, 24, 8, 128, True, 0, torch.bfloat16),
         ("grpo_prefill", GROUPS, GPROMPT, GPROMPT, 24, 8, 128, True, 0,
          torch.bfloat16),
@@ -609,12 +662,24 @@ def check_flash(dev, peaks, g):
           for fam, (H, K, D) in FAMILY_HEADS.items()],
         ("granite_ppo", SBATCH, SLEN, SLEN, 24, 8, 64, True, 0,
          torch.bfloat16),
+        # phase 18: deepseek's MLA prefill (serving) and its training
+        # forward (with lse), q/k heads of 192 and v heads of 128, and edge
+        # cases of the pair: windows, ragged Sq != Sk, fp32
+        ("mla_serve", BATCH, PROMPT, PROMPT, H_, K_, D_, True, 0,
+         torch.bfloat16),
+        ("mla_train", DS_TBATCH, DS_TSEQ, DS_TSEQ, H_, K_, D_, True, 0,
+         torch.bfloat16),
+        ("mla_window", 1, 300, 300, 8, 8, D_, True, 100, torch.bfloat16),
+        ("mla_ragged", 2, 65, 129, 8, 8, D_, False, 0, torch.bfloat16),
+        ("mla_ragged_c", 2, 100, 37, 8, 8, D_, True, 0, torch.bfloat16),
+        ("mla_fp32", 1, 130, 130, 4, 4, D_, True, 16, torch.float32),
     ]
     out = []
     for name, B, Sq, Sk, H, K, D, causal, window, dt in cases:
+        D, Dv = _widths(D)
         q = torch.randn(B, Sq, H, D, generator=g, device=dev).to(dt)
         k = torch.randn(B, Sk, K, D, generator=g, device=dev).to(dt)
-        v = torch.randn(B, Sk, K, D, generator=g, device=dev).to(dt)
+        v = torch.randn(B, Sk, K, Dv, generator=g, device=dev).to(dt)
         got = fa.flash_attention_fwd(q, k, v, causal=causal, window=window)
         want, want_lse = ref.attention_ref(q, k, v, causal=causal,
                                            window=window, return_lse=True)
@@ -630,6 +695,8 @@ def check_flash(dev, peaks, g):
                "window": window, "dtype": str(dt),
                "max_err": max(err, lse_err), "out_err": err,
                "lse_err": lse_err, "tol": TOL[dt]}
+        if Dv != D:
+            rec["v_width"] = Dv
         if name == "main":
             rec["ms"] = time_ms(lambda: fa.flash_attention_fwd(
                 q, k, v, causal=causal, window=window))
@@ -651,11 +718,13 @@ def check_flash(dev, peaks, g):
             n_ops = 4 * B * H * D * causal_pairs(Sq, Sk, causal, window)
             rec["bound_ms"], rec["bound_by"] = bound(
                 peaks, nbytes(q, k, v, got), n_ops, dt)
-        if name in ("ppo", "sep_actor", "granite_ppo", *FAMILY_HEADS):
+        if name in ("ppo", "sep_actor", "granite_ppo", "mla_serve",
+                    "mla_train", *FAMILY_HEADS):
             # the training path's call, with the lse output (a serving
-            # prefill's, without, for phase 17's families): device time
-            # by graph replay, warm and cold, beside SDPA's at this shape
-            lse_out = name not in FAMILY_HEADS
+            # prefill's, without, for phase 17's families and phase 18's
+            # serving): device time by graph replay, warm and cold,
+            # beside SDPA's at this shape
+            lse_out = name not in (*FAMILY_HEADS, "mla_serve")
 
             def make_set():
                 return [torch.randn_like(t) for t in (q, k, v)]
@@ -665,7 +734,9 @@ def check_flash(dev, peaks, g):
                 make_set)
             rec["library_cold_ms"] = time_graph_warm_cold(
                 lambda *a: _gqa_sdpa(*a, is_causal=causal), make_set)[1]
-            n_ops = 4 * B * H * D * causal_pairs(Sq, Sk, causal, window)
+            # S = QK^T over D and PV over Dv, 2 flop a product term
+            n_ops = 2 * B * H * (D + Dv) * causal_pairs(Sq, Sk, causal,
+                                                         window)
             rec["bound_ms"], rec["bound_by"] = bound(
                 peaks, nbytes(q, k, v, got, *((lse,) if lse_out else ())),
                 n_ops, dt)
@@ -808,7 +879,13 @@ RMSNORM_PATH_SHAPES = {
     "jamba_gated_decode": (BATCH, JAMBA_D_INNER),
     "granite_grpo_prefill": (GROUPS * GPROMPT, FAMILY_WIDTHS["granite"]),
     "granite_grpo_decode": (GROUPS * GSIZE, FAMILY_WIDTHS["granite"]),
-    "granite_ppo": (SBATCH * SLEN, FAMILY_WIDTHS["granite"])}
+    "granite_ppo": (SBATCH * SLEN, FAMILY_WIDTHS["granite"]),
+    # phase 18: deepseek's serving prefill and decode step at d_model 7168
+    # (its scalar route), its MLA's q_norm (1536) and kv_norm (512), and
+    # the train step's rows at each
+    **{f"ds_{w}_{kind}": (rows, d) for w, d in DS_WIDTHS.items()
+       for kind, rows in (("prefill", BATCH * PROMPT), ("decode", BATCH),
+                          ("train", DS_TBATCH * DS_TSEQ))}}
 
 
 def check_rmsnorm(dev, peaks, g):
@@ -890,7 +967,8 @@ def check_flash_bwd(dev, peaks, g):
     replay as its forward + backward less its forward."""
     S = PPROMPT + GEN
     bf, f32 = torch.bfloat16, torch.float32
-    cases = [  # (name, B, Sq, Sk, H, K, D, causal, window, dtype)
+    H_, K_, D_ = MLA_HEADS
+    cases = [  # (name, B, Sq, Sk, H, K, D or (D, Dv), causal, window, dtype)
         ("main", PBATCH, S, S, 24, 8, 128, True, 0, bf),
         ("fp32", PBATCH, S, S, 24, 8, 128, True, 0, f32),
         # the separate path's training: MHA (G = 1) at D 64
@@ -910,13 +988,21 @@ def check_flash_bwd(dev, peaks, g):
         ("full_ragged_d128", 2, 129, 65, 6, 2, 128, False, 0, bf),
         ("ragged_fp32", 2, 100, 100, 6, 2, 64, True, 0, f32),
         ("full_ragged", 2, 65, 129, 4, 2, 64, False, 0, f32),
+        # phase 18's MLA training shape (the CUDA-core route, bf16 loads
+        # and fp32 products) and the pair's edge cases
+        ("mla_train", DS_TBATCH, DS_TSEQ, DS_TSEQ, H_, K_, D_, True, 0, bf),
+        ("mla_window", 1, 300, 300, 4, 4, D_, True, 100, bf),
+        ("mla_ragged", 2, 65, 129, 4, 4, D_, False, 0, bf),
+        ("mla_sq_gt_sk", 2, 100, 37, 4, 4, D_, True, 0, bf),
+        ("mla_fp32", 1, 130, 130, 4, 4, D_, True, 0, f32),
     ]
     out_recs = []
     for name, B, Sq, Sk, H, K, D, causal, window, dt in cases:
+        D, Dv = _widths(D)
         q = torch.randn(B, Sq, H, D, generator=g, device=dev).to(dt)
         k = torch.randn(B, Sk, K, D, generator=g, device=dev).to(dt)
-        v = torch.randn(B, Sk, K, D, generator=g, device=dev).to(dt)
-        dout = torch.randn(B, Sq, H, D, generator=g, device=dev).to(dt)
+        v = torch.randn(B, Sk, K, Dv, generator=g, device=dev).to(dt)
+        dout = torch.randn(B, Sq, H, Dv, generator=g, device=dev).to(dt)
         kw = dict(causal=causal, window=window)
         out, lse = fa.flash_attention_fwd(q, k, v, return_lse=True, **kw)
         got = fab.flash_attention_bwd(q, k, v, out, lse, dout, **kw)
@@ -924,11 +1010,13 @@ def check_flash_bwd(dev, peaks, g):
         torch.cuda.synchronize()
         rec = {"case": name, "shape": [B, Sq, Sk, H, K, D], "causal": causal,
                "window": window, "dtype": str(dt),
-               "route": fab.route(dt, D),
+               "route": fab.route(dt, D, Dv),
                "max_err": max(scaled_err(a, b) for a, b in zip(got, want)),
                "max_abs_err": max((a.float() - b.float()).abs().max().item()
                                   for a, b in zip(got, want)),
                "tol": TOL[dt]}
+        if Dv != D:
+            rec["v_width"] = Dv
         del want
         if name == "main":
             rec["ms"] = time_ms(lambda: fab.flash_attention_bwd(
@@ -941,7 +1029,7 @@ def check_flash_bwd(dev, peaks, g):
             rec["library_ms"] = time_ms(lambda: torch.autograd.grad(
                 oo, (qq, kk, vv), do_t, retain_graph=True), iters=10)
             del qq, kk, vv, oo
-        if name in ("main", "sep_actor", "granite_ppo"):
+        if name in ("main", "sep_actor", "granite_ppo", "mla_train"):
             def make_set():
                 qs, ks, vs, ds = (torch.randn_like(t) for t in (q, k, v, dout))
                 os_, ls = fa.flash_attention_fwd(qs, ks, vs, return_lse=True,
@@ -958,7 +1046,9 @@ def check_flash_bwd(dev, peaks, g):
             rec["library_device_ms"] = both[0] - fwd[0]
             rec["library_cold_ms"] = both[1] - fwd[1]
             rec["library_fwd_bwd_cold_ms"] = both[1]
-            n_ops = 5 * 2 * D * B * H * causal_pairs(Sq, Sk, causal, window)
+            # S and dK, dQ over D; dP and dV over Dv
+            n_ops = 2 * (3 * D + 2 * Dv) * B * H * causal_pairs(
+                Sq, Sk, causal, window)
             rec["bound_ms"], rec["bound_by"] = bound(
                 peaks, nbytes(q, k, v, out, lse, dout, *got), n_ops, dt)
         out_recs.append(rec)
@@ -983,6 +1073,10 @@ def check_rmsnorm_bwd(dev, peaks, g):
              ("sep_critic", (SBATCH * SLEN, 1024), bf, bf),
              # granite's separate PPO (phase 17), every scale trains
              ("granite_ppo", RMSNORM_PATH_SHAPES["granite_ppo"], bf, bf),
+             # deepseek's train step (phase 18): d_model (the scalar
+             # route), q_norm and kv_norm widths, every scale trains
+             *[(f"sep_ds_{w}", (DS_TBATCH * DS_TSEQ, d), bf, bf)
+               for w, d in DS_WIDTHS.items()],
              ("uneven", (SBATCH * SLEN + 1, 2048), bf, bf),
              ("rows8", (8, 3072), bf, bf),
              ("fp32", (3, 100), torch.float32, torch.float32),
@@ -1608,16 +1702,35 @@ def mamba_serving(dev, log, profile=False):
 
 
 # ---------------------------------------------------------------- phase 7
+def _layer_norms(cfg, kind, moe) -> int:
+    """B1 calls of one layer: norm1, a Mamba layer's gated norm, an MLA
+    layer's q_norm and kv_norm, and norm2 where the layer has an FFN
+    (dense where ``d_ff``, MoE where ``moe``)."""
+    return 1 + (kind == "mamba") + 2 * (kind == "mla") + \
+        bool(cfg.d_ff or (moe and cfg.moe is not None))
+
+
 def step_norms(cfg) -> int:
-    """B1 calls of one pass over ``cfg``'s layers and the final norm:
-    every layer's norm1, a Mamba layer's gated norm, and norm2 where the
-    layer has an FFN (dense where ``d_ff``, MoE where ``layer_is_moe``):
-    2L + 1 for attention layers with FFNs, MoE or dense."""
-    n = 1
-    for kind, moe in zip(cfg.layer_kinds(), cfg.layer_is_moe()):
-        n += 1 + (kind == "mamba") + bool(cfg.d_ff or
-                                          (moe and cfg.moe is not None))
-    return n
+    """B1 calls of one pass over ``cfg``'s layers and the final norm
+    (:func:`_layer_norms` a layer): 2L + 1 for attention layers with FFNs,
+    MoE or dense; 4L + 1 for MLA layers."""
+    return 1 + sum(_layer_norms(cfg, kind, moe) for kind, moe in
+                   zip(cfg.layer_kinds(), cfg.layer_is_moe()))
+
+
+def attention_layers(cfg) -> int:
+    """Layers whose prefill and training attention is B2 (and B2-bwd):
+    attention and MLA layers."""
+    return sum(k in ("attn", "mla") for k in cfg.layer_kinds())
+
+
+def mtp_norms(cfg) -> int:
+    """B1 calls of one MTP module: norm_h, norm_e, its layer's norms (the
+    reference's last segment's first slot: MoE unless the model is cut to
+    its dense leading layers) and the final norm: 5 on an attention
+    model, 7 on an MLA one."""
+    moe = cfg.num_layers > cfg.first_k_dense and cfg.moe_period[0]
+    return 3 + _layer_norms(cfg, cfg.period[0], moe)
 
 
 def ppo_launches(cfg, rl, model_reward: bool, critic_cfg=None,
@@ -1649,15 +1762,16 @@ def ppo_launches(cfg, rl, model_reward: bool, critic_cfg=None,
       frozen scale, so no gradient reaches it);
     - with ``cfg.mtp_depth`` D, each actor step also runs the MTP chain
       (never checkpointed): B2 D, B1 5D (norm_h, norm_e, the module
-      layer's two norms, the final norm), B2-bwd D and B1-bwd 5D on the
-      separate engine, 4D on the hydra engine (norm_e reads the frozen
-      embedding with a frozen scale)."""
+      layer's two norms, the final norm; :func:`mtp_norms`), B2-bwd D and
+      B1-bwd 5D on the separate engine, 4D on the hydra engine (norm_e
+      reads the frozen embedding with a frozen scale).
+    An MLA layer counts as an attention layer, with two norms more."""
     separate = rl.engine == "separate"
 
     def role(c):     # (attention layers, Mamba layers, B1 a pass, remat)
-        attn = sum(k == "attn" for k in c.layer_kinds())
-        return (attn, c.num_layers - attn, step_norms(c),
-                c.remat != "none")
+        attn = attention_layers(c)
+        return (attn, sum(k == "mamba" for k in c.layer_kinds()),
+                step_norms(c), c.remat != "none")
 
     actor = role(cfg)
     critic = role(critic_cfg if separate and critic_cfg is not None
@@ -1680,12 +1794,30 @@ def ppo_launches(cfg, rl, model_reward: bool, critic_cfg=None,
         sum(n + remat * (n - 1) for _, _, n, remat in trained)
     want["flash_attention_bwd"] = sum(L for L, _, _, _ in trained)
     want["rmsnorm_bwd"] = sum(n - 1 + separate for _, _, n, _ in trained)
-    D = cfg.mtp_depth * rl.ppo_epochs
+    D, n = cfg.mtp_depth * rl.ppo_epochs, mtp_norms(cfg)
     want["flash_attention"] += D
-    want["rmsnorm"] += 5 * D
+    want["rmsnorm"] += n * D
     want["flash_attention_bwd"] += D
-    want["rmsnorm_bwd"] += (5 if separate else 4) * D
+    want["rmsnorm_bwd"] += (n if separate else n - 1) * D
     return want
+
+
+def train_launches(cfg, microbatches: int) -> dict:
+    """Kernel launches of one full-parameter ``make_train_step`` step of
+    kind "lm" at ``microbatches``: per microbatch the forward (B2 a B2
+    layer, B1 :func:`step_norms`), with remat each layer's forward again
+    inside the backward (B2 and B1 but the final norm), the backward
+    (B2-bwd a B2 layer, B1-bwd at every norm: every leaf trains), and with
+    MTP heads the chain (B2, B1 and their backward once a depth, the
+    module's norms each)."""
+    L, n = attention_layers(cfg), step_norms(cfg)
+    remat = cfg.remat != "none"
+    D, m = cfg.mtp_depth, mtp_norms(cfg) if cfg.mtp_depth else 0
+    want = {k: 0 for k in ops.KERNELS}
+    want.update(flash_attention=L * (1 + remat) + D,
+                rmsnorm=n + remat * (n - 1) + m * D,
+                flash_attention_bwd=L + D, rmsnorm_bwd=n + m * D)
+    return {k: v * microbatches for k, v in want.items()}
 
 
 def spec_launches(cfg, steps: int, spec_k: int) -> dict:
@@ -4527,17 +4659,24 @@ def _init_group(backend, world, rank, path):
                             timeout=datetime.timedelta(seconds=120))
 
 
-def _zero_trainer(engine, dev, shard, policy="after_inference"):
-    """Phase 7's hydra trainer or phase 8's separate one, seed 0, on
-    ``shard``."""
+def _zero_trainer(engine, dev, shard, policy="after_inference", pair=None):
+    """Phase 7's hydra trainer or phase 8's separate one (on ``pair``, the
+    OPT pair by default), seed 0, on ``shard``."""
     g = torch.Generator(device=dev).manual_seed(0)
     if engine == "hydra":
         cfg = get_config("llama3_2_3b")
         return RLHFTrainer(cfg, cfg, RLHFConfig(memory_policy=policy,
                                                 **PPO_KW), g, shard=shard)
-    return RLHFTrainer(get_config(SEP_ACTOR), get_config(SEP_CRITIC),
+    actor, critic = pair or (get_config(SEP_ACTOR), get_config(SEP_CRITIC))
+    return RLHFTrainer(actor, critic,
                        RLHFConfig(engine="separate", memory_policy=policy,
                                   **SEP_KW), g, shard=shard)
+
+
+def _tp_pair():
+    """Phase 16's OPT pair: full width, TP_LAYERS of its 24 layers."""
+    return tuple(dataclasses.replace(get_config(n), num_layers=TP_LAYERS)
+                 for n in (SEP_ACTOR, SEP_CRITIC))
 
 
 def _zero_prompts(engine, dev, it, n=None):
@@ -4977,12 +5116,12 @@ def _tp_rank(rank, world, path, tokens, queue):
         _init_group("gloo", world, rank, path)
         sc = ShardedContext.create(
             1, zero_stage=0, model=world, device="cuda", backend="gloo",
-            cfg=(get_config(SEP_ACTOR), get_config(SEP_CRITIC)))
+            cfg=_tp_pair())
         gc.collect()
         torch.cuda.empty_cache()
         torch.cuda.reset_peak_memory_stats()
         t0 = time.perf_counter()
-        tr = _zero_trainer("separate", dev, sc)
+        tr = _zero_trainer("separate", dev, sc, pair=_tp_pair())
         init_s = time.perf_counter() - t0
         sc.tp.reset_counts()
         staged = (sc.comm.staged_bytes, sc.tp.comm.staged_bytes)
@@ -5028,7 +5167,8 @@ def tp_ppo(dev, log) -> dict:
     from repro_torch.paged import pool_token_bytes
     t_phase = time.perf_counter()
     out = {}
-    tr = _separate_trainer(dev, "after_inference")[0]
+    pair = _tp_pair()
+    tr = _separate_trainer(dev, "after_inference", pair=pair)[0]
     by_name = {k: tree_nbytes(v) for k, v in tr.persistent_trees().items()}
     state = sum(by_name.values())
     g = torch.Generator(device=dev).manual_seed(7)
@@ -5050,8 +5190,7 @@ def tp_ppo(dev, log) -> dict:
            TP_CB["capacity"] * llama.num_kv_heads * hd * 2,
            "paged": pool_token_bytes(llama, torch.bfloat16) *
            llama.num_layers}
-    frac = dict(traced_zero_scales(get_config(SEP_ACTOR),
-                                   get_config(SEP_CRITIC), ndp=1,
+    frac = dict(traced_zero_scales(*pair, ndp=1,
                                    zero_stage=0, engine="separate",
                                    ntp=TP_NTP))
     sim = sum(b * frac[f"{k}:{'opt' if k.endswith('_opt') else 'param'}"]
@@ -5159,13 +5298,14 @@ def serve_launches(cfg, requests: int) -> dict:
     (PROMPT + GEN) on ``cfg``: per request B2 once an attention layer and
     B5 once a Mamba layer (the prefill), B3 once an attention layer at
     each of the GEN - 1 decode steps, B1 ``step_norms(cfg)`` at the
-    prefill and at each step."""
+    prefill and at each step. An MLA layer's prefill is B2 too; its decode
+    is plain products (attention in the latent space): no B3."""
     kinds = cfg.layer_kinds()
     attn = sum(k == "attn" for k in kinds)
     want = {k: 0 for k in ops.KERNELS}
-    want.update(flash_attention=attn * requests,
+    want.update(flash_attention=attention_layers(cfg) * requests,
                 decode_attention=attn * (GEN - 1) * requests,
-                ssd_scan=(len(kinds) - attn) * requests,
+                ssd_scan=sum(k == "mamba" for k in kinds) * requests,
                 rmsnorm=step_norms(cfg) * GEN * requests)
     return want
 
@@ -5507,6 +5647,274 @@ def families(dev, log, smi, profile=False) -> dict:
     return out
 
 
+# --------------------------------------------------------------- phase 18
+def mla_cache_bytes(cfg) -> tuple:
+    """(bytes a token a layer of the MLA decode cache, of a plain cache of
+    its heads' K and V), in bf16: the latent and the one rope key, against
+    H heads of q/k width nope + rope and of v width v_head_dim."""
+    m = cfg.mla
+    return (2 * (m.kv_lora_rank + m.qk_rope_head_dim),
+            2 * cfg.num_heads * (m.qk_nope_head_dim + m.qk_rope_head_dim
+                                 + m.v_head_dim))
+
+
+def _ds_prompts(cfg, dev, n):
+    data = PromptDataset(synthetic_instruction_prompts(BATCH * n, seed=0),
+                         PROMPT).batches(BATCH, seed=0)
+    return [torch.from_numpy(next(data) % cfg.vocab_size).long().to(dev)
+            for _ in range(n)]
+
+
+def _greedy_request(ro, params, ids, dev):
+    """One greedy generate of ``ids`` -> (result, seconds, peak bytes)."""
+    torch.cuda.reset_peak_memory_stats()
+    _sync(dev)
+    t0 = time.perf_counter()
+    res = ro.generate(params, {"tokens": ids}, GEN,
+                      torch.Generator(device=dev).manual_seed(1))
+    _sync(dev)
+    return res, time.perf_counter() - t0, torch.cuda.max_memory_allocated()
+
+
+def deepseek_serving(dev, log, smi) -> dict:
+    """Phase 18 (a): deepseek_v3_671b at full width and DS_SERVE_LAYERS of
+    its 61 layers (its 3 dense layers and its first MoE one), with its MTP
+    module, random weights from seed 0: FAM_REQUESTS greedy requests of
+    BATCH x (PROMPT + GEN), decode graphed; launches as
+    :func:`serve_launches` reckons them (B2 once an MLA layer a request,
+    no B3 or B4: the latent-space decode is plain products); request 0
+    again with the decode loop eager, the same tokens and launches; the
+    decode cache's bytes a token against the expanded K and V's."""
+    cfg = dataclasses.replace(get_config(DEEPSEEK),
+                              num_layers=DS_SERVE_LAYERS)
+    _free()
+    model = Model(cfg, device=dev)
+    params = model.init(torch.Generator(device=dev).manual_seed(0))
+    n_params = sum(t.numel() for t in leaves(params))
+    weights = torch.cuda.memory_allocated()
+    ro = Rollout(model, cfg, capacity=PROMPT + GEN, temperature=0.0, top_k=0)
+    prompts = _ds_prompts(cfg, dev, FAM_REQUESTS)
+    ops.reset_launches()
+    reqs, first = [], None
+    for ids in prompts:
+        res, secs, peak = _greedy_request(ro, params, ids, dev)
+        check_result(res, BATCH, PROMPT, cfg.vocab_size)
+        if not ro.decode_stats.get("graphed"):
+            raise SystemExit("deepseek serving: the decode was not graphed")
+        reqs.append({"seconds": secs, "tokens_per_s": BATCH * GEN / secs,
+                     "peak_above_weights": peak - weights})
+        first = res if first is None else first
+    launches, want = dict(ops.launches), serve_launches(cfg, FAM_REQUESTS)
+    if launches != want:
+        raise SystemExit(f"deepseek serving: launches {launches} != {want}")
+    ro._graphs = False
+    ops.reset_launches()
+    eager, eager_s, _ = _greedy_request(ro, params, prompts[0], dev)
+    eager_launches = dict(ops.launches)
+    if eager_launches != serve_launches(cfg, 1):
+        raise SystemExit(f"deepseek eager request: launches "
+                         f"{eager_launches}")
+    if not torch.equal(eager.tokens, first.tokens):
+        raise SystemExit("deepseek serving: graphed and eager greedy "
+                         "tokens differ")
+    cache = model.init_cache(1, PROMPT + GEN, torch.bfloat16)
+    per_token = sum(t.numel() * t.element_size() for c in cache
+                    for name, t in c.items() if name != "pos") // (
+                        (PROMPT + GEN) * cfg.num_layers)
+    mla, expanded = mla_cache_bytes(cfg)
+    if per_token != mla:
+        raise SystemExit(f"deepseek cache: {per_token} bytes a token a "
+                         f"layer, reckoned {mla}")
+    del cache, first, eager
+    log(f"[smoke] deepseek_v3_671b serving [{smi}] ({cfg.num_layers} of 61 "
+        f"layers + MTP, {n_params / 1e9:.2f}B params, weights "
+        f"{weights / 1e9:.2f} GB): launches {launches} as reckoned; greedy "
+        f"requests " + ", ".join(
+            f"{r['seconds'] * 1e3:.1f} ms ({r['tokens_per_s']:.1f} tok/s, "
+            f"peak {r['peak_above_weights'] / 2**20:.0f} MiB above the "
+            f"weights)" for r in reqs) + f"; eager request 0 "
+        f"{eager_s * 1e3:.1f} ms, the same tokens; decode cache "
+        f"{per_token} bytes a token a layer against {expanded} for the "
+        f"expanded K and V ({expanded / per_token:.1f}x)")
+    out = {"requests": reqs, "launches": launches, "eager_seconds": eager_s,
+           "eager_launches": eager_launches, "params": n_params,
+           "weights_bytes": weights, "cache_bytes_per_token": per_token,
+           "expanded_bytes_per_token": expanded,
+           "num_layers": cfg.num_layers}
+    del model, params, ro
+    _free()
+    return out
+
+
+def deepseek_train(cfg, dev, log, smi, label) -> dict:
+    """Phase 18 (b, c): one Adafactor ``make_train_step`` of kind "lm" on
+    ``cfg`` at full width, DS_TBATCH x DS_TSEQ tokens, random weights from
+    seed 0: launches as :func:`train_launches` reckons them, finite loss
+    (and MTP loss), the statistics' bytes those ``Adafactor.state_bytes``
+    reckons, the peak against the reckoning (the state, then one bf16
+    gradient a parameter, two at several microbatches: the accumulators
+    and one microbatch's gradients), a probe of leaves moved."""
+    _free()
+    model = Model(cfg, device=dev)
+    step = TS.make_train_step(model, cfg, kind="lm", lr=1e-4)
+    state = TS.init_train_state(
+        model, cfg, None, step.optimizer,
+        params=model.init(torch.Generator(device=dev).manual_seed(0)))
+    params = state["params"]
+    n_params = sum(t.numel() for t in leaves(params))
+    weights = tree_nbytes(params)
+    opt_bytes = tree_nbytes(state["opt"])
+    if opt_bytes != step.optimizer.state_bytes(params) - 4:
+        raise SystemExit(f"{label}: Adafactor state {opt_bytes} bytes, "
+                         f"reckoned {step.optimizer.state_bytes(params) - 4}")
+    probes = [(t, t.detach().flatten()[:4096].clone())
+              for t in leaves(params) if t.dim() >= 2]
+    g = torch.Generator(device=dev).manual_seed(3)
+    batch = {"tokens": torch.randint(0, cfg.vocab_size,
+                                     (DS_TBATCH, DS_TSEQ), generator=g,
+                                     device=dev),
+             "loss_mask": torch.ones(DS_TBATCH, DS_TSEQ, device=dev)}
+    opt, update = step.optimizer, step.optimizer.update_
+    update_s = []
+
+    def timed_update(*a, **kw):      # the optimizer's share of the step
+        _sync(dev)
+        t = time.perf_counter()
+        update(*a, **kw)
+        _sync(dev)
+        update_s.append(time.perf_counter() - t)
+
+    object.__setattr__(opt, "update_", timed_update)
+    _sync(dev)
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launches()
+    t0 = time.perf_counter()
+    state, m = step(state, batch)
+    _sync(dev)
+    secs = time.perf_counter() - t0
+    object.__delattr__(opt, "update_")
+    peak = torch.cuda.max_memory_allocated()
+    launches = dict(ops.launches)
+    want = train_launches(cfg, max(1, cfg.microbatches))
+    if launches != want:
+        raise SystemExit(f"{label}: launches {launches} != {want}")
+    metrics = {k: float(v) for k, v in m.items()}
+    if not all(math.isfinite(v) for v in metrics.values()) or \
+            (cfg.mtp_depth and "mtp_loss" not in metrics):
+        raise SystemExit(f"{label}: metrics {metrics}")
+    moved = sum(not torch.equal(t.detach().flatten()[:4096], p0)
+                for t, p0 in probes)
+    if moved < len(probes) // 2:
+        raise SystemExit(f"{label}: {moved} of {len(probes)} probed leaves "
+                         "moved")
+    grads = weights * (1 + (cfg.microbatches > 1))
+    reckoned = base + grads
+    if not reckoned <= peak <= reckoned + DS_PEAK_SLACK:
+        raise SystemExit(f"{label}: peak {peak / 1e9:.2f} GB against the "
+                         f"reckoned {reckoned / 1e9:.2f} GB (+ at most "
+                         f"{DS_PEAK_SLACK / 2**30:.0f} GiB)")
+    log(f"[smoke] {label} [{smi}] ({n_params / 1e9:.2f}B params, "
+        f"{weights / 1e9:.2f} GB; {cfg.microbatches} microbatch(es) of "
+        f"{DS_TBATCH // cfg.microbatches} x {DS_TSEQ}): {secs * 1e3:.1f} ms "
+        f"(Adafactor's update {update_s[0] * 1e3:.1f} ms); "
+        f"launches {launches} as reckoned; peak {peak / 1e9:.2f} GB "
+        f"against the reckoned {reckoned / 1e9:.2f} GB (state "
+        f"{base / 1e9:.2f} + bf16 gradients {grads / 1e9:.2f}); Adafactor "
+        f"state {opt_bytes / 1e6:.2f} MB (AdamW's would be "
+        f"{8 * n_params / 1e9:.2f} GB); " + ", ".join(
+            f"{k} {v:.4g}" for k, v in sorted(metrics.items())))
+    out = {"seconds": secs, "update_seconds": update_s[0],
+           "launches": launches, "metrics": metrics,
+           "params": n_params, "weights_bytes": weights,
+           "opt_bytes": opt_bytes, "peak_bytes": peak,
+           "reckoned_bytes": reckoned, "microbatches": cfg.microbatches,
+           "moved": moved, "probes": len(probes)}
+    del model, step, state, params, probes
+    _free()
+    return out
+
+
+def check_small_mla_against_cpu(dev, seed=5, tol=1e-4) -> dict:
+    """deepseek's smoke config at MLA's own head widths (q/k 192, v 128;
+    the smoke's 48 / 32 are no pair the kernels take), f32: the card
+    through the kernels (B2 and B2-bwd on their fp32 routes) against the
+    CPU through the plain versions: prefill logits within 1e-4, 16
+    greedy tokens identical, and two Adafactor train steps from the same
+    weights to the same metrics within ``tol`` (the second step's read the
+    first step's update; as ``check_small_ppo_against_cpu`` holds PPO:
+    Adafactor's first update is ~lr times the sign of each gradient
+    element, so an element summed to ~0 in another order may move either
+    way, and params are not held element by element)."""
+    from repro_torch.configs import MLAConfig
+    cfg = dataclasses.replace(
+        get_config(DEEPSEEK).smoke(), optimizer="adafactor",
+        mla=MLAConfig(q_lora_rank=64, kv_lora_rank=32, qk_nope_head_dim=128,
+                      qk_rope_head_dim=64, v_head_dim=128))
+    err = check_small_model_against_cpu(dev, cfg, prompt=40, seed=seed)
+    tokens = torch.randint(0, cfg.vocab_size, (2, 32),
+                           generator=torch.Generator().manual_seed(seed))
+    params0 = Model(cfg, device="cpu").init(
+        torch.Generator().manual_seed(seed))
+    out = []
+    for device in ("cpu", dev):
+        model = Model(cfg, device=device)
+        step = TS.make_train_step(model, cfg, kind="lm", lr=1e-3)
+        state = TS.init_train_state(model, cfg, None, step.optimizer,
+                                    params=_to(params0, device))
+        batch = {"tokens": tokens.to(device),
+                 "loss_mask": torch.ones(2, 32, device=device)}
+        out.append([{k: float(v) for k, v in step(state, batch)[1].items()}
+                    for _ in range(2)])
+    train_err = max(abs(a[k] - b[k]) for a, b in zip(*out) for k in a)
+    if not train_err <= tol:
+        raise SystemExit(f"small MLA train steps card vs CPU: metrics "
+                         f"differ by {train_err}: {out}")
+    return {"logits_err": err, "train_err": train_err,
+            "metrics": out[1]}
+
+
+def deepseek(dev, log, smi) -> dict:
+    """Phase 18: deepseek_v3_671b (MLA layers, a dense leading segment,
+    256-expert MoE, MTP, Adafactor) at full width: (a) serving at
+    DS_SERVE_LAYERS of its layers (:func:`deepseek_serving`); (b) one
+    Adafactor train step with the trunk cut to its first dense layer, its
+    MTP module (the reference's MTP layer is its last segment's kind:
+    here MLA with a dense FFN) and the MTP loss, at 2 microbatches (bf16
+    accumulation); (c) one on one MoE layer (MLA, 256 routed experts and
+    the shared one), at one microbatch, Adafactor's update block by block
+    over its 3.76 G-element expert leaves; (d) a small MLA model on the
+    card against the CPU."""
+    t0 = t = time.perf_counter()
+    parts, out = {}, {}
+
+    def part(name, fn):
+        nonlocal t
+        res = fn()
+        now = time.perf_counter()
+        parts[name], t = now - t, now
+        return res
+
+    ds = get_config(DEEPSEEK)
+    out["serve"] = part("serve", lambda: deepseek_serving(dev, log, smi))
+    out["train_dense_mtp"] = part("train_dense_mtp", lambda: deepseek_train(
+        dataclasses.replace(ds, num_layers=1, first_k_dense=1,
+                            microbatches=2), dev, log, smi,
+        "deepseek train step, one dense layer + MTP"))
+    out["train_moe"] = part("train_moe", lambda: deepseek_train(
+        dataclasses.replace(ds, num_layers=1, first_k_dense=0, mtp_depth=0,
+                            microbatches=1), dev, log, smi,
+        "deepseek train step, one MoE layer"))
+    out["small"] = part("small", lambda: check_small_mla_against_cpu(dev))
+    log(f"[smoke] small MLA model card vs CPU: logits max_err "
+        f"{out['small']['logits_err']:.3e}, 16 greedy tokens identical; two "
+        f"Adafactor steps' metrics within {out['small']['train_err']:.3e}")
+    out["seconds"], out["part_seconds"] = time.perf_counter() - t0, parts
+    log("[smoke] deepseek: " + ", ".join(f"{k} {v:.1f} s"
+                                          for k, v in parts.items()))
+    return out
+
+
 def port_kernels(rows):
     """{wrapper: {"ms", "calls", "us_per_call", "us_per_call_by_kernel"}}
     from profiler rows (us, count, name): each wrapper's kernels' device
@@ -5780,6 +6188,10 @@ def main() -> int:
     report["families"] = fam = families(dev, lambda s: print(s, flush=True),
                                         smi, profile=args.profile)
     lap(17)
+    # phase 18: deepseek_v3_671b's MLA, MoE and Adafactor at full width
+    report["deepseek"] = ds = deepseek(dev, lambda s: print(s, flush=True),
+                                       smi)
+    lap(18)
     paths = {"serve": launches, "paged_grpo": grpo["launches"],
              "mamba_serve": mamba["launches"], "ppo": ppo["launches"],
              "ppo_separate": sep["launches"],
@@ -5808,6 +6220,10 @@ def main() -> int:
                       fam["granite_separate"]["launches"]})
     paths.update({f"tp_batcher_{b}": report["tp"]["ranks"][0]["batcher"][b][
         "launches"] for b in ("dense", "paged")})
+    paths.update({"deepseek_serve": ds["serve"]["launches"],
+                  "deepseek_train_dense_mtp":
+                      ds["train_dense_mtp"]["launches"],
+                  "deepseek_train_moe": ds["train_moe"]["launches"]})
 
     if args.profile:
         prof, table = profile_request(cfg, dev)

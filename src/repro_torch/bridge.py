@@ -3,11 +3,15 @@ port's.
 
 The reference stacks each segment's layers on a leading group axis
 (``params["segment{i}"]["slot{j}"][...]`` with shape ``[n_groups, ...]``,
-``repro/models/transformer.py:49-50, 110-114``); the port keeps one dict
-per layer in ``params["layers"]``. Layer ``g * len(period) + j`` is group
-``g`` of slot ``j``. Leaves keep their fused ``[d_model, heads*head_dim]``
-layout and their own dtype (a Mamba mixer's ``dt_bias``, ``A_log`` and
-``D`` stay fp32 in a bf16 model, as does an MoE FFN's ``router``; its
+``repro/models/transformer.py:35-50, 110-114``); the port keeps one dict
+per layer in ``params["layers"]``, the segments' layers one after the
+other (:func:`segment_groups`: DeepSeek's ``first_k_dense`` layers are a
+leading segment of their own, then the rest). Within a segment that
+starts at layer ``s``, layer ``s + g * len(period) + j`` is group ``g`` of
+slot ``j``; a one-segment model maps as it always has. Leaves keep their
+fused ``[d_model, heads*head_dim]`` layout and their own dtype (a Mamba
+mixer's ``dt_bias``, ``A_log`` and ``D`` stay fp32 in a bf16 model, as
+does an MoE FFN's ``router``; its
 experts' ``w_in``/``w_gate`` [E, D, F] and ``w_out`` [E, F, D] stack over
 groups like any leaf). A period of several slots (Jamba's 8: Mamba,
 attention, dense and MoE FFNs) maps slot by slot, each slot's dict of
@@ -22,9 +26,10 @@ the list ``params["mtp"]`` (its layer dict under ``["layer"]``). Adapters
 over them follow the same two layouts.
 
 Decode caches follow the same stacking
-(``caches["segments"][0]["slot{j}"]``, each leaf ``[n_groups, B, ...]``:
-an attention slot's ``k``/``v``/``pos``, a Mamba slot's ``conv_state`` and
-``ssm_state``); :func:`caches_from_jax` gives the port's per-layer list.
+(``caches["segments"][i]["slot{j}"]``, each leaf ``[n_groups, B, ...]``:
+an attention slot's ``k``/``v``/``pos``, an MLA slot's ``c_kv``/``k_rope``/
+``pos``, a Mamba slot's ``conv_state`` and ``ssm_state``);
+:func:`caches_from_jax` gives the port's per-layer list.
 Paged KV pools follow the same stacking in the reference
 (``pools[0]["slot{j}"]["k"]`` of shape ``[n_groups, P, ps, K, D]``,
 ``repro/models/transformer.py:551-566``); the port keeps one pool per
@@ -32,7 +37,7 @@ layer with one more page, the drop page (``paged/paged_cache.py``), which
 the converters add and strip.
 
 LoRA adapters follow the same stacking in the reference
-(``adapter["lora"]["segment0"]["slot{j}"]``, factors ``[n_groups, d_in,
+(``adapter["lora"]["segment{i}"]["slot{j}"]``, factors ``[n_groups, d_in,
 r]`` / ``[n_groups, r, d_out]``); the port's are per layer
 (``adapter["lora"]["layers"][i]``); the value head is fp32 ``{"w": [d, 1],
 "b": [1]}`` on both sides (:func:`adapter_from_jax`,
@@ -123,12 +128,48 @@ def _first_leaf(tree):
     return tree
 
 
+def segment_groups(cfg: ModelConfig) -> list:
+    """The reference's segments as their group counts, in order
+    (``ModelConfig.segment_layers`` over the period)."""
+    return [n // len(cfg.period) for n in cfg.segment_layers()]
+
+
+def _segment_names(cfg: ModelConfig) -> list:
+    return [f"segment{i}" for i in range(len(segment_groups(cfg)))]
+
+
+def _unstack(segments: list, cfg: ModelConfig, fn) -> list:
+    """Stacked segments (each ``{"slot{j}": tree of [n_groups, ...]}``)
+    -> one tree a layer, in layer order, each leaf ``fn(a[g])``."""
+    per = len(cfg.period)
+    if len(segments) != len(segment_groups(cfg)):
+        raise ValueError(f"{cfg.name} has {len(segment_groups(cfg))} "
+                         f"segments, got {len(segments)}")
+    return [_map(seg[f"slot{j}"], lambda a, g=g: fn(np.asarray(a)[g]))
+            for seg, n in zip(segments, segment_groups(cfg))
+            for g in range(n) for j in range(per)]
+
+
+def _stack(layers: list, cfg: ModelConfig) -> list:
+    """One tree a layer (numpy leaves), in layer order -> the stacked
+    segments."""
+    per = len(cfg.period)
+    out, start = [], 0
+    for n in segment_groups(cfg):
+        seg = layers[start:start + n * per]
+        out.append({f"slot{j}": _map_stack(seg[j::per])
+                    for j in range(per)})
+        start += n * per
+    return out
+
+
 def _check_supported(params_np: Dict[str, Any], cfg: ModelConfig) -> None:
-    extra = set(params_np) - set(_TOP_LEVEL) - {"segment0"} - set(_MTP)
+    extra = set(params_np) - set(_TOP_LEVEL) - set(_segment_names(cfg)) - \
+        set(_MTP)
     if extra:
         raise NotImplementedError(
-            f"the port carries one-segment token-input decoders; "
-            f"unsupported parameter groups {sorted(extra)}")
+            f"the port carries token-input decoders; unsupported parameter "
+            f"groups {sorted(extra)}")
 
 
 def from_jax(params_np: Dict[str, Any], cfg: ModelConfig,
@@ -139,15 +180,8 @@ def from_jax(params_np: Dict[str, Any], cfg: ModelConfig,
     _check_supported(params_np, cfg)
     out = {k: _map(params_np[k], lambda a: _to_torch(a, device))
            for k in _TOP_LEVEL if k in params_np}
-    seg = params_np["segment0"]
-    per = len(cfg.period)
-    n_groups = cfg.num_layers // per
-    layers = []
-    for g in range(n_groups):
-        for j in range(per):
-            layers.append(_map(seg[f"slot{j}"],
-                               lambda a, g=g: _to_torch(a[g], device)))
-    out["layers"] = layers
+    out["layers"] = _unstack([params_np[n] for n in _segment_names(cfg)],
+                             cfg, lambda a: _to_torch(a, device))
     if "mtp" in params_np:
         out["mtp"] = _mtp_from_jax(params_np,
                                    lambda a: _to_torch(a, device))
@@ -158,13 +192,9 @@ def to_jax(params: dict, cfg: ModelConfig) -> Dict[str, Any]:
     """The port's parameters -> the reference's pytree layout, as numpy
     arrays (bf16 as ``ml_dtypes.bfloat16``)."""
     out = {k: _map(params[k], _to_numpy) for k in _TOP_LEVEL if k in params}
-    per = len(cfg.period)
-    layers = [_map(layer, _to_numpy) for layer in params["layers"]]
-    slots = {}
-    for j in range(per):
-        group = layers[j::per]
-        slots[f"slot{j}"] = _map_stack(group)
-    out["segment0"] = slots
+    segs = _stack([_map(layer, _to_numpy) for layer in params["layers"]],
+                  cfg)
+    out.update(zip(_segment_names(cfg), segs))
     if "mtp" in params:
         out.update(_mtp_to_jax([_map(m, _to_numpy) for m in params["mtp"]]))
     return out
@@ -181,42 +211,23 @@ def caches_from_jax(caches_np, cfg: ModelConfig, device=None) -> list:
     """The reference's decode caches (``{"segments": [...], ...}`` with
     numpy leaves) -> the port's per-layer caches on ``device``."""
     device = default_device(device)
-    segments = caches_np["segments"]
-    if len(segments) != 1:
-        raise NotImplementedError("the port carries one-segment decoders")
-    per = len(cfg.period)
-    return [_map(segments[0][f"slot{j}"],
-                 lambda a, g=g: _to_torch(np.asarray(a)[g], device))
-            for g in range(cfg.num_layers // per) for j in range(per)]
+    return _unstack(list(caches_np["segments"]), cfg,
+                    lambda a: _to_torch(a, device))
 
 
 def pools_from_jax(pools_np, cfg: ModelConfig, device=None) -> list:
     """The reference's paged pools (numpy leaves) -> the port's per-layer
     pools on ``device``, each with a zero drop page appended."""
     device = default_device(device)
-    if len(pools_np) != 1:
-        raise NotImplementedError("the port carries one-segment decoders")
-    seg = pools_np[0]
-    per = len(cfg.period)
-    layers = []
-    for g in range(cfg.num_layers // per):
-        for j in range(per):
-            layer = {}
-            for name in ("k", "v"):
-                a = np.asarray(seg[f"slot{j}"][name][g])
-                layer[name] = _to_torch(
-                    np.concatenate([a, np.zeros_like(a[:1])]), device)
-            layers.append(layer)
-    return layers
+    return _unstack(list(pools_np), cfg, lambda a: _to_torch(
+        np.concatenate([a, np.zeros_like(a[:1])]), device))
 
 
 def pools_to_jax(pools: list, cfg: ModelConfig) -> list:
-    """The port's per-layer pools -> the reference's one-segment stacked
-    layout, as numpy arrays, drop pages stripped."""
-    per = len(cfg.period)
-    layers = [{name: _to_numpy(pool[name][:-1]) for name in ("k", "v")}
-              for pool in pools]
-    return [{f"slot{j}": _map_stack(layers[j::per]) for j in range(per)}]
+    """The port's per-layer pools -> the reference's stacked layout, as
+    numpy arrays, drop pages stripped."""
+    return _stack([{name: _to_numpy(pool[name][:-1]) for name in ("k", "v")}
+                   for pool in pools], cfg)
 
 
 def adapter_from_jax(adapter_np: Dict[str, Any], cfg: ModelConfig,
@@ -224,17 +235,15 @@ def adapter_from_jax(adapter_np: Dict[str, Any], cfg: ModelConfig,
     """A reference adapter (numpy leaves) -> the port's, on ``device``."""
     device = default_device(device)
     lora = adapter_np.get("lora") or {}
-    extra = set(lora) - {"segment0"} - set(_MTP)
+    names = _segment_names(cfg)
+    extra = set(lora) - set(names) - set(_MTP)
     if extra:
-        raise NotImplementedError(f"the port carries one-segment decoders; "
+        raise NotImplementedError(f"the port carries token-input decoders; "
                                   f"unsupported adapter groups {sorted(extra)}")
     out: Dict[str, Any] = {"lora": {}}
     if lora:
-        seg = lora["segment0"]
-        per = len(cfg.period)
-        out["lora"]["layers"] = [
-            _map(seg[f"slot{j}"], lambda a, g=g: _to_torch(a[g], device))
-            for g in range(cfg.num_layers // per) for j in range(per)]
+        out["lora"]["layers"] = _unstack([lora[n] for n in names], cfg,
+                                         lambda a: _to_torch(a, device))
     if "mtp" in lora:
         out["lora"]["mtp"] = _mtp_from_jax(lora,
                                            lambda a: _to_torch(a, device))
@@ -249,10 +258,8 @@ def adapter_to_jax(adapter: dict, cfg: ModelConfig) -> Dict[str, Any]:
     out: Dict[str, Any] = {"lora": {}}
     layers = (adapter.get("lora") or {}).get("layers")
     if layers:
-        per = len(cfg.period)
-        layers = [_map(layer, _to_numpy) for layer in layers]
-        out["lora"]["segment0"] = {f"slot{j}": _map_stack(layers[j::per])
-                                   for j in range(per)}
+        segs = _stack([_map(layer, _to_numpy) for layer in layers], cfg)
+        out["lora"].update(zip(_segment_names(cfg), segs))
     mtp = (adapter.get("lora") or {}).get("mtp")
     if mtp:
         out["lora"].update(_mtp_to_jax([_map(m, _to_numpy) for m in mtp]))

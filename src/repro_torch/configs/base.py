@@ -1,8 +1,8 @@
 """Model configs and the architecture registry.
 
 A copy of the parts of ``repro/configs/base.py`` that the port's
-decoder reads (attention and Mamba2 layers, dense and Mixture-of-Experts
-FFNs); the port keeps its own copy so that it imports nothing of
+decoder reads (attention, DeepSeek MLA and Mamba2 layers, dense and
+Mixture-of-Experts FFNs); the port keeps its own copy so that it imports nothing of
 ``repro``. Each architecture lives in its own
 ``configs/<id>.py`` file and registers a full-size :class:`ModelConfig`;
 ``smoke()`` derives the reduced variant the CPU tests use.
@@ -14,6 +14,7 @@ from dataclasses import dataclass, replace
 from typing import Optional, Tuple
 
 ATTN = "attn"     # (sliding-window capable) GQA/MHA self-attention block
+MLA = "mla"       # DeepSeek multi-head latent attention block
 MAMBA = "mamba"   # Mamba2 SSD block
 
 
@@ -25,6 +26,16 @@ class MoEConfig:
     num_shared_experts: int = 0   # DeepSeek-style always-on shared experts
     router_aux_coef: float = 0.01
     capacity_factor: float = 1.25
+
+
+@dataclass(frozen=True)
+class MLAConfig:
+    """DeepSeek-V3 multi-head latent attention dims."""
+    q_lora_rank: int = 1536
+    kv_lora_rank: int = 512
+    qk_nope_head_dim: int = 128
+    qk_rope_head_dim: int = 64
+    v_head_dim: int = 128
 
 
 @dataclass(frozen=True)
@@ -58,6 +69,7 @@ class ModelConfig:
     moe_period: Tuple[bool, ...] = (False,)   # which period slots are MoE FFNs
     first_k_dense: int = 0                    # leading layers forced dense FFN
     moe: Optional[MoEConfig] = None
+    mla: Optional[MLAConfig] = None
     ssm: Optional[SSMConfig] = None
     head_dim: int = 0                         # 0 => d_model // num_heads
     qkv_bias: bool = False
@@ -68,7 +80,7 @@ class ModelConfig:
     tie_embeddings: bool = False
     norm_eps: float = 1e-5
     param_dtype: str = "bfloat16"
-    optimizer: str = "adamw"                  # adamw (adamw_bf16, adafactor: A11)
+    optimizer: str = "adamw"                  # adamw | adafactor (adamw_bf16: A11 5)
     remat: str = "full"                       # none | full (per layer)
     microbatches: int = 1                     # gradient-accumulation steps
     mtp_depth: int = 0                        # DeepSeek multi-token prediction
@@ -95,11 +107,24 @@ class ModelConfig:
             flags[i] = False
         return tuple(flags)
 
+    def segment_layers(self) -> Tuple[int, ...]:
+        """The layer counts of the reference's segments, in order
+        (``repro/models/transformer.py:35-45``): the ``first_k_dense``
+        layers are a segment of their own, then the rest; the port keeps
+        their layers in one list."""
+        per = len(self.period)
+        k = self.first_k_dense
+        if k % per or (self.num_layers - k) % per:
+            raise ValueError(f"{self.name}: segments of {k} and "
+                             f"{self.num_layers - k} layers do not hold "
+                             f"whole periods of {per}")
+        return tuple(n for n in (k, self.num_layers - k) if n)
+
     def param_count(self) -> int:
         """Analytic parameter count (rooflines, 6ND; the simulator's phase
         flops and weight bytes) — ``repro/configs/base.py:124-172``. The
-        MLA and encoder branches read fields the port's config does not
-        have; for every config it registers they add nothing."""
+        encoder branch reads fields the port's config does not have; for
+        every config it registers it adds nothing."""
         d, v = self.d_model, self.vocab_size
         hd = self.resolved_head_dim()
         total = v * d  # embeddings
@@ -114,6 +139,15 @@ class ModelConfig:
                 total += q + kv + o
                 if self.qkv_bias:
                     total += (self.num_heads + 2 * self.num_kv_heads) * hd
+            elif kind == MLA:
+                m = self.mla
+                qk_hd = m.qk_nope_head_dim + m.qk_rope_head_dim
+                total += d * m.q_lora_rank + \
+                    m.q_lora_rank * self.num_heads * qk_hd
+                total += d * (m.kv_lora_rank + m.qk_rope_head_dim)
+                total += m.kv_lora_rank * self.num_heads * \
+                    (m.qk_nope_head_dim + m.v_head_dim)
+                total += self.num_heads * m.v_head_dim * d
             elif kind == MAMBA:
                 s = self.ssm
                 di = s.d_inner(d)
@@ -164,6 +198,9 @@ class ModelConfig:
                 num_shared_experts=min(self.moe.num_shared_experts, 1),
                 capacity_factor=8.0)   # drop-free: exact decode==forward
             if self.moe is not None else None,
+            mla=MLAConfig(q_lora_rank=64, kv_lora_rank=32,
+                          qk_nope_head_dim=32, qk_rope_head_dim=16,
+                          v_head_dim=32) if self.mla is not None else None,
             first_k_dense=min(self.first_k_dense, 1),
             num_layers=n_layers,
             d_model=256,

@@ -176,14 +176,15 @@ def lora_trainable_fraction(cfg, rank: int = 128) -> float:
 def _tree_fraction(spec_tree, shape_tree, mesh,
                    extra_bytes: int = 0) -> Tuple[float, float]:
     """(total bytes, per-rank bytes) of a tree of tensors (shapes read)
-    under its specs; ``extra_bytes`` are whole on every rank (AdamW's
-    count, a host int in the port and an int32 in the reference)."""
+    under its specs; ``extra_bytes`` are whole on every rank (the
+    optimizer's count, a host int in the port and an int32 in the
+    reference)."""
     from repro_torch.sharding.rules import spec_device_fraction, spec_map
     tot = dev = float(extra_bytes)
 
     def add(spec, leaf):
         nonlocal tot, dev
-        if not hasattr(leaf, "numel"):          # AdamW's host-int count
+        if not hasattr(leaf, "numel"):          # the host-int count
             return spec
         nb = float(leaf.numel() * leaf.element_size())
         tot += nb

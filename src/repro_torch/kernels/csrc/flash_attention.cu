@@ -64,6 +64,15 @@
 // rows, so the rescale stays in registers; k tiles wholly above the
 // diagonal or outside the window are skipped.
 //
+// Head widths. Both routes take (D, Dv) = (64, 64), (128, 128) and
+// DeepSeek-V3 MLA's (192, 128): q and k rows of D = 128 nope + 64 rope
+// columns, v and out rows of Dv = 128, as the TPU kernel's Dv = v.shape[-1]
+// allows (flash_attention.py:76-79). There S = QK^T takes 12 k-steps of
+// m64n64k16 over three 64-column TMA boxes a row, PV stays m64n128, and the
+// block keeps two q buffers (Layout). Bound at the MLA serving shape (q/k
+// [8,512,128,192], v [8,512,128,128], causal): 671 MB, 200 us at 3.35 TB/s,
+// against 86 GFLOP, 87 us at 989 TFLOP/s: bytes bound it.
+//
 // In both, a query row whose every key is masked gives an unspecified
 // output, as in the TPU kernel.
 #include "common.cuh"
@@ -76,14 +85,15 @@ constexpr int BQ = 64;    // q rows per block
 constexpr int BK = 64;    // keys per shared-memory tile
 constexpr int NT = 256;   // threads per block
 
-template <int D>
+template <int DQK, int DV>
 constexpr size_t smem_bytes() {
-  // q [BQ][D+1], k [BK][D+1], v [BK][D], p [BQ][BK+1], all fp32
+  // q [BQ][DQK+1], k [BK][DQK+1], v [BK][DV], p [BQ][BK+1], all fp32
   return sizeof(float) *
-         (BQ * (D + 1) + BK * (D + 1) + BK * D + BQ * (BK + 1));
+         (BQ * (DQK + 1) + BK * (DQK + 1) + BK * DV + BQ * (BK + 1));
 }
 
-template <typename T, int D>
+// DQK: the width of q and k rows; DV: that of v and out rows
+template <typename T, int DQK, int DV>
 __global__ void __launch_bounds__(NT)
 flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
                  const T* __restrict__ v, T* __restrict__ o,
@@ -91,10 +101,10 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
                  int causal, int window, float scale) {
   extern __shared__ float smem[];
   float* qs = smem;
-  float* ks = qs + BQ * (D + 1);
-  float* vs = ks + BK * (D + 1);
-  float* ps = vs + BK * D;
-  constexpr int DC = D / 16;   // accumulator columns per thread
+  float* ks = qs + BQ * (DQK + 1);
+  float* vs = ks + BK * (DQK + 1);
+  float* ps = vs + BK * DV;
+  constexpr int DC = DV / 16;   // accumulator columns per thread
 
   const int q0 = blockIdx.x * BQ;
   const int h = blockIdx.y;
@@ -104,11 +114,11 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const int tr = tid / 16;
   const int tc = tid % 16;
 
-  for (int i = tid; i < BQ * D; i += NT) {
-    const int r = i / D, d = i % D, qi = q0 + r;
+  for (int i = tid; i < BQ * DQK; i += NT) {
+    const int r = i / DQK, d = i % DQK, qi = q0 + r;
     float x = 0.f;
-    if (qi < Sq) x = rt::to_f(q[(((size_t)b * Sq + qi) * H + h) * D + d]) * scale;
-    qs[r * (D + 1) + d] = x;
+    if (qi < Sq) x = rt::to_f(q[(((size_t)b * Sq + qi) * H + h) * DQK + d]) * scale;
+    qs[r * (DQK + 1) + d] = x;
   }
 
   float m[4], l[4], acc[4][DC];
@@ -134,16 +144,31 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
   for (int kt = kt_begin; kt < kt_end; ++kt) {
     const int k0 = kt * BK;
     __syncthreads();   // the previous tile's k, v and p are consumed
-    for (int i = tid; i < BK * D; i += NT) {
-      const int r = i / D, d = i % D, kj = k0 + r;
-      float kx = 0.f, vx = 0.f;
-      if (kj < Sk) {
-        const size_t off = (((size_t)b * Sk + kj) * K + kh) * D + d;
-        kx = rt::to_f(k[off]);
-        vx = rt::to_f(v[off]);
+    if constexpr (DQK == DV) {
+      for (int i = tid; i < BK * DQK; i += NT) {
+        const int r = i / DQK, d = i % DQK, kj = k0 + r;
+        float kx = 0.f, vx = 0.f;
+        if (kj < Sk) {
+          const size_t off = (((size_t)b * Sk + kj) * K + kh) * DQK + d;
+          kx = rt::to_f(k[off]);
+          vx = rt::to_f(v[off]);
+        }
+        ks[r * (DQK + 1) + d] = kx;
+        vs[r * DV + d] = vx;
       }
-      ks[r * (D + 1) + d] = kx;
-      vs[r * D + d] = vx;
+    } else {
+      for (int i = tid; i < BK * DQK; i += NT) {
+        const int r = i / DQK, d = i % DQK, kj = k0 + r;
+        ks[r * (DQK + 1) + d] =
+            kj < Sk ? rt::to_f(k[(((size_t)b * Sk + kj) * K + kh) * DQK + d])
+                    : 0.f;
+      }
+      for (int i = tid; i < BK * DV; i += NT) {
+        const int r = i / DV, d = i % DV, kj = k0 + r;
+        vs[r * DV + d] =
+            kj < Sk ? rt::to_f(v[(((size_t)b * Sk + kj) * K + kh) * DV + d])
+                    : 0.f;
+      }
     }
     __syncthreads();
 
@@ -153,12 +178,12 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
 #pragma unroll
       for (int j = 0; j < 4; ++j) s[i][j] = 0.f;
 #pragma unroll 4
-    for (int d = 0; d < D; ++d) {
+    for (int d = 0; d < DQK; ++d) {
       float qv[4], kv[4];
 #pragma unroll
-      for (int i = 0; i < 4; ++i) qv[i] = qs[(tr * 4 + i) * (D + 1) + d];
+      for (int i = 0; i < 4; ++i) qv[i] = qs[(tr * 4 + i) * (DQK + 1) + d];
 #pragma unroll
-      for (int j = 0; j < 4; ++j) kv[j] = ks[(tc + 16 * j) * (D + 1) + d];
+      for (int j = 0; j < 4; ++j) kv[j] = ks[(tc + 16 * j) * (DQK + 1) + d];
 #pragma unroll
       for (int i = 0; i < 4; ++i)
 #pragma unroll
@@ -205,7 +230,7 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
       for (int i = 0; i < 4; ++i) pv[i] = ps[(tr * 4 + i) * (BK + 1) + c];
 #pragma unroll
       for (int cc = 0; cc < DC; ++cc) {
-        const float vx = vs[c * D + tc + 16 * cc];
+        const float vx = vs[c * DV + tc + 16 * cc];
 #pragma unroll
         for (int i = 0; i < 4; ++i) acc[i][cc] = fmaf(pv[i], vx, acc[i][cc]);
       }
@@ -219,26 +244,26 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
     const float inv = 1.f / fmaxf(l[i], 1e-30f);
     if (lse && tc == 0)
       lse[((size_t)b * Sq + qi) * H + h] = m[i] + logf(fmaxf(l[i], 1e-30f));
-    T* orow = o + (((size_t)b * Sq + qi) * H + h) * D;
+    T* orow = o + (((size_t)b * Sq + qi) * H + h) * DV;
 #pragma unroll
     for (int cc = 0; cc < DC; ++cc) rt::store_f(orow + tc + 16 * cc, acc[i][cc] * inv);
   }
 }
 
-template <typename T, int D>
+template <typename T, int DQK, int DV>
 cudaError_t launch(const void* q, const void* k, const void* v, void* o,
                    float* lse, int B, int Sq, int Sk, int H, int K,
                    int causal, int window, cudaStream_t stream) {
-  constexpr size_t smem = smem_bytes<D>();
+  constexpr size_t smem = smem_bytes<DQK, DV>();
   cudaError_t err = cudaFuncSetAttribute(
-      flash_fwd_kernel<T, D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)smem);
+      flash_fwd_kernel<T, DQK, DV>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return err;
   const dim3 grid((Sq + BQ - 1) / BQ, H, B);
-  flash_fwd_kernel<T, D><<<grid, NT, smem, stream>>>(
+  flash_fwd_kernel<T, DQK, DV><<<grid, NT, smem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k),
       static_cast<const T*>(v), static_cast<T*>(o), lse, Sq, Sk, H, K,
-      causal, window, 1.0f / sqrtf((float)D));
+      causal, window, 1.0f / sqrtf((float)DQK));
   return cudaGetLastError();
 }
 
@@ -248,7 +273,6 @@ namespace wg {
 
 constexpr int BQ = 128;       // q rows per block (two warpgroups of 64)
 constexpr int BK = 64;        // keys per tile
-constexpr int NQB = 3;        // q buffers (each also stages its tile's O)
 constexpr int NST = 3;        // K/V ring stages (>= 3: a consumer holds one
                               // stage for its pending PV while it waits for
                               // the next)
@@ -257,11 +281,18 @@ constexpr int CHUNK = 64;     // bf16 columns per 128-byte swizzled row
 constexpr float kLog2e = 1.4426950408889634f;
 constexpr float kLn2 = 0.6931471805599453f;
 
-template <int D>
+// Shared memory of a (DQK, DV) pair: DQK is the width of q and k rows,
+// DV that of v and out rows. Three q buffers (each also stages its tile's
+// O) where they fit; at (192, 128) three would take 264 KB with the ring,
+// over the 227 KB a block may have, so two: the producer then loads the
+// next tile's q only once this tile's O has been stored.
+template <int DQK, int DV>
 struct Layout {
-  static constexpr int Q = BQ * D * 2;      // one q tile: [D/64][128][64] bf16
-  static constexpr int KV = BK * D * 2;     // one K or V stage: [D/64][64][64]
-  static constexpr size_t bytes = NQB * Q + 2 * NST * KV + 1024;  // + align
+  static constexpr int NQB = DQK > 128 ? 2 : 3;  // q buffers
+  static constexpr int Q = BQ * DQK * 2;    // one q tile: [DQK/64][128][64] bf16
+  static constexpr int KS = BK * DQK * 2;   // one K stage: [DQK/64][64][64]
+  static constexpr int VS = BK * DV * 2;    // one V stage: [DV/64][64][64]
+  static constexpr size_t bytes = NQB * Q + NST * (KS + VS) + 1024;  // + align
 };
 
 // The n-th work tile: (q tile, query head, batch row), causal q tiles with
@@ -289,7 +320,7 @@ struct Tile {
 };
 
 // Persistent: one block per SM walks the tiles (tile_of)
-template <int D>
+template <int DQK, int DV>
 __global__ void __launch_bounds__(NT, 1)
 flash_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
                    const __grid_constant__ CUtensorMap tk,
@@ -297,15 +328,18 @@ flash_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
                    const __grid_constant__ CUtensorMap to,
                    float* __restrict__ lse, int B, int Sq, int Sk, int H,
                    int K, int causal, int window, float scale_log2) {
-  using L = Layout<D>;
+  using L = Layout<DQK, DV>;
   static_assert(NST >= 3, "the pending PV holds a stage");
-  constexpr int NC = D / CHUNK;         // 64-column chunks of a row
+  static_assert(DV == 64 || DV == 128, "PV is m64n64 or m64n128");
+  constexpr int NQB = L::NQB;
+  constexpr int NCQ = DQK / CHUNK;      // 64-column chunks of a q or k row
+  constexpr int NCV = DV / CHUNK;       // and of a v or out row
   extern __shared__ uint8_t smem_raw[];
   uint8_t* smem = reinterpret_cast<uint8_t*>(
       (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~uintptr_t(1023));
   uint8_t* qs = smem;                   // NQB q buffers
   uint8_t* ks = qs + NQB * L::Q;
-  uint8_t* vs = ks + NST * L::KV;
+  uint8_t* vs = ks + NST * L::KS;
   __shared__ __align__(8) uint64_t q_full[NQB], q_empty[NQB], full[NST],
       empty[NST];
 
@@ -351,20 +385,21 @@ flash_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
         sm90::mbar_wait(&q_empty[qb], ((n / NQB) & 1) ^ 1);
         sm90::mbar_arrive_expect_tx(&q_full[qb], L::Q);
 #pragma unroll
-        for (int c = 0; c < NC; ++c)
+        for (int c = 0; c < NCQ; ++c)
           sm90::tma_load_4d(qs + qb * L::Q + c * BQ * 128, &tq, &q_full[qb],
                             c * CHUNK, tl.h, tl.q0, tl.b);
         for (int kt = tl.kt_begin; kt < tl.kt_end; ++kt, ++it) {
           const int s = it % NST;
           sm90::mbar_wait(&empty[s], ((it / NST) & 1) ^ 1);
-          sm90::mbar_arrive_expect_tx(&full[s], 2 * L::KV);
+          sm90::mbar_arrive_expect_tx(&full[s], L::KS + L::VS);
 #pragma unroll
-          for (int c = 0; c < NC; ++c) {
-            sm90::tma_load_4d(ks + s * L::KV + c * BK * 128, &tk, &full[s],
+          for (int c = 0; c < NCQ; ++c)
+            sm90::tma_load_4d(ks + s * L::KS + c * BK * 128, &tk, &full[s],
                               c * CHUNK, kh, kt * BK, tl.b);
-            sm90::tma_load_4d(vs + s * L::KV + c * BK * 128, &tv, &full[s],
+#pragma unroll
+          for (int c = 0; c < NCV; ++c)
+            sm90::tma_load_4d(vs + s * L::VS + c * BK * 128, &tv, &full[s],
                               c * CHUNK, kh, kt * BK, tl.b);
-          }
         }
       }
     }
@@ -383,24 +418,24 @@ flash_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
     const int row0 = tl.q0 + wgi * 64;            // first row of the warpgroup
     const int r_lo = row0 + (warp % 4) * 16 + lane / 4;
     const int rows[2] = {r_lo, r_lo + 8};
-    float acc[D / 2];
+    float acc[DV / 2];
     float sc[32];
     uint32_t pa[4][4];          // P of the pending tile, the A fragment of PV
     int pend = -1;              // ring stage whose V the pending P needs
     float m[2] = {rt::kNegInf, rt::kNegInf}, l[2] = {0.f, 0.f};
 #pragma unroll
-    for (int i = 0; i < D / 2; ++i) acc[i] = 0.f;
+    for (int i = 0; i < DV / 2; ++i) acc[i] = 0.f;
     uint8_t* qwg = qs + qb * L::Q + wgi * 64 * 128;   // this warpgroup's q rows
 
     // O += P V over the pending tile's 64 keys (2048 bytes of V rows per
     // step of 16), committed as one wgmma group
     auto issue_pv = [&](int st) {
-      const uint8_t* vst = vs + st * L::KV;
+      const uint8_t* vst = vs + st * L::VS;
 #pragma unroll
       for (int kk = 0; kk < 4; ++kk) {
         const uint64_t db =
             sm90::desc_sw128(vst + kk * 16 * 128, BK * 128, 1024);
-        if constexpr (D == 128)
+        if constexpr (DV == 128)
           sm90::wgmma_rs_m64n128<1>(acc, pa[kk], db);
         else
           sm90::wgmma_rs_m64n64<1>(acc, pa[kk], db);
@@ -411,12 +446,12 @@ flash_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
       if (lane == 0) sm90::mbar_arrive(&empty[st]);   // this warp is done
     };
 
-    // S = Q K^T over D in steps of 16 (32 bytes within a swizzled row),
+    // S = Q K^T over DQK in steps of 16 (32 bytes within a swizzled row),
     // committed as one wgmma group
     auto issue_s = [&](int st) {
-      const uint8_t* kst = ks + st * L::KV;
+      const uint8_t* kst = ks + st * L::KS;
 #pragma unroll
-      for (int kk = 0; kk < D / 16; ++kk) {
+      for (int kk = 0; kk < DQK / 16; ++kk) {
         const int off = (kk % 4) * 32;
         const uint64_t da =
             sm90::desc_sw128(qwg + (kk / 4) * BQ * 128 + off, 16, 1024);
@@ -499,7 +534,7 @@ flash_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
       // once the row maxima settle, alpha is 1 in the whole warp
       if (!__all_sync(0xffffffffu, alpha[0] == 1.f && alpha[1] == 1.f)) {
 #pragma unroll
-        for (int i = 0; i < D / 2; ++i) acc[i] *= alpha[(i / 2) % 2];
+        for (int i = 0; i < DV / 2; ++i) acc[i] *= alpha[(i / 2) % 2];
       }
 #pragma unroll
       for (int kk = 0; kk < 4; ++kk)
@@ -586,7 +621,7 @@ flash_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
             m[hf] * kLn2 + logf(lsum);
       const int r = (warp % 4) * 16 + lane / 4 + 8 * hf;   // row in the region
 #pragma unroll
-      for (int j = 0; j < D / 8; ++j) {
+      for (int j = 0; j < DV / 8; ++j) {
         uint8_t* dst = qwg + (j / 8) * BQ * 128 + r * 128 +
                        (((j % 8) ^ (r % 8)) * 16) + cq * 2;
         *reinterpret_cast<uint32_t*>(dst) = sm90::pack_bf16(
@@ -600,7 +635,7 @@ flash_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
     if (threadIdx.x % 128 == 0) {
       if (row0 < Sq) {
 #pragma unroll
-        for (int c = 0; c < NC; ++c)
+        for (int c = 0; c < NCV; ++c)
           sm90::tma_store_4d(&to, qwg + c * BQ * 128, c * CHUNK, tl.h, row0,
                              tl.b);
       }
@@ -612,21 +647,22 @@ flash_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
   if (threadIdx.x % 128 == 0) sm90::bulk_wait();
 }
 
-template <int D>
+template <int DQK, int DV>
 cudaError_t launch(const void* q, const void* k, const void* v, void* o,
                    float* lse, int B, int Sq, int Sk, int H, int K,
                    int causal, int window, cudaStream_t stream) {
   CUtensorMap tq, tk, tv, to;
   using sm90::encode_bshd_map;
-  if (!encode_bshd_map(&tq, q, B, Sq, H, D, BQ) ||
-      !encode_bshd_map(&tk, k, B, Sk, K, D, BK) ||
-      !encode_bshd_map(&tv, v, B, Sk, K, D, BK) ||
-      !encode_bshd_map(&to, o, B, Sq, H, D, 64))
+  if (!encode_bshd_map(&tq, q, B, Sq, H, DQK, BQ) ||
+      !encode_bshd_map(&tk, k, B, Sk, K, DQK, BK) ||
+      !encode_bshd_map(&tv, v, B, Sk, K, DV, BK) ||
+      !encode_bshd_map(&to, o, B, Sq, H, DV, 64))
     return cudaErrorInvalidValue;
-  constexpr size_t smem = Layout<D>::bytes;
+  constexpr size_t smem = Layout<DQK, DV>::bytes;
+  static_assert(smem + 128 <= 232448, "over a block's shared memory");
   cudaError_t err = cudaFuncSetAttribute(
-      flash_wgmma_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)smem);
+      flash_wgmma_kernel<DQK, DV>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return err;
   static int sms = 0;
   if (!sms) {
@@ -637,33 +673,39 @@ cudaError_t launch(const void* q, const void* k, const void* v, void* o,
     if (err != cudaSuccess) return err;
   }
   const int n_tiles = (Sq + BQ - 1) / BQ * H * B;
-  flash_wgmma_kernel<D><<<min(sms, n_tiles), NT, smem, stream>>>(
+  flash_wgmma_kernel<DQK, DV><<<min(sms, n_tiles), NT, smem, stream>>>(
       tq, tk, tv, to, lse, B, Sq, Sk, H, K, causal,
-      window, kLog2e / sqrtf((float)D));
+      window, kLog2e / sqrtf((float)DQK));
   return cudaGetLastError();
 }
 
 }  // namespace wg
 
-// q [B,Sq,H,D], k/v [B,Sk,K,D], o [B,Sq,H,D], all contiguous, one dtype:
-// bf16 on the tensor cores (wg), fp32 on the CUDA cores (simt). lse, when
-// not null, is [B,Sq,H] fp32: the log-normaliser of each row's softmax
-// (the residual of the backward, flash.py:88).
+// q [B,Sq,H,D], k [B,Sk,K,D], v [B,Sk,K,Dv], o [B,Sq,H,Dv], all
+// contiguous, one dtype: bf16 on the tensor cores (wg), fp32 on the CUDA
+// cores (simt); (D, Dv) one of (64, 64), (128, 128) and (192, 128). lse,
+// when not null, is [B,Sq,H] fp32: the log-normaliser of each row's
+// softmax (the residual of the backward, flash.py:88).
 extern "C" int rt_flash_attention_fwd(const void* q, const void* k,
                                       const void* v, void* o, void* lse_ptr,
                                       int B, int Sq, int Sk, int H, int K,
-                                      int D, int causal, int window,
+                                      int D, int Dv, int causal, int window,
                                       int dtype, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   float* lse = static_cast<float*>(lse_ptr);
   if (B <= 0 || Sq <= 0 || Sk <= 0 || K <= 0 || H % K != 0)
     return (int)cudaErrorInvalidValue;
+#define RT_FWD(CALL) \
+  return (int)CALL(q, k, v, o, lse, B, Sq, Sk, H, K, causal, window, s)
   if (dtype == rt::kBFloat16) {
-    if (D == 64) return (int)wg::launch<64>(q, k, v, o, lse, B, Sq, Sk, H, K, causal, window, s);
-    if (D == 128) return (int)wg::launch<128>(q, k, v, o, lse, B, Sq, Sk, H, K, causal, window, s);
+    if (D == 64 && Dv == 64) RT_FWD((wg::launch<64, 64>));
+    if (D == 128 && Dv == 128) RT_FWD((wg::launch<128, 128>));
+    if (D == 192 && Dv == 128) RT_FWD((wg::launch<192, 128>));
   } else if (dtype == rt::kFloat32) {
-    if (D == 64) return (int)simt::launch<float, 64>(q, k, v, o, lse, B, Sq, Sk, H, K, causal, window, s);
-    if (D == 128) return (int)simt::launch<float, 128>(q, k, v, o, lse, B, Sq, Sk, H, K, causal, window, s);
+    if (D == 64 && Dv == 64) RT_FWD((simt::launch<float, 64, 64>));
+    if (D == 128 && Dv == 128) RT_FWD((simt::launch<float, 128, 128>));
+    if (D == 192 && Dv == 128) RT_FWD((simt::launch<float, 192, 128>));
   }
+#undef RT_FWD
   return (int)cudaErrorInvalidValue;
 }

@@ -63,6 +63,18 @@
 // 256 threads; thread (tr, tc) owns keys (or rows) 4tr..4tr+3 and columns
 // tc + 16j; four fp32 tiles of [64][D+1] in shared memory.
 //
+// (192, 128): DeepSeek-V3 MLA's q and k rows of 192 (128 nope + 64 rope)
+// against v rows of 128. The simt kernels take it, templated on the
+// stored type and both widths, in fp32 and in bf16 (bf16 loads, fp32
+// products, P and dS rounded to bf16 where the reference rounds them):
+// 180 KB of shared memory a block and 80 fp32 accumulators a thread. A
+// wgmma route at this pair needs a 64 x 192 dK accumulator beside dV's,
+// ~160 registers a thread before S and dP: its redesign is ROADMAP §B.
+// Bound at the MLA training shape (q/k [2,256,128,192], v [2,256,128,128],
+// causal): 168 MB, 50 us at 3.35 TB/s, against 5 products over the 8.4 M
+// visible pairs of the 256 head rows (2 x (192 + 128 + 128 + 192 + 192)
+// flop a pair), 14 us at 989 TFLOP/s: bytes bound it.
+//
 // Numerics: the products of bf16 values are exact in fp32 and summed in
 // fp32 in another order than the reference; the roundings the reference
 // makes (P to dout's dtype before dV, flash.py:122; dS to q's dtype before
@@ -92,11 +104,23 @@ namespace simt {
 
 constexpr int NT = 256;   // threads a block: (tr, tc) = (tid / 16, tid % 16)
 
-template <int D>
+// DQK: the width of q and k rows (and dq, dk); DV: that of v, out and dout
+// rows (and dv). T: the stored type (fp32; bf16 at (192, 128), whose
+// products then run here in fp32, with P and dS rounded to bf16 where the
+// reference rounds them).
+template <int DQK, int DV>
 constexpr size_t smem_bytes() {
-  // four [64][D+1] fp32 tiles and one [64][65] P / dS tile, plus lse and
-  // delta of the 64 rows
-  return sizeof(float) * (4 * T * (D + 1) + T * 65 + 2 * T);
+  // two [64][DQK+1] and two [64][DV+1] fp32 tiles and one [64][65] P / dS
+  // tile, plus lse and delta of the 64 rows
+  return sizeof(float) *
+         (2 * T * (DQK + 1) + 2 * T * (DV + 1) + T * 65 + 2 * T);
+}
+
+// x rounded to the stored type T and back (the identity for fp32)
+template <typename E>
+__device__ __forceinline__ float round_to(float x) {
+  if constexpr (sizeof(E) == 2) return __bfloat162float(__float2bfloat16(x));
+  return x;
 }
 
 __device__ __forceinline__ bool visible(int qi, int kj, int Sq, int Sk,
@@ -110,74 +134,143 @@ __device__ __forceinline__ bool visible(int qi, int kj, int Sq, int Sk,
 }
 
 // rows [B*Sq*H] of D: delta = sum dout * out (fp32)
+template <typename E>
 __global__ void __launch_bounds__(256)
-flash_bwd_delta_kernel(const float* __restrict__ dout,
-                       const float* __restrict__ out,
+flash_bwd_delta_kernel(const E* __restrict__ dout, const E* __restrict__ out,
                        float* __restrict__ delta, int rows, int D) {
   const int row = (blockIdx.x * blockDim.x + threadIdx.x) / 32;
   const int lane = threadIdx.x % 32;
   if (row >= rows) return;
-  const float* a = dout + (size_t)row * D;
-  const float* o = out + (size_t)row * D;
+  const E* a = dout + (size_t)row * D;
+  const E* o = out + (size_t)row * D;
   float s = 0.f;
-  for (int i = lane; i < D; i += 32) s = fmaf(a[i], o[i], s);
+  for (int i = lane; i < D; i += 32) s = fmaf(rt::to_f(a[i]), rt::to_f(o[i]), s);
   s = rt::group_sum<32>(s);
   if (lane == 0) delta[row] = s;
 }
 
-// rows r0.. of head h of a [B, S, heads, D] tensor into a [64][D+1] tile
-// (zeros past S)
-template <int D>
-__device__ __forceinline__ void load_tile(float* dst, const float* src, int b,
+// rows r0.. of head h of a [B, S, heads, D] tensor into a [64][D+1] fp32
+// tile (zeros past S)
+template <int D, typename E>
+__device__ __forceinline__ void load_tile(float* dst, const E* src, int b,
                                           int r0, int S, int heads, int h) {
   for (int i = threadIdx.x; i < T * D; i += NT) {
     const int r = i / D, d = i % D, ri = r0 + r;
     dst[r * (D + 1) + d] =
-        ri < S ? src[(((size_t)b * S + ri) * heads + h) * D + d] : 0.f;
+        ri < S ? rt::to_f(src[(((size_t)b * S + ri) * heads + h) * D + d])
+               : 0.f;
+  }
+}
+
+// s[i][j] += a row (4tr+i) . b row (tc+16j) over D columns of two
+// [64][D+1] tiles; with a second pair (c, e), p[i][j] += c . e alike
+template <int D>
+__device__ __forceinline__ void dot_rows(float (&s)[4][4], const float* a,
+                                         const float* b, int tr, int tc) {
+#pragma unroll 2
+  for (int d = 0; d < D; ++d) {
+    float ax[4], bx[4];
+#pragma unroll
+    for (int i = 0; i < 4; ++i) ax[i] = a[(tr * 4 + i) * (D + 1) + d];
+#pragma unroll
+    for (int j = 0; j < 4; ++j) bx[j] = b[(tc + 16 * j) * (D + 1) + d];
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+#pragma unroll
+      for (int j = 0; j < 4; ++j) s[i][j] = fmaf(ax[i], bx[j], s[i][j]);
   }
 }
 
 template <int D>
+__device__ __forceinline__ void dot_rows2(float (&s)[4][4], float (&p)[4][4],
+                                          const float* a, const float* b,
+                                          const float* c, const float* e,
+                                          int tr, int tc) {
+#pragma unroll 2
+  for (int d = 0; d < D; ++d) {
+    float ax[4], cx[4], bx[4], ex[4];
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      ax[i] = a[(tr * 4 + i) * (D + 1) + d];
+      cx[i] = c[(tr * 4 + i) * (D + 1) + d];
+    }
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      bx[j] = b[(tc + 16 * j) * (D + 1) + d];
+      ex[j] = e[(tc + 16 * j) * (D + 1) + d];
+    }
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        s[i][j] = fmaf(ax[i], bx[j], s[i][j]);
+        p[i][j] = fmaf(cx[i], ex[j], p[i][j]);
+      }
+  }
+}
+
+// S (rows of a against rows of b, over DQK) and dP (rows of c against rows
+// of e, over DV): one loop where the widths agree, as the first version
+template <int DQK, int DV>
+__device__ __forceinline__ void scores(float (&s)[4][4], float (&dp)[4][4],
+                                       const float* a, const float* b,
+                                       const float* c, const float* e,
+                                       int tr, int tc) {
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+#pragma unroll
+    for (int j = 0; j < 4; ++j) s[i][j] = dp[i][j] = 0.f;
+  if constexpr (DQK == DV) {
+    dot_rows2<DQK>(s, dp, a, b, c, e, tr, tc);
+  } else {
+    dot_rows<DQK>(s, a, b, tr, tc);
+    dot_rows<DV>(dp, c, e, tr, tc);
+  }
+}
+
+template <typename E, int DQK, int DV>
 __global__ void __launch_bounds__(NT)
-flash_bwd_dkdv_kernel(const float* __restrict__ q, const float* __restrict__ k,
-                      const float* __restrict__ v,
-                      const float* __restrict__ dout,
+flash_bwd_dkdv_kernel(const E* __restrict__ q, const E* __restrict__ k,
+                      const E* __restrict__ v, const E* __restrict__ dout,
                       const float* __restrict__ lse,
                       const float* __restrict__ delta,
-                      const int4* __restrict__ plan, float* __restrict__ dk,
-                      float* __restrict__ dv, int Sq, int Sk, int H, int K,
+                      const int4* __restrict__ plan, E* __restrict__ dk,
+                      E* __restrict__ dv, int Sq, int Sk, int H, int K,
                       int causal, int window, float scale) {
   extern __shared__ float smem[];
-  float* ks = smem;                 // [T][D+1]
-  float* vs = ks + T * (D + 1);
-  float* qs = vs + T * (D + 1);     // [T][D+1]
-  float* dos = qs + T * (D + 1);
-  float* ps = dos + T * (D + 1);    // [T][T+1]: P^T, then dS^T
+  float* ks = smem;                   // [T][DQK+1]
+  float* qs = ks + T * (DQK + 1);     // [T][DQK+1]
+  float* vs = qs + T * (DQK + 1);     // [T][DV+1]
+  float* dos = vs + T * (DV + 1);     // [T][DV+1]
+  float* ps = dos + T * (DV + 1);     // [T][T+1]: P^T, then dS^T
   float* lse_s = ps + T * (T + 1);
   float* del_s = lse_s + T;
-  constexpr int DC = D / 16;
+  constexpr int CK = DQK / 16, CV = DV / 16;
 
   const Item it = item_of(plan, K);
   const int k0 = it.tile * T, kh = it.head, b = it.batch;
   const int G = H / K;
   const int tid = threadIdx.x, tr = tid / 16, tc = tid % 16;
 
-  load_tile<D>(ks, k, b, k0, Sk, K, kh);
-  load_tile<D>(vs, v, b, k0, Sk, K, kh);
+  load_tile<DQK>(ks, k, b, k0, Sk, K, kh);
+  load_tile<DV>(vs, v, b, k0, Sk, K, kh);
 
-  float dka[4][DC], dva[4][DC];
+  float dka[4][CK], dva[4][CV];
 #pragma unroll
-  for (int i = 0; i < 4; ++i)
+  for (int i = 0; i < 4; ++i) {
 #pragma unroll
-    for (int c = 0; c < DC; ++c) dka[i][c] = dva[i][c] = 0.f;
+    for (int c = 0; c < CK; ++c) dka[i][c] = 0.f;
+#pragma unroll
+    for (int c = 0; c < CV; ++c) dva[i][c] = 0.f;
+  }
 
   for (int g = 0; g < G; ++g) {
     const int h = kh * G + g;
     for (int qt = it.begin; qt < it.end; ++qt) {
       const int q0 = qt * T;
       __syncthreads();   // the last tile's q, dO and ps are consumed
-      load_tile<D>(qs, q, b, q0, Sq, H, h);
-      load_tile<D>(dos, dout, b, q0, Sq, H, h);
+      load_tile<DQK>(qs, q, b, q0, Sq, H, h);
+      load_tile<DV>(dos, dout, b, q0, Sq, H, h);
       if (tid < T) {
         const int qi = q0 + tid;
         const size_t off = ((size_t)b * Sq + qi) * H + h;
@@ -186,34 +279,11 @@ flash_bwd_dkdv_kernel(const float* __restrict__ q, const float* __restrict__ k,
       }
       __syncthreads();
 
-      // S^T (keys x queries) and dP^T, both over D
+      // S^T (keys x queries) over DQK and dP^T over DV
       float s[4][4], dp[4][4];
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < 4; ++j) s[i][j] = dp[i][j] = 0.f;
-#pragma unroll 2
-      for (int d = 0; d < D; ++d) {
-        float kx[4], vx[4], qx[4], ox[4];
-#pragma unroll
-        for (int i = 0; i < 4; ++i) {
-          kx[i] = ks[(tr * 4 + i) * (D + 1) + d];
-          vx[i] = vs[(tr * 4 + i) * (D + 1) + d];
-        }
-#pragma unroll
-        for (int j = 0; j < 4; ++j) {
-          qx[j] = qs[(tc + 16 * j) * (D + 1) + d];
-          ox[j] = dos[(tc + 16 * j) * (D + 1) + d];
-        }
-#pragma unroll
-        for (int i = 0; i < 4; ++i)
-#pragma unroll
-          for (int j = 0; j < 4; ++j) {
-            s[i][j] = fmaf(kx[i], qx[j], s[i][j]);
-            dp[i][j] = fmaf(vx[i], ox[j], dp[i][j]);
-          }
-      }
-      // P = exp(S scale - lse) where visible, dS = P (dP - delta)
+      scores<DQK, DV>(s, dp, ks, qs, vs, dos, tr, tc);
+      // P = exp(S scale - lse) where visible, dS = P (dP - delta); P and
+      // dS rounded to the stored type, as the reference rounds them
 #pragma unroll
       for (int i = 0; i < 4; ++i) {
         const int kj = k0 + tr * 4 + i;
@@ -222,8 +292,8 @@ flash_bwd_dkdv_kernel(const float* __restrict__ q, const float* __restrict__ k,
           const int r = tc + 16 * j;
           const float p = visible(q0 + r, kj, Sq, Sk, causal, window)
                               ? expf(s[i][j] * scale - lse_s[r]) : 0.f;
-          dp[i][j] = p * (dp[i][j] - del_s[r]);
-          ps[(tr * 4 + i) * (T + 1) + r] = p;
+          dp[i][j] = round_to<E>(p * (dp[i][j] - del_s[r]));
+          ps[(tr * 4 + i) * (T + 1) + r] = round_to<E>(p);
         }
       }
       __syncthreads();
@@ -234,8 +304,8 @@ flash_bwd_dkdv_kernel(const float* __restrict__ q, const float* __restrict__ k,
 #pragma unroll
         for (int i = 0; i < 4; ++i) pv[i] = ps[(tr * 4 + i) * (T + 1) + c];
 #pragma unroll
-        for (int cc = 0; cc < DC; ++cc) {
-          const float x = dos[c * (D + 1) + tc + 16 * cc];
+        for (int cc = 0; cc < CV; ++cc) {
+          const float x = dos[c * (DV + 1) + tc + 16 * cc];
 #pragma unroll
           for (int i = 0; i < 4; ++i) dva[i][cc] = fmaf(pv[i], x, dva[i][cc]);
         }
@@ -254,8 +324,8 @@ flash_bwd_dkdv_kernel(const float* __restrict__ q, const float* __restrict__ k,
 #pragma unroll
         for (int i = 0; i < 4; ++i) sv[i] = ps[(tr * 4 + i) * (T + 1) + c];
 #pragma unroll
-        for (int cc = 0; cc < DC; ++cc) {
-          const float x = qs[c * (D + 1) + tc + 16 * cc];
+        for (int cc = 0; cc < CK; ++cc) {
+          const float x = qs[c * (DQK + 1) + tc + 16 * cc];
 #pragma unroll
           for (int i = 0; i < 4; ++i) dka[i][cc] = fmaf(sv[i], x, dka[i][cc]);
         }
@@ -267,42 +337,42 @@ flash_bwd_dkdv_kernel(const float* __restrict__ q, const float* __restrict__ k,
   for (int i = 0; i < 4; ++i) {
     const int kj = k0 + tr * 4 + i;
     if (kj >= Sk) continue;
-    const size_t off = (((size_t)b * Sk + kj) * K + kh) * D;
+    const size_t row = ((size_t)b * Sk + kj) * K + kh;
 #pragma unroll
-    for (int cc = 0; cc < DC; ++cc) {
-      dk[off + tc + 16 * cc] = dka[i][cc] * scale;
-      dv[off + tc + 16 * cc] = dva[i][cc];
-    }
+    for (int cc = 0; cc < CK; ++cc)
+      rt::store_f(dk + row * DQK + tc + 16 * cc, dka[i][cc] * scale);
+#pragma unroll
+    for (int cc = 0; cc < CV; ++cc)
+      rt::store_f(dv + row * DV + tc + 16 * cc, dva[i][cc]);
   }
 }
 
-template <int D>
+template <typename E, int DQK, int DV>
 __global__ void __launch_bounds__(NT)
-flash_bwd_dq_kernel(const float* __restrict__ q, const float* __restrict__ k,
-                    const float* __restrict__ v,
-                    const float* __restrict__ dout,
+flash_bwd_dq_kernel(const E* __restrict__ q, const E* __restrict__ k,
+                    const E* __restrict__ v, const E* __restrict__ dout,
                     const float* __restrict__ lse,
                     const float* __restrict__ delta,
-                    const int4* __restrict__ plan, float* __restrict__ dq,
+                    const int4* __restrict__ plan, E* __restrict__ dq,
                     int Sq, int Sk, int H, int K, int causal, int window,
                     float scale) {
   extern __shared__ float smem[];
-  float* qs = smem;                 // [T][D+1]
-  float* dos = qs + T * (D + 1);
-  float* ks = dos + T * (D + 1);    // [T][D+1]
-  float* vs = ks + T * (D + 1);
-  float* ps = vs + T * (D + 1);     // [T][T+1]: dS
+  float* qs = smem;                   // [T][DQK+1]
+  float* ks = qs + T * (DQK + 1);     // [T][DQK+1]
+  float* dos = ks + T * (DQK + 1);    // [T][DV+1]
+  float* vs = dos + T * (DV + 1);     // [T][DV+1]
+  float* ps = vs + T * (DV + 1);      // [T][T+1]: dS
   float* lse_s = ps + T * (T + 1);
   float* del_s = lse_s + T;
-  constexpr int DC = D / 16;
+  constexpr int CK = DQK / 16;
 
   const Item it = item_of(plan, H);
   const int q0 = it.tile * T, h = it.head, b = it.batch;
   const int kh = h / (H / K);
   const int tid = threadIdx.x, tr = tid / 16, tc = tid % 16;
 
-  load_tile<D>(qs, q, b, q0, Sq, H, h);
-  load_tile<D>(dos, dout, b, q0, Sq, H, h);
+  load_tile<DQK>(qs, q, b, q0, Sq, H, h);
+  load_tile<DV>(dos, dout, b, q0, Sq, H, h);
   if (tid < T) {     // in shared memory, not registers: no spills at D 128
     const int qi = q0 + tid;
     const size_t off = ((size_t)b * Sq + qi) * H + h;
@@ -310,45 +380,21 @@ flash_bwd_dq_kernel(const float* __restrict__ q, const float* __restrict__ k,
     del_s[tid] = qi < Sq ? delta[off] : 0.f;
   }
 
-  float acc[4][DC];
+  float acc[4][CK];
 #pragma unroll
   for (int i = 0; i < 4; ++i)
 #pragma unroll
-    for (int c = 0; c < DC; ++c) acc[i][c] = 0.f;
+    for (int c = 0; c < CK; ++c) acc[i][c] = 0.f;
 
   for (int kt = it.begin; kt < it.end; ++kt) {
     const int k0 = kt * T;
     __syncthreads();   // the last tile's k, v and dS are consumed
-    load_tile<D>(ks, k, b, k0, Sk, K, kh);
-    load_tile<D>(vs, v, b, k0, Sk, K, kh);
+    load_tile<DQK>(ks, k, b, k0, Sk, K, kh);
+    load_tile<DV>(vs, v, b, k0, Sk, K, kh);
     __syncthreads();
 
     float s[4][4], dp[4][4];
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int j = 0; j < 4; ++j) s[i][j] = dp[i][j] = 0.f;
-#pragma unroll 2
-    for (int d = 0; d < D; ++d) {
-      float qx[4], ox[4], kx[4], vx[4];
-#pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        qx[i] = qs[(tr * 4 + i) * (D + 1) + d];
-        ox[i] = dos[(tr * 4 + i) * (D + 1) + d];
-      }
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        kx[j] = ks[(tc + 16 * j) * (D + 1) + d];
-        vx[j] = vs[(tc + 16 * j) * (D + 1) + d];
-      }
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < 4; ++j) {
-          s[i][j] = fmaf(qx[i], kx[j], s[i][j]);
-          dp[i][j] = fmaf(ox[i], vx[j], dp[i][j]);
-        }
-    }
+    scores<DQK, DV>(s, dp, qs, ks, dos, vs, tr, tc);
 #pragma unroll
     for (int i = 0; i < 4; ++i) {
       const int qi = q0 + tr * 4 + i;
@@ -358,7 +404,7 @@ flash_bwd_dq_kernel(const float* __restrict__ q, const float* __restrict__ k,
         const float p = visible(qi, kj, Sq, Sk, causal, window)
                             ? expf(s[i][j] * scale - lse_s[tr * 4 + i]) : 0.f;
         ps[(tr * 4 + i) * (T + 1) + tc + 16 * j] =
-            p * (dp[i][j] - del_s[tr * 4 + i]);
+            round_to<E>(p * (dp[i][j] - del_s[tr * 4 + i]));
       }
     }
     __syncthreads();
@@ -369,8 +415,8 @@ flash_bwd_dq_kernel(const float* __restrict__ q, const float* __restrict__ k,
 #pragma unroll
       for (int i = 0; i < 4; ++i) sv[i] = ps[(tr * 4 + i) * (T + 1) + c];
 #pragma unroll
-      for (int cc = 0; cc < DC; ++cc) {
-        const float x = ks[c * (D + 1) + tc + 16 * cc];
+      for (int cc = 0; cc < CK; ++cc) {
+        const float x = ks[c * (DQK + 1) + tc + 16 * cc];
 #pragma unroll
         for (int i = 0; i < 4; ++i) acc[i][cc] = fmaf(sv[i], x, acc[i][cc]);
       }
@@ -381,44 +427,45 @@ flash_bwd_dq_kernel(const float* __restrict__ q, const float* __restrict__ k,
   for (int i = 0; i < 4; ++i) {
     const int qi = q0 + tr * 4 + i;
     if (qi >= Sq) continue;
-    float* row = dq + (((size_t)b * Sq + qi) * H + h) * D;
+    E* row = dq + (((size_t)b * Sq + qi) * H + h) * DQK;
 #pragma unroll
-    for (int cc = 0; cc < DC; ++cc) row[tc + 16 * cc] = acc[i][cc] * scale;
+    for (int cc = 0; cc < CK; ++cc)
+      rt::store_f(row + tc + 16 * cc, acc[i][cc] * scale);
   }
 }
 
-template <int D>
+template <typename E, int DQK, int DV>
 cudaError_t launch(const void* q, const void* k, const void* v,
                    const void* out, const void* dout, const float* lse,
                    float* delta, const int4* plan, void* dq, void* dk,
                    void* dv, int B, int Sq, int Sk, int H, int K, int causal,
                    int window, int n_dkdv, int n_dq, cudaStream_t stream) {
-  constexpr size_t smem = smem_bytes<D>();
+  constexpr size_t smem = smem_bytes<DQK, DV>();
   cudaError_t err = cudaFuncSetAttribute(
-      flash_bwd_dkdv_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)smem);
+      flash_bwd_dkdv_kernel<E, DQK, DV>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err == cudaSuccess)
-    err = cudaFuncSetAttribute(flash_bwd_dq_kernel<D>,
+    err = cudaFuncSetAttribute(flash_bwd_dq_kernel<E, DQK, DV>,
                                cudaFuncAttributeMaxDynamicSharedMemorySize,
                                (int)smem);
   if (err != cudaSuccess) return err;
-  const float* qp = static_cast<const float*>(q);
-  const float* kp = static_cast<const float*>(k);
-  const float* vp = static_cast<const float*>(v);
-  const float* dop = static_cast<const float*>(dout);
-  const float scale = 1.0f / sqrtf((float)D);
+  const E* qp = static_cast<const E*>(q);
+  const E* kp = static_cast<const E*>(k);
+  const E* vp = static_cast<const E*>(v);
+  const E* dop = static_cast<const E*>(dout);
+  const float scale = 1.0f / sqrtf((float)DQK);
   const int rows = B * Sq * H;
-  flash_bwd_delta_kernel<<<(rows + 7) / 8, 256, 0, stream>>>(
-      dop, static_cast<const float*>(out), delta, rows, D);
+  flash_bwd_delta_kernel<E><<<(rows + 7) / 8, 256, 0, stream>>>(
+      dop, static_cast<const E*>(out), delta, rows, DV);
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;
-  flash_bwd_dkdv_kernel<D><<<n_dkdv, NT, smem, stream>>>(
-      qp, kp, vp, dop, lse, delta, plan, static_cast<float*>(dk),
-      static_cast<float*>(dv), Sq, Sk, H, K, causal, window, scale);
+  flash_bwd_dkdv_kernel<E, DQK, DV><<<n_dkdv, NT, smem, stream>>>(
+      qp, kp, vp, dop, lse, delta, plan, static_cast<E*>(dk),
+      static_cast<E*>(dv), Sq, Sk, H, K, causal, window, scale);
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;
-  flash_bwd_dq_kernel<D><<<n_dq, NT, smem, stream>>>(
-      qp, kp, vp, dop, lse, delta, plan + n_dkdv, static_cast<float*>(dq), Sq,
+  flash_bwd_dq_kernel<E, DQK, DV><<<n_dq, NT, smem, stream>>>(
+      qp, kp, vp, dop, lse, delta, plan + n_dkdv, static_cast<E*>(dq), Sq,
       Sk, H, K, causal, window, scale);
   return cudaGetLastError();
 }
@@ -891,18 +938,20 @@ cudaError_t launch(const void* q, const void* k, const void* v,
 
 }  // namespace
 
-// q, out, dout, dq [B,Sq,H,D]; k, v, dk, dv [B,Sk,K,D]; lse [B,Sq,H] fp32;
-// all contiguous, q..dv of one dtype (16-byte aligned on route 1). plan:
-// the wrapper's int4 a block, the n_dkdv dK/dV blocks then the n_dq dQ
-// blocks. route 1 (bf16: wg) takes scratch of 2 B H Sqp floats (Sqp = Sq
-// rounded up to 64), route 0 (fp32: simt) B Sq H.
+// q, dq [B,Sq,H,D]; out, dout [B,Sq,H,Dv]; k, dk [B,Sk,K,D]; v, dv
+// [B,Sk,K,Dv]; lse [B,Sq,H] fp32; all contiguous, q..dv of one dtype
+// (16-byte aligned on route 1). plan: the wrapper's int4 a block, the
+// n_dkdv dK/dV blocks then the n_dq dQ blocks. route 1 (bf16 at D = Dv:
+// wg) takes scratch of 2 B H Sqp floats (Sqp = Sq rounded up to 64), route
+// 0 (simt: fp32, and bf16 at (192, 128)) B Sq H.
 extern "C" int rt_flash_attention_bwd(const void* q, const void* k,
                                       const void* v, const void* out,
                                       const void* dout, const void* lse,
                                       void* scratch, const void* plan,
                                       void* dq, void* dk, void* dv, int B,
                                       int Sq, int Sk, int H, int K, int D,
-                                      int causal, int window, int n_dkdv,
+                                      int Dv, int causal, int window,
+                                      int n_dkdv,
                                       int n_dq, int route, int dtype,
                                       void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
@@ -912,14 +961,17 @@ extern "C" int rt_flash_attention_bwd(const void* q, const void* k,
   const float* l = static_cast<const float*>(lse);
   float* sc = static_cast<float*>(scratch);
   const int4* pl = static_cast<const int4*>(plan);
-#define RT_BWD(NS, DD) \
-  return (int)NS::launch<DD>(q, k, v, out, dout, l, sc, pl, dq, dk, dv, B, Sq, Sk, H, K, causal, window, n_dkdv, n_dq, s)
+#define RT_BWD(CALL) \
+  return (int)CALL(q, k, v, out, dout, l, sc, pl, dq, dk, dv, B, Sq, Sk, H, K, causal, window, n_dkdv, n_dq, s)
   if (route == 1 && dtype == rt::kBFloat16) {
-    if (D == 64) RT_BWD(wg, 64);
-    if (D == 128) RT_BWD(wg, 128);
+    if (D == 64 && Dv == 64) RT_BWD(wg::launch<64>);
+    if (D == 128 && Dv == 128) RT_BWD(wg::launch<128>);
   } else if (route == 0 && dtype == rt::kFloat32) {
-    if (D == 64) RT_BWD(simt, 64);
-    if (D == 128) RT_BWD(simt, 128);
+    if (D == 64 && Dv == 64) RT_BWD((simt::launch<float, 64, 64>));
+    if (D == 128 && Dv == 128) RT_BWD((simt::launch<float, 128, 128>));
+    if (D == 192 && Dv == 128) RT_BWD((simt::launch<float, 192, 128>));
+  } else if (route == 0 && dtype == rt::kBFloat16) {
+    if (D == 192 && Dv == 128) RT_BWD((simt::launch<__nv_bfloat16, 192, 128>));
   }
 #undef RT_BWD
   return (int)cudaErrorInvalidValue;

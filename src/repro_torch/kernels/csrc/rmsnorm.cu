@@ -149,12 +149,21 @@ rmsnorm_scalar_kernel(const T* __restrict__ x, const S* __restrict__ scale,
   if (row >= rows) return;
   const T* xr = x + (size_t)row * D;
   T* yr = out + (size_t)row * D;
-  float ss = 0.f;
+  // The sum of squares in fp64: a lane's run of up to D / 32 terms (224
+  // at DeepSeek-V3's 7168) summed in fp32 is off the plain version's
+  // reduction by ~1e-6, enough to round a bf16 output of magnitude 4 or
+  // more to the neighbouring value (0.03125 away); in fp64 the mean is
+  // the correctly rounded fp32 value the plain version's approximates.
+  // The row is read once from HBM either way.
+  double ss = 0.0;
   for (int i = lane; i < D; i += 32) {
-    const float v = rt::to_f(xr[i]);
-    ss = fmaf(v, v, ss);
+    const double v = rt::to_f(xr[i]);
+    ss = fma(v, v, ss);
   }
-  const float r = rsqrtf(rt::group_sum<32>(ss) / (float)D + eps);
+#pragma unroll
+  for (int off = 16; off > 0; off >>= 1)
+    ss += __shfl_xor_sync(0xffffffffu, ss, off);
+  const float r = rsqrtf((float)(ss / D) + eps);
   for (int i = lane; i < D; i += 32)
     rt::store_f(yr + i, rt::to_f(xr[i]) * r * rt::to_f(scale[i]));
 }

@@ -4,8 +4,10 @@
 The TPU package has no Pallas backward; its model differentiates
 attention through the XLA custom VJP ``repro/models/flash.py::_bwd``,
 which this replaces. See the source's note for its bound on the H100 and
-its design. Two routes, picked by :func:`route` from the dtype: bf16 runs
-on the tensor cores (``wgmma``, tiles fed by TMA), fp32 on the CUDA cores.
+its design. Two routes, picked by :func:`route` from the dtype and the
+head widths: bf16 at (64, 64) and (128, 128) runs on the tensor cores
+(``wgmma``, tiles fed by TMA); fp32, and bf16 at DeepSeek-V3 MLA's
+(192, 128) (q and k rows of 192, v rows of 128), on the CUDA cores.
 Both take the launch plan of :func:`plan`, which reads the shapes alone:
 a dK/dV block per (key tile, KV head, batch) that walks the q tiles of
 the G query heads that see its keys, and a dQ block per (q tile, query
@@ -30,14 +32,16 @@ ROUTES = ("simt", "wgmma")          # the C entry's route codes 0 and 1
 TILE = 64                           # q rows and keys a tile (csrc T)
 
 
-def route(dtype: torch.dtype, D: int) -> str:
-    """The kernels a call of this dtype and head width takes: "wgmma"
-    (tensor cores) for bf16, "simt" (CUDA cores, fp32 products) for
-    fp32."""
-    if D not in HEAD_DIMS:
-        raise ValueError(f"flash backward takes head_dim in {HEAD_DIMS}, "
-                         f"got {D}")
-    return "wgmma" if dtype == torch.bfloat16 else "simt"
+def route(dtype: torch.dtype, D: int, Dv: int = 0) -> str:
+    """The kernels a call of this dtype and (q/k, v) head widths takes
+    (``Dv`` defaults to ``D``): "wgmma" (tensor cores) for bf16 at equal
+    widths, "simt" (CUDA cores, fp32 products) for fp32 and for the MLA
+    pair (192, 128)."""
+    Dv = Dv or D
+    if (D, Dv) not in HEAD_DIMS:
+        raise ValueError(f"flash backward takes head_dim pairs (q/k, v) in "
+                         f"{HEAD_DIMS}, got ({D}, {Dv})")
+    return "wgmma" if dtype == torch.bfloat16 and D == Dv else "simt"
 
 
 # a block of the plan: (its tile, head, batch row, first and end tile of
@@ -92,15 +96,15 @@ def _tile_pairs(q0, k0, Sq, Sk, causal, window, tile) -> int:
 
 @functools.lru_cache(maxsize=256)
 def plan(B: int, Sq: int, Sk: int, H: int, K: int, D: int, causal: bool,
-         window: int) -> Plan:
+         window: int, Dv: int = 0) -> Plan:
     """The launch of a call of these shapes: tiles of 64 queries and keys
-    (at D 64 and 128); each dK/dV block walks, for each of its KV head's
+    (at every head-width pair); each dK/dV block walks, for each of its KV head's
     G query heads, the q tiles holding a query that sees one of its keys,
     and each dQ block the key tiles holding a key one of its rows sees;
     every key tile and q tile has its block, walk or none (its gradient is
     then 0). Blocks are launched longest walk first, so the causal
     triangle's long walks do not form the tail."""
-    route(torch.bfloat16, D)            # validates D
+    route(torch.bfloat16, D, Dv)        # validates the widths
     if H % K:
         raise ValueError(f"{H} query heads over {K} KV heads")
     t = TILE
@@ -134,14 +138,14 @@ def _device_table(device: torch.device, *args) -> torch.Tensor:
 def _fn():
     p, i = ctypes.c_void_p, ctypes.c_int
     return build.entry("rt_flash_attention_bwd",
-                       [p] * 11 + [i] * 12 + [p])
+                       [p] * 11 + [i] * 13 + [p])
 
 
 def flash_attention_bwd(q, k, v, out, lse, dout, *, causal: bool = True,
                         window: int = 0):
-    """q/out/dout [B,Sq,H,D], k/v [B,Sk,K,D], lse [B,Sq,H] fp32 (from
-    ``flash_attention_fwd(return_lse=True)``) -> (dq, dk, dv) in the
-    inputs' shapes and dtype."""
+    """q [B,Sq,H,D], out/dout [B,Sq,H,Dv], k [B,Sk,K,D], v [B,Sk,K,Dv],
+    lse [B,Sq,H] fp32 (from ``flash_attention_fwd(return_lse=True)``) ->
+    (dq, dk, dv) in the inputs' shapes and dtype."""
     ts = (q, k, v, out, lse, dout)
     if not all(t.device.type in build.DEVICES and t.device == q.device
                for t in ts):
@@ -149,9 +153,10 @@ def flash_attention_bwd(q, k, v, out, lse, dout, *, causal: bool = True,
                          f"got {[str(t.device) for t in ts]}")
     B, Sq, H, D = q.shape
     Bk, Sk, K, Dk = k.shape
-    kind = route(q.dtype, D)
-    if (Bk, Dk) != (B, D) or v.shape != k.shape or H % K or \
-            out.shape != q.shape or dout.shape != q.shape or \
+    Dv = v.shape[-1]
+    kind = route(q.dtype, D, Dv)
+    if (Bk, Dk) != (B, D) or v.shape[:3] != k.shape[:3] or H % K or \
+            out.shape != (B, Sq, H, Dv) or dout.shape != out.shape or \
             lse.shape != (B, Sq, H):
         raise ValueError(f"bad shapes q {tuple(q.shape)} k {tuple(k.shape)} "
                          f"v {tuple(v.shape)} out {tuple(out.shape)} dout "
@@ -167,7 +172,7 @@ def flash_attention_bwd(q, k, v, out, lse, dout, *, causal: bool = True,
         raise ValueError("the tensor-core flash backward loads and stores "
                          "its tiles by TMA: q, k, v, out and dout must "
                          "start on 16-byte boundaries")
-    args = (B, Sq, Sk, H, K, D, bool(causal), int(window))
+    args = (B, Sq, Sk, H, K, D, bool(causal), int(window), Dv)
     pl = plan(*args)
     sqp = -(-Sq // TILE) * TILE
     scratch = torch.empty(2 * B * H * sqp if kind == "wgmma" else B * Sq * H,
@@ -179,7 +184,8 @@ def flash_attention_bwd(q, k, v, out, lse, dout, *, causal: bool = True,
     err = _fn()(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
                 dout.data_ptr(), lse.data_ptr(), scratch.data_ptr(),
                 table.data_ptr(), dq.data_ptr(), dk.data_ptr(),
-                dv.data_ptr(), B, Sq, Sk, H, K, D, int(causal), int(window),
+                dv.data_ptr(), B, Sq, Sk, H, K, D, Dv, int(causal),
+                int(window),
                 len(pl.dkdv), len(pl.dq), ROUTES.index(kind),
                 build.dtype_code(q), build.stream_ptr())
     build.check(err, "rt_flash_attention_bwd")

@@ -1,8 +1,8 @@
 """Core transformer layers: RMSNorm, RoPE, GQA attention (+QKV bias,
 sliding window, rolling KV cache, the T-token verify of speculative
-decoding) and (gated) MLPs — the port of
-``repro/models/layers.py:22-281, 424-444``, with the LoRA delta at the
-projection sites when an adapter is given (``adapter=``: the layer's
+decoding), DeepSeek-V3's multi-head latent attention (MLA) and (gated)
+MLPs — the port of ``repro/models/layers.py:22-444``, with the LoRA delta
+at the projection sites when an adapter is given (``adapter=``: the layer's
 subtree of a ``models/lora.py`` adapter; the small products stay
 ``torch.matmul``, as the reference leaves them to XLA).
 
@@ -20,8 +20,8 @@ product (``wo``, ``w_out``) ends in one all-reduce, its LoRA delta added
 after it (``TensorParallel.lora_row``/``lora_col``).
 
 Unlike the reference's pure functions, :func:`_fill_cache`,
-:func:`attention_decode` and :func:`attention_decode_multi` write the KV
-cache in place: the cache is
+:func:`attention_decode`, :func:`attention_decode_multi` and
+:func:`mla_decode` write the KV (or MLA latent) cache in place: the cache is
 allocated once and a functional update would copy a layer's whole cache
 on every decode step.
 """
@@ -33,7 +33,7 @@ from typing import Optional
 import torch
 import torch.nn.functional as F
 
-from repro_torch.configs.base import ModelConfig
+from repro_torch.configs.base import MLAConfig, ModelConfig
 from repro_torch.kernels import ops
 from repro_torch.models.lora import lora_delta
 from repro_torch.sharding import tp as TP
@@ -57,11 +57,25 @@ def draws(generator):
     return None if generator.device.type == "meta" else generator
 
 
+# a leaf of more elements is drawn in blocks of its leading axis, so its
+# fp32 draw never exists whole (DeepSeek-V3's expert leaves hold 3.76 G
+# elements: 15 GB in fp32 beside the 53 GB of a cut model)
+_INIT_BLOCK = 1 << 30
+
+
 def _init(generator: torch.Generator, shape, scale=0.02,
           dtype=torch.float32) -> torch.Tensor:
-    x = torch.randn(shape, generator=draws(generator), dtype=torch.float32,
-                    device=generator.device)
-    return (scale * x).to(dtype)
+    n = math.prod(shape)
+    if n <= _INIT_BLOCK or len(shape) < 2:
+        x = torch.randn(shape, generator=draws(generator),
+                        dtype=torch.float32, device=generator.device)
+        return (scale * x).to(dtype)
+    out = torch.empty(shape, dtype=dtype, device=generator.device)
+    rows = max(1, _INIT_BLOCK // (n // shape[0]))
+    for i in range(0, shape[0], rows):
+        out[i:i + rows] = _init(generator, out[i:i + rows].shape, scale,
+                                dtype)
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -302,6 +316,157 @@ def attention_decode_multi(params, x, positions, cache, cfg: ModelConfig, *,
     out = sdpa(q.float(), cache["k"].float(), cache["v"].float(),
                valid[:, None]).to(q.dtype)
     return _linear(params, out.reshape(B, T, -1), "wo", adapter or {}), cache
+
+
+# ---------------------------------------------------------------------------
+# DeepSeek-V3 multi-head latent attention (MLA)
+# ---------------------------------------------------------------------------
+def init_mla(generator: torch.Generator, cfg: ModelConfig, dtype) -> dict:
+    m: MLAConfig = cfg.mla
+    d, h = cfg.d_model, cfg.num_heads
+    qk_hd = m.qk_nope_head_dim + m.qk_rope_head_dim
+    dev = generator.device
+    return {
+        "q_down": _init(generator, (d, m.q_lora_rank), dtype=dtype),
+        "q_norm": init_norm(m.q_lora_rank, dtype, dev),
+        "q_up": _init(generator, (m.q_lora_rank, h * qk_hd), dtype=dtype),
+        "kv_down": _init(generator, (d, m.kv_lora_rank + m.qk_rope_head_dim),
+                         dtype=dtype),
+        "kv_norm": init_norm(m.kv_lora_rank, dtype, dev),
+        "kv_up": _init(generator, (m.kv_lora_rank,
+                                   h * (m.qk_nope_head_dim + m.v_head_dim)),
+                       dtype=dtype),
+        "wo": _init(generator, (h * m.v_head_dim, d),
+                    scale=0.02 / math.sqrt(2 * cfg.num_layers), dtype=dtype),
+    }
+
+
+def _mla_q(params, x, positions, cfg: ModelConfig):
+    """(q_nope [B,S,H,nope], q_rope [B,S,H,rope]), RoPE applied."""
+    m: MLAConfig = cfg.mla
+    B, S, _ = x.shape
+    ql = rms_norm(x @ params["q_down"], params["q_norm"], cfg.norm_eps)
+    q = (ql @ params["q_up"]).reshape(
+        B, S, cfg.num_heads, m.qk_nope_head_dim + m.qk_rope_head_dim)
+    q_nope, q_rope = q[..., :m.qk_nope_head_dim], q[..., m.qk_nope_head_dim:]
+    sin, cos = rope_tables(positions, m.qk_rope_head_dim, cfg.rope_theta)
+    return q_nope, apply_rope(q_rope, sin, cos)
+
+
+def _mla_latent(params, x, positions, cfg: ModelConfig):
+    """The compressed KV a token caches: (c_kv [B,S,r] normed, k_rope
+    [B,S,1,rope] with RoPE, the one rope key all heads share)."""
+    m: MLAConfig = cfg.mla
+    down = x @ params["kv_down"]
+    c_kv = rms_norm(down[..., :m.kv_lora_rank], params["kv_norm"],
+                    cfg.norm_eps)
+    sin, cos = rope_tables(positions, m.qk_rope_head_dim, cfg.rope_theta)
+    k_rope = apply_rope(down[..., m.kv_lora_rank:][:, :, None, :], sin, cos)
+    return c_kv, k_rope
+
+
+def _mla_kv_from_latent(params, c_kv, cfg: ModelConfig):
+    """Expand latent [B,S,r] into per-head K_nope and V."""
+    m: MLAConfig = cfg.mla
+    B, S, _ = c_kv.shape
+    kv = (c_kv @ params["kv_up"]).reshape(
+        B, S, cfg.num_heads, m.qk_nope_head_dim + m.v_head_dim)
+    return kv[..., :m.qk_nope_head_dim], kv[..., m.qk_nope_head_dim:]
+
+
+def _mla_qk(q_nope, q_rope, k_nope, k_rope):
+    """Per-head q and k of width nope + rope: the one rope key broadcast
+    over the heads."""
+    k_rope = k_rope.expand(*k_nope.shape[:3], k_rope.shape[-1])
+    return torch.cat([q_nope, q_rope], -1), torch.cat([k_nope, k_rope], -1)
+
+
+def mla_fwd(params, x, positions, cfg: ModelConfig, *, window: int = 0,
+            init_cache: Optional[dict] = None):
+    """Full-sequence (train / prefill) MLA: the latent expanded to per-head
+    K and V, attention through B2 at q/k width nope + rope and v width
+    ``v_head_dim`` (192 / 128 on DeepSeek-V3). With ``init_cache`` also
+    returns it filled with the latent and rope key (single-pass
+    prefill)."""
+    B, S, _ = x.shape
+    q_nope, q_rope = _mla_q(params, x, positions, cfg)
+    c_kv, k_rope = _mla_latent(params, x, positions, cfg)
+    k_nope, v = _mla_kv_from_latent(params, c_kv, cfg)
+    q, k = _mla_qk(q_nope, q_rope, k_nope, k_rope)
+    out = attn_core(q, k, v, causal=True, window=window)
+    out = out.reshape(B, S, -1) @ params["wo"]
+    if init_cache is None:
+        return out
+    return out, _fill_cache(init_cache,
+                            {"c_kv": c_kv, "k_rope": k_rope[:, :, 0]},
+                            positions)
+
+
+def init_mla_cache(cfg: ModelConfig, batch: int, capacity: int, dtype,
+                   device) -> dict:
+    """The MLA decode cache: the latent and the rope key a slot
+    (kv_lora_rank + qk_rope_head_dim values a token, where a plain cache
+    keeps 2 H head widths), and each slot's position (-1 = empty)."""
+    m: MLAConfig = cfg.mla
+    return {
+        "c_kv": torch.zeros((batch, capacity, m.kv_lora_rank), dtype=dtype,
+                            device=device),
+        "k_rope": torch.zeros((batch, capacity, m.qk_rope_head_dim),
+                              dtype=dtype, device=device),
+        "pos": torch.full((batch, capacity), -1, dtype=torch.int32,
+                          device=device),
+    }
+
+
+def mla_decode(params, x, position, cache, cfg: ModelConfig, *,
+               window: int = 0, absorbed: bool = True):
+    """One-token MLA decode over the latent cache, written in place. x
+    [B,1,D], position [B] absolute; returns (out [B,1,D], cache).
+
+    ``absorbed=True`` (the default, as the reference's) attends in the
+    latent space: q_nope is absorbed through kv_up's K half, the scores
+    are taken against the cached latent and rope key in fp32, and the
+    context is re-expanded through its V half once, so the cache is never
+    expanded to per-head K and V. These are plain products, as the
+    reference computes them in XLA outside any Pallas kernel
+    (``repro/models/layers.py:402-417``). ``absorbed=False`` expands the
+    cache and runs :func:`sdpa`; the two compute the same function."""
+    m: MLAConfig = cfg.mla
+    B = x.shape[0]
+    H = cfg.num_heads
+    cap = cache["c_kv"].shape[1]
+    q_nope, q_rope = _mla_q(params, x, position[:, None], cfg)
+    c_kv_t, k_rope_t = _mla_latent(params, x, position[:, None], cfg)
+    slot = (position % cap).long()
+    bidx = torch.arange(B, device=x.device)
+    cache["c_kv"][bidx, slot] = c_kv_t[:, 0]
+    cache["k_rope"][bidx, slot] = k_rope_t[:, 0, 0]
+    cache["pos"][bidx, slot] = position.to(torch.int32)
+    c_kv, k_rope, pos = cache["c_kv"], cache["k_rope"], cache["pos"]
+    valid = (pos >= 0) & (pos <= position[:, None])
+    if window:
+        valid &= pos > position[:, None] - window
+
+    if not absorbed:
+        k_nope, v = _mla_kv_from_latent(params, c_kv, cfg)   # [B,cap,H,*]
+        q, k = _mla_qk(q_nope, q_rope, k_nope, k_rope[:, :, None, :])
+        out = sdpa(q, k, v, valid[:, None, None, :])
+        return out.reshape(B, 1, -1) @ params["wo"], cache
+
+    kv_up = params["kv_up"].reshape(m.kv_lora_rank, H,
+                                    m.qk_nope_head_dim + m.v_head_dim)
+    w_uk = kv_up[..., :m.qk_nope_head_dim]             # [r, H, nope]
+    w_uv = kv_up[..., m.qk_nope_head_dim:]             # [r, H, v]
+    # q absorbed through the K expansion: the scores live in latent space
+    q_lat = torch.einsum("bhn,rhn->bhr", q_nope[:, 0], w_uk)
+    s = torch.einsum("bhr,bcr->bhc", q_lat.float(), c_kv.float())
+    s = s + torch.einsum("bhp,bcp->bhc", q_rope[:, 0].float(), k_rope.float())
+    s = s / math.sqrt(m.qk_nope_head_dim + m.qk_rope_head_dim)
+    s = torch.where(valid[:, None, :], s, torch.full_like(s, NEG_INF))
+    p = torch.softmax(s, dim=-1)
+    ctx_lat = torch.einsum("bhc,bcr->bhr", p.to(c_kv.dtype), c_kv)
+    out = torch.einsum("bhr,rhv->bhv", ctx_lat, w_uv)  # [B, H, v]
+    return out.reshape(B, 1, H * m.v_head_dim) @ params["wo"], cache
 
 
 # ---------------------------------------------------------------------------

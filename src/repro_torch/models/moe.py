@@ -136,10 +136,16 @@ def _route(xs: torch.Tensor, router: torch.Tensor, k: int, C: int):
 
 def _experts(ge: torch.Tensor, params) -> torch.Tensor:
     """Every expert's SwiGLU over its slots: ge [s, E, C, D] -> [s, E, C,
-    D], three batched products ``[s, E, C, D] x [E, D, F]``."""
-    h = torch.matmul(ge, params["w_in"])                  # [s, E, C, F]
-    g = torch.matmul(ge, params["w_gate"])
-    return torch.matmul(F.silu(g) * h, params["w_out"])
+    D], three batched products ``[s, E, C, D] x [E, D, F]``. One group
+    takes the products on [E, C, D] directly (the same batched product),
+    so that a weight's gradient is the product's own, with no sum over a
+    broadcast group axis: that sum copies the whole gradient (7.5 GB at
+    DeepSeek-V3's [256, 7168, 2048] expert leaves)."""
+    x = ge[0] if ge.shape[0] == 1 else ge
+    h = torch.matmul(x, params["w_in"])                   # [(s,) E, C, F]
+    g = torch.matmul(x, params["w_gate"])
+    out = torch.matmul(F.silu(g) * h, params["w_out"])
+    return out[None] if ge.shape[0] == 1 else out
 
 
 def moe_fwd(params, x: torch.Tensor, cfg: ModelConfig, *,

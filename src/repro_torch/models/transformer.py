@@ -1,5 +1,6 @@
-"""Decoder LM for token-input configs of attention and Mamba2 layers with
-dense or Mixture-of-Experts FFNs (``models/moe.py``) — the port of
+"""Decoder LM for token-input configs of attention, DeepSeek MLA and
+Mamba2 layers with dense or Mixture-of-Experts FFNs (``models/moe.py``) —
+the port of
 ``repro/models/transformer.py`` (``Model``: init, embed/unembed,
 the layer stack, forward, caches, prefill and one-token decode, and the
 paged prefill and decode over per-layer page pools), DeepSeek's chained
@@ -20,10 +21,14 @@ Where the reference scans stacked ``segment{i}/slot{j}`` parameters with
 are a list too, ``params["mtp"]`` (depth 1 first), where the reference
 keeps depth 1 in ``params["mtp"]`` and stacks depths 2..k on
 ``params["mtp_extra"]``'s lead axis (``repro_torch.bridge`` converts
-between the two layouts). Caches and
+between the two layouts). The reference's segments (DeepSeek's
+``first_k_dense`` layers are a leading segment of their own) are one list
+here, in layer order. Caches and
 paged pools are one dict per layer, updated in place: a rolling KV cache
-for an attention layer, the conv and SSM states for a Mamba layer (a
-hybrid such as Jamba holds both kinds in one list).
+for an attention layer, the latent and rope key for an MLA layer, the
+conv and SSM states for a Mamba layer (a hybrid such as Jamba holds both
+kinds in one list). MLA and Mamba layers are neither paged nor verified
+by speculative decoding, as in the reference.
 
 A layer's FFN is MoE where ``cfg.layer_is_moe()`` says so and dense
 where ``cfg.d_ff`` (a Mamba layer carries one too, as the reference's
@@ -48,7 +53,7 @@ import torch
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch import default_device
-from repro_torch.configs.base import ATTN, MAMBA, ModelConfig
+from repro_torch.configs.base import ATTN, MAMBA, MLA, ModelConfig
 from repro_torch.models import layers as L
 from repro_torch.models import lora as LORA
 from repro_torch.models import mamba as M
@@ -69,9 +74,8 @@ class Model:
 
     def __init__(self, cfg: ModelConfig, device=None, *,
                  with_value: bool = False):
-        if any(k not in (ATTN, MAMBA) for k in cfg.period):
-            raise NotImplementedError(f"{cfg.name}: the port does not run "
-                                      "MLA layers yet (ROADMAP A11 4)")
+        if any(k not in (ATTN, MLA, MAMBA) for k in cfg.period):
+            raise ValueError(f"{cfg.name}: unknown layer kinds {cfg.period}")
         if cfg.input_mode != "tokens":
             what = {"encdec": "an encoder-decoder",
                     "embeddings": "prefix embeddings"}.get(
@@ -80,6 +84,8 @@ class Model:
                                       f"{what} yet (ROADMAP A11 6)")
         if MAMBA in cfg.period and cfg.ssm is None:
             raise ValueError(f"{cfg.name}: a Mamba layer needs cfg.ssm")
+        if MLA in cfg.period and cfg.mla is None:
+            raise ValueError(f"{cfg.name}: an MLA layer needs cfg.mla")
         if cfg.remat not in REMATS:
             raise ValueError(f"remat={cfg.remat!r}: expected one of {REMATS}")
         self.cfg = cfg
@@ -100,6 +106,8 @@ class Model:
         layer = {"norm1": L.init_norm(cfg.d_model, dt, dev)}
         if kind == ATTN:
             layer["mixer"] = L.init_attention(generator, cfg, dt)
+        elif kind == MLA:
+            layer["mixer"] = L.init_mla(generator, cfg, dt)
         else:
             layer["mixer"] = M.init_mamba(generator, cfg, dt)
         if is_moe:
@@ -149,16 +157,19 @@ class Model:
     def _init_mtp_module(self, generator: torch.Generator) -> dict:
         """One MTP module: ``proj`` [2D, D] over the normed (h, emb) pair,
         ``norm_h``, ``norm_e`` and one layer of the kind the reference
-        gives it (its last segment's first: the period's first kind and
-        MoE flag)."""
+        gives it (``repro/models/transformer.py:130-144``): its last
+        segment's first slot, the period's first kind with that segment's
+        MoE flag (DeepSeek-V3's: MLA and MoE; a model cut to its
+        ``first_k_dense`` layers has a dense last segment, and so a dense
+        MTP layer)."""
         cfg, dt, dev = self.cfg, self.dtype, self.device
+        moe = cfg.moe is not None and cfg.num_layers > cfg.first_k_dense \
+            and cfg.moe_period[0]
         return {"proj": L._init(generator, (2 * cfg.d_model, cfg.d_model),
                                 dtype=dt),
                 "norm_h": L.init_norm(cfg.d_model, dt, dev),
                 "norm_e": L.init_norm(cfg.d_model, dt, dev),
-                "layer": self._init_layer(
-                    generator, self._mtp_kind(),
-                    cfg.moe is not None and cfg.moe_period[0])}
+                "layer": self._init_layer(generator, self._mtp_kind(), moe)}
 
     def _mtp_kind(self) -> str:
         return self.cfg.period[0]
@@ -230,9 +241,10 @@ class Model:
         """One layer -> (h, MoE aux loss or None, filled cache or None).
         With ``init_cache`` (prefill) it also fills the
         layer's decode cache in the same pass: an attention layer's
-        rolling KV cache, or a Mamba layer's conv and SSM states (copied
-        into the cache's buffers). ``adapter`` is the layer's LoRA subtree
-        (unmerged A·B at the attention and MLP sites)."""
+        rolling KV cache, an MLA layer's latent cache, or a Mamba layer's
+        conv and SSM states (copied into the cache's buffers). ``adapter``
+        is the layer's LoRA subtree (unmerged A·B at the attention and MLP
+        sites; an MLA mixer takes none, as in the reference)."""
         cfg = self.cfg
         ad = adapter or {}
         x = L.rms_norm(h, layer["norm1"], cfg.norm_eps)
@@ -241,6 +253,11 @@ class Model:
             y = L.attention_fwd(layer["mixer"], x, positions, cfg,
                                 window=window, init_cache=init_cache,
                                 adapter=ad.get("mixer"))
+            if init_cache is not None:
+                y, cache = y
+        elif kind == MLA:
+            y = L.mla_fwd(layer["mixer"], x, positions, cfg, window=window,
+                          init_cache=init_cache)
             if init_cache is not None:
                 y, cache = y
         elif init_cache is not None:
@@ -422,14 +439,18 @@ class Model:
     def init_cache(self, batch: int, capacity: int, dtype,
                    device=None) -> List[dict]:
         """One decode cache per layer: a rolling KV cache of ``capacity``
-        slots for an attention layer; the conv and SSM states for a Mamba
-        layer, whose size ``capacity`` does not touch. On the model's
-        device unless ``device`` is given (a ``meta`` trace's)."""
+        slots for an attention layer, a rolling latent cache for an MLA
+        layer; the conv and SSM states for a Mamba layer, whose size
+        ``capacity`` does not touch. On the model's device unless
+        ``device`` is given (a ``meta`` trace's)."""
         device = self.device if device is None else device
-        return [L.init_kv_cache(self.cfg, batch, capacity, dtype, device)
-                if kind == ATTN else
-                M.init_mamba_cache(self.cfg, batch, dtype, device)
-                for kind in self.kinds]
+        make = {ATTN: lambda: L.init_kv_cache(self.cfg, batch, capacity,
+                                              dtype, device),
+                MLA: lambda: L.init_mla_cache(self.cfg, batch, capacity,
+                                              dtype, device),
+                MAMBA: lambda: M.init_mamba_cache(self.cfg, batch, dtype,
+                                                  device)}
+        return [make[kind]() for kind in self.kinds]
 
     @torch.no_grad()
     def prefill(self, params, batch, capacity: int, *, window: int = 0,
@@ -443,8 +464,8 @@ class Model:
         right-padding: logits come from position ``lengths-1`` and padded
         cache entries are invalidated (their "pos" set to -1), exact
         because causal attention makes right-padding invisible to earlier
-        positions. Attention layers only: a Mamba state cannot be masked
-        after the fact, so a Mamba model raises on ``lengths``.
+        positions. Attention and MLA layers only: a Mamba state cannot be
+        masked after the fact, so a Mamba model raises on ``lengths``.
         ``return_h=True`` also returns the pre-final-norm hidden state at
         the logits position [B, D]. ``adapter`` (a LoRA adapter, here and
         on every cache path below) is applied unmerged, as in
@@ -506,7 +527,8 @@ class Model:
                     window: int = 0, adapter=None):
         """token [B] int, position [B] int32 -> (logits [B,V], caches);
         the caches are updated in place. A Mamba layer ignores
-        ``position`` (and, as in the reference, the adapter)."""
+        ``position``; Mamba and MLA layers ignore the adapter, as in the
+        reference. An MLA layer decodes absorbed, in the latent space."""
         layers = caches["layers"]
 
         def mix(i, mixer, x, ad):
@@ -514,14 +536,17 @@ class Model:
                 return L.attention_decode(mixer, x, position, layers[i],
                                           self.cfg, window=window,
                                           adapter=ad)[0]
+            if self.kinds[i] == MLA:
+                return L.mla_decode(mixer, x, position, layers[i], self.cfg,
+                                    window=window)[0]
             return M.mamba_decode(mixer, x, layers[i], self.cfg)[0]
 
         return self._decode(params, token, mix, adapter), caches
 
     # ------------------------------------------------------- paged kv caches
     def supports_paged(self) -> bool:
-        """The paged backend covers token-input, attention-only nets; Mamba
-        states are not paged."""
+        """The paged backend covers token-input, attention-only nets; MLA
+        and Mamba states are not paged (the reference's ``supports_paged``)."""
         return self.cfg.input_mode == "tokens" and \
             all(k == ATTN for k in self.kinds)
 
@@ -602,8 +627,8 @@ class Model:
     def supports_spec_decode(self) -> bool:
         """The draft/verify path covers token-input attention-only nets
         with MTP heads: rejected drafts need no rollback in a rolling cache
-        or a paged pool (position masks hide them); Mamba states cannot
-        roll back."""
+        or a paged pool (position masks hide them); MLA and Mamba states
+        are not verified, as in the reference."""
         return self.cfg.input_mode == "tokens" and self.cfg.mtp_depth > 0 \
             and all(k == ATTN for k in self.kinds)
 

@@ -1,17 +1,28 @@
-"""Optimizers of the port: the reference's AdamW update
-(``repro/optim/adamw.py``), global-norm clipping (``clip.py``) over
-parameter trees of tensors, and the warmup-cosine LR schedule
-(``schedule.py``)."""
+"""Optimizers of the port: the reference's AdamW and Adafactor updates
+(``repro/optim/adamw.py``, ``adafactor.py``), global-norm clipping
+(``clip.py``) over parameter trees of tensors, and the warmup-cosine LR
+schedule (``schedule.py``)."""
+from repro_torch.optim.adafactor import Adafactor
 from repro_torch.optim.adamw import AdamW
 from repro_torch.optim.clip import clip_by_global_norm_, global_norm
 from repro_torch.optim.schedule import warmup_cosine
 
 
-def make_optimizer(name: str, **kw):
+def make_optimizer(name: str, cfg=None, **kw):
+    """The optimizer ``name`` (the reference's ``make_optimizer``). With
+    ``cfg`` (a ``ModelConfig``), Adafactor clips each reference leaf over
+    the layers of its segment (``Adafactor.segments``)."""
     if name == "adamw":
         return AdamW(**kw)
-    raise ValueError(f"the port has adamw only, not {name!r}")
+    if name == "adafactor":
+        if cfg is not None:
+            kw.setdefault("segments", cfg.segment_layers())
+        return Adafactor(**kw)
+    if name == "adamw_bf16":
+        raise NotImplementedError("adamw_bf16 (bf16 moments) is not ported "
+                                  "(ROADMAP A11 5)")
+    raise ValueError(f"unknown optimizer {name!r}")
 
 
-__all__ = ["AdamW", "clip_by_global_norm_", "global_norm",
+__all__ = ["Adafactor", "AdamW", "clip_by_global_norm_", "global_norm",
            "make_optimizer", "warmup_cosine"]

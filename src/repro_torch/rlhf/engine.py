@@ -143,10 +143,14 @@ class ModelEngine:
     def memory_accounting(self) -> Dict[str, Dict[str, Dict[str, int]]]:
         """Per-role {params, opt, grad} bytes for the hydra layout, plus the
         separate engine's on the same config, as the reference reckons them
-        (``repro/rlhf/engine.py:139-171``): AdamW's state is 8 bytes a
-        parameter and its int32 count; a trained role's gradients are one
-        fp32 copy of its trainables (``steps._accumulated_grads``)."""
+        (``repro/rlhf/engine.py:139-171``): the optimizer's state bytes
+        (AdamW: 8 a parameter; Adafactor: its fp32 statistics) and its
+        int32 count; a trained role's gradients are one copy of its
+        trainables in the accumulation dtype (``steps.acc_dtype``: 4 bytes
+        for AdamW, 2 otherwise)."""
+        from repro_torch.steps import acc_dtype
         opt = make_optimizer(self.cfg.optimizer)
+        grad_item = acc_dtype(self.cfg).itemsize
         base_b = _tree_bytes(self.base_params)
         out: Dict[str, Dict[str, int]] = {
             "base": {"params": base_b, "opt": 0, "grad": 0}}
@@ -155,10 +159,11 @@ class ModelEngine:
             out[role] = {
                 "params": _tree_bytes(ad),
                 "opt": opt.state_bytes(ad) if trained else 0,
-                "grad": 4 * LORA.adapter_param_count(ad) if trained else 0}
+                "grad": grad_item * LORA.adapter_param_count(ad)
+                if trained else 0}
         trained_full = {"params": base_b,
                         "opt": opt.state_bytes(self.base_params),
-                        "grad": 4 * self.base_param_count()}
+                        "grad": grad_item * self.base_param_count()}
         sep = {"actor": dict(trained_full), "critic": dict(trained_full),
                "ref": {"params": base_b, "opt": 0, "grad": 0},
                "reward": {"params": base_b, "opt": 0, "grad": 0}}

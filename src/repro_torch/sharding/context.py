@@ -68,6 +68,7 @@ from typing import Any, List, Optional, Tuple
 import torch
 import torch.distributed as dist
 
+from repro_torch.optim.clip import sq_sum
 from repro_torch.sharding.rules import (MODEL_AXIS, P, ShardingStrategy,
                                         SpecMesh, _axsize, adapter_pspecs,
                                         dp_axes, param_pspecs, spec_leaves,
@@ -293,8 +294,7 @@ class _GatherLayer(torch.autograd.Function):
             # the unsharded step squares the fp32 accumulation of this
             # gradient (0 + g: the same values, contiguous)
             full = g.to(torch.float32, memory_format=torch.contiguous_format)
-            ctx.lg.sumsq.setdefault(key, []).append(
-                torch.sum(torch.square(full)))
+            ctx.lg.sumsq.setdefault(key, []).append(sq_sum(full))
             del full
             out.append(comm.local(g, d).contiguous())
         return (None, None, *out)
@@ -576,14 +576,20 @@ class TreePlan:
         with torch.no_grad():
             return spec_map(place, specs, tree, shapes)
 
-    def _opt_shapes(self):
-        return {"mu": self.shapes, "nu": self.shapes, "count": None}
+    def _opt_shapes(self, opt):
+        """The optimizer state's whole shapes: AdamW's moments are
+        param-shaped; any other state (Adafactor's statistics) has
+        replicated specs, so its own shapes serve."""
+        if set(opt) == {"mu", "nu", "count"}:
+            return {"mu": self.shapes, "nu": self.shapes, "count": None}
+        return spec_map(lambda s, x: tuple(x.shape) if torch.is_tensor(x)
+                        else None, self.opt_specs, opt)
 
     def place_params(self, params):
         return self._place(params, self.param_specs, self.shapes)
 
     def place_opt(self, opt):
-        return self._place(opt, self.opt_specs, self._opt_shapes())
+        return self._place(opt, self.opt_specs, self._opt_shapes(opt))
 
     def place_state(self, state):
         """Place a ``{"params", "opt", "step"}`` train state."""
@@ -593,12 +599,30 @@ class TreePlan:
             out["opt"] = self.place_opt(state["opt"])
         return out
 
+    def _gathered_for_update(self, s, u) -> bool:
+        """Whether a leaf of state spec ``s`` is updated whole (update spec
+        ``u`` has no DP entry) while stored sharded: ZeRO-3 under a whole
+        update layout (``Adafactor.update_pspecs``)."""
+        return self.sharded and _dp_dim(s, self.mesh) is not None and \
+            _dp_dim(u, self.mesh) is None
+
     def update_views(self, params):
-        """The params on the update layout, for AdamW in place: at ZeRO-3
-        the state shards themselves; below, views of this rank's part of
-        each whole param (whole where the update spec is whole)."""
-        if self.update_specs is None or self.sharded or self._size() == 1:
+        """The params on the update layout, for the optimizer in place: at
+        ZeRO-3 the state shards themselves, or where the update layout is
+        whole, whole gathered copies (:meth:`all_gather_updated_` cuts
+        them back); below, views of this rank's part of each whole param
+        (whole where the update spec is whole)."""
+        if self.update_specs is None or self._size() == 1:
             return params
+        if self.sharded:
+            if not any(self._gathered_for_update(s, u) for s, u in zip(
+                    spec_leaves(self.param_specs),
+                    spec_leaves(self.update_specs))):
+                return params
+            with torch.no_grad():
+                return self._gather_leaves(params, self.update_specs,
+                                           lambda full, x: full,
+                                           lambda x: x)
         comm = self._need_comm()
 
         def view(s, p):
@@ -611,27 +635,53 @@ class TreePlan:
         """Gradients -> the update layout: a whole gradient is sliced to
         this rank's part (under a sharded batch it was summed over the
         ranks before); a gradient that is a part already (a layer-mode
-        layer leaf's) stays."""
+        layer leaf's) stays, or is gathered whole where the update layout
+        is whole."""
         if self.update_specs is None:
             return grads
         comm = self._need_comm()
+        todo = []
 
-        def slice_(s, g, shape):
-            d = _dp_dim(s, self.mesh)
+        def slice_(s, u, g, shape):
+            if g is not None and self._gathered_for_update(s, u) and \
+                    tuple(g.shape) != tuple(shape):
+                todo.append((g, _dp_dim(s, self.mesh)))
+                return g
+            d = _dp_dim(u, self.mesh)
             if g is None or d is None or not self._is_whole(g, shape):
                 return g
             return comm.local(g, d).contiguous()
 
-        return spec_map(slice_, self.update_specs, grads, self.shapes)
+        out = spec_map(slice_, self.param_specs, self.update_specs, grads,
+                       self.shapes)
+        if not todo:
+            return out
+        whole = {id(g): w for (g, _), w in zip(todo, comm.all_gather_many(
+            [g for g, _ in todo], [d for _, d in todo]))}
+        return spec_map(lambda s, g: whole.get(id(g), g) if
+                        torch.is_tensor(g) else g, self.param_specs, out)
 
     @torch.no_grad()
-    def all_gather_updated_(self, params) -> None:
+    def all_gather_updated_(self, params, views=None) -> None:
         """Stages 1-2: after the update of this rank's part of each whole
         param, all-gather the parts back into the whole param, in place
-        (coalesced collectives)."""
-        if self.update_specs is None or self.sharded or self._size() == 1:
+        (coalesced collectives). ZeRO-3 with a whole update layout: copy
+        this rank's part of each updated whole copy (``views``, from
+        :meth:`update_views`) into its state shard."""
+        if self.update_specs is None or self._size() == 1:
             return
         comm = self._need_comm()
+        if self.sharded:
+            if views is None:
+                return
+
+            def cut(s, u, p, w):
+                if torch.is_tensor(p) and self._gathered_for_update(s, u):
+                    p.copy_(comm.local(w, _dp_dim(s, self.mesh)))
+                return p
+
+            spec_map(cut, self.param_specs, self.update_specs, params, views)
+            return
         todo = []
 
         def pick(s, p):
@@ -736,7 +786,14 @@ class ShardedContext:
         if optimizer is not None:
             base = zero_opt_pspecs(pspecs, shapes, mesh, strat)
             opt_specs = optimizer.init_specs(base, shapes)
-            update_specs = base
+            # optimizers whose update reduces across elements (Adafactor)
+            # declare their own, whole, update layout
+            upd = getattr(optimizer, "update_pspecs", None)
+            if upd is not None and self.ntp > 1:
+                raise NotImplementedError(
+                    f"{type(optimizer).__name__} under tensor parallelism "
+                    "(its whole update layout over model cuts) is not ported")
+            update_specs = upd(base, shapes) if upd is not None else base
         compute = spec_map(lambda s: _strip_dp(s, mesh), pspecs) \
             if strat.zero_stage >= 3 else pspecs
         layer_full = layer_slices = None

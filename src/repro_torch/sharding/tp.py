@@ -46,7 +46,7 @@ from typing import Dict, Optional, Tuple
 import torch
 import torch.distributed as dist
 
-from repro_torch.configs.base import MAMBA, ModelConfig
+from repro_torch.configs.base import MAMBA, MLA, ModelConfig
 from repro_torch.sharding import ctx as shctx
 
 A10C = "ROADMAP A10c"
@@ -72,6 +72,9 @@ def check_supported(cfg: ModelConfig, ntp: int, *,
     ROADMAP item; nothing at ``ntp`` 1."""
     if ntp <= 1:
         return
+    if MLA in cfg.period:
+        raise _not_ported(f"{cfg.name}'s MLA layers (the latent "
+                          "projections' cuts)", "7")
     if cfg.moe is not None and any(cfg.layer_is_moe()):
         raise moe_refusal(cfg.name)
     if MAMBA in cfg.period:

@@ -7,8 +7,12 @@ LoRA train step of the hydra engine — the port of ``repro/steps.py``
 
 A step computes its gradients with autograd (attention and norms
 differentiate through the B2-bwd and B1-bwd kernels), clips them by their
-global norm and applies the reference's AdamW, both in place, as the
-reference's jitted step does with its state donated. With
+global norm and applies the config's optimizer (the reference's AdamW or
+Adafactor), both in place, as the reference's jitted step does with its
+state donated. Gradients accumulate over microbatches in fp32 for AdamW
+and in bf16 for any other optimizer (the reference's ``acc_dtype``,
+``repro/steps.py:256, 349``); at one microbatch they keep the dtype
+autograd gives them, except that AdamW's are fp32 copies. With
 ``cfg.mtp_depth`` set, the ppo and lm steps add ``0.1 * mtp_chain_loss``
 (``:90-110``); the hydra step runs the chain on the frozen trunk,
 adapter-free, as the reference does.
@@ -20,7 +24,10 @@ before the forward (a whole tree, or layer by layer inside the model in
 "layer" mode), the loss and gradients are computed on the gathered values,
 the gradients are clipped by the norm of the full gradients, sliced to the
 rank's part of the update layout and AdamW runs there in place; stages
-1-2 then all-gather the new params. With a replicated batch every stage
+1-2 then all-gather the new params. Adafactor's update layout is whole
+(``Adafactor.update_pspecs``): the gradients and params are gathered
+whole, updated on every rank alike, and the new params cut back onto the
+ZeRO layout. With a replicated batch every stage
 gives the unsharded bits. Under ``ShardedContext.sharded_batch()`` each
 rank runs on its share of the batch: loss denominators count the whole
 batch and gradients and metrics are summed over the ranks (a change of
@@ -35,6 +42,7 @@ import torch
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import Model
 from repro_torch.optim import clip_by_global_norm_, make_optimizer
+from repro_torch.optim.clip import sq_sum
 from repro_torch.sharding import ctx as shctx
 from repro_torch.sharding import tp as TP
 from repro_torch.tree import leaves, tree_map
@@ -169,18 +177,37 @@ def lm_loss(logits, tokens, mask, *, prefix: int = 0, count: Count = None):
 # ---------------------------------------------------------------------------
 # Step builders
 # ---------------------------------------------------------------------------
-def _accumulated_grads(loss_fn: Callable, params, batch, N: int):
+def acc_dtype(cfg: ModelConfig) -> torch.dtype:
+    """The gradient accumulators' dtype: fp32 for AdamW, bf16 for the
+    memory-lean optimizers (``repro/steps.py:256``)."""
+    return torch.float32 if cfg.optimizer == "adamw" else torch.bfloat16
+
+
+def _accumulated_grads(loss_fn: Callable, params, batch, N: int,
+                       dtype: torch.dtype = torch.float32):
     """``((loss, metrics), grads)`` of ``loss_fn(params, batch)`` over the
     trainable leaves of ``params``, with N-way microbatch accumulation
-    (N == 1 is one call), averaged over the microbatches, grads in fp32.
-    Each microbatch's graph is freed by its backward before the next, and
-    each of its gradients as soon as it is added."""
+    (N == 1 is one call), averaged over the microbatches, the sums in
+    ``dtype``. Each microbatch's graph is freed by its backward before the
+    next, and each of its gradients as soon as it is added. In fp32 the
+    grads are fp32 at every N; in bf16 (the reference's accumulation for
+    the optimizers other than AdamW) a single call keeps autograd's grads
+    as they are, in the params' dtype, as the reference's plain
+    ``value_and_grad`` does."""
     ps = list(leaves(params))
     B = next(iter(batch.values())).shape[0]
     if B % N:
         raise ValueError(f"batch {B} does not split into {N} microbatches")
     mb = B // N
-    gacc = [torch.zeros_like(p, dtype=torch.float32) for p in ps]
+    if N == 1 and dtype != torch.float32:
+        loss, met = loss_fn(params, batch)
+        grads = list(torch.autograd.grad(loss, ps, allow_unused=True))
+        grads = [torch.zeros_like(p) if g is None else g
+                 for g, p in zip(grads, ps)]
+        it = iter(grads)
+        return (loss.detach(), {k: v.detach() for k, v in met.items()}), \
+            tree_map(lambda _: next(it), params)
+    gacc = [torch.zeros_like(p, dtype=dtype) for p in ps]
     lacc, macc = 0.0, {}
     for i in range(N):
         sub = {k: v[i * mb:(i + 1) * mb] for k, v in batch.items()} \
@@ -189,7 +216,10 @@ def _accumulated_grads(loss_fn: Callable, params, batch, N: int):
         grads = list(torch.autograd.grad(loss, ps, allow_unused=True))
         for j, a in enumerate(gacc):
             if grads[j] is not None:
-                a.add_(grads[j])        # fp32 sum, no fp32 copy of g
+                # fp32: a sum with no fp32 copy of g; bf16: the
+                # reference's a + g.astype(bf16)
+                a.add_(grads[j] if dtype == torch.float32
+                       else grads[j].to(dtype))
             grads[j] = None
         lacc = lacc + loss.detach()
         for k, v in met.items():
@@ -203,8 +233,8 @@ def _accumulated_grads(loss_fn: Callable, params, batch, N: int):
 
 
 def _update_(optimizer, state, grads, lr: float, max_grad_norm: float):
-    """Clips the fp32 ``grads`` by their global norm and takes one AdamW
-    step of ``state``'s params and moments, all in place -> the norm."""
+    """Clips ``grads`` by their global norm and takes one optimizer step
+    of ``state``'s params and moments, all in place -> the norm."""
     grads, gnorm = clip_by_global_norm_(grads, max_grad_norm)
     optimizer.update_(grads, state["opt"], state["params"], lr)
     state["step"] += 1
@@ -253,7 +283,7 @@ def _sharded_update_(optimizer, plan, state, grads, lr: float,
             s = lg.take_sumsq(p) if is_shard else None
             if s is None:
                 full = comm.all_gather(g, d) if is_shard else g
-                s = torch.sum(torch.square(full.float()))
+                s = sq_sum(full)
                 del full
             sums.append(s)
         if plan.tp is None:
@@ -272,10 +302,10 @@ def _sharded_update_(optimizer, plan, state, grads, lr: float,
         del grads, flat
         for g in leaves(upd):
             g.mul_(scale)
-        optimizer.update_(upd, state["opt"],
-                          plan.update_views(state["params"]), lr)
+        views = plan.update_views(state["params"])
+        optimizer.update_(upd, state["opt"], views, lr)
     state["step"] += 1
-    plan.all_gather_updated_(state["params"])
+    plan.all_gather_updated_(state["params"], views)
     return norm
 
 
@@ -300,7 +330,7 @@ def make_train_step(model: Model, cfg: ModelConfig, *, lr: float = 3e-5,
     if kind not in ("ppo", "critic", "lm"):
         raise ValueError(f"kind must be ppo, critic or lm, not {kind!r}")
     _check_tp(cfg, shard)
-    optimizer = make_optimizer(cfg.optimizer)
+    optimizer = make_optimizer(cfg.optimizer, cfg)
     # per-layer ZeRO-3 gather (gather_mode "layer") inside the model
     lspecs = getattr(shard, "layer_specs", None)
 
@@ -322,19 +352,20 @@ def make_train_step(model: Model, cfg: ModelConfig, *, lr: float = 3e-5,
                                                 count=count))
 
     N = max(1, cfg.microbatches)
+    dt = acc_dtype(cfg)
 
     def train_step(state, batch) -> Tuple[dict, Dict[str, torch.Tensor]]:
         if shard is None:
             with torch.enable_grad():
                 (loss, metrics), grads = _accumulated_grads(
-                    loss_fn, state["params"], batch, N)
+                    loss_fn, state["params"], batch, N, dt)
             gnorm = _update_(optimizer, state, grads, lr, max_grad_norm)
             return state, dict(metrics, loss=loss, grad_norm=gnorm)
         _reset_stash(shard)
         with torch.enable_grad(), shctx.use_mesh(shard.context):
             compute = shard.gather(state["params"])
             (loss, metrics), grads = _accumulated_grads(loss_fn, compute,
-                                                        batch, N)
+                                                        batch, N, dt)
             del compute
             metrics = _summed_metrics(shard, dict(metrics, loss=loss))
             gnorm = _sharded_update_(optimizer, shard, state, grads, lr,
@@ -374,7 +405,7 @@ def make_lora_train_step(model: Model, cfg: ModelConfig, *, lr: float = 3e-5,
     if base_shard is not None and shard is None:
         raise ValueError("base_shard without an adapter plan")
     _check_tp(cfg, shard, base_shard)
-    optimizer = make_optimizer(cfg.optimizer)
+    optimizer = make_optimizer(cfg.optimizer, cfg)
     blspecs = getattr(base_shard, "layer_specs", None)
 
     def loss_fn(adapter, base_params, batch):
@@ -392,6 +423,7 @@ def make_lora_train_step(model: Model, cfg: ModelConfig, *, lr: float = 3e-5,
                                                 count=count))
 
     N = max(1, cfg.microbatches)
+    dt = acc_dtype(cfg)
 
     def train_step(state, base_params, batch
                    ) -> Tuple[dict, Dict[str, torch.Tensor]]:
@@ -399,7 +431,7 @@ def make_lora_train_step(model: Model, cfg: ModelConfig, *, lr: float = 3e-5,
             with torch.enable_grad():
                 (loss, metrics), grads = _accumulated_grads(
                     lambda ad, mb: loss_fn(ad, base_params, mb),
-                    state["params"], batch, N)
+                    state["params"], batch, N, dt)
             gnorm = _update_(optimizer, state, grads, lr, max_grad_norm)
             return state, dict(metrics, loss=loss, grad_norm=gnorm)
         _reset_stash(shard)
@@ -408,7 +440,7 @@ def make_lora_train_step(model: Model, cfg: ModelConfig, *, lr: float = 3e-5,
                 else base_shard.gather(base_params)
             adapter = shard.gather(state["params"])
             (loss, metrics), grads = _accumulated_grads(
-                lambda ad, mb: loss_fn(ad, base, mb), adapter, batch, N)
+                lambda ad, mb: loss_fn(ad, base, mb), adapter, batch, N, dt)
             del base, adapter
             metrics = _summed_metrics(shard, dict(metrics, loss=loss))
             gnorm = _sharded_update_(optimizer, shard, state, grads, lr,

@@ -1,7 +1,9 @@
-"""Three more model families on the port against the JAX reference on the
+"""More model families on the port against the JAX reference on the
 CPU: ``granite_moe_3b_a800m`` (every FFN MoE), ``jamba_v0_1_52b`` (Mamba,
-attention and MoE in one 8-layer period) and ``qwen1_5_4b`` (dense, qkv
-bias, MHA).
+attention and MoE in one 8-layer period), ``qwen1_5_4b`` (dense, qkv
+bias, MHA), and for the checks that read a config, a tree or a forward,
+``deepseek_v3_671b`` (MLA layers, a dense leading segment before the MoE
+one, an MTP module; ``tests/test_torch_mla.py`` holds the rest of it).
 
 f32 smoke configs; weights from the reference's init (``bridge.from_jax``;
 qwen's zero-initialised qkv biases given random values so that they are
@@ -34,7 +36,7 @@ from repro.rlhf.reward import \
     make_target_token_reward as jax_target_reward  # noqa: E402
 from repro.serving import ContinuousBatcher as JaxBatcher  # noqa: E402
 from repro_torch import bridge  # noqa: E402
-from repro_torch.configs import get_config  # noqa: E402
+from repro_torch.configs import MLA, MLAConfig, get_config  # noqa: E402
 from repro_torch.models import Model  # noqa: E402
 from repro_torch.rlhf import ModelEngine, RLHFConfig, RLHFTrainer  # noqa: E402
 from repro_torch.rlhf import Rollout  # noqa: E402
@@ -45,6 +47,8 @@ from repro_torch.tree import leaves  # noqa: E402
 
 ARCHS = ("granite_moe_3b_a800m", "jamba_v0_1_52b", "qwen1_5_4b")
 GRANITE = "granite_moe_3b_a800m"
+DEEPSEEK = "deepseek_v3_671b"
+FAM_ARCHS = ARCHS + (DEEPSEEK,)
 TOL = 1e-5
 TOL_PPO = 1e-4
 S = 32                  # a multiple of jamba's smoke chunk
@@ -97,7 +101,7 @@ def _pair(jcfg, tcfg, seed=0):
     return jm, jp, tm, bridge.from_jax(_np(jp), tcfg, "cpu")
 
 
-@pytest.fixture(scope="module", params=ARCHS)
+@pytest.fixture(scope="module", params=FAM_ARCHS)
 def fam(request):
     jcfg, tcfg = _cfgs(request.param)
     return (jcfg, tcfg) + _pair(jcfg, tcfg)
@@ -109,7 +113,7 @@ def _field(cfg, name):
 
 
 # ------------------------------------------------------------- configs
-@pytest.mark.parametrize("arch", ARCHS)
+@pytest.mark.parametrize("arch", FAM_ARCHS)
 def test_configs_and_param_counts_match_reference(arch):
     """Every field of the port's config, ``layer_is_moe``, ``param_count``
     and ``active_param_count``, at full size and smoke."""
@@ -126,6 +130,7 @@ def test_configs_and_param_counts_match_reference(arch):
     g = get_config(GRANITE)
     assert (g.param_count(), g.active_param_count()) == (3298793472,
                                                         881301504)
+    assert get_config(DEEPSEEK).param_count() == 671026279424
 
 
 _DT = {"float32": torch.float32, "bfloat16": torch.bfloat16}
@@ -144,24 +149,34 @@ def _shapes_equal(port, ref, stacked: bool):
         assert v.dtype == _DT[str(ref[k].dtype)], k
 
 
-@pytest.mark.parametrize("arch", ARCHS)
+@pytest.mark.parametrize("arch", FAM_ARCHS)
 def test_meta_init_matches_reference_eval_shape(arch):
     """``Model(cfg, device="meta").init()`` at full size: every leaf's
     shape and dtype against ``jax.eval_shape`` of the reference's init
-    (layer g * len(period) + j is group g of slot j)."""
+    (within a segment starting at layer s, layer s + g * len(period) + j
+    is group g of slot j; deepseek's 3 dense layers, then 58 MoE)."""
     jcfg, tcfg = jax_get_config(arch), get_config(arch)
     want = jax.eval_shape(JaxModel(jcfg).init, jax.random.PRNGKey(0))
     got = Model(tcfg, device="meta").init()
     per = len(tcfg.period)
     assert len(got["layers"]) == tcfg.num_layers
-    seg = want["segment0"]
-    for i, layer in enumerate(got["layers"]):
-        ref = seg[f"slot{i % per}"]
-        assert jax.tree.leaves(ref)[0].shape[0] == tcfg.num_layers // per
-        _shapes_equal(layer, ref, stacked=True)
-    top = {k: v for k, v in got.items() if k != "layers"}
-    _shapes_equal(top, {k: v for k, v in want.items() if k != "segment0"},
-                  stacked=False)
+    names = [f"segment{i}" for i in range(len(tcfg.segment_layers()))]
+    assert set(names) == {k for k in want if k.startswith("segment")}
+    i = 0
+    for name, n in zip(names, tcfg.segment_layers()):
+        for j in range(n):
+            ref = want[name][f"slot{j % per}"]
+            assert jax.tree.leaves(ref)[0].shape[0] == n // per
+            _shapes_equal(got["layers"][i], ref, stacked=True)
+            i += 1
+    top = {k: v for k, v in got.items() if k not in ("layers", "mtp")}
+    _shapes_equal(top, {k: v for k, v in want.items()
+                        if k not in names and k != "mtp"}, stacked=False)
+    if tcfg.mtp_depth:          # depth 1: the reference's "mtp" module
+        mtp, ref = dict(got["mtp"][0]), dict(want["mtp"])
+        _shapes_equal(mtp.pop("layer"), ref.pop("layer")["slot0"],
+                      stacked=False)
+        _shapes_equal(mtp, ref, stacked=False)
 
 
 def test_bridge_round_trip(fam):
@@ -230,7 +245,7 @@ def test_prefill_and_decode_match_reference(fam):
     caches_close()
 
 
-ROLLOUTS = [(a, "dense", 1) for a in ARCHS] + \
+ROLLOUTS = [(a, "dense", 1) for a in FAM_ARCHS] + \
     [(GRANITE, "paged", 2), ("qwen1_5_4b", "paged", 2)]
 
 
@@ -389,12 +404,12 @@ def _adam_close(state, jstate, cfg, lr):
         assert not (np.abs(x - y) > TOL_PPO + slack).any()
 
 
-@pytest.mark.parametrize("arch", ARCHS)
+@pytest.mark.parametrize("arch", FAM_ARCHS)
 def test_hydra_and_tp_refuse_what_the_reference_refuses(arch):
     """The hydra engine covers attention-only dense-FFN trunks in both
-    packages: granite (MoE) and jamba (Mamba, MoE) are refused, qwen is
-    taken. Under TP an MoE config raises naming ROADMAP A10c 4; qwen's
-    heads divide 2."""
+    packages: granite (MoE), jamba (Mamba, MoE) and deepseek (MLA, MoE)
+    are refused, qwen is taken. Under TP an MLA config raises naming
+    ROADMAP A10c 7, an MoE one A10c 4; qwen's heads divide 2."""
     jcfg, tcfg = _cfgs(arch)
     refused = arch != "qwen1_5_4b"
     if refused:
@@ -409,21 +424,30 @@ def test_hydra_and_tp_refuse_what_the_reference_refuses(arch):
     else:
         eng = ModelEngine(tcfg, torch.Generator().manual_seed(0), rank=4)
         assert len(list(leaves(eng.adapters["actor"]))) > 0
-    if tcfg.moe is not None:
+    if MLA in tcfg.period:
+        with pytest.raises(NotImplementedError, match="MLA.*A10c 7"):
+            TP.check_supported(tcfg, 2)
+    elif tcfg.moe is not None:
         with pytest.raises(NotImplementedError, match="MoE.*A10c 4"):
             TP.check_supported(tcfg, 2)
     else:
         TP.check_supported(tcfg, 2)
 
 
-@pytest.mark.parametrize("arch", [GRANITE, "jamba_v0_1_52b"])
+@pytest.mark.parametrize("arch", [GRANITE, "jamba_v0_1_52b", DEEPSEEK])
 def test_simulator_traces_moe_and_hybrid_phases(arch):
     """The memory simulator's phase programs (``core.build_rlhf_phases``)
-    trace the MoE FFN (and jamba's Mamba layers) on ``meta``: eight
-    phases, each with a peak; the actor's persistent bytes are its bf16
-    tree's (the fp32 routers included)."""
+    trace the MoE FFN (and jamba's Mamba layers, deepseek's MLA layers
+    and Adafactor step) on ``meta``: eight phases, each with a peak; the
+    actor's persistent bytes are its bf16 tree's (the fp32 routers
+    included). Deepseek's MLA runs at its own head widths, 192 / 128 (the
+    smoke config's 48 / 32 are no pair the kernels take)."""
     from repro_torch.core import build_rlhf_phases
     cfg = get_config(arch).smoke()
+    if arch == DEEPSEEK:
+        cfg = dataclasses.replace(cfg, optimizer="adafactor", mla=MLAConfig(
+            q_lora_rank=64, kv_lora_rank=32, qk_nope_head_dim=128,
+            qk_rope_head_dim=64, v_head_dim=128))
     phases, per = build_rlhf_phases(cfg, cfg, batch=2, prompt_len=16,
                                     gen_len=8)
     assert [p.name for p in phases][-2:] == ["train_actor", "train_critic"]
@@ -436,15 +460,20 @@ def test_simulator_traces_moe_and_hybrid_phases(arch):
 
 
 @pytest.mark.parametrize("kw,item", [
-    (dict(period=("mla",)), "MLA layers.*A11 4"),
+    (dict(period=("mla",), mla=MLAConfig(q_lora_rank=64, kv_lora_rank=32,
+                                         qk_nope_head_dim=32,
+                                         qk_rope_head_dim=16, v_head_dim=32)),
+     "MLA layers.*A10c 7"),
     (dict(input_mode="encdec"), "encoder-decoder.*A11 6"),
     (dict(input_mode="embeddings"), "prefix embeddings.*A11 6")])
 def test_model_refusal_names_what_is_unported(kw, item):
-    """What the port's ``Model`` does not run yet is refused by name, with
-    its ROADMAP item (the reference's other layer kinds and inputs)."""
+    """What the port does not run yet is refused by name, with its ROADMAP
+    item (the reference's other inputs; MLA layers, which the ``Model``
+    runs, under tensor parallelism)."""
     cfg = dataclasses.replace(get_config("llama3_2_3b").smoke(), **kw)
     with pytest.raises(NotImplementedError, match=item):
         Model(cfg, device="cpu")
+        TP.check_supported(cfg, 2)
 
 
 # ------------------------------------- chip_smoke.py phase 17's reckonings

@@ -86,6 +86,74 @@ def test_flash_kernel_matches_plain(cuda, B, Sq, Sk, H, K, D, causal,
                                rtol=0)
 
 
+# DeepSeek-V3 MLA's head widths: q/k rows of 192 (128 nope + 64 rope), v
+# rows of 128, G 1 (every head its own KV head)
+MLA_FLASH_CASES = [
+    (2, 256, 256, 4, 4, 192, 128, True, 0, "bf16"),
+    (1, 100, 100, 3, 3, 192, 128, True, 0, "bf16"),     # ragged S
+    (1, 300, 300, 2, 2, 192, 128, True, 100, "bf16"),   # a window that cuts tiles
+    (2, 65, 129, 2, 2, 192, 128, False, 0, "bf16"),     # full, Sq != Sk
+    (1, 600, 600, 2, 2, 192, 128, True, 0, "bf16"),     # q buffers reused
+    (2, 256, 256, 4, 4, 192, 128, True, 0, "f32"),
+    (1, 300, 300, 2, 2, 192, 128, True, 100, "f32"),
+    (2, 65, 129, 2, 2, 192, 128, False, 0, "f32"),
+]
+
+
+def _mla_qkv(g, B, Sq, Sk, H, K, D, Dv, dt, device):
+    return (_randn(g, B, Sq, H, D, dt=dt, device=device),
+            _randn(g, B, Sk, K, D, dt=dt, device=device),
+            _randn(g, B, Sk, K, Dv, dt=dt, device=device))
+
+
+@pytest.mark.parametrize("B,Sq,Sk,H,K,D,Dv,causal,window,dt", MLA_FLASH_CASES)
+def test_flash_mla_widths_match_plain(cuda, B, Sq, Sk, H, K, D, Dv, causal,
+                                      window, dt):
+    """B2 at (192, 128), out and lse, against attention_ref."""
+    g = torch.Generator(device=cuda).manual_seed(5)
+    q, k, v = _mla_qkv(g, B, Sq, Sk, H, K, D, Dv, dt, cuda)
+    out, lse = tfa.flash_attention_fwd(q, k, v, causal=causal, window=window,
+                                       return_lse=True)
+    want, want_lse = ref.attention_ref(q, k, v, causal=causal, window=window,
+                                       return_lse=True)
+    assert out.shape == (B, Sq, H, Dv)
+    torch.testing.assert_close(out.float(), want.float(), atol=TOL[dt],
+                               rtol=0)
+    torch.testing.assert_close(lse, want_lse, atol=TOL[dt], rtol=0)
+
+
+@pytest.mark.parametrize("B,Sq,Sk,H,K,D,Dv,causal,window,dt", MLA_FLASH_CASES)
+def test_flash_bwd_mla_widths_match_plain(cuda, B, Sq, Sk, H, K, D, Dv,
+                                          causal, window, dt):
+    """B2-bwd at (192, 128) (the CUDA-core route, bf16 and fp32) against
+    flash_attention_bwd_ref on the same saved out and lse."""
+    assert tfab.route(DT[dt], D, Dv) == "simt"
+    g = torch.Generator(device=cuda).manual_seed(6)
+    q, k, v = _mla_qkv(g, B, Sq, Sk, H, K, D, Dv, dt, cuda)
+    dout = _randn(g, B, Sq, H, Dv, dt=dt, device=cuda)
+    out, lse = tfa.flash_attention_fwd(q, k, v, causal=causal, window=window,
+                                       return_lse=True)
+    got = tfab.flash_attention_bwd(q, k, v, out, lse, dout, causal=causal,
+                                   window=window)
+    want = ref.flash_attention_bwd_ref(q, k, v, out, lse, dout,
+                                       causal=causal, window=window)
+    for a, b in zip(got, want):
+        assert a.shape == b.shape and a.dtype == b.dtype
+        _assert_scaled(a, b, TOL_BWD[dt])
+
+
+@pytest.mark.parametrize("D,Dv", [(192, 192), (128, 64), (96, 96)])
+def test_flash_refuses_other_widths(cuda, D, Dv):
+    """A pair the kernels do not take raises; nothing falls back."""
+    q = torch.zeros(1, 64, 2, D, dtype=torch.bfloat16, device=cuda)
+    v = torch.zeros(1, 64, 2, Dv, dtype=torch.bfloat16, device=cuda)
+    with pytest.raises(ValueError, match="head_dim"):
+        tfa.flash_attention_fwd(q, q, v)
+    lse = torch.zeros(1, 64, 2, device=cuda)
+    with pytest.raises(ValueError, match="head_dim"):
+        tfab.flash_attention_bwd(q, q, v, v, lse, v)
+
+
 def _assert_scaled(got, want, tol):
     """max |got - want| <= tol * max(1, max |want|)."""
     got, want = got.float(), want.float()
