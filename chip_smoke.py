@@ -50,7 +50,14 @@ Phases, each failing with a non-zero exit:
    lse), B2-bwd at its train step (the CUDA-core route), both at windows,
    ragged Sq != Sk and fp32, B1 at d_model 7168 (the scalar route), 1536
    and 512 (q_norm, kv_norm) at the serving and training rows, and B1-bwd
-   with dscale at the training rows;
+   with dscale at the training rows; and at phase 19's: B2 at
+   qwen1_5_110b's 64 / 8 and command_r_plus_104b's 96 / 8 heads of 128
+   (G 8 and 12) at the serving prefill and a train microbatch (with lse),
+   B2-bwd at the train microbatch, B3 and B4 at both layouts at the
+   serving and paged GRPO decode steps and at G 12 and 16 in bf16 and
+   fp32 at D 64 and 128 (fp32 held to 5e-5), B1 at 8192 and 12288 (the
+   scalar route) at the serving, decode and train rows, B1-bwd with
+   dscale at the train rows, 4096 and 8 rows;
 3. the serving path: full-width, full-depth llama3_2_3b (28 layers, bf16,
    random weights from a seed) serves 3 requests of batch 8 x 512 prompt
    tokens + 64 generated, through ``repro_torch.launch.serve.run``; the
@@ -212,8 +219,8 @@ Phases, each failing with a non-zero exit:
    phases 7 and 8's unsharded ones, launches as theirs; (b) two ranks over
    gloo on the one card (``torch.multiprocessing`` spawn, both on
    ``cuda:0``; every collective stages through pinned host memory), the
-   separate OPT pair with 7 prompts (ndp 2 does not divide 7: the batch
-   replicates) at ZeRO-1, ZeRO-3 ``tree`` and ZeRO-3 ``layer``, one
+   separate OPT pair at 12 of its 24 layers (``_study_pair``) with 7
+   prompts (ndp 2 does not divide 7: the batch replicates) at ZeRO-1, ZeRO-3 ``tree`` and ZeRO-3 ``layer``, one
    iteration each: metrics bit for bit a one-rank run of the same
    prompts, and the trained trees after the sharded update (gathered)
    the same bits by fingerprint; each rank's persistent state bytes, per-phase peak
@@ -293,7 +300,28 @@ Phases, each failing with a non-zero exit:
    ``build.build()``. Phase 16 runs the OPT pair at 12 of its 24 layers
    (``TP_LAYERS``) since then, to leave the script room.
 
-Phases 3, 5-9, 12-15, 17 and 18 run graphed, the default on the card
+19. qwen1_5_110b (80 layers, d_model 8192, 64 / 8 heads: G 8, qkv bias,
+   untied) and command_r_plus_104b (64 layers, d_model 12288, 96 / 8
+   heads: G 12, tied), both with adamw_bf16, at full width, random
+   weights from a seed (``big_dense``): (a) qwen at 8 of its 80 layers
+   (13.4B params) serves 3 greedy requests of 8 x (512 + 64), decode
+   graphed, launches as ``serve_launches`` reckons them, request 0 again
+   eager to the same tokens, then one paged GRPO request of phase 5's
+   shape (B4 at G 8); (b) command-r at 6 of its 64 layers (12.6B) the
+   same through B3 and B4 at G 12, then a dense and a paged
+   ``ContinuousBatcher`` drain of 8 mixed requests, each graphed against
+   eager token for token; (c) one adamw_bf16 ``make_train_step`` of 2
+   microbatches of 2 x 256 tokens of each (qwen at 3 layers, command-r at
+   2: ~10 GB of the card left), launches asserted (``train_launches``),
+   its ms and the update's, its peak against params + moments + two bf16
+   gradient sets, the optimizer's bytes against adamw's fp32 moments; (d)
+   AdamW on qwen's 403M-element FFN leaf in fp32 block by block against
+   one whole-leaf block, bit for bit; (e) command-r's smoke config at G
+   12 (12 query heads over 1 KV head) on the card against the CPU. From a
+   Python prompt ``chip_smoke.big_dense(torch.device("cuda"), print,
+   "")`` runs it alone after ``build.build()``.
+
+Phases 3, 5-9, 12-15 and 17-19 run graphed, the default on the card
 (phase 16 eager, as above): every
 decode step after a call's first replays its captured step (in a call of
 two decode steps or more; the batcher's graphs live as long as it does),
@@ -341,6 +369,8 @@ from repro_torch.models import Model  # noqa: E402
 from repro_torch.models import layers as LAYERS  # noqa: E402
 from repro_torch.models import lora as LORA  # noqa: E402
 from repro_torch.offload.compat import pinned_buffer  # noqa: E402
+from repro_torch.optim import AdamW, make_optimizer  # noqa: E402
+from repro_torch.optim import adamw as ADAMW  # noqa: E402
 from repro_torch.paged import PageManager, gather_kv  # noqa: E402
 from repro_torch.rlhf import (ModelEngine, RLHFConfig, RLHFTrainer,  # noqa: E402
                               Rollout)
@@ -422,6 +452,34 @@ DS_TBATCH, DS_TSEQ = 2, 256
 # a train step's peak above its reckoning (the state and its bf16
 # gradients): activations, the MoE's dispatch and Adafactor's blocks
 DS_PEAK_SLACK = 8 * 2**30
+
+# phase 19: the two dense >= 100B configs at full width, random bf16
+# weights from a seed, both with adamw_bf16 (bf16 moments). qwen1_5_110b
+# has 64 / 8 heads of 128 (G 8) at d_model 8192, command_r_plus_104b 96 / 8
+# (G 12) at 12288; phase 2 holds B2-B4 at these head layouts and B1 at
+# these widths. BIG_HEADS[name] = (H, K, D)
+QWEN110, CMDR = "qwen1_5_110b", "command_r_plus_104b"
+BIG = {"qwen110": QWEN110, "cmdr": CMDR}
+BIG_HEADS = {"qwen110": (64, 8, 128), "cmdr": (96, 8, 128)}
+BIG_WIDTHS = {"qwen110": 8192, "cmdr": 12288}
+# serving and the rollouts at 8 of qwen's 80 layers and 6 of command-r's 64
+# (111B and 104B params do not fit one card; the cut models are 13.4B and
+# 12.6B, 26.7 and 25.2 GB in bf16)
+BIG_SERVE_LAYERS = {"qwen110": 8, "cmdr": 6}
+# one adamw_bf16 train step of kind "lm", 2 microbatches of 2 x 256 tokens
+# (the configs' own microbatches), at the depth that leaves ~10 GB of the
+# card free: bf16 params, bf16 moments and, at 2 microbatches, two bf16
+# gradient sets (the accumulators and a microbatch's), 10 bytes a param
+# (qwen 3 layers: 6.57B params, ~66 GB; command-r 2: 6.29B, ~63 GB)
+BIG_TRAIN_LAYERS = {"qwen110": 3, "cmdr": 2}
+BIG_TBATCH, BIG_TSEQ = 4, 256
+BIG_CB_REQUESTS = 8              # command-r's batcher drains, 8 slots
+# qwen1_5_110b's FFN leaf [d_model, d_ff]: 403M elements, the blocked
+# AdamW update held to the whole-leaf one bit for bit
+BIG_FFN_LEAF = (8192, 49152)
+# phase 2's fp32 tolerance for B3 and B4 at groups over 8 (the gpu
+# tests', tests/test_kernels.py:15)
+TOL_GROUP = {torch.bfloat16: 2e-2, torch.float32: 5e-5}
 
 # (memory B/s, bf16 tensor FLOP/s, fp32 FLOP/s), NVIDIA data sheets, dense
 PEAKS = {"SXM": (3.35e12, 989e12, 67e12), "PCIe": (2.0e12, 756e12, 51e12),
@@ -673,7 +731,16 @@ def check_flash(dev, peaks, g):
         ("mla_ragged", 2, 65, 129, 8, 8, D_, False, 0, torch.bfloat16),
         ("mla_ragged_c", 2, 100, 37, 8, 8, D_, True, 0, torch.bfloat16),
         ("mla_fp32", 1, 130, 130, 4, 4, D_, True, 16, torch.float32),
+        # phase 19: qwen1_5_110b (G 8) and command_r_plus_104b (G 12), the
+        # serving prefill and a train step's microbatch (with lse)
+        *[(m, BATCH, PROMPT, PROMPT, H, K, D, True, 0, torch.bfloat16)
+          for m, (H, K, D) in BIG_HEADS.items()],
+        *[(f"{m}_train", BIG_TBATCH // 2, BIG_TSEQ, BIG_TSEQ, H, K, D, True,
+           0, torch.bfloat16) for m, (H, K, D) in BIG_HEADS.items()],
+        ("g12_ragged", 2, 100, 37, 24, 2, 128, True, 0, torch.bfloat16),
+        ("g12_fp32", 2, 130, 130, 12, 1, 64, True, 16, torch.float32),
     ]
+    big_steps = tuple(f"{m}_train" for m in BIG_HEADS)
     out = []
     for name, B, Sq, Sk, H, K, D, causal, window, dt in cases:
         D, Dv = _widths(D)
@@ -719,12 +786,12 @@ def check_flash(dev, peaks, g):
             rec["bound_ms"], rec["bound_by"] = bound(
                 peaks, nbytes(q, k, v, got), n_ops, dt)
         if name in ("ppo", "sep_actor", "granite_ppo", "mla_serve",
-                    "mla_train", *FAMILY_HEADS):
+                    "mla_train", *FAMILY_HEADS, *BIG_HEADS, *big_steps):
             # the training path's call, with the lse output (a serving
             # prefill's, without, for phase 17's families and phase 18's
-            # serving): device time by graph replay, warm and cold,
-            # beside SDPA's at this shape
-            lse_out = name not in (*FAMILY_HEADS, "mla_serve")
+            # and 19's serving): device time by graph replay, warm and
+            # cold, beside SDPA's at this shape
+            lse_out = name not in (*FAMILY_HEADS, "mla_serve", *BIG_HEADS)
 
             def make_set():
                 return [torch.randn_like(t) for t in (q, k, v)]
@@ -771,6 +838,17 @@ def check_decode(dev, peaks, g):
         # head layouts over 576 slots
         *[(fam, BATCH, H, K, D, PROMPT + GEN, PROMPT + GEN - 2, 0,
            torch.bfloat16) for fam, (H, K, D) in FAMILY_HEADS.items()],
+        # phase 19's serving decode steps, their last: qwen1_5_110b (G 8)
+        # and command_r_plus_104b (G 12: two blocks of 6 heads a KV head);
+        # G 12 and 16 in both dtypes and head dims, a window, a masked row
+        *[(m, BATCH, H, K, D, PROMPT + GEN, PROMPT + GEN - 2, 0,
+           torch.bfloat16) for m, (H, K, D) in BIG_HEADS.items()],
+        ("g12_d64", 3, 24, 2, 64, 300, 420, 96, torch.bfloat16),
+        ("g12_fp32", 3, 24, 2, 128, 300, 420, 0, torch.float32),
+        ("g12_fp32_d64", 2, 12, 1, 64, 200, 150, 32, torch.float32),
+        ("g16", 2, 32, 2, 128, 300, 250, 64, torch.bfloat16),
+        ("g12_masked_row", 4, 96, 8, 128, PROMPT + GEN, 500, 0,
+         torch.bfloat16),
     ]
     out = []
     for name, B, H, K, D, C, cur, window, dt in cases:
@@ -779,7 +857,7 @@ def check_decode(dev, peaks, g):
         vc = torch.randn(B, C, K, D, generator=g, device=dev).to(dt)
         pos = rolling_pos(B, C, cur, dev)
         position = torch.full((B,), cur, dtype=torch.int32, device=dev)
-        if name == "masked_row":
+        if name.endswith("masked_row"):
             position[1] = -1
         got = dec.decode_attention(q, kc, vc, pos, position, window=window)
         want = ref.decode_attention_ref(q, kc, vc, pos, position,
@@ -788,7 +866,8 @@ def check_decode(dev, peaks, g):
         err = (got.float() - want.float()).abs().max().item()
         rec = {"case": name, "shape": [B, H, K, D, C], "cur": cur,
                "window": window, "dtype": str(dt), "max_err": err,
-               "tol": TOL[dt], "splits": dec.split_plan(B, K, C)[0]}
+               "tol": (TOL_GROUP if H // K > 8 else TOL)[dt],
+               "splits": dec.split_plan(B, K, C)[0]}
         if name == "main":
             valid = (pos >= 0) & (pos <= position[:, None])
             mask = valid[:, None, None, :]
@@ -813,7 +892,7 @@ def check_decode(dev, peaks, g):
             n_ops = 4 * H * D * int(valid.sum().item())
             rec["bound_ms"], rec["bound_by"] = bound(
                 peaks, nbytes(q, kc, vc, pos, position, got), n_ops, dt)
-        if name in ("sep", *FAMILY_HEADS):
+        if name in ("sep", *FAMILY_HEADS, *BIG_HEADS):
             valid = (pos >= 0) & (pos <= position[:, None])
             mask = valid[:, None, None, :]
 
@@ -885,7 +964,13 @@ RMSNORM_PATH_SHAPES = {
     # the train step's rows at each
     **{f"ds_{w}_{kind}": (rows, d) for w, d in DS_WIDTHS.items()
        for kind, rows in (("prefill", BATCH * PROMPT), ("decode", BATCH),
-                          ("train", DS_TBATCH * DS_TSEQ))}}
+                          ("train", DS_TBATCH * DS_TSEQ))},
+    # phase 19: qwen1_5_110b's 8192 and command_r_plus_104b's 12288 (both
+    # the scalar route) at the serving prefill, a decode step and a train
+    # step's microbatch of 2 x 256
+    **{f"{m}_{kind}": (rows, d) for m, d in BIG_WIDTHS.items()
+       for kind, rows in (("prefill", BATCH * PROMPT), ("decode", BATCH),
+                          ("train", BIG_TBATCH // 2 * BIG_TSEQ))}}
 
 
 def check_rmsnorm(dev, peaks, g):
@@ -995,6 +1080,10 @@ def check_flash_bwd(dev, peaks, g):
         ("mla_ragged", 2, 65, 129, 4, 4, D_, False, 0, bf),
         ("mla_sq_gt_sk", 2, 100, 37, 4, 4, D_, True, 0, bf),
         ("mla_fp32", 1, 130, 130, 4, 4, D_, True, 0, f32),
+        # phase 19's train steps: a microbatch of 2 x 256 at qwen1_5_110b's
+        # G 8 and command_r_plus_104b's G 12
+        *[(f"{m}_train", BIG_TBATCH // 2, BIG_TSEQ, BIG_TSEQ, H, K, D, True,
+           0, bf) for m, (H, K, D) in BIG_HEADS.items()],
     ]
     out_recs = []
     for name, B, Sq, Sk, H, K, D, causal, window, dt in cases:
@@ -1029,7 +1118,8 @@ def check_flash_bwd(dev, peaks, g):
             rec["library_ms"] = time_ms(lambda: torch.autograd.grad(
                 oo, (qq, kk, vv), do_t, retain_graph=True), iters=10)
             del qq, kk, vv, oo
-        if name in ("main", "sep_actor", "granite_ppo", "mla_train"):
+        if name in ("main", "sep_actor", "granite_ppo", "mla_train",
+                    *(f"{m}_train" for m in BIG_HEADS)):
             def make_set():
                 qs, ks, vs, ds = (torch.randn_like(t) for t in (q, k, v, dout))
                 os_, ls = fa.flash_attention_fwd(qs, ks, vs, return_lse=True,
@@ -1077,6 +1167,13 @@ def check_rmsnorm_bwd(dev, peaks, g):
              # route), q_norm and kv_norm widths, every scale trains
              *[(f"sep_ds_{w}", (DS_TBATCH * DS_TSEQ, d), bf, bf)
                for w, d in DS_WIDTHS.items()],
+             # phase 19's train steps (a microbatch of 2 x 256) at
+             # qwen1_5_110b's 8192 and command_r_plus_104b's 12288, and
+             # both widths at 4096 and 8 rows
+             *[(f"sep_{m}{tag}", (rows, d), bf, bf)
+               for m, d in BIG_WIDTHS.items()
+               for tag, rows in (("", BIG_TBATCH // 2 * BIG_TSEQ),
+                                 ("_4096", BATCH * PROMPT), ("_8", 8))],
              ("uneven", (SBATCH * SLEN + 1, 2048), bf, bf),
              ("rows8", (8, 3072), bf, bf),
              ("fp32", (3, 100), torch.float32, torch.float32),
@@ -1370,6 +1467,16 @@ def check_paged(dev, peaks, g):
         # layouts (granite's is phase 17's paged rollout)
         *[(fam, GROUPS * GSIZE, H, K, D, PAGE, None, None, torch.bfloat16)
           for fam, (H, K, D) in FAMILY_HEADS.items()],
+        # and at phase 19's: qwen1_5_110b (G 8) and command_r_plus_104b
+        # (G 12: the 16-head instance, two bf16 n-fragments); G 12 and 16
+        # on holey tables in both dtypes and head dims, one forced split
+        *[(m, GROUPS * GSIZE, H, K, D, PAGE, None, None, torch.bfloat16)
+          for m, (H, K, D) in BIG_HEADS.items()],
+        ("g12_holes", 10, 24, 2, 128, 16, 7, 71, torch.bfloat16),
+        ("g12_d64", 10, 24, 2, 64, 16, 7, 71, torch.bfloat16),
+        ("g12_fp32", 10, 24, 2, 128, 16, 7, 71, torch.float32),
+        ("g12_fp32_d64", 9, 12, 1, 64, 8, 12, 109, torch.float32),
+        ("g16_one_split", 16, 32, 2, 128, 16, 30, 481, torch.bfloat16),
     ]
     out = []
     for name, B, H, K, D, ps, nb, P, dt in cases:
@@ -1389,13 +1496,14 @@ def check_paged(dev, peaks, g):
         bt, position = bt.to(dev), position.to(dev)
         got = pa.paged_decode_attention(
             q, kp, vp, bt, position,
-            splits=1 if name == "one_split" else None)
+            splits=1 if name.endswith("one_split") else None)
         want = ref.paged_attention_ref(q, kp, vp, bt, position)
         torch.cuda.synchronize()
         err = (got.float() - want.float()).abs().max().item()
         rec = {"case": name, "shape": [B, H, K, D, P, ps, bt.shape[1]],
-               "dtype": str(dt), "max_err": err, "tol": TOL[dt]}
-        if name in PAGED_TABLES or name in FAMILY_HEADS:
+               "dtype": str(dt), "max_err": err,
+               "tol": (TOL_GROUP if H // K > 8 else TOL)[dt]}
+        if name in PAGED_TABLES or name in FAMILY_HEADS or name in BIG_HEADS:
             n_bytes, n_ops, row_bytes, n_pages = paged_work(
                 bt.cpu(), position.cpu(), ps, K, D, H, q.element_size())
             rec["bound_ms"], rec["bound_by"] = bound(peaks, n_bytes, n_ops,
@@ -1456,17 +1564,26 @@ def check_outputs(results, vocab):
 
 
 # ---------------------------------------------------------------- phase 5
-def _req(fn):
-    """Run one generate call; (result, seconds, peak bytes allocated above
-    what was live before it)."""
-    torch.cuda.synchronize()
-    base = torch.cuda.memory_allocated()
-    torch.cuda.reset_peak_memory_stats()
+def _alloc(dev) -> int:
+    return torch.cuda.memory_allocated(dev) if dev.type == "cuda" else 0
+
+
+def _req(fn, dev=None):
+    """Run one generate call (or step) on ``dev``, the card by default;
+    (result, seconds, peak bytes allocated above what was live before it:
+    0 on the CPU)."""
+    dev = dev or torch.device("cuda")
+    _sync(dev)
+    base = _alloc(dev)
+    if dev.type == "cuda":
+        torch.cuda.reset_peak_memory_stats(dev)
     t0 = time.perf_counter()
     res = fn()
-    torch.cuda.synchronize()
-    return res, time.perf_counter() - t0, \
-        torch.cuda.max_memory_allocated() - base
+    _sync(dev)
+    secs = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated(dev) - base \
+        if dev.type == "cuda" else 0
+    return res, secs, peak
 
 
 def paged_grpo(cfg, dev, log, profile=False):
@@ -4642,8 +4759,12 @@ ZERO_NCCL_RUNS = ((1, "layer"), (3, "layer"))
 ZERO_NDP, ZERO_PROMPTS = 2, 7
 ZERO_GLOO_RUNS = ((1, "tree"), (3, "tree"), (3, "layer"))
 # one iteration a gloo run (two ranks share the card and every gathered
-# byte crosses loopback TCP: 9-26 s an iteration); what its sharded update
-# left is held to the one rank's by a fingerprint of the gathered trees
+# byte crosses loopback TCP: 9-26 s an iteration at full depth); what its
+# sharded update left is held to the one rank's by a fingerprint of the
+# gathered trees. The gloo runs, their one-rank baseline and the
+# simulator's predictions take the OPT pair at STUDY_LAYERS of its 24
+# layers (``_study_pair``), to leave the script room for phase 19; the
+# NCCL runs stay at full depth, held to phases 7 and 8
 ZERO_GLOO_ITERS = 1
 ZERO_JOIN_S = 420          # a hung rendezvous or rank fails in this time
 ZERO_LAYER_MARGIN = 0.5    # layer peaks below tree by this share of (tree
@@ -4788,7 +4909,7 @@ def _zero_rank(rank, world, path, queue):
             torch.cuda.empty_cache()
             torch.cuda.reset_peak_memory_stats()
             t0 = time.perf_counter()
-            tr = _zero_trainer("separate", dev, sc)
+            tr = _zero_trainer("separate", dev, sc, pair=_study_pair())
             init_s = time.perf_counter() - t0
             runs = _zero_iterations(tr, "separate", dev, n=ZERO_PROMPTS,
                                     iters=ZERO_GLOO_ITERS)
@@ -4805,14 +4926,16 @@ def _zero_rank(rank, world, path, queue):
         queue.put((rank, None, f"{e!r}\n{traceback.format_exc()}"))
 
 
-def _sim_state(trees_by_name, engine, stage, mode, ndp) -> float:
+def _sim_state(trees_by_name, engine, stage, mode, ndp,
+               pair=None) -> float:
     """The simulator's persistent bytes a rank: each state group's bytes
-    at its fraction traced from the spec trees (``traced_zero_scales``)."""
+    at its fraction traced from the spec trees (``traced_zero_scales``) of
+    the separate engine's ``pair`` (phase 8's OPT pair by default)."""
     if engine == "hydra":
         cfgs = (get_config("llama3_2_3b"), None)
         kw = dict(lora_rank=PPO_KW["lora_rank"])
     else:
-        cfgs = (get_config(SEP_ACTOR), get_config(SEP_CRITIC))
+        cfgs = pair or (get_config(SEP_ACTOR), get_config(SEP_CRITIC))
         kw = {}
     frac = dict(traced_zero_scales(*cfgs, ndp=ndp, zero_stage=stage,
                                    engine=engine, gather_mode=mode, **kw))
@@ -4821,20 +4944,19 @@ def _sim_state(trees_by_name, engine, stage, mode, ndp) -> float:
 
 
 def _zero_sim(tr_plain, stage, mode, ndp, ph_per) -> dict:
-    """The traced simulator's one-rank prediction of a separate run:
-    persistent state bytes and the train phases' peak, policy
-    after_inference."""
+    """The traced simulator's one-rank prediction of a separate run on
+    ``_study_pair()``: persistent state bytes and the train phases' peak,
+    policy after_inference."""
     ph, per = ph_per
     strat = traced_strategy(
         MemoryStrategy(f"zero-{stage}", zero_stage=stage, gather_mode=mode),
-        get_config(SEP_ACTOR), get_config(SEP_CRITIC), ndp=ndp,
-        engine="separate")
+        *_study_pair(), ndp=ndp, engine="separate")
     r = run_iteration(ph, per, strat, "after_inference", ndp=ndp,
                       trainable_fraction=1.0, capacity=None)
     train = max(rec.alloc_peak for rec in r.phase_records
                 if rec.name.startswith("train"))
     return {"state_bytes": _sim_state(tr_plain["state_by_name"], "separate",
-                                      stage, mode, ndp),
+                                      stage, mode, ndp, _study_pair()),
             "train_peak": train}
 
 
@@ -4895,7 +5017,7 @@ def zero_ppo(dev, log, hydra_plain=None, sep_plain=None) -> dict:
     # (b) gloo, ndp 2 on the one card: first the one-rank run of the same
     # 7 prompts, then the two ranks
     torch.cuda.reset_peak_memory_stats()
-    tr = _zero_trainer("separate", dev, None)
+    tr = _zero_trainer("separate", dev, None, pair=_study_pair())
     runs = _zero_iterations(tr, "separate", dev, n=ZERO_PROMPTS,
                             iters=ZERO_GLOO_ITERS)
     one = _zero_rank_stats(tr, runs)
@@ -4918,9 +5040,8 @@ def zero_ppo(dev, log, hydra_plain=None, sep_plain=None) -> dict:
         # the simulator's predictions, on the host while the ranks run
         t1 = time.perf_counter()
         ph_per = build_rlhf_phases(
-            get_config(SEP_ACTOR), get_config(SEP_CRITIC),
-            batch=ZERO_PROMPTS, prompt_len=SPROMPT, gen_len=SGEN,
-            engine="separate", min_bytes=2048)
+            *_study_pair(), batch=ZERO_PROMPTS, prompt_len=SPROMPT,
+            gen_len=SGEN, engine="separate", min_bytes=2048)
         sim1 = _zero_sim(one, 0, "tree", 1, ph_per)
         sims = {f"{s}-{m}": _zero_sim(one, s, m, ZERO_NDP, ph_per)
                 for s, m in ZERO_GLOO_RUNS}
@@ -5914,6 +6035,356 @@ def deepseek(dev, log, smi) -> dict:
                                           for k, v in parts.items()))
     return out
 
+# --------------------------------------------------------------- phase 19
+def big_paths(cfg, dev, log, smi, label, batcher=False) -> dict:
+    """Phase 19 (a, b) on one model of ``cfg`` (random weights from seed
+    0): FAM_REQUESTS greedy requests of BATCH x (PROMPT + GEN), the decode
+    graphed, launches as :func:`serve_launches` reckons them; request 0
+    again with the decode loop eager, the same tokens and launches; one
+    paged GRPO request of phase 5's shape (GROUPS prompts of GPROMPT
+    tokens forked GSIZE ways, GEN new), launches reckoned and page stats;
+    with ``batcher``, a dense and a paged drain of BIG_CB_REQUESTS mixed
+    requests (8 slots over CB_CAP), each graphed against eager token for
+    token, launches as :func:`batcher_launches` reckons them."""
+    _free()
+    model = Model(cfg, device=dev)
+    params = model.init(torch.Generator(device=dev).manual_seed(0))
+    n_params = sum(t.numel() for t in leaves(params))
+    weights = tree_nbytes(params)
+    graphs = dev.type == "cuda"       # nothing is captured on the CPU
+    ro = Rollout(model, cfg, capacity=PROMPT + GEN, temperature=0.0, top_k=0)
+    prompts = _ds_prompts(cfg, dev, FAM_REQUESTS)
+    out = {"params": n_params, "weights_bytes": weights,
+           "num_layers": cfg.num_layers}
+
+    def greedy(ids):
+        return _req(lambda: ro.generate(
+            params, {"tokens": ids}, GEN,
+            torch.Generator(device=dev).manual_seed(1)), dev)
+    ops.reset_launches()
+    reqs, first = [], None
+    for ids in prompts:
+        res, secs, peak = greedy(ids)
+        check_result(res, BATCH, PROMPT, cfg.vocab_size)
+        if ro.decode_stats.get("graphed") != graphs:
+            raise SystemExit(f"{label} serving: decode graphed "
+                             f"{ro.decode_stats.get('graphed')}")
+        reqs.append({"seconds": secs, "tokens_per_s": BATCH * GEN / secs,
+                     "peak_above_weights": peak})
+        first = res if first is None else first
+    launches, want = dict(ops.launches), serve_launches(cfg, FAM_REQUESTS)
+    if launches != want:
+        raise SystemExit(f"{label} serving: launches {launches} != {want}")
+    ro._graphs = False
+    ops.reset_launches()
+    eager, eager_s, _ = greedy(prompts[0])
+    eager_launches = dict(ops.launches)
+    if eager_launches != serve_launches(cfg, 1):
+        raise SystemExit(f"{label} eager request: launches {eager_launches}")
+    if not (torch.equal(eager.tokens, first.tokens) and
+            torch.equal(eager.logp, first.logp)):
+        raise SystemExit(f"{label} serving: graphed and eager greedy "
+                         "tokens or log-probs differ")
+    out.update(requests=reqs, launches=launches, eager_seconds=eager_s,
+               eager_launches=eager_launches)
+    log(f"[smoke] {label} serving [{smi}] ({cfg.num_layers} layers, "
+        f"{n_params / 1e9:.2f}B params, weights {weights / 1e9:.2f} GB): "
+        f"launches {launches} as reckoned; greedy requests " + ", ".join(
+            f"{r['seconds'] * 1e3:.1f} ms ({r['tokens_per_s']:.1f} tok/s, "
+            f"peak {r['peak_above_weights'] / 2**20:.0f} MiB above the "
+            f"weights)" for r in reqs) + f"; eager request 0 "
+        f"{eager_s * 1e3:.1f} ms, the same tokens and log-probs")
+    del ro, first, eager
+
+    # one paged GRPO request of phase 5's shape
+    gids = torch.from_numpy(next(PromptDataset(synthetic_instruction_prompts(
+        GROUPS, seed=0), GPROMPT).batches(GROUPS, seed=0)) % cfg.vocab_size
+    ).long().to(dev)
+    paged = Rollout(model, cfg, capacity=GPROMPT + GEN, backend="paged",
+                    page_size=PAGE, temperature=0.8, top_k=serve.TOP_K)
+    L = cfg.num_layers
+    want = {k: 0 for k in ops.KERNELS}
+    want.update(flash_attention=L, paged_decode_attention=L * (GEN - 1),
+                rmsnorm=step_norms(cfg) * GEN + 1)
+    ops.reset_launches()
+    res, secs, peak = _req(lambda: paged.generate(
+        params, {"tokens": gids}, GEN,
+        torch.Generator(device=dev).manual_seed(1), group_size=GSIZE), dev)
+    made = dict(ops.launches)
+    st = paged.page_manager.stats
+    if made != want:
+        raise SystemExit(f"{label} paged GRPO: launches {made} != {want}")
+    if st.n_forks != GROUPS * (GSIZE - 1) or st.pages_in_use != 0:
+        raise SystemExit(f"{label} paged GRPO: page stats {st}")
+    check_result(res, GROUPS * GSIZE, GPROMPT, cfg.vocab_size)
+    rows = GROUPS * GSIZE
+    out["paged_grpo"] = {"seconds": secs, "tokens_per_s": rows * GEN / secs,
+                         "peak_above_weights": peak, "launches": made,
+                         "cow_copies": st.n_cow_copies, "forks": st.n_forks}
+    log(f"[smoke] {label} paged GRPO request [{smi}]: {secs * 1e3:.1f} ms "
+        f"({rows * GEN / secs:.1f} tok/s), peak {peak / 2**20:.1f} MiB "
+        f"above the weights, {st.n_cow_copies} CoW copies; launches {made}")
+    del res, paged
+    _free()
+
+    if batcher:
+        traffic = batcher_traffic(cfg.vocab_size, "mixed", seed=0,
+                                  n=BIG_CB_REQUESTS)
+        out["batcher"] = {}
+        for kind, kw in (("dense", dict(cache_backend="dense")),
+                         ("paged", dict(cache_backend="paged",
+                                        page_size=CB_PAGE))):
+            name = f"{label} {kind} batcher"
+            g = serve_batcher(model, cfg, params, kw, traffic, True, dev)
+            e = serve_batcher(model, cfg, params, kw, traffic, False, dev)
+            for rec in (g, e):
+                _check_batcher_run(name, rec, log)
+            _same_run(name, g, e)
+            if graphs and not all(st["graphed"] and st["replays"] > 0
+                                  for st in g["graphs"].values()):
+                raise SystemExit(f"{name}: a graph never replayed: "
+                                 f"{g['graphs']}")
+            tok = sum(len(t) for t in g["tokens"])
+            ms_g, ms_e = _step_ms(g), _step_ms(e)
+            out["batcher"][kind] = {
+                "tokens": tok, "steps": len(g["steps"]),
+                "graphed_s": g["wall_s"], "eager_s": e["wall_s"],
+                "step_ms": {r: (ms_g[r][0], ms_e.get(r, (None,))[0])
+                            for r in ms_g},
+                "launches": g["launches"], "warm_s": g["warm_s"],
+                "peak_above": g["peak_above"]}
+            log(f"[smoke] {name} [{smi}]: {BIG_CB_REQUESTS} requests, "
+                f"{tok} tokens in {len(g['steps'])} steps, graphed "
+                f"{g['wall_s']:.3f} s ({tok / g['wall_s']:.1f} tok/s), eager "
+                f"{e['wall_s']:.3f} s ({tok / e['wall_s']:.1f} tok/s), the "
+                f"same tokens; ms a decode-only step graphed / eager by "
+                f"rung: " + ", ".join(
+                    f"{r}: {ms_g[r][0]:.3f} / "
+                    f"{ms_e.get(r, (0.0,))[0]:.3f}" for r in ms_g) +
+                f"; launches {g['launches']}")
+            del g, e
+            _free()
+    del model, params
+    _free()
+    return out
+
+
+def big_train(cfg, dev, log, smi, label, steps: int = 2) -> dict:
+    """Phase 19 (c): ``steps`` ``make_train_step`` steps of kind "lm" on
+    ``cfg`` at full width with its own optimizer (adamw_bf16: bf16
+    moments) and microbatches (2), BIG_TBATCH x BIG_TSEQ tokens, random
+    weights from seed 0: each step's launches as :func:`train_launches`
+    reckons them, finite metrics, the optimizer's bytes those
+    ``AdamW.state_bytes`` reckons (against the fp32 moments ``adamw``
+    would hold), the peak against the reckoning (params and moments, then
+    two bf16 gradient sets: the accumulators and one microbatch's; with
+    tied embeddings two more of the embedding's, its lookup's and its
+    head's gradients before autograd sums them), each step's ms and the
+    update's (the first step's include first-call costs), a probe of
+    leaves moved by the first step."""
+    _free()
+    model = Model(cfg, device=dev)
+    step = TS.make_train_step(model, cfg, kind="lm", lr=1e-4)
+    if step.optimizer.moment_dtype != "bfloat16" or cfg.microbatches != 2:
+        raise SystemExit(f"{label}: optimizer {step.optimizer}, "
+                         f"{cfg.microbatches} microbatches")
+    state = TS.init_train_state(
+        model, cfg, None, step.optimizer,
+        params=model.init(torch.Generator(device=dev).manual_seed(0)))
+    params = state["params"]
+    n_params = sum(t.numel() for t in leaves(params))
+    weights = tree_nbytes(params)
+    opt_bytes = tree_nbytes(state["opt"])
+    if opt_bytes != step.optimizer.state_bytes(params) - 4 or \
+            opt_bytes != 4 * n_params:
+        raise SystemExit(f"{label}: optimizer state {opt_bytes} bytes, "
+                         f"reckoned {step.optimizer.state_bytes(params) - 4}")
+    fp32_bytes = make_optimizer("adamw").state_bytes(params) - 4
+    probes = [(t, t.detach().flatten()[:4096].clone())
+              for t in leaves(params) if t.dim() >= 2]
+    g = torch.Generator(device=dev).manual_seed(3)
+    # a fresh batch a step: one adamw step on a batch (each element moved
+    # by ~lr) takes a random model at full width to ~0 loss on that batch
+    batches = [{"tokens": torch.randint(0, cfg.vocab_size,
+                                        (BIG_TBATCH, BIG_TSEQ), generator=g,
+                                        device=dev),
+                "loss_mask": torch.ones(BIG_TBATCH, BIG_TSEQ, device=dev)}
+               for _ in range(steps)]
+    opt, update = step.optimizer, step.optimizer.update_
+    update_s = []
+
+    def timed_update(*a, **kw):      # the optimizer's share of the step
+        _sync(dev)
+        t = time.perf_counter()
+        update(*a, **kw)
+        _sync(dev)
+        update_s.append(time.perf_counter() - t)
+
+    object.__setattr__(opt, "update_", timed_update)
+    base = _alloc(dev)
+    want = train_launches(cfg, cfg.microbatches)
+    secs, peak, metrics, moved = [], 0, [], None
+    for batch in batches:
+        ops.reset_launches()
+        (state, m), sec, pk = _req(lambda: step(state, batch), dev)
+        launches = dict(ops.launches)
+        if launches != want:
+            raise SystemExit(f"{label}: launches {launches} != {want}")
+        secs.append(sec)
+        peak = max(peak, base + pk)
+        metrics.append({k: float(v) for k, v in m.items()})
+        if not all(math.isfinite(v) for v in metrics[-1].values()):
+            raise SystemExit(f"{label}: metrics {metrics[-1]}")
+        if moved is None:
+            moved = sum(not torch.equal(t.detach().flatten()[:4096], p0)
+                        for t, p0 in probes)
+    object.__delattr__(opt, "update_")
+    if moved < len(probes) // 2:
+        raise SystemExit(f"{label}: {moved} of {len(probes)} probed leaves "
+                         "moved")
+    # the bf16 accumulators and one microbatch's gradients (the params'
+    # dtype, bf16 on the card); a tied embedding's lookup and head each
+    # give a gradient of the whole leaf, which autograd then sums into a
+    # third
+    grads = n_params * TS.acc_dtype(cfg).itemsize + weights
+    tied = 2 * tree_nbytes(params["embed"]) if cfg.tie_embeddings else 0
+    reckoned = base + grads + tied
+    if dev.type == "cuda" and \
+            not reckoned - tied <= peak <= reckoned + DS_PEAK_SLACK:
+        raise SystemExit(f"{label}: peak {peak / 1e9:.2f} GB against the "
+                         f"reckoned {reckoned / 1e9:.2f} GB (+ at most "
+                         f"{DS_PEAK_SLACK / 2**30:.0f} GiB)")
+    free = torch.cuda.mem_get_info(dev)[1] - peak if dev.type == "cuda" \
+        else 0
+    log(f"[smoke] {label} [{smi}] ({cfg.num_layers} layers, "
+        f"{n_params / 1e9:.2f}B params, {weights / 1e9:.2f} GB; "
+        f"{cfg.microbatches} microbatches of "
+        f"{BIG_TBATCH // cfg.microbatches} x {BIG_TSEQ}): steps " +
+        ", ".join(f"{a * 1e3:.1f} ms (the adamw_bf16 update {b * 1e3:.1f} "
+                  f"ms)" for a, b in zip(secs, update_s)) +
+        f"; launches {want} a step as reckoned; peak {peak / 1e9:.2f} GB "
+        f"against the reckoned {reckoned / 1e9:.2f} GB (params "
+        f"{weights / 1e9:.2f} + bf16 moments {opt_bytes / 1e9:.2f} + two "
+        f"bf16 gradient sets {grads / 1e9:.2f}" +
+        (f" + the tied embedding's two gradients {tied / 1e9:.2f}"
+         if tied else "") + f"), {free / 1e9:.2f} GB of the card left; "
+        f"optimizer state {opt_bytes / 1e9:.2f} GB against "
+        f"{fp32_bytes / 1e9:.2f} GB of fp32 moments (adamw); {moved} of "
+        f"{len(probes)} probed leaves moved; " + "; ".join(", ".join(
+            f"{k} {v:.4g}" for k, v in sorted(mt.items()))
+            for mt in metrics))
+    out = {"seconds": secs, "update_seconds": update_s,
+           "launches": want, "metrics": metrics, "params": n_params,
+           "weights_bytes": weights, "opt_bytes": opt_bytes,
+           "tied_grad_bytes": tied,
+           "fp32_opt_bytes": fp32_bytes, "peak_bytes": peak,
+           "reckoned_bytes": reckoned, "free_bytes": free,
+           "microbatches": cfg.microbatches, "num_layers": cfg.num_layers,
+           "moved": moved, "probes": len(probes)}
+    del model, step, state, params, probes, batches
+    _free()
+    return out
+
+
+def blocked_update_bits(dev, log, smi, shape=BIG_FFN_LEAF) -> dict:
+    """AdamW (fp32 moments) on one fp32 leaf of ``shape`` (qwen1_5_110b's
+    FFN leaf, 403M elements) two steps, block by block (``BLOCK_ELEMS``
+    elements a block) against one whole-leaf block: the params and both
+    moments the same bits; each update's ms and peak above what was
+    live."""
+    _free()
+    g = torch.Generator(device=dev).manual_seed(7)
+    p = torch.randn(shape, generator=g, device=dev)
+    block = ADAMW.BLOCK_ELEMS
+    if p.numel() <= block:
+        raise SystemExit(f"blocked update: {p.numel()} elements is one block")
+    opt, runs = AdamW(), {}
+    for name, elems in (("blocked", block), ("whole", p.numel())):
+        pp = p.clone()
+        st = opt.init([pp])
+        gg = torch.Generator(device=dev).manual_seed(8)
+        times, peaks = [], []
+        for _ in range(2):
+            grad = 1e-3 * torch.randn(shape, generator=gg, device=dev)
+            ADAMW.BLOCK_ELEMS = elems
+            try:
+                _, secs, peak = _req(lambda: opt.update_(
+                    [grad], st, [pp], 1e-4), dev)
+            finally:
+                ADAMW.BLOCK_ELEMS = block
+            times.append(secs)
+            peaks.append(peak)
+            del grad
+        runs[name] = (pp, st, times, peaks)
+    (pb, sb, tb, kb), (pw, sw, tw, kw) = runs["blocked"], runs["whole"]
+    same = torch.equal(pb, pw) and torch.equal(sb["mu"][0], sw["mu"][0]) \
+        and torch.equal(sb["nu"][0], sw["nu"][0])
+    if not same:
+        raise SystemExit("blocked AdamW update differs from the whole-leaf "
+                         "one")
+    n_blocks = -(-shape[0] // max(1, block // shape[1]))
+    log(f"[smoke] AdamW on a {shape[0]} x {shape[1]} fp32 leaf "
+        f"({p.numel() / 1e6:.0f}M elements) [{smi}]: {n_blocks} blocks the "
+        f"same bits as one whole-leaf block after 2 steps; ms a step "
+        f"blocked {tb[1] * 1e3:.1f}, whole {tw[1] * 1e3:.1f}; peak above "
+        f"the state blocked {kb[1] / 1e9:.2f} GB, whole {kw[1] / 1e9:.2f} GB")
+    out = {"elements": p.numel(), "blocks": n_blocks, "same_bits": same,
+           "blocked_ms": tb[1] * 1e3, "whole_ms": tw[1] * 1e3,
+           "blocked_peak_bytes": kb[1], "whole_peak_bytes": kw[1]}
+    del runs, pb, sb, pw, sw, p
+    _free()
+    return out
+
+
+def g12_smoke_cfg():
+    """command_r_plus_104b's smoke config at its G 12 (12 query heads over
+    one KV head, head_dim 64), f32, the optimizer adamw_bf16."""
+    return dataclasses.replace(get_config(CMDR).smoke(), num_heads=12,
+                               num_kv_heads=1, optimizer="adamw_bf16")
+
+
+def big_dense(dev, log, smi) -> dict:
+    """Phase 19: qwen1_5_110b (G 8, qkv bias, untied) and
+    command_r_plus_104b (G 12, tied) at full width with adamw_bf16: (a)
+    qwen's serving and paged GRPO request at BIG_SERVE_LAYERS layers
+    (:func:`big_paths`, through B2, B1, B3 and B4 at G 8); (b)
+    command-r's, through B3 and B4 at G 12, with its dense and paged
+    batcher drains graphed against eager; (c) one adamw_bf16 train step of
+    each at BIG_TRAIN_LAYERS layers (:func:`big_train`); (d) the blocked
+    AdamW update of qwen's FFN leaf against the whole-leaf one, bit for
+    bit; (e) the G 12 smoke model on the card against the CPU."""
+    t0 = t = time.perf_counter()
+    parts, out = {}, {}
+
+    def part(name, fn):
+        nonlocal t
+        res = fn()
+        now = time.perf_counter()
+        parts[name], t = now - t, now
+        return res
+
+    for m in BIG:
+        cfg = dataclasses.replace(get_config(BIG[m]),
+                                  num_layers=BIG_SERVE_LAYERS[m])
+        out[m] = part(m, lambda: big_paths(cfg, dev, log, smi, BIG[m],
+                                           batcher=m == "cmdr"))
+    for m in BIG:
+        cfg = dataclasses.replace(get_config(BIG[m]),
+                                  num_layers=BIG_TRAIN_LAYERS[m])
+        out[f"{m}_train"] = part(f"{m}_train", lambda: big_train(
+            cfg, dev, log, smi, f"{BIG[m]} adamw_bf16 train step"))
+    out["blocked"] = part("blocked", lambda: blocked_update_bits(dev, log,
+                                                                 smi))
+    out["small"] = part("small", lambda: check_small_model_against_cpu(
+        dev, g12_smoke_cfg(), prompt=40, seed=5))
+    log(f"[smoke] small G 12 model ({CMDR}'s smoke config, 12 query heads "
+        f"over 1 KV head) card vs CPU: logits max_err {out['small']:.3e}, "
+        f"16 greedy tokens identical")
+    out["seconds"], out["part_seconds"] = time.perf_counter() - t0, parts
+    log("[smoke] big dense: " + ", ".join(f"{k} {v:.1f} s"
+                                           for k, v in parts.items()))
+    return out
+
 
 def port_kernels(rows):
     """{wrapper: {"ms", "calls", "us_per_call", "us_per_call_by_kernel"}}
@@ -6192,6 +6663,10 @@ def main() -> int:
     report["deepseek"] = ds = deepseek(dev, lambda s: print(s, flush=True),
                                        smi)
     lap(18)
+    # phase 19: qwen1_5_110b and command_r_plus_104b (G 12) at full width
+    report["big_dense"] = big = big_dense(
+        dev, lambda s: print(s, flush=True), smi)
+    lap(19)
     paths = {"serve": launches, "paged_grpo": grpo["launches"],
              "mamba_serve": mamba["launches"], "ppo": ppo["launches"],
              "ppo_separate": sep["launches"],
@@ -6224,6 +6699,12 @@ def main() -> int:
                   "deepseek_train_dense_mtp":
                       ds["train_dense_mtp"]["launches"],
                   "deepseek_train_moe": ds["train_moe"]["launches"]})
+    for m in BIG:
+        paths.update({f"{m}_serve": big[m]["launches"],
+                      f"{m}_paged_grpo": big[m]["paged_grpo"]["launches"],
+                      f"{m}_train": big[f"{m}_train"]["launches"]})
+    paths.update({f"cmdr_batcher_{kind}": run["launches"]
+                  for kind, run in big["cmdr"]["batcher"].items()})
 
     if args.profile:
         prof, table = profile_request(cfg, dev)

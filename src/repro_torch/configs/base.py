@@ -80,7 +80,7 @@ class ModelConfig:
     tie_embeddings: bool = False
     norm_eps: float = 1e-5
     param_dtype: str = "bfloat16"
-    optimizer: str = "adamw"                  # adamw | adafactor (adamw_bf16: A11 5)
+    optimizer: str = "adamw"                  # adamw | adamw_bf16 | adafactor
     remat: str = "full"                       # none | full (per layer)
     microbatches: int = 1                     # gradient-accumulation steps
     mtp_depth: int = 0                        # DeepSeek multi-token prediction

@@ -239,7 +239,7 @@ def traced_zero_scales(actor_cfg, critic_cfg=None, *, ndp: int,
 
     def opt_entry(pspecs, shapes, cfg):
         opt = make_optimizer(cfg.optimizer)
-        o_shapes = opt.init(shapes)             # fp32 moments on meta
+        o_shapes = opt.init(shapes)      # moments in their dtype, on meta
         o_specs = opt.init_specs(
             zero_opt_pspecs(pspecs, shapes, mesh, strat), shapes)
         return _tree_fraction(o_specs, o_shapes, mesh, extra_bytes=4)

@@ -15,9 +15,9 @@
 // tensor cores would matter. So it uses none: the whole design is to
 // read the cache once, from every SM at once.
 //
-// Design ("flash-decoding", split-C). Grid (splits, K, B): a block takes
-// one span of `span` cache slots for all G query heads of one KV head, so
-// the group shares every K/V load; the wrapper picks the split count
+// Design ("flash-decoding", split-C). Grid (splits, K * HC, B): a block
+// takes one span of `span` cache slots for GB query heads of one KV head,
+// so they share every K/V load; the wrapper picks the split count
 // from the shapes alone (decode_attention.py::split_plan), aiming at two
 // blocks per SM. A block is 128 threads. A K or V row loads as 16 bytes
 // a lane (a half-warp covers one 128-dim bf16 row); each row group of
@@ -39,6 +39,22 @@
 // Two launches rather than one with a last-block-done counter: no counter
 // to reset between calls, and the combine reads 0.5 MB at the main shape.
 //
+// Groups of more than 8 query heads a KV head (command_r_plus_104b's 96
+// over 8, G 12) are cut into HC = cdiv(G, 8) chunks of GB = cdiv(G, HC)
+// heads, one block a chunk (G 12: two blocks of 6 heads). Where GB does
+// not divide G the last chunk ends at head G and overlaps the one before
+// (G 9: heads 0-4 and 4-8): a head of both is computed twice, the same
+// bits by the same code on the same inputs, and written twice. So every
+// block has GB heads, as at G <= 8. Each chunk's block reads its KV
+// head's span of the cache, so at G 12 the cache is read twice (the
+// second read often from L2). A block of all 12 heads would need 12 x E
+// fp32 accumulators and 12 x E query values a thread (192 registers in
+// bf16 before the prefetched rows) and a 49,920-byte static merge
+// buffer, over the 48 KiB a static allocation may take. HC is a template
+// parameter: G <= 8 is one chunk, and its instances (HC 1) compile to the
+// single-chunk kernel, with no run-time group arithmetic; G 9-16 take the
+// HC 2 instances of GB 5-8.
+//
 // Empty and masked slots. A real slot that fails the mask scores -1e30 and
 // takes part in the softmax; a slot outside the span takes no part. So a
 // row with no valid slot gets the uniform mean over its C real slots,
@@ -49,7 +65,8 @@ namespace {
 
 constexpr int NT = 128;        // threads per block
 constexpr int STEP = 32;       // slots a block reads per step (span multiple)
-constexpr int MAXG = 8;        // most query heads per KV head
+constexpr int MAXG = 16;       // most query heads per KV head
+constexpr int MAXGB = 8;       // most query heads a block
 constexpr float kLog2e = 1.4426950408889634f;
 
 __device__ __forceinline__ void unpack(const uint4& u, float* x, float) {
@@ -68,23 +85,31 @@ __device__ __forceinline__ void unpack(const uint4& u, float* x,
   }
 }
 
-// One block per (split, KV head, batch row); see the note above.
-template <typename T, int D, int G>
+// One block per (split, chunk of GB heads of a KV head, batch row); see
+// the note above. The group is HC chunks: with HC 1, GB heads; else
+// g_heads, at most GB * HC. The KV heads are gridDim.y / HC. (One int
+// argument more than the single-chunk kernel had made ptxas spill its
+// bf16 D 64 GB 3 instance at 96 registers.)
+template <typename T, int D, int GB, int HC>
 __global__ void __launch_bounds__(NT)
 decode_split_kernel(const T* __restrict__ q, const T* __restrict__ kc,
                     const T* __restrict__ vc, const int* __restrict__ pos,
                     const int* __restrict__ position, T* __restrict__ o,
-                    float* __restrict__ part, int C, int K, int span,
+                    float* __restrict__ part, int C, int g_heads, int span,
                     int splits, int window, float scale) {
   constexpr int E = 16 / sizeof(T);     // dims per lane (one 16-byte load)
   constexpr int LPR = D / E;            // lanes per cache row
   constexpr int NRG = NT / LPR;         // row groups per block
   constexpr int R = STEP / NRG;         // slots per row group per step
   static_assert(LPR <= 32 && NRG * R == STEP, "bad tiling");
-  __shared__ float s_acc[NRG][G][D];
-  __shared__ float s_m[NRG][G], s_l[NRG][G];
+  __shared__ float s_acc[NRG][GB][D];
+  __shared__ float s_m[NRG][GB], s_l[NRG][GB];
 
-  const int split = blockIdx.x, kh = blockIdx.y, b = blockIdx.z;
+  const int split = blockIdx.x, b = blockIdx.z;
+  const int G = HC == 1 ? GB : g_heads;
+  const int K = gridDim.y / HC, kh = blockIdx.y / HC;
+  // the chunk's first head; the last chunk ends at head G
+  const int g0 = HC == 1 ? 0 : min((int)(blockIdx.y % HC) * GB, G - GB);
   const int H = K * G;
   // the combine kernel may be scheduled now; it waits for our partials
   asm volatile("griddepcontrol.launch_dependents;\n" ::: "memory");
@@ -93,16 +118,16 @@ decode_split_kernel(const T* __restrict__ q, const T* __restrict__ kc,
   const int c_begin = split * span;
   const int c_end = min(C, c_begin + span);
 
-  float qr[G][E];
+  float qr[GB][E];
 #pragma unroll
-  for (int g = 0; g < G; ++g) {
-    const T* qp = q + ((size_t)b * H + kh * G + g) * D + li * E;
+  for (int g = 0; g < GB; ++g) {
+    const T* qp = q + ((size_t)b * H + kh * G + g0 + g) * D + li * E;
 #pragma unroll
     for (int e = 0; e < E; ++e) qr[g][e] = rt::to_f(qp[e]) * scale * kLog2e;
   }
-  float m[G], l[G], acc[G][E];
+  float m[GB], l[GB], acc[GB][E];
 #pragma unroll
-  for (int g = 0; g < G; ++g) {
+  for (int g = 0; g < GB; ++g) {
     m[g] = rt::kNegInf;
     l[g] = 0.f;
 #pragma unroll
@@ -144,13 +169,13 @@ decode_split_kernel(const T* __restrict__ q, const T* __restrict__ kc,
   for (int c0 = c_begin; c0 < c_end; c0 += STEP) {
     Rows next;
     if constexpr (kPrefetch) load(c0 + STEP, next);
-    float s[R][G];
+    float s[R][GB];
 #pragma unroll
     for (int r = 0; r < R; ++r) {
       float kx[E];
       unpack(cur_rows.k[r], kx, T());
 #pragma unroll
-      for (int g = 0; g < G; ++g) {
+      for (int g = 0; g < GB; ++g) {
         float dot = 0.f;
 #pragma unroll
         for (int e = 0; e < E; ++e) dot = fmaf(qr[g][e], kx[e], dot);
@@ -161,10 +186,10 @@ decode_split_kernel(const T* __restrict__ q, const T* __restrict__ kc,
       const float fill =
           cur_rows.in[r] ? rt::kNegInf : -__int_as_float(0x7f800000);
 #pragma unroll
-      for (int g = 0; g < G; ++g) s[r][g] = ok ? s[r][g] : fill;
+      for (int g = 0; g < GB; ++g) s[r][g] = ok ? s[r][g] : fill;
     }
 #pragma unroll
-    for (int g = 0; g < G; ++g) {
+    for (int g = 0; g < GB; ++g) {
       float mx = m[g];
 #pragma unroll
       for (int r = 0; r < R; ++r) mx = fmaxf(mx, s[r][g]);
@@ -179,7 +204,7 @@ decode_split_kernel(const T* __restrict__ q, const T* __restrict__ kc,
       float vx[E];
       unpack(cur_rows.v[r], vx, T());
 #pragma unroll
-      for (int g = 0; g < G; ++g) {
+      for (int g = 0; g < GB; ++g) {
         const float p = exp2f(s[r][g] - m[g]);
         l[g] += p;
 #pragma unroll
@@ -194,7 +219,7 @@ decode_split_kernel(const T* __restrict__ q, const T* __restrict__ kc,
 
   // merge the row groups: one pass through shared memory
 #pragma unroll
-  for (int g = 0; g < G; ++g) {
+  for (int g = 0; g < GB; ++g) {
 #pragma unroll
     for (int e = 0; e < E; ++e) s_acc[rg][g][li * E + e] = acc[g][e];
     if (li == 0) {
@@ -203,7 +228,7 @@ decode_split_kernel(const T* __restrict__ q, const T* __restrict__ kc,
     }
   }
   __syncthreads();
-  for (int i = threadIdx.x; i < G * D; i += NT) {
+  for (int i = threadIdx.x; i < GB * D; i += NT) {
     const int g = i / D, d = i % D;
     float mx = rt::kNegInf;
 #pragma unroll
@@ -215,7 +240,7 @@ decode_split_kernel(const T* __restrict__ q, const T* __restrict__ kc,
       lsum = fmaf(s_l[r][g], w, lsum);
       a = fmaf(s_acc[r][g][d], w, a);
     }
-    const int h = kh * G + g;
+    const int h = kh * G + g0 + g;
     if (splits == 1) {
       rt::store_f(o + ((size_t)b * H + h) * D + d, a / fmaxf(lsum, 1e-30f));
     } else {
@@ -252,15 +277,16 @@ combine_kernel(const float* __restrict__ part, T* __restrict__ o,
   rt::store_f(o + ((size_t)b * H + h) * D + d, a / fmaxf(lsum, 1e-30f));
 }
 
-template <typename T, int D, int G>
-cudaError_t launch_g(const void* q, const void* kc, const void* vc,
+template <typename T, int D, int GB, int HC>
+cudaError_t launch_g(int G, const void* q, const void* kc, const void* vc,
                      const int* pos, const int* position, void* o,
                      float* part, int B, int C, int K, int span, int splits,
                      int window, cudaStream_t stream) {
-  decode_split_kernel<T, D, G><<<dim3(splits, K, B), NT, 0, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(kc),
-      static_cast<const T*>(vc), pos, position, static_cast<T*>(o), part, C,
-      K, span, splits, window, 1.0f / sqrtf((float)D));
+  decode_split_kernel<T, D, GB, HC>
+      <<<dim3(splits, K * HC, B), NT, 0, stream>>>(
+          static_cast<const T*>(q), static_cast<const T*>(kc),
+          static_cast<const T*>(vc), pos, position, static_cast<T*>(o), part,
+          C, G, span, splits, window, 1.0f / sqrtf((float)D));
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess || splits == 1) return err;
   // the combine may launch while the split kernel's last blocks run
@@ -280,16 +306,19 @@ cudaError_t launch_g(const void* q, const void* kc, const void* vc,
   return cudaGetLastError();
 }
 
+// G heads a KV head in HC chunks of GB <= MAXGB (one chunk for G <= 8)
 template <typename T, int D>
 cudaError_t launch(int G, const void* q, const void* kc, const void* vc,
                    const int* pos, const int* position, void* o, float* part,
                    int B, int C, int K, int span, int splits, int window,
                    cudaStream_t s) {
-  switch (G) {
-#define RT_CASE(g) \
-  case g: return launch_g<T, D, g>(q, kc, vc, pos, position, o, part, B, C, K, span, splits, window, s);
-    RT_CASE(1) RT_CASE(2) RT_CASE(3) RT_CASE(4)
-    RT_CASE(5) RT_CASE(6) RT_CASE(7) RT_CASE(8)
+  const int HC = (G + MAXGB - 1) / MAXGB, GB = (G + HC - 1) / HC;
+  switch (HC * 16 + GB) {
+#define RT_CASE(hc, g) \
+  case hc * 16 + g: return launch_g<T, D, g, hc>(G, q, kc, vc, pos, position, o, part, B, C, K, span, splits, window, s);
+    RT_CASE(1, 1) RT_CASE(1, 2) RT_CASE(1, 3) RT_CASE(1, 4)
+    RT_CASE(1, 5) RT_CASE(1, 6) RT_CASE(1, 7) RT_CASE(1, 8)
+    RT_CASE(2, 5) RT_CASE(2, 6) RT_CASE(2, 7) RT_CASE(2, 8)
 #undef RT_CASE
   }
   return cudaErrorInvalidValue;
@@ -298,7 +327,7 @@ cudaError_t launch(int G, const void* q, const void* kc, const void* vc,
 }  // namespace
 
 // q [B,H,D], caches [B,C,K,D] (one dtype), pos [B,C] int32, position [B]
-// int32, o [B,H,D]; all contiguous. H / K <= 8. The cache is cut into
+// int32, o [B,H,D]; all contiguous. H / K <= 16. The cache is cut into
 // `splits` spans of `span` slots, none empty; with splits > 1, `part`
 // is fp32 scratch of B*H*splits*(D+2) floats.
 extern "C" int rt_decode_attention(const void* q, const void* kc,

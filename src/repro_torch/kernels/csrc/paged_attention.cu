@@ -59,6 +59,18 @@
 //   set this kernel's pace (PERF.md). In fp32 both stay on the CUDA
 //   cores: two lanes a slot for the scores, each lane D/32 dims of the G
 //   accumulators for PV.
+// - Groups of more than 8 query heads a KV head (command_r_plus_104b's 96
+//   over 8, G 12): the kernel is instantiated for a capacity GT (G itself
+//   up to 8, then 16) and takes G at run time; heads G..GT-1 compute on
+//   zero queries and write nothing. In bf16 a row's heads are the n side
+//   of mma.m16n8k16, 8 a fragment, so GT 16 takes NF = 2 n-fragments:
+//   two score products a k-step against the same K fragments and two PV
+//   products (hi and lo) a D/16 tile against the same V fragments. A lane
+//   keeps the running max and sum of its own 2 x NF heads (those of its C
+//   fragment columns), which is all its accumulators need. In fp32 the
+//   queries in shared memory and the p rows grow with GT (~170 KiB at D
+//   128, GT 16: one block an SM). Each page is still copied once for the
+//   tile, for all G heads.
 // - With more than one split, the block writes its unnormalised partials
 //   (m and l per head, acc [G, D], fp32) to scratch that the wrapper
 //   allocates, and paged_merge_kernel (one block per (query head, row))
@@ -84,7 +96,7 @@ constexpr int NT = 256;        // threads per block
 constexpr int R = NT / 32;     // rows per tile, one warp each
 constexpr int U = 16;          // slots per unit
 constexpr int MAX_SPAN = 32;   // pages per split (plan keeps to it)
-constexpr int MAXG = 8;        // most query heads per KV head
+constexpr int MAXG = 16;       // most query heads per KV head
 constexpr float kLog2e = 1.4426950408889634f;
 
 __device__ __forceinline__ float minus_inf() {
@@ -133,7 +145,8 @@ __device__ __forceinline__ void cp_async_arrive(uint64_t* bar) {
                : "memory");
 }
 
-// dynamic shared memory of the split kernel, in this order
+// dynamic shared memory of the split kernel, in this order, for a
+// capacity of G query heads a KV head
 template <typename T, int D, int G>
 struct Smem {
   // a ring slot holds the K and the V head tiles of one unit of a page:
@@ -156,7 +169,8 @@ struct Smem {
       ring + bars + q + p + table + pages + first + rows + rank;
   // blocks an SM: two where their shared memory fits (each block also
   // takes 1 KiB of the SM's 228 KiB) and G <= 6; else one, whose thread
-  // may then hold 255 registers (at 128, G = 7 and 8 spill)
+  // may then hold 255 registers (bf16 at D 128 takes 130-132 at G 7 and 8,
+  // 189 at 16)
   static constexpr int min_blocks =
       2 * (total + 1024) <= 228 * 1024 && G <= 6 ? 2 : 1;
 };
@@ -256,20 +270,26 @@ __device__ __forceinline__ void softmax_simt(const unsigned char* tile,
   __syncwarp();
 }
 
-// Tensor cores (bf16 pools): S^T [16 slots, 8 heads] = K q^T by
-// mma.m16n8k16 (bf16 in, fp32 sums: a product of two bf16 values is
-// exact in fp32, so only the order of the sums differs from fp32 FMAs),
-// K's A fragments by ldmatrix from the swizzled tile, q's B fragments in
-// registers; the scale (1/sqrt(D) log2 e) applied to the sums. Lane holds
-// slots lane/4 and lane/4 + 8 of heads 2 (lane % 4) and 2 (lane % 4) + 1.
-template <int D, int G>
+// Tensor cores (bf16 pools): for each of NF n-fragments f of 8 heads,
+// S^T [16 slots, 8 heads] = K q^T by mma.m16n8k16 (bf16 in, fp32 sums: a
+// product of two bf16 values is exact in fp32, so only the order of the
+// sums differs from fp32 FMAs), K's A fragments by ldmatrix from the
+// swizzled tile (shared by the fragments), q's B fragments in registers;
+// the scale (1/sqrt(D) log2 e) applied to the sums. Lane holds slots
+// lane/4 and lane/4 + 8 of heads 8 f + 2 (lane % 4) and + 1: the running
+// max m[f][c] and sum l[f][c] it keeps are those two heads' (the same in
+// the 8 lanes of a lane % 4), and so is alpha[f][c].
+template <int D, int NF, int GT>
 __device__ __forceinline__ void softmax_mma(const unsigned char* tile,
-                                            const uint32_t (&qf)[D / 16][2],
+                                            const uint32_t (&qf)[NF][D / 16][2],
                                             float* prow, int lane, int cnt,
                                             int nvalid, float scale,
-                                            float (&m)[G], float (&l)[G],
-                                            float (&alpha)[G]) {
-  float c[4] = {0.f, 0.f, 0.f, 0.f};
+                                            float (&m)[NF][2],
+                                            float (&l)[NF][2],
+                                            float (&alpha)[NF][2]) {
+  float c[NF][4];
+#pragma unroll
+  for (int f = 0; f < NF; ++f) c[f][0] = c[f][1] = c[f][2] = c[f][3] = 0.f;
   // ldmatrix.x4: lanes 0-15 address rows 0-15 at k 0-7 of the k-step,
   // lanes 16-31 the same rows at k 8-15 (fragments a0..a3 in mma order)
   const uint32_t row_addr = sm90::smem_u32(tile) + (lane & 15) * D * 2;
@@ -281,100 +301,104 @@ __device__ __forceinline__ void softmax_mma(const unsigned char* tile,
         "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
         : "=r"(a0), "=r"(a1), "=r"(a2), "=r"(a3)
         : "r"(row_addr + ch * 16));
-    asm("mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-        "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-        : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-        : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "r"(qf[kk][0]),
-          "r"(qf[kk][1]));
+#pragma unroll
+    for (int f = 0; f < NF; ++f)
+      asm("mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+          "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+          : "+f"(c[f][0]), "+f"(c[f][1]), "+f"(c[f][2]), "+f"(c[f][3])
+          : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "r"(qf[f][kk][0]),
+            "r"(qf[f][kk][1]));
   }
   const int s0 = lane >> 2, s1 = s0 + 8, h0 = 2 * (lane & 3);
   auto masked = [&](float x, int sl) {
     return sl < nvalid ? x * scale : (sl < cnt ? rt::kNegInf : minus_inf());
   };
-  // v[slot][head]: (s0, h0), (s0, h0 + 1), (s1, h0), (s1, h0 + 1)
-  const float v00 = masked(c[0], s0), v01 = masked(c[1], s0);
-  const float v10 = masked(c[2], s1), v11 = masked(c[3], s1);
-  float mx0 = fmaxf(v00, v10), mx1 = fmaxf(v01, v11);
+  float p[NF][4];
 #pragma unroll
-  for (int o = 4; o < 32; o <<= 1) {
-    mx0 = fmaxf(mx0, __shfl_xor_sync(0xffffffffu, mx0, o));
-    mx1 = fmaxf(mx1, __shfl_xor_sync(0xffffffffu, mx1, o));
-  }
-  // head g's unit max lives in lane g / 2; the new max in every lane
-  float m_new[G], mn0 = 0.f, mn1 = 0.f;
+  for (int f = 0; f < NF; ++f) {
+    // v[slot][head]: (s0, h0), (s0, h0 + 1), (s1, h0), (s1, h0 + 1)
+    const float v00 = masked(c[f][0], s0), v01 = masked(c[f][1], s0);
+    const float v10 = masked(c[f][2], s1), v11 = masked(c[f][3], s1);
+    float mx0 = fmaxf(v00, v10), mx1 = fmaxf(v01, v11);
 #pragma unroll
-  for (int g = 0; g < G; ++g) {
-    const float um = __shfl_sync(0xffffffffu, (g & 1) ? mx1 : mx0, g >> 1);
-    m_new[g] = fmaxf(m[g], um);
-    alpha[g] = exp2f(m[g] - m_new[g]);
-    if (g == h0) mn0 = m_new[g];
-    if (g == h0 + 1) mn1 = m_new[g];
-  }
-  const float p00 = exp2f(v00 - mn0), p01 = exp2f(v01 - mn1);
-  const float p10 = exp2f(v10 - mn0), p11 = exp2f(v11 - mn1);
-  float sm0 = p00 + p10, sm1 = p01 + p11;
+    for (int o = 4; o < 32; o <<= 1) {
+      mx0 = fmaxf(mx0, __shfl_xor_sync(0xffffffffu, mx0, o));
+      mx1 = fmaxf(mx1, __shfl_xor_sync(0xffffffffu, mx1, o));
+    }
+    // the unit max of this lane's two heads, over all 16 slots
+    const float mn0 = fmaxf(m[f][0], mx0), mn1 = fmaxf(m[f][1], mx1);
+    alpha[f][0] = exp2f(m[f][0] - mn0);
+    alpha[f][1] = exp2f(m[f][1] - mn1);
+    p[f][0] = exp2f(v00 - mn0);
+    p[f][1] = exp2f(v01 - mn1);
+    p[f][2] = exp2f(v10 - mn0);
+    p[f][3] = exp2f(v11 - mn1);
+    float sm0 = p[f][0] + p[f][2], sm1 = p[f][1] + p[f][3];
 #pragma unroll
-  for (int o = 4; o < 32; o <<= 1) {
-    sm0 += __shfl_xor_sync(0xffffffffu, sm0, o);
-    sm1 += __shfl_xor_sync(0xffffffffu, sm1, o);
-  }
-#pragma unroll
-  for (int g = 0; g < G; ++g) {
-    const float us = __shfl_sync(0xffffffffu, (g & 1) ? sm1 : sm0, g >> 1);
-    l[g] = fmaf(l[g], alpha[g], us);
-    m[g] = m_new[g];
+    for (int o = 4; o < 32; o <<= 1) {
+      sm0 += __shfl_xor_sync(0xffffffffu, sm0, o);
+      sm1 += __shfl_xor_sync(0xffffffffu, sm1, o);
+    }
+    l[f][0] = fmaf(l[f][0], alpha[f][0], sm0);
+    l[f][1] = fmaf(l[f][1], alpha[f][1], sm1);
+    m[f][0] = mn0;
+    m[f][1] = mn1;
   }
   __syncwarp();                // the last unit's PV is done with prow
-  if (h0 < G) {
-    prow[h0 * U + s0] = p00;
-    prow[h0 * U + s1] = p10;
-  }
-  if (h0 + 1 < G) {
-    prow[(h0 + 1) * U + s0] = p01;
-    prow[(h0 + 1) * U + s1] = p11;
+#pragma unroll
+  for (int f = 0; f < NF; ++f) {
+    const int g = 8 * f + h0;
+    if (g < GT) {
+      prow[g * U + s0] = p[f][0];
+      prow[g * U + s1] = p[f][2];
+    }
+    if (g + 1 < GT) {
+      prow[(g + 1) * U + s0] = p[f][1];
+      prow[(g + 1) * U + s1] = p[f][3];
+    }
   }
   __syncwarp();
 }
 
-// Tensor cores (bf16 pools): O^T [D, 8 heads] += V^T P^T by
-// mma.m16n8k16, after scaling each head's column by alpha. V's A
-// fragments by ldmatrix.trans from the swizzled V tile; P (fp32, in prow)
-// enters as two bf16 operands, hi = bf16(p) and lo = bf16(p - hi), so
-// the products are exact and p keeps 16 significant bits (a relative
-// error near 2^-17, against the fp32 PV's 2^-24 and the bf16 output's
-// 2^-9).
-template <int D, int G>
-__device__ __forceinline__ void pv_mma(float (&oacc)[D / 16][4],
-                                       const float (&alpha)[G],
+// Tensor cores (bf16 pools): for each n-fragment f, O^T [D, 8 heads] +=
+// V^T P^T by mma.m16n8k16, after scaling each head's column by alpha. V's
+// A fragments by ldmatrix.trans from the swizzled V tile, shared by the
+// fragments; P (fp32, in prow) enters as two bf16 operands, hi = bf16(p)
+// and lo = bf16(p - hi), so the products are exact and p keeps 16
+// significant bits (a relative error near 2^-17, against the fp32 PV's
+// 2^-24 and the bf16 output's 2^-9).
+template <int D, int NF, int GT>
+__device__ __forceinline__ void pv_mma(float (&oacc)[NF][D / 16][4],
+                                       const float (&alpha)[NF][2],
                                        const float* prow,
                                        const unsigned char* vt, int lane) {
-  const int h0 = 2 * (lane & 3);
-  float a0 = 1.f, a1 = 1.f;
 #pragma unroll
-  for (int g = 0; g < G; ++g) {
-    if (g == h0) a0 = alpha[g];
-    if (g == h0 + 1) a1 = alpha[g];
-  }
+  for (int f = 0; f < NF; ++f)
 #pragma unroll
-  for (int i = 0; i < D / 16; ++i) {
-    oacc[i][0] *= a0;
-    oacc[i][1] *= a1;
-    oacc[i][2] *= a0;
-    oacc[i][3] *= a1;
+    for (int i = 0; i < D / 16; ++i) {
+      oacc[f][i][0] *= alpha[f][0];
+      oacc[f][i][1] *= alpha[f][1];
+      oacc[f][i][2] *= alpha[f][0];
+      oacc[f][i][3] *= alpha[f][1];
+    }
+  // B fragments: head 8 f + lane/4, slots 2 (lane % 4) + {0, 1} and + 8
+  const int k0 = 2 * (lane & 3);
+  uint32_t bh[NF][2], bl[NF][2];
+#pragma unroll
+  for (int f = 0; f < NF; ++f) {
+    const int n = 8 * f + (lane >> 2);
+    float2 pa = make_float2(0.f, 0.f), pb = make_float2(0.f, 0.f);
+    if (n < GT) {
+      pa = *reinterpret_cast<const float2*>(prow + n * U + k0);
+      pb = *reinterpret_cast<const float2*>(prow + n * U + k0 + 8);
+    }
+    bh[f][0] = sm90::pack_bf16(pa.x, pa.y);
+    bh[f][1] = sm90::pack_bf16(pb.x, pb.y);
+    bl[f][0] = sm90::pack_bf16(pa.x - __uint_as_float(bh[f][0] << 16),
+                               pa.y - __uint_as_float(bh[f][0] & 0xffff0000u));
+    bl[f][1] = sm90::pack_bf16(pb.x - __uint_as_float(bh[f][1] << 16),
+                               pb.y - __uint_as_float(bh[f][1] & 0xffff0000u));
   }
-  // B fragments: head lane/4, slots 2 (lane % 4) + {0, 1} and + 8
-  const int n = lane >> 2, k0 = 2 * (lane & 3);
-  float2 pa = make_float2(0.f, 0.f), pb = make_float2(0.f, 0.f);
-  if (n < G) {
-    pa = *reinterpret_cast<const float2*>(prow + n * U + k0);
-    pb = *reinterpret_cast<const float2*>(prow + n * U + k0 + 8);
-  }
-  const uint32_t bh0 = sm90::pack_bf16(pa.x, pa.y);
-  const uint32_t bh1 = sm90::pack_bf16(pb.x, pb.y);
-  const uint32_t bl0 = sm90::pack_bf16(pa.x - __uint_as_float(bh0 << 16),
-                                       pa.y - __uint_as_float(bh0 & 0xffff0000u));
-  const uint32_t bl1 = sm90::pack_bf16(pb.x - __uint_as_float(bh1 << 16),
-                                       pb.y - __uint_as_float(bh1 & 0xffff0000u));
   // ldmatrix.x4.trans of m-tile i: lanes 0-7 address slots 0-7 at dims
   // 16 i..+7, lanes 8-15 the same slots at dims +8..+15, lanes 16-31 slots
   // 8-15 likewise (fragments a0..a3 of V^T in mma order)
@@ -389,28 +413,35 @@ __device__ __forceinline__ void pv_mma(float (&oacc)[D / 16][4],
         "[%4];\n"
         : "=r"(v0), "=r"(v1), "=r"(v2), "=r"(v3)
         : "r"(row_addr + ch * 16));
-    asm("mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-        "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-        : "+f"(oacc[i][0]), "+f"(oacc[i][1]), "+f"(oacc[i][2]),
-          "+f"(oacc[i][3])
-        : "r"(v0), "r"(v1), "r"(v2), "r"(v3), "r"(bh0), "r"(bh1));
-    asm("mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-        "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-        : "+f"(oacc[i][0]), "+f"(oacc[i][1]), "+f"(oacc[i][2]),
-          "+f"(oacc[i][3])
-        : "r"(v0), "r"(v1), "r"(v2), "r"(v3), "r"(bl0), "r"(bl1));
+#pragma unroll
+    for (int f = 0; f < NF; ++f) {
+      asm("mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+          "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+          : "+f"(oacc[f][i][0]), "+f"(oacc[f][i][1]), "+f"(oacc[f][i][2]),
+            "+f"(oacc[f][i][3])
+          : "r"(v0), "r"(v1), "r"(v2), "r"(v3), "r"(bh[f][0]),
+            "r"(bh[f][1]));
+      asm("mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+          "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+          : "+f"(oacc[f][i][0]), "+f"(oacc[f][i][1]), "+f"(oacc[f][i][2]),
+            "+f"(oacc[f][i][3])
+          : "r"(v0), "r"(v1), "r"(v2), "r"(v3), "r"(bl[f][0]),
+            "r"(bl[f][1]));
+    }
   }
 }
 
-// One block per (split, KV head, tile of R rows); see the note above.
-template <typename T, int D, int G>
-__global__ void __launch_bounds__(NT, (Smem<T, D, G>::min_blocks))
+// One block per (split, KV head, tile of R rows); see the note above. GT
+// is the capacity of heads a KV head, G = H / K <= GT the group.
+template <typename T, int D, int GT>
+__global__ void __launch_bounds__(NT, (Smem<T, D, GT>::min_blocks))
 paged_split_kernel(const T* __restrict__ q, const T* __restrict__ kp,
                    const T* __restrict__ vp, const int* __restrict__ bt,
                    const int* __restrict__ position, T* __restrict__ o,
                    float* __restrict__ part, int B, int nb, int ps, int H,
                    int K, int splits, float qscale) {
-  using S = Smem<T, D, G>;
+  using S = Smem<T, D, GT>;
+  constexpr int NF = sizeof(T) == 2 ? (GT + 7) / 8 : 1;   // n-fragments
   constexpr int CPR = D * (int)sizeof(T) / 16;   // 16-byte chunks a slot
   constexpr int E = 16 / (int)sizeof(T);         // elements a chunk
   constexpr int DPL = D / 32;                    // PV dims a lane
@@ -421,9 +452,9 @@ paged_split_kernel(const T* __restrict__ q, const T* __restrict__ kp,
   extern __shared__ __align__(128) unsigned char smem[];
   unsigned char* ring = smem;
   uint64_t* bars = reinterpret_cast<uint64_t*>(smem + S::ring);   // [NS]
-  float* sq = reinterpret_cast<float*>(smem + S::ring + S::bars);  // [R][G][D]
+  float* sq = reinterpret_cast<float*>(smem + S::ring + S::bars);  // [R][GT][D]
   float* sp = reinterpret_cast<float*>(smem + S::ring + S::bars + S::q);
-  int* sbt = reinterpret_cast<int*>(sp + R * G * U);        // [R][MAX_SPAN]
+  int* sbt = reinterpret_cast<int*>(sp + R * GT * U);       // [R][MAX_SPAN]
   int* spage = sbt + R * MAX_SPAN;                          // [tiles]
   int* sfirst = spage + R * MAX_SPAN;                       // [n_pg + 1]
   int* spos = sfirst + MAX_SPAN + 1;                        // [R]
@@ -432,7 +463,7 @@ paged_split_kernel(const T* __restrict__ q, const T* __restrict__ kp,
 
   // the merge kernel may be scheduled now; it waits for our partials
   asm volatile("griddepcontrol.launch_dependents;\n" ::: "memory");
-  const int split = blockIdx.x, kh = blockIdx.y;
+  const int split = blockIdx.x, kh = blockIdx.y, G = H / K;
   const int b0 = blockIdx.z * R;
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
   const int nrows = min(R, B - b0);
@@ -460,28 +491,32 @@ paged_split_kernel(const T* __restrict__ q, const T* __restrict__ kp,
       send[r] = end;
     }
   }
-  // queries: fp32, pre-scaled, in shared memory for the CUDA-core scores;
-  // in bf16, this warp's row as the B fragments of mma.m16n8k16 (lane
-  // holds head lane/4, dims 16 kk + 2 (lane % 4) + {0, 1, 8, 9})
-  uint32_t qf[sizeof(T) == 2 ? D / 16 : 1][2];
+  // queries: fp32, pre-scaled, in shared memory for the CUDA-core scores
+  // (heads G..GT-1 zero); in bf16, this warp's row as the B fragments of
+  // mma.m16n8k16 (lane holds head 8 f + lane/4 of fragment f, dims 16 kk
+  // + 2 (lane % 4) + {0, 1, 8, 9}; zero past G)
+  uint32_t qf[NF][sizeof(T) == 2 ? D / 16 : 1][2];
   if constexpr (sizeof(T) == 2) {
-    const int n = lane >> 2;
-    const bool have = warp < nrows && n < G;
-    const uint32_t* qw = reinterpret_cast<const uint32_t*>(
-        q + ((size_t)(b0 + (have ? warp : 0)) * H + kh * G + (have ? n : 0)) *
-                D) + (lane & 3);
 #pragma unroll
-    for (int kk = 0; kk < D / 16; ++kk) {
-      qf[kk][0] = have ? qw[8 * kk] : 0u;
-      qf[kk][1] = have ? qw[8 * kk + 4] : 0u;
+    for (int f = 0; f < NF; ++f) {
+      const int n = 8 * f + (lane >> 2);
+      const bool have = warp < nrows && n < G;
+      const uint32_t* qw = reinterpret_cast<const uint32_t*>(
+          q + ((size_t)(b0 + (have ? warp : 0)) * H + kh * G +
+               (have ? n : 0)) * D) + (lane & 3);
+#pragma unroll
+      for (int kk = 0; kk < D / 16; ++kk) {
+        qf[f][kk][0] = have ? qw[8 * kk] : 0u;
+        qf[f][kk][1] = have ? qw[8 * kk + 4] : 0u;
+      }
     }
   } else {
-    constexpr int QV = G * D / E;                  // 16-byte vectors a row
+    constexpr int QV = GT * D / E;                 // 16-byte vectors a row
     const float qs = qscale * kLog2e;
     for (int i = threadIdx.x; i < R * QV; i += NT) {
       const int r = i / QV, v = i % QV;
       float x[E];
-      if (r < nrows) {
+      if (r < nrows && v / (D / E) < G) {
         load_f<T, E>(reinterpret_cast<const unsigned char*>(
                          q + ((size_t)(b0 + r) * H + kh * G) * D) + v * 16,
                      x);
@@ -491,7 +526,7 @@ paged_split_kernel(const T* __restrict__ q, const T* __restrict__ kp,
       }
 #pragma unroll
       for (int e = 0; e < E; e += 4)
-        *reinterpret_cast<float4*>(sq + r * G * D + v * E + e) =
+        *reinterpret_cast<float4*>(sq + r * GT * D + v * E + e) =
             make_float4(x[e] * qs, x[e + 1] * qs, x[e + 2] * qs,
                         x[e + 3] * qs);
     }
@@ -581,28 +616,33 @@ paged_split_kernel(const T* __restrict__ q, const T* __restrict__ kp,
 
   const int r = warp;
   const int cur = spos[r];
-  const float* qrow = sq + r * G * D;
-  float* prow = sp + r * G * U;
-  // the row's running max and sum per head (the same in every lane), and
-  // its accumulators: in fp32, this lane's DPL dims of the G heads; in
-  // bf16, O^T [D, 8 heads] as D / 16 mma C fragments (dims 16 i + lane/4
-  // and + 8, heads 2 (lane % 4) and + 1)
-  float m[G], l[G];
-  float acc[sizeof(T) == 4 ? G : 1][DPL];
-  float oacc[sizeof(T) == 2 ? D / 16 : 1][4];
+  const float* qrow = sq + r * GT * D;
+  float* prow = sp + r * GT * U;
+  // the row's running max and sum, and its accumulators: in fp32, per
+  // head (the same in every lane) and this lane's DPL dims of the GT
+  // heads; in bf16, for this lane's heads 8 f + 2 (lane % 4) and + 1 of
+  // each n-fragment f, and O^T [D, 8 heads] a fragment as D / 16 mma C
+  // fragments (dims 16 i + lane/4 and + 8)
+  constexpr int MG = sizeof(T) == 4 ? GT : 1;
+  float m[MG], l[MG], mh[NF][2], lh[NF][2];
+  float acc[MG][DPL];
+  float oacc[NF][sizeof(T) == 2 ? D / 16 : 1][4];
 #pragma unroll
-  for (int g = 0; g < G; ++g) {
+  for (int g = 0; g < MG; ++g) {
     m[g] = minus_inf();
     l[g] = 0.f;
-  }
-#pragma unroll
-  for (int g = 0; g < (sizeof(T) == 4 ? G : 1); ++g)
 #pragma unroll
     for (int e = 0; e < DPL; ++e) acc[g][e] = 0.f;
+  }
 #pragma unroll
-  for (int i = 0; i < (sizeof(T) == 2 ? D / 16 : 1); ++i)
+  for (int f = 0; f < NF; ++f) {
+    mh[f][0] = mh[f][1] = minus_inf();
+    lh[f][0] = lh[f][1] = 0.f;
 #pragma unroll
-    for (int c = 0; c < 4; ++c) oacc[i][c] = 0.f;
+    for (int i = 0; i < (sizeof(T) == 2 ? D / 16 : 1); ++i)
+#pragma unroll
+      for (int c = 0; c < 4; ++c) oacc[f][i][c] = 0.f;
+  }
 
   // first the tiles of two units, so they land before the rest of the
   // ring's copies queue behind them
@@ -632,19 +672,20 @@ paged_split_kernel(const T* __restrict__ q, const T* __restrict__ kp,
       // slots below nvalid are valid; the rest below cnt are masked
       const int nvalid =
           ok_page ? max(0, min(cnt, cur - (tok0 + off) + 1)) : 0;
-      float alpha[G];
       if constexpr (sizeof(T) == 2) {
-        softmax_mma<D, G>(tile, qf, prow, lane, cnt, nvalid,
-                          qscale * kLog2e, m, l, alpha);
-        pv_mma<D, G>(oacc, alpha, prow, tile + KV, lane);
+        float alpha[NF][2];
+        softmax_mma<D, NF, GT>(tile, qf, prow, lane, cnt, nvalid,
+                               qscale * kLog2e, mh, lh, alpha);
+        pv_mma<D, NF, GT>(oacc, alpha, prow, tile + KV, lane);
       } else {
-        softmax_simt<T, D, G>(tile, qrow, prow, lane, cnt, nvalid, m, l,
-                              alpha);
+        float alpha[GT];
+        softmax_simt<T, D, GT>(tile, qrow, prow, lane, cnt, nvalid, m, l,
+                               alpha);
 #pragma unroll
-        for (int g = 0; g < G; ++g)
+        for (int g = 0; g < GT; ++g)
 #pragma unroll
           for (int e = 0; e < DPL; ++e) acc[g][e] *= alpha[g];
-        add_pv<T, D, G>(acc, prow, tile + KV, lane);
+        add_pv<T, D, GT>(acc, prow, tile + KV, lane);
       }
     }
   }
@@ -658,16 +699,12 @@ paged_split_kernel(const T* __restrict__ q, const T* __restrict__ kp,
   if constexpr (sizeof(T) == 2) {
     const int h0 = 2 * (lane & 3);
 #pragma unroll
-    for (int c = 0; c < 2; ++c) {
-      const int g = h0 + c;
-      if (g >= G) continue;
-      float mg = 0.f, lg = 0.f;
+    for (int f = 0; f < NF; ++f)
 #pragma unroll
-      for (int x = 0; x < G; ++x)
-        if (x == g) {
-          mg = m[x];
-          lg = l[x];
-        }
+    for (int c = 0; c < 2; ++c) {
+      const int g = 8 * f + h0 + c;
+      if (g >= G) continue;
+      const float mg = mh[f][c], lg = lh[f][c];
       const float inv = 1.f / fmaxf(lg, 1e-30f);
       T* op = o + ((size_t)b * H + kh * G + g) * D + (lane >> 2);
       float* pp = splits == 1 ? nullptr : partial(g);
@@ -676,7 +713,7 @@ paged_split_kernel(const T* __restrict__ q, const T* __restrict__ kp,
 #pragma unroll
         for (int hi = 0; hi < 2; ++hi) {
           const int d = 16 * i + 8 * hi;
-          const float v = oacc[i][2 * hi + c];
+          const float v = oacc[f][i][2 * hi + c];
           if (splits == 1)
             rt::store_f(op + d, v * inv);
           else
@@ -689,7 +726,8 @@ paged_split_kernel(const T* __restrict__ q, const T* __restrict__ kp,
     }
   } else {
 #pragma unroll
-    for (int g = 0; g < G; ++g) {
+    for (int g = 0; g < GT; ++g) {
+      if (g >= G) break;
       if (splits == 1) {
         const float inv = 1.f / fmaxf(l[g], 1e-30f);
         T* op = o + ((size_t)b * H + kh * G + g) * D + lane * DPL;
@@ -736,18 +774,19 @@ paged_merge_kernel(const float* __restrict__ part, T* __restrict__ o,
   rt::store_f(o + ((size_t)b * H + h) * D + d, a / fmaxf(lsum, 1e-30f));
 }
 
-template <typename T, int D, int G>
+template <typename T, int D, int GT>
 cudaError_t launch_g(const void* q, const void* kp, const void* vp,
                      const int* bt, const int* position, void* o,
                      float* part, int B, int nb, int ps, int H, int K,
                      int splits, cudaStream_t stream) {
-  constexpr size_t smem = Smem<T, D, G>::total;
+  constexpr size_t smem = Smem<T, D, GT>::total;
+  static_assert(smem <= 227 * 1024, "shared memory over the H100's 227 KiB");
   cudaError_t err = cudaFuncSetAttribute(
-      paged_split_kernel<T, D, G>,
+      paged_split_kernel<T, D, GT>,
       cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return err;
   const dim3 grid(splits, K, (B + R - 1) / R);
-  paged_split_kernel<T, D, G><<<grid, NT, smem, stream>>>(
+  paged_split_kernel<T, D, GT><<<grid, NT, smem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(kp),
       static_cast<const T*>(vp), bt, position, static_cast<T*>(o), part, B,
       nb, ps, H, K, splits, 1.0f / sqrtf((float)D));
@@ -775,11 +814,12 @@ cudaError_t launch(int G, const void* q, const void* kp, const void* vp,
                    const int* bt, const int* position, void* o, float* part,
                    int B, int nb, int ps, int H, int K, int splits,
                    cudaStream_t s) {
-  switch (G) {
+  // capacity GT: G itself up to 8, then 16 (two bf16 n-fragments)
+  switch (G <= 8 ? G : 16) {
 #define RT_CASE(g) \
   case g: return launch_g<T, D, g>(q, kp, vp, bt, position, o, part, B, nb, ps, H, K, splits, s);
     RT_CASE(1) RT_CASE(2) RT_CASE(3) RT_CASE(4)
-    RT_CASE(5) RT_CASE(6) RT_CASE(7) RT_CASE(8)
+    RT_CASE(5) RT_CASE(6) RT_CASE(7) RT_CASE(8) RT_CASE(16)
 #undef RT_CASE
   }
   return cudaErrorInvalidValue;
@@ -789,7 +829,7 @@ cudaError_t launch(int G, const void* q, const void* kp, const void* vp,
 
 // q [B,H,D], pools [P,ps,K,D] (one dtype), block table [B,nb] int32 with
 // entries in [-1, P), position [B] int32, o [B,H,D]; all contiguous and
-// 16-byte aligned. H / K <= 8. Split s of `splits` <= nb walks pages s,
+// 16-byte aligned. H / K <= 16. Split s of `splits` <= nb walks pages s,
 // s + splits, ..., at most 32 of them; with splits > 1, `part` is fp32
 // scratch of B*H*splits*(D+2) floats.
 extern "C" int rt_paged_decode_attention(const void* q, const void* kp,

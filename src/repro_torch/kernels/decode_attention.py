@@ -18,6 +18,11 @@ query head, acc [G, D], fp32) to scratch of B·H·splits·(D + 2) floats
 that this wrapper allocates with ``torch.empty``, and a second kernel on
 the same stream combines them; with one split the first kernel writes
 the output and no scratch is made.
+
+A group of more than 8 query heads a KV head (command_r_plus_104b's G 12)
+is cut into ``cdiv(G, 8)`` chunks of heads, one block each, so each
+chunk's block reads the KV head's span of the cache; ``split_plan`` is
+the same at every G.
 """
 from __future__ import annotations
 
@@ -31,7 +36,7 @@ from repro_torch.kernels import build
 SOURCE = "src/repro_torch/kernels/csrc/decode_attention.cu"
 REPLACES = "src/repro/kernels/decode_attention.py:67"
 HEAD_DIMS = (64, 128)
-MAX_GROUP = 8
+MAX_GROUP = 16              # query heads a KV head (csrc MAXG)
 STEP = 32                   # slots a block reads per step (csrc STEP)
 TARGET_BLOCKS = 2 * 132     # two blocks per SM of the H100
 

@@ -22,6 +22,11 @@ With more than one split, each block writes its unnormalised partials
 B·H·splits·(D + 2) floats that this wrapper allocates with
 ``torch.empty``, and a second kernel on the same stream merges them; with
 one split the first kernel writes the output and no scratch is made.
+
+Up to 8 query heads a KV head the kernel is instantiated at the group
+size; 9 to 16 (command_r_plus_104b's G 12) take the instance for 16, in
+bf16 two n-fragments of 8 heads on the tensor cores, and still copy each
+page once for the tile.
 """
 from __future__ import annotations
 
@@ -36,7 +41,7 @@ from repro_torch.kernels import build
 SOURCE = "src/repro_torch/kernels/csrc/paged_attention.cu"
 REPLACES = "src/repro/paged/attention.py:127"
 HEAD_DIMS = (64, 128)
-MAX_GROUP = 8
+MAX_GROUP = 16              # query heads a KV head (csrc MAXG)
 ROWS = 8                    # rows a tile (csrc R)
 MAX_SPAN = 32               # pages a split (csrc MAX_SPAN)
 TARGET_BLOCKS = 2 * 132     # two blocks per SM of the H100

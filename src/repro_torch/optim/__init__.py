@@ -1,7 +1,7 @@
-"""Optimizers of the port: the reference's AdamW and Adafactor updates
-(``repro/optim/adamw.py``, ``adafactor.py``), global-norm clipping
-(``clip.py``) over parameter trees of tensors, and the warmup-cosine LR
-schedule (``schedule.py``)."""
+"""Optimizers of the port: the reference's AdamW (fp32 or bf16 moments)
+and Adafactor updates (``repro/optim/adamw.py``, ``adafactor.py``),
+global-norm clipping (``clip.py``) over parameter trees of tensors, and
+the warmup-cosine LR schedule (``schedule.py``)."""
 from repro_torch.optim.adafactor import Adafactor
 from repro_torch.optim.adamw import AdamW
 from repro_torch.optim.clip import clip_by_global_norm_, global_norm
@@ -13,14 +13,13 @@ def make_optimizer(name: str, cfg=None, **kw):
     ``cfg`` (a ``ModelConfig``), Adafactor clips each reference leaf over
     the layers of its segment (``Adafactor.segments``)."""
     if name == "adamw":
-        return AdamW(**kw)
+        return AdamW(moment_dtype="float32", **kw)
+    if name == "adamw_bf16":
+        return AdamW(moment_dtype="bfloat16", **kw)
     if name == "adafactor":
         if cfg is not None:
             kw.setdefault("segments", cfg.segment_layers())
         return Adafactor(**kw)
-    if name == "adamw_bf16":
-        raise NotImplementedError("adamw_bf16 (bf16 moments) is not ported "
-                                  "(ROADMAP A11 5)")
     raise ValueError(f"unknown optimizer {name!r}")
 
 

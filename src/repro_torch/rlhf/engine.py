@@ -144,10 +144,10 @@ class ModelEngine:
         """Per-role {params, opt, grad} bytes for the hydra layout, plus the
         separate engine's on the same config, as the reference reckons them
         (``repro/rlhf/engine.py:139-171``): the optimizer's state bytes
-        (AdamW: 8 a parameter; Adafactor: its fp32 statistics) and its
-        int32 count; a trained role's gradients are one copy of its
-        trainables in the accumulation dtype (``steps.acc_dtype``: 4 bytes
-        for AdamW, 2 otherwise)."""
+        (AdamW: 8 a parameter, adamw_bf16: 4; Adafactor: its fp32
+        statistics) and its int32 count; a trained role's gradients are
+        one copy of its trainables in the accumulation dtype
+        (``steps.acc_dtype``: 4 bytes for AdamW, 2 otherwise)."""
         from repro_torch.steps import acc_dtype
         opt = make_optimizer(self.cfg.optimizer)
         grad_item = acc_dtype(self.cfg).itemsize

@@ -159,7 +159,8 @@ def test_state_shapes_and_bytes():
 
 def test_make_optimizer():
     """``adafactor`` with a config clips each reference leaf over its
-    segment's layers; ``adamw_bf16`` names ROADMAP A11 5."""
+    segment's layers; ``adamw_bf16`` is AdamW with bf16 moments (as the
+    reference's ``make_optimizer``); an unknown name raises."""
     ds = get_config("deepseek_v3_671b")
     opt = make_optimizer("adafactor", ds)
     assert opt.segments == (3, 58)
@@ -171,8 +172,7 @@ def test_make_optimizer():
     assert opt._group(("mtp", 0, "proj")) != opt._group(("mtp", 1, "proj"))
     assert Adafactor()._group(("layers", 1, "w")) != \
         Adafactor()._group(("layers", 0, "w"))
-    with pytest.raises(NotImplementedError, match="A11 5"):
-        make_optimizer("adamw_bf16")
+    assert make_optimizer("adamw_bf16").moment_dtype == "bfloat16"
     with pytest.raises(ValueError):
         make_optimizer("sgd")
 

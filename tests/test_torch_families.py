@@ -3,7 +3,11 @@ CPU: ``granite_moe_3b_a800m`` (every FFN MoE), ``jamba_v0_1_52b`` (Mamba,
 attention and MoE in one 8-layer period), ``qwen1_5_4b`` (dense, qkv
 bias, MHA), and for the checks that read a config, a tree or a forward,
 ``deepseek_v3_671b`` (MLA layers, a dense leading segment before the MoE
-one, an MTP module; ``tests/test_torch_mla.py`` holds the rest of it).
+one, an MTP module; ``tests/test_torch_mla.py`` holds the rest of it), and
+the two dense >= 100B configs: ``qwen1_5_110b`` (qkv bias, untied) and
+``command_r_plus_104b`` (tied embeddings), the latter's forward, caches
+and rollouts at a G 12 variant (12 query heads over 1 KV head, as its 96
+over 8; ``tests/test_torch_adamw_bf16.py`` holds their optimizer).
 
 f32 smoke configs; weights from the reference's init (``bridge.from_jax``;
 qwen's zero-initialised qkv biases given random values so that they are
@@ -49,6 +53,9 @@ ARCHS = ("granite_moe_3b_a800m", "jamba_v0_1_52b", "qwen1_5_4b")
 GRANITE = "granite_moe_3b_a800m"
 DEEPSEEK = "deepseek_v3_671b"
 FAM_ARCHS = ARCHS + (DEEPSEEK,)
+BIG = ("qwen1_5_110b", "command_r_plus_104b")
+CMDR_G12 = "command_r_plus_104b:g12"     # 12 query heads over 1 KV head
+MODEL_ARCHS = FAM_ARCHS + ("qwen1_5_110b", CMDR_G12)
 TOL = 1e-5
 TOL_PPO = 1e-4
 S = 32                  # a multiple of jamba's smoke chunk
@@ -74,6 +81,9 @@ def _t(a):
 
 def _cfgs(arch, **kw):
     kw = {"param_dtype": "float32", **kw}
+    if arch == CMDR_G12:
+        arch = BIG[1]
+        kw = {"num_heads": 12, "num_kv_heads": 1, **kw}
     return (dataclasses.replace(jax_get_config(arch).smoke(), **kw),
             dataclasses.replace(get_config(arch).smoke(), **kw))
 
@@ -101,7 +111,7 @@ def _pair(jcfg, tcfg, seed=0):
     return jm, jp, tm, bridge.from_jax(_np(jp), tcfg, "cpu")
 
 
-@pytest.fixture(scope="module", params=FAM_ARCHS)
+@pytest.fixture(scope="module", params=MODEL_ARCHS)
 def fam(request):
     jcfg, tcfg = _cfgs(request.param)
     return (jcfg, tcfg) + _pair(jcfg, tcfg)
@@ -113,7 +123,7 @@ def _field(cfg, name):
 
 
 # ------------------------------------------------------------- configs
-@pytest.mark.parametrize("arch", FAM_ARCHS)
+@pytest.mark.parametrize("arch", FAM_ARCHS + BIG)
 def test_configs_and_param_counts_match_reference(arch):
     """Every field of the port's config, ``layer_is_moe``, ``param_count``
     and ``active_param_count``, at full size and smoke."""
@@ -131,6 +141,11 @@ def test_configs_and_param_counts_match_reference(arch):
     assert (g.param_count(), g.active_param_count()) == (3298793472,
                                                         881301504)
     assert get_config(DEEPSEEK).param_count() == 671026279424
+    if arch in BIG:
+        cfg = get_config(arch)
+        assert (cfg.optimizer, cfg.microbatches) == ("adamw_bf16", 2)
+        assert cfg.num_heads // cfg.num_kv_heads == \
+            {"qwen1_5_110b": 8, "command_r_plus_104b": 12}[arch]
 
 
 _DT = {"float32": torch.float32, "bfloat16": torch.bfloat16}
@@ -149,7 +164,7 @@ def _shapes_equal(port, ref, stacked: bool):
         assert v.dtype == _DT[str(ref[k].dtype)], k
 
 
-@pytest.mark.parametrize("arch", FAM_ARCHS)
+@pytest.mark.parametrize("arch", FAM_ARCHS + BIG)
 def test_meta_init_matches_reference_eval_shape(arch):
     """``Model(cfg, device="meta").init()`` at full size: every leaf's
     shape and dtype against ``jax.eval_shape`` of the reference's init
@@ -245,8 +260,9 @@ def test_prefill_and_decode_match_reference(fam):
     caches_close()
 
 
-ROLLOUTS = [(a, "dense", 1) for a in FAM_ARCHS] + \
-    [(GRANITE, "paged", 2), ("qwen1_5_4b", "paged", 2)]
+ROLLOUTS = [(a, "dense", 1) for a in FAM_ARCHS + (CMDR_G12,)] + \
+    [(GRANITE, "paged", 2), ("qwen1_5_4b", "paged", 2),
+     ("qwen1_5_110b", "paged", 2), (CMDR_G12, "paged", 2)]
 
 
 @pytest.mark.parametrize("arch,backend,G", ROLLOUTS)
@@ -577,3 +593,36 @@ def test_phase17_separate_launch_reckoning(card_counts, arch):
     assert dict(ops.launches) == chip_smoke.ppo_launches(
         actor, rl, True, critic_cfg=critic)
 
+
+# ------------------------------------- chip_smoke.py phase 19's reckonings
+def test_phase19_paths_train_and_blocked_update_reckoning(card_counts,
+                                                          monkeypatch):
+    """Phase 19's functions at a tiny shape on the G 12 smoke model
+    (command-r's, 12 query heads over 1 KV head): serving graphed and
+    eager (the CPU captures nothing), the paged GRPO request, the dense
+    and paged batcher drains (``serve_launches``, ``batcher_launches``),
+    one adamw_bf16 train step at 2 microbatches (``train_launches``, the
+    optimizer's bytes 4 a parameter) and the blocked update against one
+    whole-leaf block."""
+    chip_smoke = card_counts
+    for name, value in (("GROUPS", 2), ("GPROMPT", 13), ("GSIZE", 3),
+                        ("BIG_TBATCH", 4), ("BIG_TSEQ", 16),
+                        ("BIG_CB_REQUESTS", 3)):
+        monkeypatch.setattr(chip_smoke, name, value)
+    cfg = dataclasses.replace(chip_smoke.g12_smoke_cfg(), vocab_size=128,
+                              microbatches=2)
+    assert cfg.num_heads // cfg.num_kv_heads == 12
+    cpu = torch.device("cpu")
+    out = chip_smoke.big_paths(cfg, cpu, print, "", "g12", batcher=True)
+    L = cfg.num_layers
+    assert out["launches"]["decode_attention"] == L * 3 * 2
+    assert out["paged_grpo"]["launches"]["paged_decode_attention"] == L * 3
+    assert set(out["batcher"]) == {"dense", "paged"}
+    assert out["batcher"]["paged"]["launches"]["paged_decode_attention"] > 0
+    tr = chip_smoke.big_train(cfg, cpu, print, "", "g12 train")
+    assert tr["opt_bytes"] == 4 * tr["params"]
+    assert tr["launches"]["flash_attention_bwd"] == L * 2
+    from repro_torch.optim import adamw as ADAMW
+    monkeypatch.setattr(ADAMW, "BLOCK_ELEMS", 1000)
+    bl = chip_smoke.blocked_update_bits(cpu, print, "", shape=(64, 48))
+    assert bl["same_bits"] and bl["blocks"] == 4

@@ -395,6 +395,81 @@ def test_paged_decode_one_split_matches_plan(cuda, dt):
                                rtol=0)
 
 
+# groups of more than 8 query heads a KV head: command_r_plus_104b's 96 over
+# 8 (G 12), an uneven cut (G 9: B3 blocks of 5 and 4 heads, B4's 16-head
+# instance with 7 spare) and the largest (G 16), in both dtypes and head dims
+LARGE_GROUPS = [(g, D, dt) for g in (9, 12, tdec.MAX_GROUP)
+                for D in (64, 128) for dt in ("bf16", "f32")]
+
+
+@pytest.mark.parametrize("G,D,dt", LARGE_GROUPS)
+def test_decode_kernel_large_groups_match_plain(cuda, G, D, dt):
+    """B3 at G 9-16 over 2 KV heads: a wrapped cache split several ways,
+    a window, and row 1 with no valid slot."""
+    assert tdec.MAX_GROUP == tpa.MAX_GROUP == 16
+    B, K, C, cur = 3, 2, 300, 420
+    g = torch.Generator(device=cuda).manual_seed(G)
+    q = _randn(g, B, G * K, D, dt=dt, device=cuda)
+    kc = _randn(g, B, C, K, D, dt=dt, device=cuda)
+    vc = _randn(g, B, C, K, D, dt=dt, device=cuda)
+    slots = torch.arange(C, device=cuda)
+    base = cur - cur % C
+    pos = torch.where(slots <= cur % C, base + slots, base - C + slots)
+    pos = torch.where(pos < 0, -1, pos).to(torch.int32).expand(B, C)
+    position = torch.full((B,), cur, dtype=torch.int32, device=cuda)
+    position[1] = -1
+    assert tdec.split_plan(B, K, C)[0] > 1
+    for window in (0, 96):
+        out = tdec.decode_attention(q, kc, vc, pos, position, window=window)
+        want = ref.decode_attention_ref(q, kc, vc, pos, position,
+                                        window=window)
+        torch.testing.assert_close(out.float(), want.float(), atol=TOL[dt],
+                                   rtol=0)
+
+
+@pytest.mark.parametrize("G,D,dt", LARGE_GROUPS)
+def test_paged_decode_kernel_large_groups_match_plain(cuda, G, D, dt):
+    """B4 at G 9-16 over 2 KV heads: holey tables (shared prefixes, holes,
+    an idle row) over two tiles, and forked GRPO tables split and whole."""
+    g = torch.Generator(device=cuda).manual_seed(G)
+    for table, B, nb in (("holey", 10, 7), ("forked", 16, 9)):
+        args = _paged_case(g, B, G * 2, 2, D, 16, nb, dt, cuda, table)
+        want = ref.paged_attention_ref(*args)
+        for splits in (None, 1):
+            out = tpa.paged_decode_attention(*args, splits=splits)
+            torch.testing.assert_close(out.float(), want.float(),
+                                       atol=TOL[dt], rtol=0)
+
+
+@pytest.mark.parametrize("dt", ["bf16", "f32"])
+def test_decode_kernels_refuse_groups_above_the_maximum(cuda, dt):
+    """One query head a KV head above ``MAX_GROUP``: both wrappers raise,
+    and so do their C entries when called past the wrapper's check."""
+    G = tdec.MAX_GROUP + 1
+    g = torch.Generator(device=cuda).manual_seed(0)
+    q = _randn(g, 2, G, 128, dt=dt, device=cuda)
+    kc = _randn(g, 2, 64, 1, 128, dt=dt, device=cuda)
+    pos = torch.arange(64, device=cuda, dtype=torch.int32).expand(2, 64)
+    position = torch.full((2,), 63, dtype=torch.int32, device=cuda)
+    with pytest.raises(ValueError, match="at most 16"):
+        tdec.decode_attention(q, kc, kc, pos, position)
+    args = _paged_case(g, 8, G, 1, 128, 16, 4, dt, cuda, "holey")
+    with pytest.raises(ValueError, match="at most 16"):
+        tpa.paged_decode_attention(*args)
+    out = torch.empty_like(q)
+    err = tdec._fn()(q.data_ptr(), kc.data_ptr(), kc.data_ptr(),
+                     pos.contiguous().data_ptr(), position.data_ptr(),
+                     out.data_ptr(), None, 2, 64, G, 1, 128, 64, 1, 0,
+                     tdec.build.dtype_code(q), tdec.build.stream_ptr())
+    assert err != 0
+    pq, kp, vp, bt, pp = args
+    err = tpa._fn()(pq.data_ptr(), kp.data_ptr(), vp.data_ptr(),
+                    bt.data_ptr(), pp.data_ptr(), torch.empty_like(pq)
+                    .data_ptr(), None, 8, 4, 16, G, 1, 128, 1,
+                    tpa.build.dtype_code(pq), tpa.build.stream_ptr())
+    assert err != 0
+
+
 @pytest.mark.parametrize("shape,dt", [((64, 3072), "bf16"), ((3, 100), "f32")])
 def test_rmsnorm_kernel_matches_plain(cuda, shape, dt):
     g = torch.Generator(device=cuda).manual_seed(2)
