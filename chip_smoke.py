@@ -57,7 +57,17 @@ Phases, each failing with a non-zero exit:
    serving and paged GRPO decode steps and at G 12 and 16 in bf16 and
    fp32 at D 64 and 128 (fp32 held to 5e-5), B1 at 8192 and 12288 (the
    scalar route) at the serving, decode and train rows, B1-bwd with
-   dscale at the train rows, 4096 and 8 rows;
+   dscale at the train rows, 4096 and 8 rows (the last two held, not
+   timed); and at phase 20's: B2 non-causal at seamless's encoder [8,
+   1024 | 1024, 16 | 16, 64], its cross prefill [8, 512 | 1024] and one
+   query over the 1024 frames, causal at internvl's [8, 768, 16 | 8,
+   128], each at its train step's 4 rows too (with lse), B3 over the
+   1024 all-valid frames (MHA, D 64: B2 at one query takes that step on
+   the path) and at internvl's last decode step,
+   B2-bwd at the three train shapes, fp32 Sq != Sk non-causal at D 64,
+   B1 at internvl's prefill, decode and train rows at 2048 and seamless's
+   encoder, prefill, decode and train rows at 1024, B1-bwd with dscale at
+   the three train shapes;
 3. the serving path: full-width, full-depth llama3_2_3b (28 layers, bf16,
    random weights from a seed) serves 3 requests of batch 8 x 512 prompt
    tokens + 64 generated, through ``repro_torch.launch.serve.run``; the
@@ -102,7 +112,7 @@ Phases, each failing with a non-zero exit:
    same shape, ``memory_accounting`` of llama3_2_3b, and a small model's
    2 greedy fp32 separate iterations on the card against the CPU.
 9. host offload (``RLHFConfig.offload``, ``repro_torch.offload``): the
-   separate OPT pair of phase 8, at full width and 12 of its 24 layers
+   separate OPT pair of phase 8, at full width and 8 of its 24 layers
    (``STUDY_LAYERS``), at ``none`` twice (does the card repeat
    itself bit for bit?), then a fresh trainer at each of ``optimizer``,
    ``roles`` and ``all``, and at ``roles`` under memory_policy="none",
@@ -134,7 +144,7 @@ Phases, each failing with a non-zero exit:
    to ``ops.launches`` for it.
 
 11. the paper's memory study on the card (``repro_torch.core``): phase
-   8's OPT pair at phase 9's 12 layers, with decode eager (the simulator
+   8's OPT pair at phase 9's 8 layers, with decode eager (the simulator
    models one pool, a graph keeps its own) under each ``empty_cache`` policy, a warm, a timed and
    a recorded iteration (the last from an emptied cache, with the caching
    allocator's history on, no stack context); per phase the card's live,
@@ -215,11 +225,12 @@ Phases, each failing with a non-zero exit:
 15. ZeRO data parallelism (``repro_torch.sharding``,
    ``RLHFTrainer(shard=)``): (a) over NCCL at ndp 1, phase 8's OPT pair
    (separate) and phase 7's hydra llama3_2_3b, each at ZeRO-1 and at
-   ZeRO-3 with per-layer gathers, 2 iterations: metrics bit for bit
-   phases 7 and 8's unsharded ones, launches as theirs; (b) two ranks over
+   ZeRO-3 with per-layer gathers, one iteration each:
+   metrics bit for bit phases 7 and 8's unsharded first iteration,
+   launches as theirs; (b) two ranks over
    gloo on the one card (``torch.multiprocessing`` spawn, both on
    ``cuda:0``; every collective stages through pinned host memory), the
-   separate OPT pair at 12 of its 24 layers (``_study_pair``) with 7
+   separate OPT pair at 8 of its 24 layers (``_study_pair``) with 7
    prompts (ndp 2 does not divide 7: the batch replicates) at ZeRO-1, ZeRO-3 ``tree`` and ZeRO-3 ``layer``, one
    iteration each: metrics bit for bit a one-rank run of the same
    prompts, and the trained trees after the sharded update (gathered)
@@ -233,7 +244,8 @@ Phases, each failing with a non-zero exit:
    ``ShardedContext.create(model=2)``): two ranks over gloo on the one
    card at (ndp 1, ntp 2), each holding its half of every Megatron cut.
    (a) One separate iteration of phase 8's OPT pair at full width and
-   depth (8 x (256 + 256), bf16), the whole trees drawn from seed 0 and
+   ``TP_LAYERS`` (6) of its 24 layers (8 x (256 + 256), bf16), the whole
+   trees drawn from seed 0 and
    cut: launches per kernel phase 8's (``ppo_launches``), a rank's
    persistent bytes at most 0.55 of ntp 1's and within 0.1% of
    ``traced_zero_scales(ntp=2)``'s prediction (printed beside it);
@@ -298,7 +310,8 @@ Phases, each failing with a non-zero exit:
    Adafactor steps' metrics. From a Python prompt ``chip_smoke.deepseek(
    torch.device("cuda"), print, "")`` runs it alone after
    ``build.build()``. Phase 16 runs the OPT pair at 12 of its 24 layers
-   (``TP_LAYERS``) since then, to leave the script room.
+   (``TP_LAYERS``) since then, and at 6 since phase 20, to leave the
+   script room.
 
 19. qwen1_5_110b (80 layers, d_model 8192, 64 / 8 heads: G 8, qkv bias,
    untied) and command_r_plus_104b (64 layers, d_model 12288, 96 / 8
@@ -321,7 +334,30 @@ Phases, each failing with a non-zero exit:
    Python prompt ``chip_smoke.big_dense(torch.device("cuda"), print,
    "")`` runs it alone after ``build.build()``.
 
-Phases 3, 5-9, 12-15 and 17-19 run graphed, the default on the card
+20. internvl2_2b (24 layers, d_model 2048, 16 / 8 heads of 128, 256
+   patch embeddings before each prompt) and seamless_m4t_large_v2 (a
+   24-layer encoder over 1024 frame embeddings, 24 decoder layers each
+   with cross-attention over the encoder's output, d_model 1024, 16 / 16
+   heads of 64, an ungated FFN, a 256,206-column head) at full width and
+   depth, random bf16 weights from a seed, the embeddings from a seeded
+   generator at 0.01 (``embeddings``): (a) 3 greedy dense rollout calls
+   of each of 8 x (512 + 64) tokens with the embeddings in the batch,
+   decode graphed, launches as ``emb_serve_launches`` reckons them
+   (seamless: the encoder's B2 non-causal, the cross-attention's B2 at
+   Sq != Sk in the prefill and at one query over the 1024 frames in each
+   decode step), request 0 again eager to the same tokens, the live bytes
+   after each request its before, seamless's cross K/V bytes as reckoned;
+   (b) two ``make_train_step`` ppo steps of each, 4 x (256 + 512) and 4 x
+   512 over 1024 frames, remat "full", AdamW, launches asserted
+   (``emb_train_launches``), the peak against the reckoning, probed
+   leaves moved (the encoder's too); (c) each smoke config on the card
+   against the CPU. Phase 2 holds B2 at its encoder, cross-prefill,
+   one-query and internvl shapes and their train steps, B3 at the
+   cross-decode shape and B2-bwd at the train shapes, each timed. From a
+   Python prompt ``chip_smoke.embeddings(torch.device("cuda"), print,
+   "")`` runs it alone after ``build.build()``.
+
+Phases 3, 5-9, 12-15 and 17-20 run graphed, the default on the card
 (phase 16 eager, as above): every
 decode step after a call's first replays its captured step (in a call of
 two decode steps or more; the batcher's graphs live as long as it does),
@@ -414,8 +450,8 @@ SEP_ACTOR, SEP_CRITIC = "opt_1_3b", "opt_350m"
 SBATCH, SPROMPT, SGEN, SITERS = 8, 256, 256, 2
 SLEN = SPROMPT + SGEN
 # phases 9 (its separate runs) and 11 run the OPT pair at full width and
-# at 12 of its 24 layers, so that the script keeps room in its time limit
-STUDY_LAYERS = 12
+# at 8 of its 24 layers, so that the script keeps room in its time limit
+STUDY_LAYERS = 8
 # phase 17: three more families at full width, random weights from a seed.
 # Phase 2 holds B2-B4 at their head layouts (query / KV heads of D) and B5
 # at jamba's Mamba widths; FAMILY_HEADS[name] = (H, K, D)
@@ -433,9 +469,9 @@ FAM_CB_REQUESTS = 8              # granite's batcher drain, 8 slots
 # granite's separate PPO iteration: the actor and reference at full depth
 # (32 layers), the critic and reward at 8, 8 x (256 + 256), remat "full"
 GRANITE_CRITIC_LAYERS = 8
-# phase 16's separate iteration on the OPT pair: at full width and at 12
-# of its 24 layers, so that the script keeps room for phase 18
-TP_LAYERS = 12
+# phase 16's separate iteration on the OPT pair: at full width and at 6
+# of its 24 layers, so that the script keeps room for phases 18-20
+TP_LAYERS = 6
 # phase 18: deepseek_v3_671b at full width, random weights from a seed.
 # MLA attends with q/k heads of 192 (nope 128 + rope 64) and v heads of 128
 DEEPSEEK = "deepseek_v3_671b"
@@ -480,6 +516,41 @@ BIG_FFN_LEAF = (8192, 49152)
 # phase 2's fp32 tolerance for B3 and B4 at groups over 8 (the gpu
 # tests', tests/test_kernels.py:15)
 TOL_GROUP = {torch.bfloat16: 2e-2, torch.float32: 5e-5}
+
+# phase 20: prefix-embedding and encoder-decoder inputs at full width and
+# depth, random bf16 weights from a seed. internvl2_2b: 256 patch
+# embeddings before each prompt, 16 / 8 heads of 128; seamless_m4t_large_v2:
+# a 24-layer encoder over 1024 frame embeddings and cross-attention in each
+# of its 24 decoder layers, 16 / 16 heads of 64. EMB_HEADS[name] = (H, K, D)
+VLM, AUDIO = "internvl2_2b", "seamless_m4t_large_v2"
+EMB = {"internvl": VLM, "seamless": AUDIO}
+EMB_HEADS = {"internvl": (16, 8, 128), "seamless": (16, 16, 64)}
+EMB_PREFIX, EMB_FRAMES = 256, 1024
+EMB_SCALE = 0.01            # the embeddings' scale (tests/test_models.py:33)
+EMB_TBATCH = 4              # the ppo train steps' rows
+# phase 2's cases added for phase 20 (their names' prefixes) draw their
+# inputs from a generator of their own (PHASE20_SEED), so that every earlier
+# case keeps the inputs it had: on other inputs B5's main case read
+# 5.231e-2 against its 5e-2 (ROADMAP §C)
+PHASE20_CASES, PHASE20_SEED = ("internvl", "seamless", "xattn"), 20
+# B2's shapes on phase 20's paths: (name, Sq, Sk, heads, causal)
+EMB_B2_SHAPES = (
+    ("internvl", EMB_PREFIX + PROMPT, EMB_PREFIX + PROMPT,
+     EMB_HEADS["internvl"], True),
+    ("seamless_enc", EMB_FRAMES, EMB_FRAMES, EMB_HEADS["seamless"], False),
+    ("seamless_cross", PROMPT, EMB_FRAMES, EMB_HEADS["seamless"], False),
+    ("seamless_xdec_q1", 1, EMB_FRAMES, EMB_HEADS["seamless"], False))
+
+# B1's rows on phase 20's paths: name -> (rows, d_model)
+EMB_RMSNORM_SHAPES = {
+    "internvl_prefill": (BATCH * (EMB_PREFIX + PROMPT), 2048),
+    "internvl_decode": (BATCH, 2048),
+    "internvl_train": (EMB_TBATCH * (EMB_PREFIX + PROMPT), 2048),
+    "seamless_enc": (BATCH * EMB_FRAMES, 1024),
+    "seamless_prefill": (BATCH * PROMPT, 1024),
+    "seamless_decode": (BATCH, 1024),
+    "seamless_train": (EMB_TBATCH * PROMPT, 1024),
+    "seamless_enc_train": (EMB_TBATCH * EMB_FRAMES, 1024)}
 
 # (memory B/s, bf16 tensor FLOP/s, fp32 FLOP/s), NVIDIA data sheets, dense
 PEAKS = {"SXM": (3.35e12, 989e12, 67e12), "PCIe": (2.0e12, 756e12, 51e12),
@@ -739,14 +810,29 @@ def check_flash(dev, peaks, g):
            0, torch.bfloat16) for m, (H, K, D) in BIG_HEADS.items()],
         ("g12_ragged", 2, 100, 37, 24, 2, 128, True, 0, torch.bfloat16),
         ("g12_fp32", 2, 130, 130, 12, 1, 64, True, 16, torch.float32),
+        # phase 20's serving prefills: internvl's causal 256 + 512
+        # positions; seamless's encoder self-attention (non-causal, 1024
+        # frames) and its cross-attention (512 decoder queries over the
+        # 1024 frames, non-causal), both MHA at D 64; B2 at one query over
+        # the frames (a decode step's cross-attention; check_decode's
+        # "seamless_xdec" times B3 at it for the record), and the train
+        # steps' rows, each with lse
+        *[(m, BATCH, Sq, Sk, H, K, D, causal, 0, torch.bfloat16)
+          for m, Sq, Sk, (H, K, D), causal in EMB_B2_SHAPES],
+        *[(f"{m}_train", EMB_TBATCH, Sq, Sk, H, K, D, causal, 0,
+           torch.bfloat16)
+          for m, Sq, Sk, (H, K, D), causal in EMB_B2_SHAPES[:3]],
+        ("xattn_fp32", 2, 33, 70, 4, 4, 64, False, 0, torch.float32),
     ]
     big_steps = tuple(f"{m}_train" for m in BIG_HEADS)
     out = []
+    g20 = torch.Generator(device=dev).manual_seed(PHASE20_SEED)
     for name, B, Sq, Sk, H, K, D, causal, window, dt in cases:
         D, Dv = _widths(D)
-        q = torch.randn(B, Sq, H, D, generator=g, device=dev).to(dt)
-        k = torch.randn(B, Sk, K, D, generator=g, device=dev).to(dt)
-        v = torch.randn(B, Sk, K, Dv, generator=g, device=dev).to(dt)
+        gg = g20 if name.startswith(PHASE20_CASES) else g
+        q = torch.randn(B, Sq, H, D, generator=gg, device=dev).to(dt)
+        k = torch.randn(B, Sk, K, D, generator=gg, device=dev).to(dt)
+        v = torch.randn(B, Sk, K, Dv, generator=gg, device=dev).to(dt)
         got = fa.flash_attention_fwd(q, k, v, causal=causal, window=window)
         want, want_lse = ref.attention_ref(q, k, v, causal=causal,
                                            window=window, return_lse=True)
@@ -785,13 +871,16 @@ def check_flash(dev, peaks, g):
             n_ops = 4 * B * H * D * causal_pairs(Sq, Sk, causal, window)
             rec["bound_ms"], rec["bound_by"] = bound(
                 peaks, nbytes(q, k, v, got), n_ops, dt)
+        emb_serve = tuple(m for m, *_ in EMB_B2_SHAPES)
         if name in ("ppo", "sep_actor", "granite_ppo", "mla_serve",
-                    "mla_train", *FAMILY_HEADS, *BIG_HEADS, *big_steps):
+                    "mla_train", *FAMILY_HEADS, *BIG_HEADS, *big_steps,
+                    *emb_serve):
             # the training path's call, with the lse output (a serving
-            # prefill's, without, for phase 17's families and phase 18's
-            # and 19's serving): device time by graph replay, warm and
+            # prefill's, without, for phase 17's families and phase 18's,
+            # 19's and 20's serving): device time by graph replay, warm and
             # cold, beside SDPA's at this shape
-            lse_out = name not in (*FAMILY_HEADS, "mla_serve", *BIG_HEADS)
+            lse_out = name not in (*FAMILY_HEADS, "mla_serve", *BIG_HEADS,
+                                   *emb_serve)
 
             def make_set():
                 return [torch.randn_like(t) for t in (q, k, v)]
@@ -849,12 +938,24 @@ def check_decode(dev, peaks, g):
         ("g16", 2, 32, 2, 128, 300, 250, 64, torch.bfloat16),
         ("g12_masked_row", 4, 96, 8, 128, PROMPT + GEN, 500, 0,
          torch.bfloat16),
+        # phase 20's decode steps, their last: internvl's self-attention
+        # over 256 + 512 + 64 slots; and B3 at seamless's cross-attention
+        # shape, the 1024 frames all valid (positions 0..1023, the query's
+        # 1023), MHA at D 64: the path sends it to B2 at one query
+        # ("seamless_xdec_q1" in check_flash), faster cold; this keeps the
+        # comparison on record
+        ("internvl", BATCH, *EMB_HEADS["internvl"], EMB_PREFIX + PROMPT + GEN,
+         EMB_PREFIX + PROMPT + GEN - 2, 0, torch.bfloat16),
+        ("seamless_xdec", BATCH, *EMB_HEADS["seamless"], EMB_FRAMES,
+         EMB_FRAMES - 1, 0, torch.bfloat16),
     ]
     out = []
+    g20 = torch.Generator(device=dev).manual_seed(PHASE20_SEED)
     for name, B, H, K, D, C, cur, window, dt in cases:
-        q = torch.randn(B, H, D, generator=g, device=dev).to(dt)
-        kc = torch.randn(B, C, K, D, generator=g, device=dev).to(dt)
-        vc = torch.randn(B, C, K, D, generator=g, device=dev).to(dt)
+        gg = g20 if name.startswith(PHASE20_CASES) else g
+        q = torch.randn(B, H, D, generator=gg, device=dev).to(dt)
+        kc = torch.randn(B, C, K, D, generator=gg, device=dev).to(dt)
+        vc = torch.randn(B, C, K, D, generator=gg, device=dev).to(dt)
         pos = rolling_pos(B, C, cur, dev)
         position = torch.full((B,), cur, dtype=torch.int32, device=dev)
         if name.endswith("masked_row"):
@@ -892,7 +993,8 @@ def check_decode(dev, peaks, g):
             n_ops = 4 * H * D * int(valid.sum().item())
             rec["bound_ms"], rec["bound_by"] = bound(
                 peaks, nbytes(q, kc, vc, pos, position, got), n_ops, dt)
-        if name in ("sep", *FAMILY_HEADS, *BIG_HEADS):
+        if name in ("sep", *FAMILY_HEADS, *BIG_HEADS, "internvl",
+                    "seamless_xdec"):
             valid = (pos >= 0) & (pos <= position[:, None])
             mask = valid[:, None, None, :]
 
@@ -970,7 +1072,12 @@ RMSNORM_PATH_SHAPES = {
     # step's microbatch of 2 x 256
     **{f"{m}_{kind}": (rows, d) for m, d in BIG_WIDTHS.items()
        for kind, rows in (("prefill", BATCH * PROMPT), ("decode", BATCH),
-                          ("train", BIG_TBATCH // 2 * BIG_TSEQ))}}
+                          ("train", BIG_TBATCH // 2 * BIG_TSEQ))},
+    # phase 20: internvl's prefill over 256 + 512 positions, its decode
+    # step and its train step's rows at 2048; seamless's encoder over the
+    # 1024 frames, its decoder's prefill, decode step and train rows, and
+    # the encoder's train rows, at 1024
+    **EMB_RMSNORM_SHAPES}
 
 
 def check_rmsnorm(dev, peaks, g):
@@ -1084,14 +1191,23 @@ def check_flash_bwd(dev, peaks, g):
         # G 8 and command_r_plus_104b's G 12
         *[(f"{m}_train", BIG_TBATCH // 2, BIG_TSEQ, BIG_TSEQ, H, K, D, True,
            0, bf) for m, (H, K, D) in BIG_HEADS.items()],
+        # phase 20's train steps: internvl's causal 256 + 512 positions,
+        # seamless's encoder (non-causal over 1024 frames) and its
+        # cross-attention (512 queries over 1024 frames, non-causal, the
+        # frames' K/V gradients); Sq != Sk non-causal at G 1, D 64 in fp32
+        *[(f"{m}_train", EMB_TBATCH, Sq, Sk, H, K, D, causal, 0, bf)
+          for m, Sq, Sk, (H, K, D), causal in EMB_B2_SHAPES[:3]],
+        ("xattn_fp32", 2, 33, 70, 4, 4, 64, False, 0, f32),
     ]
     out_recs = []
+    g20 = torch.Generator(device=dev).manual_seed(PHASE20_SEED)
     for name, B, Sq, Sk, H, K, D, causal, window, dt in cases:
         D, Dv = _widths(D)
-        q = torch.randn(B, Sq, H, D, generator=g, device=dev).to(dt)
-        k = torch.randn(B, Sk, K, D, generator=g, device=dev).to(dt)
-        v = torch.randn(B, Sk, K, Dv, generator=g, device=dev).to(dt)
-        dout = torch.randn(B, Sq, H, Dv, generator=g, device=dev).to(dt)
+        gg = g20 if name.startswith(PHASE20_CASES) else g
+        q = torch.randn(B, Sq, H, D, generator=gg, device=dev).to(dt)
+        k = torch.randn(B, Sk, K, D, generator=gg, device=dev).to(dt)
+        v = torch.randn(B, Sk, K, Dv, generator=gg, device=dev).to(dt)
+        dout = torch.randn(B, Sq, H, Dv, generator=gg, device=dev).to(dt)
         kw = dict(causal=causal, window=window)
         out, lse = fa.flash_attention_fwd(q, k, v, return_lse=True, **kw)
         got = fab.flash_attention_bwd(q, k, v, out, lse, dout, **kw)
@@ -1119,7 +1235,8 @@ def check_flash_bwd(dev, peaks, g):
                 oo, (qq, kk, vv), do_t, retain_graph=True), iters=10)
             del qq, kk, vv, oo
         if name in ("main", "sep_actor", "granite_ppo", "mla_train",
-                    *(f"{m}_train" for m in BIG_HEADS)):
+                    *(f"{m}_train" for m in BIG_HEADS),
+                    "seamless_enc_train", "seamless_cross_train"):
             def make_set():
                 qs, ks, vs, ds = (torch.randn_like(t) for t in (q, k, v, dout))
                 os_, ls = fa.flash_attention_fwd(qs, ks, vs, return_lse=True,
@@ -1153,8 +1270,9 @@ def check_rmsnorm_bwd(dev, peaks, g):
     call; the main shape timed without dscale (the hydra path's: the
     trunk is frozen) and with it, beside the backward of F.rms_norm with
     respect to x; the separate paths' widths ([8 x 512, 2048] and
-    [8 x 512, 1024] of the OPT pair, [8 x 512, 1536] of granite, where
-    every scale trains) timed with dscale beside
+    [8 x 512, 1024] of the OPT pair, [8 x 512, 1536] of granite, phase
+    19's and 20's train rows, where every scale trains) timed with dscale
+    beside
     F.rms_norm's backward with the weight's gradient; each library time
     by graph replay as its forward and backward less its forward."""
     bf = torch.bfloat16
@@ -1174,6 +1292,11 @@ def check_rmsnorm_bwd(dev, peaks, g):
                for m, d in BIG_WIDTHS.items()
                for tag, rows in (("", BIG_TBATCH // 2 * BIG_TSEQ),
                                  ("_4096", BATCH * PROMPT), ("_8", 8))],
+             # phase 20's train steps: internvl's rows at 2048, seamless's
+             # decoder's and encoder's at 1024, every scale trains
+             *[(f"sep_{m}", EMB_RMSNORM_SHAPES[m], bf, bf)
+               for m in ("internvl_train", "seamless_train",
+                         "seamless_enc_train")],
              ("uneven", (SBATCH * SLEN + 1, 2048), bf, bf),
              ("rows8", (8, 3072), bf, bf),
              ("fp32", (3, 100), torch.float32, torch.float32),
@@ -1234,7 +1357,10 @@ def check_rmsnorm_bwd(dev, peaks, g):
             rec["library_cold_ms"] = both[1] - fwd[1]
             rec["bound_ms"], rec["bound_by"] = bound(
                 peaks, nbytes(x, s, dy, dx), 8 * x.numel(), dt)
-        if name.startswith("sep") or name == "granite_ppo":
+        # the 4096- and 8-row cases at 8192 and 12288 are held against the
+        # plain version and no longer timed (their last times: PERF.md §6)
+        if (name.startswith("sep") or name == "granite_ppo") and \
+                not name.endswith(("_4096", "_8")):
             def make_set():
                 return (torch.randn(*shape, device=dev).to(dt), s,
                         torch.randn(*shape, device=dev).to(dt))
@@ -1707,14 +1833,18 @@ def check_small_model_against_cpu(dev, cfg=None, prompt=40, seed=3):
     gparams = _to(params, dev)
     tokens = torch.randint(0, cfg.vocab_size, (2, prompt),
                            generator=torch.Generator().manual_seed(seed + 1))
+    # prefix or frame embeddings, where the config takes them
+    extra = {} if cfg.input_mode == "tokens" else emb_inputs(
+        cfg, 2, torch.Generator().manual_seed(seed + 2), "cpu")
+    cap = TS._prefix_len(cfg) + prompt + 24
     results = []
     for model, p, device in ((cpu_model, params, "cpu"),
                              (gpu_model, gparams, dev)):
-        ro = Rollout(model, cfg, capacity=prompt + 24, temperature=0.0)
-        logits, _ = model.prefill(p, {"tokens": tokens.to(device)},
-                                  prompt + 24)
-        res = ro.generate(p, {"tokens": tokens.to(device)}, 16,
-                          torch.Generator(device=device))
+        ro = Rollout(model, cfg, capacity=cap, temperature=0.0)
+        batch = {k: v.to(device) for k, v in
+                 dict(extra, tokens=tokens).items()}
+        logits, _ = model.prefill(p, batch, cap)
+        res = ro.generate(p, batch, 16, torch.Generator(device=device))
         results.append((logits.cpu(), res.tokens.cpu()))
     err = (results[0][0] - results[1][0]).abs().max().item()
     assert err <= 1e-4, f"small model prefill logits differ by {err}"
@@ -2081,6 +2211,8 @@ def ppo_iterations(dev, log, profile=False):
         log(f"[smoke] ppo iteration {it}: " + ", ".join(
             f"{k} {v:.4g}" for k, v in sorted(m.items())))
         iters.append({"seconds": secs, "metrics": m, "phases": rows})
+        if it == ZERO_NCCL_ITERS - 1:     # phase 15 holds ZeRO's to it
+            trained = _trained_fingerprint(tr)
     for a, b in zip(trunk, leaves(tr.base_params)):
         if not torch.equal(a, b.cpu()):
             raise SystemExit("ppo: the frozen trunk moved")
@@ -2091,7 +2223,7 @@ def ppo_iterations(dev, log, profile=False):
     log(f"[smoke] ppo launches per iteration {launches} (want {want}); "
         f"trunk unchanged, actor and critic adapters moved")
     out = {"iterations": iters, "launches": launches,
-           "weights_bytes": weights}
+           "weights_bytes": weights, "trained": trained}
     if profile:
         prompts = torch.from_numpy(next(PromptDataset(
             synthetic_instruction_prompts(PBATCH, seed=2), PPROMPT).batches(
@@ -2305,6 +2437,8 @@ def separate_ppo(dev, log, profile=False):
         log(f"[smoke] separate iteration {it}: " + ", ".join(
             f"{k} {v:.4g}" for k, v in sorted(m.items())))
         iters.append({"seconds": secs, "metrics": m, "phases": rows})
+        if it == ZERO_NCCL_ITERS - 1:     # phase 15 holds ZeRO's to it
+            trained_fp = _trained_fingerprint(tr)
     if not all(torch.equal(a, b.cpu()) for a, b in
                zip(frozen, leaves([tr.ref_params, tr.reward_params]))):
         raise SystemExit("separate: the reference or reward model moved")
@@ -2317,7 +2451,7 @@ def separate_ppo(dev, log, profile=False):
            "weights_bytes": weights, "requested_bytes": asked,
            "tree_bytes": tree_bytes,
            "tree_bytes_by_name": {k: tree_nbytes(v) for k, v in trees.items()},
-           "unmoved": still}
+           "unmoved": still, "trained": trained_fp}
     if profile:
         prompts = _sep_prompts(dev, 9, actor_cfg.vocab_size)
         out["profile"], out["profile_table"] = profile_call(
@@ -4756,6 +4890,10 @@ SECOND_KERNELS = {"decode_attention": ("combine_kernel",),
 # ZeRO: the runs over NCCL at ndp 1 (stage, gather mode) on both engines,
 # and the ranks, prompts and runs over gloo on the one card
 ZERO_NCCL_RUNS = ((1, "layer"), (3, "layer"))
+# iterations of each NCCL run, held to the unsharded first ones, metrics
+# and then the trained trees by fingerprint (one, to leave the script room
+# for phase 20)
+ZERO_NCCL_ITERS = 1
 ZERO_NDP, ZERO_PROMPTS = 2, 7
 ZERO_GLOO_RUNS = ((1, "tree"), (3, "tree"), (3, "layer"))
 # one iteration a gloo run (two ranks share the card and every gathered
@@ -4852,13 +4990,14 @@ def _fingerprint(tree) -> list:
 
 
 def _trained_fingerprint(tr) -> list:
-    """:func:`_fingerprint` of the separate engine's trained trees, whole
-    (a ZeRO-3 rank gathers them: a collective every rank runs)."""
+    """:func:`_fingerprint` of the trees a PPO iteration trains, whole: the
+    separate engine's actor and critic, the hydra engine's actor and
+    critic adapters (a ZeRO-3 rank gathers them: a collective every rank
+    runs)."""
+    _, actor_plan, critic_plan, _ = tr._plans()
     out = []
-    for plan, tree in ((getattr(tr, "actor_plan", None),
-                        tr.actor_state["params"]),
-                       (getattr(tr, "critic_plan", None),
-                        tr.critic_state["params"])):
+    for plan, tree in ((actor_plan, tr.actor_state["params"]),
+                       (critic_plan, tr.critic_state["params"])):
         full, owned = (tree, False) if plan is None else \
             plan.gather_copy(tree)
         out += _fingerprint(full)
@@ -4962,8 +5101,9 @@ def _zero_sim(tr_plain, stage, mode, ndp, ph_per) -> dict:
 
 def zero_ppo(dev, log, hydra_plain=None, sep_plain=None) -> dict:
     """Phase 15: ZeRO on the card (the module docstring). ``hydra_plain``
-    and ``sep_plain`` are phase 7's and phase 8's unsharded metrics a
-    iteration; run alone (None) the phase runs them itself."""
+    and ``sep_plain`` are phase 7's and phase 8's unsharded runs: (metrics
+    a iteration, :func:`_trained_fingerprint` after ZERO_NCCL_ITERS); run
+    alone (None) the phase runs them itself."""
     import tempfile
 
     import torch.distributed as dist
@@ -4979,20 +5119,30 @@ def zero_ppo(dev, log, hydra_plain=None, sep_plain=None) -> dict:
                               ("hydra", hydra_plain)):
             if plain is None:
                 tr = _zero_trainer(engine, dev, None)
-                plain = [m for _, m, _ in _zero_iterations(tr, engine, dev)]
+                plain = ([m for _, m, _ in _zero_iterations(
+                    tr, engine, dev, iters=ZERO_NCCL_ITERS)],
+                    _trained_fingerprint(tr))
                 del tr
                 gc.collect()
                 torch.cuda.empty_cache()
+            plain, trained = plain[0][:ZERO_NCCL_ITERS], plain[1]
             for stage, mode in ZERO_NCCL_RUNS:
                 sc = ShardedContext.create(1, zero_stage=stage,
                                            gather_mode=mode, device="cuda")
                 tr = _zero_trainer(engine, dev, sc)
-                runs = _zero_iterations(tr, engine, dev)
+                runs = _zero_iterations(tr, engine, dev,
+                                        iters=ZERO_NCCL_ITERS)
                 got = [m for _, m, _ in runs]
                 if got != plain:
                     raise SystemExit(f"zero nccl {engine} ZeRO-{stage} "
                                      f"{mode}: metrics {got} != unsharded "
                                      f"{plain}")
+                fp = _trained_fingerprint(tr)
+                if fp != trained:
+                    bad = sum(a != b for a, b in zip(fp, trained))
+                    raise SystemExit(f"zero nccl {engine} ZeRO-{stage} "
+                                     f"{mode}: {bad} of {len(fp)} trained "
+                                     f"leaves differ from the unsharded run's")
                 key = f"{engine}-{stage}-{mode}"
                 sim = _sim_state({k: tree_nbytes(v) for k, v in
                                   tr.persistent_trees().items()},
@@ -5003,7 +5153,8 @@ def zero_ppo(dev, log, hydra_plain=None, sep_plain=None) -> dict:
                     "sim_state_bytes": sim,
                     "launches": dict(ops.launches)}
                 log(f"[smoke] zero nccl run {engine} ZeRO-{stage} {mode} ndp "
-                    f"1: metrics bit for bit unsharded, launches as phases "
+                    f"1: metrics and trained trees bit for bit unsharded, "
+                    f"launches as phases "
                     f"7/8 {out['nccl'][key]['launches']}; "
                     f"{', '.join(f'{s * 1e3:.1f}' for s, _, _ in runs)} ms"
                     f" an iteration, state {out['nccl'][key]['state_bytes']}"
@@ -6386,6 +6537,306 @@ def big_dense(dev, log, smi) -> dict:
     return out
 
 
+# --------------------------------------------------------------- phase 20
+def emb_inputs(cfg, rows: int, g, dev, dtype=None) -> dict:
+    """``cfg``'s embeddings for ``rows`` prompts, EMB_SCALE x a normal draw
+    from ``g`` in ``dtype`` (the params' by default): ``prefix_embeds``
+    [rows, num_prefix_embeddings, d] before the tokens, or an
+    encoder-decoder's ``frame_embeds`` [rows, num_prefix_embeddings, d]."""
+    key = {"embeddings": "prefix_embeds", "encdec": "frame_embeds"}
+    dtype = dtype or {"bfloat16": torch.bfloat16,
+                      "float32": torch.float32}[cfg.param_dtype]
+    x = torch.randn(rows, cfg.num_prefix_embeddings, cfg.d_model,
+                    generator=g, device=dev)
+    return {key[cfg.input_mode]: (EMB_SCALE * x).to(dtype)}
+
+
+def emb_serve_launches(cfg, requests: int) -> dict:
+    """Kernel launches of ``requests`` dense rollout calls of BATCH x
+    (PROMPT + GEN) on ``cfg``: :func:`serve_launches` (the prefill's B2 and
+    each decode step's B3 at every self-attention layer, B1 at norm1, norm2
+    and the final norm of the prefill and each step), and on an
+    encoder-decoder the encoder once a call (B2 non-causal and B1 at its
+    two norms a layer, then ``encoder_norm``) and each decoder layer's
+    cross-attention: B2 non-causal over the frames at the prefill (S
+    queries) and at each decode step (one), B1 at its ``norm_x`` in the
+    prefill and in each step."""
+    want = serve_launches(cfg, requests)
+    if cfg.input_mode == "encdec":
+        L, E = cfg.num_layers, cfg.encoder_layers
+        want["flash_attention"] += (E + L * GEN) * requests
+        want["rmsnorm"] += (2 * E + 1 + L * GEN) * requests
+    return want
+
+
+def emb_train_launches(cfg) -> dict:
+    """Kernel launches of one ``make_train_step`` step (one microbatch,
+    remat "full") on ``cfg``: :func:`train_launches`, and on an
+    encoder-decoder the encoder (each layer a checkpoint: B2 forward and
+    again in the backward, B2-bwd; B1 at its two norms, again in the
+    backward, then ``encoder_norm`` once, and B1-bwd at all 2E + 1: every
+    scale trains) and each decoder layer's cross-attention inside its
+    layer's checkpoint (B2 twice and B2-bwd once, B1 at ``norm_x`` twice
+    and B1-bwd once)."""
+    want = train_launches(cfg, 1)
+    if cfg.input_mode == "encdec":
+        L, E = cfg.num_layers, cfg.encoder_layers
+        remat = cfg.remat != "none"
+        want["flash_attention"] += (E + L) * (1 + remat)
+        want["flash_attention_bwd"] += E + L
+        want["rmsnorm"] += 2 * E + 1 + remat * 2 * E + L * (1 + remat)
+        want["rmsnorm_bwd"] += 2 * E + 1 + L
+    return want
+
+
+def cross_kv_bytes(cfg, rows: int) -> int:
+    """The cross K/V an encoder-decoder's prefill keeps for its decode
+    steps: a K and a V [rows, frames, K, hd] a decoder layer, in the
+    params' dtype."""
+    itemsize = 2 if cfg.param_dtype == "bfloat16" else 4
+    return cfg.num_layers * 2 * rows * cfg.num_prefix_embeddings * \
+        cfg.num_kv_heads * cfg.resolved_head_dim() * itemsize
+
+
+def emb_paths(cfg, dev, log, smi, label) -> dict:
+    """Phase 20 (a): FAM_REQUESTS greedy dense rollout calls of BATCH x
+    (PROMPT + GEN) on ``cfg`` at full width and depth (random weights from
+    seed 0) with its embeddings in the batch (:func:`emb_inputs`), the
+    decode graphed, launches as :func:`emb_serve_launches` reckons them;
+    request 0 again with the decode loop eager, the same tokens, log-probs
+    and launches. Each request's ms, tok/s, peak above the weights and the
+    live bytes after it (its result dropped) against those before it (after
+    one uncounted short call, which leaves the capture stream's cuBLAS
+    workspace, where no earlier phase has); an
+    encoder-decoder's cross K/V bytes against :func:`cross_kv_bytes`."""
+    _free()
+    model = Model(cfg, device=dev)
+    params = model.init(torch.Generator(device=dev).manual_seed(0))
+    n_params = sum(t.numel() for t in leaves(params))
+    weights = tree_nbytes(params)
+    graphs = dev.type == "cuda"       # nothing is captured on the CPU
+    P0 = TS._prefix_len(cfg)
+    ro = Rollout(model, cfg, capacity=P0 + PROMPT + GEN, temperature=0.0,
+                 top_k=0)
+    g = torch.Generator(device=dev).manual_seed(2)
+    prompts = [dict(tokens=ids, **emb_inputs(cfg, BATCH, g, dev))
+               for ids in _ds_prompts(cfg, dev, FAM_REQUESTS)]
+    cross = []
+    prefill = model.prefill
+
+    def spy(*a, **kw):
+        out = prefill(*a, **kw)
+        cross.append(tree_nbytes(out[1]["cross_kv"] or []))
+        return out
+    model.prefill = spy
+    out = {"params": n_params, "weights_bytes": weights,
+           "num_layers": cfg.num_layers,
+           "encoder_layers": cfg.encoder_layers, "prefix": P0}
+
+    def greedy(batch):
+        before = _alloc(dev)
+        res, secs, peak = _req(lambda: ro.generate(
+            params, batch, GEN, torch.Generator(device=dev).manual_seed(1)),
+            dev)
+        check_result(res, BATCH, PROMPT, cfg.vocab_size)
+        bits = (res.tokens.cpu(), res.logp.cpu())
+        del res
+        _sync(dev)
+        return bits, secs, peak, before, _alloc(dev)
+    # one call of two decode steps first, uncounted: a first capture on
+    # the capture stream sets up its cuBLAS workspace, which stays
+    ro.generate(params, prompts[0], 3, torch.Generator(device=dev))
+    _sync(dev)
+    ops.reset_launches()
+    reqs, first = [], None
+    for batch in prompts:
+        bits, secs, peak, before, after = greedy(batch)
+        if ro.decode_stats.get("graphed") != graphs:
+            raise SystemExit(f"{label}: decode graphed "
+                             f"{ro.decode_stats.get('graphed')}")
+        if after != before:
+            raise SystemExit(f"{label}: live bytes {after} after a request, "
+                             f"{before} before it")
+        reqs.append({"seconds": secs, "tokens_per_s": BATCH * GEN / secs,
+                     "peak_above_weights": peak, "live_before": before,
+                     "live_after": after})
+        first = bits if first is None else first
+    launches, want = dict(ops.launches), emb_serve_launches(cfg, FAM_REQUESTS)
+    if launches != want:
+        raise SystemExit(f"{label}: launches {launches} != {want}")
+    want_cross = cross_kv_bytes(cfg, BATCH) if cfg.input_mode == "encdec" \
+        else 0
+    if any(c != want_cross for c in cross):
+        raise SystemExit(f"{label}: cross K/V {cross} bytes, reckoned "
+                         f"{want_cross}")
+    ro._graphs = False
+    ops.reset_launches()
+    eager, eager_s, _, _, _ = greedy(prompts[0])
+    eager_launches = dict(ops.launches)
+    if eager_launches != emb_serve_launches(cfg, 1):
+        raise SystemExit(f"{label} eager request: launches {eager_launches}")
+    if not (torch.equal(eager[0], first[0]) and
+            torch.equal(eager[1], first[1])):
+        raise SystemExit(f"{label}: graphed and eager greedy tokens or "
+                         "log-probs differ")
+    out.update(requests=reqs, launches=launches, eager_seconds=eager_s,
+               eager_launches=eager_launches, cross_kv_bytes=want_cross)
+    log(f"[smoke] {label} dense rollout [{smi}] ({cfg.num_layers} decoder "
+        f"layers" + (f", {cfg.encoder_layers} encoder layers over "
+                     f"{cfg.num_prefix_embeddings} frames"
+                     if cfg.encoder_layers else
+                     f", {P0} prefix embeddings") +
+        f", {n_params / 1e9:.3f}B params, weights {weights / 1e9:.2f} GB): "
+        f"launches {launches} as reckoned; greedy requests " + ", ".join(
+            f"{r['seconds'] * 1e3:.1f} ms ({r['tokens_per_s']:.1f} tok/s, "
+            f"peak {r['peak_above_weights'] / 2**20:.0f} MiB above the "
+            f"weights, live after = before {r['live_after'] / 2**20:.1f} "
+            f"MiB)" for r in reqs) +
+        (f"; cross K/V {want_cross / 1e6:.1f} MB a request as reckoned"
+         if want_cross else "") + f"; eager request 0 {eager_s * 1e3:.1f} "
+        f"ms, the same tokens and log-probs")
+    del ro, model.prefill, prompts
+    del model, params
+    _free()
+    return out
+
+
+def emb_train(cfg, dev, log, smi, label, steps: int = 2) -> dict:
+    """Phase 20 (b): ``steps`` ``make_train_step`` steps of kind "ppo" on
+    ``cfg`` at full width and depth (remat "full", AdamW: bf16 params,
+    fp32 gradients and moments), EMB_TBATCH x PROMPT tokens with the
+    config's embeddings, random weights from seed 0: each step's launches
+    as :func:`emb_train_launches` reckons them, finite metrics, each
+    step's ms, a probe of leaves moved by the first step (the encoder's
+    included), the peak against the reckoning (params, moments, the fp32
+    accumulators and one set of bf16 gradients, plus at most
+    DS_PEAK_SLACK of activations and logits)."""
+    _free()
+    model = Model(cfg, device=dev)
+    step = TS.make_train_step(model, cfg, kind="ppo", lr=1e-4)
+    state = TS.init_train_state(
+        model, cfg, None, step.optimizer,
+        params=model.init(torch.Generator(device=dev).manual_seed(0)))
+    params = state["params"]
+    n_params = sum(t.numel() for t in leaves(params))
+    weights = tree_nbytes(params)
+    opt_bytes = tree_nbytes(state["opt"])
+    probes = [(t, t.detach().flatten()[:4096].clone())
+              for t in leaves(params) if t.dim() >= 2]
+    enc = {id(t) for t in leaves(params.get("encoder") or [])
+           if t.dim() >= 2}
+    g = torch.Generator(device=dev).manual_seed(3)
+    V, R = cfg.vocab_size, EMB_TBATCH
+    batches = []
+    for _ in range(steps):
+        b = {"tokens": torch.randint(0, V, (R, PROMPT), generator=g,
+                                     device=dev),
+             "loss_mask": torch.ones(R, PROMPT, device=dev),
+             "advantages": torch.randn(R, PROMPT, generator=g, device=dev),
+             "old_logp": torch.full((R, PROMPT), -math.log(V), device=dev),
+             "ref_logp": torch.full((R, PROMPT), -math.log(V), device=dev),
+             "returns": torch.zeros(R, PROMPT, device=dev)}
+        b.update(emb_inputs(cfg, R, g, dev))
+        batches.append(b)
+    base = _alloc(dev)
+    want = emb_train_launches(cfg)
+    secs, peak, metrics, moved, moved_enc = [], 0, [], None, None
+    for batch in batches:
+        ops.reset_launches()
+        (state, m), sec, pk = _req(lambda: step(state, batch), dev)
+        launches = dict(ops.launches)
+        if launches != want:
+            raise SystemExit(f"{label}: launches {launches} != {want}")
+        secs.append(sec)
+        peak = max(peak, base + pk)
+        metrics.append({k: float(v) for k, v in m.items()})
+        if not all(math.isfinite(v) for v in metrics[-1].values()):
+            raise SystemExit(f"{label}: metrics {metrics[-1]}")
+        if moved is None:
+            flags = [(id(t) in enc, not torch.equal(
+                t.detach().flatten()[:4096], p0)) for t, p0 in probes]
+            moved = sum(f for _, f in flags)
+            moved_enc = sum(f for e, f in flags if e)
+    if moved < len(probes) // 2 or (enc and moved_enc < len(enc) // 4):
+        raise SystemExit(f"{label}: {moved} of {len(probes)} probed leaves "
+                         f"moved ({moved_enc} of the encoder's)")
+    # the fp32 accumulators and one backward's gradients in the params'
+    # dtype (bf16), beside params and fp32 moments; above them the
+    # activations and the loss's fp32 work on the logits [R, P + S, V]
+    grads = n_params * TS.acc_dtype(cfg).itemsize + weights
+    reckoned = base + grads
+    logits32 = R * (TS._prefix_len(cfg) + PROMPT) * V * 4
+    slack = DS_PEAK_SLACK + 4 * logits32
+    if dev.type == "cuda" and not reckoned <= peak <= reckoned + slack:
+        raise SystemExit(f"{label}: peak {peak / 1e9:.2f} GB against the "
+                         f"reckoned {reckoned / 1e9:.2f} GB (+ at most "
+                         f"{slack / 1e9:.2f} GB: four fp32 logits of "
+                         f"{logits32 / 1e9:.2f} GB and "
+                         f"{DS_PEAK_SLACK / 2**30:.0f} GiB)")
+    P0 = TS._prefix_len(cfg)
+    log(f"[smoke] {label} [{smi}] ({cfg.num_layers} decoder layers" +
+        (f", {cfg.encoder_layers} encoder layers" if cfg.encoder_layers
+         else "") + f", {n_params / 1e9:.3f}B params; {R} x ("
+        + (f"{P0} + " if P0 else "") + f"{PROMPT})" +
+        (f" over {cfg.num_prefix_embeddings} frames" if cfg.encoder_layers
+         else "") + ", remat full): steps " +
+        ", ".join(f"{a * 1e3:.1f} ms" for a in secs) +
+        f"; launches {want} a step as reckoned; peak {peak / 1e9:.2f} GB "
+        f"against the reckoned {reckoned / 1e9:.2f} GB (bf16 params "
+        f"{weights / 1e9:.2f} + fp32 moments {opt_bytes / 1e9:.2f} + fp32 "
+        f"accumulators and bf16 gradients {grads / 1e9:.2f}; fp32 logits "
+        f"{logits32 / 1e9:.2f}); {moved} of "
+        f"{len(probes)} probed leaves moved" +
+        (f" ({moved_enc} of the encoder's {len(enc)})" if enc else "") +
+        "; " + "; ".join(", ".join(f"{k} {v:.4g}" for k, v in
+                                   sorted(mt.items())) for mt in metrics))
+    out = {"seconds": secs, "launches": want, "metrics": metrics,
+           "params": n_params, "weights_bytes": weights,
+           "opt_bytes": opt_bytes, "peak_bytes": peak,
+           "reckoned_bytes": reckoned, "logits_fp32_bytes": logits32,
+           "moved": moved,
+           "moved_encoder": moved_enc, "probes": len(probes)}
+    del model, step, state, params, probes, batches
+    _free()
+    return out
+
+
+def embeddings(dev, log, smi) -> dict:
+    """Phase 20: internvl2_2b (256 prefix embeddings) and
+    seamless_m4t_large_v2 (a 24-layer encoder over 1024 frames, cross-
+    attention in its 24 decoder layers) at full width and depth: (a) each
+    one's dense rollout requests, graphed and eager (:func:`emb_paths`);
+    (b) two ppo train steps of each (:func:`emb_train`); (c) each smoke
+    config (2 decoder layers, d_model 256, 4 heads of 64; seamless's 2
+    encoder layers over 8 frames, internvl's 8 prefix embeddings; f32) on
+    the card against the CPU."""
+    t0 = t = time.perf_counter()
+    parts, out = {}, {}
+
+    def part(name, fn):
+        nonlocal t
+        res = fn()
+        now = time.perf_counter()
+        parts[name], t = now - t, now
+        return res
+
+    for m, name in EMB.items():
+        cfg = get_config(name)
+        out[m] = part(m, lambda: emb_paths(cfg, dev, log, smi, name))
+        out[f"{m}_train"] = part(f"{m}_train", lambda: emb_train(
+            cfg, dev, log, smi, f"{name} ppo train step"))
+        out[f"{m}_small"] = part(f"{m}_small", lambda: (
+            check_small_model_against_cpu(dev, cfg.smoke(), prompt=24,
+                                          seed=7)))
+        log(f"[smoke] small {name} ({cfg.smoke().name}) card vs "
+            f"CPU: logits max_err {out[f'{m}_small']:.3e}, 16 greedy tokens "
+            f"identical")
+    out["seconds"], out["part_seconds"] = time.perf_counter() - t0, parts
+    log("[smoke] embeddings: " + ", ".join(f"{k} {v:.1f} s"
+                                           for k, v in parts.items()))
+    return out
+
+
 def port_kernels(rows):
     """{wrapper: {"ms", "calls", "us_per_call", "us_per_call_by_kernel"}}
     from profiler rows (us, count, name): each wrapper's kernels' device
@@ -6648,8 +7099,10 @@ def main() -> int:
     # phase 15: ZeRO over NCCL at ndp 1 and over gloo at ndp 2 on one card
     report["zero"] = zero_ppo(
         dev, lambda s: print(s, flush=True),
-        hydra_plain=[r["metrics"] for r in ppo["iterations"]],
-        sep_plain=[r["metrics"] for r in sep["iterations"]])
+        hydra_plain=([r["metrics"] for r in ppo["iterations"]],
+                     ppo["trained"]),
+        sep_plain=([r["metrics"] for r in sep["iterations"]],
+                   sep["trained"]))
 
     lap(15)
     # phase 16: Megatron TP over gloo, two ranks sharing the card
@@ -6667,6 +7120,11 @@ def main() -> int:
     report["big_dense"] = big = big_dense(
         dev, lambda s: print(s, flush=True), smi)
     lap(19)
+    # phase 20: prefix embeddings (internvl2_2b) and an encoder-decoder
+    # (seamless_m4t_large_v2) at full width and depth
+    report["embeddings"] = emb = embeddings(
+        dev, lambda s: print(s, flush=True), smi)
+    lap(20)
     paths = {"serve": launches, "paged_grpo": grpo["launches"],
              "mamba_serve": mamba["launches"], "ppo": ppo["launches"],
              "ppo_separate": sep["launches"],
@@ -6705,6 +7163,9 @@ def main() -> int:
                       f"{m}_train": big[f"{m}_train"]["launches"]})
     paths.update({f"cmdr_batcher_{kind}": run["launches"]
                   for kind, run in big["cmdr"]["batcher"].items()})
+    for m in EMB:
+        paths.update({f"{m}_serve": emb[m]["launches"],
+                      f"{m}_train": emb[f"{m}_train"]["launches"]})
 
     if args.profile:
         prof, table = profile_request(cfg, dev)

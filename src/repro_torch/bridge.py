@@ -19,6 +19,12 @@ its own shape. Both sides are handled as numpy arrays,
 so this module needs no JAX: the caller passes
 ``jax.tree.map(np.asarray, params)``.
 
+An encoder-decoder's encoder is one more stacked segment in the
+reference (``params["encoder"]["slot0"]``, ``[encoder_layers, ...]``) and
+a list of layer dicts in the port; ``encoder_norm`` is a top-level group
+like ``final_norm``, and each decoder layer's ``norm_x`` and ``cross``
+ride in its slot like any other leaf.
+
 MTP heads: the reference keeps depth 1 in ``params["mtp"]`` (its layer
 under ``["layer"]["slot0"]``) and stacks depths 2..k on
 ``params["mtp_extra"]``'s lead axis; the port keeps one module a depth in
@@ -29,7 +35,10 @@ Decode caches follow the same stacking
 (``caches["segments"][i]["slot{j}"]``, each leaf ``[n_groups, B, ...]``:
 an attention slot's ``k``/``v``/``pos``, an MLA slot's ``c_kv``/``k_rope``/
 ``pos``, a Mamba slot's ``conv_state`` and ``ssm_state``);
-:func:`caches_from_jax` gives the port's per-layer list.
+:func:`caches_from_jax` gives the port's per-layer list. An
+encoder-decoder's cross K/V (``caches["cross_kv"]``: per segment a tuple
+a slot of ``(k, v)``, each ``[n_groups, B, Se, K, hd]``) become the
+port's per-layer ``{k, v}`` dicts (:func:`cross_kv_from_jax`).
 Paged KV pools follow the same stacking in the reference
 (``pools[0]["slot{j}"]["k"]`` of shape ``[n_groups, P, ps, K, D]``,
 ``repro/models/transformer.py:551-566``); the port keeps one pool per
@@ -59,7 +68,9 @@ import torch
 from repro_torch import default_device
 from repro_torch.configs.base import ModelConfig
 
-_TOP_LEVEL = ("embed", "final_norm", "lm_head", "value_head")
+_TOP_LEVEL = ("embed", "final_norm", "lm_head", "value_head",
+              "encoder_norm")
+_ENCODER = "encoder"
 
 
 def _to_torch(a: np.ndarray, device) -> torch.Tensor:
@@ -165,11 +176,19 @@ def _stack(layers: list, cfg: ModelConfig) -> list:
 
 def _check_supported(params_np: Dict[str, Any], cfg: ModelConfig) -> None:
     extra = set(params_np) - set(_TOP_LEVEL) - set(_segment_names(cfg)) - \
-        set(_MTP)
+        set(_MTP) - {_ENCODER}
     if extra:
         raise NotImplementedError(
-            f"the port carries token-input decoders; unsupported parameter "
-            f"groups {sorted(extra)}")
+            f"the port carries decoders, an encoder and MTP heads; "
+            f"unsupported parameter groups {sorted(extra)}")
+
+
+def _encoder_from_jax(enc_np, fn) -> list:
+    """The reference's stacked encoder (``{"slot0": tree of [n, ...]}``)
+    -> one layer dict a layer, each leaf through ``fn``."""
+    n = len(np.asarray(_first_leaf(enc_np)))
+    return [_map(enc_np["slot0"], lambda a, g=g: fn(np.asarray(a)[g]))
+            for g in range(n)]
 
 
 def from_jax(params_np: Dict[str, Any], cfg: ModelConfig,
@@ -182,6 +201,9 @@ def from_jax(params_np: Dict[str, Any], cfg: ModelConfig,
            for k in _TOP_LEVEL if k in params_np}
     out["layers"] = _unstack([params_np[n] for n in _segment_names(cfg)],
                              cfg, lambda a: _to_torch(a, device))
+    if _ENCODER in params_np:
+        out[_ENCODER] = _encoder_from_jax(params_np[_ENCODER],
+                                          lambda a: _to_torch(a, device))
     if "mtp" in params_np:
         out["mtp"] = _mtp_from_jax(params_np,
                                    lambda a: _to_torch(a, device))
@@ -195,6 +217,9 @@ def to_jax(params: dict, cfg: ModelConfig) -> Dict[str, Any]:
     segs = _stack([_map(layer, _to_numpy) for layer in params["layers"]],
                   cfg)
     out.update(zip(_segment_names(cfg), segs))
+    if _ENCODER in params:
+        out[_ENCODER] = {"slot0": _map_stack(
+            [_map(layer, _to_numpy) for layer in params[_ENCODER]])}
     if "mtp" in params:
         out.update(_mtp_to_jax([_map(m, _to_numpy) for m in params["mtp"]]))
     return out
@@ -213,6 +238,17 @@ def caches_from_jax(caches_np, cfg: ModelConfig, device=None) -> list:
     device = default_device(device)
     return _unstack(list(caches_np["segments"]), cfg,
                     lambda a: _to_torch(a, device))
+
+
+def cross_kv_from_jax(caches_np, cfg: ModelConfig, device=None) -> list:
+    """An encoder-decoder's ``caches["cross_kv"]`` in the reference's
+    layout (per segment, a tuple a slot of ``(k, v)`` numpy pairs, each
+    ``[n_groups, B, Se, K, hd]``) -> the port's ``caches["cross_kv"]``:
+    one dict a decoder layer, ``k`` and ``v`` [B, Se, K, hd]."""
+    device = default_device(device)
+    segs = [{f"slot{j}": {"k": kv[0], "v": kv[1]}
+             for j, kv in enumerate(seg)} for seg in caches_np["cross_kv"]]
+    return _unstack(segs, cfg, lambda a: _to_torch(a, device))
 
 
 def pools_from_jax(pools_np, cfg: ModelConfig, device=None) -> list:

@@ -1,8 +1,9 @@
 """Model configs and the architecture registry.
 
 A copy of the parts of ``repro/configs/base.py`` that the port's
-decoder reads (attention, DeepSeek MLA and Mamba2 layers, dense and
-Mixture-of-Experts FFNs); the port keeps its own copy so that it imports nothing of
+models read (attention, DeepSeek MLA and Mamba2 layers, dense and
+Mixture-of-Experts FFNs, an encoder-decoder's encoder and a prefix of
+input embeddings); the port keeps its own copy so that it imports nothing of
 ``repro``. Each architecture lives in its own
 ``configs/<id>.py`` file and registers a full-size :class:`ModelConfig`;
 ``smoke()`` derives the reduced variant the CPU tests use.
@@ -76,7 +77,9 @@ class ModelConfig:
     mlp_gated: bool = True                    # swiglu (3 mats) vs gelu (2 mats)
     rope_theta: float = 10000.0
     sliding_window: int = 0                   # 0 = full attention
-    input_mode: str = "tokens"
+    encoder_layers: int = 0                   # >0 => encoder-decoder
+    input_mode: str = "tokens"                # tokens | embeddings | encdec
+    num_prefix_embeddings: int = 0            # VLM patch / audio frame stub len
     tie_embeddings: bool = False
     norm_eps: float = 1e-5
     param_dtype: str = "bfloat16"
@@ -122,9 +125,12 @@ class ModelConfig:
 
     def param_count(self) -> int:
         """Analytic parameter count (rooflines, 6ND; the simulator's phase
-        flops and weight bytes) — ``repro/configs/base.py:124-172``. The
-        encoder branch reads fields the port's config does not have; for
-        every config it registers it adds nothing."""
+        flops and weight bytes) — ``repro/configs/base.py:124-172``, as it
+        is: like the reference's, it leaves out an encoder-decoder's
+        cross-attention blocks, their ``norm_x`` and the ``encoder_norm``
+        (seamless_m4t_large_v2: 1,531,442,176 against a tree of
+        1,632,131,072 leaves), so the simulator reads the reference's
+        figures."""
         d, v = self.d_model, self.vocab_size
         hd = self.resolved_head_dim()
         total = v * d  # embeddings
@@ -164,6 +170,13 @@ class ModelConfig:
                 total += d * e.num_experts  # router
             elif kind != MAMBA:
                 total += (3 if self.mlp_gated else 2) * d * self.d_ff
+        # encoder stack (attention + dense FFN, full attention, no cache)
+        for _ in range(self.encoder_layers):
+            q = d * self.num_heads * hd
+            kv = 2 * d * self.num_kv_heads * hd
+            o = self.num_heads * hd * d
+            total += q + kv + o + \
+                (3 if self.mlp_gated else 2) * d * self.d_ff + 2 * d
         total += d  # final norm
         return total
 
@@ -202,6 +215,8 @@ class ModelConfig:
                           qk_nope_head_dim=32, qk_rope_head_dim=16,
                           v_head_dim=32) if self.mla is not None else None,
             first_k_dense=min(self.first_k_dense, 1),
+            encoder_layers=2 if self.encoder_layers else 0,
+            num_prefix_embeddings=8 if self.num_prefix_embeddings else 0,
             num_layers=n_layers,
             d_model=256,
             num_heads=nh,
@@ -216,6 +231,16 @@ class ModelConfig:
             microbatches=1,
             param_dtype="float32",
         )
+
+
+def check_token_inputs(cfg: ModelConfig, what: str) -> None:
+    """Refuse a config whose batches carry prefix or frame embeddings at
+    an entry point that builds token batches only (the reference's fail
+    there with a ``KeyError`` on the missing embeddings)."""
+    if cfg.input_mode != "tokens":
+        raise ValueError(f"{what} builds token-only batches; {cfg.name} "
+                         f"takes input_mode {cfg.input_mode!r} (prefix or "
+                         "frame embeddings beside the tokens)")
 
 
 _REGISTRY: dict[str, ModelConfig] = {}

@@ -22,7 +22,7 @@ from typing import Callable, List, Optional
 import torch
 
 from repro_torch import default_device
-from repro_torch.configs import ModelConfig, get_config
+from repro_torch.configs import ModelConfig, check_token_inputs, get_config
 from repro_torch.data import ByteTokenizer, PromptDataset, \
     synthetic_instruction_prompts
 from repro_torch.models import Model
@@ -50,6 +50,7 @@ def run(cfg: ModelConfig, *, batch: int, prompt_len: int, gen: int,
     ``batch`` x ``prompt_len`` prompts + ``gen`` new tokens. Returns one
     dict per request: its RolloutResult, seconds, tokens/s and the live
     and peak device bytes (None off the card)."""
+    check_token_inputs(cfg, "serve.run")
     device = default_device(device)
     reg = reg if reg is not None else MetricsRegistry()
     model = Model(cfg, device=device)

@@ -1,7 +1,8 @@
 """Core transformer layers: RMSNorm, RoPE, GQA attention (+QKV bias,
 sliding window, rolling KV cache, the T-token verify of speculative
-decoding), DeepSeek-V3's multi-head latent attention (MLA) and (gated)
-MLPs — the port of ``repro/models/layers.py:22-444``, with the LoRA delta
+decoding), the cross-attention of an encoder-decoder, DeepSeek-V3's
+multi-head latent attention (MLA) and (gated) MLPs — the port of
+``repro/models/layers.py:22-444``, with the LoRA delta
 at the projection sites when an adapter is given (``adapter=``: the layer's
 subtree of a ``models/lora.py`` adapter; the small products stay
 ``torch.matmul``, as the reference leaves them to XLA).
@@ -245,6 +246,36 @@ def attention_fwd(params, x, positions, cfg: ModelConfig, *,
     if init_cache is None:
         return out
     return out, _fill_cache(init_cache, {"k": k, "v": v}, positions)
+
+
+def cross_attention_fwd(params, x, cross: dict,
+                        cfg: ModelConfig) -> torch.Tensor:
+    """Cross-attention of x [B,S,D] over the encoder's K/V (``cross``: from
+    :func:`encode_cross_kv`): no RoPE, no mask, no LoRA (the reference's
+    ``cross_attention_fwd``). Every S goes through B2, non-causal, S
+    queries over Se keys: the training forward, the prefill and a decode
+    step's one query a row alike."""
+    B, S, _ = x.shape
+    hd = cfg.resolved_head_dim()
+    q = x @ params["wq"]
+    if cfg.qkv_bias:
+        q = q + params["bq"]
+    out = attn_core(q.reshape(B, S, -1, hd), cross["k"], cross["v"],
+                    causal=False)
+    return out.reshape(B, S, -1) @ params["wo"]
+
+
+def encode_cross_kv(params, enc_out: torch.Tensor, cfg: ModelConfig) -> dict:
+    """A decoder layer's cross-attention K and V [B,Se,K,hd] from the
+    encoder's output enc_out [B,Se,D] (the reference's
+    ``encode_cross_kv``)."""
+    B, Se, _ = enc_out.shape
+    hd = cfg.resolved_head_dim()
+    k = enc_out @ params["wk"]
+    v = enc_out @ params["wv"]
+    if cfg.qkv_bias:
+        k, v = k + params["bk"], v + params["bv"]
+    return {"k": k.reshape(B, Se, -1, hd), "v": v.reshape(B, Se, -1, hd)}
 
 
 # --- KV cache ---------------------------------------------------------------

@@ -1,6 +1,7 @@
-"""Decoder LM for token-input configs of attention, DeepSeek MLA and
-Mamba2 layers with dense or Mixture-of-Experts FFNs (``models/moe.py``) —
-the port of
+"""Decoder LM of attention, DeepSeek MLA and Mamba2 layers with dense or
+Mixture-of-Experts FFNs (``models/moe.py``), over token inputs, prefix
+embeddings before the tokens (a VLM's patch stub) or an encoder's frame
+embeddings (an encoder-decoder) — the port of
 ``repro/models/transformer.py`` (``Model``: init, embed/unembed,
 the layer stack, forward, caches, prefill and one-token decode, and the
 paged prefill and decode over per-layer page pools), DeepSeek's chained
@@ -29,6 +30,21 @@ for an attention layer, the latent and rope key for an MLA layer, the
 conv and SSM states for a Mamba layer (a hybrid such as Jamba holds both
 kinds in one list). MLA and Mamba layers are neither paged nor verified
 by speculative decoding, as in the reference.
+
+Inputs (``_prepare_inputs``, as the reference's): ``input_mode``
+"tokens" embeds ``batch["tokens"]``; "embeddings" puts
+``batch["prefix_embeds"]`` [B, P, D] before the token embeddings, the
+positions running over both, so the caches hold the prefix and a decode
+step's position counts its P slots; "encdec" runs the bidirectional
+encoder over ``batch["frame_embeds"]`` [B, Se, D] (``params["encoder"]``,
+a list of attention + ungated-FFN layers with RoPE over 0..Se-1, B2
+non-causal, then ``encoder_norm``) and gives every decoder layer a
+cross-attention (``norm_x``, ``cross``, between its mixer and its FFN)
+over its own K/V of the encoder's output. Those are computed once a
+forward or a prefill; a prefill keeps them in ``caches["cross_kv"]`` (one
+dict a layer, ``layers.encode_cross_kv``), which every decode step reads
+in place through B2 at one query a row. Neither mode is paged, speculatively decoded or
+prefilled under ``lengths``, as in the reference.
 
 A layer's FFN is MoE where ``cfg.layer_is_moe()`` says so and dense
 where ``cfg.d_ff`` (a Mamba layer carries one too, as the reference's
@@ -65,6 +81,7 @@ from repro_torch.sharding import ctx
 from repro_torch.sharding import tp as TP
 
 DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+INPUT_MODES = ("tokens", "embeddings", "encdec")
 
 
 class Model:
@@ -76,12 +93,12 @@ class Model:
                  with_value: bool = False):
         if any(k not in (ATTN, MLA, MAMBA) for k in cfg.period):
             raise ValueError(f"{cfg.name}: unknown layer kinds {cfg.period}")
-        if cfg.input_mode != "tokens":
-            what = {"encdec": "an encoder-decoder",
-                    "embeddings": "prefix embeddings"}.get(
-                        cfg.input_mode, f"{cfg.input_mode!r} inputs")
-            raise NotImplementedError(f"{cfg.name}: the port does not run "
-                                      f"{what} yet (ROADMAP A11 6)")
+        if cfg.input_mode not in INPUT_MODES:
+            raise ValueError(f"{cfg.name}: input_mode {cfg.input_mode!r}, "
+                             f"expected one of {INPUT_MODES}")
+        if (cfg.input_mode == "encdec") != (cfg.encoder_layers > 0):
+            raise ValueError(f"{cfg.name}: an encoder-decoder has encoder "
+                             "layers, and only it")
         if MAMBA in cfg.period and cfg.ssm is None:
             raise ValueError(f"{cfg.name}: a Mamba layer needs cfg.ssm")
         if MLA in cfg.period and cfg.mla is None:
@@ -95,13 +112,16 @@ class Model:
                                for m in cfg.layer_is_moe())
         self.device = default_device(device)
         self.dtype = DTYPES[cfg.param_dtype]
+        self.is_encdec = cfg.input_mode == "encdec"
 
     # ------------------------------------------------------------------ init
     def _init_layer(self, generator: torch.Generator, kind: str,
-                    is_moe: bool) -> dict:
-        """One layer's parameters: ``norm2`` with an MoE ``ffn`` where
-        ``is_moe``, else with a dense one where the config has ``d_ff``,
-        else neither (the reference's ``_init_slot``)."""
+                    is_moe: bool, cross: bool = False) -> dict:
+        """One layer's parameters: with ``cross`` (a decoder layer of an
+        encoder-decoder) ``norm_x`` and the ``cross`` attention; ``norm2``
+        with an MoE ``ffn`` where ``is_moe``, else with a dense one where
+        the config has ``d_ff``, else neither (the reference's
+        ``_init_slot``)."""
         cfg, dt, dev = self.cfg, self.dtype, self.device
         layer = {"norm1": L.init_norm(cfg.d_model, dt, dev)}
         if kind == ATTN:
@@ -110,6 +130,9 @@ class Model:
             layer["mixer"] = L.init_mla(generator, cfg, dt)
         else:
             layer["mixer"] = M.init_mamba(generator, cfg, dt)
+        if cross:
+            layer["norm_x"] = L.init_norm(cfg.d_model, dt, dev)
+            layer["cross"] = L.init_attention(generator, cfg, dt)
         if is_moe:
             layer["norm2"] = L.init_norm(cfg.d_model, dt, dev)
             layer["ffn"] = MOE.init_moe(generator, cfg, dt)
@@ -137,7 +160,8 @@ class Model:
                                  dtype=self.dtype),
                 "final_norm": L.init_norm(cfg.d_model, self.dtype,
                                           self.device),
-                "layers": [self._init_layer(generator, kind, is_moe)
+                "layers": [self._init_layer(generator, kind, is_moe,
+                                            self.is_encdec)
                            for kind, is_moe in zip(self.kinds,
                                                    self.moe_flags)],
             }
@@ -149,6 +173,11 @@ class Model:
                     "w": L._init(generator, (cfg.d_model, 1)),
                     "b": torch.zeros((1,), dtype=torch.float32,
                                      device=self.device)}
+            if cfg.encoder_layers:
+                params["encoder"] = [self._init_layer(generator, ATTN, False)
+                                     for _ in range(cfg.encoder_layers)]
+                params["encoder_norm"] = L.init_norm(cfg.d_model, self.dtype,
+                                                     self.device)
             if cfg.mtp_depth:
                 params["mtp"] = [self._init_mtp_module(generator)
                                  for _ in range(cfg.mtp_depth)]
@@ -237,8 +266,11 @@ class Model:
                              adapter=ad.get("ffn")), None
 
     def _slot_fwd(self, layer, kind, h, positions, *, window,
-                  init_cache: Optional[dict] = None, adapter=None):
+                  init_cache: Optional[dict] = None, adapter=None,
+                  cross: Optional[dict] = None):
         """One layer -> (h, MoE aux loss or None, filled cache or None).
+        ``cross`` (an encoder-decoder's decoder layer: its K/V over the
+        encoder) adds the cross-attention between the mixer and the FFN.
         With ``init_cache`` (prefill) it also fills the
         layer's decode cache in the same pass: an attention layer's
         rolling KV cache, an MLA layer's latent cache, or a Mamba layer's
@@ -267,12 +299,21 @@ class Model:
             cache = init_cache
         else:
             y = M.mamba_fwd(layer["mixer"], x, cfg)
-        h, aux = self._ffn(layer, h + y, ad)
+        h, aux = self._ffn(layer, self._cross(layer, h + y, cross), ad)
         return h, aux, cache
+
+    def _cross(self, layer, h, cross: Optional[dict]) -> torch.Tensor:
+        """The residual ``h`` plus the layer's cross-attention over the
+        encoder's K/V ``cross`` (``norm_x``, then ``cross``), where it has
+        one."""
+        if cross is None:
+            return h
+        xx = L.rms_norm(h, layer["norm_x"], self.cfg.norm_eps)
+        return h + L.cross_attention_fwd(layer["cross"], xx, cross, self.cfg)
 
     def _stack_fwd(self, params, h, positions, *, window=0,
                    init_caches: Optional[List[dict]] = None, adapter=None,
-                   layer_specs=None):
+                   layer_specs=None, cross_kv: Optional[List[dict]] = None):
         """Run every layer. Returns (h, aux, filled caches or None): aux is
         the sum of the MoE layers' load-balance losses (a 0-d fp32
         tensor; 0.0 without an MoE layer). ``adapter`` is a LoRA adapter
@@ -292,9 +333,12 @@ class Model:
         so the checkpoint keeps the shards and the recompute gathers
         again; without remat, in a recorded forward, the weights the
         layer's ops save for the backward are kept as shards and gathered
-        again there (``LayerGather.saving_shards``)."""
+        again there (``LayerGather.saving_shards``). ``cross_kv`` (an
+        encoder-decoder's, one dict a layer) feeds each layer's
+        cross-attention."""
         lora = (adapter or {}).get("lora") or {}
         ads = lora.get("layers") or [None] * len(self.kinds)
+        ckv = cross_kv or [None] * len(self.kinds)
         remat = self.cfg.remat != "none" and torch.is_grad_enabled() and \
             init_caches is None
         lg = layer_specs if layer_specs is not None \
@@ -314,7 +358,7 @@ class Model:
                         lambda hh, i=i, layer=layer, kind=kind, ad=ads[i]:
                         self._slot_fwd(gathered(i, layer), kind, hh,
                                        positions, window=window,
-                                       adapter=ad)[:2],
+                                       adapter=ad, cross=ckv[i])[:2],
                         h, use_reentrant=False, **ckpt_kw)
                 c = None
             elif lg is not None and torch.is_grad_enabled():
@@ -322,12 +366,13 @@ class Model:
                 # as shards and gathered again by the backward
                 with lg.saving_shards(i, layer) as full:
                     h, a, c = self._slot_fwd(full, kind, h, positions,
-                                             window=window, adapter=ads[i])
+                                             window=window, adapter=ads[i],
+                                             cross=ckv[i])
             else:
                 h, a, c = self._slot_fwd(
                     gathered(i, layer), kind, h, positions, window=window,
                     init_cache=None if init_caches is None
-                    else init_caches[i], adapter=ads[i])
+                    else init_caches[i], adapter=ads[i], cross=ckv[i])
             caches.append(c)
             if a is not None:
                 aux_total = aux_total + a
@@ -336,6 +381,62 @@ class Model:
     def _positions(self, tokens: torch.Tensor) -> torch.Tensor:
         B, S = tokens.shape
         return torch.arange(S, device=tokens.device).expand(B, S)
+
+    # ---------------------------------------------------------------- encode
+    def encode(self, params, frame_embeds: torch.Tensor) -> torch.Tensor:
+        """The bidirectional encoder over precomputed frame embeddings
+        [B, Se, D] (the reference's ``encode``): each layer is attention
+        with RoPE over positions 0..Se-1 through B2, non-causal, then its
+        dense FFN; ``encoder_norm`` at the end. With ``cfg.remat`` other
+        than "none" and grad mode on, each layer is one activation
+        checkpoint, as the reference checkpoints its scanned encoder
+        layer."""
+        cfg = self.cfg
+        h = frame_embeds
+        sin, cos = L.rope_tables(self._positions(h[..., 0]),
+                                 cfg.resolved_head_dim(), cfg.rope_theta)
+
+        def layer_fwd(hh, layer):
+            x = L.rms_norm(hh, layer["norm1"], cfg.norm_eps)
+            q, k, v = L._project_qkv(layer["mixer"], x, cfg)
+            q, k = L.apply_rope(q, sin, cos), L.apply_rope(k, sin, cos)
+            o = L.attn_core(q, k, v, causal=False)
+            hh = hh + o.reshape(*hh.shape[:2], -1) @ layer["mixer"]["wo"]
+            x2 = L.rms_norm(hh, layer["norm2"], cfg.norm_eps)
+            return hh + L.mlp_fwd(layer["ffn"], x2, cfg.mlp_gated)
+
+        remat = cfg.remat != "none" and torch.is_grad_enabled()
+        if remat:
+            ckpt_kw, around = remat_policy_for(cfg.remat)
+        for layer in params["encoder"]:
+            if remat:
+                with around():
+                    h = checkpoint(layer_fwd, h, layer, use_reentrant=False,
+                                   **ckpt_kw)
+            else:
+                h = layer_fwd(h, layer)
+        return L.rms_norm(h, params["encoder_norm"], cfg.norm_eps)
+
+    def _cross_kvs(self, params, enc_out: torch.Tensor) -> List[dict]:
+        """Each decoder layer's cross-attention K/V over the encoder's
+        output (the reference's ``_cross_kvs``)."""
+        return [L.encode_cross_kv(layer["cross"], enc_out, self.cfg)
+                for layer in params["layers"]]
+
+    def _prepare_inputs(self, params, batch):
+        """(h [B, S, D], positions [B, S], cross K/V or None) of a batch,
+        as the reference's ``_prepare_inputs``: the token embeddings; with
+        prefix embeddings, ``prefix_embeds`` in the tokens' dtype before
+        them (S = P + tokens); for an encoder-decoder, the encoder's
+        output's K/V for every decoder layer."""
+        h = self.embed(params, batch["tokens"])
+        cross_kv = None
+        if self.cfg.input_mode == "embeddings":
+            h = torch.cat([batch["prefix_embeds"].to(h.dtype), h], 1)
+        elif self.is_encdec:
+            enc = self.encode(params, batch["frame_embeds"].to(h.dtype))
+            cross_kv = self._cross_kvs(params, enc)
+        return h, self._positions(h[..., 0]), cross_kv
 
     def forward(self, params, batch, *, window: int = 0, adapter=None,
                 layer_specs=None):
@@ -346,11 +447,10 @@ class Model:
         ZeRO-3 tree's layers one at a time (:meth:`_stack_fwd`). The
         caller picks the grad mode: training differentiates through it,
         scoring runs it under ``torch.no_grad()``."""
-        tokens = batch["tokens"]
-        h = self.embed(params, tokens)
-        h, aux, _ = self._stack_fwd(params, h, self._positions(tokens),
-                                    window=window, adapter=adapter,
-                                    layer_specs=layer_specs)
+        h, positions, cross_kv = self._prepare_inputs(params, batch)
+        h, aux, _ = self._stack_fwd(params, h, positions, window=window,
+                                    adapter=adapter, layer_specs=layer_specs,
+                                    cross_kv=cross_kv)
         return self.unembed(params, h), aux, h
 
     def forward_value(self, params, batch, adapter=None,
@@ -359,10 +459,9 @@ class Model:
         ``adapter``, the final norm, then the adapter's value head (the
         hydra engine's critic and reward share a headless trunk), or
         without one the model's own ``params["value_head"]``."""
-        tokens = batch["tokens"]
-        h = self.embed(params, tokens)
-        h, _, _ = self._stack_fwd(params, h, self._positions(tokens),
-                                  adapter=adapter, layer_specs=layer_specs)
+        h, positions, cross_kv = self._prepare_inputs(params, batch)
+        h, _, _ = self._stack_fwd(params, h, positions, adapter=adapter,
+                                  layer_specs=layer_specs, cross_kv=cross_kv)
         h = L.rms_norm(h, params["final_norm"], self.cfg.norm_eps)
         vh = (adapter or {}).get("value_head") or params["value_head"]
         return (h.float() @ vh["w"] + vh["b"])[..., 0]
@@ -457,8 +556,11 @@ class Model:
                 lengths: Optional[torch.Tensor] = None,
                 return_h: bool = False, adapter=None):
         """Process a prompt, returning (last-position logits [B,V], caches).
-        caches = {"layers": [...]}: each holds the last ``min(S, capacity)``
-        positions of a rolling buffer. Single pass.
+        caches = {"layers": [...], "cross_kv": [...] or None}: each layer's
+        holds the last ``min(S, capacity)`` positions of a rolling buffer
+        (prefix embeddings count among them); an encoder-decoder's
+        ``cross_kv`` is each layer's K/V over the encoder, which the
+        decode steps read. Single pass.
 
         ``lengths`` [B] (optional) marks per-row valid-token counts under
         right-padding: logits come from position ``lengths-1`` and padded
@@ -470,57 +572,65 @@ class Model:
         the logits position [B, D]. ``adapter`` (a LoRA adapter, here and
         on every cache path below) is applied unmerged, as in
         :meth:`forward`."""
-        h_last, filled = self._prefill_h(params, batch, capacity, window,
-                                         lengths, adapter)
+        h_last, filled, cross_kv = self._prefill_h(
+            params, batch, capacity, window, lengths, adapter)
         logits = self.unembed(params, h_last[:, None])[:, 0]
+        caches = {"layers": filled, "cross_kv": cross_kv}
         if return_h:
-            return logits, {"layers": filled}, h_last
-        return logits, {"layers": filled}
+            return logits, caches, h_last
+        return logits, caches
 
     def _prefill_h(self, params, batch, capacity, window, lengths,
                    adapter=None):
         """The prefill's trunk: (hidden state at each row's last valid
-        position [B, D], filled caches)."""
+        position [B, D], filled caches, cross K/V or None)."""
         if lengths is not None and MAMBA in self.kinds:
             raise ValueError(f"{self.cfg.name}: a lengths-masked prefill "
                              "cannot mask Mamba states after the fact")
-        tokens = batch["tokens"]
-        h = self.embed(params, tokens)
+        if lengths is not None and self.cfg.input_mode != "tokens":
+            raise ValueError(f"{self.cfg.name}: a lengths-masked (bucketed) "
+                             "prefill needs token inputs, as the "
+                             "reference's")
+        h, positions, cross_kv = self._prepare_inputs(params, batch)
         B = h.shape[0]
         init_caches = self.init_cache(B, capacity, h.dtype, h.device)
-        h, _, filled = self._stack_fwd(params, h, self._positions(tokens),
-                                       window=window,
+        h, _, filled = self._stack_fwd(params, h, positions, window=window,
                                        init_caches=init_caches,
-                                       adapter=adapter)
+                                       adapter=adapter, cross_kv=cross_kv)
         if lengths is None:
-            return h[:, -1], filled
+            return h[:, -1], filled, cross_kv
         idx = torch.clamp(lengths - 1, min=0).long()
         for c in filled:
             c["pos"].masked_fill_(c["pos"] >= lengths[:, None], -1)
-        return h[torch.arange(B, device=h.device), idx], filled
+        return h[torch.arange(B, device=h.device), idx], filled, cross_kv
 
-    def _decode_h(self, params, tokens, mix, adapter=None) -> torch.Tensor:
+    def _decode_h(self, params, tokens, mix, adapter=None,
+                  cross_kv: Optional[List[dict]] = None) -> torch.Tensor:
         """A pass of ``tokens`` [B, T] over every layer; ``mix(i, mixer,
         x, ad)`` steps layer i's mixer on its cache (dense or paged KV, or
         Mamba states) under the mixer's LoRA sites ``ad`` (None without an
-        adapter), then the layer's FFN runs (an MoE one routes these B*T
-        tokens, idle rows included; its loss is dropped). -> h [B, T, D],
-        pre-final-norm."""
+        adapter), then the cross-attention over the encoder where
+        ``cross_kv`` has the layer's, then the layer's FFN (an MoE one
+        routes these B*T tokens, idle rows included; its loss is dropped).
+        -> h [B, T, D], pre-final-norm."""
         cfg = self.cfg
         lora = (adapter or {}).get("lora") or {}
         ads = lora.get("layers") or [None] * len(self.kinds)
+        ckv = cross_kv or [None] * len(self.kinds)
         h = self.embed(params, tokens)
         for i, layer in enumerate(params["layers"]):
             ad = ads[i] or {}
             x = L.rms_norm(h, layer["norm1"], cfg.norm_eps)
             h = h + mix(i, layer["mixer"], x, ad.get("mixer"))
+            h = self._cross(layer, h, ckv[i])
             h = self._ffn(layer, h, ad)[0]
         return h
 
-    def _decode(self, params, token, mix, adapter=None) -> torch.Tensor:
+    def _decode(self, params, token, mix, adapter=None,
+                cross_kv: Optional[List[dict]] = None) -> torch.Tensor:
         """One-token pass over every layer -> logits [B,V]."""
-        return self.unembed(params, self._decode_h(params, token[:, None],
-                                                   mix, adapter))[:, 0]
+        return self.unembed(params, self._decode_h(
+            params, token[:, None], mix, adapter, cross_kv))[:, 0]
 
     @torch.no_grad()
     def decode_step(self, params, caches, token, position, *,
@@ -528,7 +638,10 @@ class Model:
         """token [B] int, position [B] int32 -> (logits [B,V], caches);
         the caches are updated in place. A Mamba layer ignores
         ``position``; Mamba and MLA layers ignore the adapter, as in the
-        reference. An MLA layer decodes absorbed, in the latent space."""
+        reference. An MLA layer decodes absorbed, in the latent space. An
+        encoder-decoder's layers attend over ``caches["cross_kv"]`` (B2
+        over the encoder's K/V, read in place). With prefix embeddings
+        ``position`` counts the prefix's slots (the caller offsets it)."""
         layers = caches["layers"]
 
         def mix(i, mixer, x, ad):
@@ -541,7 +654,8 @@ class Model:
                                     window=window)[0]
             return M.mamba_decode(mixer, x, layers[i], self.cfg)[0]
 
-        return self._decode(params, token, mix, adapter), caches
+        return self._decode(params, token, mix, adapter,
+                            caches.get("cross_kv")), caches
 
     # ------------------------------------------------------- paged kv caches
     def supports_paged(self) -> bool:
@@ -571,8 +685,8 @@ class Model:
         — logits come from position ``lengths-1``. Returns
         (last-valid-position logits [B, V], pools[, h_last])."""
         S = batch["tokens"].shape[1]
-        h_last, filled = self._prefill_h(params, batch, S, 0, lengths,
-                                         adapter)
+        h_last, filled, _ = self._prefill_h(params, batch, S, 0, lengths,
+                                            adapter)
         for pool, c in zip(pools, filled):
             PC.scatter_prefill(pool, c["k"], c["v"], block_tables, lengths)
         filled.clear()                # the dense prefill cache was transient
@@ -633,8 +747,9 @@ class Model:
             and all(k == ATTN for k in self.kinds)
 
     def _check_attention_only(self, what: str) -> None:
-        if any(k != ATTN for k in self.kinds):
-            raise ValueError(f"{what} needs an attention-only model")
+        if any(k != ATTN for k in self.kinds) or \
+                self.cfg.input_mode != "tokens":
+            raise ValueError(f"{what} needs an attention-only token model")
 
     @torch.no_grad()
     def decode_multi(self, params, caches, tokens, positions, *,

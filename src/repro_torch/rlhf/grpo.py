@@ -21,7 +21,7 @@ from typing import Callable, Dict, Optional
 
 import torch
 
-from repro_torch.configs.base import ModelConfig
+from repro_torch.configs.base import ModelConfig, check_token_inputs
 from repro_torch.models import Model
 from repro_torch.optim import make_optimizer
 from repro_torch.rlhf.rollout import Rollout
@@ -61,6 +61,7 @@ class GRPOTrainer:
     def __init__(self, actor_cfg: ModelConfig, rl: GRPOConfig,
                  generator: Optional[torch.Generator], reward_fn: Callable,
                  *, params=None, shard=None):
+        check_token_inputs(actor_cfg, "GRPOTrainer")
         if shard is not None:
             TP.check_supported(actor_cfg, shard.ntp)
             if shard.comm is None:

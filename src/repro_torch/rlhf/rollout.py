@@ -46,6 +46,20 @@ Speculative decoding and Mamba layers under TP raise (ROADMAP A10c).
 On a Mamba model the dense backend runs unchanged: a Mamba layer's cache
 is its conv and SSM states, which ``capacity`` does not size and the
 decode position does not touch.
+
+A model over prefix embeddings (``input_mode`` "embeddings") or an
+encoder-decoder ("encdec") runs on the dense backend alone, as the
+reference's does: the batch carries ``prefix_embeds`` or
+``frame_embeds`` beside the tokens and goes to the prefill whole; with
+prefix embeddings the cache holds the prefix too, so ``capacity`` must
+cover prefix + prompt + new tokens and the decode positions start after
+the prefix (the reference's ``prefix + P + t - 1``); an
+encoder-decoder's cross K/V live in the caches from the prefill on, read
+in place by every (graphed) decode step, and go with them at the end.
+The paged backend, spec decode, ``capture_buckets`` and ``group_size``
+above 1 raise on them (the reference's refuse the first three; its
+group path repeats the tokens alone, so the embeddings would no longer
+match the rows).
 """
 from __future__ import annotations
 
@@ -64,6 +78,7 @@ from repro_torch.rlhf.decode_graph import DecodeGraph, SpecGraph
 from repro_torch.serving import BucketLadder, CompileCache
 from repro_torch.sharding import ctx as shctx
 from repro_torch.sharding import tp as TP
+from repro_torch.steps import _prefix_len
 
 
 @dataclass
@@ -180,6 +195,10 @@ class Rollout:
                  graphs: Optional[bool] = None):
         if backend not in ("dense", "paged"):
             raise ValueError(f"backend must be dense or paged, got {backend}")
+        what = f"{cfg.name} (input_mode {cfg.input_mode!r})"
+        if capture_buckets and cfg.input_mode != "tokens":
+            raise ValueError(f"capture_buckets pads token prompts (a "
+                             f"lengths-masked prefill): not for {what}")
         ntp = TP.degree(mesh)
         TP.check_supported(cfg, ntp, spec_decode=spec_decode)
         if ntp > 1 and graphs:
@@ -189,7 +208,8 @@ class Rollout:
         if spec_decode:
             if not model.supports_spec_decode():
                 raise ValueError("spec decode needs a token-input "
-                                 "attention-only model with mtp_depth > 0")
+                                 "attention-only model with mtp_depth > 0, "
+                                 f"not {what}")
             if temperature > 0.0 or top_k:
                 raise ValueError("spec decode is greedy-only "
                                  "(temperature=0, top_k=0)")
@@ -205,7 +225,7 @@ class Rollout:
         if backend == "paged":
             if not model.supports_paged():
                 raise ValueError("paged rollout needs an attention-only "
-                                 "token model")
+                                 f"token model, not {what}")
             if window:
                 raise ValueError("paged rollout is full-attention")
         self.model, self.cfg = model, cfg
@@ -284,25 +304,32 @@ class Rollout:
                                         generator, group_size)
         tokens = batch["tokens"]
         if group_size > 1:
+            if self.cfg.input_mode != "tokens":
+                raise ValueError(
+                    f"group_size {group_size} with input_mode "
+                    f"{self.cfg.input_mode!r}: the group repeats the tokens "
+                    "alone, as the reference's does, so its prefix or "
+                    "frame embeddings would not match the rows")
             tokens = torch.repeat_interleave(tokens, group_size, dim=0)
         B, P = tokens.shape
+        prefix = _prefix_len(self.cfg)       # the prefix embeddings' slots
         if self.prefill_ladder is not None:
             pbatch, lens, Sb = self._dense_prompt(tokens)
             logits, caches = self.model.prefill(params, pbatch, self.capacity,
                                                 window=self.window,
                                                 lengths=lens)
         else:
-            logits, caches = self.model.prefill(params, {"tokens": tokens},
-                                                self.capacity,
-                                                window=self.window)
+            logits, caches = self.model.prefill(
+                params, dict(batch, tokens=tokens), self.capacity,
+                window=self.window)
         graph = self._decode_graph(lambda tok, pos: self.model.decode_step(
             params, caches, tok, pos, window=self.window)[0], B,
             tokens.device, max_new_tokens)
         out_toks, out_logp = self._sample_loop(
-            logits, lambda t, tok: graph(tok, P + t - 1), max_new_tokens,
-            generator)
+            logits, lambda t, tok: graph(tok, prefix + P + t - 1),
+            max_new_tokens, generator)
         return self._finalize(tokens, out_toks, out_logp, caches["layers"],
-                              graph)
+                              graph, caches.get("cross_kv"))
 
     def _decode_graph(self, body, batch: int, device, max_new_tokens: int,
                       table_blocks: int = 0):
@@ -576,12 +603,14 @@ class Rollout:
         return self._finalize(tokens, out_toks, out_logp, kv, graph)
 
     def _finalize(self, tokens, out_toks, out_logp, kv: List[dict],
-                  graph: DecodeGraph) -> RolloutResult:
-        """Stack outputs (per-step lists, or [B, N] tensors), mask everything after (and including the pad
-        after) EOS, and drop the decode graph (its private pool, static
-        buffers and the body's references) and the per-layer caches or
-        pools, so their memory returns to the allocator at the phase
-        boundary."""
+                  graph: DecodeGraph,
+                  cross_kv: Optional[List[dict]] = None) -> RolloutResult:
+        """Stack outputs (per-step lists, or [B, N] tensors), mask
+        everything after (and including the pad after) EOS, and drop the
+        decode graph (its private pool, static buffers and the body's
+        references), the per-layer caches or pools and an
+        encoder-decoder's cross K/V, so their memory returns to the
+        allocator at the phase boundary."""
         B, P = tokens.shape
         dev = tokens.device
         gen = out_toks if isinstance(out_toks, torch.Tensor) else \
@@ -600,4 +629,6 @@ class Rollout:
             logp = logp * keep
         self.decode_stats.update(graph.release())
         kv.clear()
+        if cross_kv:
+            cross_kv.clear()
         return RolloutResult(tokens=full, logp=logp, mask=mask, prompt_len=P)

@@ -88,7 +88,7 @@ from typing import Any, Callable, Dict, List, Optional, Sequence, Tuple
 import torch
 
 from repro_torch import default_device
-from repro_torch.configs.base import ModelConfig
+from repro_torch.configs.base import ModelConfig, check_token_inputs
 from repro_torch.core.phases import RUNTIME_RLHF_PHASE_SEQUENCE
 from repro_torch.models import Model
 from repro_torch.models import lora as LORA
@@ -487,6 +487,8 @@ class RLHFTrainer:
         if rl.batch_shard not in ("strict", "throughput"):
             raise ValueError(f"unknown batch_shard {rl.batch_shard!r}; "
                              "expected 'strict' or 'throughput'")
+        for c in (actor_cfg, critic_cfg):
+            check_token_inputs(c, f"RLHFTrainer ({rl.engine} engine)")
         if shard is not None:
             for c in ((actor_cfg,) if rl.engine == "hydra"
                       else (actor_cfg, critic_cfg)):

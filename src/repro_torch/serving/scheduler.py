@@ -87,7 +87,7 @@ from typing import Deque, Dict, List, Optional, Sequence
 import numpy as np
 import torch
 
-from repro_torch.configs.base import ModelConfig
+from repro_torch.configs.base import ModelConfig, check_token_inputs
 from repro_torch.models import Model
 from repro_torch.paged import (PageManager, PagePoolExhausted, copy_pages,
                                pool_token_bytes)
@@ -136,6 +136,7 @@ class ContinuousBatcher:
                  tenant_weights: Optional[Dict[str, float]] = None,
                  aging: float = 1.0, mesh=None,
                  graphs: Optional[bool] = None):
+        check_token_inputs(cfg, "ContinuousBatcher")
         if cache_backend not in ("dense", "paged"):
             raise ValueError(f"cache_backend must be dense or paged, got "
                              f"{cache_backend}")

@@ -85,6 +85,13 @@ def check_supported(cfg: ModelConfig, ntp: int, *,
     if spec_decode:
         raise _not_ported("speculative decoding (the MTP proj site and the "
                           "T-query verify)")
+    if cfg.input_mode == "encdec":
+        raise _not_ported(f"{cfg.name}'s encoder-decoder (the encoder's and "
+                          "the cross-attention's cuts, and the reference's "
+                          "head_dim fallback for the cross K/V)", "8")
+    if cfg.input_mode == "embeddings":
+        raise _not_ported(f"{cfg.name}'s prefix embeddings (the prefix "
+                          "beside a vocab-parallel embedding)", "8")
     if cfg.num_kv_heads % ntp:
         raise _not_ported(
             f"num_kv_heads={cfg.num_kv_heads} not divisible by ntp={ntp}: "

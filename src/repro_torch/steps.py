@@ -177,6 +177,14 @@ def lm_loss(logits, tokens, mask, *, prefix: int = 0, count: Count = None):
 # ---------------------------------------------------------------------------
 # Step builders
 # ---------------------------------------------------------------------------
+def _prefix_len(cfg: ModelConfig) -> int:
+    """Positions before the tokens in a forward's logits and values: the
+    prefix embeddings of ``input_mode`` "embeddings", else none (an
+    encoder-decoder's frames feed the cross-attention, not the decoder's
+    sequence)."""
+    return cfg.num_prefix_embeddings if cfg.input_mode == "embeddings" else 0
+
+
 def acc_dtype(cfg: ModelConfig) -> torch.dtype:
     """The gradient accumulators' dtype: fp32 for AdamW, bf16 for the
     memory-lean optimizers (``repro/steps.py:256``)."""
@@ -331,22 +339,25 @@ def make_train_step(model: Model, cfg: ModelConfig, *, lr: float = 3e-5,
         raise ValueError(f"kind must be ppo, critic or lm, not {kind!r}")
     _check_tp(cfg, shard)
     optimizer = make_optimizer(cfg.optimizer, cfg)
+    prefix = _prefix_len(cfg)
     # per-layer ZeRO-3 gather (gather_mode "layer") inside the model
     lspecs = getattr(shard, "layer_specs", None)
 
     def loss_fn(params, batch):
         count = _batch_count(shard)
         if kind == "critic":
-            return critic_loss(model.forward_value(
-                params, batch, layer_specs=lspecs), batch, count=count)
+            values = model.forward_value(params, batch, layer_specs=lspecs)
+            S = batch["tokens"].shape[1]
+            return critic_loss(values[:, prefix:prefix + S], batch,
+                               count=count)
         logits, aux, h = model.forward(params, batch, layer_specs=lspecs)
         if kind == "lm":
             loss = lm_loss(logits, batch["tokens"], batch["loss_mask"],
-                           count=count)
+                           prefix=prefix, count=count)
             metrics = {"lm_loss": loss}
         else:
-            loss, metrics = ppo_actor_loss(logits, batch, kl_coef=kl_coef,
-                                           count=count)
+            loss, metrics = ppo_actor_loss(logits, batch, prefix=prefix,
+                                           kl_coef=kl_coef, count=count)
         return _with_aux(cfg, kind, loss, metrics, aux,
                          lambda: mtp_chain_loss(model, params, h, batch,
                                                 count=count))
@@ -406,6 +417,7 @@ def make_lora_train_step(model: Model, cfg: ModelConfig, *, lr: float = 3e-5,
         raise ValueError("base_shard without an adapter plan")
     _check_tp(cfg, shard, base_shard)
     optimizer = make_optimizer(cfg.optimizer, cfg)
+    prefix = _prefix_len(cfg)
     blspecs = getattr(base_shard, "layer_specs", None)
 
     def loss_fn(adapter, base_params, batch):
@@ -413,11 +425,13 @@ def make_lora_train_step(model: Model, cfg: ModelConfig, *, lr: float = 3e-5,
         if kind == "critic":
             values = model.forward_value(base_params, batch, adapter=adapter,
                                          layer_specs=blspecs)
-            return critic_loss(values, batch, count=count)
+            S = batch["tokens"].shape[1]
+            return critic_loss(values[:, prefix:prefix + S], batch,
+                               count=count)
         logits, aux, h = model.forward(base_params, batch, adapter=adapter,
                                        layer_specs=blspecs)
-        loss, metrics = ppo_actor_loss(logits, batch, kl_coef=kl_coef,
-                                       count=count)
+        loss, metrics = ppo_actor_loss(logits, batch, prefix=prefix,
+                                       kl_coef=kl_coef, count=count)
         return _with_aux(cfg, kind, loss, metrics, aux,
                          lambda: mtp_chain_loss(model, base_params, h, batch,
                                                 count=count))

@@ -480,12 +480,14 @@ def test_simulator_traces_moe_and_hybrid_phases(arch):
                                          qk_nope_head_dim=32,
                                          qk_rope_head_dim=16, v_head_dim=32)),
      "MLA layers.*A10c 7"),
-    (dict(input_mode="encdec"), "encoder-decoder.*A11 6"),
-    (dict(input_mode="embeddings"), "prefix embeddings.*A11 6")])
+    (dict(input_mode="encdec", encoder_layers=2),
+     "encoder-decoder.*A10c 8"),
+    (dict(input_mode="embeddings", num_prefix_embeddings=8),
+     "prefix embeddings.*A10c 8")])
 def test_model_refusal_names_what_is_unported(kw, item):
     """What the port does not run yet is refused by name, with its ROADMAP
-    item (the reference's other inputs; MLA layers, which the ``Model``
-    runs, under tensor parallelism)."""
+    item: MLA layers, an encoder-decoder and prefix embeddings, which the
+    ``Model`` runs, under tensor parallelism."""
     cfg = dataclasses.replace(get_config("llama3_2_3b").smoke(), **kw)
     with pytest.raises(NotImplementedError, match=item):
         Model(cfg, device="cpu")

@@ -1326,3 +1326,71 @@ def test_zero_over_gloo_on_cuda_stages_through_host(cuda, one_rank):
     got, _ = _zero_run(cfg, "separate", cuda, sc)
     assert got == want
     assert sc.comm.stage and sc.comm.staged_bytes > 0
+
+
+# ----------------------------------------- prefix and encoder-decoder inputs
+@pytest.mark.parametrize("B,Sq,Sk,dt", [
+    (2, 100, 257, "bf16"),      # a cross-attention prefill: Sq != Sk
+    (2, 257, 100, "bf16"),
+    (2, 33, 70, "f32"),
+    (3, 1, 200, "bf16"),        # one query a row over the frames
+    (3, 1, 200, "f32"),
+])
+def test_flash_cross_attention_shapes_match_plain(cuda, B, Sq, Sk, dt):
+    """B2 non-causal at MHA (G 1) and D 64, seamless's heads: the out and
+    lse, and B2-bwd's gradients, against the plain versions at Sq != Sk
+    and at one query a row."""
+    g = torch.Generator(device=cuda).manual_seed(11)
+    q = _randn(g, B, Sq, 4, 64, dt=dt, device=cuda)
+    k = _randn(g, B, Sk, 4, 64, dt=dt, device=cuda)
+    v = _randn(g, B, Sk, 4, 64, dt=dt, device=cuda)
+    dout = _randn(g, B, Sq, 4, 64, dt=dt, device=cuda)
+    out, lse = tfa.flash_attention_fwd(q, k, v, causal=False,
+                                       return_lse=True)
+    want, want_lse = ref.attention_ref(q, k, v, causal=False,
+                                       return_lse=True)
+    torch.testing.assert_close(out.float(), want.float(), atol=TOL[dt],
+                               rtol=0)
+    torch.testing.assert_close(lse, want_lse, atol=TOL[dt], rtol=0)
+    got = tfab.flash_attention_bwd(q, k, v, out, lse, dout, causal=False)
+    want = ref.flash_attention_bwd_ref(q, k, v, out, lse, dout, causal=False)
+    for a, b in zip(got, want):
+        _assert_scaled(a, b, TOL_BWD[dt])
+
+
+@pytest.mark.parametrize("B,H,D,C,dt", [
+    (8, 16, 64, 1024, "bf16"),  # seamless's cross decode: 1024 frames
+    (2, 4, 64, 40, "f32"),
+    (2, 4, 128, 333, "bf16"),
+])
+def test_decode_kernel_over_all_valid_frames_matches_plain(cuda, B, H, D, C,
+                                                           dt):
+    """B3 over an encoder's K/V with the positions that would make a
+    cross-attention decode's every frame valid (0..C-1 a row, the query's C-1, so every slot is valid):
+    against the plain version and against unmasked attention of the one
+    query."""
+    g = torch.Generator(device=cuda).manual_seed(12)
+    q = _randn(g, B, H, D, dt=dt, device=cuda)
+    kc = _randn(g, B, C, H, D, dt=dt, device=cuda)
+    vc = _randn(g, B, C, H, D, dt=dt, device=cuda)
+    pos = torch.arange(C, dtype=torch.int32, device=cuda).expand(B, C)
+    position = torch.full((B,), C - 1, dtype=torch.int32, device=cuda)
+    out = tdec.decode_attention(q, kc, vc, pos.contiguous(), position)
+    want = ref.decode_attention_ref(q, kc, vc, pos, position)
+    torch.testing.assert_close(out.float(), want.float(), atol=TOL[dt],
+                               rtol=0)
+    full = ref.attention_ref(q[:, None], kc, vc, causal=False)[:, 0]
+    torch.testing.assert_close(out.float(), full.float(), atol=TOL[dt],
+                               rtol=0)
+
+
+@pytest.mark.parametrize("arch", ["internvl2_2b", "seamless_m4t_large_v2"])
+def test_embedding_inputs_on_card_match_cpu(cuda, arch):
+    """The smoke internvl (8 prefix embeddings) and seamless (2 encoder
+    layers over 8 frames, cross-attention) models, f32, through the
+    kernels on the card give the CPU plain path's prefill logits (1e-4)
+    and greedy tokens (``chip_smoke.check_small_model_against_cpu``)."""
+    cs = _chip_smoke()
+    err = cs.check_small_model_against_cpu(
+        cuda, get_config(arch).smoke(), prompt=24, seed=7)
+    assert err <= 1e-4
